@@ -1,0 +1,57 @@
+"""
+Slot initializers. ``LearnedRandomInit`` draws fresh Gaussian noise at every
+call, evaluation included, from an explicit ``torch.Generator``: a seeded
+generator makes a run reproducible. (It cannot reproduce the JAX package's
+``jax.random`` stream; tests hand both packages the same initial slots.)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+def _uniform_limit(slot_dim: int) -> float:
+    return math.sqrt(6.0 / (1 + slot_dim))
+
+
+class LearnedInit(nn.Module):
+    """Fixed learned slots, tiled over the batch."""
+
+    def __init__(self, num_slots: int, slot_dim: int):
+        super().__init__()
+        lim = _uniform_limit(slot_dim)
+        self.slots = nn.Parameter(torch.empty(num_slots, slot_dim).uniform_(-lim, lim))
+
+    def forward(self, batch_size: int, generator: Optional[torch.Generator] = None):
+        return self.slots[None].expand(batch_size, *self.slots.shape)
+
+
+class LearnedRandomInit(nn.Module):
+    """mu + sigma * N(0, 1) with learned mu and sigma, sampled at every call."""
+
+    def __init__(self, num_slots: int, slot_dim: int):
+        super().__init__()
+        lim = _uniform_limit(slot_dim)
+        self.num_slots = num_slots
+        self.slots_mu = nn.Parameter(torch.empty(1, 1, slot_dim).uniform_(-lim, lim))
+        self.slots_sigma = nn.Parameter(torch.empty(1, 1, slot_dim).uniform_(-lim, lim))
+
+    def forward(self, batch_size: int, generator: Optional[torch.Generator] = None):
+        if generator is None:
+            raise ValueError("LearnedRandomInit needs a torch.Generator for the slot noise")
+        mu = self.slots_mu
+        noise = torch.randn((batch_size, self.num_slots, mu.shape[-1]),
+                            generator=generator, device=generator.device, dtype=mu.dtype)
+        return mu + self.slots_sigma * noise.to(mu.device)
+
+
+def get_initializer(mode: str, slot_dim: int, num_slots: int) -> nn.Module:
+    if mode == "Learned":
+        return LearnedInit(num_slots, slot_dim)
+    if mode == "LearnedRandom":
+        return LearnedRandomInit(num_slots, slot_dim)
+    raise ValueError(f"{mode!r} is not a recognized initializer. Use 'Learned'|'LearnedRandom'")

@@ -1,0 +1,135 @@
+"""
+T5 encoder stack (the frozen "t5-small" text encoder of TextOCVP_T5):
+RMSNorm pre-norm without bias, bias-free projections, UNscaled attention with
+one relative-position bias owned by layer 0 and reused by every layer, ReLU
+feed-forward, final RMSNorm.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclass(frozen=True)
+class T5Config:
+    vocab_size: int = 32128
+    d_model: int = 512
+    d_kv: int = 64
+    d_ff: int = 2048
+    num_layers: int = 6
+    num_heads: int = 8
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+
+
+T5_SMALL = T5Config()
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.eps = eps
+
+    def forward(self, x):
+        var = x.float().pow(2).mean(-1, keepdim=True)
+        return (x * torch.rsqrt(var + self.eps) * self.weight).to(x.dtype)
+
+
+def relative_position_bucket(relative_position: torch.Tensor, num_buckets: int = 32,
+                             max_distance: int = 128) -> torch.Tensor:
+    """Bidirectional T5 bucketing, as the JAX package computes it: the log's
+    argument carries ``+ 1e-6`` and the arithmetic is float32. HuggingFace's
+    formula has no ``+ 1e-6``; at distance 16 the two truncate to different
+    buckets."""
+    num_buckets //= 2
+    ret = (relative_position > 0).to(torch.int32) * num_buckets
+    n = relative_position.abs()
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    val_if_large = max_exact + (
+        torch.log(n.to(torch.float32) / max_exact + 1e-6)
+        / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)
+    ).to(torch.int32)
+    val_if_large = torch.clamp(val_if_large, max=num_buckets - 1)
+    return ret + torch.where(is_small, n.to(torch.int32), val_if_large)
+
+
+class T5SelfAttention(nn.Module):
+    def __init__(self, cfg: T5Config, has_relative_bias: bool = False):
+        super().__init__()
+        inner = cfg.num_heads * cfg.d_kv
+        self.cfg = cfg
+        self.q = nn.Linear(cfg.d_model, inner, bias=False)
+        self.k = nn.Linear(cfg.d_model, inner, bias=False)
+        self.v = nn.Linear(cfg.d_model, inner, bias=False)
+        self.o = nn.Linear(inner, cfg.d_model, bias=False)
+        self.relative_attention_bias = (
+            nn.Embedding(cfg.relative_attention_num_buckets, cfg.num_heads)
+            if has_relative_bias else None)
+
+    def position_bias(self, length: int, device) -> torch.Tensor:
+        pos = torch.arange(length, device=device)
+        rel = pos[None, :] - pos[:, None]  # key - query
+        buckets = relative_position_bucket(
+            rel, self.cfg.relative_attention_num_buckets,
+            self.cfg.relative_attention_max_distance)
+        return self.relative_attention_bias(buckets.long()).permute(2, 0, 1)[None]  # (1, H, Q, K)
+
+    def forward(self, x, mask=None, position_bias=None):
+        cfg = self.cfg
+        b, length, _ = x.shape
+        heads = lambda t: t.reshape(b, length, cfg.num_heads, cfg.d_kv).transpose(1, 2)
+        q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
+        scores = torch.matmul(q, k.transpose(-1, -2))  # unscaled
+        if self.relative_attention_bias is not None:
+            position_bias = self.position_bias(length, x.device)
+        if position_bias is not None:
+            scores = scores + position_bias
+        if mask is not None:  # (B, K), 1 = attend
+            keep = mask[:, None, None, :].bool()
+            scores = scores.masked_fill(~keep, torch.finfo(scores.dtype).min)
+        attn = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
+        y = torch.matmul(attn, v).transpose(1, 2).reshape(b, length, -1)
+        return self.o(y), position_bias
+
+
+class T5EncoderLayer(nn.Module):
+    def __init__(self, cfg: T5Config, has_relative_bias: bool = False):
+        super().__init__()
+        self.ln_attn = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon)
+        self.attn = T5SelfAttention(cfg, has_relative_bias)
+        self.ln_ff = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon)
+        self.wi = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
+        self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
+
+    def forward(self, x, mask=None, position_bias=None):
+        y, position_bias = self.attn(self.ln_attn(x), mask, position_bias)
+        x = x + y
+        x = x + self.wo(F.relu(self.wi(self.ln_ff(x))))
+        return x, position_bias
+
+
+class T5EncoderStack(nn.Module):
+    """Embedding + N encoder layers + final RMSNorm. Inputs: (B, L) token ids and
+    an attention mask (B, L) with 1 = real token."""
+
+    def __init__(self, cfg: T5Config = T5_SMALL):
+        super().__init__()
+        self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.layers = nn.ModuleList(T5EncoderLayer(cfg, i == 0) for i in range(cfg.num_layers))
+        self.final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon)
+
+    def forward(self, input_ids, attention_mask=None):
+        x = self.shared(input_ids.long())
+        position_bias = None
+        for layer in self.layers:
+            x, position_bias = layer(x, attention_mask, position_bias)
+        return self.final_ln(x)
