@@ -3,33 +3,45 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path at the full width of CATER SAVi +
-TextOCVP_T5 (8 slots x 128, T5-small, 8 predictor layers, 64x64 frames,
-19 predicted frames) with random weights drawn from a seed, and checks it.
+Drives the port's two serving paths at full width with random weights drawn
+from a seed, and checks them:
+
+* CATER: SAVi (8 slots x 128, 64x64 frames) + TextOCVP_T5 (T5-small, 8
+  predictor layers), 19 predicted frames;
+* CLIPort: ExtendedDINOSAUR (DINOv2 ViT-B/14, 12 blocks, at 336 px; 10 slots
+  x 128; MLP patch decoder and BatchNorm CNN head) + TextOCVP_T5, 9 predicted
+  frames.
+
 Phases, one JSON line each:
 
 1. device   the card's name and power limit (``nvidia-smi``);
-2. build    compile the CUDA slot-attention kernel from ``csrc/``;
-3. kernels  the kernel against its plain PyTorch version at N=4096, D=128,
-            S=8, MLP 256, B in (8, 64), 1 and 3 iterations: max abs error,
-            time from CUDA events, the plain version's time, the bound;
-4. parity   the predict stage (seed encode + 19-step rollout) on the card and
-            on the CPU at B=2 with the same weights and initial slots, TF32
-            off, each step's error held to that step's largest slot; and
-            the decode of two frames on both;
+2. build    compile both CUDA kernels from ``csrc/``, one ``nvcc`` each, at once;
+3. kernels  slot attention against its plain PyTorch version at the CATER
+            shape (N=4096, S=8, MLP 256, B in (8, 64)) and the CLIPort shape
+            (N=576, S=10, MLP 512, B=8), 1 and 3 iterations; the ViT attention
+            against its plain version at (B, h, n, dh) = (8, 12, 577, 64) and
+            (16, 12, 577, 64), with ``F.scaled_dot_product_attention`` timed as a
+            yardstick. Max abs error, time from CUDA events, the plain
+            version's time, the bound;
+then for each path:
+4. parity   the predict stage (seed encode + rollout) on the card and on the
+            CPU with the same weights and initial slots, TF32 off, each
+            rollout step's error held to that step's largest slot; and the
+            decode of the same frames on both;
 5. service  a ``PredictionService`` (batch 8, 24 tokens) over a temporary
             experiment of ``.pt`` checkpoints: warmup, three requests (8 rows
             float32, 3 rows uint8, 8 rows), five more 8-row requests for the
-            steady time, and one request split into its two stages;
+            steady time, and one request split into its two stages; each
+            request launches each kernel as often as its path says;
 6. http     ``/healthz``, one ``/predict`` and ``/stats`` on 127.0.0.1;
 7. profile  one more request under ``torch.profiler``: device busy time
             against wall time, the kernels that take the most time, and the
-            slot-attention kernel's attend and update launches.
+            port's kernels' own launches and time inside the request.
 
-Phases 5 and 6 are the main path: the kernel launch counter is set to 0
-before them and read after. Then one ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
-not 0 and the last line is not printed. Without a CUDA device the script
+Phases 5 and 6 are a path's main path: every kernel's launch counter is set
+to 0 before them and read after. Then one ``{"kernels": [...]}`` line, and
+last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
+then not 0 and the last line is not printed. Without a CUDA device the script
 exits 2 before doing anything.
 """
 
@@ -43,22 +55,46 @@ import tempfile
 import threading
 import time
 import urllib.request
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 import torch
 
 SEED = 14
-N, D, S, MLP_HIDDEN = 4096, 128, 8, 256
-NUM_PREDS, BATCH, MAX_TOKENS = 19, 8, 24
+BATCH, MAX_TOKENS = 8, 24
 PRED_OUT_SCALE = 0.02
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
-CAPTIONS = ["the cone is sliding to (1, -2)", "the snitch is picked up and placed to (3, 3)",
-            "the cone is rotating", "the snitch is containing the cone",
-            "the cone is picked up and placed to (-1, 1)", "the snitch is sliding to (2, 2)",
-            "the cone is sliding to (-3, -3)", "the snitch is rotating and sliding"]
+VIT_HEADS, VIT_TOKENS, VIT_DH = 12, 577, 64  # DINOv2 ViT-B/14 at 336 px
+
+
+@dataclass(frozen=True)
+class ServedPath:
+    """One model family the service runs, at its full width."""
+    name: str
+    model: str
+    dataset: str
+    res: int
+    num_preds: int
+    parity_batch: int
+    vit_per_request: int  # ViT attention launches per request (one per block)
+    captions: tuple
+
+
+PATHS = (
+    ServedPath("cater", "SAVi", "CATER_Easy", 64, 19, 2, 0, (
+        "the cone is sliding to (1, -2)", "the snitch is picked up and placed to (3, 3)",
+        "the cone is rotating", "the snitch is containing the cone",
+        "the cone is picked up and placed to (-1, 1)", "the snitch is sliding to (2, 2)",
+        "the cone is sliding to (-3, -3)", "the snitch is rotating and sliding")),
+    ServedPath("clipport", "ExtendedDINOSAUR", "CLIPort", 336, 9, 1, 12, (
+        "put the red block in the green bowl", "put the blue block in the yellow bowl",
+        "put the green block in the brown bowl", "put the yellow block in the red bowl",
+        "put the purple block in the blue bowl", "put the orange block in the gray bowl",
+        "put the white block in the pink bowl", "put the cyan block in the purple bowl")),
+)
 
 
 def emit(obj):
@@ -83,6 +119,11 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(stop) / reps
 
 
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -94,11 +135,14 @@ def phase_device():
     return name
 
 
-def phase_build(sak):
+def phase_build():
+    from textocvp_tpu_torch.ops import build
+
     t = time.perf_counter()
-    sak.load_library()
+    built = build.build_all()
     seconds = time.perf_counter() - t
-    emit({"phase": "build", "seconds": seconds, "source": str(sak.SOURCE.relative_to(ROOT))})
+    emit({"phase": "build", "seconds": seconds, "built": built,
+          "sources": [str(p.relative_to(ROOT)) for p in build.sources()]})
 
 
 def slot_attention_bound_ms(b, n, d, s, h, iters):
@@ -108,25 +152,29 @@ def slot_attention_bound_ms(b, n, d, s, h, iters):
     nbytes = 4 * (2 * b * n * d + 2 * b * s * d + b * s * n + weights)
     per_iter = (4 * b * s * n * d + 8 * b * s * n                       # q.k, a.v, softmax
                 + 2 * b * s * (d * d + 6 * d * d + 2 * d * h) + 20 * b * s * d)  # q, GRU, MLP
-    flops = iters * per_iter
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound(nbytes, iters * per_iter)
 
 
-def phase_kernels(sak):
+def vit_attention_bound_ms(b, h, n, dh):
+    """q, k, v read once and out written once; the two products at the float32 rate."""
+    return bound(4 * 4 * b * h * n * dh, 4 * b * h * n * n * dh)
+
+
+def slot_attention_rows(n, s, mlp, batches):
     from textocvp_tpu_torch.models.factory import random_init_
+    from textocvp_tpu_torch.ops import slot_attention_kernel as sak
     from textocvp_tpu_torch.ops.slot_attention import SlotAttention
 
-    torch.backends.cuda.matmul.allow_tf32 = False
+    d = 128
     gen = torch.Generator().manual_seed(SEED)
-    mod = random_init_(SlotAttention(D, D, S, MLP_HIDDEN), gen).cuda()
+    mod = random_init_(SlotAttention(d, d, s, mlp), gen).cuda()
     params = {k: p.detach() for k, p in mod.iteration_params().items()}
-    scale = D ** -0.5
+    scale = d ** -0.5
     rows = []
-    for b in (8, 64):
-        k = torch.randn((b, N, D), generator=gen).cuda()
-        v = torch.randn((b, N, D), generator=gen).cuda()
-        slots = torch.randn((b, S, D), generator=gen).cuda()
+    for b in batches:
+        k = torch.randn((b, n, d), generator=gen).cuda()
+        v = torch.randn((b, n, d), generator=gen).cuda()
+        slots = torch.randn((b, s, d), generator=gen).cuda()
         for iters in (1, 3):
             launches = sak.slot_attention_cuda.launches
             out, attn = sak.slot_attention_cuda(k, v, slots, params, iters, scale)
@@ -138,25 +186,66 @@ def phase_kernels(sak):
             # float32 on both sides, sums in other orders: 1e-4 absolute on
             # slots of order 1 and on attention weights in [0, 1]
             check(err_slots <= 1e-4 and err_attn <= 1e-4,
-                  f"kernel vs plain at B={b} iters={iters}: slots {err_slots}, attn {err_attn}")
+                  f"slot attention vs plain at N={n} S={s} B={b} iters={iters}: "
+                  f"slots {err_slots}, attn {err_attn}")
             ms = cuda_ms(lambda: sak.slot_attention_cuda(k, v, slots, params, iters, scale))
             plain_ms = cuda_ms(lambda: sak.slot_attention_plain(k, v, slots, params, iters, scale))
-            bound_ms, bound_by = slot_attention_bound_ms(b, N, D, S, MLP_HIDDEN, iters)
-            rows.append({"B": b, "iters": iters, "max_abs_err_slots": err_slots,
-                         "max_abs_err_attn": err_attn, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
+            bound_ms, bound_by = slot_attention_bound_ms(b, n, d, s, mlp, iters)
+            rows.append({"B": b, "N": n, "S": s, "mlp": mlp, "iters": iters,
+                         "max_abs_err_slots": err_slots, "max_abs_err_attn": err_attn,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
                          "launches": sak.slot_attention_cuda.launches - launches})
-    emit({"phase": "kernels", "kernel": "slot_attention", "N": N, "D": D, "S": S,
-          "mlp": MLP_HIDDEN, "tolerance_abs": 1e-4, "shapes": rows})
     return rows
 
 
-def full_width_params():
+def vit_attention_rows():
+    import torch.nn.functional as F
+
+    from textocvp_tpu_torch.ops import vit_attention as va
+
+    scale = VIT_DH ** -0.5
+    gen = torch.Generator().manual_seed(SEED + 3)
+    rows = []
+    for b in (8, 16):
+        q, k, v = (torch.randn((b, VIT_HEADS, VIT_TOKENS, VIT_DH), generator=gen).cuda()
+                   for _ in range(3))
+        launches = va.vit_attention_cuda.launches
+        out = va.vit_attention_cuda(q, k, v, scale)
+        ref = va.vit_attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        # float32 on both sides, sums in other orders: the JAX package's own
+        # flash-vs-XLA tolerance
+        check(bool(torch.isfinite(out).all()) and err <= 2e-5,
+              f"ViT attention vs plain at B={b}: {err} > 2e-5")
+        ms = cuda_ms(lambda: va.vit_attention_cuda(q, k, v, scale))
+        plain_ms = cuda_ms(lambda: va.vit_attention_plain(q, k, v, scale))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        bound_ms, bound_by = vit_attention_bound_ms(b, VIT_HEADS, VIT_TOKENS, VIT_DH)
+        rows.append({"B": b, "h": VIT_HEADS, "n": VIT_TOKENS, "dh": VIT_DH,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "launches": va.vit_attention_cuda.launches - launches})
+    return rows
+
+
+def phase_kernels():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {"slot_attention_cater": slot_attention_rows(4096, 8, 256, (8, 64)),
+            "slot_attention_clipport": slot_attention_rows(576, 10, 512, (8,)),
+            "vit_attention": vit_attention_rows()}
+    emit({"phase": "kernels", "tolerance_abs": {"slot_attention": 1e-4, "vit_attention": 2e-5},
+          **rows})
+    return rows
+
+
+def full_width_params(path: ServedPath):
     from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params
 
-    params = build_exp_params("SAVi", "CATER_Easy")
+    params = build_exp_params(path.model, path.dataset)
     pred_params = add_predictor_params(params, "TextOCVP_T5")
-    pred_params["prediction_params"]["num_preds"] = NUM_PREDS
+    pred_params["prediction_params"]["num_preds"] = path.num_preds
     return params, pred_params
 
 
@@ -175,7 +264,7 @@ def random_models(params, pred_params, gen):
     return model, predictor
 
 
-def phase_parity(params, pred_params):
+def phase_parity(path: ServedPath, params, pred_params):
     import copy
 
     from textocvp_tpu_torch.data.tokenizers import HashFallbackT5Tokenizer
@@ -184,10 +273,10 @@ def phase_parity(params, pred_params):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED + 1)
     model, predictor = random_models(params, pred_params, gen)
-    b = 2
-    video = torch.rand((b, 1, 64, 64, 3), generator=gen)
+    b = path.parity_batch
+    video = torch.rand((b, 1, path.res, path.res, 3), generator=gen)
     init = model.slot_initializer(b, gen)
-    tok = HashFallbackT5Tokenizer()(CAPTIONS[:b])
+    tok = HashFallbackT5Tokenizer()(list(path.captions[:b]))
     pad = ((0, 0), (0, MAX_TOKENS - tok["caption_tokens"].shape[1]))
     ids = torch.from_numpy(np.pad(tok["caption_tokens"], pad))
     mask = torch.from_numpy(np.pad(tok["attn_masks"], pad))
@@ -195,31 +284,33 @@ def phase_parity(params, pred_params):
     def predict(dev, m, p):
         with torch.inference_mode():
             hist = m.decompose(video.to(dev), initial_slots=init.to(dev))["slot_history"]
-            return p(hist, ids.to(dev), mask.to(dev), num_preds=NUM_PREDS)
+            return p(hist, ids.to(dev), mask.to(dev), num_preds=path.num_preds)
 
     ref = predict("cpu", model, predictor)
     cmodel, cpred = copy.deepcopy(model).cuda(), copy.deepcopy(predictor).cuda()
     out = predict("cuda", cmodel, cpred).cpu()
-    check(bool(torch.isfinite(out).all()), "card pred_slots not finite")
-    # 19 autoregressive steps through 8 layers in float32 on two devices, sums
+    check(bool(torch.isfinite(out).all()), f"{path.name}: card pred_slots not finite")
+    # autoregressive steps through 8 layers in float32 on two devices, sums
     # in other orders: each step's error within 1e-4 of that step's largest
     # slot value
     step_err = (out - ref).abs().amax(dim=(0, 2, 3))
     step_ref = ref.abs().amax(dim=(0, 2, 3))
     ratios = (step_err / step_ref).tolist()
-    check(max(ratios) <= 1e-4, f"pred_slots card vs CPU, error / max|ref| per step: {ratios}")
+    check(max(ratios) <= 1e-4,
+          f"{path.name}: pred_slots card vs CPU, error / max|ref| per step: {ratios}")
 
     frames = ref[:, 0]  # the same slots into both decoders
     with torch.inference_mode():
         dref = model.decode(frames)["recons_imgs"]
         dout = cmodel.decode(frames.cuda())["recons_imgs"].cpu()
     derr = (dout - dref).abs().max().item()
-    check(derr <= 1e-4, f"decode card vs CPU: {derr} > 1e-4")
-    emit({"phase": "parity", "B": b, "pred_slots_shape": list(out.shape),
+    check(derr <= 1e-4, f"{path.name}: decode card vs CPU: {derr} > 1e-4")
+    emit({"phase": "parity", "path": path.name, "B": b, "pred_slots_shape": list(out.shape),
           "pred_slots_max_abs_err": step_err.max().item(),
           "pred_slots_max_abs_ref_per_step": step_ref.tolist(),
           "pred_slots_err_ratio_per_step": ratios, "pred_slots_ratio_tolerance": 1e-4,
-          "decode_frames": b, "decode_max_abs_err": derr, "decode_tolerance": 1e-4,
+          "decode_frames": b, "decode_max_abs_err": derr,
+          "decode_max_abs_ref": dref.abs().max().item(), "decode_tolerance": 1e-4,
           "tf32": False})
 
 
@@ -239,28 +330,50 @@ def write_experiment(root: Path, params, pred_params):
     return parent.exp_path
 
 
-def phase_service(sak, exp_path):
+def kernel_counters():
+    from textocvp_tpu_torch.ops import slot_attention_kernel as sak
+    from textocvp_tpu_torch.ops import vit_attention as va
+
+    return {"slot_attention": sak.slot_attention_cuda, "vit_attention": va.vit_attention_cuda}
+
+
+def launches():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def reset_launches():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def phase_service(path: ServedPath, exp_path):
     from textocvp_tpu_torch.serve import PredictionService
 
     t0 = time.perf_counter()
     service = PredictionService(exp_path, "textocvp_t5", "random", "random",
                                 batch_size=BATCH, max_tokens=MAX_TOKENS, device="cuda")
     load_s = time.perf_counter() - t0
-    check(service.num_preds == NUM_PREDS, "num_preds")
+    check(service.num_preds == path.num_preds, "num_preds")
+    check(service.resolution == (path.res, path.res), f"resolution {service.resolution}")
     rng = np.random.default_rng(SEED)
-    video = rng.uniform(0, 1, (BATCH, 1, 64, 64, 3)).astype(np.float32)
-    captions = CAPTIONS[:BATCH]
+    video = rng.uniform(0, 1, (BATCH, 1, path.res, path.res, 3)).astype(np.float32)
+    captions = list(path.captions[:BATCH])
+    per_request = {"slot_attention": 1, "vit_attention": path.vit_per_request}
 
     unsaturated = []
 
     def call(frames, captions):
-        before = sak.slot_attention_cuda.launches
+        before = launches()
         t = time.perf_counter()
         out = service.predict(frames, captions)
         ms = 1e3 * (time.perf_counter() - t)
-        check(sak.slot_attention_cuda.launches == before + 1, "one kernel launch per request")
+        after = launches()
+        for name, n in per_request.items():
+            check(after[name] - before[name] == n,
+                  f"{path.name}: {after[name] - before[name]} {name} launches in a request, "
+                  f"want {n}")
         b = frames.shape[0]
-        check(out.shape == (b, NUM_PREDS, 64, 64, 3), f"output shape {out.shape}")
+        check(out.shape == (b, path.num_preds, path.res, path.res, 3), f"output shape {out.shape}")
         check(bool(np.isfinite(out).all()) and out.min() >= 0 and out.max() <= 1,
               "output finite and in [0, 1]")
         # the clip to [0, 1] says little if every pixel sits at 0 or 1
@@ -287,7 +400,8 @@ def phase_service(sak, exp_path):
     service._decode_stage(pred_slots)
     torch.cuda.synchronize()
     t_dec = time.perf_counter()
-    emit({"phase": "service", "batch": BATCH, "num_preds": NUM_PREDS, "load_s": load_s,
+    emit({"phase": "service", "path": path.name, "model": path.model, "batch": BATCH,
+          "num_preds": path.num_preds, "resolution": path.res, "load_s": load_s,
           "warmup_ms": warmup_ms, "request_ms": {"8_float32": ms_f32, "3_uint8": ms_u8,
                                                   "8_float32_again": ms_8},
           "steady_8_row_ms": steady,
@@ -298,7 +412,7 @@ def phase_service(sak, exp_path):
     return service
 
 
-def phase_http(service, video_rows):
+def phase_http(path: ServedPath, service, video_rows):
     from textocvp_tpu_torch.serve import serve
 
     httpd = serve(service, host="127.0.0.1", port=0, warmup=False)
@@ -308,16 +422,18 @@ def phase_http(service, video_rows):
     try:
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
-        check(health["status"] == "ok" and health["num_preds"] == NUM_PREDS, f"healthz {health}")
+        check(health["status"] == "ok" and health["num_preds"] == path.num_preds,
+              f"healthz {health}")
         buf = io.BytesIO()
-        np.savez(buf, frames=video_rows, captions=np.array(CAPTIONS[:BATCH]))
+        np.savez(buf, frames=video_rows, captions=np.array(path.captions[:BATCH]))
         req = urllib.request.Request(url + "/predict", data=buf.getvalue(),
                                      headers={"Content-Type": "application/npz"})
         t = time.perf_counter()
         with urllib.request.urlopen(req, timeout=300) as r:
             pred = np.load(io.BytesIO(r.read()))["pred_frames"]
         ms = 1e3 * (time.perf_counter() - t)
-        check(pred.dtype == np.uint8 and pred.shape == (BATCH, NUM_PREDS, 64, 64, 3),
+        check(pred.dtype == np.uint8
+              and pred.shape == (BATCH, path.num_preds, path.res, path.res, 3),
               f"pred_frames {pred.dtype} {pred.shape}")
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
@@ -327,19 +443,19 @@ def phase_http(service, video_rows):
         httpd.server_close()
         thread.join(timeout=60)
     check(not thread.is_alive(), "server thread stopped")
-    emit({"phase": "http", "pred_frames_shape": list(pred.shape), "dtype": str(pred.dtype),
-          "round_trip_ms": ms, "stats": stats})
+    emit({"phase": "http", "path": path.name, "pred_frames_shape": list(pred.shape),
+          "dtype": str(pred.dtype), "round_trip_ms": ms, "stats": stats})
 
 
-def phase_profile(service, video):
+def phase_profile(path: ServedPath, service, video):
     """One full request under torch.profiler: device busy time (the sum of
     kernel and copy times on the one stream) against the request's wall time,
-    the kernels that take the most device time, and the slot-attention
-    kernel's own launches inside the request. Off the main path."""
+    the kernels that take the most device time, and the port's kernels' own
+    launches inside the request. Off the main path."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    captions = CAPTIONS[:BATCH]
+    captions = list(path.captions[:BATCH])
     service.predict(video, captions)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -347,16 +463,42 @@ def phase_profile(service, video):
         wall_ms = 1e3 * (time.perf_counter() - t)
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    slot_attention = [e for e in dev if "attend_kernel" in e.key or "update_kernel" in e.key]
-    emit({"phase": "profile", "request_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+
+    def entries(*names):
+        return [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
+                for e in dev if any(n in e.key for n in names)]
+
+    slot_attention = entries("attend_kernel", "update_kernel")
+    vit_attention = entries("attention_kernel")
+    emit({"phase": "profile", "path": path.name, "request_wall_ms": wall_ms,
+          "device_busy_ms": busy_ms,
           "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
           "device_ops": sum(e.count for e in dev),
-          "slot_attention": [{"name": e.key[:60], "count": e.count,
-                              "ms": e.self_device_time_total / 1e3} for e in slot_attention],
+          "slot_attention": slot_attention, "vit_attention": vit_attention,
           "top": [{"name": e.key[:90], "count": e.count,
                    "ms": e.self_device_time_total / 1e3} for e in top]})
 
+
+def run_path(path: ServedPath, tmp: Path):
+    """Parity, then the main path (service + HTTP) between a reset and a read
+    of the launch counters, then the profile. Returns the main path's launches."""
+    params, pred_params = full_width_params(path)
+    phase_parity(path, params, pred_params)
+    exp_path = write_experiment(tmp / path.name, params, pred_params)
+    reset_launches()  # the main path starts here
+    service = phase_service(path, exp_path)
+    video = np.random.default_rng(SEED + 2).uniform(0, 1, (BATCH, 1, path.res, path.res, 3))
+    phase_http(path, service, video.astype(np.float32))
+    counts = launches()  # and ends here
+    requests = 1 + 3 + 5 + 1 + 1  # warmup, 8 requests, stage split, HTTP
+    check(counts == {"slot_attention": requests,
+                     "vit_attention": requests * path.vit_per_request},
+          f"{path.name}: kernel launches on the main path: {counts}")
+    phase_profile(path, service, video.astype(np.float32))
+    del service
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -364,37 +506,46 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA device",
               file=sys.stderr)
         return 2
-    from textocvp_tpu_torch.ops import slot_attention_kernel as sak
 
     name = phase_device()
-    phase_build(sak)
-    rows = phase_kernels(sak)
-    params, pred_params = full_width_params()
-    phase_parity(params, pred_params)
-
+    phase_build()
+    rows = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        exp_path = write_experiment(Path(tmp), params, pred_params)
-        sak.slot_attention_cuda.launches = 0  # the main path starts here
-        service = phase_service(sak, exp_path)
-        video = np.random.default_rng(SEED + 2).uniform(0, 1, (BATCH, 1, 64, 64, 3))
-        phase_http(service, video.astype(np.float32))
-        launches = sak.slot_attention_cuda.launches  # and ends here
-        phase_profile(service, video.astype(np.float32))
-    check(launches == 1 + 3 + 5 + 1 + 1, f"kernel launches on the main path: {launches}")
+        counts = {path.name: run_path(path, Path(tmp)) for path in PATHS}
 
-    main_row = next(r for r in rows if r["B"] == BATCH and r["iters"] == 3)
+    sa = next(r for r in rows["slot_attention_cater"] if r["B"] == BATCH and r["iters"] == 3)
+    sa_clip = next(r for r in rows["slot_attention_clipport"] if r["iters"] == 3)
+    vit8, vit16 = rows["vit_attention"]
     emit({"kernels": [{
         "name": "slot_attention",
         "route": "cuda",
         "source": "textocvp_tpu_torch/csrc/slot_attention.cu",
         "replaces": "textocvp_tpu/ops/pallas/slot_attention_kernel.py:37",
-        "launches": launches,
-        "max_abs_err": max(main_row["max_abs_err_slots"], main_row["max_abs_err_attn"]),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
+        "launches": sum(c["slot_attention"] for c in counts.values()),
+        "launches_by_path": {p: c["slot_attention"] for p, c in counts.items()},
+        "max_abs_err": max(sa["max_abs_err_slots"], sa["max_abs_err_attn"]),
+        "ms": sa["ms"],
+        "plain_ms": sa["plain_ms"],
+        "bound_ms": sa["bound_ms"],
+        "bound_by": sa["bound_by"],
         "library_ms": None,
+        "clipport_shape": {k: sa_clip[k] for k in ("B", "N", "S", "mlp", "iters", "ms",
+                                                   "plain_ms", "bound_ms", "bound_by")}
+        | {"max_abs_err": max(sa_clip["max_abs_err_slots"], sa_clip["max_abs_err_attn"])},
+    }, {
+        "name": "vit_attention",
+        "route": "cuda",
+        "source": "textocvp_tpu_torch/csrc/vit_attention.cu",
+        "replaces": "textocvp_tpu/nn/vit.py:43",
+        "launches": sum(c["vit_attention"] for c in counts.values()),
+        "launches_by_path": {p: c["vit_attention"] for p, c in counts.items()},
+        "max_abs_err": max(vit8["max_abs_err"], vit16["max_abs_err"]),
+        "ms": vit8["ms"],
+        "plain_ms": vit8["plain_ms"],
+        "bound_ms": vit8["bound_ms"],
+        "bound_by": vit8["bound_by"],
+        "library_ms": vit8["library_ms"],
+        "b16": {k: vit16[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

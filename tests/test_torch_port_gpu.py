@@ -1,13 +1,16 @@
-"""Tests of the port that need the card: the CUDA slot-attention kernel
-against its plain version, and the SAVi seed encode on the card against the
-CPU. Marked ``gpu``; without a CUDA device each one skips (decided in the
-``cuda`` fixture, so every worker collects the same tests).
+"""Tests of the port that need the card: the CUDA slot-attention and ViT
+attention kernels against their plain versions, and the SAVi and
+ExtendedDINOSAUR seed encodes on the card against the CPU. Marked ``gpu``;
+without a CUDA device each one skips (decided in the ``cuda`` fixture, so
+every worker collects the same tests).
 
     python -m pytest -m gpu tests/
 
-Tolerance: 1e-4 absolute for the kernel against the plain version (float32
-on both, sums in other orders; slots are of order 1, attention weights lie in
-[0, 1]). TF32 is off for the plain version's matmuls.
+Tolerances: 1e-4 absolute for the slot-attention kernel against its plain
+version (float32 on both, sums in other orders; slots are of order 1,
+attention weights lie in [0, 1]); 2e-5 absolute and relative for the ViT
+attention kernel, the JAX package's own flash-vs-XLA tolerance. TF32 is off
+for the plain versions' matmuls.
 """
 
 import numpy as np
@@ -16,6 +19,7 @@ import torch
 
 from textocvp_tpu_torch.models.factory import random_init_
 from textocvp_tpu_torch.ops import slot_attention_kernel as sak
+from textocvp_tpu_torch.ops import vit_attention as va
 from textocvp_tpu_torch.ops.slot_attention import SlotAttention
 
 pytestmark = pytest.mark.gpu
@@ -40,8 +44,8 @@ def _case(b, n, s, h, seed=0):
     return k, v, slots, params
 
 
-@pytest.mark.parametrize("b,n,s,h", [(8, 4096, 8, 256), (2, 576, 10, 256), (3, 300, 1, 64),
-                                     (1, 129, 12, 128)])
+@pytest.mark.parametrize("b,n,s,h", [(8, 4096, 8, 256), (2, 576, 10, 256), (2, 576, 10, 512),
+                                     (3, 300, 1, 64), (1, 129, 12, 128)])
 @pytest.mark.parametrize("iters", [1, 3])
 def test_kernel_matches_plain(cuda, b, n, s, h, iters):
     k, v, slots, params = _case(b, n, s, h)
@@ -93,6 +97,76 @@ def test_savi_seed_encode_on_the_card_matches_the_cpu(cuda):
     model = random_init_(setup_model(p), torch.Generator().manual_seed(2)).eval()
     gen = torch.Generator().manual_seed(3)
     video = torch.rand((2, 3, 16, 16, 3), generator=gen)
+    init = model.slot_initializer(2, gen)
+    with torch.no_grad():
+        ref = model.decompose(video, initial_slots=init)
+        out = model.cuda().decompose(video.cuda(), initial_slots=init.cuda())
+    scale = max(1.0, ref["slot_history"].abs().max().item())
+    np.testing.assert_allclose(out["slot_history"].cpu().numpy(), ref["slot_history"].numpy(),
+                               rtol=0, atol=1e-4 * scale)
+    np.testing.assert_allclose(out["attn_masks"].cpu().numpy(), ref["attn_masks"].numpy(),
+                               rtol=0, atol=1e-4)
+
+
+def _qkv(b, h, n, dh=64, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn((b, h, n, dh), generator=gen).cuda() for _ in range(3)]
+
+
+@pytest.mark.parametrize("b,h,n", [(8, 12, 577), (2, 4, 150), (1, 1, 1), (3, 2, 64)])
+def test_vit_attention_kernel_matches_plain(cuda, b, h, n):
+    q, k, v = _qkv(b, h, n)
+    before = va.vit_attention_cuda.launches
+    out = va.vit_attention_cuda(q, k, v, 64 ** -0.5)
+    ref = va.vit_attention_plain(q, k, v, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert va.vit_attention_cuda.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "head_dim", "strided", "device"])
+def test_vit_attention_kernel_refuses_what_it_does_not_take(cuda, bad):
+    q, k, v = _qkv(2, 4, 100)
+    if bad == "dtype":
+        k = k.double()
+    elif bad == "head_dim":
+        q, k, v = _qkv(2, 4, 100, dh=32)
+    elif bad == "strided":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        v = v.cpu()
+    with pytest.raises((ValueError, TypeError)):
+        va.vit_attention_cuda(q, k, v, 0.125)
+
+
+def test_vit_launches_the_kernel_once_per_block(cuda):
+    from textocvp_tpu_torch.nn.vit import ViTEncoder
+
+    vit = random_init_(ViTEncoder(img_size=56, patch_size=14, embed_dim=128, depth=3,
+                                  num_heads=2, layerscale_init=0.1),
+                       torch.Generator().manual_seed(4)).eval()
+    frames = torch.rand((2, 56, 56, 3), generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        ref = vit(frames)
+        before = va.vit_attention_cuda.launches
+        out = vit.cuda()(frames.cuda())
+        torch.cuda.synchronize()
+    assert va.vit_attention_cuda.launches == before + 3
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+def test_dinosaur_seed_encode_on_the_card_matches_the_cpu(cuda):
+    from textocvp_tpu_torch.core.config import build_exp_params
+    from textocvp_tpu_torch.models import setup_model
+
+    p = build_exp_params("ExtendedDINOSAUR", "CLIPort")
+    mp = p["model"]["model_params"]
+    mp.update(img_size=56)
+    mp["encoder"]["encoder_params"]["encoder_num_blocks"] = 2
+    mp["decoder"]["decoder_params"].update(num_patches=16, hidden_dim=64, num_layers_cnn=2)
+    model = random_init_(setup_model(p), torch.Generator().manual_seed(6)).eval()
+    gen = torch.Generator().manual_seed(7)
+    video = torch.rand((2, 2, 56, 56, 3), generator=gen)
     init = model.slot_initializer(2, gen)
     with torch.no_grad():
         ref = model.decompose(video, initial_slots=init)

@@ -66,6 +66,8 @@ def test_state_dict_keys_cover_the_jax_tree(savi):
     converted = from_jax_params("savi", variables["params"])
     assert set(converted) == set(tmodel.state_dict())
     with pytest.raises(ValueError):
+        from_jax_params("resnet", variables["params"])
+    with pytest.raises(KeyError, match="patch_decoder"):  # a SAVi is no ExtendedDINOSAUR
         from_jax_params("dinosaur", variables["params"])
 
 

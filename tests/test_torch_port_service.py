@@ -1,11 +1,13 @@
 """The PyTorch port's serving slice as a whole, on the CPU: PredictionService
-against the JAX package's PredictionService on one tiny experiment, the
-request contract, and one HTTP round trip.
+against the JAX package's PredictionService on two tiny experiments (SAVi
+and ExtendedDINOSAUR, each with TextOCVP_T5), the request contract, and one
+HTTP round trip.
 
 One experiment directory holds both packages' checkpoints of the same weights
 (``.msgpack`` for the JAX package, ``.pt`` carried by ``from_jax_params`` for
-the port). The SAVi uses the ``Learned`` initializer, so no random draw
-differs between the two. Both sides tokenize with the hash fallback.
+the port, BatchNorm statistics included). The models use the ``Learned``
+initializer, so no random draw differs between the two. Both sides tokenize
+with the hash fallback.
 """
 
 import io
@@ -34,6 +36,7 @@ from textocvp_tpu_torch.core.experiment import Experiment  # noqa: E402
 from textocvp_tpu_torch.serve import PredictionService, serve  # noqa: E402
 
 RES, S, D, NUM_PREDS, BATCH, MAX_TOKENS = 16, 4, 32, 3, 2, 12
+DINO_RES = 28
 CAPTIONS = ["the cone is sliding to (1, -2)", "the snitch is picked up and placed"]
 
 
@@ -43,14 +46,26 @@ def _perturb(tree, rng, scale=0.05):
         tree)
 
 
-def _tiny_params():
-    p = build_exp_params("SAVi", "CATER_Easy")
-    mp = p["model"]["model_params"]
-    mp.update(num_slots=S, slot_dim=D, mlp_hidden=64, mlp_encoder_dim=32, initializer="Learned")
-    mp["encoder"]["encoder_params"].update(num_channels=[8, 8], resolution=[RES, RES])
-    mp["decoder"]["decoder_params"].update(num_channels=[8, 8], resolution=[RES, RES])
+def _tiny_params(model="SAVi"):
+    if model == "SAVi":
+        p = build_exp_params("SAVi", "CATER_Easy")
+        mp = p["model"]["model_params"]
+        mp.update(num_slots=S, slot_dim=D, mlp_hidden=64, mlp_encoder_dim=32,
+                  initializer="Learned")
+        mp["encoder"]["encoder_params"].update(num_channels=[8, 8], resolution=[RES, RES])
+        mp["decoder"]["decoder_params"].update(num_channels=[8, 8], resolution=[RES, RES])
+        p["dataset"]["img_size"] = [RES, RES]
+    else:  # a 1-block DINOv2-small ViT and a 2 x 2 patch grid at 28 px
+        p = build_exp_params("ExtendedDINOSAUR", "CLIPort")
+        mp = p["model"]["model_params"]
+        mp.update(img_size=DINO_RES, num_slots=S, slot_dim=D, mlp_hidden=64,
+                  mlp_encoder_dim=32, initializer="Learned")
+        mp["encoder"] = {"encoder_name": "vit_small_patch14_dinov2",
+                         "encoder_params": {"encoder_num_blocks": 1}}
+        mp["decoder"]["decoder_params"].update(num_patches=4, in_dim=D, hidden_dim=32,
+                                               out_dim=385, num_layers=2, num_layers_cnn=2)
+        p["dataset"]["img_size"] = [DINO_RES, DINO_RES]
     mp["transition_module"] = {"model_name": "TransformerBlock", "num_heads": 2, "mlp_size": 64}
-    p["dataset"]["img_size"] = [RES, RES]
     pp = add_predictor_params(p, "TextOCVP_T5")
     pr = pp["predictor"]["predictor_params"]
     pr["predictor_params"].update(token_dim=64, n_heads=4, hidden_dim=128, num_layers=2)
@@ -61,31 +76,47 @@ def _tiny_params():
     return p, pp
 
 
-@pytest.fixture(scope="module")
-def exp_dir(tmp_path_factory):
+def _write_experiment(root, model_name, res):
+    """Both packages' checkpoints of one tiny experiment with perturbed JAX weights."""
     rng = np.random.default_rng(31)
-    root = tmp_path_factory.mktemp("port_serve") / "exp"
-    params, pred_params = _tiny_params()
+    params, pred_params = _tiny_params(model_name)
     parent = Experiment(root)
     parent.save_params(params)
     pred = Experiment(root / "predictors" / "tiny_t5")
     pred.save_params(pred_params)
 
     model = jax_setup_model(params)
-    video = jnp.zeros((1, 1, RES, RES, 3))
+    video = jnp.zeros((1, 1, res, res, 3))
     mvars = model.init({"params": jax.random.PRNGKey(0)}, video, decode=True)
-    mparams = _perturb(jax.device_get(mvars["params"]), rng)
+    mstate = {"params": _perturb(jax.device_get(mvars["params"]), rng)}
+    if "batch_stats" in mvars:  # running means off 0, variances off 1
+        mstate["batch_stats"] = jax.tree_util.tree_map(
+            lambda x: np.asarray(x) + rng.uniform(0.1, 0.5, np.shape(x)).astype(np.float32),
+            jax.device_get(mvars["batch_stats"]))
     predictor = jax_setup_predictor(pred_params)
     pvars = predictor.init({"params": jax.random.PRNGKey(1)}, jnp.zeros((1, 1, S, D)),
                            caption_tokens=jnp.ones((1, 5), jnp.int32),
                            attn_masks=jnp.ones((1, 5), jnp.int32))
     pparams = _perturb(jax.device_get(pvars["params"]), rng)
 
-    save_checkpoint(parent.models_dir, "ckpt", {"params": mparams})
+    save_checkpoint(parent.models_dir, "ckpt", mstate)
     save_checkpoint(pred.models_dir, "ckpt", {"params": pparams})
-    torch.save(from_jax_params("savi", mparams), parent.checkpoint_path("ckpt"))
+    kind = "savi" if model_name == "SAVi" else "dinosaur"
+    torch.save(from_jax_params(kind, mstate["params"], batch_stats=mstate.get("batch_stats")),
+               parent.checkpoint_path("ckpt"))
     torch.save(from_jax_params("predictor", pparams), pred.checkpoint_path("ckpt"))
     return root
+
+
+@pytest.fixture(scope="module")
+def exp_dir(tmp_path_factory):
+    return _write_experiment(tmp_path_factory.mktemp("port_serve") / "exp", "SAVi", RES)
+
+
+@pytest.fixture(scope="module")
+def dino_exp_dir(tmp_path_factory):
+    return _write_experiment(tmp_path_factory.mktemp("port_serve_dino") / "exp",
+                             "ExtendedDINOSAUR", DINO_RES)
 
 
 @pytest.fixture(scope="module")
@@ -112,6 +143,32 @@ def test_predict_matches_the_jax_chain(exp_dir, service, frames):
     # uint8 outputs within one level on every pixel (rounding at a .5 boundary)
     levels = np.abs(np.rint(out * 255).astype(int) - np.rint(ref * 255).astype(int))
     assert levels.max() <= 1, levels.max()
+
+
+def test_dinosaur_predict_matches_the_jax_chain(dino_exp_dir):
+    service = PredictionService(dino_exp_dir, "tiny_t5", "ckpt", "ckpt", batch_size=BATCH,
+                                max_tokens=MAX_TOKENS, device="cpu")
+    assert service.resolution == (DINO_RES, DINO_RES)
+    jax_service = JaxPredictionService(dino_exp_dir, "tiny_t5", "ckpt", "ckpt",
+                                       batch_size=BATCH, max_tokens=MAX_TOKENS)
+    frames = np.random.default_rng(4).uniform(0, 1, (BATCH, 1, DINO_RES, DINO_RES, 3))
+    frames = frames.astype(np.float32)
+    ref = jax_service.predict(frames, CAPTIONS)
+    out = service.predict(frames, CAPTIONS)
+    assert out.shape == ref.shape == (BATCH, NUM_PREDS, DINO_RES, DINO_RES, 3)
+    # uint8 outputs within one level on every pixel (rounding at a .5 boundary)
+    levels = np.abs(np.rint(out * 255).astype(int) - np.rint(ref * 255).astype(int))
+    assert levels.max() <= 1, levels.max()
+
+
+def test_service_refuses_a_features_only_decoder(tmp_path):
+    params, pred_params = _tiny_params("ExtendedDINOSAUR")
+    params["model"]["model_params"]["decoder"]["decoder_params"]["reconstruct_images"] = False
+    pred_params["model"] = params["model"]
+    Experiment(tmp_path).save_params(params)
+    Experiment(tmp_path / "predictors" / "tiny_t5").save_params(pred_params)
+    with pytest.raises(ValueError, match="reconstruct_images"):
+        PredictionService(tmp_path, "tiny_t5", "ckpt", "ckpt", device="cpu")
 
 
 def test_padding_does_not_change_a_row(service, frames):

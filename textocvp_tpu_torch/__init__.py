@@ -1,7 +1,9 @@
 """textocvp_tpu_torch: the PyTorch/CUDA port of textocvp_tpu, for NVIDIA Hopper.
 
-Serving path: SAVi seed encode (slot attention runs as a CUDA kernel on the
-card), TextOCVP_T5 rollout and the spatial-broadcast decode, behind
-``serve.PredictionService`` and its HTTP server. Importing the package starts
-nothing and builds nothing; the kernel is compiled at its first launch.
+Serving path: the seed encode of SAVi (CATER) or ExtendedDINOSAUR (CLIPort;
+a frozen ViT whose attention runs as a CUDA kernel on the card), slot
+attention (a CUDA kernel on the card), the TextOCVP_T5 rollout and the
+model's decode, behind ``serve.PredictionService`` and its HTTP server.
+Importing the package starts nothing and builds nothing; the kernels are
+compiled at the first launch of either.
 """

@@ -13,11 +13,16 @@ the state dict of the port's module:
 * flax's automatic names -> the port's attributes: ``Dense_i`` ->
   ``layers.i`` (``projection`` in a SoftPositionEmbed), ``ConvBlock_i`` ->
   ``blocks.i``, ``Conv_0`` -> ``conv`` (``final_conv`` of the decoder),
-  ``block_i`` -> ``blocks.i``, ``layer_i`` -> ``layers.i``.
+  ``BatchNorm_0`` -> ``bn``, ``block_i`` -> ``blocks.i``, ``layer_i`` ->
+  ``layers.i``, ``mlp_i`` -> ``mlps.i``, ``cnn_i`` -> ``cnns.i``;
+* BatchNorm ``batch_stats`` (``mean``, ``var``) -> ``running_mean``,
+  ``running_var``, with ``num_batches_tracked`` 0.
 
 Every other name (T5's ``shared``, ``layer_i/attn/{q,k,v,o}``, ``ln_attn``,
 ``ln_ff``, ``wi``, ``wo``, ``final_ln``; the learned PE ``pe``; the slot
-initializer's tables) is kept.
+initializer's tables; the ViT's ``patch_embed``, ``cls_token``, ``pos_embed``,
+``norm1``, ``qkv``, ``proj``, ``fc1``, ``fc2``, ``ls1_gamma``, ``ls2_gamma``;
+the patch decoder's ``pos_embed``, ``initial_ln`` and ``cnn_final``) is kept.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-KINDS = {"savi": "slot_attention", "predictor": "predictor"}
+KINDS = {"savi": "slot_attention", "dinosaur": "patch_decoder", "predictor": "predictor"}
 _GRU_GATES = ("ir", "iz", "in", "hr", "hz", "hn")
 
 
@@ -39,7 +44,9 @@ def _module_name(name: str, parent: str) -> str:
         return f"blocks.{m[1]}"
     if name == "Conv_0":
         return "final_conv" if parent == "image_decoder" else "conv"
-    if m := re.fullmatch(r"(block|layer)_(\d+)", name):
+    if name == "BatchNorm_0":
+        return "bn"
+    if m := re.fullmatch(r"(block|layer|mlp|cnn)_(\d+)", name):
         return f"{m[1]}s.{m[2]}"
     return name
 
@@ -87,10 +94,28 @@ def convert_tree(params: Mapping, prefix: str = "", parent: str = "") -> dict:
     return out
 
 
-def from_jax_params(kind: str, params: Mapping) -> dict:
-    """``kind`` is "savi" (a SAVi's params) or "predictor" (a PredictorWrapper's)."""
+def convert_batch_stats(batch_stats: Mapping) -> dict:
+    """A flax ``batch_stats`` tree -> the BatchNorm buffers of the port's state dict."""
+    out = {}
+    for key, value in convert_tree(batch_stats).items():
+        prefix, leaf = key.rsplit(".", 1)
+        if leaf not in ("mean", "var"):
+            raise KeyError(f"batch_stats leaf {key!r} is neither mean nor var")
+        out[f"{prefix}.running_{leaf}"] = value
+        out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def from_jax_params(kind: str, params: Mapping, batch_stats: Mapping | None = None) -> dict:
+    """``kind`` is "savi" (a SAVi's params), "dinosaur" (an ExtendedDINOSAUR's)
+    or "predictor" (a PredictorWrapper's). ``batch_stats`` is the model's flax
+    ``batch_stats`` collection, which an ExtendedDINOSAUR that reconstructs
+    images needs for its BatchNorm CNN head."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
     if KINDS[kind] not in params:
         raise KeyError(f"{kind} params have no {KINDS[kind]!r} subtree; got {sorted(params)}")
-    return convert_tree(params)
+    out = convert_tree(params)
+    if batch_stats:
+        out.update(convert_batch_stats(batch_stats))
+    return out

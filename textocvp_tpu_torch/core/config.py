@@ -4,9 +4,9 @@ Config registry of the PyTorch port: JSON configs shipped under
 ``DEFAULTS`` into an ``experiment_params.json`` dict.
 
 The port keeps its own copy of the registry and of the configs it serves
-(SAVi, CATER_Easy, TextOCVP_T5), so it runs where the JAX package cannot be
-imported. The layout of the materialized dict is the JAX package's, so one
-``experiment_params.json`` drives both packages.
+(SAVi, ExtendedDINOSAUR, CATER_Easy, CLIPort, TextOCVP_T5), so it runs where
+the JAX package cannot be imported. The layout of the materialized dict is
+the JAX package's, so one ``experiment_params.json`` drives both packages.
 """
 
 from __future__ import annotations
@@ -83,6 +83,12 @@ def build_exp_params(model_name: str, dataset_name: str) -> dict:
     params["dataset"] = {**params["dataset"], **get_config("datasets", dataset_name)}
     params["model"]["model_name"] = model_name
     params["model"]["model_params"] = get_config("models", model_name)
+    if model_name == "ExtendedDINOSAUR":
+        # dual loss: DINO-feature MSE + image MSE
+        params["loss"] = [
+            {"type": "pred_feature_mse", "weight": 1},
+            {"type": "mse", "weight": 1},
+        ]
     return params
 
 

@@ -1,4 +1,5 @@
-"""Model and predictor factories over ``experiment_params`` (SAVi and TextOCVP_T5)."""
+"""Model and predictor factories over ``experiment_params`` (SAVi,
+ExtendedDINOSAUR and TextOCVP_T5)."""
 
 from __future__ import annotations
 
@@ -7,31 +8,49 @@ import math
 import torch
 from torch import nn
 
+from textocvp_tpu_torch.models.extended_dinosaur import ExtendedDINOSAUR
 from textocvp_tpu_torch.models.predictors import PredictorWrapper, TextOCVP
 from textocvp_tpu_torch.models.savi import SAVi
 
-MODELS = ["SAVi"]
+MODELS = ["SAVi", "ExtendedDINOSAUR"]
 PREDICTORS = ["TextOCVP_T5"]
 
 
-def setup_model(exp_params: dict) -> SAVi:
+def check_image_reconstruction(exp_params: dict, purpose: str = "evaluate"):
+    """Raise when an ExtendedDINOSAUR experiment cannot produce RGB frames: an
+    MLPPatchDecoder with ``reconstruct_images: false`` decodes ViT patch
+    features only, so there is nothing to render, compare or serve."""
+    dp = exp_params["model"]["model_params"].get("decoder", {})
+    if (dp.get("decoder_name") == "MLPPatchDecoder"
+            and not dp.get("decoder_params", {}).get("reconstruct_images")):
+        raise ValueError(
+            "this experiment's MLPPatchDecoder has reconstruct_images "
+            "disabled — it decodes ViT patch features, not RGB frames, so "
+            f"there is nothing to {purpose}; retrain with reconstruct_images "
+            "or use a SAVi-decoder experiment")
+
+
+def setup_model(exp_params: dict) -> SAVi | ExtendedDINOSAUR:
     model_name = exp_params["model"]["model_name"]
     if model_name not in MODELS:
         raise NameError(f"Model '{model_name}' is not ported; the port has {MODELS}")
     mp = exp_params["model"]["model_params"]
-    return SAVi(
+    common = dict(
         num_slots=mp["num_slots"],
         slot_dim=mp["slot_dim"],
         encoder=mp["encoder"],
         decoder=mp["decoder"],
         num_iterations=mp.get("num_iterations", 1),
         num_iterations_first=mp.get("num_iterations_first", 3),
-        in_channels=mp.get("in_channels", 3),
         mlp_hidden=mp.get("mlp_hidden", 128),
-        mlp_encoder_dim=mp.get("mlp_encoder_dim", 128),
         initializer=mp.get("initializer", "LearnedRandom"),
         transition_module=mp.get("transition_module"),
     )
+    if model_name == "ExtendedDINOSAUR":
+        return ExtendedDINOSAUR(img_size=mp["img_size"],
+                                mlp_encoder_dim=mp.get("mlp_encoder_dim", 768), **common)
+    return SAVi(in_channels=mp.get("in_channels", 3),
+                mlp_encoder_dim=mp.get("mlp_encoder_dim", 128), **common)
 
 
 def setup_predictor(exp_params: dict) -> PredictorWrapper:

@@ -45,8 +45,7 @@ class SAVi(nn.Module):
         self.slot_initializer = get_initializer(initializer, slot_dim, num_slots)
         tm = dict(transition_module or {})
         self.transition = get_transition_module(tm.pop("model_name", None), slot_dim, **tm)
-        self.image_encoder = get_encoder(encoder, in_channels)
-        feats = self.image_encoder.out_features
+        self.image_encoder, feats = get_encoder(encoder, in_channels)
         self.encoder_pos_embedding = SoftPositionEmbed(
             feats, tuple(encoder["encoder_params"]["resolution"]))
         self.encoder_ln = nn.LayerNorm(feats, eps=1e-6)  # flax's default epsilon

@@ -47,18 +47,37 @@ class MLP(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """k x k conv, symmetric padding k // 2, then ReLU (NCHW)."""
+    """k x k conv, symmetric padding k // 2, then (BatchNorm) and ReLU (NCHW).
+
+    The BatchNorm normalizes with its running statistics, as the port only
+    serves (``eval()`` mode; eps 1e-5, flax's and torch's default)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, activation: bool = True):
+                 stride: int = 1, activation: bool = True, batch_norm: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                               padding=kernel_size // 2)
+        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5) if batch_norm else None
         self.activation = activation
 
     def forward(self, x):
         x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
         return F.relu(x) if self.activation else x
+
+
+def upsample_nearest(x, scale: int):
+    """Nearest-neighbour upsampling by an integer factor (NCHW): each pixel
+    becomes a scale x scale square."""
+    return x if scale == 1 else F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def upsample_bilinear(x, out_hw: Sequence[int]):
+    """Bilinear resize to ``out_hw`` (NCHW), half-pixel centres
+    (``align_corners=False``) and no antialias filter, also when it shrinks."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False,
+                         antialias=False)
 
 
 class SoftPositionEmbed(nn.Module):

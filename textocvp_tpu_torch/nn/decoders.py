@@ -1,21 +1,21 @@
 """
-Spatial-broadcast conv decoder (counterpart of ``ConvDecoder`` in the JAX
-package's ``textocvp_tpu/nn/decoders.py``), NCHW inside.
+Decoders of the port (counterparts of ``ConvDecoder`` and ``MLPPatchDecoder``
+in the JAX package's ``textocvp_tpu/nn/decoders.py``), NCHW inside.
 
-``blocks[j]`` is the j-th conv applied; the JAX package names it
-``ConvBlock_j`` (``hidden_dims`` is walked from its end), so ``blocks[0]``
-maps ``slot_dim`` to ``hidden_dims[-1]`` channels.
+``ConvDecoder``: ``blocks[j]`` is the j-th conv applied; the JAX package
+names it ``ConvBlock_j`` (``hidden_dims`` is walked from its end), so
+``blocks[0]`` maps ``slot_dim`` to ``hidden_dims[-1]`` channels.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from textocvp_tpu_torch.nn.blocks import ConvBlock
+from textocvp_tpu_torch.nn.blocks import ConvBlock, upsample_bilinear, upsample_nearest
 
 
 class ConvDecoder(nn.Module):
@@ -73,11 +73,106 @@ class ConvDecoder(nn.Module):
         return self._tail(x)
 
 
-def get_decoder(decoder: dict, in_channels: int) -> ConvDecoder:
+class MLPPatchDecoder(nn.Module):
+    """Spatial-broadcast MLP patch decoder of ExtendedDINOSAUR.
+
+    Each slot is broadcast over the P patches and ``pos_embed`` (1, 1, P,
+    in_dim) is added, then the optional LayerNorm (eps 1e-6) and
+    ``num_layers`` denses, ReLU between them. The last dense gives per-slot
+    features and one alpha logit; a float32 softmax of alpha over the slots
+    mixes the features. With ``reconstruct_images`` a CNN head turns the mixed
+    (gh, gw) feature grid into an image: 3x3 conv + BatchNorm + ReLU blocks,
+    each followed by a x2 nearest upsample while :meth:`cnn_plan` says so,
+    then a 3x3 conv to RGB and a bilinear resize to ``img_size``.
+
+    The plain order of operations. The JAX package's serving-time
+    reformulations (``fused_slot_mix``, ``subpixel_upconv3x3``) are exact up
+    to summation order and are not ported.
+    """
+
+    def __init__(self, num_patches: int, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_layers: int = 4, initial_layer_norm: bool = False,
+                 reconstruct_images: bool = False, patch_size: Optional[int] = None,
+                 img_size: Optional[int] = None, num_layers_cnn: Optional[int] = None):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.patch_size = patch_size
+        self.img_size = img_size
+        self.num_layers_cnn = num_layers_cnn
+        self.grid = int(num_patches ** 0.5)
+        self.pos_embed = nn.Parameter(torch.randn(1, 1, num_patches, in_dim) / in_dim ** 0.5)
+        self.initial_ln = nn.LayerNorm(in_dim, eps=1e-6) if initial_layer_norm else None
+        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
+        self.mlps = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.cnns = self.cnn_final = None
+        if reconstruct_images:
+            chans = [out_dim - 1] + [c for c, _ in self.cnn_plan()]
+            self.cnns = nn.ModuleList(ConvBlock(a, b, 3, batch_norm=True)
+                                      for a, b in zip(chans[:-1], chans[1:]))
+            self.cnn_final = nn.Conv2d(chans[-1], 3, 3, padding=1)
+
+    def cnn_plan(self):
+        """(out_channels, upsample after) of each CNN-head block: x2 while the
+        grid is below ``img_size`` and (i + 1) * 2 < patch_size, the channels
+        halving at every upsampling block after the first."""
+        plan, hidden, current = [], self.hidden_dim, self.grid
+        for i in range(self.num_layers_cnn):
+            grow = (i + 1) * 2 < self.patch_size and current < self.img_size
+            if i > 0 and grow:
+                hidden //= 2
+            plan.append((hidden, grow))
+            if grow:
+                current *= 2
+        return plan
+
+    def forward(self, slots):
+        """slots (B, S, in_dim) -> dict of recons_feats (B, P, out_dim - 1),
+        masks (B, S, 1, gh, gw) and recons_imgs (B, H, W, 3) or None."""
+        b, s, _ = slots.shape
+        x = slots[:, :, None, :] + self.pos_embed
+        if self.initial_ln is not None:
+            x = self.initial_ln(x)
+        for i, dense in enumerate(self.mlps):
+            x = dense(x)
+            if i < len(self.mlps) - 1:
+                x = F.relu(x)
+        feats, alpha = x[..., :-1], x[..., -1:]
+        alpha = torch.softmax(alpha.float(), dim=1).to(x.dtype)
+        recons_feats = (feats * alpha).sum(1)
+        masks = alpha.reshape(b, s, 1, self.grid, self.grid)
+        recons_imgs = None
+        if self.cnns is not None:
+            y = recons_feats.transpose(1, 2).reshape(b, -1, self.grid, self.grid)
+            for block, (_, grow) in zip(self.cnns, self.cnn_plan()):
+                y = block(y)
+                if grow:
+                    y = upsample_nearest(y, 2)
+            y = self.cnn_final(y)
+            if y.shape[-1] != self.img_size:
+                y = upsample_bilinear(y, (self.img_size, self.img_size))
+            recons_imgs = y.permute(0, 2, 3, 1)
+        return {"recons_imgs": recons_imgs, "recons_feats": recons_feats, "masks": masks}
+
+
+def get_decoder(decoder: dict, in_channels: int):
     name = decoder["decoder_name"]
     params = decoder.get("decoder_params", {})
+    if name == "MLPPatchDecoder":
+        return MLPPatchDecoder(
+            num_patches=params["num_patches"],
+            in_dim=params["in_dim"],
+            hidden_dim=params["hidden_dim"],
+            out_dim=params["out_dim"],
+            num_layers=params.get("num_layers", 4),
+            initial_layer_norm=params.get("initial_layer_norm", False),
+            reconstruct_images=params.get("reconstruct_images", False),
+            patch_size=params.get("patch_size"),
+            img_size=params.get("img_size"),
+            num_layers_cnn=params.get("num_layers_cnn"),
+        )
     if name != "ConvDecoder":
-        raise ValueError(f"decoder {name!r} is not ported; the port has 'ConvDecoder'")
+        raise ValueError(f"decoder {name!r} is not ported; the port has 'ConvDecoder' "
+                         "and 'MLPPatchDecoder'")
     if params.get("batch_norm") or (params.get("upsample") or 1) > 1:
         raise ValueError("the port's ConvDecoder has no batch norm and no upsampling")
     return ConvDecoder(

@@ -11,8 +11,8 @@ source file says what bounds the kernel on an H100 and how its design answers.
   tensor runs :func:`slot_attention_plain`, a CUDA tensor launches the kernel
   through :func:`slot_attention_cuda` or raises. There is no fallback.
 * The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-  with a plain C interface (``textocvp_tpu_torch/_build/``, at first use) and
-  bound through ``ctypes``.
+  with a plain C interface (:mod:`textocvp_tpu_torch.ops.build`, at first use)
+  and bound through ``ctypes``.
 * Forward only: outputs carry no autograd history.
 
 ``params`` is the dict of :meth:`SlotAttention.iteration_params`: LayerNorm
@@ -24,19 +24,12 @@ layout.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "slot_attention.cu"
-BUILD_DIR = _PKG / "_build"
+from textocvp_tpu_torch.ops import build
+
 LN_EPS = 1e-3
 
 _PARAM_ORDER = ("norm_slot_w", "norm_slot_b", "q_w", "q_b",
@@ -75,38 +68,13 @@ def slot_attention_plain(k, v, slots, params: dict, num_iters: int, scale: float
 # ----------------------------------------------------------------------------- build
 
 _lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").is_file():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the slot-attention kernel "
-                           "is built from source at first use")
-    return found
 
 
 def load_library():
-    """Build (once per source version) and load the kernel's shared library."""
+    """The kernel's shared library (built by :mod:`ops.build` at first use), bound."""
     global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-        so = BUILD_DIR / f"libslot_attention_{digest}.so"
-        if not so.is_file():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                   "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+    if _lib is None:
+        lib = build.load_library("slot_attention")
         lib.sa_forward.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 5
                                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.sa_forward.restype = ctypes.c_int
@@ -114,7 +82,7 @@ def load_library():
             fn.argtypes = []
             fn.restype = ctypes.c_int
         _lib = lib
-        return lib
+    return _lib
 
 
 # ---------------------------------------------------------------------------- launch

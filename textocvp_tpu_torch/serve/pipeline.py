@@ -7,10 +7,12 @@ and B captions. It is padded to the service's batch (and its captions to
 ``max_tokens``), runs two stages on the device, and the padding is sliced off
 the reply:
 
-1. predict: SAVi encode + slot attention on the context frames, then the
-   TextOCVP rollout of ``num_preds`` slot frames;
-2. decode: the spatial-broadcast decoder on every predicted frame, clipped to
-   [0, 1] and rounded to uint8 on the device.
+1. predict: the decomposition model's encode (SAVi's conv stack, or
+   ExtendedDINOSAUR's frozen ViT) + slot attention on the context frames,
+   then the TextOCVP rollout of ``num_preds`` slot frames;
+2. decode: the model's decoder (SAVi's spatial-broadcast conv decoder, or
+   ExtendedDINOSAUR's MLP patch decoder and CNN head) on every predicted
+   frame, clipped to [0, 1] and rounded to uint8 on the device.
 
 Numerics: float32 throughout, as the JAX package serves by default. TF32 is
 off for matmuls and for cuDNN convolutions (``torch.backends.cuda.matmul.
@@ -30,7 +32,11 @@ import torch
 from textocvp_tpu_torch.core.experiment import Experiment
 from textocvp_tpu_torch.data.tokenizers import get_tokenizer
 from textocvp_tpu_torch.data.wire import as_float_video, to_uint8_frames
-from textocvp_tpu_torch.models.factory import setup_model, setup_predictor
+from textocvp_tpu_torch.models.factory import (
+    check_image_reconstruction,
+    setup_model,
+    setup_predictor,
+)
 
 
 class InferenceFrontend:
@@ -95,7 +101,10 @@ class PredictionService(InferenceFrontend):
 
     ``exp_path`` is the decomposition experiment; ``name_pred_exp`` names its
     nested predictor experiment (``predictors/<name>``) or is a path to it.
-    Checkpoints are torch state dicts, ``models/<ckpt>.pt``. ``generator``
+    Checkpoints are torch state dicts, ``models/<ckpt>.pt``, BatchNorm
+    running statistics included. The model is SAVi or ExtendedDINOSAUR, as
+    the experiment's params say; the input resolution is the dataset's
+    ``img_size``. ``generator``
     draws the slot noise of a ``LearnedRandom`` initializer; by default one
     on ``device`` seeded with 14.
     """
@@ -131,11 +140,13 @@ class PredictionService(InferenceFrontend):
 
         mp = self.exp_params["model"]["model_params"]
         self.num_slots, self.slot_dim = mp["num_slots"], mp["slot_dim"]
-        res = self.exp_params["dataset"].get("img_size") or mp.get("resolution")
+        res = (self.exp_params["dataset"].get("img_size")
+               or mp.get("resolution") or mp.get("img_size"))
         if isinstance(res, int):
             res = (res, res)
         self.resolution = (int(res[0]), int(res[1]))
 
+        check_image_reconstruction(self.exp_params, purpose="serve")
         # TextOCVP_T5, the one predictor of the port, reads T5 ids and masks
         self.tokenizer = get_tokenizer("T5")
         self.model = self._load(setup_model(self.exp_params),
