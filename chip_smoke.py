@@ -3,27 +3,31 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths at full width with random weights drawn
-from a seed, and checks them:
+Drives the port's two serving paths and its 05 evaluate-predictor path at
+full width with random weights drawn from a seed, and checks them:
 
 * CATER: SAVi (8 slots x 128, 64x64 frames) + TextOCVP_T5 (T5-small, 8
   predictor layers), 19 predicted frames;
 * CLIPort: ExtendedDINOSAUR (DINOv2 ViT-B/14, 12 blocks, at 336 px; 10 slots
   x 128; MLP patch decoder and BatchNorm CNN head) + TextOCVP_T5, 9 predicted
-  frames.
+  frames;
+* eval: the CATER model under the 05 protocol, B=64, 1 seed frame, 19
+  predicted frames, PSNR/SSIM/LPIPS, over a temporary CATER ``.npy`` set.
 
 Phases, one JSON line each:
 
 1. device   the card's name and power limit (``nvidia-smi``);
-2. build    compile both CUDA kernels from ``csrc/``, one ``nvcc`` each, at once;
+2. build    compile the three CUDA kernels from ``csrc/``, one ``nvcc`` each, at once;
 3. kernels  slot attention against its plain PyTorch version at the CATER
             shape (N=4096, S=8, MLP 256, B in (8, 64)) and the CLIPort shape
             (N=576, S=10, MLP 512, B=8), 1 and 3 iterations; the ViT attention
             against its plain version at (B, h, n, dh) = (8, 12, 577, 64) and
             (16, 12, 577, 64), with ``F.scaled_dot_product_attention`` timed as a
-            yardstick. Max abs error, time from CUDA events, the plain
-            version's time, the bound;
-then for each path:
+            yardstick; conv5 against its plain version at N=1216 (a CATER
+            request) and N=9728 (an eval batch) frames of 64x64x64, with
+            ``F.conv2d`` + ReLU (cuDNN, TF32 off) timed as a yardstick. Max abs
+            error, time from CUDA events, the plain version's time, the bound;
+then for each serving path:
 4. parity   the predict stage (seed encode + rollout) on the card and on the
             CPU with the same weights and initial slots, TF32 off, each
             rollout step's error held to that step's largest slot; and the
@@ -38,15 +42,26 @@ then for each path:
             against wall time, the kernels that take the most time, and the
             port's kernels' own launches and time inside the request.
 
-Phases 5 and 6 are a path's main path: every kernel's launch counter is set
-to 0 before them and read after. Then one ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
-then not 0 and the last line is not printed. Without a CUDA device the script
-exits 2 before doing anything.
+then the eval path:
+8. eval_parity  the eval step at B=2 on the card and on the CPU, the same
+            weights, initial slots and frames: framewise PSNR within 1e-3 dB,
+            SSIM and LPIPS within 1e-4;
+9. eval     ``textocvp_tpu_torch.cli.evaluate_predictor.main`` at B=64 over
+            128 videos (two batches): finite means, 19 framewise values a
+            metric, 1 slot-attention call and 3 conv5 launches a batch;
+10. eval_step one more B=64 batch split into its stages (predict, decode,
+            metrics) with the peak memory, and one step under ``torch.profiler``.
+
+Phases 5 and 6 are a serving path's main path, and phase 9 the eval path's:
+every kernel's launch counter is set to 0 before it and read after. Then one
+``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. Any
+failure raises: the exit code is then not 0 and the last line is not printed.
+Without a CUDA device the script exits 2 before doing anything.
 """
 
 from __future__ import annotations
 
+import gc
 import io
 import json
 import subprocess
@@ -68,6 +83,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 VIT_HEADS, VIT_TOKENS, VIT_DH = 12, 577, 64  # DINOv2 ViT-B/14 at 336 px
+CONV5_RES, CONV5_CH = 64, 64                 # SAVi decoder tail on CATER
+EVAL_BATCH, EVAL_PREDS, EVAL_VIDEOS = 64, 19, 128
 
 
 @dataclass(frozen=True)
@@ -79,17 +96,18 @@ class ServedPath:
     res: int
     num_preds: int
     parity_batch: int
-    vit_per_request: int  # ViT attention launches per request (one per block)
+    vit_per_request: int    # ViT attention launches per request (one per block)
+    conv5_per_request: int  # conv5 launches per request (SAVi's three tail convs)
     captions: tuple
 
 
 PATHS = (
-    ServedPath("cater", "SAVi", "CATER_Easy", 64, 19, 2, 0, (
+    ServedPath("cater", "SAVi", "CATER_Easy", 64, 19, 2, 0, 3, (
         "the cone is sliding to (1, -2)", "the snitch is picked up and placed to (3, 3)",
         "the cone is rotating", "the snitch is containing the cone",
         "the cone is picked up and placed to (-1, 1)", "the snitch is sliding to (2, 2)",
         "the cone is sliding to (-3, -3)", "the snitch is rotating and sliding")),
-    ServedPath("clipport", "ExtendedDINOSAUR", "CLIPort", 336, 9, 1, 12, (
+    ServedPath("clipport", "ExtendedDINOSAUR", "CLIPort", 336, 9, 1, 12, 0, (
         "put the red block in the green bowl", "put the blue block in the yellow bowl",
         "put the green block in the brown bowl", "put the yellow block in the red bowl",
         "put the purple block in the blue bowl", "put the orange block in the gray bowl",
@@ -230,13 +248,77 @@ def vit_attention_rows():
     return rows
 
 
+def conv5_bound_ms(n, h, w, c):
+    """x read once and out written once, weights and bias read once; the
+    products, bias and ReLU at the float32 rate."""
+    nbytes = 4 * (2 * n * h * w * c + 25 * c * c + c)
+    return bound(nbytes, 2 * 25 * c * c * n * h * w + 2 * n * h * w * c)
+
+
+def conv5_rows():
+    """conv5 against its plain version at a CATER request's and an eval
+    batch's frame counts. The error is taken over the first 256 frames and
+    the last one (the plain version of all 9728 needs 50 GB); times cover
+    all frames, fewer repetitions at N=9728. The yardstick is ``F.conv2d``
+    (cuDNN, TF32 off) with the bias, then an in-place ReLU, timed on the
+    NCHW-contiguous input and on the channels-last view of the NHWC input;
+    ``library_ms`` is the faster."""
+    import torch.nn.functional as F
+
+    from textocvp_tpu_torch.ops import conv5 as c5
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 4)
+    xgen = torch.Generator("cuda").manual_seed(SEED + 4)  # 10 GB at N=9728: drawn on the card
+    c, res = CONV5_CH, CONV5_RES
+    w = (torch.randn((5, 5, c, c), generator=gen) / (25 * c) ** 0.5).cuda()
+    b = (0.1 * torch.randn((c,), generator=gen)).cuda()
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    rows = []
+    for n, reps in ((BATCH * 19 * 8, 10), (EVAL_BATCH * EVAL_PREDS * 8, 2)):
+        x = torch.randn((n, res, res, c), device="cuda", generator=xgen).mul_(0.5)
+        launches = c5.conv5_cuda.launches
+        out = c5.conv5_cuda(x, w, b)
+        check_idx = [*range(min(n, 256)), n - 1]
+        ref = torch.cat([c5.conv5_plain(x[:min(n, 256)], w, b), c5.conv5_plain(x[n - 1:], w, b)])
+        torch.cuda.synchronize()
+        err = (out[check_idx] - ref).abs().max().item()
+        finite = bool(torch.isfinite(out).all())
+        del out, ref
+        # float32 on both sides, 1600-term sums in other orders, outputs of order 1
+        check(finite and err <= 1e-4, f"conv5 vs plain at N={n}: {err} > 1e-4")
+        ms = cuda_ms(lambda: c5.conv5_cuda(x, w, b), reps=reps, warmup=1)
+        launches = c5.conv5_cuda.launches - launches
+        lib_cl = cuda_ms(lambda: F.relu_(F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, padding=2)),
+                         reps=reps, warmup=1)
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        lib_nchw = cuda_ms(lambda: F.relu_(F.conv2d(x_nchw, w_oihw, b, padding=2)),
+                           reps=reps, warmup=1)
+        del x_nchw
+        torch.cuda.empty_cache()
+        plain_ms = cuda_ms(lambda: c5.conv5_plain(x, w, b), reps=max(1, reps // 2), warmup=1)
+        del x
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = conv5_bound_ms(n, res, res, c)
+        layout = "nchw" if lib_nchw <= lib_cl else "channels_last"
+        rows.append({"N": n, "H": res, "W": res, "C": c, "max_abs_err": err,
+                     "err_frames": f"first {min(n, 256)} and the last", "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": min(lib_nchw, lib_cl),
+                     "library_layout": layout,
+                     "library_ms_by_layout": {"nchw": lib_nchw, "channels_last": lib_cl},
+                     "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches,
+                     "reps": reps})
+    return rows
+
+
 def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = {"slot_attention_cater": slot_attention_rows(4096, 8, 256, (8, 64)),
             "slot_attention_clipport": slot_attention_rows(576, 10, 512, (8,)),
-            "vit_attention": vit_attention_rows()}
-    emit({"phase": "kernels", "tolerance_abs": {"slot_attention": 1e-4, "vit_attention": 2e-5},
-          **rows})
+            "vit_attention": vit_attention_rows(),
+            "conv5": conv5_rows()}
+    emit({"phase": "kernels", "tolerance_abs": {"slot_attention": 1e-4, "vit_attention": 2e-5,
+                                                "conv5": 1e-4}, **rows})
     return rows
 
 
@@ -331,10 +413,12 @@ def write_experiment(root: Path, params, pred_params):
 
 
 def kernel_counters():
+    from textocvp_tpu_torch.ops import conv5 as c5
     from textocvp_tpu_torch.ops import slot_attention_kernel as sak
     from textocvp_tpu_torch.ops import vit_attention as va
 
-    return {"slot_attention": sak.slot_attention_cuda, "vit_attention": va.vit_attention_cuda}
+    return {"slot_attention": sak.slot_attention_cuda, "vit_attention": va.vit_attention_cuda,
+            "conv5": c5.conv5_cuda}
 
 
 def launches():
@@ -349,6 +433,7 @@ def reset_launches():
 def phase_service(path: ServedPath, exp_path):
     from textocvp_tpu_torch.serve import PredictionService
 
+    torch.cuda.reset_peak_memory_stats()  # the peak of this path's service alone
     t0 = time.perf_counter()
     service = PredictionService(exp_path, "textocvp_t5", "random", "random",
                                 batch_size=BATCH, max_tokens=MAX_TOKENS, device="cuda")
@@ -358,7 +443,8 @@ def phase_service(path: ServedPath, exp_path):
     rng = np.random.default_rng(SEED)
     video = rng.uniform(0, 1, (BATCH, 1, path.res, path.res, 3)).astype(np.float32)
     captions = list(path.captions[:BATCH])
-    per_request = {"slot_attention": 1, "vit_attention": path.vit_per_request}
+    per_request = {"slot_attention": 1, "vit_attention": path.vit_per_request,
+                   "conv5": path.conv5_per_request}
 
     unsaturated = []
 
@@ -469,15 +555,182 @@ def phase_profile(path: ServedPath, service, video):
         return [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
                 for e in dev if any(n in e.key for n in names)]
 
-    slot_attention = entries("attend_kernel", "update_kernel")
-    vit_attention = entries("attention_kernel")
     emit({"phase": "profile", "path": path.name, "request_wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
           "device_ops": sum(e.count for e in dev),
-          "slot_attention": slot_attention, "vit_attention": vit_attention,
+          "slot_attention": entries("attend_kernel", "update_kernel"),
+          "vit_attention": entries("attention_kernel"), "conv5": entries("conv5_kernel"),
           "top": [{"name": e.key[:90], "count": e.count,
                    "ms": e.self_device_time_total / 1e3} for e in top]})
+
+
+def write_cater_fixture(root: Path) -> Path:
+    """A CATER ``.npy`` test set: EVAL_VIDEOS videos of 21 uint8 64x64 frames,
+    three coloured squares sliding over a shaded floor with a little noise,
+    and ``easy/test_explicit.json`` with CATER-style captions."""
+    rng = np.random.default_rng(SEED)
+    v, t, r = EVAL_VIDEOS, EVAL_PREDS + 2, CONV5_RES
+    yy, xx = np.meshgrid(np.arange(r), np.arange(r), indexing="ij")
+    frames = np.broadcast_to((0.35 + 0.25 * yy / r)[None, None, :, :, None], (v, t, r, r, 3))
+    steps = np.arange(t)[None, :, None, None]
+    for _ in range(3):
+        color = rng.uniform(0, 1, (v, 1, 1, 1, 3))
+        size = rng.integers(4, 9, (v, 1, 1, 1))
+        cy = rng.uniform(8, 56, (v, 1, 1, 1)) + rng.uniform(-1.5, 1.5, (v, 1, 1, 1)) * steps
+        cx = rng.uniform(8, 56, (v, 1, 1, 1)) + rng.uniform(-1.5, 1.5, (v, 1, 1, 1)) * steps
+        inside = (np.abs(yy - cy) < size) & (np.abs(xx - cx) < size)
+        frames = np.where(inside[..., None], color, frames)
+    frames = frames + 0.02 * rng.standard_normal(frames.shape)
+    videos = np.round(np.clip(frames, 0, 1) * 255).astype(np.uint8)
+    mode = root / "easy"
+    mode.mkdir(parents=True)
+    captions = PATHS[0].captions
+    for i in range(v):
+        np.save(mode / f"video_{i:04d}.npy", videos[i])
+    with open(mode / "test_explicit.json", "w") as f:
+        json.dump({str(i): {"video": f"video_{i:04d}.npy", "caption": captions[i % len(captions)]}
+                   for i in range(v)}, f)
+    return root
+
+
+def phase_eval_parity(exp_path):
+    """The eval step at B=2 on the card and on the CPU: the same weights,
+    initial slots and frames. Off the main path."""
+    from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
+
+    evs = {}
+    for dev in ("cpu", "cuda"):
+        evs[dev] = PredictorEvaluator(exp_path, "textocvp_t5", "random", "random", num_seed=1,
+                                      num_preds=EVAL_PREDS, batch_size=2, device=dev)
+        evs[dev].load_data()
+        evs[dev].load_models()
+    videos, info = next(iter(evs["cpu"].test_loader))
+    init = evs["cpu"].model.slot_initializer(2, torch.Generator().manual_seed(SEED + 5))
+    vals = {dev: {m: v.cpu() for m, v in ev.eval_step(videos, info, initial_slots=init).items()}
+            for dev, ev in evs.items()}
+    # float32 through encode, 19 rollout steps and the decode on two devices,
+    # sums in other orders: PSNR within 1e-3 dB, SSIM and LPIPS within 1e-4
+    tol = {"psnr": 1e-3, "ssim": 1e-4, "lpips": 1e-4}
+    errs = {}
+    for m, limit in tol.items():
+        out, ref = vals["cuda"][m], vals["cpu"][m]
+        check(out.shape == (2, EVAL_PREDS) and bool(torch.isfinite(out).all()),
+              f"eval parity: {m} {tuple(out.shape)} not finite or misshapen")
+        errs[m] = (out - ref).abs().max().item()
+        check(errs[m] <= limit, f"eval parity: framewise {m} card vs CPU {errs[m]} > {limit}")
+    emit({"phase": "eval_parity", "B": 2, "num_preds": EVAL_PREDS, "max_abs_err": errs,
+          "tolerance": tol, "cpu_framewise_mean": {m: v.mean(0).tolist()
+                                                   for m, v in vals["cpu"].items()}})
+
+
+def eval_results_path(exp_path):
+    return (exp_path / "predictors" / "textocvp_t5" / "results"
+            / f"eval_pred_random_NumSeed=1_NumPreds={EVAL_PREDS}" / "results.json")
+
+
+def phase_eval(exp_path):
+    """The 05 CLI at B=64 over EVAL_VIDEOS videos, on the card: the eval
+    path's main path. Returns its kernel launches."""
+    from textocvp_tpu_torch.cli import evaluate_predictor
+
+    reset_launches()  # the main path starts here
+    t = time.perf_counter()
+    rc = evaluate_predictor.main(["-d", str(exp_path), "--name_pred_exp", "textocvp_t5",
+                                  "--decomp_ckpt", "random", "--pred_ckpt", "random",
+                                  "--batch_size", str(EVAL_BATCH), "--num_seed", "1",
+                                  "--num_preds", str(EVAL_PREDS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = launches()  # and ends here
+    batches = EVAL_VIDEOS // EVAL_BATCH
+    check(rc == 0, f"evaluate_predictor returned {rc}")
+    check(counts == {"slot_attention": batches, "vit_attention": 0, "conv5": 3 * batches},
+          f"eval: kernel launches on the main path: {counts}")
+    with open(eval_results_path(exp_path)) as f:
+        results = json.load(f)
+    for m in ("psnr", "ssim", "lpips"):
+        vals = results[m]["framewise"] + [results[m]["mean"]]
+        check(len(results[m]["framewise"]) == EVAL_PREDS and bool(np.isfinite(vals).all()),
+              f"eval results.json: {m} {results[m]}")
+    check(results["lpips"]["comparable"] is False, "lpips.comparable false (random AlexNet)")
+    emit({"phase": "eval", "batch": EVAL_BATCH, "videos": EVAL_VIDEOS, "num_seed": 1,
+          "num_preds": EVAL_PREDS, "cli_seconds": seconds, "launches": counts,
+          "results": results})
+    return counts
+
+
+def phase_eval_step(exp_path):
+    """One more B=64 batch split into its stages with synchronize, the peak
+    memory of the step, and one step under torch.profiler. Off the main path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
+
+    ev = PredictorEvaluator(exp_path, "textocvp_t5", "random", "random", num_seed=1,
+                            num_preds=EVAL_PREDS, batch_size=EVAL_BATCH)
+    ev.load_data()
+    ev.load_models()
+    videos, info = next(iter(ev.test_loader))
+    ev.eval_step(videos, info)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    marks = []
+    mark()
+    v, text = ev.to_device(videos, info)
+    mark()
+    slots = ev.predict_stage(v, text)
+    mark()
+    imgs = ev.decode_stage(slots)
+    mark()
+    vals = ev.metrics_stage(imgs, v)
+    mark()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(all(bool(torch.isfinite(x).all()) for x in vals.values()), "eval step metrics finite")
+    del v, slots, imgs, vals
+    stage_ms = dict(zip(("to_device", "predict", "decode", "metrics"),
+                        (1e3 * (t1 - t0) for t0, t1 in zip(marks[:-1], marks[1:]))))
+    step_ms = 1e3 * (marks[-1] - marks[0])
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        ev.eval_step(videos, info)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    emit({"phase": "eval_step", "batch": EVAL_BATCH, "num_preds": EVAL_PREDS,
+          "step_ms": step_ms, "stage_ms": stage_ms,
+          "pred_frames_per_s": 1e3 * EVAL_BATCH * EVAL_PREDS / step_ms,
+          "peak_mem_gb": peak_gb, "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": 1 - busy_ms / wall_ms, "device_ops": sum(e.count for e in dev),
+          "conv5": [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
+                    for e in dev if "conv5_kernel" in e.key],
+          "top": [{"name": e.key[:90], "count": e.count, "ms": e.self_device_time_total / 1e3}
+                  for e in top]})
+
+
+def run_eval(tmp: Path):
+    """The eval path: fixture and experiment, parity, the main path (the 05
+    CLI), then the stage split and profile. Returns the main path's launches."""
+    params, pred_params = full_width_params(PATHS[0])
+    data_root = write_cater_fixture(tmp / "CATER")
+    for p in (params, pred_params):
+        p["dataset"]["root"] = str(data_root)
+    exp_path = write_experiment(tmp / "eval", params, pred_params)
+    phase_eval_parity(exp_path)
+    counts = phase_eval(exp_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_eval_step(exp_path)
+    return counts
 
 
 def run_path(path: ServedPath, tmp: Path):
@@ -493,7 +746,8 @@ def run_path(path: ServedPath, tmp: Path):
     counts = launches()  # and ends here
     requests = 1 + 3 + 5 + 1 + 1  # warmup, 8 requests, stage split, HTTP
     check(counts == {"slot_attention": requests,
-                     "vit_attention": requests * path.vit_per_request},
+                     "vit_attention": requests * path.vit_per_request,
+                     "conv5": requests * path.conv5_per_request},
           f"{path.name}: kernel launches on the main path: {counts}")
     phase_profile(path, service, video.astype(np.float32))
     del service
@@ -512,10 +766,12 @@ def main() -> int:
     rows = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         counts = {path.name: run_path(path, Path(tmp)) for path in PATHS}
+        counts["eval"] = run_eval(Path(tmp))
 
     sa = next(r for r in rows["slot_attention_cater"] if r["B"] == BATCH and r["iters"] == 3)
     sa_clip = next(r for r in rows["slot_attention_clipport"] if r["iters"] == 3)
     vit8, vit16 = rows["vit_attention"]
+    conv_req, conv_eval = rows["conv5"]
     emit({"kernels": [{
         "name": "slot_attention",
         "route": "cuda",
@@ -546,6 +802,23 @@ def main() -> int:
         "bound_by": vit8["bound_by"],
         "library_ms": vit8["library_ms"],
         "b16": {k: vit16[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+    }, {
+        "name": "conv5",
+        "route": "cuda",
+        "source": "textocvp_tpu_torch/csrc/conv5.cu",
+        "replaces": "bench_pallas_conv.py:85",
+        "launches": sum(c["conv5"] for c in counts.values()),
+        "launches_by_path": {p: c["conv5"] for p, c in counts.items()},
+        "max_abs_err": max(conv_req["max_abs_err"], conv_eval["max_abs_err"]),
+        "ms": conv_eval["ms"],
+        "plain_ms": conv_eval["plain_ms"],
+        "bound_ms": conv_eval["bound_ms"],
+        "bound_by": conv_eval["bound_by"],
+        "library_ms": conv_eval["library_ms"],
+        "library_layout": conv_eval["library_layout"],
+        "shape": [conv_eval["N"], CONV5_RES, CONV5_RES, CONV5_CH],
+        "n1216": {k: conv_req[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "library_layout", "max_abs_err")},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
-"""Tests of the port that need the card: the CUDA slot-attention and ViT
-attention kernels against their plain versions, and the SAVi and
-ExtendedDINOSAUR seed encodes on the card against the CPU. Marked ``gpu``;
+"""Tests of the port that need the card: the CUDA slot-attention, ViT
+attention and decoder-tail conv5 kernels against their plain versions, the
+SAVi and ExtendedDINOSAUR seed encodes and the SAVi decode on the card
+against the CPU. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -9,8 +10,10 @@ every worker collects the same tests).
 Tolerances: 1e-4 absolute for the slot-attention kernel against its plain
 version (float32 on both, sums in other orders; slots are of order 1,
 attention weights lie in [0, 1]); 2e-5 absolute and relative for the ViT
-attention kernel, the JAX package's own flash-vs-XLA tolerance. TF32 is off
-for the plain versions' matmuls.
+attention kernel, the JAX package's own flash-vs-XLA tolerance; 1e-4
+absolute for conv5 against its plain version (float32, 1600-term sums in
+other orders, outputs of order 1). TF32 is off for the plain versions'
+matmuls.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from textocvp_tpu_torch.models.factory import random_init_
+from textocvp_tpu_torch.ops import conv5 as c5
 from textocvp_tpu_torch.ops import slot_attention_kernel as sak
 from textocvp_tpu_torch.ops import vit_attention as va
 from textocvp_tpu_torch.ops.slot_attention import SlotAttention
@@ -176,3 +180,58 @@ def test_dinosaur_seed_encode_on_the_card_matches_the_cpu(cuda):
                                rtol=0, atol=1e-4 * scale)
     np.testing.assert_allclose(out["attn_masks"].cpu().numpy(), ref["attn_masks"].numpy(),
                                rtol=0, atol=1e-4)
+
+
+def _conv5_case(n, h, w, c=64, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = 0.5 * torch.randn((n, h, w, c), generator=gen)
+    wt = torch.randn((5, 5, c, c), generator=gen) / (25 * c) ** 0.5
+    b = 0.1 * torch.randn((c,), generator=gen)
+    return x.cuda(), wt.cuda(), b.cuda()
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 64, 64), (3, 17, 70), (1, 1, 1), (4, 5, 130), (70, 16, 16)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv5_kernel_matches_plain(cuda, n, h, w, relu):
+    x, wt, b = _conv5_case(n, h, w)
+    before = c5.conv5_cuda.launches
+    out = c5.conv5_cuda(x, wt, b, relu)
+    ref = c5.conv5_plain(x, wt, b, relu)
+    torch.cuda.synchronize()
+    assert c5.conv5_cuda.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "channels", "layout", "device", "weight_shape"])
+def test_conv5_kernel_refuses_what_it_does_not_take(cuda, bad):
+    x, wt, b = _conv5_case(2, 8, 8)
+    if bad == "dtype":
+        x = x.double()
+    elif bad == "channels":
+        x, wt, b = _conv5_case(2, 8, 8, c=32)
+    elif bad == "layout":  # an NCHW tensor's NHWC view is not contiguous
+        x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    elif bad == "device":
+        b = b.cpu()
+    else:
+        wt = wt.permute(3, 2, 0, 1).contiguous()
+    before = c5.conv5_cuda.launches
+    with pytest.raises((ValueError, TypeError)):
+        c5.conv5_cuda(x, wt, b)
+    assert c5.conv5_cuda.launches == before
+
+
+def test_savi_decode_on_the_card_matches_the_cpu_with_one_launch_per_tail_conv(cuda):
+    from textocvp_tpu_torch.core.config import build_exp_params
+    from textocvp_tpu_torch.models import setup_model
+
+    p = build_exp_params("SAVi", "CATER_Easy")  # decoder tail 64 -> 64 at 64 x 64
+    model = random_init_(setup_model(p), torch.Generator().manual_seed(8)).eval()
+    slots = torch.randn((3, 8, 128), generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        ref = model.decode(slots)["recons_imgs"]
+        before = c5.conv5_cuda.launches
+        out = model.cuda().decode(slots.cuda())["recons_imgs"]
+        torch.cuda.synchronize()
+    assert c5.conv5_cuda.launches == before + 3
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-4)

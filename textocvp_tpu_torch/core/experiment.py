@@ -1,8 +1,9 @@
 """
-Experiment directory, trimmed to what the service reads:
+Experiment directory, trimmed to what the service and the evaluator use:
 
     <exp>/experiment_params.json       full config
     <exp>/models/<name>.pt             torch state dicts
+    <exp>/results/<run>/results.json   metric outputs
     <exp>/predictors/<pname>/...       nested predictor experiment, same layout
 """
 
@@ -47,3 +48,21 @@ class Experiment:
         """``models/<name>.pt``; ``name`` may carry the suffix already."""
         name = str(name)
         return self.models_dir / (name if name.endswith(".pt") else f"{name}.pt")
+
+    def results_dir(self, run_name: str) -> Path:
+        d = self.exp_path / "results" / run_name
+        d.mkdir(parents=True, exist_ok=True)
+        return d
+
+    def save_results(self, run_name: str, results: dict) -> Path:
+        """Write ``results/<run>/results.json``; keys of an earlier file that
+        ``results`` does not carry are kept."""
+        results_file = self.results_dir(run_name) / "results.json"
+        merged = dict(results)
+        if results_file.exists():
+            with open(results_file) as f:
+                for k, v in json.load(f).items():
+                    merged.setdefault(k, v)
+        with open(results_file, "w") as f:
+            json.dump(merged, f, indent=2)
+        return results_file

@@ -1,0 +1,89 @@
+"""
+CATER easy/hard video-caption dataset of the port, from pre-decoded arrays
+(counterpart of ``textocvp_tpu/data/datasets.py::CATER``, its ``.npy`` /
+``.npz`` route).
+
+``<root>/<easy|hard>/<split>_explicit.json`` maps item indices to
+``{"video": <file>, "caption": <text>}``; each video is a (T, H, W, C) array,
+uint8 or float in [0, 1]. Items are ``(frames, caption)`` with frames
+(num_frames, H, W, C): float32 in [0, 1] (uint8 times ``INV255``), or uint8
+under ``uint8_output``. The clip starts at frame 1, as the JAX package's
+does outside training; the random start of training is not ported.
+
+mp4 containers and frame directories need imageio/ffmpeg or PIL, and a
+resize to ``img_size`` needs PIL: the port does not read them and raises,
+naming the format.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from textocvp_tpu_torch.data.vocabularies import CATER_EASY_VOCAB, CATER_HARD_VOCAB
+from textocvp_tpu_torch.data.wire import INV255, to_uint8_frames
+
+
+def _load_array(path: str):
+    if not path.endswith((".npy", ".npz")):
+        kind = ("frame directories" if os.path.isdir(path)
+                else f"{os.path.splitext(path)[1] or 'extensionless'} files")
+        raise NotImplementedError(
+            f"{path!r}: the port reads CATER videos only as .npy/.npz arrays; {kind} "
+            "need imageio/ffmpeg or PIL (re-export the videos as .npy arrays)")
+    arr = np.load(path, mmap_mode="r" if path.endswith(".npy") else None)
+    if hasattr(arr, "files"):  # npz: its first array
+        arr = arr[arr.files[0]]
+    return arr
+
+
+class CATER:
+    """CATER easy/hard video-caption dataset over ``.npy``/``.npz`` videos."""
+
+    MODES = ["easy", "hard"]
+
+    def __init__(self, root, mode, split, num_frames=16, img_size=(64, 64),
+                 random_start=False, uint8_output: bool = False, **kwargs):
+        if mode not in self.MODES:
+            raise NameError(f"mode={mode!r} unknown. Use one of {self.MODES}")
+        if split not in ["train", "val", "valid", "test", "eval"]:
+            raise ValueError(f"Unknown split={split!r}")
+        split = "test" if split in ("valid", "val", "test", "eval") else split
+        if random_start and split == "train":
+            raise NotImplementedError("random clip starts (training) are not ported")
+        self.root = os.path.join(root, mode)
+        if not os.path.exists(self.root):
+            raise FileNotFoundError(f"{self.root} does not exist")
+        self.mode = mode
+        self.split = split
+        self.num_frames = num_frames
+        self.img_size = tuple(img_size) if not isinstance(img_size, int) else (img_size, img_size)
+        self.uint8_output = uint8_output
+        with open(os.path.join(self.root, f"{split}_explicit.json")) as f:
+            self.annotations = json.load(f)
+
+    def __len__(self) -> int:
+        return len(self.annotations)
+
+    def __getitem__(self, idx: int):
+        ann = self.annotations[str(idx)]
+        arr = _load_array(os.path.join(self.root, ann["video"]))
+        frames = np.asarray(arr[1:1 + self.num_frames])
+        if frames.shape[0] != self.num_frames:
+            raise IndexError(f"{ann['video']}: {self.num_frames} frames from frame 1 "
+                             f"wanted, the video has {arr.shape[0]}")
+        if frames.shape[1:3] != self.img_size:
+            raise NotImplementedError(
+                f"{ann['video']}: frames of {frames.shape[1:3]} would need a resize to "
+                f"{self.img_size}, which needs PIL; the port reads arrays at img_size")
+        if self.uint8_output:
+            return to_uint8_frames(frames), ann["caption"]
+        if frames.dtype == np.uint8:
+            return frames.astype(np.float32) * INV255, ann["caption"]
+        return frames.astype(np.float32), ann["caption"]
+
+    @property
+    def vocabulary(self) -> dict:
+        return CATER_EASY_VOCAB if self.mode == "easy" else CATER_HARD_VOCAB

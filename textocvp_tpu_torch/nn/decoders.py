@@ -1,6 +1,7 @@
 """
 Decoders of the port (counterparts of ``ConvDecoder`` and ``MLPPatchDecoder``
-in the JAX package's ``textocvp_tpu/nn/decoders.py``), NCHW inside.
+in the JAX package's ``textocvp_tpu/nn/decoders.py``). NCHW inside, but
+for the ``ConvDecoder`` tail, which runs NHWC.
 
 ``ConvDecoder``: ``blocks[j]`` is the j-th conv applied; the JAX package
 names it ``ConvBlock_j`` (``hidden_dims`` is walked from its end), so
@@ -16,38 +17,66 @@ import torch.nn.functional as F
 from torch import nn
 
 from textocvp_tpu_torch.nn.blocks import ConvBlock, upsample_bilinear, upsample_nearest
+from textocvp_tpu_torch.ops.conv5 import KERNEL_SIZE, conv5
 
 
 class ConvDecoder(nn.Module):
+    """Spatial-broadcast conv decoder. ``blocks[0]`` and ``final_conv`` run
+    through ``F.conv2d`` (the JAX package computes both outside any Pallas
+    kernel); the tail blocks, 5x5 stride-1 convs with bias and ReLU, run
+    through :func:`ops.conv5.conv5` in NHWC memory: the CUDA kernel on the
+    card, its plain version on the CPU. Their weights are held in HWIO,
+    converted once per weight version and device. Inference only."""
+
     def __init__(self, in_channels: int, hidden_dims: Sequence[int], kernel_size: int = 5,
                  stride: int = 1, out_channels: int = 4):
         super().__init__()
+        if len(hidden_dims) > 1 and (kernel_size != KERNEL_SIZE or stride != 1):
+            raise ValueError(f"the port's ConvDecoder runs its tail through the 5x5 stride-1 "
+                             f"conv kernel; got kernel_size={kernel_size}, stride={stride}")
         chans = [in_channels, *reversed(hidden_dims)]
         self.blocks = nn.ModuleList(
             ConvBlock(a, b, kernel_size, stride) for a, b in zip(chans[:-1], chans[1:]))
         self.final_conv = nn.Conv2d(chans[-1], out_channels, 3, padding=1)
         self.kernel_size = kernel_size
         self.stride = stride
+        self._hwio = (None, None)  # (key, [(w, b), ...]) of the tail blocks
+
+    def _tail_weights(self):
+        """(HWIO weight, bias) of each tail block, detached; converted again
+        only when a parameter changed (load_state_dict) or moved (``to``)."""
+        convs = [block.conv for block in self.blocks[1:]]
+        key = tuple((c.weight.data_ptr(), c.weight._version, c.bias.data_ptr(), c.bias._version)
+                    for c in convs)
+        if self._hwio[0] != key:
+            with torch.no_grad():
+                weights = [(c.weight.detach().permute(2, 3, 1, 0).contiguous(),
+                            c.bias.detach().contiguous()) for c in convs]
+            self._hwio = (key, weights)
+        return self._hwio[1]
 
     def _tail(self, x):
-        """Blocks after the first, then the final 3x3 conv."""
-        for block in self.blocks[1:]:
-            x = block(x)
-        return self.final_conv(x)
+        """NHWC activations after ``blocks[0]`` -> the tail blocks through
+        conv5 -> the final 3x3 conv; NCHW-shaped out (channels_last memory)."""
+        for block, (w, b) in zip(self.blocks[1:], self._tail_weights()):
+            x = conv5(x, w, b, relu=block.activation)
+        return self.final_conv(x.permute(0, 3, 1, 2))
 
     def forward(self, x):
-        return self._tail(self.blocks[0](x))
+        y = self.blocks[0](x.contiguous(memory_format=torch.channels_last))
+        return self._tail(y.permute(0, 2, 3, 1).contiguous())
 
     def decode_broadcast(self, slots, pos_map, fast: bool = True):
-        """``forward(tile(slots) + pos_map)``, NCHW out.
+        """``forward(tile(slots) + pos_map)``, NCHW-shaped out.
 
         slots (N, D); pos_map (H, W, D). By linearity of the first conv,
         ``conv(tile(s) + P) = expand(conv(tile_small(s))) + conv(P) - bias``:
         the conv of the spatially constant part runs on a (4 pad + 1)-wide
         tile whose border rows and columns carry every border pattern, and
         the full map takes the tile's border rows/columns and its centre value
-        everywhere inside. Exact up to float reassociation. ``fast=False`` (or
-        a stride other than 1, or a map smaller than the tile) broadcasts.
+        everywhere inside. Exact up to float reassociation. The expanded map
+        is written NHWC, the tail's layout, with no further copy. ``fast=False``
+        (or a stride other than 1, or a map smaller than the tile) broadcasts.
         """
         h, w, d = pos_map.shape
         n = slots.shape[0]
@@ -59,17 +88,18 @@ class ConvDecoder(nn.Module):
 
         conv1 = self.blocks[0].conv
         tile = slots[:, :, None, None].expand(n, d, small, small)
-        y_small = conv1(tile)  # bias included
-        y_pos = conv1(pos) - conv1.bias[None, :, None, None]
+        y_small = conv1(tile).permute(0, 2, 3, 1).contiguous()  # (N, small, small, C), bias in
+        y_pos = (conv1(pos) - conv1.bias[None, :, None, None]).permute(0, 2, 3, 1)
 
         def idx(full):
             ar = torch.arange(full, device=slots.device)
             return torch.where(ar < pad, ar,
                                torch.where(ar >= full - pad, ar - full + small, 2 * pad))
 
-        expanded = y_small[:, :, idx(h)][:, :, :, idx(w)]
-        y1 = expanded + y_pos
-        x = F.relu(y1) if self.blocks[0].activation else y1
+        x = y_small[:, idx(h)[:, None], idx(w)[None, :]]  # (N, H, W, C)
+        x.add_(y_pos)
+        if self.blocks[0].activation:
+            x.relu_()
         return self._tail(x)
 
 
