@@ -17,7 +17,10 @@ full width with random weights drawn from a seed, and checks them:
 Phases, one JSON line each:
 
 1. device   the card's name and power limit (``nvidia-smi``);
-2. build    compile the three CUDA kernels from ``csrc/``, one ``nvcc`` each, at once;
+2. build    compile the three CUDA kernels from ``csrc/``, one ``nvcc`` each, at
+            once; print each library's ``ptxas -v`` report and its count of
+            tensor-core instructions (``cuobjdump -sass``), which must not be
+            0 for conv5 and the ViT attention;
 3. kernels  slot attention against its plain PyTorch version at the CATER
             shape (N=4096, S=8, MLP 256, B in (8, 64)) and the CLIPort shape
             (N=576, S=10, MLP 512, B=8), 1 and 3 iterations; the ViT attention
@@ -26,7 +29,10 @@ Phases, one JSON line each:
             yardstick; conv5 against its plain version at N=1216 (a CATER
             request) and N=9728 (an eval batch) frames of 64x64x64, with
             ``F.conv2d`` + ReLU (cuDNN, TF32 off) timed as a yardstick. Max abs
-            error, time from CUDA events, the plain version's time, the bound;
+            error, time from CUDA events, the plain version's time, the bound
+            (for conv5 and the ViT attention, which run 3xTF32 products on the
+            tensor cores, the 3xTF32 bound, with the float32 CUDA-core bound
+            beside it as ``bound_ms_fp32_cores``);
 then for each serving path:
 4. parity   the predict stage (seed encode + rollout) on the card and on the
             CPU with the same weights and initial slots, TF32 off, each
@@ -82,6 +88,9 @@ PRED_OUT_SCALE = 0.02
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
+TF32X3_PRODUCTS = 3        # TF32 products per float32-accurate product (csrc/tf32x3.cuh)
+TENSOR_CORE_KERNELS = ("conv5", "vit_attention")
 VIT_HEADS, VIT_TOKENS, VIT_DH = 12, 577, 64  # DINOv2 ViT-B/14 at 336 px
 CONV5_RES, CONV5_CH = 64, 64                 # SAVi decoder tail on CATER
 EVAL_BATCH, EVAL_PREDS, EVAL_VIDEOS = 64, 19, 128
@@ -137,9 +146,16 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bounds_tf32x3(nbytes, flops):
+    """The least time for float32-accurate work as 3xTF32 on the tensor cores,
+    and, third, the float32 CUDA-core bound of the same work."""
+    ms, by = bound(nbytes, TF32X3_PRODUCTS * flops, TF32_FLOP_PER_S)
+    return ms, by, bound(nbytes, flops)[0]
 
 
 def phase_device():
@@ -159,8 +175,17 @@ def phase_build():
     t = time.perf_counter()
     built = build.build_all()
     seconds = time.perf_counter() - t
+    libs = {}
+    for src in build.sources():
+        report = build.ptxas_report(src.stem)
+        tensor_core = build.tensor_core_instructions(src.stem)
+        print(f"{src.stem}: {tensor_core} tensor-core SASS instructions\n{report}", flush=True)
+        libs[src.stem] = {"tensor_core_sass": tensor_core, "ptxas": report.splitlines()}
     emit({"phase": "build", "seconds": seconds, "built": built,
-          "sources": [str(p.relative_to(ROOT)) for p in build.sources()]})
+          "sources": [str(p.relative_to(ROOT)) for p in build.sources()],
+          "headers": [str(p.relative_to(ROOT)) for p in build.headers()], "libraries": libs})
+    for stem in TENSOR_CORE_KERNELS:
+        check(libs[stem]["tensor_core_sass"] > 0, f"{stem}: no tensor-core instruction in its SASS")
 
 
 def slot_attention_bound_ms(b, n, d, s, h, iters):
@@ -173,9 +198,10 @@ def slot_attention_bound_ms(b, n, d, s, h, iters):
     return bound(nbytes, iters * per_iter)
 
 
-def vit_attention_bound_ms(b, h, n, dh):
-    """q, k, v read once and out written once; the two products at the float32 rate."""
-    return bound(4 * 4 * b * h * n * dh, 4 * b * h * n * n * dh)
+def vit_attention_bounds(b, h, n, dh):
+    """q, k, v read once and out written once; the two products as 3xTF32 (and
+    at the float32 CUDA-core rate)."""
+    return bounds_tf32x3(4 * 4 * b * h * n * dh, 4 * b * h * n * n * dh)
 
 
 def slot_attention_rows(n, s, mlp, batches):
@@ -240,19 +266,20 @@ def vit_attention_rows():
         ms = cuda_ms(lambda: va.vit_attention_cuda(q, k, v, scale))
         plain_ms = cuda_ms(lambda: va.vit_attention_plain(q, k, v, scale))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-        bound_ms, bound_by = vit_attention_bound_ms(b, VIT_HEADS, VIT_TOKENS, VIT_DH)
+        bound_ms, bound_by, fp32_ms = vit_attention_bounds(b, VIT_HEADS, VIT_TOKENS, VIT_DH)
         rows.append({"B": b, "h": VIT_HEADS, "n": VIT_TOKENS, "dh": VIT_DH,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_ms_fp32_cores": fp32_ms,
                      "launches": va.vit_attention_cuda.launches - launches})
     return rows
 
 
-def conv5_bound_ms(n, h, w, c):
+def conv5_bounds(n, h, w, c):
     """x read once and out written once, weights and bias read once; the
-    products, bias and ReLU at the float32 rate."""
+    products, bias and ReLU as 3xTF32 (and at the float32 CUDA-core rate)."""
     nbytes = 4 * (2 * n * h * w * c + 25 * c * c + c)
-    return bound(nbytes, 2 * 25 * c * c * n * h * w + 2 * n * h * w * c)
+    return bounds_tf32x3(nbytes, 2 * 25 * c * c * n * h * w + 2 * n * h * w * c)
 
 
 def conv5_rows():
@@ -299,15 +326,15 @@ def conv5_rows():
         plain_ms = cuda_ms(lambda: c5.conv5_plain(x, w, b), reps=max(1, reps // 2), warmup=1)
         del x
         torch.cuda.empty_cache()
-        bound_ms, bound_by = conv5_bound_ms(n, res, res, c)
+        bound_ms, bound_by, fp32_ms = conv5_bounds(n, res, res, c)
         layout = "nchw" if lib_nchw <= lib_cl else "channels_last"
         rows.append({"N": n, "H": res, "W": res, "C": c, "max_abs_err": err,
                      "err_frames": f"first {min(n, 256)} and the last", "ms": ms,
                      "plain_ms": plain_ms, "library_ms": min(lib_nchw, lib_cl),
                      "library_layout": layout,
                      "library_ms_by_layout": {"nchw": lib_nchw, "channels_last": lib_cl},
-                     "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches,
-                     "reps": reps})
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_ms_fp32_cores": fp32_ms, "launches": launches, "reps": reps})
     return rows
 
 
@@ -800,8 +827,10 @@ def main() -> int:
         "plain_ms": vit8["plain_ms"],
         "bound_ms": vit8["bound_ms"],
         "bound_by": vit8["bound_by"],
+        "bound_ms_fp32_cores": vit8["bound_ms_fp32_cores"],
         "library_ms": vit8["library_ms"],
-        "b16": {k: vit16[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "b16": {k: vit16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_ms_fp32_cores",
+                                      "library_ms", "max_abs_err")},
     }, {
         "name": "conv5",
         "route": "cuda",
@@ -814,11 +843,13 @@ def main() -> int:
         "plain_ms": conv_eval["plain_ms"],
         "bound_ms": conv_eval["bound_ms"],
         "bound_by": conv_eval["bound_by"],
+        "bound_ms_fp32_cores": conv_eval["bound_ms_fp32_cores"],
         "library_ms": conv_eval["library_ms"],
         "library_layout": conv_eval["library_layout"],
         "shape": [conv_eval["N"], CONV5_RES, CONV5_RES, CONV5_CH],
         "n1216": {k: conv_req[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                           "library_ms", "library_layout", "max_abs_err")},
+                                           "bound_ms_fp32_cores", "library_ms",
+                                           "library_layout", "max_abs_err")},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,9 @@
 """Tests of the port that need the card: the CUDA slot-attention, ViT
-attention and decoder-tail conv5 kernels against their plain versions, the
-SAVi and ExtendedDINOSAUR seed encodes and the SAVi decode on the card
-against the CPU. Marked ``gpu``;
+attention and decoder-tail conv5 kernels against their plain versions (the
+last two at shapes on and across the edges of their tiles), the tensor-core
+instructions in the built conv5 and ViT-attention libraries, the SAVi and
+ExtendedDINOSAUR seed encodes and the SAVi decode on the card against the
+CPU. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -117,7 +119,8 @@ def _qkv(b, h, n, dh=64, seed=0):
     return [torch.randn((b, h, n, dh), generator=gen).cuda() for _ in range(3)]
 
 
-@pytest.mark.parametrize("b,h,n", [(8, 12, 577), (2, 4, 150), (1, 1, 1), (3, 2, 64)])
+@pytest.mark.parametrize("b,h,n", [(8, 12, 577), (2, 4, 150), (1, 1, 1), (3, 2, 64),
+                                   (2, 3, 63), (2, 3, 65), (1, 2, 128), (1, 2, 129)])
 def test_vit_attention_kernel_matches_plain(cuda, b, h, n):
     q, k, v = _qkv(b, h, n)
     before = va.vit_attention_cuda.launches
@@ -190,7 +193,11 @@ def _conv5_case(n, h, w, c=64, seed=0):
     return x.cuda(), wt.cuda(), b.cuda()
 
 
-@pytest.mark.parametrize("n,h,w", [(2, 64, 64), (3, 17, 70), (1, 1, 1), (4, 5, 130), (70, 16, 16)])
+# the kernel's tile is 16 rows x 64 columns: H and W on, one under and one
+# over its edges
+@pytest.mark.parametrize("n,h,w", [(2, 64, 64), (3, 17, 70), (1, 1, 1), (4, 5, 130), (70, 16, 16),
+                                   (2, 15, 63), (2, 17, 65), (1, 16, 64), (1, 33, 129),
+                                   (3, 31, 127)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_conv5_kernel_matches_plain(cuda, n, h, w, relu):
     x, wt, b = _conv5_case(n, h, w)
@@ -219,6 +226,14 @@ def test_conv5_kernel_refuses_what_it_does_not_take(cuda, bad):
     with pytest.raises((ValueError, TypeError)):
         c5.conv5_cuda(x, wt, b)
     assert c5.conv5_cuda.launches == before
+
+
+@pytest.mark.parametrize("stem", ["conv5", "vit_attention"])
+def test_kernel_runs_on_the_tensor_cores(cuda, stem):
+    from textocvp_tpu_torch.ops import build
+
+    build.load_library(stem)
+    assert build.tensor_core_instructions(stem) > 0, build.ptxas_report(stem)
 
 
 def test_savi_decode_on_the_card_matches_the_cpu_with_one_launch_per_tail_conv(cuda):

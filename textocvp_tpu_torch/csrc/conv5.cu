@@ -9,150 +9,258 @@
 // serves the TPU's lanes only and is not carried over.
 //
 // What bounds it on an H100: operations. A launch does 2 * 25 * 64 * 64 FLOPs
-// per output pixel: at the eval shape (N = 9728 maps of 64 x 64) 8.16 TFLOP,
-// 121.8 ms at 67 TFLOP/s float32, against 20.4 GB of input and output, 6.1 ms
-// at 3.35 TB/s. The port runs float32 with TF32 off, so the products run on
-// the CUDA cores (FFMA), not the tensor cores.
+// per output pixel: at the eval shape (N = 9728 maps of 64 x 64) 8.16 TFLOP
+// on 20.4 GB of input and output (6.1 ms at 3.35 TB/s). The port runs
+// float32 with TF32 off, so the products run as 3xTF32 on the tensor cores
+// (tf32x3.cuh): float32 accuracy at 3 x 8.16 TFLOP / 495 TFLOP/s = 49.5 ms,
+// against 121.8 ms for FFMA on the CUDA cores.
 //
 // Design: an implicit GEMM (M = output pixels, N = 64 output channels,
-// K = 25 * 64 = 1600) with the weights resident in shared memory. All of them
-// (400 KB) do not fit in an SM's 227 KB, and reloading them for every output
-// tile would read some 60 TB out of L2 at the eval shape. So each block owns
-// one half of the output channels (32 of them: 200 KB of weights), loads that
-// half once, and walks a strided sequence of output tiles: one block per SM,
-// even blocks take channels 0..31 and odd blocks 32..63. A tile is 16 rows by
-// 64 columns of one frame. For each chunk of 4 input channels the block stages
-// the tile's input halo (20 x 68 pixels, channel-major) in shared memory; the
-// zero-padded border and the ragged edge of the frame are zeros written by the
-// load, so the inner loop masks nothing. Thread (pixel group, channel group)
-// of a 128 x 4 grid owns 8 consecutive pixels of one row times 8 output
-// channels, 64 float32 accumulators; per input channel and kernel row it
-// reads its 12 halo values once (3 float4) and reuses them across the 5 kernel
-// columns, and each tap's 8 weights as 2 float4 that the lanes of a warp
-// share: 13 shared loads for 320 FMAs. Offsets into the activations are
-// 64-bit: at the eval shape one activation holds 2.55e9 floats, past int32.
-// The grid is the SM count on x, whatever N is (no gridDim.y/z limit).
-// Tensor cores (TF32 or bf16 wgmma) and TMA loads are later work.
+// K = 25 taps x 64 input channels) with the weights resident in shared
+// memory. All of them (400 KB) do not fit in an SM's 227 KB, and reloading
+// them for every output tile would read some 60 TB out of L2 at the eval
+// shape. So each block owns one half of the output channels (32 of them,
+// 200 KB of weights), loads that half once, and walks a strided sequence of
+// output tiles: one block per SM, even blocks take channels 0..31 and odd
+// blocks 32..63, the two halves of a tile side by side so its input is read
+// from HBM about once. A tile is 16 rows by 64 columns of one frame. For each
+// chunk of 4 input channels the block stages the tile's input halo (20 x 68
+// pixels, one plane per channel, planes 1384 floats apart, 8 mod 32 banks)
+// in shared memory; the zero-padded border and the ragged edge of the frame
+// are zeros written by the load, so the inner loop masks nothing. The next
+// chunk's halo is fetched into registers while this one computes (the
+// weights leave no room for a second shared buffer). Warp w owns tile rows
+// 2w and 2w + 1: 8 A fragments of 16 consecutive pixels of one row, times 4
+// B fragments of 8 output channels, 128 float32 accumulators a lane. A k8
+// step takes two taps times the chunk's 4 channels (columns t and t + 4 of a
+// fragment are channel t at taps 2s and 2s + 1): 12 steps for taps 0..23
+// and one m16n8k4 step for tap 24. The weights are stored in fragment order,
+// so a lane reads its (b0, b1) of one step as one 8-byte load; each operand
+// is split into its TF32 parts in registers as it is loaded (three
+// instructions, tf32x3.cuh), and each product is three mma.sync. Offsets
+// into the activations are 64-bit: at the eval shape one activation holds
+// 2.55e9 floats, past int32. The grid is the SM count on x, whatever N is.
 
-#include <cuda_runtime.h>
+#include "tf32x3.cuh"
 
 namespace {
+
+using tf32x3::Frag;
 
 constexpr int C = 64;            // input and output channels
 constexpr int KS = 5;            // kernel size
 constexpr int PAD = KS / 2;
+constexpr int TAPS = KS * KS;
 constexpr int HALF = 32;         // output channels per block
+constexpr int NT = HALF / 8;     // B fragments (n tiles) per k step
 constexpr int TH = 16;           // tile rows
 constexpr int TW = 64;           // tile columns
 constexpr int HR = TH + KS - 1;  // 20 halo rows
-constexpr int HC = TW + KS - 1;  // 68 halo columns (a multiple of 4: rows stay 16-byte aligned)
+constexpr int HC = TW + KS - 1;  // 68 halo columns
+constexpr int PLANE = 1384;      // floats per staged channel plane: >= HR * HC, 8 mod 32
 constexpr int CK = 4;            // input channels per staged chunk
-constexpr int PX = 8;            // pixels per thread
-constexpr int THREADS = 512;     // 128 pixel groups x 4 channel groups
-constexpr int W_FLOATS = KS * KS * C * HALF;  // 51200
-constexpr int HALO_FLOATS = CK * HR * HC;     // 5440
-constexpr int SMEM_BYTES = (W_FLOATS + HALO_FLOATS) * (int)sizeof(float);  // 226560
+constexpr int CHUNKS = C / CK;
+constexpr int PAIRS = TAPS / 2;  // k8 steps of two taps; tap 24 is a k4 step
+constexpr int THREADS = 256;     // 8 warps, 2 tile rows each
+constexpr int MT = 2 * TW / 16;  // A fragments (m tiles) per warp
+constexpr int FETCH = (HR * HC + THREADS - 1) / THREADS;  // float4 per thread per chunk
+constexpr int W_PAIRS = PAIRS * NT * 64;                  // 3072 floats of k8 steps a chunk
+constexpr int W_CHUNK = TAPS * CK * HALF;                 // 3200 floats a chunk
+constexpr int W_FLOATS = CHUNKS * W_CHUNK;                // 51200
+constexpr int SMEM_BYTES = (W_FLOATS + CK * PLANE) * (int)sizeof(float);  // 226944
 
-static_assert(THREADS == (TH * TW / PX) * 4, "one thread per (pixel group, channel group)");
-static_assert(TW / PX == 8 && THREADS / 32 == TH, "a warp owns one tile row");
+static_assert(PLANE >= HR * HC && PLANE % 32 == 8, "conflict-free A fragment loads");
+static_assert(THREADS / 32 * 2 == TH, "a warp owns two tile rows");
+static_assert(TAPS == 2 * PAIRS + 1, "one k4 step after the pairs");
+static_assert(W_PAIRS + NT * 32 == W_CHUNK, "the k4 step stores one float a lane");
+
+// Tap q = (dy, dx) as an offset in a halo plane.
+__device__ __forceinline__ int tap_offset(int q) { return (q / KS) * HC + q % KS; }
+
+// Weights in fragment order, per chunk c, with lane = 4g + t, the lane's
+// input channel 4c + t and output channel 8j + g of the block's half: for
+// k8 step s and n tile j, 64 floats, the lane holding (w[2s], w[2s + 1]);
+// then tap 24: for n tile j, 32 floats, the lane holding w[24].
+__device__ __forceinline__ void load_weights(const float* __restrict__ w, int half, float* ws) {
+  for (int i = threadIdx.x; i < W_FLOATS; i += THREADS) {
+    const int c = i / W_CHUNK, r = i - c * W_CHUNK;
+    int tap, j, lane;
+    if (r < W_PAIRS) {
+      tap = 2 * (r >> 8) + (r & 1);
+      j = (r >> 6) & (NT - 1);
+      lane = (r >> 1) & 31;
+    } else {
+      const int r2 = r - W_PAIRS;
+      tap = TAPS - 1;
+      j = r2 >> 5;
+      lane = r2 & 31;
+    }
+    const int cin = CK * c + (lane & 3), cout = half * HALF + 8 * j + (lane >> 2);
+    ws[i] = __ldg(w + (tap * C + cin) * C + cout);
+  }
+}
+
+struct Tile {
+  const float* xf;  // the frame's first pixel
+  long long frame;
+  int ty0, tx0;
+};
+
+__device__ __forceinline__ Tile tile_at(const float* x, long long t, long long tiles_per_frame,
+                                        int tiles_x, long long frame_floats) {
+  Tile tl;
+  tl.frame = t / tiles_per_frame;
+  const int rem = (int)(t - tl.frame * tiles_per_frame);
+  tl.ty0 = (rem / tiles_x) * TH;
+  tl.tx0 = (rem % tiles_x) * TW;
+  tl.xf = x + tl.frame * frame_floats;
+  return tl;
+}
+
+// The halo of input channels c0..c0 + 3 of a tile, one float4 a pixel, into
+// registers; zeros outside the frame.
+__device__ __forceinline__ void fetch(float4 (&pre)[FETCH], const Tile& tl, int c0, int h,
+                                      int wd) {
+#pragma unroll
+  for (int it = 0; it < FETCH; ++it) {
+    const int i = it * THREADS + threadIdx.x;
+    const int r = i / HC, j = i - r * HC;
+    const int iy = tl.ty0 - PAD + r, ix = tl.tx0 - PAD + j;
+    pre[it] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < HR * HC && iy >= 0 && iy < h && ix >= 0 && ix < wd)
+      pre[it] = __ldg(reinterpret_cast<const float4*>(tl.xf + ((long long)iy * wd + ix) * C + c0));
+  }
+}
+
+__device__ __forceinline__ void put(const float4 (&pre)[FETCH], float* halo) {
+#pragma unroll
+  for (int it = 0; it < FETCH; ++it) {
+    const int i = it * THREADS + threadIdx.x;
+    if (i < HR * HC) {
+      halo[0 * PLANE + i] = pre[it].x;
+      halo[1 * PLANE + i] = pre[it].y;
+      halo[2 * PLANE + i] = pre[it].z;
+      halo[3 * PLANE + i] = pre[it].w;
+    }
+  }
+}
 
 __global__ void __launch_bounds__(THREADS, 1)
 conv5_kernel(const float* __restrict__ x, const float* __restrict__ w,
              const float* __restrict__ bias, float* __restrict__ out,
              long long n, int h, int wd, int relu) {
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // (25 taps, 64 in, 32 out): this block's half
-  float* halo = ws + W_FLOATS;                   // (CK, HR, HC)
+  float* ws = reinterpret_cast<float*>(smem4);  // this block's half, fragment order
+  float* halo = ws + W_FLOATS;                   // (CK, PLANE): the chunk's halo
 
   const int half = blockIdx.x & 1;
-  for (int i = threadIdx.x; i < W_FLOATS / 4; i += THREADS) {
-    const int row = i >> 3, q = i & 7;  // row = tap * 64 + input channel; 8 float4 a row
-    reinterpret_cast<float4*>(ws)[i] =
-        __ldg(reinterpret_cast<const float4*>(w + (size_t)row * C + half * HALF) + q);
-  }
+  load_weights(w, half, ws);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane & 3;              // local output channels 4g..4g+3 and 16+4g..16+4g+3
-  const int py = warp;                 // tile row
-  const int px0 = (lane >> 2) * PX;    // first tile column
-  const int co = half * HALF + 4 * g;  // global output channel of the first float4
-  const float4 b0 = __ldg(reinterpret_cast<const float4*>(bias + co));
-  const float4 b1 = __ldg(reinterpret_cast<const float4*>(bias + co + 16));
-  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  const int g = lane >> 2, t = lane & 3;
+  float bv[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias + half * HALF + 8 * j + 2 * t));
+    bv[j][0] = b2.x;
+    bv[j][1] = b2.y;
+  }
+  // this lane's A elements: channel t, halo row 2 * warp + (m tile's row) +
+  // dy, column 16 * (m tile's column block) + g (+ 8) + dx
+  const float* hl = halo + t * PLANE + 2 * warp * HC + g;
 
   const int tiles_x = (wd + TW - 1) / TW;
   const long long tiles_per_frame = (long long)((h + TH - 1) / TH) * tiles_x;
   const long long ntiles = n * tiles_per_frame;
   const long long frame_floats = (long long)h * wd * C;
+  const long long stride = gridDim.x >> 1;
 
-  for (long long t = blockIdx.x >> 1; t < ntiles; t += gridDim.x >> 1) {
-    const long long frame = t / tiles_per_frame;
-    const int rem = (int)(t - frame * tiles_per_frame);
-    const int ty0 = (rem / tiles_x) * TH, tx0 = (rem % tiles_x) * TW;
-    const float* xf = x + frame * frame_floats;
+  long long tile = blockIdx.x >> 1;
+  if (tile >= ntiles) return;
+  Tile tl = tile_at(x, tile, tiles_per_frame, tiles_x, frame_floats);
+  float4 pre[FETCH];
+  fetch(pre, tl, 0, h, wd);
 
-    float acc[PX][8];
+  for (; tile < ntiles; tile += stride) {
+    const Tile cur = tl;
+    float acc[MT][NT][4];
 #pragma unroll
-    for (int j = 0; j < PX; ++j)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int k = 0; k < 8; ++k) acc[j][k] = 0.f;
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
 
 #pragma unroll 1
-    for (int c0 = 0; c0 < C; c0 += CK) {
+    for (int c = 0; c < CHUNKS; ++c) {
       __syncthreads();  // the weights are in; the previous chunk's halo is read
-      for (int i = threadIdx.x; i < HR * HC; i += THREADS) {
-        const int r = i / HC, j = i - r * HC;
-        const int iy = ty0 - PAD + r, ix = tx0 - PAD + j;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (iy >= 0 && iy < h && ix >= 0 && ix < wd)
-          v = __ldg(reinterpret_cast<const float4*>(xf + ((long long)iy * wd + ix) * C + c0));
-        halo[0 * HR * HC + i] = v.x;
-        halo[1 * HR * HC + i] = v.y;
-        halo[2 * HR * HC + i] = v.z;
-        halo[3 * HR * HC + i] = v.w;
-      }
+      put(pre, halo);
       __syncthreads();
+      if (c + 1 < CHUNKS) {
+        fetch(pre, cur, CK * (c + 1), h, wd);
+      } else if (tile + stride < ntiles) {
+        tl = tile_at(x, tile + stride, tiles_per_frame, tiles_x, frame_floats);
+        fetch(pre, tl, 0, h, wd);
+      }
 
+      const float* wc = ws + c * W_CHUNK;
 #pragma unroll 1
-      for (int dy = 0; dy < KS; ++dy) {
+      for (int s = 0; s < PAIRS; ++s) {
+        const int off0 = tap_offset(2 * s), off1 = tap_offset(2 * s + 1);
+        Frag<2> bf[NT];
 #pragma unroll
-        for (int c = 0; c < CK; ++c) {
-          const float4* hp =
-              reinterpret_cast<const float4*>(halo + (c * HR + py + dy) * HC + px0);
-          const float4 a0 = hp[0], a1 = hp[1], a2 = hp[2];
-          const float xv[12] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y,
-                                a1.z, a1.w, a2.x, a2.y, a2.z, a2.w};
-          const float* wrow = ws + (dy * KS * C + c0 + c) * HALF;
+        for (int j = 0; j < NT; ++j) {
+          const float2 b2 = *reinterpret_cast<const float2*>(wc + (s * NT + j) * 64 + 2 * lane);
+          const float b[2] = {b2.x, b2.y};
+          bf[j] = tf32x3::split(b);
+        }
 #pragma unroll
-          for (int dx = 0; dx < KS; ++dx) {
-            const float4* wp = reinterpret_cast<const float4*>(wrow + dx * C * HALF);
-            const float4 w0 = wp[g], w1 = wp[4 + g];
-            const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* p = hl + (mt / 4) * HC + 16 * (mt % 4);
+          const float a[4] = {p[off0], p[off0 + 8], p[off1], p[off1 + 8]};
+          const Frag<4> af = tf32x3::split(a);
 #pragma unroll
-            for (int j = 0; j < PX; ++j)
+          for (int j = 0; j < NT; ++j) tf32x3::mma3_k8(acc[mt][j], af, bf[j]);
+        }
+      }
+      {  // tap 24 = (4, 4): a k4 step, columns t only
+        const int off = tap_offset(TAPS - 1);
+        Frag<1> bf[NT];
 #pragma unroll
-              for (int k = 0; k < 8; ++k) acc[j][k] = fmaf(xv[j + dx], wv[k], acc[j][k]);
-          }
+        for (int j = 0; j < NT; ++j) {
+          const float b[1] = {wc[W_PAIRS + j * 32 + lane]};
+          bf[j] = tf32x3::split(b);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* p = hl + (mt / 4) * HC + 16 * (mt % 4);
+          const float a[2] = {p[off], p[off + 8]};
+          const Frag<2> af = tf32x3::split(a);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) tf32x3::mma3_k4(acc[mt][j], af, bf[j]);
         }
       }
     }
 
-    const int oy = ty0 + py;
-    if (oy < h) {
-      float* orow = out + frame * frame_floats + (long long)oy * wd * C;
+    // epilogue: rows g and g + 8 of an m tile are columns 16 * (mt % 4) + g (+ 8)
 #pragma unroll
-      for (int j = 0; j < PX; ++j) {
-        const int ox = tx0 + px0 + j;
-        if (ox < wd) {
-          float v[8];
+    for (int mt = 0; mt < MT; ++mt) {
+      const int oy = cur.ty0 + 2 * warp + mt / 4;
+      if (oy >= h) continue;
 #pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            v[k] = acc[j][k] + bv[k];
-            if (relu) v[k] = fmaxf(v[k], 0.f);
+      for (int e = 0; e < 2; ++e) {
+        const int ox = cur.tx0 + 16 * (mt % 4) + g + 8 * e;
+        if (ox >= wd) continue;
+        float* op = out + cur.frame * frame_floats + ((long long)oy * wd + ox) * C + half * HALF +
+                    2 * t;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          float v0 = acc[mt][j][2 * e] + bv[j][0], v1 = acc[mt][j][2 * e + 1] + bv[j][1];
+          if (relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
           }
-          float4* op = reinterpret_cast<float4*>(orow + (long long)ox * C + co);
-          op[0] = make_float4(v[0], v[1], v[2], v[3]);
-          op[4] = make_float4(v[4], v[5], v[6], v[7]);  // channel co + 16
+          *reinterpret_cast<float2*>(op + 8 * j) = make_float2(v0, v1);
         }
       }
     }

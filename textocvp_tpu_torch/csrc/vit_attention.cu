@@ -9,52 +9,77 @@
 //
 // What bounds it on an H100: operations. At the CLIPort shape (8 frames x 12
 // heads, n = 577 tokens, dh = 64) one call does 4 * 96 * 577^2 * 64 = 8.2
-// GFLOP on 57 MB of q, k, v and out: 0.12 ms at 67 TFLOP/s float32 against
-// 0.017 ms at 3.35 TB/s. The service runs float32 with TF32 off, so the
-// products run on the CUDA cores (FFMA), not the tensor cores.
+// GFLOP on 57 MB of q, k, v and out. The service runs float32 with TF32 off,
+// so both products run as 3xTF32 on the tensor cores (tf32x3.cuh): float32
+// accuracy at 3 x 8.2 GFLOP / 495 TFLOP/s = 0.050 ms, against 0.017 ms for
+// the bytes at 3.35 TB/s and 0.12 ms for FFMA on the CUDA cores.
 //
-// Design: one block of 256 threads per (frame * head, 64-query tile), 10
-// tiles at n = 577. The block keeps its Q tile in shared memory and streams
-// K and V in tiles of 64 tokens, with an online softmax (running max and sum
-// in float32), so the (n, n) scores never leave the SM. Thread (ty, tx) of a
-// 16 x 16 grid owns a 4 x 4 patch: query rows 4ty..4ty+3 against keys
-// 4tx..4tx+3 for the scores, and the same rows against output columns
-// 4tx..4tx+3 for the accumulator, so a row's rescale factor is in the
-// thread's own registers and a row's max and sum reduce over the 16 lanes of
-// one half-warp. Q and K are stored transposed (dh-major, row stride 68) and
-// the probabilities P transposed too, so every inner-loop read is one float4
-// per operand: 2 shared loads for 16 FMAs. Tokens past n read as zeros and
-// their scores as -inf. expf, not __expf, keeps the result within 2e-5 of
-// the plain version. About 68 KB of dynamic shared memory: 3 blocks per SM.
-// Tensor cores (TF32 or bf16 wgmma) are later work.
+// Design: one block of 4 warps per (frame * head, 64-query tile), 10 tiles
+// at n = 577; each warp owns 16 query rows. A warp loads its Q rows once,
+// splits them into big and small TF32 fragments and keeps them in registers
+// for the whole key loop. K and V stream through shared memory in tiles of
+// 64 tokens, double-buffered with 16-byte cp.async copies (zero-filled past
+// n), so the next tile loads while this one computes. Per tile, S = Q K^T
+// (16 x 64 a warp) and P V run as m16n8k8 TF32 products, three per
+// fragment pair, with an online softmax (running max and sum in float32,
+// expf) in between, so the (n, n) scores never leave the SM. A tile's P V
+// sums into fresh registers and joins O as O * alpha + P V in one rounded
+// FFMA: the tensor cores' float32 accumulation drifts (tf32x3.cuh), and over
+// 24 products a tile, not 240 a row, it stays near the plain version's
+// float32 result. The C fragment of S feeds the A fragment of P V without a
+// shuffle: within an 8-key step the lane holding keys 2t, 2t+1 takes them as
+// the product's columns t and t + 4, and V's B fragment reads the same keys
+// (rows 2t and 2t + 1). K and V rows are stored with a stride of 68 floats
+// (4 mod 32 banks), so both fragment loads hit 32 distinct banks. Keys past
+// n score -inf. About 68 KB of dynamic shared memory. wgmma (a 64-row warpgroup product from shared
+// memory) would need K and V transposed and pre-split in shared memory;
+// mma.sync keeps the split in registers and is later work to replace.
 
-#include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
+using tf32x3::Frag;
+
 constexpr int DH = 64;        // head width the kernel takes
 constexpr int TILE = 64;      // queries per block, keys per step
-constexpr int THREADS = 256;  // a 16 x 16 grid of 4 x 4 patches
-constexpr int LD = TILE + 4;  // row stride of the transposed tiles (floats)
-constexpr int SMEM_FLOATS = 3 * DH * LD + TILE * DH;
+constexpr int WARPS = TILE / 16;
+constexpr int THREADS = 32 * WARPS;
+constexpr int LD = DH + 4;    // row stride of a staged K or V tile (floats)
+constexpr int STAGE_FLOATS = 2 * TILE * LD;  // K, then V, of one key tile
+constexpr int SMEM_BYTES = 2 * STAGE_FLOATS * (int)sizeof(float);
 
-// Copy rows [row0, row0 + TILE) of a (n, DH) slab into dst[d * LD + row],
-// zero past n. A pair of lanes reads 32 contiguous bytes of one row; the two
-// halves of a warp write rows 16 banks apart, so the stores do not conflict.
-__device__ __forceinline__ void load_transposed(const float* __restrict__ src, int row0,
-                                                int n, float* dst) {
+// 16-byte global -> shared copy that bypasses registers; `bytes` = 0 fills
+// the 16 bytes with zeros (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
+}
+
+// cp.async rows [row0, row0 + TILE) of k and v into a stage; zeros past n.
+__device__ __forceinline__ void stage_kv(const float* __restrict__ k,
+                                         const float* __restrict__ v, int row0, int n,
+                                         float* dst) {
 #pragma unroll
   for (int it = 0; it < TILE * DH / 4 / THREADS; ++it) {
     const int idx = it * THREADS + threadIdx.x;
-    const int half = idx & 1, row = (idx >> 1) & (TILE - 1), d0 = (idx >> 7) * 8 + half * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + row < n)
-      x = __ldg(reinterpret_cast<const float4*>(src + (size_t)(row0 + row) * DH + d0));
-    dst[(d0 + 0) * LD + row] = x.x;
-    dst[(d0 + 1) * LD + row] = x.y;
-    dst[(d0 + 2) * LD + row] = x.z;
-    dst[(d0 + 3) * LD + row] = x.w;
+    const int row = idx >> 4, c4 = (idx & 15) * 4;
+    const bool in = row0 + row < n;
+    const size_t off = in ? (size_t)(row0 + row) * DH + c4 : 0;
+    cp_async16(dst + row * LD + c4, k + off, in ? 16 : 0);
+    cp_async16(dst + TILE * LD + row * LD + c4, v + off, in ? 16 : 0);
   }
 }
 
@@ -62,110 +87,127 @@ __global__ void __launch_bounds__(THREADS)
 attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int n, float scale) {
   extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // (DH, LD): q^T of the block's queries
-  float* kt = qt + DH * LD;                      // (DH, LD): k^T of one key tile
-  float* pt = kt + DH * LD;                      // (TILE, LD): p^T, key-major
-  float* vs = pt + TILE * LD;                    // (TILE, DH): v of one key tile
+  float* stages = reinterpret_cast<float*>(smem4);
 
-  const int q0 = blockIdx.x * TILE;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const size_t base = (size_t)blockIdx.y * n * DH;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* kb = k + base;
+  const float* vb = v + base;
+  const int ntiles = (n + TILE - 1) / TILE;
 
-  load_transposed(q + base, q0, n, qt);
+  stage_kv(kb, vb, 0, n, stages);
+  cp_async_commit();
 
-  float acc[4][4], m[4], l[4];
+  // this lane's query rows r0 and r0 + 8, as A fragments over dh
+  const int r0 = blockIdx.x * TILE + warp * 16 + g;
+  const float* q0 = q + base + (size_t)r0 * DH;
+  Frag<4> qf[DH / 8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -CUDART_INF_F;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  for (int ks = 0; ks < DH / 8; ++ks) {
+    const float a[4] = {r0 < n ? __ldg(q0 + 8 * ks + t) : 0.f,
+                        r0 + 8 < n ? __ldg(q0 + 8 * DH + 8 * ks + t) : 0.f,
+                        r0 < n ? __ldg(q0 + 8 * ks + t + 4) : 0.f,
+                        r0 + 8 < n ? __ldg(q0 + 8 * DH + 8 * ks + t + 4) : 0.f};
+    qf[ks] = tf32x3::split(a);
   }
 
-  for (int k0 = 0; k0 < n; k0 += TILE) {
-    load_transposed(k + base, k0, n, kt);
+  // o[j]: rows r0, r0 + 8 x columns 8j + 2t, 8j + 2t + 1; m, l: running max
+  // and this lane's share of the running sum of rows r0 and r0 + 8
+  float o[DH / 8][4], m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int it = 0; it < TILE * DH / 4 / THREADS; ++it) {
-      const int idx = it * THREADS + threadIdx.x;
-      const int row = idx >> 4, e0 = (idx & 15) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + row < n)
-        x = __ldg(reinterpret_cast<const float4*>(v + base + (size_t)(k0 + row) * DH + e0));
-      reinterpret_cast<float4*>(vs + row * DH)[e0 / 4] = x;
-    }
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    if (kt + 1 < ntiles) stage_kv(kb, vb, (kt + 1) * TILE, n, stages + ((kt + 1) & 1) * STAGE_FLOATS);
+    cp_async_commit();  // empty at the last tile: the wait below stays uniform
+    cp_async_wait<1>();
     __syncthreads();
+    const float* ks_tile = stages + (kt & 1) * STAGE_FLOATS;
+    const float* vs_tile = ks_tile + TILE * LD;
 
-    // scores of rows 4ty+r against keys 4tx+c
-    float s[4][4];
+    // s[j]: rows r0, r0 + 8 x keys 8j + 2t, 8j + 2t + 1 of this tile
+    float s[TILE / 8][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int j = 0; j < TILE / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float4 a = reinterpret_cast<const float4*>(qt + d * LD)[ty];
-      const float4 b = reinterpret_cast<const float4*>(kt + d * LD)[tx];
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int ks = 0; ks < DH / 8; ++ks) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(av[r], bv[c], s[r][c]);
+      for (int j = 0; j < TILE / 8; ++j) {
+        const float* kp = ks_tile + (8 * j + g) * LD + 8 * ks + t;
+        const float b[2] = {kp[0], kp[4]};
+        tf32x3::mma3_k8(s[j], qf[ks], tf32x3::split(b));
+      }
     }
 
-    // online softmax over this tile's keys; the 16 lanes of a half-warp
-    // share rows 4ty..4ty+3
+    // online softmax over this tile's keys; the 4 lanes of a group share rows
+    const int k0 = kt * TILE;
+    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float mt = -CUDART_INF_F;
+    for (int j = 0; j < TILE / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = (k0 + 4 * tx + c < n) ? s[r][c] * scale : -CUDART_INF_F;
-        mt = fmaxf(mt, s[r][c]);
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = (k0 + 8 * j + 2 * t + (e & 1) < n) ? s[j][e] * scale : -CUDART_INF_F;
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
       }
+    float alpha[2];
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
-      const float m_new = fmaxf(m[r], mt);  // finite: every tile holds a key < n
-      const float alpha = expf(m[r] - m_new);
-      float lt = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = expf(s[r][c] - m_new);
-        lt += s[r][c];
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, o);
-      l[r] = l[r] * alpha + lt;
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      const float m_new = fmaxf(m[r], mt[r]);  // finite: every tile holds a key < n
+      alpha[r] = expf(m[r] - m_new);
       m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] *= alpha;
+      l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      reinterpret_cast<float4*>(pt + (4 * tx + c) * LD)[ty] =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-    __syncthreads();
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
 
-    // acc[rows 4ty+r][cols 4tx+c] += p v
-#pragma unroll 8
-    for (int j = 0; j < TILE; ++j) {
-      const float4 a = reinterpret_cast<const float4*>(pt + j * LD)[ty];
-      const float4 b = reinterpret_cast<const float4*>(vs + j * DH)[tx];
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+    // pv = p v: key step kk's columns t, t + 4 are keys 8kk + 2t, 8kk + 2t + 1
+    float pv[DH / 8][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+      for (int e = 0; e < 4; ++e) pv[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < TILE / 8; ++kk) {
+      const float a[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+      const Frag<4> pf = tf32x3::split(a);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        const float* vp = vs_tile + (8 * kk + 2 * t) * LD + 8 * j + g;
+        const float b[2] = {vp[0], vp[LD]};
+        tf32x3::mma3_k8(pv[j], pf, tf32x3::split(b));
+      }
     }
-    __syncthreads();  // kt, pt and vs are overwritten by the next tile
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = fmaf(o[j][e], alpha[e >> 1], pv[j][e]);
+    __syncthreads();  // this stage is refilled by the next iteration's copy
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + 4 * ty + r;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + 8 * r;
     if (row < n) {
       const float inv = 1.f / l[r];
-      reinterpret_cast<float4*>(out + base + (size_t)row * DH)[tx] =
-          make_float4(acc[r][0] * inv, acc[r][1] * inv, acc[r][2] * inv, acc[r][3] * inv);
+      float* orow = out + base + (size_t)row * DH + 2 * t;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j) =
+            make_float2(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
     }
   }
 }
@@ -181,13 +223,12 @@ int va_head_dim() { return DH; }
 int va_forward(const float* q, const float* k, const float* v, float* out, int bh, int n,
                float scale, void* stream) {
   if (bh < 1 || n < 1 || bh > 65535) return cudaErrorInvalidValue;
-  const int smem = SMEM_FLOATS * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + TILE - 1) / TILE, bh);
-  attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(q, k, v, out,
-                                                                             n, scale);
+  attention_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, out, n, scale);
   return cudaGetLastError();
 }
 

@@ -3,11 +3,16 @@ Build of the port's CUDA kernels.
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library of its own with a plain C interface, bound through ``ctypes`` by the
-module that launches it. All sources are built together, one ``nvcc`` each,
-started at once, at the first load of any of them. The libraries land in
-``textocvp_tpu_torch/_build/`` under a name keyed by a hash of every source
-and of the compiler flags, so an edit to any source rebuilds them all and a
-stale library is never loaded. Importing this module builds nothing.
+module that launches it; ``csrc/*.cuh`` are headers the sources include
+(``-I csrc``). All sources are built together, one ``nvcc`` each, started at
+once, at the first load of any of them. The libraries land in
+``textocvp_tpu_torch/_build/`` under a name keyed by a hash of every source,
+every header and the compiler flags, so an edit to any of them rebuilds them
+all and a stale library is never loaded. Beside each library ``nvcc`` leaves
+its ``-Xptxas -v`` report (registers, shared memory, spills of each kernel),
+read by :func:`ptxas_report`; :func:`tensor_core_instructions` counts the
+tensor-core instructions in a built library's machine code. Importing this
+module builds nothing.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,23 +30,31 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# SASS of the tensor cores: mma.sync (HMMA) and warpgroup wgmma (HGMMA)
+_TENSOR_CORE_SASS = re.compile(r"\b(HMMA|HGMMA)\b")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
 def sources() -> list[Path]:
+    """The sources compiled, one library each."""
     return sorted(CSRC.glob("*.cu"))
 
 
-def _nvcc() -> str:
+def headers() -> list[Path]:
+    """The headers the sources include."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def _cuda_tool(name: str) -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").is_file():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
+        if cand and (Path(cand) / "bin" / name).is_file():
+            return str(Path(cand) / "bin" / name)
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA kernels are "
+        raise RuntimeError(f"{name} not found (set CUDA_HOME): the port's CUDA kernels are "
                            "built from source at first use")
     return found
 
@@ -48,7 +62,7 @@ def _nvcc() -> str:
 def library_paths() -> dict[str, Path]:
     """{source stem: the shared library built from it at this version}."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     digest = h.hexdigest()[:12]
@@ -63,11 +77,11 @@ def build_all(timeout: float = 900) -> list[str]:
     if not todo:
         return []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = _cuda_tool("nvcc")
     procs = {}
     for stem, so in todo.items():
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{stem}.cu")]
         procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                         text=True), tmp, so)
     errors = []
@@ -82,6 +96,7 @@ def build_all(timeout: float = 900) -> list[str]:
         if proc.returncode != 0:
             errors.append(f"nvcc on {stem}.cu failed ({proc.returncode}):\n{err}")
         else:
+            so.with_suffix(".ptxas.txt").write_text(err)
             os.replace(tmp, so)
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -95,3 +110,17 @@ def load_library(stem: str) -> ctypes.CDLL:
             build_all()
             _libs[stem] = ctypes.CDLL(str(library_paths()[stem]))
         return _libs[stem]
+
+
+def ptxas_report(stem: str) -> str:
+    """``ptxas -v``'s lines for the built library of ``csrc/<stem>.cu``."""
+    path = library_paths()[stem].with_suffix(".ptxas.txt")
+    return "\n".join(line for line in path.read_text().splitlines() if "ptxas" in line)
+
+
+def tensor_core_instructions(stem: str) -> int:
+    """How many tensor-core instructions (``HMMA``, ``HGMMA``) ``cuobjdump -sass``
+    shows in the built library of ``csrc/<stem>.cu``."""
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(library_paths()[stem])],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    return len(_TENSOR_CORE_SASS.findall(sass))
