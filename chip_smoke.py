@@ -23,7 +23,11 @@ Phases, one JSON line each:
             0 for conv5 and the ViT attention;
 3. kernels  slot attention against its plain PyTorch version at the CATER
             shape (N=4096, S=8, MLP 256, B in (8, 64)) and the CLIPort shape
-            (N=576, S=10, MLP 512, B=8), 1 and 3 iterations; the ViT attention
+            (N=576, S=10, MLP 512, B=8), 1 and 3 iterations, each call's
+            device kernels counted under ``torch.profiler`` (one cluster
+            launch, ``slot_attention_cluster_kernel``) and timed with the card
+            held busy while the host enqueues (the kernel's own time, not
+            the wrapper's host time per call); the ViT attention
             against its plain version at (B, h, n, dh) = (8, 12, 577, 64) and
             (16, 12, 577, 64), with ``F.scaled_dot_product_attention`` timed as a
             yardstick; conv5 against its plain version at N=1216 (a CATER
@@ -46,7 +50,8 @@ then for each serving path:
 6. http     ``/healthz``, one ``/predict`` and ``/stats`` on 127.0.0.1;
 7. profile  one more request under ``torch.profiler``: device busy time
             against wall time, the kernels that take the most time, and the
-            port's kernels' own launches and time inside the request.
+            port's kernels' own launches and time inside the request, with
+            exactly one slot-attention device kernel.
 
 then the eval path:
 8. eval_parity  the eval step at B=2 on the card and on the CPU, the same
@@ -56,7 +61,8 @@ then the eval path:
             128 videos (two batches): finite means, 19 framewise values a
             metric, 1 slot-attention call and 3 conv5 launches a batch;
 10. eval_step one more B=64 batch split into its stages (predict, decode,
-            metrics) with the peak memory, and one step under ``torch.profiler``.
+            metrics) with the peak memory, and one step under ``torch.profiler``
+            with exactly one slot-attention device kernel.
 
 Phases 5 and 6 are a serving path's main path, and phase 9 the eval path's:
 every kernel's launch counter is set to 0 before it and read after. Then one
@@ -133,10 +139,18 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def cuda_ms(fn, reps=20, warmup=3):
+HOLD_CYCLES = 50_000_000  # about 25 ms of the card's clock
+
+
+def cuda_ms(fn, reps=20, warmup=3, hold=False):
+    """Mean ms a call from CUDA events around ``reps`` calls after warm-up.
+    With ``hold`` the card first spins for HOLD_CYCLES while the host enqueues
+    the calls, so the host's time per call does not show in a short kernel's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -204,6 +218,23 @@ def vit_attention_bounds(b, h, n, dh):
     return bounds_tf32x3(4 * 4 * b * h * n * dh, 4 * b * h * n * n * dh)
 
 
+SLOT_ATTENTION_KERNEL = "slot_attention_cluster_kernel"  # csrc/slot_attention.cu
+
+
+def device_kernels(fn):
+    """{name: (count, ms)} of the device kernels that one call of ``fn`` runs,
+    from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
 def slot_attention_rows(n, s, mlp, batches):
     from textocvp_tpu_torch.models.factory import random_init_
     from textocvp_tpu_torch.ops import slot_attention_kernel as sak
@@ -232,14 +263,28 @@ def slot_attention_rows(n, s, mlp, batches):
             check(err_slots <= 1e-4 and err_attn <= 1e-4,
                   f"slot attention vs plain at N={n} S={s} B={b} iters={iters}: "
                   f"slots {err_slots}, attn {err_attn}")
-            ms = cuda_ms(lambda: sak.slot_attention_cuda(k, v, slots, params, iters, scale))
+            kernels = device_kernels(
+                lambda: sak.slot_attention_cuda(k, v, slots, params, iters, scale))
+            ours = [c for name, c in kernels.items() if SLOT_ATTENTION_KERNEL in name]
+            device_launches = sum(count for count, _ in ours)
+            check(device_launches == 1,
+                  f"slot attention at B={b} N={n} iters={iters}: device kernels {kernels}")
+            # the card held while the host enqueues: a short kernel's own time,
+            # not the wrapper's host time per call
+            ms = cuda_ms(lambda: sak.slot_attention_cuda(k, v, slots, params, iters, scale),
+                         hold=True)
             plain_ms = cuda_ms(lambda: sak.slot_attention_plain(k, v, slots, params, iters, scale))
             bound_ms, bound_by = slot_attention_bound_ms(b, n, d, s, mlp, iters)
             rows.append({"B": b, "N": n, "S": s, "mlp": mlp, "iters": iters,
                          "max_abs_err_slots": err_slots, "max_abs_err_attn": err_attn,
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
-                         "launches": sak.slot_attention_cuda.launches - launches})
+                         "launches": sak.slot_attention_cuda.launches - launches,
+                         "device_launches": device_launches,
+                         "device_kernels_per_call": sum(c for c, _ in kernels.values()),
+                         "profiled_device_ms": sum(t for _, t in ours),
+                         "cluster_size": sak.load_library().sa_cluster_size(),
+                         "active_clusters": sak.load_library().sa_active_clusters(s, mlp)})
     return rows
 
 
@@ -582,14 +627,18 @@ def phase_profile(path: ServedPath, service, video):
         return [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
                 for e in dev if any(n in e.key for n in names)]
 
+    slot_attention = entries(SLOT_ATTENTION_KERNEL)
     emit({"phase": "profile", "path": path.name, "request_wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
           "device_ops": sum(e.count for e in dev),
-          "slot_attention": entries("attend_kernel", "update_kernel"),
+          "slot_attention": slot_attention,
           "vit_attention": entries("attention_kernel"), "conv5": entries("conv5_kernel"),
           "top": [{"name": e.key[:90], "count": e.count,
                    "ms": e.self_device_time_total / 1e3} for e in top]})
+    # one slot-attention call a request, one device kernel a call
+    check(sum(e["count"] for e in slot_attention) == 1,
+          f"{path.name}: slot-attention device kernels in a request: {slot_attention}")
 
 
 def write_cater_fixture(root: Path) -> Path:
@@ -733,15 +782,21 @@ def phase_eval_step(exp_path):
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    slot_attention = [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
+                      for e in dev if SLOT_ATTENTION_KERNEL in e.key]
     emit({"phase": "eval_step", "batch": EVAL_BATCH, "num_preds": EVAL_PREDS,
           "step_ms": step_ms, "stage_ms": stage_ms,
           "pred_frames_per_s": 1e3 * EVAL_BATCH * EVAL_PREDS / step_ms,
           "peak_mem_gb": peak_gb, "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "device_idle_share": 1 - busy_ms / wall_ms, "device_ops": sum(e.count for e in dev),
+          "slot_attention": slot_attention,
           "conv5": [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
                     for e in dev if "conv5_kernel" in e.key],
           "top": [{"name": e.key[:90], "count": e.count, "ms": e.self_device_time_total / 1e3}
                   for e in top]})
+    # one slot-attention call a batch, one device kernel a call
+    check(sum(e["count"] for e in slot_attention) == 1,
+          f"eval step: slot-attention device kernels: {slot_attention}")
 
 
 def run_eval(tmp: Path):
@@ -796,6 +851,8 @@ def main() -> int:
         counts["eval"] = run_eval(Path(tmp))
 
     sa = next(r for r in rows["slot_attention_cater"] if r["B"] == BATCH and r["iters"] == 3)
+    sa64 = next(r for r in rows["slot_attention_cater"] if r["B"] == EVAL_BATCH
+                and r["iters"] == 3)
     sa_clip = next(r for r in rows["slot_attention_clipport"] if r["iters"] == 3)
     vit8, vit16 = rows["vit_attention"]
     conv_req, conv_eval = rows["conv5"]
@@ -812,6 +869,12 @@ def main() -> int:
         "bound_ms": sa["bound_ms"],
         "bound_by": sa["bound_by"],
         "library_ms": None,
+        "cluster_size": sa["cluster_size"],
+        "active_clusters": sa["active_clusters"],
+        "device_launches_per_call": max(r["device_launches"] for r in
+                                        rows["slot_attention_cater"] + rows["slot_attention_clipport"]),
+        "b64": {k: sa64[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        | {"max_abs_err": max(sa64["max_abs_err_slots"], sa64["max_abs_err_attn"])},
         "clipport_shape": {k: sa_clip[k] for k in ("B", "N", "S", "mlp", "iters", "ms",
                                                    "plain_ms", "bound_ms", "bound_by")}
         | {"max_abs_err": max(sa_clip["max_abs_err_slots"], sa_clip["max_abs_err_attn"])},

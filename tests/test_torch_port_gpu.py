@@ -3,7 +3,7 @@ attention and decoder-tail conv5 kernels against their plain versions (the
 last two at shapes on and across the edges of their tiles), the tensor-core
 instructions in the built conv5 and ViT-attention libraries, the SAVi and
 ExtendedDINOSAUR seed encodes and the SAVi decode on the card against the
-CPU. Marked ``gpu``;
+CPU; the refusal of both kernels' launches under grad. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -50,8 +50,11 @@ def _case(b, n, s, h, seed=0):
     return k, v, slots, params
 
 
+# (2, 5, 3, 64): fewer locations than CTAs in a cluster, so some own none;
+# (64, 4096, 8, 256): the CATER eval batch
 @pytest.mark.parametrize("b,n,s,h", [(8, 4096, 8, 256), (2, 576, 10, 256), (2, 576, 10, 512),
-                                     (3, 300, 1, 64), (1, 129, 12, 128)])
+                                     (3, 300, 1, 64), (1, 129, 12, 128), (2, 5, 3, 64),
+                                     (64, 4096, 8, 256)])
 @pytest.mark.parametrize("iters", [1, 3])
 def test_kernel_matches_plain(cuda, b, n, s, h, iters):
     k, v, slots, params = _case(b, n, s, h)
@@ -62,6 +65,80 @@ def test_kernel_matches_plain(cuda, b, n, s, h, iters):
     assert sak.slot_attention_cuda.launches == before + 1
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
     torch.testing.assert_close(attn, ref_attn, rtol=0, atol=1e-4)
+
+
+def test_kernel_writes_slots_in_place(cuda):
+    """``out`` may be ``slots``: every CTA reads its slots before any is written."""
+    k, v, slots, params = _case(4, 1000, 8, 256)
+    ref, ref_attn = sak.slot_attention_plain(k, v, slots, params, 3, 128 ** -0.5)
+    out, attn = sak.slot_attention_cuda(k, v, slots, params, 3, 128 ** -0.5, out=slots)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == slots.data_ptr()
+    torch.testing.assert_close(slots, ref, rtol=0, atol=1e-4)
+    torch.testing.assert_close(attn, ref_attn, rtol=0, atol=1e-4)
+
+
+def test_kernel_raises_on_a_launch_it_cannot_make(cuda):
+    """An MLP too wide for the shared memory is refused by the launch, and the
+    wrapper raises: nothing runs in its place."""
+    k, v, slots, params = _case(1, 16, 12, 4096)
+    before = sak.slot_attention_cuda.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        sak.slot_attention_cuda(k, v, slots, params, 1, 128 ** -0.5)
+    assert sak.slot_attention_cuda.launches == before
+
+
+def test_slot_attention_refuses_grad_and_runs_without_it(cuda):
+    k, v, slots, _ = _case(2, 256, 8, 256)
+    mod = random_init_(SlotAttention(128, 128, 8, 256), torch.Generator().manual_seed(1)).cuda()
+    before = sak.slot_attention_cuda.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        mod.iterate(k, v, slots, 2)  # the module's parameters require grad
+    with pytest.raises(RuntimeError, match="no backward"):
+        sak.slot_attention_iterations(k.requires_grad_(), v, slots,
+                                      mod.requires_grad_(False).iteration_params(), 2, 0.1)
+    assert sak.slot_attention_cuda.launches == before
+    mod.requires_grad_(True)
+    with torch.no_grad():
+        out, _ = mod.iterate(k, v, slots, 2)
+    with torch.inference_mode():
+        out2, _ = mod.iterate(k, v, slots, 2)
+    assert sak.slot_attention_cuda.launches == before + 2
+    torch.testing.assert_close(out, out2, rtol=0, atol=0)
+
+
+def test_conv5_refuses_grad_and_runs_without_it(cuda):
+    x, wt, b = _conv5_case(2, 8, 8)
+    before = c5.conv5_cuda.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        c5.conv5(x, wt.clone().requires_grad_(), b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        c5.conv5(x.clone().requires_grad_(), wt, b)
+    assert c5.conv5_cuda.launches == before
+    x.requires_grad_()
+    with torch.no_grad():
+        out = c5.conv5(x, wt, b)
+    with torch.inference_mode():
+        out2 = c5.conv5(x, wt, b)
+    assert c5.conv5_cuda.launches == before + 2
+    torch.testing.assert_close(out, out2, rtol=0, atol=0)
+
+
+def test_conv_decoder_refuses_a_trainable_tail_behind_a_frozen_first_block(cuda):
+    """The tail's input requires no grad, its weights do: conv5 still raises."""
+    from textocvp_tpu_torch.nn.decoders import ConvDecoder
+
+    dec = random_init_(ConvDecoder(32, [64, 64, 64]), torch.Generator().manual_seed(4)).cuda()
+    dec.blocks[0].requires_grad_(False)
+    x = torch.randn(2, 32, 16, 16, generator=torch.Generator().manual_seed(5)).cuda()
+    before = c5.conv5_cuda.launches
+    with pytest.raises(RuntimeError, match="conv5: the CUDA kernel has no backward"):
+        dec(x)
+    assert c5.conv5_cuda.launches == before
+    with torch.no_grad():
+        out = dec(x)
+    assert c5.conv5_cuda.launches == before + 2
+    assert out.shape == (2, 4, 16, 16) and bool(torch.isfinite(out).all())
 
 
 def test_module_dispatches_cuda_tensors_to_the_kernel(cuda):

@@ -1,4 +1,5 @@
-// Slot-attention refinement for Hopper (sm_90a), forward only.
+// Slot-attention refinement for Hopper (sm_90a), forward only (the Python
+// wrapper raises under grad).
 //
 // Replaces the TPU kernel textocvp_tpu/ops/pallas/slot_attention_kernel.py
 // (_slot_attention_kernel, launched by _pallas_forward), which keeps one batch
@@ -9,47 +10,125 @@
 // What bounds it on an H100: bytes. At B = 8, N = 4096 one iteration reads
 // K and V (2 * 8 * 4096 * 128 * 4 B = 33.6 MB) for about 0.07 GFLOP of
 // attention arithmetic, so the least time for three iterations is about
-// 10 us at 3.35 TB/s (K and V read once) and at most ~30 us if every
-// iteration rereads them from device memory.
+// 10 us at 3.35 TB/s (K and V read once). At B = 64 K and V are 268 MB, more
+// than the 50 MB L2, so a design that rereads them each iteration from
+// device memory cannot go below about 0.24 ms.
 //
-// The design follows from the softmax running over the SLOT axis: it is local
-// to each location n. So one streaming pass over K and V per iteration
-// computes, for each n, the S dot products, their softmax and +eps, and
-// accumulates rowsum[s] += a[s, n] and acc[s, :] += a[s, n] v[n, :]. Then
-// updates = acc / rowsum, which is exactly (attn / attn.sum(over n)) @ v. The
-// (S, N) attention matrix is never stored except on the last iteration,
-// where it is an output.
+// The softmax runs over the SLOT axis, so it is local to each location n: one
+// streaming pass over K and V per iteration computes, for each n, the S dot
+// products, their softmax and +eps, and accumulates rowsum[s] += a[s, n] and
+// acc[s, :] += a[s, n] v[n, :]. Then updates = acc / rowsum, which is exactly
+// (attn / attn.sum(over n)) @ v. The (S, N) attention is stored only on the
+// last iteration, where it is an output (after +eps, before the renorm).
 //
-//   attend_kernel  grid (N / 128, B), 128 threads. Each warp takes one
-//                  location at a time: a lane holds 4 of the 128 feature
-//                  values (one float4 of K and of V per location), the S dot
-//                  products are reduced across the warp, and the block writes
-//                  its chunk's partial acc (S, D) and rowsum (S).
-//   update_kernel  grid (B), 512 threads, one block per batch element. It
-//                  reduces the partial sums, runs the GRU and the residual
-//                  MLP on the (S, D) slots, and computes the next iteration's
-//                  q = W_q LN(slots) + b. Weights are read in torch's (out, in)
-//                  layout: each warp takes 4 output rows at a time, the lanes
-//                  split the input dimension, so loads are coalesced.
+// One launch per call: a grid of thread-block clusters, C = 8 CTAs a cluster
+// (the portable size; 16 was measured slower, see PERF.md), one cluster per
+// batch element, 256 threads a CTA, all iterations inside the launch. CTA r of a cluster owns
+//   * one contiguous slice of the batch element's N locations (ceil(N / C);
+//     when N < C some CTAs own none and still take part in every
+//     cluster.sync), and
+//   * D / C of the columns of the slot width: its rows of q_w, of the three
+//     GRU gates of gru_w_ih and gru_w_hh, and of mlp_w1; and H / C (rounded
+//     up) of the MLP's hidden rows of mlp_w0.
+// Per iteration:
+//   1. attend: K and V tiles of 64 locations stream into shared memory with
+//      cp.async, double-buffered. The S dot products of a tile are a small
+//      (S x 128) (128 x 64) product: each thread keeps its sixteenth of D
+//      of every query in registers for the whole iteration and takes four
+//      locations against it; the sixteen partial sums meet in shared memory
+//      and all threads add them. One thread a location takes the softmax and
+//      +eps; then each warp accumulates a . v over every eighth location of
+//      the tile, a lane holding one float4 column for all S slots.
+//   2. the CTAs' sums meet through distributed shared memory: each CTA adds
+//      the C partial acc and rowsum of its columns, divides, and writes the
+//      updates into every CTA's shared memory.
+//   3. the update, split by output rows: GRU rows of its columns (gate order
+//      r, z, n; b_hn inside r * (...), as torch.nn.GRUCell), the GRU combine
+//      of its columns, the MLP's hidden rows (ReLU) and output rows, and the
+//      next q. Each product's outputs go to every CTA through distributed
+//      shared memory, with a cluster.sync before the product that reads them.
+//      The LayerNorms (eps 1e-3) run on the full (S, 128) rows in every CTA.
+// Weights are read in torch's (out, in) layout from global memory: eight
+// lanes share a row, each taking every eighth float4 with all of a 128-wide
+// row's loads in flight at once, and sum with three shuffles. A CTA writes
+// its columns of slots_out on the last iteration and ends on the cluster.sync
+// after it, so no CTA exits while another still touches its shared memory.
 //
-// One call runs update (q only), then per iteration attend + update: 1 + 2
-// iterations launches on the caller's stream, no synchronisation, no
-// allocation (the wrapper allocates outputs and scratch). At serving batch 8
-// update_kernel occupies 8 of the 132 SMs; fusing it into the pass and
-// spreading it over more blocks is later work.
+// slots_in and slots_out may alias: every CTA of a cluster reads its batch
+// element's slots before the first cluster.sync, and the last iteration
+// writes them long after.
+//
+// The launch checks cudaOccupancyMaxActiveClusters > 0 and returns an error
+// otherwise; it allocates nothing (the wrapper allocates the outputs) and
+// does not synchronise.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int D = 128;             // slot width the kernel takes
-constexpr int CHUNK = 128;         // locations per attend block
-constexpr int ATTEND_WARPS = 4;
-constexpr int UPDATE_THREADS = 512;
-constexpr int ROWS = 4;            // output rows per warp step in matvec
+constexpr int D = 128;               // slot width the kernel takes
+constexpr int C = 8;                 // CTAs a cluster, one cluster a batch element
+constexpr int DC = D / C;            // columns of D a CTA owns in the update
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 64;             // locations a K/V tile
+constexpr int KP = D + 4;            // padded row of a tile: conflict-free float4 reads
+constexpr int LOCS = 4;              // locations a thread takes in the dot products
+constexpr int GROUPS = TILE / LOCS;  // its locations: g, g + GROUPS, ...
+constexpr int PARTS = THREADS / GROUPS;  // the dot products' split of D
+constexpr int F4 = D / 4 / PARTS;    // float4s of D a part: q kept in registers
 constexpr int MAX_SLOTS = 12;
-constexpr float LN_EPS = 1e-3f;    // the slot-attention LayerNorms
-constexpr int MAX_SMEM = 232448;   // dynamic shared memory a block may use
+constexpr int MAX_DEVICES = 16;
+constexpr float LN_EPS = 1e-3f;      // the slot-attention LayerNorms
+constexpr int MAX_SMEM = 232448;     // dynamic shared memory a block may use
+
+static_assert(D % C == 0 && C <= 8, "C must divide D and be portable: the launch asks for no more");
+static_assert(GROUPS * PARTS == THREADS && D % (4 * PARTS) == 0, "tile and thread split");
+static_assert(TILE % 32 == 0, "softmax threads are whole warps");
+
+// Offsets in floats into the dynamic shared memory; every one a multiple of 4.
+template <int S>
+struct Layout {
+  static constexpr int q = 0;                      // (S, D) this iteration's queries
+  static constexpr int h = q + S * D;              // (S, D) slots
+  static constexpr int hn = h + S * D;             // (S, D) slots after the GRU
+  static constexpr int x = hn + S * D;             // (S, D) updates, then LayerNorm outputs
+  static constexpr int acc = x + S * D;            // (S, D) this CTA's sum of a v
+  static constexpr int sum = acc + S * D;          // (S) this CTA's sum of a
+  static constexpr int pstride = S * TILE + 16;    // a part's rows, padded: no bank conflict
+  static constexpr int part = sum + 16;            // (PARTS, S, TILE) partial dot products
+  static constexpr int attn = part + PARTS * pstride;  // (S, TILE) a tile's dots, then attention
+  static constexpr int rs = attn + S * TILE;       // (TILE / 32, S) softmax warps' sums of a
+  static constexpr int region = rs + 32;           // reused, one phase at a time:
+  // attend: two stages of a K and a V tile; its end: (WARPS, S, D) per-warp
+  // sums of a v; update: the GRU's gate rows (S, 6 DC), then m (S, H).
+  static constexpr int tiles = 2 * 2 * TILE * KP;
+  static constexpr int gates = S * 6 * DC;
+  static_assert(S <= 16 && TILE / 32 * S <= 32, "layout");
+  __host__ __device__ static int region_floats(int H) {
+    const int red = WARPS * S * D, upd = gates + S * H;
+    const int m = red > upd ? red : upd;
+    return tiles > m ? tiles : m;
+  }
+  static size_t bytes(int H) { return sizeof(float) * (size_t)(region + region_floats(H)); }
+};
+
+struct Weights {
+  const float *ns_w, *ns_b, *q_w, *q_b;
+  const float *w_ih, *b_ih, *w_hh, *b_hh;
+  const float *nm_w, *nm_b, *w0, *b0, *w1, *b1;
+};
+
+struct Params {
+  const float *k, *v, *slots_in;
+  float *slots_out, *attn;
+  Weights wt;
+  int N, H, num_iters;
+  float scale, eps;
+};
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -63,150 +142,64 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
-template <int S>
-__global__ void __launch_bounds__(ATTEND_WARPS * 32)
-attend_kernel(const float* __restrict__ k, const float* __restrict__ v,
-              const float* __restrict__ q, float* __restrict__ part_acc,
-              float* __restrict__ part_sum, float* __restrict__ attn,
-              int N, int nchunks, float scale, float eps, int write_attn) {
-  __shared__ float4 q_s[S][32];
-  __shared__ __align__(16) float acc_s[ATTEND_WARPS][S][D];
-  __shared__ float sum_s[ATTEND_WARPS][S];
-  __shared__ float attn_s[S][CHUNK];
-
-  const int c = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float4* q4 = reinterpret_cast<const float4*>(q + (size_t)b * S * D);
-  for (int i = tid; i < S * 32; i += blockDim.x) q_s[i / 32][i % 32] = q4[i];
-  __syncthreads();
-
-  float4 qr[S], acc[S];
-  float rsum[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    qr[s] = q_s[s][lane];
-    acc[s] = make_float4(0.f, 0.f, 0.f, 0.f);
-    rsum[s] = 0.f;
-  }
-
-  const int n0 = c * CHUNK;
-  const int n_len = min(CHUNK, N - n0);
-  for (int i = warp; i < n_len; i += ATTEND_WARPS) {
-    const size_t off = ((size_t)b * N + n0 + i) * D;
-    const float4 kk = __ldg(reinterpret_cast<const float4*>(k + off) + lane);
-    const float4 vv = __ldg(reinterpret_cast<const float4*>(v + off) + lane);
-    float a[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) a[s] = warp_sum(dot4(qr[s], kk)) * scale;
-    float m = a[0];
-#pragma unroll
-    for (int s = 1; s < S; ++s) m = fmaxf(m, a[s]);
-    float tot = 0.f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      a[s] = expf(a[s] - m);
-      tot += a[s];
-    }
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      a[s] = a[s] / tot + eps;  // softmax over slots, then +eps
-      rsum[s] += a[s];
-      acc[s].x += a[s] * vv.x;
-      acc[s].y += a[s] * vv.y;
-      acc[s].z += a[s] * vv.z;
-      acc[s].w += a[s] * vv.w;
-    }
-    if (write_attn && lane == 0) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) attn_s[s][i] = a[s];
-    }
-  }
-
-#pragma unroll
-  for (int s = 0; s < S; ++s) reinterpret_cast<float4*>(acc_s[warp][s])[lane] = acc[s];
-  if (lane == 0) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) sum_s[warp][s] = rsum[s];
-  }
-  __syncthreads();
-
-  const size_t pbase = ((size_t)b * nchunks + c) * S;
-  for (int idx = tid; idx < S * D; idx += blockDim.x) {
-    const int s = idx / D, d = idx % D;
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < ATTEND_WARPS; ++w) t += acc_s[w][s][d];
-    part_acc[pbase * D + idx] = t;
-  }
-  if (tid < S) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < ATTEND_WARPS; ++w) t += sum_s[w][tid];
-    part_sum[pbase + tid] = t;
-  }
-  if (write_attn) {
-    for (int idx = tid; idx < S * CHUNK; idx += blockDim.x) {
-      const int s = idx / CHUNK, i = idx % CHUNK;
-      if (i < n_len) attn[((size_t)b * S + s) * N + n0 + i] = attn_s[s][i];
-    }
-  }
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src)
+               : "memory");
 }
 
-// Y[s, j] = act(sum_i W[j, i] X[s, i] + bias[j]) for the S rows of X, all in
-// shared memory except W (out, in) and bias, which are read from global.
-template <int S>
-__device__ void matvec(const float* __restrict__ W, const float* __restrict__ bias,
-                       const float* X, int in, float* Y, int out, bool relu) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int in4 = in / 4;
-  const float4* W4 = reinterpret_cast<const float4*>(W);
-  const float4* X4 = reinterpret_cast<const float4*>(X);
-  for (int j0 = warp * ROWS; j0 < out; j0 += nwarps * ROWS) {
-    float p[ROWS][S];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int s = 0; s < S; ++s) p[r][s] = 0.f;
-    for (int i = lane; i < in4; i += 32) {
-      float4 w[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        w[r] = (j0 + r < out) ? __ldg(W4 + (size_t)(j0 + r) * in4 + i)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float4 x = X4[s * in4 + i];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) p[r][s] += dot4(w[r], x);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int s = 0; s < S; ++s) p[r][s] = warp_sum(p[r][s]);
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        if (j0 + r >= out) break;
-        const float bj = bias[j0 + r];
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const float y = p[r][s] + bj;
-          Y[s * out + j0 + r] = relu ? fmaxf(y, 0.f) : y;
-        }
-      }
-    }
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// out[s, :] = LN(x[s, :]) * w + b over D = 128, one warp per row.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Distributed shared memory through 32-bit shared::cluster addresses. The
+// asm is volatile so that the compiler computes each remote address where it
+// is used and does not keep C of them live across the kernel.
+__device__ __forceinline__ unsigned remote_addr(const float* local, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(local))), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float load_remote(const float* local, unsigned rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote_addr(local, rank))
+               : "memory");
+  return v;
+}
+
+// a value into the same place of every CTA's shared memory in the cluster
+__device__ __forceinline__ void push(const float* local, float v) {
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote_addr(local, c)), "f"(v)
+                 : "memory");
+}
+
+// Rows [0, len) of K and V from k, v (already at the tile's first location)
+// into a stage: K at stage[0], V at stage[TILE * KP]. One commit group.
+__device__ __forceinline__ void load_tile(float* stage, const float* k, const float* v, int len) {
+  for (int i = threadIdx.x; i < len * (D / 4); i += THREADS) {
+    const int row = i / (D / 4), c = 4 * (i % (D / 4));
+    cp_async16(stage + row * KP + c, k + (size_t)row * D + c);
+    cp_async16(stage + TILE * KP + row * KP + c, v + (size_t)row * D + c);
+  }
+  cp_async_commit();
+}
+
+// out[s, :] = LN(x[s, :]) * w + b over D = 128, one warp a row.
 template <int S>
 __device__ void layer_norm(const float* x, const float* __restrict__ w,
                            const float* __restrict__ b, float* out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int s = warp; s < S; s += nwarps) {
+  for (int s = warp; s < S; s += WARPS) {
     const float4 xv = reinterpret_cast<const float4*>(x + s * D)[lane];
     const float mean = warp_sum(xv.x + xv.y + xv.z + xv.w) * (1.f / D);
     const float4 c = make_float4(xv.x - mean, xv.y - mean, xv.z - mean, xv.w - mean);
@@ -220,144 +213,394 @@ __device__ void layer_norm(const float* x, const float* __restrict__ w,
   }
 }
 
-struct Weights {
-  const float *ns_w, *ns_b, *q_w, *q_b;
-  const float *w_ih, *b_ih, *w_hh, *b_hh;
-  const float *nm_w, *nm_b, *w0, *b0, *w1, *b1;
+// One output row of a product: its weights (torch's (out, in) layout), its
+// bias and the (S, in) input it multiplies, in shared memory.
+struct Row {
+  const float* w;
+  const float* bias;
+  const float* x;
 };
 
-// slots_in and slots_out may alias: each block reads its own batch element
-// into shared memory before it writes anything back.
-template <int S>
-__global__ void __launch_bounds__(UPDATE_THREADS)
-update_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_sum,
-              int nchunks, const float* slots_in, float* slots_out,
-              float* __restrict__ q_out, Weights wt, int H, int do_gru, int do_query) {
-  extern __shared__ float4 smem4[];
-  float* h_s = reinterpret_cast<float*>(smem4);  // (S, D) slots
-  float* x_s = h_s + S * D;                        // (S, D) updates / LN output
-  float* gi_s = x_s + S * D;                       // (S, 3D)
-  float* gh_s = gi_s + S * 3 * D;                  // (S, 3D)
-  float* m_s = gh_s + S * 3 * D;                   // (S, H)
-  const int b = blockIdx.x, tid = threadIdx.x;
+// For j in [0, rows): y = row(j).w . row(j).x[s, :] + row(j).bias for each of
+// the S slots, handed to out(j, s, y). Eight lanes share a row, each taking
+// every eighth float4 of it, and sum with three shuffles; a warp takes four
+// rows at a time and keeps up to MV_LOADS float4 of weights a lane in flight
+// (every weight of a 128-wide row at once); the lane with s % 8 == its part
+// hands slot s on.
+constexpr int MV_LOADS = 8;
 
-  for (int i = tid; i < S * D; i += blockDim.x) h_s[i] = slots_in[(size_t)b * S * D + i];
-  if (do_gru) {
-    for (int i = tid; i < S * D; i += blockDim.x) {
-      const int s = i / D;
-      float num = 0.f, den = 0.f;
-      for (int c = 0; c < nchunks; ++c) {
-        const size_t base = ((size_t)b * nchunks + c) * S;
-        num += part_acc[base * D + i];
-        den += part_sum[base + s];
+template <int S, class RowFn, class Out>
+__device__ __forceinline__ void matvec(int in, int rows, RowFn row, Out out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int part = lane & 7;
+  const int in4 = in / 4;
+  for (int j0 = warp * 4; j0 < rows; j0 += WARPS * 4) {
+    const int j = j0 + (lane >> 3);
+    const bool valid = j < rows;
+    float acc[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) acc[s] = 0.f;
+    Row r{nullptr, nullptr, nullptr};
+    if (valid) {
+      r = row(j);
+      const float4* w4 = reinterpret_cast<const float4*>(r.w);
+      const float4* x4 = reinterpret_cast<const float4*>(r.x);
+      for (int i0 = part; i0 < in4; i0 += 8 * MV_LOADS) {
+        float4 wv[MV_LOADS];
+#pragma unroll
+        for (int u = 0; u < MV_LOADS; ++u) {
+          const int i = i0 + 8 * u;
+          wv[u] = i < in4 ? __ldg(w4 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < MV_LOADS; ++u) {
+          const int i = i0 + 8 * u;
+          if (i < in4) {
+#pragma unroll
+            for (int s = 0; s < S; ++s) acc[s] += dot4(wv[u], x4[s * in4 + i]);
+          }
+        }
       }
-      x_s[i] = num / den;  // (attn / rowsum) @ v
     }
-    __syncthreads();
-    matvec<S>(wt.w_ih, wt.b_ih, x_s, D, gi_s, 3 * D, false);
-    matvec<S>(wt.w_hh, wt.b_hh, h_s, D, gh_s, 3 * D, false);
-    __syncthreads();
-    for (int i = tid; i < S * D; i += blockDim.x) {
-      const int s = i / D, d = i % D;
-      const float* gi = gi_s + s * 3 * D;
-      const float* gh = gh_s + s * 3 * D;
-      const float r = sigmoidf(gi[d] + gh[d]);
-      const float z = sigmoidf(gi[D + d] + gh[D + d]);
-      const float n = tanhf(gi[2 * D + d] + r * gh[2 * D + d]);
-      h_s[i] = (1.f - z) * n + z * h_s[i];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      acc[s] += __shfl_xor_sync(0xffffffffu, acc[s], 1);
+      acc[s] += __shfl_xor_sync(0xffffffffu, acc[s], 2);
+      acc[s] += __shfl_xor_sync(0xffffffffu, acc[s], 4);
     }
-    __syncthreads();
-    layer_norm<S>(h_s, wt.nm_w, wt.nm_b, x_s);
-    __syncthreads();
-    matvec<S>(wt.w0, wt.b0, x_s, D, m_s, H, true);
-    __syncthreads();
-    matvec<S>(wt.w1, wt.b1, m_s, H, gi_s, D, false);
-    __syncthreads();
-    for (int i = tid; i < S * D; i += blockDim.x) h_s[i] += gi_s[i];
-  }
-  __syncthreads();
-  for (int i = tid; i < S * D; i += blockDim.x) slots_out[(size_t)b * S * D + i] = h_s[i];
-  if (do_query) {
-    layer_norm<S>(h_s, wt.ns_w, wt.ns_b, x_s);
-    __syncthreads();
-    matvec<S>(wt.q_w, wt.q_b, x_s, D, gi_s, D, false);
-    __syncthreads();
-    for (int i = tid; i < S * D; i += blockDim.x) q_out[(size_t)b * S * D + i] = gi_s[i];
+    if (valid) {
+      const float bj = __ldg(r.bias);
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if ((s & 7) == part) out(j, s, acc[s] + bj);
+    }
   }
 }
 
-struct Args {
-  const float *k, *v, *slots_in;
-  float *slots_out, *attn, *q, *part_acc, *part_sum;
-  Weights wt;
-  int B, N, H, num_iters;
-  float scale, eps;
-  cudaStream_t stream;
-};
-
 template <int S>
-cudaError_t run(const Args& a) {
-  const int nchunks = (a.N + CHUNK - 1) / CHUNK;
-  const size_t smem = (size_t)S * (8 * D + a.H) * sizeof(float);
+__global__ void __launch_bounds__(THREADS, 1) slot_attention_cluster_kernel(const Params p) {
+  using L = Layout<S>;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem + L::q;
+  float* h_s = smem + L::h;
+  float* hn_s = smem + L::hn;
+  float* x_s = smem + L::x;
+  float* acc_s = smem + L::acc;
+  float* sum_s = smem + L::sum;
+  float* part_s = smem + L::part;
+  float* a_s = smem + L::attn;
+  float* rs_s = smem + L::rs;
+  float* region = smem + L::region;
+  float* gates_s = region;               // update phase
+  float* m_s = region + L::gates;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int N = p.N, H = p.H;
+  const int d0 = rank * DC;                          // this CTA's columns of D
+  const int hc = (H + C - 1) / C;
+  const int h0 = min(H, rank * hc), h1 = min(H, h0 + hc);  // its hidden rows
+  const int chunk = (N + C - 1) / C;
+  const int n0 = min(N, rank * chunk), n_len = min(N, n0 + chunk) - n0;  // its locations
+  const int ntiles = (n_len + TILE - 1) / TILE;
+  const float* kb = p.k + ((size_t)b * N + n0) * D;
+  const float* vb = p.v + ((size_t)b * N + n0) * D;
+
+  const Weights& wt = p.wt;
+  // rows d0 + j of a (D, in) weight times an (S, in) input
+  auto own = [=](const float* w, const float* bias, const float* x, int in) {
+    return [=](int j) { return Row{w + (size_t)(d0 + j) * in, bias + d0 + j, x}; };
+  };
+
+  // the first tile is in flight while the first queries are computed
+  if (ntiles > 0) load_tile(region, kb, vb, min(TILE, n_len));
+  for (int i = tid; i < S * D; i += THREADS) h_s[i] = p.slots_in[(size_t)b * S * D + i];
+  cluster.sync();  // every CTA of the cluster runs before any shared memory is written remotely
+  layer_norm<S>(h_s, wt.ns_w, wt.ns_b, x_s);
+  __syncthreads();
+  matvec<S>(D, DC, own(wt.q_w, wt.q_b, x_s, D),
+            [=](int j, int s, float y) { push(q_s + s * D + d0 + j, y); });
+  cluster.sync();
+
+  for (int it = 0; it < p.num_iters; ++it) {
+    const bool last = it == p.num_iters - 1;
+
+    // 1. attend over this CTA's locations
+    float4 acc[S];
+    float rsum[S];
+    float4 qr[S][F4];  // this thread's part of every query, for every tile
+    const int g = tid % GROUPS, pt = tid / GROUPS;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      acc[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+      rsum[s] = 0.f;
+#pragma unroll
+      for (int u = 0; u < F4; ++u)
+        qr[s][u] = reinterpret_cast<const float4*>(q_s + s * D)[pt * F4 + u];
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      const int len = min(TILE, n_len - t * TILE);
+      if (t + 1 < ntiles) {
+        const int off = (t + 1) * TILE;
+        load_tile(region + ((t + 1) & 1) * 2 * TILE * KP, kb + (size_t)off * D,
+                  vb + (size_t)off * D, min(TILE, n_len - off));
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* ks = region + (t & 1) * 2 * TILE * KP;
+      const float* vs = ks + TILE * KP;
+      // dot products, an (S x 128) (128 x TILE) product: LOCS locations of
+      // this thread's group times its part of the queries, all slots
+#pragma unroll
+      for (int l = 0; l < LOCS; ++l) {
+        const int n = g + l * GROUPS;
+        const float4* k4 = reinterpret_cast<const float4*>(ks + n * KP) + pt * F4;
+        float dots[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) dots[s] = 0.f;
+#pragma unroll
+        for (int u = 0; u < F4; ++u) {
+          const float4 kv = k4[u];
+#pragma unroll
+          for (int s = 0; s < S; ++s) dots[s] += dot4(qr[s][u], kv);
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) part_s[pt * L::pstride + s * TILE + n] = dots[s];
+      }
+      __syncthreads();
+      for (int i = tid; i < S * TILE; i += THREADS) {  // the parts' sums
+        float d = 0.f;
+#pragma unroll
+        for (int q = 0; q < PARTS; ++q) d += part_s[q * L::pstride + i];
+        a_s[i] = d * p.scale;
+      }
+      __syncthreads();
+      if (tid < len) {  // softmax over slots, then +eps: one thread a location
+        float a[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) a[s] = a_s[s * TILE + tid];
+        float m = a[0];
+#pragma unroll
+        for (int s = 1; s < S; ++s) m = fmaxf(m, a[s]);
+        float tot = 0.f;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          a[s] = expf(a[s] - m);
+          tot += a[s];
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          a[s] = a[s] / tot + p.eps;
+          rsum[s] += a[s];
+          a_s[s * TILE + tid] = a[s];
+        }
+        if (last) {
+          const size_t base = (size_t)b * S * N + n0 + t * TILE + tid;
+#pragma unroll
+          for (int s = 0; s < S; ++s) p.attn[base + (size_t)s * N] = a[s];
+        }
+      }
+      __syncthreads();
+      // a . v: warp w takes locations w, w + WARPS, ...; a lane one float4 column
+#pragma unroll 2
+      for (int n = warp; n < len; n += WARPS) {
+        const float4 vv = reinterpret_cast<const float4*>(vs + n * KP)[lane];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const float a = a_s[s * TILE + n];
+          acc[s].x += a * vv.x;
+          acc[s].y += a * vv.y;
+          acc[s].z += a * vv.z;
+          acc[s].w += a * vv.w;
+        }
+      }
+      __syncthreads();  // the stage, part_s and a_s are written again next
+    }
+    // this CTA's sums: the warps' a . v through the free tile region
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      reinterpret_cast<float4*>(region + (warp * S + s) * D)[lane] = acc[s];
+    if (warp < TILE / 32) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float r = warp_sum(rsum[s]);
+        if (lane == 0) rs_s[warp * S + s] = r;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < S * D; i += THREADS) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) t += region[w * S * D + i];
+      acc_s[i] = t;
+    }
+    if (tid < S) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < TILE / 32; ++w) t += rs_s[w * S + tid];
+      sum_s[tid] = t;
+    }
+    cluster.sync();
+
+    // 2. updates = (sum of a v) / (sum of a) over the cluster, own columns, to all
+    for (int i = tid; i < S * DC; i += THREADS) {
+      const int s = i / DC, d = d0 + i % DC;
+      float num = 0.f, den = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        num += load_remote(acc_s + s * D + d, c);
+        den += load_remote(sum_s + s, c);
+      }
+      push(x_s + s * D + d, num / den);
+    }
+    cluster.sync();
+
+    // 3. GRU rows of own columns (gates r, z, n), the combine, to all
+    // rows j < 3 DC: gru_w_ih on the updates, the rest gru_w_hh on the slots
+    matvec<S>(D, 6 * DC,
+              [=](int j) {
+                const bool hh = j >= 3 * DC;
+                const int jj = hh ? j - 3 * DC : j;
+                const int r = (jj / DC) * D + d0 + jj % DC;
+                return hh ? Row{wt.w_hh + (size_t)r * D, wt.b_hh + r, h_s}
+                          : Row{wt.w_ih + (size_t)r * D, wt.b_ih + r, x_s};
+              },
+              [=](int j, int s, float y) { gates_s[s * 6 * DC + j] = y; });
+    __syncthreads();
+    for (int i = tid; i < S * DC; i += THREADS) {
+      const int s = i / DC, j = i % DC;
+      const float* gi = gates_s + s * 6 * DC;
+      const float* gh = gi + 3 * DC;
+      const float r = sigmoidf(gi[j] + gh[j]);
+      const float z = sigmoidf(gi[DC + j] + gh[DC + j]);
+      const float n = tanhf(gi[2 * DC + j] + r * gh[2 * DC + j]);
+      push(hn_s + s * D + d0 + j, (1.f - z) * n + z * h_s[s * D + d0 + j]);
+    }
+    cluster.sync();
+
+    // residual MLP: hidden rows (ReLU) to all, then output rows of own columns
+    layer_norm<S>(hn_s, wt.nm_w, wt.nm_b, x_s);
+    __syncthreads();
+    matvec<S>(D, h1 - h0,
+              [=](int j) { return Row{wt.w0 + (size_t)(h0 + j) * D, wt.b0 + h0 + j, x_s}; },
+              [=](int j, int s, float y) { push(m_s + s * H + h0 + j, fmaxf(y, 0.f)); });
+    cluster.sync();
+    matvec<S>(H, DC, own(wt.w1, wt.b1, m_s, H), [=](int j, int s, float y) {
+      const float out = hn_s[s * D + d0 + j] + y;
+      push(h_s + s * D + d0 + j, out);
+      if (last) p.slots_out[((size_t)b * S + s) * D + d0 + j] = out;
+    });
+    cluster.sync();  // on the last iteration, the last access to another CTA
+    if (last) break;
+
+    // next queries, own rows, to all; the next first tile already in flight
+    if (ntiles > 0) load_tile(region, kb, vb, min(TILE, n_len));
+    layer_norm<S>(h_s, wt.ns_w, wt.ns_b, x_s);
+    __syncthreads();
+    matvec<S>(D, DC, own(wt.q_w, wt.q_b, x_s, D),
+              [=](int j, int s, float y) { push(q_s + s * D + d0 + j, y); });
+    cluster.sync();
+  }
+}
+
+// One launch of a call on `stream`; or, with `active` set, no launch: the
+// number of clusters the card runs at once goes to *active.
+template <int S>
+cudaError_t run(const Params& p, int B, cudaStream_t stream, int* active) {
+  const size_t smem = Layout<S>::bytes(p.H);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(update_kernel<S>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = slot_attention_cluster_kernel<S>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, B, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+
+  // the attributes and the cluster check once per device, slot count and size
+  static size_t ready[MAX_DEVICES][MAX_SLOTS + 1];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (active != nullptr || dev >= MAX_DEVICES || ready[dev][S] != smem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (active != nullptr) {
+      *active = clusters;
+      return cudaSuccess;
+    }
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;  // no fallback
+    if (dev < MAX_DEVICES) ready[dev][S] = smem;
   }
-  update_kernel<S><<<a.B, UPDATE_THREADS, smem, a.stream>>>(
-      a.part_acc, a.part_sum, nchunks, a.slots_in, a.slots_out, a.q, a.wt, a.H, 0, 1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  for (int it = 0; it < a.num_iters; ++it) {
-    const bool last = it == a.num_iters - 1;
-    attend_kernel<S><<<dim3(nchunks, a.B), ATTEND_WARPS * 32, 0, a.stream>>>(
-        a.k, a.v, a.q, a.part_acc, a.part_sum, a.attn, a.N, nchunks, a.scale, a.eps,
-        last ? 1 : 0);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    update_kernel<S><<<a.B, UPDATE_THREADS, smem, a.stream>>>(
-        a.part_acc, a.part_sum, nchunks, a.slots_out, a.slots_out, a.q, a.wt, a.H, 1,
-        last ? 0 : 1);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int S, const Params& p, int B, cudaStream_t stream, int* active) {
+  switch (S) {
+    case 1: return run<1>(p, B, stream, active);
+    case 2: return run<2>(p, B, stream, active);
+    case 3: return run<3>(p, B, stream, active);
+    case 4: return run<4>(p, B, stream, active);
+    case 5: return run<5>(p, B, stream, active);
+    case 6: return run<6>(p, B, stream, active);
+    case 7: return run<7>(p, B, stream, active);
+    case 8: return run<8>(p, B, stream, active);
+    case 9: return run<9>(p, B, stream, active);
+    case 10: return run<10>(p, B, stream, active);
+    case 11: return run<11>(p, B, stream, active);
+    case 12: return run<12>(p, B, stream, active);
+    default: return cudaErrorInvalidValue;
   }
-  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-int sa_chunk_size() { return CHUNK; }
 int sa_width() { return D; }
 int sa_max_slots() { return MAX_SLOTS; }
+int sa_cluster_size() { return C; }
+const char* sa_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// Returns a cudaError_t: 0 on success.
+// How many clusters of the kernel for S slots and MLP width H the current
+// device runs at once; a negative cudaError_t if it cannot tell.
+int sa_active_clusters(int S, int H) {
+  if (H < 4 || H % 4) return -static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.H = H;
+  int active = 0;
+  const cudaError_t err = dispatch(S, p, 1, nullptr, &active);
+  return err == cudaSuccess ? active : -static_cast<int>(err);
+}
+
+// One launch on `stream`. Returns a cudaError_t: 0 on success.
 int sa_forward(const float* k, const float* v, const float* slots_in, float* slots_out,
-               float* attn, float* q, float* part_acc, float* part_sum,
-               const float* ns_w, const float* ns_b, const float* q_w, const float* q_b,
-               const float* w_ih, const float* b_ih, const float* w_hh, const float* b_hh,
-               const float* nm_w, const float* nm_b, const float* w0, const float* b0,
-               const float* w1, const float* b1, int B, int N, int S, int H,
+               float* attn, const float* ns_w, const float* ns_b, const float* q_w,
+               const float* q_b, const float* w_ih, const float* b_ih, const float* w_hh,
+               const float* b_hh, const float* nm_w, const float* nm_b, const float* w0,
+               const float* b0, const float* w1, const float* b1, int B, int N, int S, int H,
                int num_iters, float scale, float eps, void* stream) {
-  if (B < 1 || N < 1 || H < 4 || H % 4 || num_iters < 1) return cudaErrorInvalidValue;
-  Args a{k, v, slots_in, slots_out, attn, q, part_acc, part_sum,
-         {ns_w, ns_b, q_w, q_b, w_ih, b_ih, w_hh, b_hh, nm_w, nm_b, w0, b0, w1, b1},
-         B, N, H, num_iters, scale, eps, static_cast<cudaStream_t>(stream)};
-  switch (S) {
-    case 1: return run<1>(a);
-    case 2: return run<2>(a);
-    case 3: return run<3>(a);
-    case 4: return run<4>(a);
-    case 5: return run<5>(a);
-    case 6: return run<6>(a);
-    case 7: return run<7>(a);
-    case 8: return run<8>(a);
-    case 9: return run<9>(a);
-    case 10: return run<10>(a);
-    case 11: return run<11>(a);
-    case 12: return run<12>(a);
-    default: return cudaErrorInvalidValue;
-  }
+  if (B < 1 || B > 65535 || N < 1 || H < 4 || H % 4 || num_iters < 1)
+    return cudaErrorInvalidValue;
+  const Params p{k, v, slots_in, slots_out, attn,
+                 {ns_w, ns_b, q_w, q_b, w_ih, b_ih, w_hh, b_hh, nm_w, nm_b, w0, b0, w1, b1},
+                 N, H, num_iters, scale, eps};
+  return dispatch(S, p, B, static_cast<cudaStream_t>(stream), nullptr);
 }
 
 }  // extern "C"

@@ -26,7 +26,8 @@ class ConvDecoder(nn.Module):
     kernel); the tail blocks, 5x5 stride-1 convs with bias and ReLU, run
     through :func:`ops.conv5.conv5` in NHWC memory: the CUDA kernel on the
     card, its plain version on the CPU. Their weights are held in HWIO,
-    converted once per weight version and device. Inference only."""
+    converted once per weight version and device. Trains on the CPU only:
+    on the card conv5 has no backward and raises under grad."""
 
     def __init__(self, in_channels: int, hidden_dims: Sequence[int], kernel_size: int = 5,
                  stride: int = 1, out_channels: int = 4):
@@ -57,8 +58,16 @@ class ConvDecoder(nn.Module):
 
     def _tail(self, x):
         """NHWC activations after ``blocks[0]`` -> the tail blocks through
-        conv5 -> the final 3x3 conv; NCHW-shaped out (channels_last memory)."""
-        for block, (w, b) in zip(self.blocks[1:], self._tail_weights()):
+        conv5 -> the final 3x3 conv; NCHW-shaped out (channels_last memory).
+        With grad enabled and a tail parameter that requires grad, the HWIO
+        weights are converted at this call with their autograd history: the
+        plain version back-propagates into them, the kernel refuses them."""
+        convs = [block.conv for block in self.blocks[1:]]
+        if torch.is_grad_enabled() and any(p.requires_grad for c in convs for p in c.parameters()):
+            weights = [(c.weight.permute(2, 3, 1, 0).contiguous(), c.bias) for c in convs]
+        else:
+            weights = self._tail_weights()
+        for block, (w, b) in zip(self.blocks[1:], weights):
             x = conv5(x, w, b, relu=block.activation)
         return self.final_conv(x.permute(0, 3, 1, 2))
 

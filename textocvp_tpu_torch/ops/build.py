@@ -69,6 +69,29 @@ def library_paths() -> dict[str, Path]:
     return {src.stem: BUILD_DIR / f"lib{src.stem}_{digest}.so" for src in sources()}
 
 
+def _start(src: Path, so: Path):
+    """An ``nvcc`` of ``src`` into a temporary file beside ``so``, started."""
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp
+
+
+def _finish(src: Path, proc, tmp: Path, so: Path, timeout: float):
+    """Wait for a started ``nvcc``; move its library into place and keep its
+    ``ptxas`` report beside it. Returns an error message, or None."""
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        return f"nvcc on {src.name} timed out after {timeout} s"
+    if proc.returncode != 0:
+        return f"nvcc on {src.name} failed ({proc.returncode}):\n{err}"
+    so.with_suffix(".ptxas.txt").write_text(err)
+    os.replace(tmp, so)
+    return None
+
+
 def build_all(timeout: float = 900) -> list[str]:
     """Compile every source whose library is missing, all at once; returns
     the stems that were built. Raises with ``nvcc``'s errors if one fails."""
@@ -77,30 +100,26 @@ def build_all(timeout: float = 900) -> list[str]:
     if not todo:
         return []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _cuda_tool("nvcc")
-    procs = {}
-    for stem, so in todo.items():
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{stem}.cu")]
-        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                        text=True), tmp, so)
-    errors = []
-    for stem, (proc, tmp, so) in procs.items():
-        try:
-            _, err = proc.communicate(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.communicate()
-            errors.append(f"nvcc on {stem}.cu timed out after {timeout} s")
-            continue
-        if proc.returncode != 0:
-            errors.append(f"nvcc on {stem}.cu failed ({proc.returncode}):\n{err}")
-        else:
-            so.with_suffix(".ptxas.txt").write_text(err)
-            os.replace(tmp, so)
+    srcs = [(CSRC / f"{stem}.cu", so) for stem, so in todo.items()]
+    procs = [(src, *_start(src, so), so) for src, so in srcs]  # all started, then waited for
+    errors = [e for src, proc, tmp, so in procs if (e := _finish(src, proc, tmp, so, timeout))]
     if errors:
         raise RuntimeError("\n".join(errors))
     return sorted(todo)
+
+
+def build_copy(name: str, text: str, timeout: float = 900) -> ctypes.CDLL:
+    """``text``, an edited copy of a source, written to ``_build/<name>.cu``,
+    built with the port's flags and loaded: for a probe that measures an edit
+    of a kernel without shipping it. Its ``ptxas`` report lies beside it."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = BUILD_DIR / f"{name}.cu"
+    src.write_text(text)
+    so = BUILD_DIR / f"lib{name}.so"
+    err = _finish(src, *_start(src, so), so, timeout)
+    if err is not None:
+        raise RuntimeError(err)
+    return ctypes.CDLL(str(so))
 
 
 def load_library(stem: str) -> ctypes.CDLL:
@@ -113,9 +132,11 @@ def load_library(stem: str) -> ctypes.CDLL:
 
 
 def ptxas_report(stem: str) -> str:
-    """``ptxas -v``'s lines for the built library of ``csrc/<stem>.cu``."""
+    """``ptxas -v``'s lines for the built library of ``csrc/<stem>.cu``: each
+    kernel's registers, shared memory, stack frame and spills."""
     path = library_paths()[stem].with_suffix(".ptxas.txt")
-    return "\n".join(line for line in path.read_text().splitlines() if "ptxas" in line)
+    return "\n".join(line for line in path.read_text().splitlines()
+                     if "ptxas" in line or "stack frame" in line)
 
 
 def tensor_core_instructions(stem: str) -> int:

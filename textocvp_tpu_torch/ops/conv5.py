@@ -17,7 +17,8 @@ bounds the kernel on an H100 and how its design answers.
 * :func:`conv5` dispatches on the tensor's device: a CPU tensor runs
   :func:`conv5_plain`, a CUDA tensor launches the kernel through
   :func:`conv5_cuda` or raises. There is no fallback to cuDNN.
-* Forward only: the port does not train the decoder yet.
+* Forward only; raises under grad (:func:`grad_guard.refuse_grad`): with grad
+  enabled, an input that requires grad would get none.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from textocvp_tpu_torch.ops import build
+from textocvp_tpu_torch.ops.grad_guard import refuse_grad
 
 KERNEL_SIZE = 5
 CHANNELS = 64  # the kernel's input and output channels
@@ -87,8 +89,10 @@ def _check(x, w, b):
 
 
 def conv5_cuda(x, w, b, relu: bool = True):
-    """Launch the CUDA kernel on the current stream; raises on what it does not take."""
+    """Launch the CUDA kernel on the current stream; raises on what it does not
+    take and under grad."""
     _check(x, w, b)
+    refuse_grad("conv5", x, w, b)
     lib = load_library()
     n, h, wd, _ = x.shape
     out = torch.empty_like(x)
@@ -109,4 +113,4 @@ def conv5(x, w, b, relu: bool = True):
     """The plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
     if x.device.type == "cpu":
         return conv5_plain(x, w, b, relu)
-    return conv5_cuda(x.detach(), w.detach(), b.detach(), relu)
+    return conv5_cuda(x, w, b, relu)

@@ -5,15 +5,21 @@ its plain PyTorch version.
 The kernel replaces the JAX package's Pallas TPU kernel
 (``textocvp_tpu/ops/pallas/slot_attention_kernel.py::_slot_attention_kernel``);
 the plain version is the counterpart of its XLA twin ``_xla_iterations``. The
-source file says what bounds the kernel on an H100 and how its design answers.
+source file says what bounds the kernel on an H100 and how its design answers:
+one launch a call, a grid of thread-block clusters with one cluster a batch
+element, every iteration inside the launch, the CTAs of a cluster splitting
+the locations in the attention and the weights' rows in the update and
+meeting through distributed shared memory.
 
 * :func:`slot_attention_iterations` dispatches on the tensor's device: a CPU
   tensor runs :func:`slot_attention_plain`, a CUDA tensor launches the kernel
-  through :func:`slot_attention_cuda` or raises. There is no fallback.
+  through :func:`slot_attention_cuda` or raises. There is no fallback: a
+  failed build, a cluster the card cannot place, or a launch error raises.
 * The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
   with a plain C interface (:mod:`textocvp_tpu_torch.ops.build`, at first use)
   and bound through ``ctypes``.
-* Forward only: outputs carry no autograd history.
+* Forward only; raises under grad (:func:`grad_guard.refuse_grad`): with grad
+  enabled, an input or parameter that requires grad would get none.
 
 ``params`` is the dict of :meth:`SlotAttention.iteration_params`: LayerNorm
 weights and biases (eps 1e-3), ``q_w`` (D, D), the ``torch.nn.GRUCell``
@@ -29,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from textocvp_tpu_torch.ops import build
+from textocvp_tpu_torch.ops.grad_guard import refuse_grad
 
 LN_EPS = 1e-3
 
@@ -70,28 +77,39 @@ def slot_attention_plain(k, v, slots, params: dict, num_iters: int, scale: float
 _lib = None
 
 
+def bind(lib):
+    """Set the argument types of the C interface on a library built from
+    ``csrc/slot_attention.cu``; returns it."""
+    lib.sa_forward.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
+                               + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    lib.sa_forward.restype = ctypes.c_int
+    for fn in (lib.sa_width, lib.sa_max_slots, lib.sa_cluster_size):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    lib.sa_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sa_active_clusters.restype = ctypes.c_int
+    lib.sa_error_string.argtypes = [ctypes.c_int]
+    lib.sa_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library():
     """The kernel's shared library (built by :mod:`ops.build` at first use), bound."""
     global _lib
     if _lib is None:
-        lib = build.load_library("slot_attention")
-        lib.sa_forward.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 5
-                                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-        lib.sa_forward.restype = ctypes.c_int
-        for fn in (lib.sa_chunk_size, lib.sa_width, lib.sa_max_slots):
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(build.load_library("slot_attention"))
     return _lib
 
 
 # ---------------------------------------------------------------------------- launch
 
 
-def _check(k, v, slots, params, num_iters, lib):
+def _check(k, v, slots, params, num_iters, lib, out=None):
     if not k.is_cuda:
         raise ValueError(f"k must lie on a CUDA device, got {k.device}")
     tensors = {"k": k, "v": v, "slots": slots, **{n: params[n] for n in _PARAM_ORDER}}
+    if out is not None:
+        tensors["out"] = out
     for name, t in tensors.items():
         if t.device != k.device:
             raise ValueError(f"{name} must lie on {k.device} with k, got {t.device}")
@@ -108,6 +126,8 @@ def _check(k, v, slots, params, num_iters, lib):
     s = slots.shape[1]
     if slots.shape[0] != b or slots.shape[2] != d:
         raise ValueError(f"slots {tuple(slots.shape)} do not match k {tuple(k.shape)}")
+    if out is not None and out.shape != slots.shape:
+        raise ValueError(f"out {tuple(out.shape)} does not match slots {tuple(slots.shape)}")
     if d != lib.sa_width():
         raise ValueError(f"the kernel takes D = {lib.sa_width()}, got {d}")
     if not 1 <= s <= lib.sa_max_slots():
@@ -126,27 +146,34 @@ def _check(k, v, slots, params, num_iters, lib):
         raise ValueError(f"num_iters must be >= 1, got {num_iters}")
 
 
-def slot_attention_cuda(k, v, slots, params: dict, num_iters: int, scale: float,
-                        eps: float = 1e-8):
-    """Launch the CUDA kernel on the current stream; raises on what it does not take."""
-    lib = load_library()
-    _check(k, v, slots, params, num_iters, lib)
-    b, n, d = k.shape
-    s = slots.shape[1]
-    chunks = -(-n // lib.sa_chunk_size())
-    out = torch.empty_like(slots)
-    attn = torch.empty((b, s, n), device=k.device, dtype=torch.float32)
-    q = torch.empty_like(slots)
-    part_acc = torch.empty((b, chunks, s, d), device=k.device, dtype=torch.float32)
-    part_sum = torch.empty((b, chunks, s), device=k.device, dtype=torch.float32)
-    ptrs = [t.data_ptr() for t in (k, v, slots, out, attn, q, part_acc, part_sum)]
+def launch(lib, k, v, slots, params: dict, num_iters: int, scale: float, eps: float, out, attn):
+    """One call of ``sa_forward`` of a bound library on the current stream,
+    into ``out`` and ``attn``, with no checks and no count; raises on a
+    launch error. :func:`slot_attention_cuda` is the checked entry point."""
+    b, n, _ = k.shape
+    ptrs = [t.data_ptr() for t in (k, v, slots, out, attn)]
     ptrs += [params[name].data_ptr() for name in _PARAM_ORDER]
     stream = torch.cuda.current_stream(k.device).cuda_stream
     with torch.cuda.device(k.device):
-        err = lib.sa_forward(*ptrs, b, n, s, params["mlp_w0"].shape[0], num_iters,
+        err = lib.sa_forward(*ptrs, b, n, slots.shape[1], params["mlp_w0"].shape[0], num_iters,
                              float(scale), float(eps), stream)
     if err != 0:
-        raise RuntimeError(f"slot-attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"slot-attention kernel launch failed: cudaError {err} "
+                           f"({lib.sa_error_string(err).decode()})")
+
+
+def slot_attention_cuda(k, v, slots, params: dict, num_iters: int, scale: float,
+                        eps: float = 1e-8, out=None):
+    """Launch the CUDA kernel on the current stream; raises on what it does not
+    take and under grad. The refined slots go to ``out`` (a new tensor if None),
+    which may be ``slots`` itself."""
+    lib = load_library()
+    _check(k, v, slots, params, num_iters, lib, out)
+    refuse_grad("slot attention", k, v, slots, *(params[name] for name in _PARAM_ORDER))
+    b, n, _ = k.shape
+    out = torch.empty_like(slots) if out is None else out
+    attn = torch.empty((b, slots.shape[1], n), device=k.device, dtype=torch.float32)
+    launch(lib, k, v, slots, params, num_iters, scale, eps, out, attn)
     slot_attention_cuda.launches += 1
     return out, attn
 
@@ -159,7 +186,4 @@ def slot_attention_iterations(k, v, slots, params: dict, num_iters: int, scale: 
     """The plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
     if k.device.type == "cpu":
         return slot_attention_plain(k, v, slots, params, num_iters, scale, eps)
-    with torch.no_grad():
-        params = {name: params[name].detach() for name in _PARAM_ORDER}
-        return slot_attention_cuda(k.detach(), v.detach(), slots.detach(), params,
-                                   num_iters, scale, eps)
+    return slot_attention_cuda(k, v, slots, params, num_iters, scale, eps)
