@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths and its 05 evaluate-predictor path at
-full width with random weights drawn from a seed, and checks them:
+Drives the port's two serving paths, its 05 evaluate-predictor path and its
+02 train path at full width with random weights drawn from a seed, and
+checks them:
 
 * CATER: SAVi (8 slots x 128, 64x64 frames) + TextOCVP_T5 (T5-small, 8
   predictor layers), 19 predicted frames;
@@ -12,7 +13,10 @@ full width with random weights drawn from a seed, and checks them:
   x 128; MLP patch decoder and BatchNorm CNN head) + TextOCVP_T5, 9 predicted
   frames;
 * eval: the CATER model under the 05 protocol, B=64, 1 seed frame, 19
-  predicted frames, PSNR/SSIM/LPIPS, over a temporary CATER ``.npy`` set.
+  predicted frames, PSNR/SSIM/LPIPS, over a temporary CATER ``.npy`` set;
+* train: the CATER SAVi under the 02 ``DecompTrainer`` at B=64, T=8 (Adam,
+  lr 1e-4, warmup 2000, cosine, clip 0.05, ``mse``), over a temporary CATER
+  ``.npy`` train set.
 
 Phases, one JSON line each:
 
@@ -36,7 +40,14 @@ Phases, one JSON line each:
             error, time from CUDA events, the plain version's time, the bound
             (for conv5 and the ViT attention, which run 3xTF32 products on the
             tensor cores, the 3xTF32 bound, with the float32 CUDA-core bound
-            beside it as ``bound_ms_fp32_cores``);
+            beside it as ``bound_ms_fp32_cores``). The backward: conv5's
+            autograd Function against autograd through its plain version at
+            N=1216 and N=4096 (the train step), the input gradient's launch of
+            the kernel, the weight gradient and cuDNN's
+            ``convolution_backward`` timed apart; the slot-attention Function's
+            gradients against the plain version's at B=64, N=4096, 1 and 3
+            iterations, and its backward's time. Gradients are held to 1e-4
+            of the reference's largest value;
 then for each serving path:
 4. parity   the predict stage (seed encode + rollout) on the card and on the
             CPU with the same weights and initial slots, TF32 off, each
@@ -64,11 +75,30 @@ then the eval path:
             metrics) with the peak memory, and one step under ``torch.profiler``
             with exactly one slot-attention device kernel.
 
-Phases 5 and 6 are a serving path's main path, and phase 9 the eval path's:
-every kernel's launch counter is set to 0 before it and read after. Then one
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. Any
-failure raises: the exit code is then not 0 and the last line is not printed.
-Without a CUDA device the script exits 2 before doing anything.
+then the train path:
+11. train_parity  DecompTrainer on the card and on the CPU at full width,
+            B=2, T=3, the same weights, video and slot noise, warmup off: the
+            loss (1e-5 relative) and every gradient leaf (1e-4 of the leaf's
+            largest value) after one step, the loss and the parameters after
+            two;
+12. train   ``textocvp_tpu_torch.cli.train_decomp.main`` at B=64, T=8 over 320
+            training videos (5 steps after one B=64 valid batch): finite
+            losses, ``checkpoint_last_saved.pt`` and
+            ``checkpoint_epoch_final.pt``, 8 slot-attention calls and 3 conv5
+            forward and 3 input-gradient launches a step; then
+            ``--resume_training`` from ``checkpoint_last_saved`` runs a second
+            epoch from the saved step;
+13. train_step  the steady B=64 step on the host clock, split into forward,
+            backward and optimizer, its peak memory and launches, and one
+            step under ``torch.profiler``;
+14. train_sign  20 steps on one batch of 8 at lr 4e-4: the loss falls.
+
+Phases 5 and 6 are a serving path's main path, phase 9 the eval path's and
+phase 12's first run the train path's: every kernel's launch counter is set
+to 0 before it and read after. Then one ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
+not 0 and the last line is not printed. Without a CUDA device the script
+exits 2 before doing anything.
 """
 
 from __future__ import annotations
@@ -100,6 +130,9 @@ TENSOR_CORE_KERNELS = ("conv5", "vit_attention")
 VIT_HEADS, VIT_TOKENS, VIT_DH = 12, 577, 64  # DINOv2 ViT-B/14 at 336 px
 CONV5_RES, CONV5_CH = 64, 64                 # SAVi decoder tail on CATER
 EVAL_BATCH, EVAL_PREDS, EVAL_VIDEOS = 64, 19, 128
+TRAIN_BATCH, TRAIN_FRAMES = 64, 8                  # bench_train.py's flagship step
+TRAIN_VIDEOS, TRAIN_VALID_VIDEOS = 5 * TRAIN_BATCH, TRAIN_BATCH  # 5 steps, 1 valid batch
+GRAD_TOLERANCE = 1e-4  # gradients: max abs error over the reference's max |value|
 
 
 @dataclass(frozen=True)
@@ -227,12 +260,19 @@ def device_kernels(fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return {e.key: (e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = {e.key: (e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+        # a trace without a single device event was lost, not empty: seen
+        # once on the H100 for a call whose launch counter and result were
+        # right; take it again
+        if kernels:
+            return kernels
+    return kernels
 
 
 def slot_attention_rows(n, s, mlp, batches):
@@ -383,14 +423,178 @@ def conv5_rows():
     return rows
 
 
+def rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def grad_errs(got, want):
+    """Each gradient's max abs error over its reference's max |value|, that
+    scale floored at a thousandth of the largest reference's: a gradient that
+    is 0 in exact arithmetic (the query bias and the slot LayerNorm's bias:
+    the softmax over slots does not see a shift common to every slot) is
+    rounding noise on both sides."""
+    top = max(w.abs().max().item() for w in want)
+    return [(g - w).abs().max().item() / max(w.abs().max().item(), 1e-3 * top)
+            for g, w in zip(got, want)]
+
+
+def conv5_weight_grad_bound_ms(n, h, w, c):
+    """x and g' read once, dW written once; 25 float32 products over every
+    pixel at the CUDA-core rate (cuBLAS float32, TF32 off)."""
+    return bound(4 * (2 * n * h * w * c + 25 * c * c), 2 * 25 * c * c * n * h * w)
+
+
+def conv5_backward_rows():
+    """conv5's autograd Function on the card against autograd through
+    ``conv5_plain`` on the card (in chunks of 512 frames: the plain version
+    of 4096 frames at once needs over 100 GB), at a CATER request's N=1216
+    and the train step's N=4096, the output gradient strided as autograd
+    hands it back through the final conv, both sides with the ReLU's mask of
+    the kernel's output (``relu_mask_flips`` counts the outputs whose sign
+    the plain version gives otherwise). Then the parts of the backward
+    timed apart: the input gradient's launch of the kernel (on the masked
+    gradient, with the rotated weights), the weight gradient's 25 products,
+    the whole backward; ``library_ms`` is cuDNN's ``convolution_backward``
+    of the same masked gradient (input, weight and bias, TF32 off, NHWC
+    memory)."""
+    from textocvp_tpu_torch.ops import conv5 as c5
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 6)
+    cgen = torch.Generator("cuda").manual_seed(SEED + 6)
+    c, res, chunk = CONV5_CH, CONV5_RES, 512
+    w = (torch.randn((5, 5, c, c), generator=gen) / (25 * c) ** 0.5).cuda().requires_grad_()
+    b = (0.1 * torch.randn((c,), generator=gen)).cuda().requires_grad_()
+    rows = []
+    for n, reps in ((BATCH * 19 * 8, 5), (TRAIN_BATCH * TRAIN_FRAMES * 8, 3)):
+        x = torch.randn((n, res, res, c), device="cuda", generator=cgen).mul_(0.5).requires_grad_()
+        g = torch.randn((n, c, res, res), device="cuda", generator=cgen).permute(0, 2, 3, 1)
+        launches = c5.conv5_cuda.launches, c5.conv5_input_grad_cuda.launches
+        y = c5.conv5(x, w, b)
+        got = torch.autograd.grad(y, (x, w, b), g, retain_graph=True)
+        torch.cuda.synchronize()
+        launches = (c5.conv5_cuda.launches - launches[0],
+                    c5.conv5_input_grad_cuda.launches - launches[1])
+        check(launches == (2, 1), f"conv5 Function at N={n}: launches {launches}, want (2, 1)")
+        # the reference takes the ReLU's mask from the kernel's output: where
+        # the kernel's and the plain version's outputs straddle 0 (within the
+        # forward's error), their masks differ, and with them the gradient by
+        # a whole term of g
+        gm = torch.where(y.detach() > 0, g, 0.0)
+        ref_x = torch.empty_like(x)
+        ref_w, ref_b = torch.zeros_like(w), torch.zeros_like(b)
+        flips = 0
+        for i in range(0, n, chunk):
+            xi = x[i:i + chunk].detach().requires_grad_()
+            yi = c5.conv5_plain(xi, w, b, relu=False)
+            flips += int(((yi > 0) != (y[i:i + chunk] > 0)).sum())
+            dx, dw, db = torch.autograd.grad(yi, (xi, w, b), gm[i:i + chunk])
+            ref_x[i:i + chunk] = dx
+            ref_w += dw
+            ref_b += db
+            del xi, yi, dx
+        errs = {k: rel_err(a, r) for k, a, r in zip(("x", "w", "b"), got, (ref_x, ref_w, ref_b))}
+        check(all(bool(torch.isfinite(t).all()) for t in got), f"conv5 grads at N={n} not finite")
+        check(max(errs.values()) <= GRAD_TOLERANCE,
+              f"conv5 backward vs plain at N={n}: {errs} > {GRAD_TOLERANCE} of max |ref|")
+        del got, ref_x
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            xd, wd, bd = x.detach(), w.detach(), b.detach()
+            gm = gm.contiguous()  # the ReLU-masked gradient, NHWC memory
+            w_rot = wd.flip(0, 1).transpose(2, 3).contiguous()
+            zeros = torch.zeros_like(bd)
+            fwd_ms = cuda_ms(lambda: c5.conv5_cuda(xd, wd, bd), reps=reps, warmup=1)
+            dx_ms = cuda_ms(lambda: c5.conv5_input_grad_cuda(gm, w_rot, zeros), reps=reps, warmup=1)
+            dw_ms = cuda_ms(lambda: c5.conv5_weight_grad(xd, gm), reps=reps, warmup=1)
+            db_ms = cuda_ms(lambda: gm.sum((0, 1, 2)), reps=reps, warmup=1)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, (x, w, b), g, retain_graph=True),
+                         reps=reps, warmup=1)
+        w_oihw = wd.permute(3, 2, 0, 1).contiguous()
+        lib_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            gm.permute(0, 3, 1, 2), xd.permute(0, 3, 1, 2), w_oihw, [c], [1, 1], [2, 2], [1, 1],
+            False, [0, 0], 1, [True, True, True]), reps=reps, warmup=1)
+        del y, gm, xd, x, g
+        torch.cuda.empty_cache()
+        dx_bound, dx_by, dx_fp32 = conv5_bounds(n, res, res, c)
+        dw_bound, dw_by = conv5_weight_grad_bound_ms(n, res, res, c)
+        rows.append({"N": n, "H": res, "W": res, "C": c, "rel_err": errs,
+                     "tolerance_rel": GRAD_TOLERANCE, "reference_chunk": chunk,
+                     "relu_mask_flips": flips, "forward_ms": fwd_ms, "input_grad_ms": dx_ms,
+                     "weight_grad_ms": dw_ms, "bias_grad_ms": db_ms, "backward_ms": bwd_ms,
+                     "library_ms": lib_ms,
+                     "library": "aten.convolution_backward (cuDNN, TF32 off, NHWC)",
+                     "weight_grad_route": "torch.matmul, 25 batched float32 products",
+                     "input_grad_bound_ms": dx_bound, "input_grad_bound_by": dx_by,
+                     "input_grad_bound_ms_fp32_cores": dx_fp32,
+                     "weight_grad_bound_ms": dw_bound, "weight_grad_bound_by": dw_by,
+                     "backward_bound_ms": dx_bound + dw_bound, "reps": reps})
+    return rows
+
+
+def slot_attention_backward_bound_ms(b, n, d, s, h, iters):
+    """The gradient's least time: k, v, slots, the two cotangents and the
+    weights read once, the gradients of k, v, slots and the weights written
+    once; each forward product's two gradient products at the float32 rate."""
+    weights = 3 * d + d * d + 2 * (3 * d * d + 3 * d) + 2 * d + h * d + h + d * h + d
+    nbytes = 4 * (4 * b * n * d + 3 * b * s * d + b * s * n + 2 * weights)
+    per_iter = (4 * b * s * n * d + 8 * b * s * n
+                + 2 * b * s * (d * d + 6 * d * d + 2 * d * h) + 20 * b * s * d)
+    return bound(nbytes, 2 * iters * per_iter)
+
+
+def slot_attention_backward_rows():
+    """The slot-attention Function's gradients (k, v, slots, the 14
+    parameters; cotangents on both outputs) on the card against autograd
+    through ``slot_attention_plain`` on the card, at the train step's B=64,
+    N=4096, S=8, MLP 256, 1 and 3 iterations; the backward's time."""
+    from textocvp_tpu_torch.models.factory import random_init_
+    from textocvp_tpu_torch.ops import slot_attention_kernel as sak
+    from textocvp_tpu_torch.ops.slot_attention import SlotAttention
+
+    b, n, s, mlp, d = TRAIN_BATCH, CONV5_RES * CONV5_RES, 8, 256, 128
+    gen = torch.Generator().manual_seed(SEED + 7)
+    mod = random_init_(SlotAttention(d, d, s, mlp), gen).cuda()
+    params = {k: p.detach().clone().requires_grad_() for k, p in mod.iteration_params().items()}
+    k, v = (torch.randn((b, n, d), generator=gen).cuda().requires_grad_() for _ in range(2))
+    slots = torch.randn((b, s, d), generator=gen).cuda().requires_grad_()
+    leaves = [k, v, slots, *params.values()]
+    rows = []
+    for iters in (1, 3):
+        gs = torch.randn((b, s, d), generator=gen).cuda()
+        ga = torch.randn((b, s, n), generator=gen).cuda()
+        out = sak.slot_attention_iterations(k, v, slots, params, iters, d ** -0.5)
+        got = torch.autograd.grad(out, leaves, [gs, ga], retain_graph=True)
+        ref = sak.slot_attention_plain(k, v, slots, params, iters, d ** -0.5)
+        want = torch.autograd.grad(ref, leaves, [gs, ga])
+        names = ["k", "v", "slots", *params]
+        errs = dict(zip(names, grad_errs(got, want)))
+        check(max(errs.values()) <= GRAD_TOLERANCE,
+              f"slot-attention backward vs plain at {iters} it: {errs}")
+        ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, [gs, ga], retain_graph=True),
+                     reps=10, warmup=2)
+        bound_ms, bound_by = slot_attention_backward_bound_ms(b, n, d, s, mlp, iters)
+        rows.append({"B": b, "N": n, "S": s, "mlp": mlp, "iters": iters, "rel_err": errs,
+                     "max_rel_err": max(errs.values()), "tolerance_rel": GRAD_TOLERANCE,
+                     "backward_ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "route": "recompute through slot_attention_plain under autograd"})
+        del out, got, ref, want
+    return rows
+
+
 def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = {"slot_attention_cater": slot_attention_rows(4096, 8, 256, (8, 64)),
             "slot_attention_clipport": slot_attention_rows(576, 10, 512, (8,)),
             "vit_attention": vit_attention_rows(),
-            "conv5": conv5_rows()}
+            "conv5": conv5_rows(),
+            "conv5_backward": conv5_backward_rows(),
+            "slot_attention_backward": slot_attention_backward_rows()}
     emit({"phase": "kernels", "tolerance_abs": {"slot_attention": 1e-4, "vit_attention": 2e-5,
-                                                "conv5": 1e-4}, **rows})
+                                                "conv5": 1e-4},
+          "tolerance_rel_backward": GRAD_TOLERANCE, **rows})
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -641,32 +845,39 @@ def phase_profile(path: ServedPath, service, video):
           f"{path.name}: slot-attention device kernels in a request: {slot_attention}")
 
 
-def write_cater_fixture(root: Path) -> Path:
-    """A CATER ``.npy`` test set: EVAL_VIDEOS videos of 21 uint8 64x64 frames,
-    three coloured squares sliding over a shaded floor with a little noise,
-    and ``easy/test_explicit.json`` with CATER-style captions."""
+def write_cater_fixture(root: Path, splits=(("test", EVAL_VIDEOS),)) -> Path:
+    """A CATER ``.npy`` set: for each (split, count), count videos of 21 uint8
+    64x64 frames, three coloured squares sliding over a shaded floor with a
+    little noise, and ``easy/<split>_explicit.json`` with CATER-style
+    captions. Videos are drawn 64 at a time."""
     rng = np.random.default_rng(SEED)
-    v, t, r = EVAL_VIDEOS, EVAL_PREDS + 2, CONV5_RES
+    t, r = EVAL_PREDS + 2, CONV5_RES
     yy, xx = np.meshgrid(np.arange(r), np.arange(r), indexing="ij")
-    frames = np.broadcast_to((0.35 + 0.25 * yy / r)[None, None, :, :, None], (v, t, r, r, 3))
-    steps = np.arange(t)[None, :, None, None]
-    for _ in range(3):
-        color = rng.uniform(0, 1, (v, 1, 1, 1, 3))
-        size = rng.integers(4, 9, (v, 1, 1, 1))
-        cy = rng.uniform(8, 56, (v, 1, 1, 1)) + rng.uniform(-1.5, 1.5, (v, 1, 1, 1)) * steps
-        cx = rng.uniform(8, 56, (v, 1, 1, 1)) + rng.uniform(-1.5, 1.5, (v, 1, 1, 1)) * steps
-        inside = (np.abs(yy - cy) < size) & (np.abs(xx - cx) < size)
-        frames = np.where(inside[..., None], color, frames)
-    frames = frames + 0.02 * rng.standard_normal(frames.shape)
-    videos = np.round(np.clip(frames, 0, 1) * 255).astype(np.uint8)
     mode = root / "easy"
     mode.mkdir(parents=True)
     captions = PATHS[0].captions
-    for i in range(v):
-        np.save(mode / f"video_{i:04d}.npy", videos[i])
-    with open(mode / "test_explicit.json", "w") as f:
-        json.dump({str(i): {"video": f"video_{i:04d}.npy", "caption": captions[i % len(captions)]}
-                   for i in range(v)}, f)
+    first = 0
+    for split, count in splits:
+        for lo in range(0, count, 64):
+            v = min(64, count - lo)
+            frames = np.broadcast_to((0.35 + 0.25 * yy / r)[None, None, :, :, None],
+                                     (v, t, r, r, 3))
+            steps = np.arange(t)[None, :, None, None]
+            for _ in range(3):
+                color = rng.uniform(0, 1, (v, 1, 1, 1, 3))
+                size = rng.integers(4, 9, (v, 1, 1, 1))
+                cy = rng.uniform(8, 56, (v, 1, 1, 1)) + rng.uniform(-1.5, 1.5, (v, 1, 1, 1)) * steps
+                cx = rng.uniform(8, 56, (v, 1, 1, 1)) + rng.uniform(-1.5, 1.5, (v, 1, 1, 1)) * steps
+                inside = (np.abs(yy - cy) < size) & (np.abs(xx - cx) < size)
+                frames = np.where(inside[..., None], color, frames)
+            frames = frames + 0.02 * rng.standard_normal(frames.shape)
+            videos = np.round(np.clip(frames, 0, 1) * 255).astype(np.uint8)
+            for i in range(v):
+                np.save(mode / f"video_{first + lo + i:04d}.npy", videos[i])
+        with open(mode / f"{split}_explicit.json", "w") as f:
+            json.dump({str(i): {"video": f"video_{first + i:04d}.npy",
+                                "caption": captions[i % len(captions)]} for i in range(count)}, f)
+        first += count
     return root
 
 
@@ -815,6 +1026,287 @@ def run_eval(tmp: Path):
     return counts
 
 
+def train_experiment(root: Path, data_root, **training) -> Path:
+    """A SAVi CATER experiment at full width over ``data_root``: the 02
+    defaults (Adam, lr 1e-4, warmup 2000, cosine, clip 0.05, ``mse``) with
+    ``training`` over them; ``num_frames`` 8 with ``random_start``."""
+    from textocvp_tpu_torch.core.config import build_exp_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    params = build_exp_params("SAVi", "CATER_Easy")
+    params["dataset"]["root"] = str(data_root)
+    params["training"].update({"batch_size": TRAIN_BATCH, "num_epochs": 1, "log_frequency": 1,
+                               **training})
+    exp = Experiment(root)
+    exp.save_params(params)
+    return exp.exp_path
+
+
+def phase_train_parity(tmp: Path):
+    """DecompTrainer on the card and on the CPU at full width, B=2, T=3 (the
+    first frame 3 iterations, the others 1), the same initial weights, video
+    and slot noise, warmup off: the loss and every gradient leaf after the
+    first step, the loss and the parameters after the second. Off the main
+    path.
+
+    The CPU runs twice. Its own run is reported. The checked one takes the
+    ReLU mask of each decoder-tail conv from the card's run: an output
+    within the kernel's forward error of 0 may fall on either side of it on
+    the two devices, and the gradient behind it then differs by a whole
+    term (``relu_mask_flips`` counts such outputs), which no float32
+    tolerance covers."""
+    from textocvp_tpu_torch.nn import decoders
+    from textocvp_tpu_torch.ops import conv5 as c5
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    exp = train_experiment(tmp / "train_parity", tmp / "none", batch_size=2, lr_warmup=False)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    video = torch.rand((2, 3, CONV5_RES, CONV5_RES, 3), generator=gen)
+    noise = [torch.randn((2, 8, 128), generator=gen) for _ in range(2)]
+    card_masks, cpu_masks = [], []
+    tail_conv = decoders.conv5
+
+    def recording(masks):
+        def conv(x, w, b, relu=True):
+            y = tail_conv(x, w, b, relu)
+            if relu:
+                masks.append((y.detach() > 0).cpu())
+            return y
+        return conv
+
+    def replaying(x, w, b, relu=True):
+        y = c5.conv5_plain(x, w, b, relu=False)
+        return y * next(replay) if relu else y
+
+    replay = iter(card_masks)  # the CPU calls the tail convs in the card's order
+    runs = {"cuda": ("cuda", recording(card_masks)),
+            "cpu_own_masks": ("cpu", recording(cpu_masks)), "cpu": ("cpu", replaying)}
+    trainers, losses, grads = {}, {}, {}
+    for run, (dev, conv) in runs.items():
+        decoders.conv5 = conv
+        try:
+            tr = trainers[run] = DecompTrainer(exp, device=dev)
+            tr.setup_model()
+            losses[run] = [float(tr.train_step(video.to(dev), noise[0])["_total"])]
+            grads[run] = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
+            losses[run].append(float(tr.train_step(video.to(dev), noise[1])["_total"]))
+        finally:
+            decoders.conv5 = tail_conv
+    check(len(card_masks) == len(cpu_masks) == 6, f"train parity: ReLU masks {len(card_masks)}")
+    flips = [int((a != b).sum()) for a, b in zip(card_masks, cpu_masks)]
+    names = list(grads["cpu"])
+    grad_err = {run: dict(zip(names, grad_errs([grads["cuda"][n] for n in names],
+                                               [grads[run][n] for n in names])))
+                for run in ("cpu", "cpu_own_masks")}
+    worst = {run: sorted(e.items(), key=lambda kv: -kv[1]) for run, e in grad_err.items()}
+    check(worst["cpu"][0][1] <= GRAD_TOLERANCE,
+          f"train parity: gradient leaves card vs CPU, error / max |g|: {worst['cpu'][:5]}; "
+          f"with the CPU's own masks {worst['cpu_own_masks'][:3]}, flips {flips}")
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    check(max(loss_err) <= 1e-5, f"train parity: losses {losses}")
+    # Adam moves each element by about lr a step whatever its gradient's
+    # size, so an element whose gradient is within rounding of 0 may move
+    # either way on the two devices; every other element moves alike
+    lr = trainers["cpu"].lr_schedule(0)
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten() for a, b in zip(
+        trainers["cuda"].model.parameters(), trainers["cpu"].model.parameters())])
+    moved_apart = float((diffs > 1e-2 * lr).float().mean())
+    check(diffs.max().item() <= 2 * 2 * lr and moved_apart <= 1e-3,
+          f"train parity: parameters after two steps, max diff {diffs.max().item()}, share "
+          f"apart by more than lr/100 {moved_apart}")
+    emit({"phase": "train_parity", "B": 2, "T": 3, "losses": losses, "loss_rel_err": loss_err,
+          "grad_err_over_max": dict(worst["cpu"][:8]),
+          "grad_err_over_max_cpu_own_masks": dict(worst["cpu_own_masks"][:8]),
+          "relu_mask_flips": flips, "relu_mask_outputs": card_masks[0].numel(),
+          "grad_tolerance": GRAD_TOLERANCE, "params_max_abs_diff": diffs.max().item(),
+          "params_share_apart_over_lr_100": moved_apart, "lr": lr, "tf32": False})
+    del trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_train_cli(argv):
+    """``textocvp_tpu_torch.cli.train_decomp.main(argv)`` with its output
+    echoed and kept; returns (trainer, output)."""
+    import contextlib
+
+    from textocvp_tpu_torch.cli import train_decomp
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        trainer = train_decomp.main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return trainer, buf.getvalue()
+
+
+def phase_train(exp_path):
+    """The 02 CLI at B=64, T=8 over TRAIN_VIDEOS training videos (5 steps
+    after one B=64 valid batch): the train path's main path. Then a second
+    run resumes from ``checkpoint_last_saved`` for a second epoch. Returns
+    the main path's launches."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.ops import conv5 as c5
+
+    steps, valid = TRAIN_VIDEOS // TRAIN_BATCH, TRAIN_VALID_VIDEOS // TRAIN_BATCH
+    reset_launches()  # the main path starts here
+    c5.conv5_input_grad_cuda.launches = 0
+    t = time.perf_counter()
+    trainer, out = run_train_cli(["-d", str(exp_path)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = launches()  # and ends here
+    input_grad = c5.conv5_input_grad_cuda.launches
+    want = {"slot_attention": TRAIN_FRAMES * (valid + steps), "vit_attention": 0,
+            "conv5": 3 * valid + 6 * steps}
+    check(counts == want and input_grad == 3 * steps,
+          f"train: kernel launches on the main path {counts}, input-gradient {input_grad}; "
+          f"want {want}, {3 * steps}")
+    losses = [float(line.split("loss=")[1]) for line in out.splitlines() if "loss=" in line]
+    check(len(losses) == steps and bool(np.isfinite(losses).all()), f"train losses {losses}")
+    check(trainer.global_step == valid + steps and trainer.optimizer.count == steps,
+          f"train: step {trainer.global_step}, updates {trainer.optimizer.count}")
+    models = Experiment(exp_path).models_dir
+    for name in ("checkpoint_last_saved.pt", "checkpoint_epoch_final.pt"):
+        check((models / name).is_file(), f"train: {name} not written")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    exp = Experiment(exp_path)
+    params = exp.params
+    params["training"]["num_epochs"] = 2
+    exp.save_params(params)
+    t = time.perf_counter()
+    resumed, out2 = run_train_cli(["-d", str(exp_path), "--checkpoint", "checkpoint_last_saved",
+                                   "--resume_training"])
+    resume_seconds = time.perf_counter() - t
+    losses2 = [float(line.split("loss=")[1]) for line in out2.splitlines() if "loss=" in line]
+    check("Resuming training from epoch 1" in out2 and resumed.start_epoch == 1
+          and resumed.global_step == 2 * (valid + steps) and resumed.optimizer.count == 2 * steps,
+          f"resume: epoch {resumed.start_epoch}, step {resumed.global_step}, "
+          f"updates {resumed.optimizer.count}")
+    check(len(losses2) == steps and bool(np.isfinite(losses2).all()), f"resumed losses {losses2}")
+    emit({"phase": "train", "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
+          "train_videos": TRAIN_VIDEOS, "valid_videos": TRAIN_VALID_VIDEOS,
+          "cli_seconds": seconds, "resume_cli_seconds": resume_seconds, "launches": counts,
+          "conv5_input_grad_launches": input_grad, "losses": losses, "resumed_losses": losses2,
+          "epoch_lines": [line for line in (out + out2).splitlines() if line.startswith("Epoch")]})
+    return counts, input_grad, resumed
+
+
+def phase_train_sign(exp_path, videos):
+    """20 steps on one fixed batch of 8 at lr 4e-4, no warmup: the loss must
+    fall. Off the main path."""
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    tr = DecompTrainer(exp_path)
+    tr.training_params.update(lr=4e-4, lr_warmup=False)
+    tr.setup_model()
+    batch = tr.to_device(videos[:8])
+    losses = [float(tr.train_step(batch)["_total"]) for _ in range(20)]
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"sign check: the loss did not fall over 20 steps: {losses}")
+    emit({"phase": "train_sign", "batch": 8, "frames": TRAIN_FRAMES, "lr": 4e-4, "steps": 20,
+          "losses": losses})
+
+
+def phase_train_step(trainer, videos):
+    """The steady train step at B=64, T=8 on the resumed trainer: three
+    steps on the host clock with synchronize, one split into forward,
+    backward and optimizer, the peak memory, the launches of a step, and
+    one step under torch.profiler. Off the main path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from textocvp_tpu_torch.ops import conv5 as c5
+    from textocvp_tpu_torch.ops import slot_attention_kernel as sak
+
+    batch = trainer.to_device(videos)
+    trainer.train_step(batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    before = (sak.slot_attention_cuda.launches, c5.conv5_cuda.launches,
+              c5.conv5_input_grad_cuda.launches)
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    noise = trainer._noise(batch.shape[0])
+    mark()
+    trainer.optimizer.zero_grad()
+    total, _ = trainer.forward_loss(batch, noise)
+    mark()
+    total.backward()
+    mark()
+    trainer.optimizer.step()
+    mark()
+    per_step = (sak.slot_attention_cuda.launches - before[0], c5.conv5_cuda.launches - before[1],
+                c5.conv5_input_grad_cuda.launches - before[2])
+    check(per_step == (TRAIN_FRAMES, 6, 3),
+          f"train step launches (slot attention, conv5, conv5 input gradient): {per_step}")
+    split = dict(zip(("forward", "backward", "optimizer"),
+                     (1e3 * (b - a) for a, b in zip(marks[:-1], marks[1:]))))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:15]
+
+    def entries(name):
+        return [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
+                for e in dev if name in e.key]
+
+    slot_attention = entries(SLOT_ATTENTION_KERNEL)
+    conv5 = entries("conv5_kernel")
+    check(sum(e["count"] for e in slot_attention) == TRAIN_FRAMES
+          and sum(e["count"] for e in conv5) == 6,
+          f"train step device kernels: slot attention {slot_attention}, conv5 {conv5}")
+    mean_ms = sum(step_ms) / len(step_ms)
+    emit({"phase": "train_step", "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
+          "step_ms": step_ms, "train_frames_per_s": 1e3 * TRAIN_BATCH * TRAIN_FRAMES / mean_ms,
+          "split_ms": split, "peak_mem_gb": peak_gb,
+          "launches_per_step": {"slot_attention": per_step[0], "conv5": per_step[1],
+                                "conv5_input_grad": per_step[2]},
+          "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": 1 - busy_ms / wall_ms, "device_ops": sum(e.count for e in dev),
+          "slot_attention": slot_attention, "conv5": conv5,
+          "index_kernels": entries("index"),  # the decoder's tile gather and its backward
+          "top": [{"name": e.key[:90], "count": e.count, "ms": e.self_device_time_total / 1e3}
+                  for e in top]})
+
+
+def run_train(tmp: Path):
+    """The train path: card-against-CPU parity, the fixture, the main path
+    (the 02 CLI and its resume), the sign check, the steady step. Returns
+    the main path's launches and its conv5 input-gradient launches."""
+    phase_train_parity(tmp)
+    data_root = write_cater_fixture(tmp / "CATER_train", (("train", TRAIN_VIDEOS),
+                                                          ("test", TRAIN_VALID_VIDEOS)))
+    exp_path = train_experiment(tmp / "train", data_root)
+    counts, input_grad, trainer = phase_train(exp_path)
+    videos, _ = next(iter(trainer.train_loader))
+    phase_train_step(trainer, videos)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_sign(train_experiment(tmp / "train_sign", data_root), videos)
+    return counts, input_grad
+
+
 def run_path(path: ServedPath, tmp: Path):
     """Parity, then the main path (service + HTTP) between a reset and a read
     of the launch counters, then the profile. Returns the main path's launches."""
@@ -849,6 +1341,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         counts = {path.name: run_path(path, Path(tmp)) for path in PATHS}
         counts["eval"] = run_eval(Path(tmp))
+        counts["train"], train_input_grad = run_train(Path(tmp))
 
     sa = next(r for r in rows["slot_attention_cater"] if r["B"] == BATCH and r["iters"] == 3)
     sa64 = next(r for r in rows["slot_attention_cater"] if r["B"] == EVAL_BATCH
@@ -856,6 +1349,9 @@ def main() -> int:
     sa_clip = next(r for r in rows["slot_attention_clipport"] if r["iters"] == 3)
     vit8, vit16 = rows["vit_attention"]
     conv_req, conv_eval = rows["conv5"]
+    conv_bwd = {r["N"]: r for r in rows["conv5_backward"]}
+    conv_train = conv_bwd[TRAIN_BATCH * TRAIN_FRAMES * 8]
+    sa_bwd = {r["iters"]: r for r in rows["slot_attention_backward"]}
     emit({"kernels": [{
         "name": "slot_attention",
         "route": "cuda",
@@ -878,6 +1374,13 @@ def main() -> int:
         "clipport_shape": {k: sa_clip[k] for k in ("B", "N", "S", "mlp", "iters", "ms",
                                                    "plain_ms", "bound_ms", "bound_by")}
         | {"max_abs_err": max(sa_clip["max_abs_err_slots"], sa_clip["max_abs_err_attn"])},
+        "backward": {"route": "torch.autograd.Function; backward recomputes through "
+                              "slot_attention_plain (the JAX _fused_bwd)",
+                     "shape": {"B": TRAIN_BATCH, "N": CONV5_RES * CONV5_RES, "S": 8, "mlp": 256},
+                     **{f"{it}_it": {k: r[k] for k in ("backward_ms", "bound_ms", "bound_by",
+                                                      "max_rel_err")}
+                        for it, r in sa_bwd.items()},
+                     "tolerance_rel": GRAD_TOLERANCE, "library_ms": None},
     }, {
         "name": "vit_attention",
         "route": "cuda",
@@ -913,6 +1416,18 @@ def main() -> int:
         "n1216": {k: conv_req[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "bound_ms_fp32_cores", "library_ms",
                                            "library_layout", "max_abs_err")},
+        "train_input_grad_launches": train_input_grad,
+        "backward": {"route": "cuda (input gradient: this kernel, rotated weights); weight "
+                              "gradient: torch.matmul; bias gradient: a sum",
+                     "max_rel_err": max(max(r["rel_err"].values()) for r in conv_bwd.values()),
+                     "tolerance_rel": GRAD_TOLERANCE,
+                     **{f"n{n}": {k: r[k] for k in (
+                         "forward_ms", "input_grad_ms", "weight_grad_ms", "bias_grad_ms",
+                         "backward_ms", "library_ms", "input_grad_bound_ms",
+                         "weight_grad_bound_ms", "weight_grad_bound_by", "backward_bound_ms",
+                         "rel_err")} for n, r in conv_bwd.items()},
+                     "ms": conv_train["backward_ms"], "bound_ms": conv_train["backward_bound_ms"],
+                     "library_ms": conv_train["library_ms"]},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -37,7 +37,7 @@ from textocvp_tpu_torch.convert import from_jax_params  # noqa: E402
 from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params  # noqa: E402
 from textocvp_tpu_torch.core.experiment import Experiment  # noqa: E402
 from textocvp_tpu_torch.data.datasets import CATER  # noqa: E402
-from textocvp_tpu_torch.data.loader import load_data, make_loader  # noqa: E402
+from textocvp_tpu_torch.data.loader import EpochLoader, load_data  # noqa: E402
 from textocvp_tpu_torch.train.evaluator import PredictorEvaluator  # noqa: E402
 
 RES, S, D, NUM_PREDS, BATCH, VIDEOS, FRAMES = 16, 4, 32, 3, 2, 5, 6
@@ -130,7 +130,7 @@ def test_cater_items_and_batches_match_jax(exp_dir):
             assert co == cr and fo.dtype == fr.dtype == (np.uint8 if uint8 else np.float32)
             assert fo.shape == (FRAMES - 1, RES, RES, 3)
             np.testing.assert_array_equal(fo, fr)
-        batches = list(make_loader(ours, batch_size=BATCH))
+        batches = list(EpochLoader(ours, batch_size=BATCH))
         ref_batches = list(JaxDataLoader(ref, batch_size=BATCH, num_workers=0))
         assert [b[0].shape[0] for b in batches] == [2, 2, 1]
         for (vo, io), (vr, ir) in zip(batches, ref_batches):

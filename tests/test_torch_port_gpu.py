@@ -3,7 +3,10 @@ attention and decoder-tail conv5 kernels against their plain versions (the
 last two at shapes on and across the edges of their tiles), the tensor-core
 instructions in the built conv5 and ViT-attention libraries, the SAVi and
 ExtendedDINOSAUR seed encodes and the SAVi decode on the card against the
-CPU; the refusal of both kernels' launches under grad. Marked ``gpu``;
+CPU; the gradients of the slot-attention and conv5 Functions against
+autograd through the plain versions on the card, a SAVi train step that
+leaves no parameter without a gradient, and the ViT attention's refusal of
+grad. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -14,8 +17,10 @@ version (float32 on both, sums in other orders; slots are of order 1,
 attention weights lie in [0, 1]); 2e-5 absolute and relative for the ViT
 attention kernel, the JAX package's own flash-vs-XLA tolerance; 1e-4
 absolute for conv5 against its plain version (float32, 1600-term sums in
-other orders, outputs of order 1). TF32 is off for the plain versions'
-matmuls.
+other orders, outputs of order 1). Gradients: each as max abs error over
+the reference's max |value|, 1e-4 (conv5's input gradient is the kernel
+itself on the 3xTF32 tensor cores, its weight gradient float32 products over
+every pixel). TF32 is off for the plain versions' matmuls.
 """
 
 import numpy as np
@@ -88,57 +93,167 @@ def test_kernel_raises_on_a_launch_it_cannot_make(cuda):
     assert sak.slot_attention_cuda.launches == before
 
 
-def test_slot_attention_refuses_grad_and_runs_without_it(cuda):
+def _rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _grads_close(got, want):
+    """Each gradient within 1e-4 of its reference's max |value|, that scale
+    floored at a thousandth of the largest reference's (the query bias and
+    the slot LayerNorm's bias have a gradient of exactly 0, rounding noise
+    on both sides)."""
+    top = max(w.abs().max().item() for w in want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * max(w.abs().max().item(), 1e-3 * top), (i, err)
+
+
+def test_slot_attention_grad_flows_and_matches_plain(cuda):
+    """Under grad the module goes through the Function: one kernel launch a
+    call, the gradients of k, v, slots and every refinement parameter those
+    of autograd through the plain version; under no_grad and inference_mode
+    it launches as before."""
     k, v, slots, _ = _case(2, 256, 8, 256)
     mod = random_init_(SlotAttention(128, 128, 8, 256), torch.Generator().manual_seed(1)).cuda()
+    k, v, slots = (t.requires_grad_() for t in (k, v, slots))
     before = sak.slot_attention_cuda.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        mod.iterate(k, v, slots, 2)  # the module's parameters require grad
-    with pytest.raises(RuntimeError, match="no backward"):
-        sak.slot_attention_iterations(k.requires_grad_(), v, slots,
-                                      mod.requires_grad_(False).iteration_params(), 2, 0.1)
-    assert sak.slot_attention_cuda.launches == before
-    mod.requires_grad_(True)
+    out, attn = mod.iterate(k, v, slots, 2)
+    assert sak.slot_attention_cuda.launches == before + 1
+    leaves = [k, v, slots, *(p for n, p in mod.named_parameters()
+                             if not n.startswith(("norm_input", "to_k", "to_v")))]
+    got = torch.autograd.grad(out.square().sum() + attn.square().sum(), leaves)
+    ref, ref_attn = sak.slot_attention_plain(k, v, slots, mod.iteration_params(), 2, 128 ** -0.5)
+    want = torch.autograd.grad(ref.square().sum() + ref_attn.square().sum(), leaves)
+    assert sak.slot_attention_cuda.launches == before + 1  # the backward recomputes, plain
+    _grads_close(got, want)
     with torch.no_grad():
         out, _ = mod.iterate(k, v, slots, 2)
     with torch.inference_mode():
         out2, _ = mod.iterate(k, v, slots, 2)
-    assert sak.slot_attention_cuda.launches == before + 2
+    assert sak.slot_attention_cuda.launches == before + 3
     torch.testing.assert_close(out, out2, rtol=0, atol=0)
 
 
-def test_conv5_refuses_grad_and_runs_without_it(cuda):
+def test_conv5_grad_flows_and_matches_plain(cuda):
     x, wt, b = _conv5_case(2, 8, 8)
-    before = c5.conv5_cuda.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        c5.conv5(x, wt.clone().requires_grad_(), b)
-    with pytest.raises(RuntimeError, match="no backward"):
-        c5.conv5(x.clone().requires_grad_(), wt, b)
-    assert c5.conv5_cuda.launches == before
-    x.requires_grad_()
+    x, wt, b = (t.requires_grad_() for t in (x, wt, b))
+    before = c5.conv5_cuda.launches, c5.conv5_input_grad_cuda.launches
+    y = c5.conv5(x, wt, b)
+    got = torch.autograd.grad(y.square().sum(), (x, wt, b))
+    assert (c5.conv5_cuda.launches, c5.conv5_input_grad_cuda.launches) == (
+        before[0] + 2, before[1] + 1)
+    want = torch.autograd.grad(c5.conv5_plain(x, wt, b).square().sum(), (x, wt, b))
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= 1e-4
     with torch.no_grad():
         out = c5.conv5(x, wt, b)
     with torch.inference_mode():
         out2 = c5.conv5(x, wt, b)
-    assert c5.conv5_cuda.launches == before + 2
     torch.testing.assert_close(out, out2, rtol=0, atol=0)
 
 
-def test_conv_decoder_refuses_a_trainable_tail_behind_a_frozen_first_block(cuda):
-    """The tail's input requires no grad, its weights do: conv5 still raises."""
+def test_conv_decoder_trains_its_tail_behind_a_frozen_first_block(cuda):
+    """The tail's input requires no grad, its weights do: the tail convs get
+    their weight gradients (those of the CPU's plain version), and no input
+    gradient is launched."""
     from textocvp_tpu_torch.nn.decoders import ConvDecoder
 
-    dec = random_init_(ConvDecoder(32, [64, 64, 64]), torch.Generator().manual_seed(4)).cuda()
+    dec = random_init_(ConvDecoder(32, [64, 64, 64]), torch.Generator().manual_seed(4))
     dec.blocks[0].requires_grad_(False)
-    x = torch.randn(2, 32, 16, 16, generator=torch.Generator().manual_seed(5)).cuda()
-    before = c5.conv5_cuda.launches
-    with pytest.raises(RuntimeError, match="conv5: the CUDA kernel has no backward"):
-        dec(x)
-    assert c5.conv5_cuda.launches == before
+    x = torch.randn(2, 32, 16, 16, generator=torch.Generator().manual_seed(5))
+    dec(x).square().sum().backward()
+    want = [p.grad.clone() for b in dec.blocks[1:] for p in b.parameters()]
+    dec.zero_grad()
+    dec = dec.cuda()
+    before = c5.conv5_cuda.launches, c5.conv5_input_grad_cuda.launches
+    dec(x.cuda()).square().sum().backward()
+    # the first tail conv's input needs no gradient: one input-gradient launch
+    assert (c5.conv5_cuda.launches, c5.conv5_input_grad_cuda.launches) == (
+        before[0] + 3, before[1] + 1)
+    got = [p.grad for b in dec.blocks[1:] for p in b.parameters()]
+    for g, w in zip(got, want):
+        assert _rel_err(g.cpu(), w) <= 1e-4
+
+
+def test_vit_attention_refuses_grad_and_runs_without_it(cuda):
+    q, k, v = _qkv(2, 4, 100)
+    before = va.vit_attention_cuda.launches
+    with pytest.raises(RuntimeError, match="ViT attention: the CUDA kernel has no backward"):
+        va.vit_attention(q.clone().requires_grad_(), k, v, 0.125)
+    assert va.vit_attention_cuda.launches == before
     with torch.no_grad():
-        out = dec(x)
-    assert c5.conv5_cuda.launches == before + 2
-    assert out.shape == (2, 4, 16, 16) and bool(torch.isfinite(out).all())
+        out = va.vit_attention(q.clone().requires_grad_(), k, v, 0.125)
+    assert va.vit_attention_cuda.launches == before + 1
+    torch.testing.assert_close(out, va.vit_attention_plain(q, k, v, 0.125), rtol=2e-5, atol=2e-5)
+
+
+# conv5's gradients across the kernel's 16 x 64 tile: H and W on, under and
+# over its edges
+@pytest.mark.parametrize("n,h,w", [(2, 16, 64), (2, 15, 63), (2, 17, 65), (1, 33, 129),
+                                   (3, 5, 7), (1, 1, 1)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv5_function_gradients_across_tile_edges(cuda, n, h, w, relu):
+    x, wt, b = _conv5_case(n, h, w)
+    g = torch.randn((n, 64, h, w), generator=torch.Generator().manual_seed(h * w)).cuda()
+    g = g.permute(0, 2, 3, 1)  # strided, as it comes back through the final conv
+    x, wt, b = (t.requires_grad_() for t in (x, wt, b))
+    y = c5.conv5(x, wt, b, relu)
+    got = torch.autograd.grad(y, (x, wt, b), g)
+    # the reference takes the ReLU's mask from the kernel's output: where the
+    # two forwards straddle 0 within their error, the masks differ, and the
+    # gradients with them by a whole term of g
+    gm = torch.where(y.detach() > 0, g, 0.0) if relu else g
+    want = torch.autograd.grad(c5.conv5_plain(x, wt, b, relu=False), (x, wt, b), gm)
+    for gg, ww, what in zip(got, want, "xwb"):
+        assert _rel_err(gg, ww) <= 1e-4, what
+
+
+@pytest.mark.parametrize("b,n,s,h,iters", [(2, 5, 3, 64, 3), (1, 7, 8, 256, 1),
+                                           (64, 4096, 8, 256, 3), (64, 4096, 8, 256, 1)])
+def test_slot_attention_function_gradients(cuda, b, n, s, h, iters):
+    """N < 8 (CTAs of a cluster that own no location) and the CATER train
+    shape, B=64, N=4096."""
+    k, v, slots, params = _case(b, n, s, h)
+    leaves = [t.requires_grad_() for t in (k, v, slots, *params.values())]
+    k, v, slots = leaves[:3]
+    p = dict(zip(params, leaves[3:]))
+    gen = torch.Generator().manual_seed(b + n)
+    gs = torch.randn((b, s, 128), generator=gen).cuda()
+    ga = torch.randn((b, s, n), generator=gen).cuda()
+    out, attn = sak.slot_attention_iterations(k, v, slots, p, iters, 128 ** -0.5)
+    got = torch.autograd.grad([out, attn], leaves, [gs, ga])
+    ref, ref_attn = sak.slot_attention_plain(k, v, slots, p, iters, 128 ** -0.5)
+    want = torch.autograd.grad([ref, ref_attn], leaves, [gs, ga])
+    _grads_close(got, want)
+
+
+def test_savi_train_step_on_the_card_leaves_no_parameter_without_a_gradient(cuda, tmp_path):
+    """One DecompTrainer step at full width, B=2, T=3: every parameter gets a
+    finite gradient and moves; 3 slot-attention calls (one a frame), 3 conv5
+    forward and 3 input-gradient launches."""
+    from textocvp_tpu_torch.core.config import build_exp_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    p = build_exp_params("SAVi", "CATER_Easy")
+    p["training"].update(batch_size=2, lr_warmup=False)
+    Experiment(tmp_path).save_params(p)
+    tr = DecompTrainer(tmp_path)
+    tr.setup_model()
+    before = {n: t.detach().clone() for n, t in tr.model.named_parameters()}
+    video = torch.rand((2, 3, 64, 64, 3), generator=torch.Generator().manual_seed(6)).cuda()
+    counts = (sak.slot_attention_cuda.launches, c5.conv5_cuda.launches,
+              c5.conv5_input_grad_cuda.launches)
+    values = tr.train_step(video)
+    torch.cuda.synchronize()
+    assert (sak.slot_attention_cuda.launches - counts[0], c5.conv5_cuda.launches - counts[1],
+            c5.conv5_input_grad_cuda.launches - counts[2]) == (3, 6, 3)
+    assert np.isfinite(float(values["_total"]))
+    for name, t in tr.model.named_parameters():
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all()), name
+        if name not in ("slot_attention.to_q.bias", "slot_attention.norm_slot.bias"):
+            assert t.grad.abs().max() > 0, name  # those two: exactly 0 (softmax over slots)
+        assert not torch.equal(t.detach(), before[name]) or t.grad.abs().max() == 0, name
 
 
 def test_module_dispatches_cuda_tensors_to_the_kernel(cuda):

@@ -1,12 +1,15 @@
-"""The refusal of gradients that the port's forward-only CUDA kernels would
-drop (``ops/grad_guard.py``), on the CPU.
+"""The refusal of gradients that the port's forward-only CUDA kernel would
+drop (``ops/grad_guard.py``), and the gradients of the two kernels that have
+a backward, on the CPU.
 
 ``refuse_grad`` looks only at the autograd state, so it is tested here on CPU
-tensors. The CUDA wrappers of slot attention and conv5 are shown to call it
-before they launch, with the device check and the library stubbed (there is
-no card or ``nvcc`` here); the launches themselves are refused on the card by
-the ``gpu`` tests of ``tests/test_torch_port_gpu.py``. The CPU paths keep
-their autograd: they run the plain versions.
+tensors. The CUDA wrapper of the ViT attention is shown to call it before it
+launches, with the device check and the library stubbed (there is no card or
+``nvcc`` here); on the card the ``gpu`` tests of
+``tests/test_torch_port_gpu.py`` show the refusal and, for slot attention
+and conv5, the gradients. Slot attention and conv5 record their gradients
+through ``torch.autograd.Function``s, run here with their plain forwards.
+The CPU paths keep their autograd: they run the plain versions.
 """
 
 import pytest
@@ -16,6 +19,7 @@ from textocvp_tpu_torch.models.factory import random_init_
 from textocvp_tpu_torch.nn.decoders import ConvDecoder
 from textocvp_tpu_torch.ops import conv5 as c5
 from textocvp_tpu_torch.ops import slot_attention_kernel as sak
+from textocvp_tpu_torch.ops import vit_attention as va
 from textocvp_tpu_torch.ops.grad_guard import refuse_grad
 from textocvp_tpu_torch.ops.slot_attention import SlotAttention
 
@@ -57,32 +61,52 @@ def test_passes_for_a_detached_view_of_a_tensor_that_requires_grad():
 
 class _NoLaunch:
     """Stands in for a built library; launching through it fails the test."""
-    sa_width = staticmethod(lambda: 32)
-    sa_max_slots = staticmethod(lambda: 12)
+    va_head_dim = staticmethod(lambda: 64)
 
     def __getattr__(self, name):
         raise AssertionError(f"{name} reached: the launch was not refused")
 
 
-def test_slot_attention_wrapper_refuses_before_launching(monkeypatch):
-    monkeypatch.setattr(sak, "load_library", lambda: _NoLaunch())
-    monkeypatch.setattr(sak, "_check", lambda *a, **kw: None)
+def test_vit_attention_wrapper_refuses_before_launching(monkeypatch):
+    monkeypatch.setattr(va, "load_library", lambda: _NoLaunch())
+    monkeypatch.setattr(va, "_check", lambda *a, **kw: None)
+    q = torch.randn(1, 2, 5, 64, requires_grad=True)
+    before = va.vit_attention_cuda.launches
+    with pytest.raises(RuntimeError, match="ViT attention: the CUDA kernel has no backward"):
+        va.vit_attention_cuda(q, q.detach(), q.detach(), 0.125)
+    assert va.vit_attention_cuda.launches == before
+
+
+def test_slot_attention_function_gradient_flows_like_the_plain_version():
+    """What a CUDA tensor runs, with the plain forward in the kernel's place:
+    every parameter of the refinement and k, v, slots get the plain
+    version's gradients."""
     mod = random_init_(SlotAttention(32, 32, 4, 64), torch.Generator().manual_seed(0))
-    k = torch.randn(2, 10, 32)
-    before = sak.slot_attention_cuda.launches
-    with pytest.raises(RuntimeError, match="slot attention: the CUDA kernel has no backward"):
-        sak.slot_attention_cuda(k, k, torch.randn(2, 4, 32), mod.iteration_params(), 1, 0.1)
-    assert sak.slot_attention_cuda.launches == before
+    gen = torch.Generator().manual_seed(6)
+    k, v, s = (torch.randn(shape, generator=gen).requires_grad_()
+               for shape in ((2, 10, 32), (2, 10, 32), (2, 4, 32)))
+    p = mod.iteration_params()
+    out, attn = sak.SlotAttentionFunction.apply(k, v, s, 2, 0.1, 1e-8, sak.slot_attention_plain,
+                                                *(p[n] for n in sak._PARAM_ORDER))
+    leaves = [k, v, s, *mod.parameters()]
+    got = torch.autograd.grad(out.square().sum() + attn.sum(), leaves, allow_unused=True)
+    ref_out, ref_attn = sak.slot_attention_plain(k, v, s, mod.iteration_params(), 2, 0.1)
+    want = torch.autograd.grad(ref_out.square().sum() + ref_attn.sum(), leaves, allow_unused=True)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-def test_conv5_wrapper_refuses_before_launching(monkeypatch):
-    monkeypatch.setattr(c5, "load_library", lambda: _NoLaunch())
-    monkeypatch.setattr(c5, "_check", lambda *a, **kw: None)
-    x = torch.randn(1, 4, 4, 64, requires_grad=True)
-    before = c5.conv5_cuda.launches
-    with pytest.raises(RuntimeError, match="conv5: the CUDA kernel has no backward"):
-        c5.conv5_cuda(x, torch.randn(5, 5, 64, 64), torch.randn(64))
-    assert c5.conv5_cuda.launches == before
+def test_conv5_function_gradient_flows_like_the_plain_version():
+    gen = torch.Generator().manual_seed(7)
+    x, w, b = (torch.randn(shape, generator=gen).requires_grad_()
+               for shape in ((2, 6, 7, 8), (5, 5, 8, 8), (8,)))
+    y = c5.Conv5Function.apply(x, w, b, True, c5.conv5_plain, c5.conv5_plain)
+    got = torch.autograd.grad(y.square().sum(), (x, w, b))
+    want = torch.autograd.grad(c5.conv5_plain(x, w, b).square().sum(), (x, w, b))
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-4)
 
 
 def test_cpu_slot_attention_keeps_its_gradient():

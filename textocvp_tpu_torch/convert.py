@@ -8,8 +8,9 @@ the state dict of the port's module:
 * Dense ``kernel`` (in, out) -> ``weight`` (out, in); Conv ``kernel`` HWIO -> OIHW;
 * LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
 * the flax GRU (``ir``, ``iz``, ``in`` with biases; ``hr``, ``hz`` without;
-  ``hn`` with bias) -> ``torch.nn.GRUCell`` (``weight_ih`` = [ir; iz; in]ᵀ,
-  ``bias_hh`` = [0; 0; b_hn]);
+  ``hn`` with bias) -> the port's ``GRUCell`` (``weight_ih`` = [ir; iz; in]ᵀ,
+  ``bias_ih``, ``weight_hh`` = [hr; hz; hn]ᵀ, ``bias_hn``): the same leaves,
+  so a tree of gradients converts as a tree of weights does;
 * flax's automatic names -> the port's attributes: ``Dense_i`` ->
   ``layers.i`` (``projection`` in a SoftPositionEmbed), ``ConvBlock_i`` ->
   ``blocks.i``, ``Conv_0`` -> ``conv`` (``final_conv`` of the decoder),
@@ -70,12 +71,11 @@ def _gru(tree: Mapping) -> dict:
     if missing:
         raise KeyError(f"GRU params lack {sorted(missing)}")
     k = {g: np.asarray(tree[g]["kernel"]).T for g in _GRU_GATES}  # (out, in)
-    b_hn = np.asarray(tree["hn"]["bias"])
     return {
         "weight_ih": np.concatenate([k["ir"], k["iz"], k["in"]]),
         "bias_ih": np.concatenate([np.asarray(tree[g]["bias"]) for g in ("ir", "iz", "in")]),
         "weight_hh": np.concatenate([k["hr"], k["hz"], k["hn"]]),
-        "bias_hh": np.concatenate([np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn]),
+        "bias_hn": np.asarray(tree["hn"]["bias"]),
     }
 
 

@@ -8,7 +8,10 @@ CATER easy/hard video-caption dataset of the port, from pre-decoded arrays
 uint8 or float in [0, 1]. Items are ``(frames, caption)`` with frames
 (num_frames, H, W, C): float32 in [0, 1] (uint8 times ``INV255``), or uint8
 under ``uint8_output``. The clip starts at frame 1, as the JAX package's
-does outside training; the random start of training is not ported.
+does, but for the train split with ``random_start``: there the start is
+drawn from ``[0, len(video) - num_frames]`` by :func:`_random_start`, a
+stateless draw of (seed, epoch, item), the JAX package's; the loader sets
+the epoch (:meth:`CATER.set_epoch`).
 
 mp4 containers and frame directories need imageio/ffmpeg or PIL, and a
 resize to ``img_size`` needs PIL: the port does not read them and raises,
@@ -24,6 +27,14 @@ import numpy as np
 
 from textocvp_tpu_torch.data.vocabularies import CATER_EASY_VOCAB, CATER_HARD_VOCAB
 from textocvp_tpu_torch.data.wire import INV255, to_uint8_frames
+
+
+def _random_start(seed: int, epoch: int, idx: int, n_choices: int) -> int:
+    """Start frame of item ``idx`` in epoch ``epoch``, in [0, n_choices): a
+    draw of its own for each (seed, epoch, item), the same in any order of
+    calls (copy of the JAX package's ``data/datasets.py::_random_start``)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, idx]))
+    return int(rng.integers(0, n_choices))
 
 
 def _load_array(path: str):
@@ -45,14 +56,15 @@ class CATER:
     MODES = ["easy", "hard"]
 
     def __init__(self, root, mode, split, num_frames=16, img_size=(64, 64),
-                 random_start=False, uint8_output: bool = False, **kwargs):
+                 random_start=False, seed: int = 14, uint8_output: bool = False, **kwargs):
         if mode not in self.MODES:
             raise NameError(f"mode={mode!r} unknown. Use one of {self.MODES}")
         if split not in ["train", "val", "valid", "test", "eval"]:
             raise ValueError(f"Unknown split={split!r}")
         split = "test" if split in ("valid", "val", "test", "eval") else split
-        if random_start and split == "train":
-            raise NotImplementedError("random clip starts (training) are not ported")
+        self.random_start = random_start
+        self._seed = seed
+        self._epoch = 0
         self.root = os.path.join(root, mode)
         if not os.path.exists(self.root):
             raise FileNotFoundError(f"{self.root} does not exist")
@@ -64,15 +76,22 @@ class CATER:
         with open(os.path.join(self.root, f"{split}_explicit.json")) as f:
             self.annotations = json.load(f)
 
+    def set_epoch(self, epoch: int):
+        """Advance the random-start draws (the loader calls it each epoch)."""
+        self._epoch = int(epoch)
+
     def __len__(self) -> int:
         return len(self.annotations)
 
     def __getitem__(self, idx: int):
         ann = self.annotations[str(idx)]
         arr = _load_array(os.path.join(self.root, ann["video"]))
-        frames = np.asarray(arr[1:1 + self.num_frames])
+        start = 1
+        if self.random_start and self.split == "train":
+            start = _random_start(self._seed, self._epoch, idx, arr.shape[0] - self.num_frames + 1)
+        frames = np.asarray(arr[start:start + self.num_frames])
         if frames.shape[0] != self.num_frames:
-            raise IndexError(f"{ann['video']}: {self.num_frames} frames from frame 1 "
+            raise IndexError(f"{ann['video']}: {self.num_frames} frames from frame {start} "
                              f"wanted, the video has {arr.shape[0]}")
         if frames.shape[1:3] != self.img_size:
             raise NotImplementedError(

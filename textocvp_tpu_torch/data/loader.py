@@ -2,19 +2,20 @@
 Host input pipeline of the port: the dataset factory and a batching loader
 (counterpart of ``textocvp_tpu/data/loader.py``, CATER only).
 
-The loader is ``torch.utils.data.DataLoader`` with a ``collate_fn`` that
-keeps the JAX package's batch contract: ``(videos, info)`` with videos
-(B, T, H, W, C) as a numpy array (uint8 under the ``uint8_wire`` knob, else
-float32) and ``info = {caption, caption_tokens, caption_lengths,
-attn_masks}`` from the dataset's tokenizer, in order, the last batch ragged
-(a single-process loader: the memory-mapped ``.npy`` route needs no decode
-workers).
+:class:`EpochLoader` keeps the JAX package's batch contract: ``(videos,
+info)`` with videos (B, T, H, W, C) as a numpy array (uint8 under the
+``uint8_wire`` knob, else float32) and ``info = {caption, caption_tokens,
+caption_lengths, attn_masks}`` from the dataset's tokenizer; and the JAX
+``DataLoader``'s order: in order, or shuffled by
+``numpy.random.default_rng(seed + epoch)``, the last batch ragged unless
+``drop_last``, the epoch handed to the dataset (``set_epoch``) first. It
+runs in the calling thread: the memory-mapped ``.npy`` route needs no decode
+workers.
 """
 
 from __future__ import annotations
 
 import numpy as np
-from torch.utils.data import DataLoader
 
 from textocvp_tpu_torch.data.datasets import CATER
 from textocvp_tpu_torch.data.tokenizers import get_tokenizer
@@ -54,7 +55,42 @@ class Collate:
         return videos, info
 
 
-def make_loader(dataset, batch_size: int) -> DataLoader:
-    """Batches of ``(videos, info)`` in the JAX package's collate contract."""
-    return DataLoader(dataset, batch_size=batch_size, shuffle=False,
-                      collate_fn=Collate(getattr(dataset, "tokenizer", None)))
+class EpochLoader:
+    """Batches of ``(videos, info)`` in the JAX package's ``DataLoader`` order.
+
+    Each iteration is one epoch: it first hands the dataset its epoch
+    (``set_epoch``, the random clip starts), then walks ``0..len-1``,
+    shuffled by ``np.random.default_rng(seed + epoch)`` when ``shuffle``, in
+    batches of ``batch_size`` (the last one ragged unless ``drop_last``)."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 14):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
+        self.collate = Collate(getattr(dataset, "tokenizer", None))
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def batch_indices(self, epoch: int) -> list:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        batches = [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
+        return batches
+
+    def __iter__(self):
+        epoch = self.epoch
+        set_epoch = getattr(self.dataset, "set_epoch", None)
+        if set_epoch is not None:
+            set_epoch(epoch)
+        self.epoch += 1
+        for idxs in self.batch_indices(epoch):
+            yield self.collate([self.dataset[int(i)] for i in idxs])

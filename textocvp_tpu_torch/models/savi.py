@@ -100,3 +100,24 @@ class SAVi(nn.Module):
                 # after every frame, the last one included, as the JAX model does
                 slots = self.transition(slots)
         return {"slot_history": torch.stack(slot_hist, 1), "attn_masks": torch.stack(attn_hist, 1)}
+
+    def forward(self, x, noise=None, generator: Optional[torch.Generator] = None,
+                decode: bool = True):
+        """Video (B, T, H, W, C) -> the JAX ``decompose(x, decode=decode)``
+        dict: slot_history, attn_masks and, with ``decode``, recons_imgs
+        (B, T, H, W, C), recons_objs (B, T, S, H, W, C) and masks
+        (B, T, S, H, W, 1), all B * T frames decoded in one call.
+
+        The initial slots come from the slot initializer, with ``noise``
+        (B, S, D) when given (``LearnedRandom``: mu + sigma * noise, so their
+        gradients reach mu and sigma), else drawn with ``generator``."""
+        b, t = x.shape[:2]
+        out = self.decompose(x, initial_slots=self.slot_initializer(b, generator, noise=noise))
+        if decode:
+            dec = self.decode(out["slot_history"].reshape(b * t, self.num_slots, self.slot_dim))
+            h, w = dec["recons_imgs"].shape[1:3]
+            out["recons_imgs"] = dec["recons_imgs"].reshape(b, t, h, w, self.in_channels)
+            out["recons_objs"] = dec["recons"].reshape(b, t, self.num_slots, h, w,
+                                                       self.in_channels)
+            out["masks"] = dec["masks"].reshape(b, t, self.num_slots, h, w, 1)
+        return out

@@ -25,9 +25,9 @@ class ConvDecoder(nn.Module):
     through ``F.conv2d`` (the JAX package computes both outside any Pallas
     kernel); the tail blocks, 5x5 stride-1 convs with bias and ReLU, run
     through :func:`ops.conv5.conv5` in NHWC memory: the CUDA kernel on the
-    card, its plain version on the CPU. Their weights are held in HWIO,
-    converted once per weight version and device. Trains on the CPU only:
-    on the card conv5 has no backward and raises under grad."""
+    card (its gradient through ``ops.conv5.Conv5Function``), its plain
+    version on the CPU. Their weights are held in HWIO, converted once per
+    weight version and device when nothing needs their gradient."""
 
     def __init__(self, in_channels: int, hidden_dims: Sequence[int], kernel_size: int = 5,
                  stride: int = 1, out_channels: int = 4):
@@ -60,8 +60,8 @@ class ConvDecoder(nn.Module):
         """NHWC activations after ``blocks[0]`` -> the tail blocks through
         conv5 -> the final 3x3 conv; NCHW-shaped out (channels_last memory).
         With grad enabled and a tail parameter that requires grad, the HWIO
-        weights are converted at this call with their autograd history: the
-        plain version back-propagates into them, the kernel refuses them."""
+        weights are converted at this call with their autograd history, so
+        the tail's gradients reach its parameters."""
         convs = [block.conv for block in self.blocks[1:]]
         if torch.is_grad_enabled() and any(p.requires_grad for c in convs for p in c.parameters()):
             weights = [(c.weight.permute(2, 3, 1, 0).contiguous(), c.bias) for c in convs]

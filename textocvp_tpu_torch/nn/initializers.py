@@ -2,7 +2,9 @@
 Slot initializers. ``LearnedRandomInit`` draws fresh Gaussian noise at every
 call, evaluation included, from an explicit ``torch.Generator``: a seeded
 generator makes a run reproducible. (It cannot reproduce the JAX package's
-``jax.random`` stream; tests hand both packages the same initial slots.)
+``jax.random`` stream: tests and the trainer may hand it the noise itself,
+``noise=``, so that gradients reach ``slots_mu`` and ``slots_sigma`` as in
+the JAX package.)
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ class LearnedInit(nn.Module):
         lim = _uniform_limit(slot_dim)
         self.slots = nn.Parameter(torch.empty(num_slots, slot_dim).uniform_(-lim, lim))
 
-    def forward(self, batch_size: int, generator: Optional[torch.Generator] = None):
+    def forward(self, batch_size: int, generator: Optional[torch.Generator] = None,
+                noise=None):
+        """``noise`` is taken for the signature's sake and unused."""
         return self.slots[None].expand(batch_size, *self.slots.shape)
 
 
@@ -40,13 +44,20 @@ class LearnedRandomInit(nn.Module):
         self.slots_mu = nn.Parameter(torch.empty(1, 1, slot_dim).uniform_(-lim, lim))
         self.slots_sigma = nn.Parameter(torch.empty(1, 1, slot_dim).uniform_(-lim, lim))
 
-    def forward(self, batch_size: int, generator: Optional[torch.Generator] = None):
-        if generator is None:
-            raise ValueError("LearnedRandomInit needs a torch.Generator for the slot noise")
+    def forward(self, batch_size: int, generator: Optional[torch.Generator] = None,
+                noise=None):
+        """mu + sigma * noise; ``noise`` (batch_size, num_slots, slot_dim) when
+        given, else drawn from ``generator``."""
         mu = self.slots_mu
-        noise = torch.randn((batch_size, self.num_slots, mu.shape[-1]),
-                            generator=generator, device=generator.device, dtype=mu.dtype)
-        return mu + self.slots_sigma * noise.to(mu.device)
+        shape = (batch_size, self.num_slots, mu.shape[-1])
+        if noise is None:
+            if generator is None:
+                raise ValueError("LearnedRandomInit needs a torch.Generator or the noise itself")
+            noise = torch.randn(shape, generator=generator, device=generator.device,
+                                dtype=mu.dtype)
+        elif tuple(noise.shape) != shape:
+            raise ValueError(f"noise of shape {tuple(noise.shape)}, want {shape}")
+        return mu + self.slots_sigma * noise.to(mu.device, mu.dtype)
 
 
 def get_initializer(mode: str, slot_dim: int, num_slots: int) -> nn.Module:

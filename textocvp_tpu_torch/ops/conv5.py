@@ -15,10 +15,22 @@ bounds the kernel on an H100 and how its design answers.
 * The kernel takes Cin = Cout = 64 at any N, H, W >= 1; the plain version
   any channel counts.
 * :func:`conv5` dispatches on the tensor's device: a CPU tensor runs
-  :func:`conv5_plain`, a CUDA tensor launches the kernel through
+  :func:`conv5_plain` (plain autograd), a CUDA tensor goes through
+  :class:`Conv5Function`, whose forward launches the kernel through
   :func:`conv5_cuda` or raises. There is no fallback to cuDNN.
-* Forward only; raises under grad (:func:`grad_guard.refuse_grad`): with grad
-  enabled, an input that requires grad would get none.
+* The gradient (the JAX package's decoder trains through XLA convs; the
+  Pallas probe has none). With ``g'`` the output gradient masked by the ReLU
+  (``g * (y > 0)``, 0 at 0 as in JAX and torch):
+  - the input gradient is itself a 5x5 stride-1 pad-2 conv of ``g'``, with
+    the taps rotated 180 degrees and Cin and Cout swapped: a second launch of
+    the same kernel, with a zero bias and no ReLU
+    (:func:`conv5_input_grad_cuda`, counted apart; ``conv5_cuda.launches``
+    counts it too);
+  - the weight gradient is 25 products over all pixels,
+    ``pad(x)[:, dy:dy+H, dx:dx+W]^T @ g'`` (:func:`conv5_weight_grad`, batched
+    ``torch.matmul`` on strided views: the JAX package leaves this product
+    to XLA);
+  - the bias gradient is ``g'`` summed over N, H and W.
 """
 
 from __future__ import annotations
@@ -29,7 +41,6 @@ import torch
 import torch.nn.functional as F
 
 from textocvp_tpu_torch.ops import build
-from textocvp_tpu_torch.ops.grad_guard import refuse_grad
 
 KERNEL_SIZE = 5
 CHANNELS = 64  # the kernel's input and output channels
@@ -90,9 +101,9 @@ def _check(x, w, b):
 
 def conv5_cuda(x, w, b, relu: bool = True):
     """Launch the CUDA kernel on the current stream; raises on what it does not
-    take and under grad."""
+    take. No autograd: :func:`conv5` records the gradient through
+    :class:`Conv5Function`."""
     _check(x, w, b)
-    refuse_grad("conv5", x, w, b)
     lib = load_library()
     n, h, wd, _ = x.shape
     out = torch.empty_like(x)
@@ -109,8 +120,85 @@ def conv5_cuda(x, w, b, relu: bool = True):
 conv5_cuda.launches = 0
 
 
+def conv5_input_grad_cuda(g, w_rot, b_zero, relu: bool = False):
+    """The input gradient's launch of the kernel: :func:`conv5_cuda` of the
+    masked output gradient with the rotated weights; counted in its own
+    ``launches`` as well as in ``conv5_cuda.launches``."""
+    out = conv5_cuda(g, w_rot, b_zero, relu)
+    conv5_input_grad_cuda.launches += 1
+    return out
+
+
+conv5_input_grad_cuda.launches = 0
+
+
+def conv5_weight_grad(x, g):
+    """dW (5, 5, Cin, Cout) of the 5x5 pad-2 conv of x (N, H, W, Cin) with
+    output gradient g (N, H, W, Cout): ``dW[dy, dx] = sum over pixels of
+    pad(x)[p + (dy, dx)] g[p]^T``.
+
+    Both are laid out on the padded grid of (H + 4) x (W + 4) pixels a frame,
+    x with its zero border and g in the top-left H x W corner with zeros
+    around it. On that grid the tap (dy, dx) shifts x by a constant number of
+    pixels, ``dy * (W + 4) + dx``, so each tap's operand is a contiguous slice
+    of the flattened padded x: one batched product a tap (a batch entry a
+    frame, summed), with no copy of the shifted views. The padded grid costs
+    (H + 4)(W + 4) / HW more products (13 % at 64 x 64)."""
+    n, h, wd, cin = x.shape
+    pad = KERNEL_SIZE // 2
+    hp, wp = h + 2 * pad, wd + 2 * pad
+    frame = hp * wp
+    tail = (KERNEL_SIZE - 1) * (wp + 1)  # the largest shift
+    xflat = x.new_zeros((n * frame + tail, cin))
+    xflat[:n * frame].view(n, hp, wp, cin)[:, pad:pad + h, pad:pad + wd] = x
+    gext = g.new_zeros((n, hp, wp, g.shape[-1]))
+    gext[:, :h, :wd] = g
+    gext = gext.view(n, frame, -1)
+    taps = []
+    for dy in range(KERNEL_SIZE):
+        for dx in range(KERNEL_SIZE):
+            shift = dy * wp + dx
+            xs = xflat[shift:shift + n * frame].view(n, frame, cin)
+            taps.append(torch.matmul(xs.transpose(1, 2), gext).sum(0))
+    return torch.stack(taps).view(KERNEL_SIZE, KERNEL_SIZE, cin, -1)
+
+
+class Conv5Function(torch.autograd.Function):
+    """The conv with a gradient. ``apply(x, w, b, relu, conv, input_grad_conv)``:
+    ``conv(x, w, b, relu)`` computes the forward without autograd (the kernel's
+    :func:`conv5_cuda` on the card; the tests pass :func:`conv5_plain`), and
+    ``input_grad_conv(g', w_rot, zeros, False)`` the input gradient
+    (:func:`conv5_input_grad_cuda` on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, relu, conv, input_grad_conv):
+        y = conv(x, w, b, relu)
+        ctx.save_for_backward(x, w, y)
+        ctx.relu, ctx.input_grad_conv = relu, input_grad_conv
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y = ctx.saved_tensors
+        # autograd may hand a strided gradient (it comes back through the
+        # final conv's permute); the kernel takes NHWC memory
+        g = g.contiguous()
+        if ctx.relu:
+            g = torch.where(y > 0, g, 0.0)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            w_rot = w.flip(0, 1).transpose(2, 3).contiguous()
+            dx = ctx.input_grad_conv(g, w_rot, w.new_zeros(w.shape[2]), False)
+        if ctx.needs_input_grad[1]:
+            dw = conv5_weight_grad(x, g)
+        if ctx.needs_input_grad[2]:
+            db = g.sum((0, 1, 2))
+        return dx, dw, db, None, None, None
+
+
 def conv5(x, w, b, relu: bool = True):
-    """The plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    """The plain version for CPU tensors; for CUDA tensors the kernel, through
+    :class:`Conv5Function` so that autograd records its gradient."""
     if x.device.type == "cpu":
         return conv5_plain(x, w, b, relu)
-    return conv5_cuda(x, w, b, relu)
+    return Conv5Function.apply(x, w, b, relu, conv5_cuda, conv5_input_grad_cuda)

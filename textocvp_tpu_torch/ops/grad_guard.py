@@ -1,13 +1,16 @@
 """
 Refusal of gradients that a forward-only CUDA kernel would drop.
 
-The slot-attention and conv5 kernels have no backward yet. Called with grad
-enabled on an input or parameter that requires grad, a launch would return
-outputs without autograd history, and every parameter upstream would silently
-get no gradient. Their CUDA wrappers call :func:`refuse_grad` first, so such a
-call raises instead. Under ``torch.no_grad()`` or ``torch.inference_mode()``,
-or with inputs that require no grad, it does nothing. The check looks only at
-the autograd state, so it runs on tensors of any device.
+The ViT attention kernel has no backward: the ViT is frozen, and nothing
+differentiates it. Called with grad enabled on an input that requires grad, a
+launch would return an output without autograd history, and every parameter
+upstream would silently get no gradient. Its CUDA wrapper calls
+:func:`refuse_grad` first, so such a call raises instead. Under
+``torch.no_grad()`` or ``torch.inference_mode()``, or with inputs that
+require no grad (a frozen ViT's), it does nothing. The check looks only at
+the autograd state, so it runs on tensors of any device. (The slot-attention
+and conv5 kernels record their gradients through ``torch.autograd.Function``
+and need no guard.)
 """
 
 from __future__ import annotations

@@ -18,10 +18,35 @@ version for a CPU tensor. There is no switch between the two.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from textocvp_tpu_torch.nn.blocks import MLP
 from textocvp_tpu_torch.ops.slot_attention_kernel import slot_attention_iterations
+
+
+class GRUCell(nn.Module):
+    """The flax GRU cell's parameters in ``torch.nn.GRUCell``'s layout (gate
+    order r, z, n): ``weight_ih`` (3D, D) with ``bias_ih`` (3D,), and
+    ``weight_hh`` (3D, D) with a bias on the n gate only, ``bias_hn`` (D,).
+    The JAX package's GRU has no bias on the recurrent r and z projections,
+    so neither has the port: a ``torch.nn.GRUCell`` would train two more
+    (D,) biases, each moving with the input bias beside it.
+    :meth:`SlotAttention.iteration_params` hands the kernel ``b_hh = [0; 0;
+    b_hn]``."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        lim = hidden_size ** -0.5  # torch.nn.GRUCell's draw
+        self.weight_ih = nn.Parameter(torch.empty(3 * hidden_size, input_size).uniform_(-lim, lim))
+        self.bias_ih = nn.Parameter(torch.empty(3 * hidden_size).uniform_(-lim, lim))
+        self.weight_hh = nn.Parameter(torch.empty(3 * hidden_size, hidden_size).uniform_(-lim, lim))
+        self.bias_hn = nn.Parameter(torch.empty(hidden_size).uniform_(-lim, lim))
+
+    def bias_hh(self):
+        """[0; 0; b_hn], the recurrent bias in ``torch.nn.GRUCell``'s layout."""
+        zeros = self.bias_hn.new_zeros(2 * self.bias_hn.shape[0])
+        return torch.cat([zeros, self.bias_hn])
 
 
 class SlotAttention(nn.Module):
@@ -37,9 +62,7 @@ class SlotAttention(nn.Module):
         self.to_q = nn.Linear(dim_slots, dim_slots)
         self.to_k = nn.Linear(dim_feats, dim_slots)
         self.to_v = nn.Linear(dim_feats, dim_slots)
-        # gate order r, z, n; b_hr and b_hz are zero for weights from the JAX
-        # package, whose GRU has no bias on those two recurrent projections
-        self.gru = nn.GRUCell(dim_slots, dim_slots)
+        self.gru = GRUCell(dim_slots, dim_slots)
         self.mlp = MLP(dim_slots, [mlp_hidden, dim_slots])
 
     def project_inputs(self, inputs):
@@ -53,7 +76,7 @@ class SlotAttention(nn.Module):
             "norm_slot_w": self.norm_slot.weight, "norm_slot_b": self.norm_slot.bias,
             "q_w": self.to_q.weight, "q_b": self.to_q.bias,
             "gru_w_ih": self.gru.weight_ih, "gru_b_ih": self.gru.bias_ih,
-            "gru_w_hh": self.gru.weight_hh, "gru_b_hh": self.gru.bias_hh,
+            "gru_w_hh": self.gru.weight_hh, "gru_b_hh": self.gru.bias_hh(),
             "norm_mlp_w": self.norm_mlp.weight, "norm_mlp_b": self.norm_mlp.bias,
             "mlp_w0": self.mlp.layers[0].weight, "mlp_b0": self.mlp.layers[0].bias,
             "mlp_w1": self.mlp.layers[1].weight, "mlp_b1": self.mlp.layers[1].bias,

@@ -12,19 +12,25 @@ the locations in the attention and the weights' rows in the update and
 meeting through distributed shared memory.
 
 * :func:`slot_attention_iterations` dispatches on the tensor's device: a CPU
-  tensor runs :func:`slot_attention_plain`, a CUDA tensor launches the kernel
-  through :func:`slot_attention_cuda` or raises. There is no fallback: a
-  failed build, a cluster the card cannot place, or a launch error raises.
+  tensor runs :func:`slot_attention_plain` (plain autograd), a CUDA tensor
+  goes through :class:`SlotAttentionFunction`, whose forward launches the
+  kernel through :func:`slot_attention_cuda` or raises. There is no
+  fallback: a failed build, a cluster the card cannot place, or a launch
+  error raises.
 * The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
   with a plain C interface (:mod:`textocvp_tpu_torch.ops.build`, at first use)
   and bound through ``ctypes``.
-* Forward only; raises under grad (:func:`grad_guard.refuse_grad`): with grad
-  enabled, an input or parameter that requires grad would get none.
+* The gradient is the JAX package's: its ``_fused`` custom VJP runs the
+  Pallas forward and, in ``_fused_bwd``, ``jax.vjp`` through the XLA twin
+  ``_xla_iterations``, recomputing the forward. :class:`SlotAttentionFunction`
+  does the same with :func:`slot_attention_plain` under autograd: the kernel
+  has no backward of its own.
 
 ``params`` is the dict of :meth:`SlotAttention.iteration_params`: LayerNorm
-weights and biases (eps 1e-3), ``q_w`` (D, D), the ``torch.nn.GRUCell``
-weights (gate order r, z, n) and the MLP weights, all in torch's (out, in)
-layout.
+weights and biases (eps 1e-3), ``q_w`` (D, D), the GRU weights in
+``torch.nn.GRUCell``'s layout (gate order r, z, n; ``gru_b_hh`` is [0; 0;
+b_hn], the JAX GRU having no recurrent r and z bias) and the MLP weights, all
+in torch's (out, in) layout.
 """
 
 from __future__ import annotations
@@ -35,7 +41,6 @@ import torch
 import torch.nn.functional as F
 
 from textocvp_tpu_torch.ops import build
-from textocvp_tpu_torch.ops.grad_guard import refuse_grad
 
 LN_EPS = 1e-3
 
@@ -165,11 +170,11 @@ def launch(lib, k, v, slots, params: dict, num_iters: int, scale: float, eps: fl
 def slot_attention_cuda(k, v, slots, params: dict, num_iters: int, scale: float,
                         eps: float = 1e-8, out=None):
     """Launch the CUDA kernel on the current stream; raises on what it does not
-    take and under grad. The refined slots go to ``out`` (a new tensor if None),
-    which may be ``slots`` itself."""
+    take. The refined slots go to ``out`` (a new tensor if None), which may be
+    ``slots`` itself. No autograd: :func:`slot_attention_iterations` records
+    the gradient through :class:`SlotAttentionFunction`."""
     lib = load_library()
     _check(k, v, slots, params, num_iters, lib, out)
-    refuse_grad("slot attention", k, v, slots, *(params[name] for name in _PARAM_ORDER))
     b, n, _ = k.shape
     out = torch.empty_like(slots) if out is None else out
     attn = torch.empty((b, slots.shape[1], n), device=k.device, dtype=torch.float32)
@@ -181,9 +186,55 @@ def slot_attention_cuda(k, v, slots, params: dict, num_iters: int, scale: float,
 slot_attention_cuda.launches = 0
 
 
+class SlotAttentionFunction(torch.autograd.Function):
+    """The refinement with a gradient: the counterpart of the JAX package's
+    ``_fused`` / ``_fused_fwd`` / ``_fused_bwd``.
+
+    ``apply(k, v, slots, num_iters, scale, eps, forward, *params)`` with the
+    14 parameter tensors in ``_PARAM_ORDER``. ``forward(k, v, slots, params,
+    num_iters, scale, eps)`` computes (slots, attn) without autograd: the
+    kernel's :func:`slot_attention_cuda` on the card (the tests pass
+    :func:`slot_attention_plain`). The backward re-runs
+    :func:`slot_attention_plain` under autograd from the saved inputs and
+    returns the gradients of k, v, slots and every parameter that needs one,
+    for whichever of the two outputs has a cotangent."""
+
+    @staticmethod
+    def forward(ctx, k, v, slots, num_iters, scale, eps, forward, *params):
+        out, attn = forward(k, v, slots, dict(zip(_PARAM_ORDER, params)), num_iters, scale, eps)
+        ctx.save_for_backward(k, v, slots, *params)
+        ctx.config = (num_iters, scale, eps)
+        ctx.set_materialize_grads(False)
+        return out, attn
+
+    @staticmethod
+    def backward(ctx, g_slots, g_attn):
+        inputs = ctx.saved_tensors
+        # needs_input_grad follows apply's arguments: k, v, slots, the three
+        # numbers and the forward, then the parameters
+        needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[7:]
+        grads = [None] * len(inputs)
+        pairs = [(g, i) for i, g in enumerate((g_slots, g_attn)) if g is not None]
+        wanted = [i for i, need in enumerate(needs) if need]
+        if pairs and wanted:
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(need) for t, need in zip(inputs, needs)]
+                k, v, slots, *params = leaves
+                outs = slot_attention_plain(k, v, slots, dict(zip(_PARAM_ORDER, params)),
+                                            *ctx.config)
+                found = torch.autograd.grad([outs[i] for _, i in pairs],
+                                            [leaves[i] for i in wanted],
+                                            [g for g, _ in pairs], allow_unused=True)
+            for i, g in zip(wanted, found):
+                grads[i] = g
+        return (*grads[:3], None, None, None, None, *grads[3:])
+
+
 def slot_attention_iterations(k, v, slots, params: dict, num_iters: int, scale: float,
                               eps: float = 1e-8):
-    """The plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    """The plain version for CPU tensors; for CUDA tensors the kernel, through
+    :class:`SlotAttentionFunction` so that autograd records its gradient."""
     if k.device.type == "cpu":
         return slot_attention_plain(k, v, slots, params, num_iters, scale, eps)
-    return slot_attention_cuda(k, v, slots, params, num_iters, scale, eps)
+    return SlotAttentionFunction.apply(k, v, slots, num_iters, scale, eps, slot_attention_cuda,
+                                       *(params[name] for name in _PARAM_ORDER))

@@ -13,7 +13,10 @@ H100 and how its design answers.
 * :func:`vit_attention` dispatches on the tensor's device: a CPU tensor runs
   :func:`vit_attention_plain`, a CUDA tensor launches the kernel through
   :func:`vit_attention_cuda` or raises. There is no fallback.
-* Forward only: the ViT is frozen, and nothing differentiates it.
+* Forward only: the ViT is frozen, and nothing differentiates it. Under grad
+  with an input that requires grad the CUDA wrapper raises
+  (:func:`grad_guard.refuse_grad`) rather than return an output without
+  autograd history.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import ctypes
 import torch
 
 from textocvp_tpu_torch.ops import build
+from textocvp_tpu_torch.ops.grad_guard import refuse_grad
 
 
 def vit_attention_plain(q, k, v, scale: float):
@@ -71,9 +75,11 @@ def _check(q, k, v, head_dim: int):
 
 
 def vit_attention_cuda(q, k, v, scale: float):
-    """Launch the CUDA kernel on the current stream; raises on what it does not take."""
+    """Launch the CUDA kernel on the current stream; raises on what it does not
+    take and under grad."""
     lib = load_library()
     _check(q, k, v, lib.va_head_dim())
+    refuse_grad("ViT attention", q, k, v)
     b, h, n, _ = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -93,4 +99,4 @@ def vit_attention(q, k, v, scale: float):
     """The plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
     if q.device.type == "cpu":
         return vit_attention_plain(q, k, v, scale)
-    return vit_attention_cuda(q.detach(), k.detach(), v.detach(), scale)
+    return vit_attention_cuda(q, k, v, scale)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from textocvp_tpu_torch.core.experiment import Experiment
-from textocvp_tpu_torch.data.loader import load_data, make_loader
+from textocvp_tpu_torch.data.loader import EpochLoader, load_data
 from textocvp_tpu_torch.data.wire import as_float_video
 from textocvp_tpu_torch.models.factory import (
     check_image_reconstruction,
@@ -94,7 +94,7 @@ class PredictorEvaluator:
 
     def load_data(self):
         self.test_set = load_data(self.exp_params, split="test")
-        self.test_loader = make_loader(self.test_set, batch_size=self.batch_size)
+        self.test_loader = EpochLoader(self.test_set, self.batch_size)
 
     def load_models(self):
         self.model = self._load(self.model, self.parent.checkpoint_path(self.decomp_ckpt))
