@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths, its 05 evaluate-predictor path and its
-02 train path at full width with random weights drawn from a seed, and
-checks them:
+Drives the port's two serving paths, its 05 evaluate-predictor path, its
+02 train path and its 04 predictor-train path at full width with random
+weights drawn from a seed, and checks them:
 
 * CATER: SAVi (8 slots x 128, 64x64 frames) + TextOCVP_T5 (T5-small, 8
   predictor layers), 19 predicted frames;
@@ -16,7 +16,11 @@ checks them:
   predicted frames, PSNR/SSIM/LPIPS, over a temporary CATER ``.npy`` set;
 * train: the CATER SAVi under the 02 ``DecompTrainer`` at B=64, T=8 (Adam,
   lr 1e-4, warmup 2000, cosine, clip 0.05, ``mse``), over a temporary CATER
-  ``.npy`` train set.
+  ``.npy`` train set;
+* pred_train: TextOCVP_T5 (T5-small, 8 layers, token 512) under the 04
+  ``PredictorTrainer`` at B=64, c=1, p=9, buffer 10, through the frozen SAVi
+  that the train path wrote (Adam, lr 1e-4, warmup 2000, cosine, clip 0.05,
+  ``pred_img_mse`` + ``pred_slot_mse``), over the same ``.npy`` set.
 
 Phases, one JSON line each:
 
@@ -46,8 +50,11 @@ Phases, one JSON line each:
             the kernel, the weight gradient and cuDNN's
             ``convolution_backward`` timed apart; the slot-attention Function's
             gradients against the plain version's at B=64, N=4096, 1 and 3
-            iterations, and its backward's time. Gradients are held to 1e-4
-            of the reference's largest value;
+            iterations, and its backward's time; conv5's Function behind
+            frozen weights at the predictor step's N=4608 (one forward and one
+            input-gradient launch, no weight gradient), its input gradient
+            against the plain version's and both launches timed. Gradients are
+            held to 1e-4 of the reference's largest value;
 then for each serving path:
 4. parity   the predict stage (seed encode + rollout) on the card and on the
             CPU with the same weights and initial slots, TF32 off, each
@@ -77,10 +84,11 @@ then the eval path:
 
 then the train path:
 11. train_parity  DecompTrainer on the card and on the CPU at full width,
-            B=2, T=3, the same weights, video and slot noise, warmup off: the
-            loss (1e-5 relative) and every gradient leaf (1e-4 of the leaf's
-            largest value) after one step, the loss and the parameters after
-            two;
+            B=2, T=3, the same weights, video and slot noise, warmup off, the
+            CPU with the card's ReLU masks (decoder-tail convs, MLP hidden
+            layers; its own-mask result reported): the loss (1e-5 relative)
+            and every gradient leaf (1e-4 of the leaf's largest value) after
+            one step, the loss and the parameters after two;
 12. train   ``textocvp_tpu_torch.cli.train_decomp.main`` at B=64, T=8 over 320
             training videos (5 steps after one B=64 valid batch): finite
             losses, ``checkpoint_last_saved.pt`` and
@@ -93,9 +101,32 @@ then the train path:
             step under ``torch.profiler``;
 14. train_sign  20 steps on one batch of 8 at lr 4e-4: the loss falls.
 
-Phases 5 and 6 are a serving path's main path, phase 9 the eval path's and
-phase 12's first run the train path's: every kernel's launch counter is set
-to 0 before it and read after. Then one ``{"kernels": [...]}`` line, and last
+then the predictor-train path, over the experiment that phase 12 trained:
+15. pred_train_parity  PredictorTrainer on the card and on the CPU at full
+            width, B=2, the same weights, video, captions and slot noise,
+            warmup off, the CPU with the card's ReLU masks as in phase 11
+            (its own-mask result reported): the loss (1e-5 relative) and every
+            trainable gradient leaf (1e-4 of its largest value) after one
+            step, the loss and the parameters after two;
+16. pred_train  ``textocvp_tpu_torch.cli.train_predictor.main`` at B=64 over
+            the phase-12 set (5 steps after one valid batch), its frozen SAVi
+            phase 12's ``checkpoint_epoch_final.pt``: finite losses, the
+            checkpoints, 10 slot-attention calls, 3 conv5 forward and 3
+            input-gradient launches and no conv5 weight gradient a step, no
+            ViT launch; then ``--resume_training`` for a second epoch, and the
+            05 CLI on the predictor's ``checkpoint_epoch_final``: finite
+            means, 19 framewise values;
+17. pred_train_step  the steady B=64 step on the host clock, split into
+            frozen encode, forward, backward and optimizer, its peak memory
+            and launches, and one step under ``torch.profiler`` with one
+            slot-attention device kernel a call;
+18. pred_train_sign  20 steps on one batch of 8 at lr 1e-4: the loss falls.
+
+Phases 5 and 6 are a serving path's main path, phase 9 the eval path's,
+phase 12's first run the train path's and phase 16's first run the
+predictor-train path's: every kernel's launch counter (and conv5's
+input-gradient launches and weight-gradient calls) is set to 0 before it
+and read after. Then one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 not 0 and the last line is not printed. Without a CUDA device the script
 exits 2 before doing anything.
@@ -133,6 +164,10 @@ EVAL_BATCH, EVAL_PREDS, EVAL_VIDEOS = 64, 19, 128
 TRAIN_BATCH, TRAIN_FRAMES = 64, 8                  # bench_train.py's flagship step
 TRAIN_VIDEOS, TRAIN_VALID_VIDEOS = 5 * TRAIN_BATCH, TRAIN_BATCH  # 5 steps, 1 valid batch
 GRAD_TOLERANCE = 1e-4  # gradients: max abs error over the reference's max |value|
+PRED_NAME = "textocvp_t5"
+PRED_CONTEXT, PRED_PREDS = 1, 9          # the 04 defaults (core/config.py DEFAULTS)
+PRED_FRAMES = PRED_CONTEXT + PRED_PREDS  # frames of a predictor-training clip
+PRED_TAIL_N = TRAIN_BATCH * PRED_PREDS * 8  # slot maps through the decoder tail a step
 
 
 @dataclass(frozen=True)
@@ -532,6 +567,71 @@ def conv5_backward_rows():
     return rows
 
 
+def conv5_frozen_backward_rows():
+    """conv5's Function behind frozen weights, as the 04 trainer's frozen
+    decoder runs it, at the predictor step's N=4608: one forward and one
+    input-gradient launch and no weight gradient; the input gradient against
+    autograd through ``conv5_plain`` (chunks of 512 frames), both sides with
+    the ReLU mask of the kernel's output; the forward and input-gradient
+    launches timed against their 3xTF32 bound, the plain version's input
+    gradient (one conv of the masked gradient) and cuDNN's
+    ``convolution_backward`` of the input alone (TF32 off, NHWC memory)."""
+    from textocvp_tpu_torch.ops import conv5 as c5
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 9)
+    cgen = torch.Generator("cuda").manual_seed(SEED + 9)
+    c, res, chunk, n = CONV5_CH, CONV5_RES, 512, PRED_TAIL_N
+    w = (torch.randn((5, 5, c, c), generator=gen) / (25 * c) ** 0.5).cuda()
+    b = (0.1 * torch.randn((c,), generator=gen)).cuda()
+    x = torch.randn((n, res, res, c), device="cuda", generator=cgen).mul_(0.5).requires_grad_()
+    g = torch.randn((n, c, res, res), device="cuda", generator=cgen).permute(0, 2, 3, 1)
+
+    before = launch_counts()[1:]
+    y = c5.conv5(x, w, b)
+    (got,) = torch.autograd.grad(y, x, g)
+    torch.cuda.synchronize()
+    counts = tuple(a - z for a, z in zip(launch_counts()[1:], before))
+    check(counts == (2, 1, 0), f"conv5 behind frozen weights at N={n}: launches, input-gradient "
+                               f"launches, weight-gradient calls {counts}, want (2, 1, 0)")
+    gm = torch.where(y.detach() > 0, g, 0.0)
+    del y, g
+    ref = torch.empty_like(got)
+    for i in range(0, n, chunk):
+        xi = x[i:i + chunk].detach().requires_grad_()
+        (ref[i:i + chunk],) = torch.autograd.grad(c5.conv5_plain(xi, w, b, relu=False), xi,
+                                                  gm[i:i + chunk])
+        del xi
+    err = rel_err(got, ref)
+    check(bool(torch.isfinite(got).all()) and err <= GRAD_TOLERANCE,
+          f"conv5 input gradient behind frozen weights at N={n}: {err} > {GRAD_TOLERANCE}")
+    del got, ref
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        xd = x.detach()
+        del x
+        gm = gm.contiguous()
+        w_rot = w.flip(0, 1).transpose(2, 3).contiguous()
+        zeros = torch.zeros_like(b)
+        fwd_ms = cuda_ms(lambda: c5.conv5_cuda(xd, w, b), reps=3, warmup=1)
+        dx_ms = cuda_ms(lambda: c5.conv5_input_grad_cuda(gm, w_rot, zeros), reps=3, warmup=1)
+        plain_ms = cuda_ms(lambda: c5.conv5_plain(gm, w_rot, zeros, relu=False), reps=1,
+                           warmup=1)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        lib_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            gm.permute(0, 3, 1, 2), xd.permute(0, 3, 1, 2), w_oihw, [c], [1, 1], [2, 2],
+            [1, 1], False, [0, 0], 1, [True, False, False]), reps=3, warmup=1)
+    del xd, gm
+    torch.cuda.empty_cache()
+    bound_ms, bound_by, fp32_ms = conv5_bounds(n, res, res, c)
+    return [{"N": n, "H": res, "W": res, "C": c, "rel_err": err, "tolerance_rel": GRAD_TOLERANCE,
+             "reference_chunk": chunk, "launches": counts[0], "input_grad_launches": counts[1],
+             "weight_grad_calls": counts[2], "forward_ms": fwd_ms, "input_grad_ms": dx_ms,
+             "plain_input_grad_ms": plain_ms, "library_ms": lib_ms,
+             "library": "aten.convolution_backward, input only (cuDNN, TF32 off, NHWC)",
+             "bound_ms": bound_ms, "bound_by": bound_by, "bound_ms_fp32_cores": fp32_ms}]
+
+
 def slot_attention_backward_bound_ms(b, n, d, s, h, iters):
     """The gradient's least time: k, v, slots, the two cotangents and the
     weights read once, the gradients of k, v, slots and the weights written
@@ -589,6 +689,7 @@ def phase_kernels():
             "vit_attention": vit_attention_rows(),
             "conv5": conv5_rows(),
             "conv5_backward": conv5_backward_rows(),
+            "conv5_frozen_backward": conv5_frozen_backward_rows(),
             "slot_attention_backward": slot_attention_backward_rows()}
     emit({"phase": "kernels", "tolerance_abs": {"slot_attention": 1e-4, "vit_attention": 2e-5,
                                                 "conv5": 1e-4},
@@ -1042,101 +1143,142 @@ def train_experiment(root: Path, data_root, **training) -> Path:
     return exp.exp_path
 
 
+def trainer_parity(what, make, step):
+    """One trainer on the card and on the CPU from the same weights:
+    ``make(dev)`` builds and sets it up on ``dev``, ``step(trainer, dev, i)``
+    takes its i-th training step (i = 0, 1) and returns the loss. Checks the
+    two losses (1e-5 relative), every trainable gradient leaf after the
+    first step (1e-4 of the leaf's largest value) and the parameters after
+    the second. Returns what a phase reports.
+
+    The CPU runs twice. Its own run is reported. The checked one takes the
+    ReLU masks from the card's run: of each decoder-tail conv and of each
+    ``MLP``'s hidden layer, in call order. A pre-activation within the card's
+    rounding of 0 (conv5's 3xTF32, cuBLAS) may fall on either side of it on
+    the two devices, and the gradient of what comes before it then differs
+    by a whole term (``relu_mask_flips`` counts such outputs), which no
+    float32 tolerance covers."""
+    from textocvp_tpu_torch.nn import blocks, decoders
+    from textocvp_tpu_torch.ops import conv5 as c5
+
+    card_masks, cpu_masks = [], []  # (kind, mask) in call order
+    tail_conv, mlp_forward = decoders.conv5, blocks.MLP.forward
+
+    def recording(masks):
+        def conv(x, w, b, relu=True):
+            y = tail_conv(x, w, b, relu)
+            if relu:
+                masks.append(("conv5", (y.detach() > 0).cpu()))
+            return y
+
+        def mlp(self, x):
+            for i, layer in enumerate(self.layers):
+                x = layer(x)
+                if i < len(self.layers) - 1:
+                    masks.append(("mlp", (x.detach() > 0).cpu()))
+                    x = torch.relu(x)
+            return x
+        return conv, mlp
+
+    def replaying_conv(x, w, b, relu=True):
+        y = c5.conv5_plain(x, w, b, relu=False)
+        return y * next(replay)[1] if relu else y
+
+    def replaying_mlp(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = x * next(replay)[1]
+        return x
+
+    replay = iter(card_masks)  # the CPU runs the ReLUs in the card's order
+    runs = {"cuda": ("cuda", recording(card_masks)),
+            "cpu_own_masks": ("cpu", recording(cpu_masks)),
+            "cpu": ("cpu", (replaying_conv, replaying_mlp))}
+    trainers, losses, grads = {}, {}, {}
+    for run, (dev, (conv, mlp)) in runs.items():
+        decoders.conv5, blocks.MLP.forward = conv, mlp
+        try:
+            tr = trainers[run] = make(dev)
+            losses[run] = [step(tr, dev, 0)]
+            grads[run] = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()
+                          if p.requires_grad}
+            losses[run].append(step(tr, dev, 1))
+        finally:
+            decoders.conv5, blocks.MLP.forward = tail_conv, mlp_forward
+    kinds = [k for k, _ in card_masks]
+    check(kinds == [k for k, _ in cpu_masks] and kinds.count("conv5") == 6,
+          f"{what}: ReLU masks {len(card_masks)}, of tail convs {kinds.count('conv5')}")
+    flips = {kind: sum(int((a != b).sum()) for (k, a), (_, b) in zip(card_masks, cpu_masks)
+                       if k == kind) for kind in ("conv5", "mlp")}
+    outputs = {kind: sum(m.numel() for k, m in card_masks if k == kind) for kind in flips}
+    names = list(grads["cpu"])
+    grad_err = {run: dict(zip(names, grad_errs([grads["cuda"][n] for n in names],
+                                               [grads[run][n] for n in names])))
+                for run in ("cpu", "cpu_own_masks")}
+    worst = {run: sorted(e.items(), key=lambda kv: -kv[1]) for run, e in grad_err.items()}
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    # Adam moves each element by about lr a step whatever its gradient's
+    # size, so an element whose gradient is within rounding of 0 may move
+    # either way on the two devices; every other element moves alike
+    lr = trainers["cpu"].lr_schedule(0)
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten() for a, b in zip(
+        trainers["cuda"].optimizer.params, trainers["cpu"].optimizer.params)])
+    moved_apart = float((diffs > 1e-2 * lr).float().mean())
+    summary = (f"losses {losses}; parameters after two steps: max diff {diffs.max().item()}, "
+               f"share apart by more than lr/100 {moved_apart} (lr {lr}); flips {flips}")
+    check(worst["cpu"][0][1] <= GRAD_TOLERANCE,
+          f"{what}: gradient leaves card vs CPU, error / max |g|: {worst['cpu'][:5]}; "
+          f"with the CPU's own masks {worst['cpu_own_masks'][:3]}; {summary}")
+    check(max(loss_err) <= 1e-5, f"{what}: loss error {loss_err}; {summary}")
+    check(diffs.max().item() <= 2 * 2 * lr and moved_apart <= 1e-3, f"{what}: {summary}")
+    del trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "loss_rel_err": loss_err,
+            "grad_err_over_max": dict(worst["cpu"][:8]),
+            "grad_err_over_max_cpu_own_masks": dict(worst["cpu_own_masks"][:8]),
+            "trainable_leaves": len(names), "relu_mask_flips": flips,
+            "relu_mask_outputs": outputs, "grad_tolerance": GRAD_TOLERANCE,
+            "params_max_abs_diff": diffs.max().item(),
+            "params_share_apart_over_lr_100": moved_apart, "lr": lr, "tf32": False}
+
+
 def phase_train_parity(tmp: Path):
     """DecompTrainer on the card and on the CPU at full width, B=2, T=3 (the
     first frame 3 iterations, the others 1), the same initial weights, video
-    and slot noise, warmup off: the loss and every gradient leaf after the
-    first step, the loss and the parameters after the second. Off the main
-    path.
-
-    The CPU runs twice. Its own run is reported. The checked one takes the
-    ReLU mask of each decoder-tail conv from the card's run: an output
-    within the kernel's forward error of 0 may fall on either side of it on
-    the two devices, and the gradient behind it then differs by a whole
-    term (``relu_mask_flips`` counts such outputs), which no float32
-    tolerance covers."""
-    from textocvp_tpu_torch.nn import decoders
-    from textocvp_tpu_torch.ops import conv5 as c5
+    and slot noise, warmup off (``trainer_parity``). Off the main path."""
     from textocvp_tpu_torch.train.trainer import DecompTrainer
 
     exp = train_experiment(tmp / "train_parity", tmp / "none", batch_size=2, lr_warmup=False)
     gen = torch.Generator().manual_seed(SEED + 8)
     video = torch.rand((2, 3, CONV5_RES, CONV5_RES, 3), generator=gen)
     noise = [torch.randn((2, 8, 128), generator=gen) for _ in range(2)]
-    card_masks, cpu_masks = [], []
-    tail_conv = decoders.conv5
 
-    def recording(masks):
-        def conv(x, w, b, relu=True):
-            y = tail_conv(x, w, b, relu)
-            if relu:
-                masks.append((y.detach() > 0).cpu())
-            return y
-        return conv
+    def make(dev):
+        tr = DecompTrainer(exp, device=dev)
+        tr.setup_model()
+        return tr
 
-    def replaying(x, w, b, relu=True):
-        y = c5.conv5_plain(x, w, b, relu=False)
-        return y * next(replay) if relu else y
-
-    replay = iter(card_masks)  # the CPU calls the tail convs in the card's order
-    runs = {"cuda": ("cuda", recording(card_masks)),
-            "cpu_own_masks": ("cpu", recording(cpu_masks)), "cpu": ("cpu", replaying)}
-    trainers, losses, grads = {}, {}, {}
-    for run, (dev, conv) in runs.items():
-        decoders.conv5 = conv
-        try:
-            tr = trainers[run] = DecompTrainer(exp, device=dev)
-            tr.setup_model()
-            losses[run] = [float(tr.train_step(video.to(dev), noise[0])["_total"])]
-            grads[run] = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
-            losses[run].append(float(tr.train_step(video.to(dev), noise[1])["_total"]))
-        finally:
-            decoders.conv5 = tail_conv
-    check(len(card_masks) == len(cpu_masks) == 6, f"train parity: ReLU masks {len(card_masks)}")
-    flips = [int((a != b).sum()) for a, b in zip(card_masks, cpu_masks)]
-    names = list(grads["cpu"])
-    grad_err = {run: dict(zip(names, grad_errs([grads["cuda"][n] for n in names],
-                                               [grads[run][n] for n in names])))
-                for run in ("cpu", "cpu_own_masks")}
-    worst = {run: sorted(e.items(), key=lambda kv: -kv[1]) for run, e in grad_err.items()}
-    check(worst["cpu"][0][1] <= GRAD_TOLERANCE,
-          f"train parity: gradient leaves card vs CPU, error / max |g|: {worst['cpu'][:5]}; "
-          f"with the CPU's own masks {worst['cpu_own_masks'][:3]}, flips {flips}")
-    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
-    check(max(loss_err) <= 1e-5, f"train parity: losses {losses}")
-    # Adam moves each element by about lr a step whatever its gradient's
-    # size, so an element whose gradient is within rounding of 0 may move
-    # either way on the two devices; every other element moves alike
-    lr = trainers["cpu"].lr_schedule(0)
-    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten() for a, b in zip(
-        trainers["cuda"].model.parameters(), trainers["cpu"].model.parameters())])
-    moved_apart = float((diffs > 1e-2 * lr).float().mean())
-    check(diffs.max().item() <= 2 * 2 * lr and moved_apart <= 1e-3,
-          f"train parity: parameters after two steps, max diff {diffs.max().item()}, share "
-          f"apart by more than lr/100 {moved_apart}")
-    emit({"phase": "train_parity", "B": 2, "T": 3, "losses": losses, "loss_rel_err": loss_err,
-          "grad_err_over_max": dict(worst["cpu"][:8]),
-          "grad_err_over_max_cpu_own_masks": dict(worst["cpu_own_masks"][:8]),
-          "relu_mask_flips": flips, "relu_mask_outputs": card_masks[0].numel(),
-          "grad_tolerance": GRAD_TOLERANCE, "params_max_abs_diff": diffs.max().item(),
-          "params_share_apart_over_lr_100": moved_apart, "lr": lr, "tf32": False})
-    del trainers
-    gc.collect()
-    torch.cuda.empty_cache()
+    res = trainer_parity("train parity", make, lambda tr, dev, i: float(
+        tr.train_step(video.to(dev), noise[i])["_total"]))
+    emit({"phase": "train_parity", "B": 2, "T": 3, **res})
 
 
-def run_train_cli(argv):
-    """``textocvp_tpu_torch.cli.train_decomp.main(argv)`` with its output
-    echoed and kept; returns (trainer, output)."""
+def run_cli(main, argv):
+    """``main(argv)`` of a training CLI with its output echoed and kept;
+    returns (trainer, output)."""
     import contextlib
-
-    from textocvp_tpu_torch.cli import train_decomp
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        trainer = train_decomp.main(argv)
+        trainer = main(argv)
     print(buf.getvalue(), end="", flush=True)
     return trainer, buf.getvalue()
+
+
+def loss_lines(out):
+    return [float(line.split("loss=")[1]) for line in out.splitlines() if "loss=" in line]
 
 
 def phase_train(exp_path):
@@ -1144,6 +1286,7 @@ def phase_train(exp_path):
     after one B=64 valid batch): the train path's main path. Then a second
     run resumes from ``checkpoint_last_saved`` for a second epoch. Returns
     the main path's launches."""
+    from textocvp_tpu_torch.cli import train_decomp
     from textocvp_tpu_torch.core.experiment import Experiment
     from textocvp_tpu_torch.ops import conv5 as c5
 
@@ -1151,7 +1294,7 @@ def phase_train(exp_path):
     reset_launches()  # the main path starts here
     c5.conv5_input_grad_cuda.launches = 0
     t = time.perf_counter()
-    trainer, out = run_train_cli(["-d", str(exp_path)])
+    trainer, out = run_cli(train_decomp.main, ["-d", str(exp_path)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     counts = launches()  # and ends here
@@ -1161,7 +1304,7 @@ def phase_train(exp_path):
     check(counts == want and input_grad == 3 * steps,
           f"train: kernel launches on the main path {counts}, input-gradient {input_grad}; "
           f"want {want}, {3 * steps}")
-    losses = [float(line.split("loss=")[1]) for line in out.splitlines() if "loss=" in line]
+    losses = loss_lines(out)
     check(len(losses) == steps and bool(np.isfinite(losses).all()), f"train losses {losses}")
     check(trainer.global_step == valid + steps and trainer.optimizer.count == steps,
           f"train: step {trainer.global_step}, updates {trainer.optimizer.count}")
@@ -1177,10 +1320,10 @@ def phase_train(exp_path):
     params["training"]["num_epochs"] = 2
     exp.save_params(params)
     t = time.perf_counter()
-    resumed, out2 = run_train_cli(["-d", str(exp_path), "--checkpoint", "checkpoint_last_saved",
-                                   "--resume_training"])
+    resumed, out2 = run_cli(train_decomp.main, ["-d", str(exp_path), "--checkpoint",
+                                                "checkpoint_last_saved", "--resume_training"])
     resume_seconds = time.perf_counter() - t
-    losses2 = [float(line.split("loss=")[1]) for line in out2.splitlines() if "loss=" in line]
+    losses2 = loss_lines(out2)
     check("Resuming training from epoch 1" in out2 and resumed.start_epoch == 1
           and resumed.global_step == 2 * (valid + steps) and resumed.optimizer.count == 2 * steps,
           f"resume: epoch {resumed.start_epoch}, step {resumed.global_step}, "
@@ -1210,66 +1353,90 @@ def phase_train_sign(exp_path, videos):
           "losses": losses})
 
 
-def phase_train_step(trainer, videos):
-    """The steady train step at B=64, T=8 on the resumed trainer: three
-    steps on the host clock with synchronize, one split into forward,
-    backward and optimizer, the peak memory, the launches of a step, and
-    one step under torch.profiler. Off the main path."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def launch_counts():
+    """(slot-attention launches, conv5 launches, conv5 input-gradient
+    launches, conv5 weight-gradient calls) so far."""
     from textocvp_tpu_torch.ops import conv5 as c5
     from textocvp_tpu_torch.ops import slot_attention_kernel as sak
 
-    batch = trainer.to_device(videos)
-    trainer.train_step(batch)  # warm-up
+    return (sak.slot_attention_cuda.launches, c5.conv5_cuda.launches,
+            c5.conv5_input_grad_cuda.launches, c5.conv5_weight_grad.calls)
+
+
+def steady_steps(step, reps=3):
+    """``step()`` once to warm up, then ``reps`` times on the host clock with
+    synchronize: (ms of each, peak GB of the timed steps)."""
+    step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
-    for _ in range(3):
+    for _ in range(reps):
         t = time.perf_counter()
-        trainer.train_step(batch)
+        step()
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t))
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    return step_ms, torch.cuda.max_memory_allocated() / 2**30
 
-    before = (sak.slot_attention_cuda.launches, c5.conv5_cuda.launches,
-              c5.conv5_input_grad_cuda.launches)
-    marks = []
 
-    def mark():
+def split_ms(names, stages):
+    """Run ``stages`` in turn with synchronize around each: {name: ms}."""
+    torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+    for stage in stages:
+        stage()
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
+    return dict(zip(names, (1e3 * (b - a) for a, b in zip(marks[:-1], marks[1:]))))
 
-    noise = trainer._noise(batch.shape[0])
-    mark()
-    trainer.optimizer.zero_grad()
-    total, _ = trainer.forward_loss(batch, noise)
-    mark()
-    total.backward()
-    mark()
-    trainer.optimizer.step()
-    mark()
-    per_step = (sak.slot_attention_cuda.launches - before[0], c5.conv5_cuda.launches - before[1],
-                c5.conv5_input_grad_cuda.launches - before[2])
-    check(per_step == (TRAIN_FRAMES, 6, 3),
-          f"train step launches (slot attention, conv5, conv5 input gradient): {per_step}")
-    split = dict(zip(("forward", "backward", "optimizer"),
-                     (1e3 * (b - a) for a, b in zip(marks[:-1], marks[1:]))))
+
+def profiled_step(step, top=15):
+    """One ``step()`` under torch.profiler: its wall ms, device busy ms, idle
+    share and device ops, the ``top`` device kernels by time, and
+    ``entries(name)``: the device kernels whose name holds ``name``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        trainer.train_step(batch)
+        step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:15]
 
     def entries(name):
         return [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
                 for e in dev if name in e.key]
 
+    ranked = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:top]
+    return {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms, "device_ops": sum(e.count for e in dev),
+            "top": [{"name": e.key[:90], "count": e.count, "ms": e.self_device_time_total / 1e3}
+                    for e in ranked]}, entries
+
+
+def phase_train_step(trainer, videos):
+    """The steady train step at B=64, T=8 on the resumed trainer: three
+    steps on the host clock with synchronize, one split into forward,
+    backward and optimizer, the peak memory, the launches of a step, and
+    one step under torch.profiler. Off the main path."""
+    batch = trainer.to_device(videos)
+    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch))
+    before = launch_counts()
+    noise = trainer._noise(batch.shape[0])
+    out = {}
+
+    def forward():
+        trainer.optimizer.zero_grad()
+        out["total"] = trainer.forward_loss(batch, noise)[0]
+
+    split = split_ms(("forward", "backward", "optimizer"),
+                     (forward, lambda: out.pop("total").backward(), trainer.optimizer.step))
+    per_step = tuple(a - b for a, b in zip(launch_counts(), before))
+    check(per_step == (TRAIN_FRAMES, 6, 3, 3),
+          f"train step launches (slot attention, conv5, conv5 input gradient, weight-gradient "
+          f"calls): {per_step}")
+    prof, entries = profiled_step(lambda: trainer.train_step(batch))
     slot_attention = entries(SLOT_ATTENTION_KERNEL)
     conv5 = entries("conv5_kernel")
     check(sum(e["count"] for e in slot_attention) == TRAIN_FRAMES
@@ -1279,20 +1446,18 @@ def phase_train_step(trainer, videos):
     emit({"phase": "train_step", "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
           "step_ms": step_ms, "train_frames_per_s": 1e3 * TRAIN_BATCH * TRAIN_FRAMES / mean_ms,
           "split_ms": split, "peak_mem_gb": peak_gb,
-          "launches_per_step": {"slot_attention": per_step[0], "conv5": per_step[1],
-                                "conv5_input_grad": per_step[2]},
-          "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1 - busy_ms / wall_ms, "device_ops": sum(e.count for e in dev),
-          "slot_attention": slot_attention, "conv5": conv5,
-          "index_kernels": entries("index"),  # the decoder's tile gather and its backward
-          "top": [{"name": e.key[:90], "count": e.count, "ms": e.self_device_time_total / 1e3}
-                  for e in top]})
+          "launches_per_step": dict(zip(("slot_attention", "conv5", "conv5_input_grad",
+                                         "conv5_weight_grad_calls"), per_step)),
+          **prof, "slot_attention": slot_attention, "conv5": conv5,
+          "index_kernels": entries("index")})  # the decoder's tile gather and its backward
 
 
 def run_train(tmp: Path):
     """The train path: card-against-CPU parity, the fixture, the main path
     (the 02 CLI and its resume), the sign check, the steady step. Returns
-    the main path's launches and its conv5 input-gradient launches."""
+    the main path's launches, its conv5 input-gradient launches and the
+    trained experiment (its ``checkpoint_epoch_final.pt`` is the predictor
+    path's frozen SAVi)."""
     phase_train_parity(tmp)
     data_root = write_cater_fixture(tmp / "CATER_train", (("train", TRAIN_VIDEOS),
                                                           ("test", TRAIN_VALID_VIDEOS)))
@@ -1304,7 +1469,235 @@ def run_train(tmp: Path):
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_sign(train_experiment(tmp / "train_sign", data_root), videos)
-    return counts, input_grad
+    return counts, input_grad, exp_path
+
+
+def pred_experiment(parent: Path, name: str, **training) -> Path:
+    """A TextOCVP_T5 predictor experiment at full width nested in the SAVi
+    experiment ``parent``: the 04 defaults (c=1, p=9, buffer 10, no teacher
+    forcing, Adam lr 1e-4, warmup 2000, cosine, clip 0.05, ``pred_img_mse`` +
+    ``pred_slot_mse``), B=64, one epoch, with ``training`` over them."""
+    from textocvp_tpu_torch.core.config import add_predictor_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    params = add_predictor_params(Experiment(parent).params, "TextOCVP_T5")
+    params["training"].update({"batch_size": TRAIN_BATCH, "num_epochs": 1, "log_frequency": 1,
+                               "save_frequency": 1, **training})
+    exp = Experiment(parent / "predictors" / name)
+    exp.save_params(params)
+    return exp.exp_path
+
+
+def caption_batch(b):
+    """T5 ids and masks (hash tokenizer) of ``b`` CATER captions, MAX_TOKENS long."""
+    from textocvp_tpu_torch.data.tokenizers import HashFallbackT5Tokenizer
+
+    captions = [PATHS[0].captions[i % len(PATHS[0].captions)] for i in range(b)]
+    tok = HashFallbackT5Tokenizer()(captions)
+    pad = ((0, 0), (0, MAX_TOKENS - tok["caption_tokens"].shape[1]))
+    return {k: torch.from_numpy(np.pad(tok[k], pad)) for k in ("caption_tokens", "attn_masks")}
+
+
+def random_predictor_(trainer):
+    """Scale the trainer's random predictor's output projection by
+    PRED_OUT_SCALE, as ``random_models`` does: Xavier draws alone grow the
+    slots about 1.7x a rollout step, to 1e3 by step 9."""
+    with torch.no_grad():
+        trainer.model.predictor.mlp_out.weight.mul_(PRED_OUT_SCALE)
+
+
+def phase_pred_train_parity(parent: Path):
+    """PredictorTrainer on the card and on the CPU at full width, B=2, c=1,
+    p=9, the frozen SAVi of ``parent``'s ``checkpoint_epoch_final``, the same
+    predictor weights, video, captions and slot noise, warmup off
+    (``trainer_parity``; the predictor's 16 MLPs a rollout step are where
+    most of its ReLU masks differ between the devices). Off the main path.
+
+    At lr 1e-5: the second loss is taken after an update in which Adam
+    moved the elements whose gradient is within rounding of 0 by up to lr
+    either way on the two devices; at lr 1e-4 that alone put the second loss
+    4.9e-5 apart (relative) with every gradient leaf within its limit, at
+    1e-5 it is a tenth of that."""
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+
+    exp = pred_experiment(parent, "pred_parity", batch_size=2, lr=1e-5, lr_warmup=False)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    video = torch.rand((2, PRED_FRAMES, CONV5_RES, CONV5_RES, 3), generator=gen)
+    noise = [torch.randn((2, 8, 128), generator=gen) for _ in range(2)]
+    text = caption_batch(2)
+
+    def make(dev):
+        tr = PredictorTrainer(exp, "checkpoint_epoch_final", device=dev)
+        tr.setup_model()
+        random_predictor_(tr)
+        return tr
+
+    def step(tr, dev, i):
+        tx = {k: v.to(dev) for k, v in text.items()}
+        return float(tr.train_step(video.to(dev), noise[i], **tx)["_total"])
+
+    res = trainer_parity("predictor train parity", make, step)
+    emit({"phase": "pred_train_parity", "B": 2, "num_context": PRED_CONTEXT,
+          "num_preds": PRED_PREDS, **res})
+
+
+def phase_pred_train(parent: Path):
+    """The 04 CLI at B=64, c=1, p=9 over the 02 fixture (5 steps after one
+    B=64 valid batch), its frozen SAVi the ``checkpoint_epoch_final.pt`` that
+    the 02 phase wrote: the predictor path's main path. Then a second run
+    resumes from ``checkpoint_last_saved`` for a second epoch, and the 05 CLI
+    evaluates the predictor's ``checkpoint_epoch_final`` (B=64, 19
+    predictions). Returns the main path's launches, its conv5 input-gradient
+    launches and weight-gradient calls, and the resumed trainer."""
+    from textocvp_tpu_torch.cli import evaluate_predictor, train_predictor
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.ops import conv5 as c5
+
+    exp_path = pred_experiment(parent, PRED_NAME)
+    argv = ["-d", str(parent), "--name_pred_exp", PRED_NAME, "--decomp_ckpt",
+            "checkpoint_epoch_final"]
+    steps, valid = TRAIN_VIDEOS // TRAIN_BATCH, TRAIN_VALID_VIDEOS // TRAIN_BATCH
+    reset_launches()  # the main path starts here
+    c5.conv5_input_grad_cuda.launches = 0
+    c5.conv5_weight_grad.calls = 0
+    t = time.perf_counter()
+    trainer, out = run_cli(train_predictor.main, argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = launches()  # and ends here
+    input_grad, weight_grad = c5.conv5_input_grad_cuda.launches, c5.conv5_weight_grad.calls
+    want = {"slot_attention": PRED_FRAMES * (valid + steps), "vit_attention": 0,
+            "conv5": 3 * valid + 6 * steps}
+    check(counts == want and input_grad == 3 * steps and weight_grad == 0,
+          f"pred_train: kernel launches on the main path {counts}, input-gradient {input_grad}, "
+          f"weight-gradient calls {weight_grad}; want {want}, {3 * steps}, 0")
+    losses = loss_lines(out)
+    check(len(losses) == steps and bool(np.isfinite(losses).all()), f"pred_train losses {losses}")
+    check(trainer.global_step == valid + steps and trainer.optimizer.count == steps,
+          f"pred_train: step {trainer.global_step}, updates {trainer.optimizer.count}")
+    exp = Experiment(exp_path)
+    for name in ("checkpoint_last_saved.pt", "checkpoint_epoch_1.pt", "checkpoint_epoch_final.pt"):
+        check((exp.models_dir / name).is_file(), f"pred_train: {name} not written")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = exp.params
+    params["training"]["num_epochs"] = 2
+    exp.save_params(params)
+    t = time.perf_counter()
+    resumed, out2 = run_cli(train_predictor.main, argv + ["--checkpoint", "checkpoint_last_saved",
+                                                          "--resume_training"])
+    resume_seconds = time.perf_counter() - t
+    losses2 = loss_lines(out2)
+    check("Resuming training from epoch 1" in out2 and resumed.start_epoch == 1
+          and resumed.global_step == 2 * (valid + steps) and resumed.optimizer.count == 2 * steps,
+          f"pred_train resume: epoch {resumed.start_epoch}, step {resumed.global_step}, "
+          f"updates {resumed.optimizer.count}")
+    check(len(losses2) == steps and bool(np.isfinite(losses2).all()),
+          f"pred_train resumed losses {losses2}")
+
+    t = time.perf_counter()
+    evaluate_predictor.main(["-d", str(parent), "--name_pred_exp", PRED_NAME, "--decomp_ckpt",
+                             "checkpoint_epoch_final", "--pred_ckpt", "checkpoint_epoch_final",
+                             "--batch_size", str(EVAL_BATCH), "--num_seed", "1",
+                             "--num_preds", str(EVAL_PREDS)])
+    eval_seconds = time.perf_counter() - t
+    with open(exp_path / "results" / f"eval_pred_checkpoint_epoch_final_NumSeed=1_NumPreds="
+              f"{EVAL_PREDS}" / "results.json") as f:
+        results = json.load(f)
+    for m in ("psnr", "ssim", "lpips"):
+        vals = results[m]["framewise"] + [results[m]["mean"]]
+        check(len(results[m]["framewise"]) == EVAL_PREDS and bool(np.isfinite(vals).all()),
+              f"05 on the 04 checkpoint: {m} {results[m]}")
+    emit({"phase": "pred_train", "batch": TRAIN_BATCH, "num_context": PRED_CONTEXT,
+          "num_preds": PRED_PREDS, "train_videos": TRAIN_VIDEOS,
+          "valid_videos": TRAIN_VALID_VIDEOS, "decomp_ckpt": "checkpoint_epoch_final (02 phase)",
+          "cli_seconds": seconds, "resume_cli_seconds": resume_seconds, "launches": counts,
+          "conv5_input_grad_launches": input_grad, "conv5_weight_grad_calls": weight_grad,
+          "losses": losses, "resumed_losses": losses2,
+          "epoch_lines": [line for line in (out + out2).splitlines() if line.startswith("Epoch")],
+          "eval_cli_seconds": eval_seconds,
+          "eval_means": {m: results[m]["mean"] for m in ("psnr", "ssim", "lpips")}})
+    return counts, input_grad, weight_grad, resumed
+
+
+def phase_pred_train_step(trainer, videos, info):
+    """The steady predictor step at B=64 on the resumed trainer: three steps
+    on the host clock with synchronize, one split into frozen encode,
+    forward (rollout, decode, loss), backward and optimizer, the peak memory,
+    the launches of a step, and one step under torch.profiler. Off the main
+    path."""
+    batch, text = trainer.batch_to_device(videos, info)
+    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch, **text))
+    before = launch_counts()
+    noise = trainer._noise(batch.shape[0])
+    out = {}
+
+    def encode():
+        trainer.optimizer.zero_grad()
+        out["slots"] = trainer.encode(batch, noise)
+
+    def forward():
+        out["total"] = trainer.predict_loss(batch, out.pop("slots"), **text)[0]
+
+    split = split_ms(("frozen_encode", "forward", "backward", "optimizer"),
+                     (encode, forward, lambda: out.pop("total").backward(),
+                      trainer.optimizer.step))
+    per_step = tuple(a - b for a, b in zip(launch_counts(), before))
+    check(per_step == (PRED_FRAMES, 6, 3, 0),
+          f"predictor step launches (slot attention, conv5, conv5 input gradient, weight-"
+          f"gradient calls): {per_step}")
+    prof, entries = profiled_step(lambda: trainer.train_step(batch, **text))
+    slot_attention = entries(SLOT_ATTENTION_KERNEL)
+    conv5 = entries("conv5_kernel")
+    check(sum(e["count"] for e in slot_attention) == PRED_FRAMES
+          and sum(e["count"] for e in conv5) == 6,
+          f"predictor step device kernels: slot attention {slot_attention}, conv5 {conv5}")
+    mean_ms = sum(step_ms) / len(step_ms)
+    emit({"phase": "pred_train_step", "batch": TRAIN_BATCH, "num_context": PRED_CONTEXT,
+          "num_preds": PRED_PREDS, "step_ms": step_ms,
+          "pred_train_frames_per_s": 1e3 * TRAIN_BATCH * PRED_PREDS / mean_ms,
+          "split_ms": split, "peak_mem_gb": peak_gb, "accum_steps": trainer.accum,
+          "launches_per_step": dict(zip(("slot_attention", "conv5", "conv5_input_grad",
+                                         "conv5_weight_grad_calls"), per_step)),
+          **prof, "device_idle_share_of_mean_step": 1 - prof["device_busy_ms"] / mean_ms,
+          "slot_attention": slot_attention, "conv5": conv5})
+
+
+def phase_pred_train_sign(parent: Path, videos, info):
+    """20 predictor steps on one fixed batch of 8 at lr 1e-4, no warmup, the
+    random predictor's output projection scaled (``random_predictor_``): the
+    loss must fall. Off the main path."""
+    from textocvp_tpu_torch.train.predictor_trainer import TEXT_KEYS, PredictorTrainer
+
+    tr = PredictorTrainer(pred_experiment(parent, "pred_sign", batch_size=8, lr=1e-4,
+                                          lr_warmup=False), "checkpoint_epoch_final")
+    tr.setup_model()
+    random_predictor_(tr)
+    batch, text = tr.batch_to_device(videos[:8], {k: np.asarray(info[k])[:8] for k in TEXT_KEYS})
+    losses = [float(tr.train_step(batch, **text)["_total"]) for _ in range(20)]
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"predictor sign check: the loss did not fall over 20 steps: {losses}")
+    emit({"phase": "pred_train_sign", "batch": 8, "num_preds": PRED_PREDS, "lr": 1e-4,
+          "steps": 20, "losses": losses})
+
+
+def run_pred_train(parent: Path):
+    """The predictor-train path over the 02 phase's experiment ``parent``:
+    card-against-CPU parity, the main path (the 04 CLI, its resume and the
+    05 CLI on its checkpoint), the steady step, the sign check. Returns the
+    main path's launches, conv5 input-gradient launches and weight-gradient
+    calls."""
+    phase_pred_train_parity(parent)
+    counts, input_grad, weight_grad, trainer = phase_pred_train(parent)
+    videos, info = next(iter(trainer.train_loader))
+    phase_pred_train_step(trainer, videos, info)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_pred_train_sign(parent, videos, info)
+    return counts, input_grad, weight_grad
 
 
 def run_path(path: ServedPath, tmp: Path):
@@ -1341,7 +1734,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         counts = {path.name: run_path(path, Path(tmp)) for path in PATHS}
         counts["eval"] = run_eval(Path(tmp))
-        counts["train"], train_input_grad = run_train(Path(tmp))
+        counts["train"], train_input_grad, train_exp = run_train(Path(tmp))
+        counts["pred_train"], pred_input_grad, pred_weight_grad = run_pred_train(train_exp)
 
     sa = next(r for r in rows["slot_attention_cater"] if r["B"] == BATCH and r["iters"] == 3)
     sa64 = next(r for r in rows["slot_attention_cater"] if r["B"] == EVAL_BATCH
@@ -1352,6 +1746,7 @@ def main() -> int:
     conv_bwd = {r["N"]: r for r in rows["conv5_backward"]}
     conv_train = conv_bwd[TRAIN_BATCH * TRAIN_FRAMES * 8]
     sa_bwd = {r["iters"]: r for r in rows["slot_attention_backward"]}
+    (conv_frozen,) = rows["conv5_frozen_backward"]
     emit({"kernels": [{
         "name": "slot_attention",
         "route": "cuda",
@@ -1417,6 +1812,11 @@ def main() -> int:
                                            "bound_ms_fp32_cores", "library_ms",
                                            "library_layout", "max_abs_err")},
         "train_input_grad_launches": train_input_grad,
+        "pred_train_input_grad_launches": pred_input_grad,
+        "pred_train_weight_grad_calls": pred_weight_grad,
+        "frozen_backward": {k: conv_frozen[k] for k in (
+            "N", "rel_err", "forward_ms", "input_grad_ms", "plain_input_grad_ms", "library_ms",
+            "bound_ms", "bound_by", "bound_ms_fp32_cores")},
         "backward": {"route": "cuda (input gradient: this kernel, rotated weights); weight "
                               "gradient: torch.matmul; bias gradient: a sum",
                      "max_rel_err": max(max(r["rel_err"].values()) for r in conv_bwd.values()),

@@ -4,9 +4,11 @@ last two at shapes on and across the edges of their tiles), the tensor-core
 instructions in the built conv5 and ViT-attention libraries, the SAVi and
 ExtendedDINOSAUR seed encodes and the SAVi decode on the card against the
 CPU; the gradients of the slot-attention and conv5 Functions against
-autograd through the plain versions on the card, a SAVi train step that
-leaves no parameter without a gradient, and the ViT attention's refusal of
-grad. Marked ``gpu``;
+autograd through the plain versions on the card (conv5's input gradient
+alone behind frozen weights too), a SAVi train step that leaves no parameter
+without a gradient, a predictor train step through the frozen SAVi that
+gives every trainable predictor parameter one and the SAVi and T5 none, and
+the ViT attention's refusal of grad. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -254,6 +256,75 @@ def test_savi_train_step_on_the_card_leaves_no_parameter_without_a_gradient(cuda
         if name not in ("slot_attention.to_q.bias", "slot_attention.norm_slot.bias"):
             assert t.grad.abs().max() > 0, name  # those two: exactly 0 (softmax over slots)
         assert not torch.equal(t.detach(), before[name]) or t.grad.abs().max() == 0, name
+
+
+def test_predictor_train_step_on_the_card_reaches_the_predictor_and_nothing_frozen(cuda,
+                                                                                   tmp_path):
+    """One PredictorTrainer step at full width (CATER SAVi + TextOCVP_T5), B=2,
+    c=1, p=9: every trainable predictor parameter gets a finite gradient, no
+    SAVi or T5 parameter gets one; 10 slot-attention calls (the frozen encode
+    of 10 frames), 3 conv5 forward and 3 input-gradient launches, no conv5
+    weight gradient."""
+    from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.models import setup_model
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+
+    p = build_exp_params("SAVi", "CATER_Easy")
+    parent = Experiment(tmp_path / "exp")
+    parent.save_params(p)
+    parent.models_dir.mkdir(parents=True)
+    torch.save(random_init_(setup_model(p), torch.Generator().manual_seed(1)).state_dict(),
+               parent.checkpoint_path("savi"))
+    pp = add_predictor_params(p, "TextOCVP_T5")
+    pp["training"].update(batch_size=2, lr_warmup=False)
+    Experiment(parent.exp_path / "predictors" / "t5").save_params(pp)
+    tr = PredictorTrainer(parent.exp_path / "predictors" / "t5", "savi")
+    tr.setup_model()
+    gen = torch.Generator().manual_seed(6)
+    video = torch.rand((2, 10, 64, 64, 3), generator=gen).cuda()
+    text = {"caption_tokens": torch.randint(2, 32000, (2, 12), generator=gen).cuda(),
+            "attn_masks": torch.ones((2, 12), dtype=torch.long).cuda()}
+    counts = (sak.slot_attention_cuda.launches, c5.conv5_cuda.launches,
+              c5.conv5_input_grad_cuda.launches, c5.conv5_weight_grad.calls)
+    values = tr.train_step(video, **text)
+    torch.cuda.synchronize()
+    assert (sak.slot_attention_cuda.launches - counts[0], c5.conv5_cuda.launches - counts[1],
+            c5.conv5_input_grad_cuda.launches - counts[2],
+            c5.conv5_weight_grad.calls - counts[3]) == (10, 6, 3, 0)
+    assert np.isfinite(float(values["_total"]))
+    trainable = 0
+    for name, t in tr.model.named_parameters():
+        if name.startswith("predictor.text_encoder."):
+            assert not t.requires_grad and t.grad is None, name
+        else:
+            assert t.grad is not None and bool(torch.isfinite(t.grad).all()), name
+            trainable += 1
+    assert trainable == len(tr.optimizer.params)
+    assert all(t.grad is None and not t.requires_grad for t in tr.decomp_model.parameters())
+
+
+def test_conv5_input_gradient_behind_frozen_weights_matches_plain(cuda):
+    """Conv5Function with weights that need no gradient, at a CATER request's
+    N=1216: one forward and one input-gradient launch, no weight gradient,
+    and the input gradient of autograd through ``conv5_plain`` (both with the
+    ReLU mask of the kernel's output; in chunks of 304 frames)."""
+    x, wt, b = _conv5_case(1216, 64, 64)
+    x.requires_grad_()
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(3)).cuda()
+    before = (c5.conv5_cuda.launches, c5.conv5_input_grad_cuda.launches,
+              c5.conv5_weight_grad.calls)
+    y = c5.conv5(x, wt, b)
+    (got,) = torch.autograd.grad(y, x, g)
+    assert (c5.conv5_cuda.launches - before[0], c5.conv5_input_grad_cuda.launches - before[1],
+            c5.conv5_weight_grad.calls - before[2]) == (2, 1, 0)
+    gm = torch.where(y.detach() > 0, g, 0.0)
+    want = torch.empty_like(got)
+    for i in range(0, x.shape[0], 304):
+        xi = x[i:i + 304].detach().requires_grad_()
+        (want[i:i + 304],) = torch.autograd.grad(c5.conv5_plain(xi, wt, b, relu=False), xi,
+                                                  gm[i:i + 304])
+    assert _rel_err(got, want) <= 1e-4
 
 
 def test_module_dispatches_cuda_tensors_to_the_kernel(cuda):

@@ -4,8 +4,9 @@
         --decomp_ckpt C --pred_ckpt C [--num_seed 1] [--num_preds 19] \\
         [--batch_size 64] [--results_name NAME] [--device cuda]
 
-Checkpoints are ``models/<ckpt>.pt`` torch state dicts in the decomposition
-experiment (``-d``) and in its predictor experiment (``predictors/<P>``).
+Checkpoints are ``models/<ckpt>.pt`` (training checkpoints or bare state
+dicts) in the decomposition experiment (``-d``) and in its predictor
+experiment (``predictors/<P>``).
 The metrics land in ``predictors/<P>/results/<NAME>/results.json``, by
 default ``NAME = eval_pred_<pred_ckpt>_NumSeed=<c>_NumPreds=<p>``.
 """
@@ -13,7 +14,8 @@ default ``NAME = eval_pred_<pred_ckpt>_NumSeed=<c>_NumPreds=<p>``.
 from __future__ import annotations
 
 import argparse
-import os
+
+from textocvp_tpu_torch.cli import resolve_exp_dir
 
 
 def evaluate_predictor_args(argv=None):
@@ -28,9 +30,7 @@ def evaluate_predictor_args(argv=None):
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = parser.parse_args(argv)
-    if not os.path.isabs(args.exp_directory) and not os.path.exists(args.exp_directory):
-        root = os.environ.get("TEXTOCVP_EXPERIMENTS", os.path.join(os.getcwd(), "experiments"))
-        args.exp_directory = os.path.join(root, args.exp_directory)
+    args.exp_directory = resolve_exp_dir(args.exp_directory)
     return args
 
 

@@ -3,15 +3,17 @@
     python -m textocvp_tpu_torch.cli.serve -d EXP --name_pred_exp P \\
         --decomp_ckpt C --pred_ckpt C [--device cuda]
 
-Checkpoints are ``models/<ckpt>.pt`` torch state dicts in the decomposition
-experiment (``-d``) and in its predictor experiment (``predictors/<P>``).
+Checkpoints are ``models/<ckpt>.pt`` (training checkpoints or bare state
+dicts) in the decomposition experiment (``-d``) and in its predictor
+experiment (``predictors/<P>``).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-import os
+
+from textocvp_tpu_torch.cli import resolve_exp_dir
 
 
 def serve_args(argv=None):
@@ -32,9 +34,7 @@ def serve_args(argv=None):
                              "normalizes there; float inputs snap to the 1/255 grid")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = parser.parse_args(argv)
-    if not os.path.isabs(args.exp_directory) and not os.path.exists(args.exp_directory):
-        root = os.environ.get("TEXTOCVP_EXPERIMENTS", os.path.join(os.getcwd(), "experiments"))
-        args.exp_directory = os.path.join(root, args.exp_directory)
+    args.exp_directory = resolve_exp_dir(args.exp_directory)
     return args
 
 

@@ -12,7 +12,8 @@ device is ``cuda`` unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
-import os
+
+from textocvp_tpu_torch.cli import resolve_exp_dir
 
 
 def train_decomp_args(argv=None):
@@ -22,9 +23,7 @@ def train_decomp_args(argv=None):
     parser.add_argument("--resume_training", action="store_true")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = parser.parse_args(argv)
-    if not os.path.isabs(args.exp_directory) and not os.path.exists(args.exp_directory):
-        root = os.environ.get("TEXTOCVP_EXPERIMENTS", os.path.join(os.getcwd(), "experiments"))
-        args.exp_directory = os.path.join(root, args.exp_directory)
+    args.exp_directory = resolve_exp_dir(args.exp_directory)
     return args
 
 

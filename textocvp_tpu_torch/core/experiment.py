@@ -1,8 +1,9 @@
 """
-Experiment directory, trimmed to what the service and the evaluator use:
+Experiment directory, trimmed to what the trainers, the evaluator and the
+service use:
 
     <exp>/experiment_params.json       full config
-    <exp>/models/<name>.pt             torch state dicts
+    <exp>/models/<name>.pt             checkpoints (train/checkpoints.py)
     <exp>/results/<run>/results.json   metric outputs
     <exp>/predictors/<pname>/...       nested predictor experiment, same layout
 """
@@ -48,6 +49,14 @@ class Experiment:
         """``models/<name>.pt``; ``name`` may carry the suffix already."""
         name = str(name)
         return self.models_dir / (name if name.endswith(".pt") else f"{name}.pt")
+
+    @property
+    def parent(self) -> "Experiment | None":
+        """The decomposition experiment of a nested predictor experiment
+        (``<exp>/predictors/<name>``), else None."""
+        if self.exp_path.parent.name == "predictors":
+            return Experiment(self.exp_path.parent.parent)
+        return None
 
     def results_dir(self, run_name: str) -> Path:
         d = self.exp_path / "results" / run_name

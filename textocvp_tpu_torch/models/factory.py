@@ -78,7 +78,8 @@ def setup_predictor(exp_params: dict) -> PredictorWrapper:
     )
     return PredictorWrapper(predictor, num_context=prediction["num_context"],
                             num_preds=prediction["num_preds"],
-                            input_buffer_size=prediction.get("input_buffer_size"))
+                            input_buffer_size=prediction.get("input_buffer_size"),
+                            teacher_force=prediction.get("teacher_force", False))
 
 
 @torch.no_grad()

@@ -6,6 +6,9 @@ TextOCVP with the T5 text encoder, and the autoregressive rollout
 The rollout keeps a zero-padded ring buffer of ``input_buffer_size`` frames,
 newest last; padding frames are masked out as attention keys, which makes the
 fixed-shape window equivalent to a shorter window of only the valid frames.
+
+The T5 text encoder is frozen, as in the JAX package: its parameters do not
+require grad, and its output is detached (the JAX ``stop_gradient``).
 """
 
 from __future__ import annotations
@@ -43,9 +46,10 @@ class TextOCVP(nn.Module):
         overrides = {k: v for k, v in (text_encoder_params or {}).items()
                      if k in T5Config.__dataclass_fields__}
         self.text_encoder = T5EncoderStack(T5Config(**overrides) if overrides else T5_SMALL)
+        self.text_encoder.requires_grad_(False)
 
     def encode_text(self, caption_tokens, attn_masks):
-        return self.text_encoder(caption_tokens, attention_mask=attn_masks)
+        return self.text_encoder(caption_tokens, attention_mask=attn_masks).detach()
 
     def precompute_text_kv(self, text_embeddings):
         """Per-layer text K/V, computed once per sequence."""
@@ -65,19 +69,29 @@ class TextOCVP(nn.Module):
 
 class PredictorWrapper(nn.Module):
     """Autoregressive rollout: encode the caption once, cache each block's text
-    K/V, then ``num_preds`` predictions over the masked ring buffer."""
+    K/V, then ``num_preds`` predictions over the masked ring buffer. Under
+    teacher forcing the true slots ``slot_history[:, num_context + i]`` enter
+    the buffer in place of prediction ``i``."""
 
     def __init__(self, predictor: TextOCVP, num_context: int = 1, num_preds: int = 9,
-                 input_buffer_size: Optional[int] = 10):
+                 input_buffer_size: Optional[int] = 10, teacher_force: bool = False):
         super().__init__()
         self.predictor = predictor
         self.num_context = num_context
         self.num_preds = num_preds
+        self.teacher_force = teacher_force
         self.buffer_size = input_buffer_size if input_buffer_size else num_context
 
-    def forward(self, slot_history, caption_tokens, attn_masks, num_preds: Optional[int] = None):
-        """slot_history (B, T >= num_context, S, D) -> predicted slots (B, num_preds, S, D)."""
+    def forward(self, slot_history, caption_tokens, attn_masks, num_preds: Optional[int] = None,
+                teacher_force: Optional[bool] = None):
+        """slot_history (B, T, S, D) -> predicted slots (B, num_preds, S, D);
+        T >= num_context, and >= num_context + num_preds under teacher
+        forcing (``teacher_force``, else the constructor's)."""
         num_preds = self.num_preds if num_preds is None else num_preds
+        teacher_force = self.teacher_force if teacher_force is None else teacher_force
+        if teacher_force and slot_history.shape[1] < self.num_context + num_preds:
+            raise ValueError(f"teacher forcing needs {self.num_context + num_preds} frames of "
+                             f"slots, got {slot_history.shape[1]}")
         text_kv = self.predictor.precompute_text_kv(
             self.predictor.encode_text(caption_tokens, attn_masks))
 
@@ -89,10 +103,11 @@ class PredictorWrapper(nn.Module):
         cnt = c
         frames = torch.arange(L, device=slot_history.device)
         preds = []
-        for _ in range(num_preds):
+        for i in range(num_preds):
             key_mask = (frames >= L - cnt).repeat_interleave(s)[None, None, :]  # (1, 1, L*S)
             cur = self.predictor(buf, text_kv, self_mask=key_mask)
-            buf = torch.cat([buf[:, 1:], cur[:, None]], dim=1)
+            nxt = slot_history[:, self.num_context + i] if teacher_force else cur
+            buf = torch.cat([buf[:, 1:], nxt[:, None]], dim=1)
             cnt = min(cnt + 1, L)
             preds.append(cur)
         return torch.stack(preds, dim=1)

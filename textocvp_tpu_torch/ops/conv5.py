@@ -143,7 +143,9 @@ def conv5_weight_grad(x, g):
     pixels, ``dy * (W + 4) + dx``, so each tap's operand is a contiguous slice
     of the flattened padded x: one batched product a tap (a batch entry a
     frame, summed), with no copy of the shifted views. The padded grid costs
-    (H + 4)(W + 4) / HW more products (13 % at 64 x 64)."""
+    (H + 4)(W + 4) / HW more products (13 % at 64 x 64). Each call adds one
+    to ``conv5_weight_grad.calls`` (behind a frozen decoder there is none)."""
+    conv5_weight_grad.calls += 1
     n, h, wd, cin = x.shape
     pad = KERNEL_SIZE // 2
     hp, wp = h + 2 * pad, wd + 2 * pad
@@ -161,6 +163,9 @@ def conv5_weight_grad(x, g):
             xs = xflat[shift:shift + n * frame].view(n, frame, cin)
             taps.append(torch.matmul(xs.transpose(1, 2), gext).sum(0))
     return torch.stack(taps).view(KERNEL_SIZE, KERNEL_SIZE, cin, -1)
+
+
+conv5_weight_grad.calls = 0
 
 
 class Conv5Function(torch.autograd.Function):

@@ -37,6 +37,7 @@ from textocvp_tpu_torch.models.factory import (
     setup_model,
     setup_predictor,
 )
+from textocvp_tpu_torch.train.checkpoints import load_params
 
 
 class InferenceFrontend:
@@ -101,8 +102,9 @@ class PredictionService(InferenceFrontend):
 
     ``exp_path`` is the decomposition experiment; ``name_pred_exp`` names its
     nested predictor experiment (``predictors/<name>``) or is a path to it.
-    Checkpoints are torch state dicts, ``models/<ckpt>.pt``, BatchNorm
-    running statistics included. The model is SAVi or ExtendedDINOSAUR, as
+    Checkpoints are ``models/<ckpt>.pt``, training checkpoints or bare state
+    dicts (``train/checkpoints.py::load_params``), BatchNorm running
+    statistics included. The model is SAVi or ExtendedDINOSAUR, as
     the experiment's params say; the input resolution is the dataset's
     ``img_size``. ``generator``
     draws the slot noise of a ``LearnedRandom`` initializer; by default one
@@ -157,10 +159,7 @@ class PredictionService(InferenceFrontend):
         self._lock = threading.Lock()
 
     def _load(self, module, path):
-        if not path.is_file():
-            raise FileNotFoundError(f"Checkpoint {path} not found")
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        module.load_state_dict(state)
+        module.load_state_dict(load_params(path))
         return module.to(self.device).eval().requires_grad_(False)
 
     @torch.inference_mode()
@@ -169,7 +168,8 @@ class PredictionService(InferenceFrontend):
         slots = self.model.decompose(videos, generator=self.generator)
         tokens = torch.from_numpy(text["caption_tokens"]).to(self.device)
         masks = torch.from_numpy(text["attn_masks"]).to(self.device)
-        return self.predictor(slots["slot_history"], tokens, masks, num_preds=self.num_preds)
+        return self.predictor(slots["slot_history"], tokens, masks, num_preds=self.num_preds,
+                              teacher_force=False)
 
     @torch.inference_mode()
     def _decode_stage(self, pred_slots):

@@ -16,11 +16,16 @@ of ``.msgpack``:
 
 The JAX package's background writer (``tpu.async_checkpoint``) is not
 ported: the port writes in the training loop's thread.
+
+Readers of model weights (the 04 trainer's frozen decomposition model, the
+05 evaluator, the service) go through :func:`load_params`, which takes a
+training checkpoint or a bare state dict.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 from pathlib import Path
 
 import torch
@@ -48,8 +53,31 @@ def save_checkpoint(path, state: dict) -> Path:
 
 
 def load_checkpoint(path) -> dict:
-    """Read a checkpoint onto the CPU; raises if the file is missing, naming it."""
+    """Read a checkpoint onto the CPU; raises, naming the file, if it is
+    missing or torch cannot read it."""
     path = Path(path)
     if not path.is_file():
         raise FileNotFoundError(f"Checkpoint {path} not found")
-    return torch.load(path, map_location="cpu", weights_only=True)
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except (pickle.UnpicklingError, RuntimeError, EOFError) as e:
+        raise ValueError(f"Checkpoint {path} is not a torch file of tensors: {e}") from e
+
+
+def _is_state_dict(obj) -> bool:
+    return (isinstance(obj, dict) and bool(obj)
+            and all(isinstance(k, str) and isinstance(v, torch.Tensor) for k, v in obj.items()))
+
+
+def load_params(path) -> dict:
+    """A module's state dict from ``path``: ``state["params"]`` of a training
+    checkpoint, or the file itself when it is a bare state dict. Raises,
+    naming the file, when it is neither."""
+    state = load_checkpoint(path)
+    if isinstance(state, dict) and _is_state_dict(state.get("params")):
+        return state["params"]
+    if _is_state_dict(state):
+        return state
+    keys = list(state)[:8] if isinstance(state, dict) else type(state).__name__
+    raise ValueError(f"Checkpoint {path} holds neither a training checkpoint "
+                     f"({{'params': <state dict>, ...}}) nor a state dict: {keys}")

@@ -35,6 +35,7 @@ from textocvp_tpu_torch.models.factory import (
     setup_model,
     setup_predictor,
 )
+from textocvp_tpu_torch.train.checkpoints import load_params
 from textocvp_tpu_torch.train.metrics import MetricTracker
 
 
@@ -51,7 +52,8 @@ class PredictorEvaluator:
 
     ``exp_path`` is the decomposition experiment; ``name_pred_exp`` names its
     nested predictor experiment (``predictors/<name>``) or is a path to it.
-    Checkpoints are ``models/<ckpt>.pt`` state dicts. Call :meth:`load_data`,
+    Checkpoints are ``models/<ckpt>.pt``, training checkpoints or bare state
+    dicts (``train/checkpoints.py::load_params``). Call :meth:`load_data`,
     :meth:`load_models`, then :meth:`evaluate`.
     """
 
@@ -101,9 +103,7 @@ class PredictorEvaluator:
         self.predictor = self._load(self.predictor, self.exp.checkpoint_path(self.pred_ckpt))
 
     def _load(self, module, path):
-        if not path.is_file():
-            raise FileNotFoundError(f"Checkpoint {path} not found")
-        module.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+        module.load_state_dict(load_params(path))
         return module.to(self.device).eval().requires_grad_(False)
 
     @torch.inference_mode()
@@ -115,7 +115,7 @@ class PredictorEvaluator:
             seed, initial_slots=None if initial_slots is None else initial_slots.to(self.device),
             generator=self.generator)["slot_history"]
         return self.predictor(slots, text["caption_tokens"], text["attn_masks"],
-                              num_preds=self.num_preds)
+                              num_preds=self.num_preds, teacher_force=False)
 
     @torch.inference_mode()
     def decode_stage(self, pred_slots):

@@ -1,0 +1,127 @@
+"""
+Stage-2 (predictor) trainer of the port for CATER SAVi + TextOCVP_T5
+(counterpart of the JAX package's ``textocvp_tpu/train/predictor_trainer.py::
+PredictorTrainer``).
+
+A nested predictor experiment (``<exp>/predictors/<name>``) trains its
+predictor through the parent experiment's frozen SAVi, loaded from
+``decomp_ckpt`` (a training checkpoint or a bare state dict,
+``train/checkpoints.py::load_params``). Each (micro)batch of ``num_context +
+num_preds`` frames:
+
+1. is encoded into slots by the frozen SAVi under ``torch.no_grad()`` (the
+   JAX ``stop_gradient``), with the slot noise of the shared stream
+   (``Trainer._noise``, every train and every valid batch);
+2. is rolled out by the predictor for ``num_preds`` frames, with teacher
+   forcing when the config's ``teacher_force`` says so (the valid step never
+   forces);
+3. has its predicted slots decoded by the frozen decoder, all B * num_preds
+   frames at once, and the config's ``predictor_loss`` (``pred_img_mse`` +
+   ``pred_slot_mse`` by default) taken against the true frames and the
+   encoded slots. The predicted images are not clipped, as in the JAX
+   trainer.
+
+Adam (``train/schedulers.py``) updates the predictor's parameters that
+require grad: every one but the frozen T5's. On the card every slot-attention
+call of the encode launches ``csrc/slot_attention.cu`` (forward only), and
+every decoder-tail conv launches ``csrc/conv5.cu`` forward and again for its
+input gradient; the decoder is frozen, so no weight gradient is computed.
+
+Not ported (ROADMAP.md): predictor training on ExtendedDINOSAUR, the other
+predictors, ``tpu.remat``, the background checkpoint writer, TensorBoard
+scalars and image panels, ``train_decode_chunks`` / ``valid_decode_kwargs``
+and the mesh.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from textocvp_tpu_torch.models.factory import random_init_, setup_model, setup_predictor
+from textocvp_tpu_torch.train.checkpoints import load_params
+from textocvp_tpu_torch.train.losses import build_loss_fn
+from textocvp_tpu_torch.train.trainer import INIT_SEED, Trainer
+
+TEXT_KEYS = ("caption_tokens", "attn_masks")
+
+
+class PredictorTrainer(Trainer):
+    """Trainer of a TextOCVP_T5 predictor with the parent experiment's frozen
+    SAVi. ``model`` is the predictor (a ``PredictorWrapper``), ``decomp_model``
+    the SAVi.
+
+    Call :meth:`load_data`, :meth:`setup_model`, then :meth:`training_loop`."""
+
+    def __init__(self, exp_path, decomp_ckpt: str, checkpoint: Optional[str] = None,
+                 resume_training: bool = False, device="cuda"):
+        super().__init__(exp_path, checkpoint, resume_training, device)
+        self.parent = self.exp.parent
+        if self.parent is None:
+            raise ValueError(f"{exp_path} is not a nested predictor experiment "
+                             "(<exp>/predictors/<name>)")
+        model_name = self.exp_params["model"]["model_name"]
+        if model_name != "SAVi":
+            raise NotImplementedError(
+                f"the port trains predictors on SAVi only; on {model_name} it is not ported "
+                "yet (ROADMAP.md, section 1, item 4)")
+        pp = self.exp_params["prediction_params"]
+        self.num_context, self.num_preds = pp["num_context"], pp["num_preds"]
+        # the clips hold the context and the frames to predict
+        # (reference basePredictorTrainer.py:88-93)
+        self.exp_params = {**self.exp_params, "dataset": {
+            **self.exp_params["dataset"], "num_frames": self.num_context + self.num_preds}}
+        self.decomp_ckpt = decomp_ckpt
+        self.decomp_model = setup_model(self.exp_params)
+        self.model = setup_predictor(self.exp_params)
+        self.loss_fn = build_loss_fn(self.exp_params["predictor_loss"])
+
+    def setup_model(self):
+        """The frozen SAVi from the parent's ``decomp_ckpt``; the predictor from
+        ``random_init_`` with a generator seeded ``INIT_SEED``, or from
+        ``checkpoint``, with ``resume_training`` also the optimizer state, the
+        epoch and the step."""
+        self.decomp_model.load_state_dict(
+            load_params(self.parent.checkpoint_path(self.decomp_ckpt)))
+        self.decomp_model.to(self.device).eval().requires_grad_(False)
+        random_init_(self.model, torch.Generator().manual_seed(INIT_SEED))
+        self.model.to(self.device).train()
+        self._setup_optimizer()
+
+    def batch_to_device(self, videos, info) -> tuple:
+        text = {k: torch.as_tensor(np.asarray(info[k])).to(self.device) for k in TEXT_KEYS}
+        return self.to_device(videos), text
+
+    @torch.no_grad()
+    def encode(self, videos, noise):
+        """Slots (B, c + p, S, D) of the first c + p frames, by the frozen SAVi."""
+        return self.decomp_model(videos[:, :self.num_context + self.num_preds], noise=noise,
+                                 decode=False)["slot_history"]
+
+    def predict_loss(self, videos, slot_history, caption_tokens, attn_masks,
+                     teacher_force: Optional[bool] = None):
+        """(total, {name: value}): the rollout from the encoded slots, the
+        decode of every predicted frame and the losses."""
+        c, p = self.num_context, self.num_preds
+        pred_slots = self.model(slot_history, caption_tokens, attn_masks,
+                                teacher_force=teacher_force)
+        b, _, s, d = pred_slots.shape
+        target_imgs = videos[:, c:c + p]
+        pred_imgs = self.decomp_model.decode(pred_slots.reshape(b * p, s, d))["recons_imgs"]
+        return self.loss_fn(pred_slots=pred_slots, target_slots=slot_history[:, c:c + p],
+                            pred_imgs=pred_imgs.reshape(target_imgs.shape),
+                            target_imgs=target_imgs)
+
+    def forward_loss(self, videos, noise, caption_tokens, attn_masks,
+                     teacher_force: Optional[bool] = None):
+        """(total, {name: value}) of one (micro)batch on the device;
+        ``teacher_force`` None is the config's."""
+        return self.predict_loss(videos, self.encode(videos, noise), caption_tokens, attn_masks,
+                                 teacher_force)
+
+    @torch.no_grad()
+    def valid_step(self, videos, **text) -> dict:
+        return self.forward_loss(videos, self._noise(videos.shape[0]), teacher_force=False,
+                                 **text)[1]

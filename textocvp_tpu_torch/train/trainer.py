@@ -1,6 +1,8 @@
 """
 Stage-1 (decomposition) trainer of the port for SAVi (counterpart of the JAX
-package's ``textocvp_tpu/train/trainer.py::DecompTrainer``).
+package's ``textocvp_tpu/train/trainer.py::DecompTrainer``), and the loop it
+shares with the 04 predictor trainer (:class:`Trainer`,
+``train/predictor_trainer.py``).
 
 What it keeps of the JAX trainer:
 
@@ -88,33 +90,30 @@ def noise_generator(step: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state))
 
 
-class DecompTrainer:
-    """Trainer of a SAVi decomposition model.
+class Trainer:
+    """The training loop both trainers share: the loaders, Adam over the
+    trained module's parameters that require grad, the slot-noise stream,
+    accumulation, the epochs and the checkpoints.
 
-    Call :meth:`load_data`, :meth:`setup_model`, then :meth:`training_loop`.
-    ``device`` is ``cuda`` unless the caller asks for ``cpu``; without a CUDA
-    device ``cuda`` raises."""
+    A subclass builds ``model`` (the module trained and checkpointed) and
+    ``loss_fn``, and defines :meth:`setup_model` and :meth:`forward_loss`
+    ``(videos, noise, **text) -> (total, values)``. ``device`` is ``cuda``
+    unless the caller asks for ``cpu``; without a CUDA device ``cuda``
+    raises."""
 
     def __init__(self, exp_path, checkpoint: Optional[str] = None,
                  resume_training: bool = False, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("DecompTrainer: no CUDA device; pass device='cpu' to train "
-                               "on the CPU")
+            raise RuntimeError(f"{type(self).__name__}: no CUDA device; pass device='cpu' to "
+                               "train on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.exp = Experiment(exp_path)
         self.exp_params = self.exp.params
-        self.model_name = self.exp_params["model"]["model_name"]
-        if self.model_name != "SAVi":
-            raise NotImplementedError(
-                f"the port trains SAVi only; {self.model_name} training is not ported yet "
-                "(ROADMAP.md, section 1, item 4(d))")
         self.training_params = self.exp_params["training"]
         self.checkpoint = checkpoint
         self.resume_training = resume_training
-        self.model = setup_model(self.exp_params)
-        self.loss_fn = build_loss_fn(self.exp_params["loss"])
         self.accum = accum_steps_of(self.training_params)
         self.start_epoch = 0
         self.global_step = 0
@@ -130,15 +129,22 @@ class DecompTrainer:
         print(f"Loaded {len(self.train_set)} train / {len(self.valid_set)} valid sequences",
               flush=True)
 
+    def to_device(self, videos):
+        """A loader batch (numpy, uint8 or float) -> float video on the device."""
+        return as_float_video(torch.as_tensor(np.asarray(videos)).to(self.device))
+
+    def batch_to_device(self, videos, info) -> tuple:
+        """A loader batch -> (video, {name: tensor} of what :meth:`forward_loss`
+        takes besides the video and the noise) on the device."""
+        return self.to_device(videos), {}
+
     # ----------------------------------------------------------------- model
-    def setup_model(self):
-        """Weights from ``random_init_`` with a generator seeded ``INIT_SEED``,
-        or from ``checkpoint``; with ``resume_training`` also the optimizer
-        state, the epoch and the step."""
-        random_init_(self.model, torch.Generator().manual_seed(INIT_SEED))
-        self.model.to(self.device).train()
-        self.optimizer, self.lr_schedule = build_optimizer(self.training_params,
-                                                           self.model.parameters())
+    def _setup_optimizer(self):
+        """Adam over the parameters of ``model`` that require grad; with
+        ``checkpoint`` its weights from that checkpoint, and with
+        ``resume_training`` also the optimizer state, the epoch and the step."""
+        self.optimizer, self.lr_schedule = build_optimizer(
+            self.training_params, [p for p in self.model.parameters() if p.requires_grad])
         if self.checkpoint is not None:
             state = load_checkpoint(self.exp.checkpoint_path(self.checkpoint))
             self.model.load_state_dict(state["params"])
@@ -148,56 +154,48 @@ class DecompTrainer:
                 self.global_step = int(state["step"])
                 print(f"Resuming training from epoch {self.start_epoch}", flush=True)
 
-    def to_device(self, videos):
-        """A loader batch (numpy, uint8 or float) -> float video on the device."""
-        return as_float_video(torch.as_tensor(np.asarray(videos)).to(self.device))
-
     def _noise(self, batch_size: int) -> torch.Tensor:
         """The slot noise of the next batch; advances ``global_step``."""
         self.global_step += 1
-        shape = (batch_size, self.model.num_slots, self.model.slot_dim)
+        mp = self.exp_params["model"]["model_params"]
+        shape = (batch_size, mp["num_slots"], mp["slot_dim"])
         return torch.randn(shape, generator=noise_generator(self.global_step))
 
-    def _loss_tensors(self, out: dict, videos) -> dict:
-        return {"pred_imgs": out["recons_imgs"].clamp(0, 1), "target_imgs": videos.clamp(0, 1)}
-
-    def forward_loss(self, videos, noise):
-        """(total, {name: value}) of one (micro)batch on the device."""
-        out = self.model(videos, noise=noise, decode=True)
-        return self.loss_fn(**self._loss_tensors(out, videos))
-
-    def backward(self, videos, noise) -> dict:
+    def backward(self, videos, noise, **text) -> dict:
         """Fresh gradients of the batch's loss in every parameter's ``.grad``,
         averaged over its microbatches; returns the loss values."""
         b = videos.shape[0]
         accum = ragged_accum(b, self.accum, self.training_params["batch_size"])
+        mb = b // accum
         self.optimizer.zero_grad()
         values = []
-        for v, n in zip(videos.split(b // accum), noise.split(b // accum)):
-            total, vals = self.forward_loss(v, n)
+        for i in range(0, b, mb):
+            part = {k: t[i:i + mb] for k, t in text.items()}
+            total, vals = self.forward_loss(videos[i:i + mb], noise[i:i + mb], **part)
             (total / accum).backward()
             values.append({k: x.detach() for k, x in vals.items()})
         return {k: torch.stack([v[k] for v in values]).mean() for k in values[0]}
 
-    def train_step(self, videos, noise=None) -> dict:
+    def train_step(self, videos, noise=None, **text) -> dict:
         """One update from a batch on the device; ``noise`` (B, S, D) in place
         of the stream's (which then does not advance)."""
         if noise is None:
             noise = self._noise(videos.shape[0])
-        values = self.backward(videos, noise)
+        values = self.backward(videos, noise, **text)
         self.optimizer.step()
         return values
 
     @torch.no_grad()
-    def valid_step(self, videos) -> dict:
-        return self.forward_loss(videos, self._noise(videos.shape[0]))[1]
+    def valid_step(self, videos, **text) -> dict:
+        return self.forward_loss(videos, self._noise(videos.shape[0]), **text)[1]
 
     # ------------------------------------------------------------------ loop
     def train_epoch(self, epoch: int) -> float:
         losses = []
         log_freq = self.training_params.get("log_frequency", 100)
-        for i, (videos, _) in enumerate(self.train_loader):
-            values = self.train_step(self.to_device(videos))
+        for i, (videos, info) in enumerate(self.train_loader):
+            videos, text = self.batch_to_device(videos, info)
+            values = self.train_step(videos, **text)
             loss = float(values["_total"])
             if i % log_freq == 0:
                 print(f"  epoch {epoch} iter {i}: loss={loss:.6f}", flush=True)
@@ -205,8 +203,10 @@ class DecompTrainer:
         return float(np.mean(losses)) if losses else float("nan")
 
     def valid_epoch(self, epoch: int) -> float:
-        losses = [float(self.valid_step(self.to_device(videos))["_total"])
-                  for videos, _ in self.valid_loader]
+        losses = []
+        for videos, info in self.valid_loader:
+            videos, text = self.batch_to_device(videos, info)
+            losses.append(float(self.valid_step(videos, **text)["_total"]))
         return float(np.mean(losses)) if losses else float("nan")
 
     def _save(self, name: str, epoch: int):
@@ -215,19 +215,10 @@ class DecompTrainer:
                          "opt_state": self.optimizer.state_dict(),
                          "epoch": epoch, "step": self.global_step})
 
-    def log_architecture(self):
-        """The module structure and the count of learnable parameters, to
-        ``model_architecture.txt``."""
-        n_params = sum(p.numel() for p in self.model.parameters() if p.requires_grad)
-        with open(self.exp.exp_path / "model_architecture.txt", "w") as f:
-            f.write(str(self.model) + "\n")
-            f.write(f"\nLearnable parameters: {n_params}\n")
-
     def training_loop(self):
         """Epochs from ``start_epoch`` to ``num_epochs``: validation, then
         training, then the checkpoints; the emergency checkpoint on an
         exception or an interrupt, which is raised again."""
-        self.log_architecture()
         num_epochs = self.training_params["num_epochs"]
         save_freq = self.training_params.get("save_frequency", 25)
         epoch = self.start_epoch
@@ -250,3 +241,48 @@ class DecompTrainer:
             self._save(f"emergency_checkpoint_epoch_{epoch}", epoch)
             print(f"Emergency checkpoint saved at epoch {epoch} ({type(e).__name__})", flush=True)
             raise
+
+
+class DecompTrainer(Trainer):
+    """Trainer of a SAVi decomposition model.
+
+    Call :meth:`load_data`, :meth:`setup_model`, then :meth:`training_loop`."""
+
+    def __init__(self, exp_path, checkpoint: Optional[str] = None,
+                 resume_training: bool = False, device="cuda"):
+        super().__init__(exp_path, checkpoint, resume_training, device)
+        self.model_name = self.exp_params["model"]["model_name"]
+        if self.model_name != "SAVi":
+            raise NotImplementedError(
+                f"the port trains SAVi only; {self.model_name} training is not ported yet "
+                "(ROADMAP.md, section 1, item 4(d))")
+        self.model = setup_model(self.exp_params)
+        self.loss_fn = build_loss_fn(self.exp_params["loss"])
+
+    def setup_model(self):
+        """Weights from ``random_init_`` with a generator seeded ``INIT_SEED``,
+        or from ``checkpoint``; with ``resume_training`` also the optimizer
+        state, the epoch and the step."""
+        random_init_(self.model, torch.Generator().manual_seed(INIT_SEED))
+        self.model.to(self.device).train()
+        self._setup_optimizer()
+
+    def _loss_tensors(self, out: dict, videos) -> dict:
+        return {"pred_imgs": out["recons_imgs"].clamp(0, 1), "target_imgs": videos.clamp(0, 1)}
+
+    def forward_loss(self, videos, noise):
+        """(total, {name: value}) of one (micro)batch on the device."""
+        out = self.model(videos, noise=noise, decode=True)
+        return self.loss_fn(**self._loss_tensors(out, videos))
+
+    def log_architecture(self):
+        """The module structure and the count of learnable parameters, to
+        ``model_architecture.txt``."""
+        n_params = sum(p.numel() for p in self.model.parameters() if p.requires_grad)
+        with open(self.exp.exp_path / "model_architecture.txt", "w") as f:
+            f.write(str(self.model) + "\n")
+            f.write(f"\nLearnable parameters: {n_params}\n")
+
+    def training_loop(self):
+        self.log_architecture()
+        super().training_loop()
