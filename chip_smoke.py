@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's two serving paths, its 05 evaluate-predictor path, its
-02 train path and its 04 predictor-train path at full width with random
-weights drawn from a seed, and checks them:
+02 train path, its 04 predictor-train path and the CLIPort chain (02, 04
+and 05 on ExtendedDINOSAUR) at full width with random weights drawn from a
+seed, and checks them:
 
 * CATER: SAVi (8 slots x 128, 64x64 frames) + TextOCVP_T5 (T5-small, 8
   predictor layers), 19 predicted frames;
@@ -20,7 +21,15 @@ weights drawn from a seed, and checks them:
 * pred_train: TextOCVP_T5 (T5-small, 8 layers, token 512) under the 04
   ``PredictorTrainer`` at B=64, c=1, p=9, buffer 10, through the frozen SAVi
   that the train path wrote (Adam, lr 1e-4, warmup 2000, cosine, clip 0.05,
-  ``pred_img_mse`` + ``pred_slot_mse``), over the same ``.npy`` set.
+  ``pred_img_mse`` + ``pred_slot_mse``), over the same ``.npy`` set;
+* CLIPort chain: the ExtendedDINOSAUR above under the 02 ``DecompTrainer`` at
+  B=64, T=8, ``accum_steps`` 8 (Adam, lr 1e-4, warmup 2000, cosine, clip
+  0.05, ``pred_feature_mse`` + ``mse``; the ViT frozen), TextOCVP_T5 through
+  it under the 04 ``PredictorTrainer`` at B=64, c=1, p=9, ``accum_steps`` 8,
+  and the 05 protocol on that predictor at B=16, 1 seed frame, 9 predicted
+  frames, over a temporary CLIPort color-cache set (64 train, 16 val and 32
+  test episodes of 12 frames at 336 x 336, coloured blocks over a shaded
+  table, about 450 MB).
 
 Phases, one JSON line each:
 
@@ -31,15 +40,20 @@ Phases, one JSON line each:
             0 for conv5 and the ViT attention;
 3. kernels  slot attention against its plain PyTorch version at the CATER
             shape (N=4096, S=8, MLP 256, B in (8, 64)) and the CLIPort shape
-            (N=576, S=10, MLP 512, B=8), 1 and 3 iterations, each call's
+            (N=576, S=10, MLP 512, B in (8, 16): a request and the 02 and 04
+            microbatches, the valid batches and the 05 batch), 1 and 3
+            iterations, each call's
             device kernels counted under ``torch.profiler`` (one cluster
             launch, ``slot_attention_cluster_kernel``) and timed with the card
             held busy while the host enqueues (the kernel's own time, not
             the wrapper's host time per call); the ViT attention
-            against its plain version at (B, h, n, dh) = (8, 12, 577, 64) and
-            (16, 12, 577, 64), with ``F.scaled_dot_product_attention`` timed as a
-            yardstick; conv5 against its plain version at N=1216 (a CATER
-            request) and N=9728 (an eval batch) frames of 64x64x64, with
+            against its plain version at (B, 12, 577, 64) for each B of
+            ``VIT_BATCHES``, the frames of one ViT call on the main paths (8 a
+            request, 16 the 05 seed frames, 64 and 80 the 02 and 04
+            microbatches, 128 and 160 their valid batches), with
+            ``F.scaled_dot_product_attention`` timed as a yardstick; conv5
+            against its plain version at N=1216 (a CATER request) and N=9728
+            (an eval batch) frames of 64x64x64, with
             ``F.conv2d`` + ReLU (cuDNN, TF32 off) timed as a yardstick. Max abs
             error, time from CUDA events, the plain version's time, the bound
             (for conv5 and the ViT attention, which run 3xTF32 products on the
@@ -49,7 +63,8 @@ Phases, one JSON line each:
             N=1216 and N=4096 (the train step), the input gradient's launch of
             the kernel, the weight gradient and cuDNN's
             ``convolution_backward`` timed apart; the slot-attention Function's
-            gradients against the plain version's at B=64, N=4096, 1 and 3
+            gradients against the plain version's at B=64, N=4096 and at the
+            CLIPort 02 microbatch's B=8, N=576, S=10, MLP 512, 1 and 3
             iterations, and its backward's time; conv5's Function behind
             frozen weights at the predictor step's N=4608 (one forward and one
             input-gradient launch, no weight gradient), its input gradient
@@ -85,10 +100,11 @@ then the eval path:
 then the train path:
 11. train_parity  DecompTrainer on the card and on the CPU at full width,
             B=2, T=3, the same weights, video and slot noise, warmup off, the
-            CPU with the card's ReLU masks (decoder-tail convs, MLP hidden
-            layers; its own-mask result reported): the loss (1e-5 relative)
-            and every gradient leaf (1e-4 of the leaf's largest value) after
-            one step, the loss and the parameters after two;
+            CPU with the card's ReLU masks of the decoder-tail convs and of
+            each ``MLP``'s hidden layers (its own-mask result reported):
+            the loss (1e-5 relative), every gradient leaf (1e-4 of the leaf's
+            largest value) and the buffers after one step, the loss and the
+            parameters after two;
 12. train   ``textocvp_tpu_torch.cli.train_decomp.main`` at B=64, T=8 over 320
             training videos (5 steps after one B=64 valid batch): finite
             losses, ``checkpoint_last_saved.pt`` and
@@ -122,11 +138,43 @@ then the predictor-train path, over the experiment that phase 12 trained:
             slot-attention device kernel a call;
 18. pred_train_sign  20 steps on one batch of 8 at lr 1e-4: the loss falls.
 
+then the CLIPort chain, over the color-cache set:
+19. clip_train_parity  DecompTrainer on ExtendedDINOSAUR on the card and on
+            the CPU at full width, B=2, T=3, as phase 11, the CPU with the
+            card's masks (every ReLU on the gradient's path, the slot-attention
+            MLP's from the card's recompute, the loss's clips); the BatchNorm
+            statistics after the first step (1e-5), the ViT bit for bit;
+20. clip_train  the 02 CLI at B=64, T=8, ``accum_steps`` 8: two epochs of
+            one step after a B=16 valid batch, then ``--resume_training`` for a
+            third; 8 slot-attention calls and 12 ViT-attention launches a
+            (micro)batch, the checkpoints hold the ViT and the statistics;
+21. clip_train_step  the steady step on the host clock, split into forward,
+            backward (each summed over the microbatches) and optimizer, its
+            peak memory, launches, and one step under ``torch.profiler``;
+22. clip_train_sign  10 steps on one batch of 8 at lr 1e-6: the loss falls;
+23. clip_pred_train_parity, clip_pred_train, clip_pred_train_step,
+            clip_pred_train_sign  the same for the 04 step through the frozen
+            ExtendedDINOSAUR of phase 20 (B=64, c=1, p=9, ``accum_steps`` 8;
+            one epoch, then a resume; 10 slot-attention calls and 12
+            ViT-attention launches a microbatch);
+24. clip_eval_parity  the eval step at B=2 on the card and on the CPU, on
+            phase 23's checkpoint, as phase 8;
+25. clip_eval  the 05 CLI at B=16, 1 seed frame, 9 predictions over the 32
+            test episodes (two batches): finite means, 9 framewise values a
+            metric, 1 slot-attention call and 12 ViT-attention launches a batch;
+26. clip_eval_step  one more B=16 batch split into its stages, and one step
+            under ``torch.profiler``.
+
 Phases 5 and 6 are a serving path's main path, phase 9 the eval path's,
-phase 12's first run the train path's and phase 16's first run the
-predictor-train path's: every kernel's launch counter (and conv5's
+phase 12's first run the train path's, phase 16's first run the
+predictor-train path's, and the first runs of the CLIs of phases 20, 23 and
+25 the CLIPort chain's three: every kernel's launch counter (and conv5's
 input-gradient launches and weight-gradient calls) is set to 0 before it
-and read after. Then one ``{"kernels": [...]}`` line, and last
+and read after. Every trace under ``torch.profiler`` is taken whole
+(``traced``: device spins before and after the call, and taken again behind
+a longer spin when the profiler dropped the trace's first records), and the
+port's device kernels in it are counted exactly. Then one
+``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 not 0 and the last line is not printed. Without a CUDA device the script
 exits 2 before doing anything.
@@ -168,6 +216,25 @@ PRED_NAME = "textocvp_t5"
 PRED_CONTEXT, PRED_PREDS = 1, 9          # the 04 defaults (core/config.py DEFAULTS)
 PRED_FRAMES = PRED_CONTEXT + PRED_PREDS  # frames of a predictor-training clip
 PRED_TAIL_N = TRAIN_BATCH * PRED_PREDS * 8  # slot maps through the decoder tail a step
+CLIP_RES, CLIP_PATCHES, CLIP_SLOTS, CLIP_SLOT_DIM = 336, 576, 10, 128  # ExtendedDINOSAUR
+CLIP_TRAIN_BATCH, CLIP_FRAMES = 64, 8   # configs/datasets/CLIPort.json, the 02 batch
+CLIP_ACCUM = 8                          # docs/TRAIN.md's accum_steps for ExtendedDINOSAUR
+CLIP_EPISODES = (("train", 64), ("val", 16), ("test", 32))
+CLIP_EPISODE_FRAMES = 12                # c + p = 10 for the 04 step, and room for random_start
+CLIP_EVAL_BATCH, CLIP_PREDS = 16, 9     # scripts/05_evaluate_TextOCVP_CLIPort.sh
+CLIP_VALID_BATCH = dict(CLIP_EPISODES)["val"]  # one valid batch, no accumulation
+# the batches of one ViT call on the main paths, in frames: a request's and
+# the 05 seed frames, the 02 microbatch and valid batch, the 04 microbatch
+# and valid batch
+VIT_BATCHES = (BATCH, CLIP_EVAL_BATCH, CLIP_TRAIN_BATCH // CLIP_ACCUM * CLIP_FRAMES,
+               CLIP_TRAIN_BATCH // CLIP_ACCUM * PRED_FRAMES, CLIP_VALID_BATCH * CLIP_FRAMES,
+               CLIP_VALID_BATCH * PRED_FRAMES)
+CLIP_PRED_NAME = "textocvp_t5_clipport"
+VIT_BLOCKS = 12
+# the CNN head's conv biases sit before a BatchNorm in training mode: the batch
+# mean takes away any shift common to a channel, so their gradient is 0 in
+# exact arithmetic
+CLIP_EXACT_ZERO = tuple(f"patch_decoder.cnns.{i}.conv.bias" for i in range(4))
 
 
 @dataclass(frozen=True)
@@ -226,6 +293,62 @@ def cuda_ms(fn, reps=20, warmup=3, hold=False):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+FENCE_KERNEL = "spin_kernel"  # torch.cuda._sleep's
+FENCE_SPINS = (8, 64, 512)    # spins of about 12 ms before a traced call, by attempt
+
+
+def fence(spins=1):
+    """``spins`` device spins of HOLD_CYCLES / 2 (about 12 ms) each, then a
+    synchronize."""
+    for _ in range(spins):
+        torch.cuda._sleep(HOLD_CYCLES // 2)
+    torch.cuda.synchronize()
+
+
+def traced(fn, cpu=True):
+    """``fn()`` once under torch.profiler between two fences, with a
+    synchronize after it: (the profiler, the call's ms on the host clock,
+    the spins of the fence before it). Without ``cpu`` the trace holds the
+    device's activity only.
+
+    The profiler drops the earliest device records of a trace: none in a
+    young process, then a stretch that grows with the process's age (up to
+    the first 175 ms of a trace after 8 minutes, ``chip_trace_probe.py``)
+    and now and then falls back to none. A trace counts only if a spin of
+    the first fence comes before ``fn``'s first device record and a spin of
+    the last after its last one, so that no record of ``fn`` can be
+    missing; else ``fn`` runs again behind the next fence of FENCE_SPINS,
+    and after the last the check fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] if cpu else []
+    for spins in FENCE_SPINS:
+        with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+            fence(spins)
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t)
+            fence()
+        names = [name for _, name in sorted(
+            (e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA)]
+        body = [i for i, name in enumerate(names) if FENCE_KERNEL not in name]
+        if body and 0 < body[0] and body[-1] < len(names) - 1:
+            return prof, wall_ms, spins
+    check(False, f"no whole trace behind {FENCE_SPINS[-1]} fence spins: the last one held "
+                 f"{len(names)} device records, {len(body)} of the call, first {names[:3]}")
+
+
+def device_records(prof):
+    """The device entries of ``prof.key_averages()``, the fences left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and FENCE_KERNEL not in e.key]
 
 
 def bound(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -287,27 +410,14 @@ def vit_attention_bounds(b, h, n, dh):
 
 
 SLOT_ATTENTION_KERNEL = "slot_attention_cluster_kernel"  # csrc/slot_attention.cu
+VIT_ATTENTION_KERNEL = "attention_kernel"                # csrc/vit_attention.cu
 
 
 def device_kernels(fn):
     """{name: (count, ms)} of the device kernels that one call of ``fn`` runs,
-    from ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = {e.key: (e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA}
-        # a trace without a single device event was lost, not empty: seen
-        # once on the H100 for a call whose launch counter and result were
-        # right; take it again
-        if kernels:
-            return kernels
-    return kernels
+    from a whole trace (``traced``)."""
+    prof, _, _ = traced(fn)
+    return {e.key: (e.count, e.self_device_time_total / 1e3) for e in device_records(prof)}
 
 
 def slot_attention_rows(n, s, mlp, batches):
@@ -371,7 +481,7 @@ def vit_attention_rows():
     scale = VIT_DH ** -0.5
     gen = torch.Generator().manual_seed(SEED + 3)
     rows = []
-    for b in (8, 16):
+    for b in VIT_BATCHES:
         q, k, v = (torch.randn((b, VIT_HEADS, VIT_TOKENS, VIT_DH), generator=gen).cuda()
                    for _ in range(3))
         launches = va.vit_attention_cuda.launches
@@ -643,17 +753,17 @@ def slot_attention_backward_bound_ms(b, n, d, s, h, iters):
     return bound(nbytes, 2 * iters * per_iter)
 
 
-def slot_attention_backward_rows():
+def slot_attention_backward_rows(b, n, s, mlp, seed):
     """The slot-attention Function's gradients (k, v, slots, the 14
     parameters; cotangents on both outputs) on the card against autograd
-    through ``slot_attention_plain`` on the card, at the train step's B=64,
-    N=4096, S=8, MLP 256, 1 and 3 iterations; the backward's time."""
+    through ``slot_attention_plain`` on the card, at (B, N, S, MLP), 1 and 3
+    iterations; the backward's time."""
     from textocvp_tpu_torch.models.factory import random_init_
     from textocvp_tpu_torch.ops import slot_attention_kernel as sak
     from textocvp_tpu_torch.ops.slot_attention import SlotAttention
 
-    b, n, s, mlp, d = TRAIN_BATCH, CONV5_RES * CONV5_RES, 8, 256, 128
-    gen = torch.Generator().manual_seed(SEED + 7)
+    d = 128
+    gen = torch.Generator().manual_seed(seed)
     mod = random_init_(SlotAttention(d, d, s, mlp), gen).cuda()
     params = {k: p.detach().clone().requires_grad_() for k, p in mod.iteration_params().items()}
     k, v = (torch.randn((b, n, d), generator=gen).cuda().requires_grad_() for _ in range(2))
@@ -670,7 +780,7 @@ def slot_attention_backward_rows():
         names = ["k", "v", "slots", *params]
         errs = dict(zip(names, grad_errs(got, want)))
         check(max(errs.values()) <= GRAD_TOLERANCE,
-              f"slot-attention backward vs plain at {iters} it: {errs}")
+              f"slot-attention backward vs plain at B={b} N={n} S={s} {iters} it: {errs}")
         ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, [gs, ga], retain_graph=True),
                      reps=10, warmup=2)
         bound_ms, bound_by = slot_attention_backward_bound_ms(b, n, d, s, mlp, iters)
@@ -685,12 +795,19 @@ def slot_attention_backward_rows():
 def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = {"slot_attention_cater": slot_attention_rows(4096, 8, 256, (8, 64)),
-            "slot_attention_clipport": slot_attention_rows(576, 10, 512, (8,)),
+            # a request's and the 02 and 04 microbatches (B=8), the valid
+            # batches and the 05 batch (B=16)
+            "slot_attention_clipport": slot_attention_rows(
+                CLIP_PATCHES, CLIP_SLOTS, 512, (BATCH, CLIP_EVAL_BATCH)),
             "vit_attention": vit_attention_rows(),
             "conv5": conv5_rows(),
             "conv5_backward": conv5_backward_rows(),
             "conv5_frozen_backward": conv5_frozen_backward_rows(),
-            "slot_attention_backward": slot_attention_backward_rows()}
+            "slot_attention_backward": slot_attention_backward_rows(
+                TRAIN_BATCH, CONV5_RES * CONV5_RES, 8, 256, SEED + 7),
+            # the CLIPort 02 microbatch: B=8 videos a frame, N=576, S=10, MLP 512
+            "slot_attention_backward_clipport": slot_attention_backward_rows(
+                CLIP_TRAIN_BATCH // CLIP_ACCUM, CLIP_PATCHES, 10, 512, SEED + 11)}
     emit({"phase": "kernels", "tolerance_abs": {"slot_attention": 1e-4, "vit_attention": 2e-5,
                                                 "conv5": 1e-4},
           "tolerance_rel_backward": GRAD_TOLERANCE, **rows})
@@ -915,16 +1032,10 @@ def phase_profile(path: ServedPath, service, video):
     kernel and copy times on the one stream) against the request's wall time,
     the kernels that take the most device time, and the port's kernels' own
     launches inside the request. Off the main path."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     captions = list(path.captions[:BATCH])
     service.predict(video, captions)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        service.predict(video, captions)
-        wall_ms = 1e3 * (time.perf_counter() - t)
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    prof, wall_ms, spins = traced(lambda: service.predict(video, captions))
+    dev = device_records(prof)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]
 
@@ -936,7 +1047,7 @@ def phase_profile(path: ServedPath, service, video):
     emit({"phase": "profile", "path": path.name, "request_wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-          "device_ops": sum(e.count for e in dev),
+          "device_ops": sum(e.count for e in dev), "trace_fence_spins": spins,
           "slot_attention": slot_attention,
           "vit_attention": entries("attention_kernel"), "conv5": entries("conv5_kernel"),
           "top": [{"name": e.key[:90], "count": e.count,
@@ -982,32 +1093,34 @@ def write_cater_fixture(root: Path, splits=(("test", EVAL_VIDEOS),)) -> Path:
     return root
 
 
-def phase_eval_parity(exp_path):
-    """The eval step at B=2 on the card and on the CPU: the same weights,
-    initial slots and frames. Off the main path."""
+def phase_eval_parity(exp_path, pred_name="textocvp_t5", ckpts=("random", "random"),
+                      num_preds=EVAL_PREDS, phase="eval_parity"):
+    """The eval step at B=2 on the card and on the CPU: the same weights
+    (``ckpts``: the decomposition model's and the predictor's), initial
+    slots and frames. Off the main path."""
     from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
 
     evs = {}
     for dev in ("cpu", "cuda"):
-        evs[dev] = PredictorEvaluator(exp_path, "textocvp_t5", "random", "random", num_seed=1,
-                                      num_preds=EVAL_PREDS, batch_size=2, device=dev)
+        evs[dev] = PredictorEvaluator(exp_path, pred_name, *ckpts, num_seed=1,
+                                      num_preds=num_preds, batch_size=2, device=dev)
         evs[dev].load_data()
         evs[dev].load_models()
     videos, info = next(iter(evs["cpu"].test_loader))
     init = evs["cpu"].model.slot_initializer(2, torch.Generator().manual_seed(SEED + 5))
     vals = {dev: {m: v.cpu() for m, v in ev.eval_step(videos, info, initial_slots=init).items()}
             for dev, ev in evs.items()}
-    # float32 through encode, 19 rollout steps and the decode on two devices,
-    # sums in other orders: PSNR within 1e-3 dB, SSIM and LPIPS within 1e-4
+    # float32 through encode, the rollout and the decode on two devices, sums
+    # in other orders: PSNR within 1e-3 dB, SSIM and LPIPS within 1e-4
     tol = {"psnr": 1e-3, "ssim": 1e-4, "lpips": 1e-4}
     errs = {}
     for m, limit in tol.items():
         out, ref = vals["cuda"][m], vals["cpu"][m]
-        check(out.shape == (2, EVAL_PREDS) and bool(torch.isfinite(out).all()),
-              f"eval parity: {m} {tuple(out.shape)} not finite or misshapen")
+        check(out.shape == (2, num_preds) and bool(torch.isfinite(out).all()),
+              f"{phase}: {m} {tuple(out.shape)} not finite or misshapen")
         errs[m] = (out - ref).abs().max().item()
-        check(errs[m] <= limit, f"eval parity: framewise {m} card vs CPU {errs[m]} > {limit}")
-    emit({"phase": "eval_parity", "B": 2, "num_preds": EVAL_PREDS, "max_abs_err": errs,
+        check(errs[m] <= limit, f"{phase}: framewise {m} card vs CPU {errs[m]} > {limit}")
+    emit({"phase": phase, "B": 2, "num_preds": num_preds, "max_abs_err": errs,
           "tolerance": tol, "cpu_framewise_mean": {m: v.mean(0).tolist()
                                                    for m, v in vals["cpu"].items()}})
 
@@ -1048,16 +1161,16 @@ def phase_eval(exp_path):
     return counts
 
 
-def phase_eval_step(exp_path):
-    """One more B=64 batch split into its stages with synchronize, the peak
-    memory of the step, and one step under torch.profiler. Off the main path."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def phase_eval_step(exp_path, pred_name="textocvp_t5", ckpts=("random", "random"),
+                    batch=EVAL_BATCH, num_preds=EVAL_PREDS, vit_launches=0, phase="eval_step"):
+    """One more batch split into its stages with synchronize, the peak
+    memory of the step, and one step under torch.profiler (``profiled_step``)
+    with one slot-attention device kernel and ``vit_launches`` ViT-attention
+    launches (``check_traced``). Off the main path."""
     from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
 
-    ev = PredictorEvaluator(exp_path, "textocvp_t5", "random", "random", num_seed=1,
-                            num_preds=EVAL_PREDS, batch_size=EVAL_BATCH)
+    ev = PredictorEvaluator(exp_path, pred_name, *ckpts, num_seed=1, num_preds=num_preds,
+                            batch_size=batch)
     ev.load_data()
     ev.load_models()
     videos, info = next(iter(ev.test_loader))
@@ -1080,35 +1193,22 @@ def phase_eval_step(exp_path):
     vals = ev.metrics_stage(imgs, v)
     mark()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    check(all(bool(torch.isfinite(x).all()) for x in vals.values()), "eval step metrics finite")
+    check(all(bool(torch.isfinite(x).all()) for x in vals.values()), f"{phase} metrics finite")
     del v, slots, imgs, vals
     stage_ms = dict(zip(("to_device", "predict", "decode", "metrics"),
                         (1e3 * (t1 - t0) for t0, t1 in zip(marks[:-1], marks[1:]))))
     step_ms = 1e3 * (marks[-1] - marks[0])
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        ev.eval_step(videos, info)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t)
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]
-    slot_attention = [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
-                      for e in dev if SLOT_ATTENTION_KERNEL in e.key]
-    emit({"phase": "eval_step", "batch": EVAL_BATCH, "num_preds": EVAL_PREDS,
+    prof, entries = profiled_step(lambda: ev.eval_step(videos, info), top=12)
+    slot_attention = entries(SLOT_ATTENTION_KERNEL)
+    vit = entries(VIT_ATTENTION_KERNEL)
+    emit({"phase": phase, "batch": batch, "num_preds": num_preds,
           "step_ms": step_ms, "stage_ms": stage_ms,
-          "pred_frames_per_s": 1e3 * EVAL_BATCH * EVAL_PREDS / step_ms,
-          "peak_mem_gb": peak_gb, "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1 - busy_ms / wall_ms, "device_ops": sum(e.count for e in dev),
-          "slot_attention": slot_attention,
-          "conv5": [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
-                    for e in dev if "conv5_kernel" in e.key],
-          "top": [{"name": e.key[:90], "count": e.count, "ms": e.self_device_time_total / 1e3}
-                  for e in top]})
-    # one slot-attention call a batch, one device kernel a call
-    check(sum(e["count"] for e in slot_attention) == 1,
-          f"eval step: slot-attention device kernels: {slot_attention}")
+          "pred_frames_per_s": 1e3 * batch * num_preds / step_ms,
+          "peak_mem_gb": peak_gb, **prof, "slot_attention": slot_attention,
+          "vit_attention": vit, "conv5": entries("conv5_kernel")})
+    # one slot-attention call a batch; one ViT-attention launch a block
+    check_traced(phase, slot_attention, vit, (1, vit_launches))
 
 
 def run_eval(tmp: Path):
@@ -1143,81 +1243,208 @@ def train_experiment(root: Path, data_root, **training) -> Path:
     return exp.exp_path
 
 
-def trainer_parity(what, make, step):
+CLIPPED = (("pred_imgs", "recons_imgs"), ("preds_feats", "recons_feats"))  # loss inputs
+# the kinks whose masks the CPU takes from the card: on the CATER paths the
+# decoder-tail convs and each ``MLP``'s hidden layer, on the CLIPort paths
+# every kink on the gradient's path
+CATER_KINKS = ("conv5", "mlp")
+ALL_KINKS = ("conv5", "mlp", "relu", "sa_relu", "clip")
+
+
+def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), finish=None,
+                   replayed=CATER_KINKS):
     """One trainer on the card and on the CPU from the same weights:
     ``make(dev)`` builds and sets it up on ``dev``, ``step(trainer, dev, i)``
     takes its i-th training step (i = 0, 1) and returns the loss. Checks the
     two losses (1e-5 relative), every trainable gradient leaf after the
-    first step (1e-4 of the leaf's largest value) and the parameters after
-    the second. Returns what a phase reports.
+    first step (1e-4 of the leaf's largest value; a leaf of ``exact_zero``,
+    whose gradient is 0 in exact arithmetic, 1e-4 of the largest value of
+    any leaf on both devices), the module's buffers after the first step
+    (1e-5 absolute and relative: BatchNorm's running statistics) and the
+    parameters after the second. ``finish(trainers)`` may check more and
+    returns what it reports. Returns what a phase reports.
 
     The CPU runs twice. Its own run is reported. The checked one takes the
-    ReLU masks from the card's run: of each decoder-tail conv and of each
-    ``MLP``'s hidden layer, in call order. A pre-activation within the card's
-    rounding of 0 (conv5's 3xTF32, cuBLAS) may fall on either side of it on
-    the two devices, and the gradient of what comes before it then differs
-    by a whole term (``relu_mask_flips`` counts such outputs), which no
-    float32 tolerance covers."""
+    masks of the kinks of ``replayed`` from the card's run, in call order:
+    "conv5" the ReLU of each decoder-tail conv; "mlp" each ReLU of an
+    ``MLP``'s hidden layer; "relu" every other ReLU
+    (``torch.nn.functional.relu``) whose input requires grad; "sa_relu" each
+    ReLU of the slot-attention MLP, which the card computes in the
+    backward's recompute, frames in reverse, and the CPU in the forward;
+    "clip" the [0, 1] clip of each reconstruction in the 02 loss. A value
+    within the card's rounding of a kink (conv5's 3xTF32, cuBLAS, cuDNN) may
+    fall on either side of it on the two devices, and the gradient of what
+    comes before it then differs by a whole term (``relu_mask_flips`` counts
+    such values by kind, over the kinks of ``ALL_KINKS``), which no float32
+    tolerance covers. ``tail_convs`` is the number of conv5 masks the two
+    steps give."""
     from textocvp_tpu_torch.nn import blocks, decoders
     from textocvp_tpu_torch.ops import conv5 as c5
+    from textocvp_tpu_torch.ops import slot_attention_kernel as sak
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
 
-    card_masks, cpu_masks = [], []  # (kind, mask) in call order
-    tail_conv, mlp_forward = decoders.conv5, blocks.MLP.forward
+    F = torch.nn.functional
+    relu, tail_conv, mlp_forward = F.relu, decoders.conv5, blocks.MLP.forward
+    sa_plain, loss_tensors = sak.slot_attention_plain, DecompTrainer._loss_tensors
 
-    def recording(masks):
-        def conv(x, w, b, relu=True):
+    def tracked(*tensors):
+        return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+    def kink(state, x):
+        """The kind of a ReLU of ``x``, for all kinds (the masks recorded for
+        ``relu_mask_flips``); None off the gradient's path."""
+        if not x.requires_grad:
+            return None
+        return "sa_relu" if state["in_sa"] else "mlp" if state["in_mlp"] else "relu"
+
+    def mlp_fn(state):
+        def forward(self, x):
+            state["in_mlp"] = True
+            try:
+                return mlp_forward(self, x)
+            finally:
+                state["in_mlp"] = False
+        return forward
+
+    def recording(rec):
+        """Functions that record each kink's mask into ``rec``: "main" in
+        call order, "sa" one list a tracked slot-attention call."""
+        def relu_fn(x, inplace=False):
+            kind = kink(rec, x)
+            if kind is not None:
+                (rec["sa"][-1] if rec["in_sa"] else rec["main"]).append(
+                    (kind, (x.detach() > 0).cpu()))
+            return relu(x, inplace=inplace)
+
+        def sa_fn(k, v, slots, params, *args, **kwargs):
+            if not tracked(k, v, slots, *params.values()):
+                return sa_plain(k, v, slots, params, *args, **kwargs)
+            rec["sa"].append([])
+            rec["in_sa"] = True
+            try:
+                return sa_plain(k, v, slots, params, *args, **kwargs)
+            finally:
+                rec["in_sa"] = False
+
+        def conv_fn(x, w, b, relu=True):
             y = tail_conv(x, w, b, relu)
             if relu:
-                masks.append(("conv5", (y.detach() > 0).cpu()))
+                rec["main"].append(("conv5", (y.detach() > 0).cpu()))
             return y
 
-        def mlp(self, x):
-            for i, layer in enumerate(self.layers):
-                x = layer(x)
-                if i < len(self.layers) - 1:
-                    masks.append(("mlp", (x.detach() > 0).cpu()))
-                    x = torch.relu(x)
-            return x
-        return conv, mlp
+        def loss_fn(self, out, videos):
+            tensors = loss_tensors(self, out, videos)
+            for key, src in CLIPPED:
+                if key in tensors:
+                    x = out[src].detach()
+                    rec["main"].append(("clip", ((x > 0) & (x < 1)).cpu()))
+            return tensors
+        return relu_fn, sa_fn, conv_fn, loss_fn
 
-    def replaying_conv(x, w, b, relu=True):
-        y = c5.conv5_plain(x, w, b, relu=False)
-        return y * next(replay)[1] if relu else y
+    def replaying(rep):
+        """Functions that take each kink's mask from ``rep``'s iterators."""
+        def take(stream, kind, shape):
+            got, mask = next(stream)
+            check(got == kind and mask.shape == shape,
+                  f"{what}: replayed {got} {tuple(mask.shape)} at a {kind} {tuple(shape)}")
+            return mask
 
-    def replaying_mlp(self, x):
-        for i, layer in enumerate(self.layers):
-            x = layer(x)
-            if i < len(self.layers) - 1:
-                x = x * next(replay)[1]
-        return x
+        def relu_fn(x, inplace=False):
+            kind = kink(rep, x)
+            if kind is None:
+                return relu(x, inplace=inplace)
+            mask = take(rep["call"] if rep["in_sa"] else rep["main"], kind, x.shape)
+            return x * mask if kind in replayed else relu(x, inplace=inplace)
 
-    replay = iter(card_masks)  # the CPU runs the ReLUs in the card's order
-    runs = {"cuda": ("cuda", recording(card_masks)),
-            "cpu_own_masks": ("cpu", recording(cpu_masks)),
-            "cpu": ("cpu", (replaying_conv, replaying_mlp))}
-    trainers, losses, grads = {}, {}, {}
-    for run, (dev, (conv, mlp)) in runs.items():
-        decoders.conv5, blocks.MLP.forward = conv, mlp
+        def sa_fn(k, v, slots, params, *args, **kwargs):
+            if not tracked(k, v, slots, *params.values()):
+                return sa_plain(k, v, slots, params, *args, **kwargs)
+            rep["call"] = iter(next(rep["sa"]))
+            rep["in_sa"] = True
+            try:
+                return sa_plain(k, v, slots, params, *args, **kwargs)
+            finally:
+                rep["in_sa"] = False
+
+        def conv_fn(x, w, b, relu=True):
+            y = c5.conv5_plain(x, w, b, relu=False)
+            if not relu:
+                return y
+            mask = take(rep["main"], "conv5", y.shape)
+            return y * mask if "conv5" in replayed else torch.relu(y)
+
+        def loss_fn(self, out, videos):
+            tensors = loss_tensors(self, out, videos)
+            for key, src in CLIPPED:
+                if key in tensors:
+                    x = out[src]
+                    mask = take(rep["main"], "clip", x.shape)
+                    if "clip" in replayed:
+                        tensors[key] = torch.where(mask, x, x.detach().clamp(0, 1))
+            return tensors
+        return relu_fn, sa_fn, conv_fn, loss_fn
+
+    recs = {run: {"main": [], "sa": [], "in_sa": False, "in_mlp": False, "marks": []}
+            for run in ("cuda", "cpu_own_masks")}
+    rep = {"in_sa": False, "in_mlp": False}
+    runs = {"cuda": ("cuda", recording(recs["cuda"])),
+            "cpu_own_masks": ("cpu", recording(recs["cpu_own_masks"])),
+            "cpu": ("cpu", replaying(rep))}
+    trainers, losses, grads, buffers = {}, {}, {}, {}
+    for run, (dev, (relu_fn, sa_fn, conv_fn, loss_fn)) in runs.items():
+        if run == "cpu":
+            # the card's slot-attention calls of each step ran in reverse
+            card = recs["cuda"]
+            bounds = card["marks"] + [len(card["sa"])]
+            rep["main"] = iter(card["main"])
+            rep["sa"] = iter([call for a, b in zip(bounds[:-1], bounds[1:])
+                              for call in reversed(card["sa"][a:b])])
+        F.relu, decoders.conv5, sak.slot_attention_plain = relu_fn, conv_fn, sa_fn
+        DecompTrainer._loss_tensors = loss_fn
+        blocks.MLP.forward = mlp_fn(rep if run == "cpu" else recs[run])
         try:
             tr = trainers[run] = make(dev)
-            losses[run] = [step(tr, dev, 0)]
-            grads[run] = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()
-                          if p.requires_grad}
-            losses[run].append(step(tr, dev, 1))
+            losses[run] = []
+            for i in range(2):
+                if run in recs:
+                    recs[run]["marks"].append(len(recs[run]["sa"]))
+                losses[run].append(step(tr, dev, i))
+                if i == 0:
+                    grads[run] = {n: p.grad.detach().cpu()
+                                  for n, p in tr.model.named_parameters() if p.requires_grad}
+                    buffers[run] = {n: b.detach().cpu().clone()
+                                    for n, b in tr.model.named_buffers()}
         finally:
-            decoders.conv5, blocks.MLP.forward = tail_conv, mlp_forward
-    kinds = [k for k, _ in card_masks]
-    check(kinds == [k for k, _ in cpu_masks] and kinds.count("conv5") == 6,
-          f"{what}: ReLU masks {len(card_masks)}, of tail convs {kinds.count('conv5')}")
-    flips = {kind: sum(int((a != b).sum()) for (k, a), (_, b) in zip(card_masks, cpu_masks)
-                       if k == kind) for kind in ("conv5", "mlp")}
-    outputs = {kind: sum(m.numel() for k, m in card_masks if k == kind) for kind in flips}
+            F.relu, decoders.conv5, sak.slot_attention_plain = relu, tail_conv, sa_plain
+            DecompTrainer._loss_tensors = loss_tensors
+            blocks.MLP.forward = mlp_forward
+    card, own = recs["cuda"], recs["cpu_own_masks"]
+    kinds = [k for k, _ in card["main"]]
+    check(kinds == [k for k, _ in own["main"]] and kinds.count("conv5") == tail_convs
+          and len(card["sa"]) == len(own["sa"]),
+          f"{what}: masks {len(card['main'])}, of tail convs {kinds.count('conv5')}, "
+          f"slot-attention calls {len(card['sa'])} / {len(own['sa'])}")
+    bounds = card["marks"] + [len(card["sa"])]
+    card_sa = [m for a, b in zip(bounds[:-1], bounds[1:]) for call in reversed(card["sa"][a:b])
+               for m in call]
+    pairs = list(zip(card["main"], own["main"])) + list(zip(card_sa, [
+        m for call in own["sa"] for m in call]))
+    flips = {kind: sum(int((a != b).sum()) for (k, a), (_, b) in pairs if k == kind)
+             for kind in ALL_KINKS}
+    outputs = {kind: sum(a.numel() for (k, a), _ in pairs if k == kind) for kind in flips}
     names = list(grads["cpu"])
-    grad_err = {run: dict(zip(names, grad_errs([grads["cuda"][n] for n in names],
-                                               [grads[run][n] for n in names])))
+    zero = [n for n in names if n in exact_zero]
+    top = max(grads["cpu"][n].abs().max().item() for n in names)
+    zero_err = {n: max(grads[run][n].abs().max().item() for run in ("cuda", "cpu")) / top
+                for n in zero}
+    kept = [n for n in names if n not in zero]
+    grad_err = {run: dict(zip(kept, grad_errs([grads["cuda"][n] for n in kept],
+                                              [grads[run][n] for n in kept])))
                 for run in ("cpu", "cpu_own_masks")}
     worst = {run: sorted(e.items(), key=lambda kv: -kv[1]) for run, e in grad_err.items()}
     loss_err = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    buffer_err = {n: ((b - buffers["cpu"][n]).abs() / (1 + buffers["cpu"][n].abs())).max().item()
+                  for n, b in buffers["cuda"].items() if b.is_floating_point()}
     # Adam moves each element by about lr a step whatever its gradient's
     # size, so an element whose gradient is within rounding of 0 may move
     # either way on the two devices; every other element moves alike
@@ -1230,18 +1457,26 @@ def trainer_parity(what, make, step):
     check(worst["cpu"][0][1] <= GRAD_TOLERANCE,
           f"{what}: gradient leaves card vs CPU, error / max |g|: {worst['cpu'][:5]}; "
           f"with the CPU's own masks {worst['cpu_own_masks'][:3]}; {summary}")
+    check(max(zero_err.values(), default=0) <= GRAD_TOLERANCE,
+          f"{what}: leaves of exact-zero gradient, |g| / max |g| of any leaf: {zero_err}")
     check(max(loss_err) <= 1e-5, f"{what}: loss error {loss_err}; {summary}")
+    check(max(buffer_err.values(), default=0) <= 1e-5,
+          f"{what}: buffers after the first step card vs CPU: "
+          f"{sorted(buffer_err.items(), key=lambda kv: -kv[1])[:5]}")
     check(diffs.max().item() <= 2 * 2 * lr and moved_apart <= 1e-3, f"{what}: {summary}")
+    extra = finish(trainers) if finish is not None else {}
     del trainers
     gc.collect()
     torch.cuda.empty_cache()
     return {"losses": losses, "loss_rel_err": loss_err,
             "grad_err_over_max": dict(worst["cpu"][:8]),
             "grad_err_over_max_cpu_own_masks": dict(worst["cpu_own_masks"][:8]),
-            "trainable_leaves": len(names), "relu_mask_flips": flips,
+            "exact_zero_grad_over_max": zero_err,
+            "buffer_max_err": max(buffer_err.values(), default=None),
+            "trainable_leaves": len(names), "relu_mask_flips": flips, "replayed": list(replayed),
             "relu_mask_outputs": outputs, "grad_tolerance": GRAD_TOLERANCE,
             "params_max_abs_diff": diffs.max().item(),
-            "params_share_apart_over_lr_100": moved_apart, "lr": lr, "tf32": False}
+            "params_share_apart_over_lr_100": moved_apart, "lr": lr, "tf32": False, **extra}
 
 
 def phase_train_parity(tmp: Path):
@@ -1389,19 +1624,15 @@ def split_ms(names, stages):
     return dict(zip(names, (1e3 * (b - a) for a, b in zip(marks[:-1], marks[1:]))))
 
 
-def profiled_step(step, top=15):
-    """One ``step()`` under torch.profiler: its wall ms, device busy ms, idle
-    share and device ops, the ``top`` device kernels by time, and
-    ``entries(name)``: the device kernels whose name holds ``name``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t)
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+def profiled_step(step, top=15, cpu=True):
+    """One ``step()`` under torch.profiler (a whole trace, ``traced``): its
+    wall ms, device busy ms, idle share and device ops, the ``top`` device
+    kernels by time, and ``entries(name)``: the device kernels whose name
+    holds ``name``. Without ``cpu`` the trace holds the device's activity
+    only (with the host's ops too, a CLIPort predictor step of 100,000
+    device kernels took a minute to read)."""
+    prof, wall_ms, spins = traced(step, cpu)
+    dev = device_records(prof)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
 
     def entries(name):
@@ -1411,6 +1642,7 @@ def profiled_step(step, top=15):
     ranked = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:top]
     return {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms, "device_ops": sum(e.count for e in dev),
+            "trace_fence_spins": spins,
             "top": [{"name": e.key[:90], "count": e.count, "ms": e.self_device_time_total / 1e3}
                     for e in ranked]}, entries
 
@@ -1488,11 +1720,11 @@ def pred_experiment(parent: Path, name: str, **training) -> Path:
     return exp.exp_path
 
 
-def caption_batch(b):
-    """T5 ids and masks (hash tokenizer) of ``b`` CATER captions, MAX_TOKENS long."""
+def caption_batch(b, path=PATHS[0]):
+    """T5 ids and masks (hash tokenizer) of ``b`` captions of ``path``, MAX_TOKENS long."""
     from textocvp_tpu_torch.data.tokenizers import HashFallbackT5Tokenizer
 
-    captions = [PATHS[0].captions[i % len(PATHS[0].captions)] for i in range(b)]
+    captions = [path.captions[i % len(path.captions)] for i in range(b)]
     tok = HashFallbackT5Tokenizer()(captions)
     pad = ((0, 0), (0, MAX_TOKENS - tok["caption_tokens"].shape[1]))
     return {k: torch.from_numpy(np.pad(tok[k], pad)) for k in ("caption_tokens", "attn_masks")}
@@ -1700,6 +1932,498 @@ def run_pred_train(parent: Path):
     return counts, input_grad, weight_grad
 
 
+# ---------------------------------------------------------------- CLIPort chain
+
+CLIP_COLORS = {"train": ("red", "green", "blue", "yellow", "brown", "gray", "cyan"),
+               "test": ("red", "green", "blue", "pink", "purple", "orange", "white")}
+
+
+def write_cliport_fixture(root: Path) -> Path:
+    """A CLIPort color-cache set: for each (split, count) of CLIP_EPISODES,
+    count episodes of CLIP_EPISODE_FRAMES uint8 336 x 336 frames, four
+    coloured blocks sliding over a shaded table with a little noise, as
+    ``<root>/<split>/episodeNNNNN/color_cache_336x336.npy``, and
+    ``task_description.txt`` in the split's vocabulary (the test split's
+    colours are unseen in training). Episodes are drawn 8 at a time."""
+    rng = np.random.default_rng(SEED + 20)
+    t, r = CLIP_EPISODE_FRAMES, CLIP_RES
+    yy, xx = np.meshgrid(np.arange(r, dtype=np.float32), np.arange(r, dtype=np.float32),
+                         indexing="ij")
+    table = ((0.45 + 0.2 * yy / r + 0.1 * xx / r)[:, :, None]
+             * np.array([0.9, 0.8, 0.7], np.float32))
+    steps = np.arange(t, dtype=np.float32)[None, :, None, None]
+    number = 0
+    for split, count in CLIP_EPISODES:
+        colors = CLIP_COLORS["test" if split == "test" else "train"]
+        for lo in range(0, count, 8):
+            v = min(8, count - lo)
+            frames = np.broadcast_to(table, (v, t, r, r, 3))
+            for _ in range(4):
+                color = rng.uniform(0, 1, (v, 1, 1, 1, 3)).astype(np.float32)
+                size = rng.integers(12, 28, (v, 1, 1, 1))
+                cy, cx = (rng.uniform(40, 296, (v, 1, 1, 1))
+                          + rng.uniform(-6, 6, (v, 1, 1, 1)) * steps for _ in range(2))
+                inside = (np.abs(yy - cy) < size) & (np.abs(xx - cx) < size)
+                frames = np.where(inside[..., None], color, frames)
+            frames = frames + 0.02 * rng.standard_normal((t, r, r, 3), dtype=np.float32)
+            episodes = np.round(np.clip(frames, 0, 1) * 255).astype(np.uint8)
+            for i in range(v):
+                ep = root / split / f"episode{number:05d}"
+                ep.mkdir(parents=True)
+                np.save(ep / f"color_cache_{CLIP_RES}x{CLIP_RES}.npy", episodes[i])
+                block, bowl = rng.choice(colors, 2, replace=False)
+                (ep / "task_description.txt").write_text(
+                    f"put the {block} block in the {bowl} bowl\n")
+                number += 1
+    return root
+
+
+def clip_experiment(root: Path, data_root, **training) -> Path:
+    """An ExtendedDINOSAUR CLIPort experiment at full width over ``data_root``:
+    the 02 defaults (Adam, lr 1e-4, warmup 2000, cosine, clip 0.05,
+    ``pred_feature_mse`` + ``mse``), B=64, T=8 with ``random_start``,
+    ``accum_steps`` 8, two epochs, with ``training`` over them."""
+    from textocvp_tpu_torch.core.config import build_exp_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    params = build_exp_params("ExtendedDINOSAUR", "CLIPort")
+    params["dataset"]["root"] = str(data_root)
+    params["training"].update({"batch_size": CLIP_TRAIN_BATCH, "accum_steps": CLIP_ACCUM,
+                               "num_epochs": 2, "log_frequency": 1, "save_frequency": 1,
+                               **training})
+    exp = Experiment(root)
+    exp.save_params(params)
+    return exp.exp_path
+
+
+def kept_vit(tr):
+    """A copy of the trainer's ViT state, to hold it bit for bit later."""
+    return {k: v.detach().cpu().clone() for k, v in tr.model.image_encoder.state_dict().items()}
+
+
+def phase_clip_train_parity(tmp: Path):
+    """DecompTrainer on ExtendedDINOSAUR on the card and on the CPU at full
+    width, B=2, T=3, the same initial weights, video and slot noise, warmup
+    off (``trainer_parity``: the ReLUs of the projection MLP, the
+    transition, the slot-attention MLP, the patch decoder's dense stack and
+    the CNN head, and the loss's clips, replayed from the card); the
+    BatchNorm statistics after the first step and the ViT bit for bit after
+    two. Off the main path."""
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    exp = clip_experiment(tmp / "clip_train_parity", tmp / "none", batch_size=2,
+                          accum_steps=1, lr_warmup=False)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    video = torch.rand((2, 3, CLIP_RES, CLIP_RES, 3), generator=gen)
+    noise = [torch.randn((2, CLIP_SLOTS, CLIP_SLOT_DIM), generator=gen) for _ in range(2)]
+
+    def make(dev):
+        tr = DecompTrainer(exp, device=dev)
+        tr.setup_model()
+        tr.vit0 = kept_vit(tr)
+        return tr
+
+    def finish(trainers):
+        for run, tr in trainers.items():
+            now = kept_vit(tr)
+            check(all(torch.equal(now[k], v) for k, v in tr.vit0.items()),
+                  f"clip train parity: the ViT moved on {run}")
+        return {"vit_unchanged": True}
+
+    res = trainer_parity("clip train parity", make, lambda tr, dev, i: float(
+        tr.train_step(video.to(dev), noise[i])["_total"]), tail_convs=0,
+        exact_zero=CLIP_EXACT_ZERO, finish=finish, replayed=ALL_KINKS)
+    emit({"phase": "clip_train_parity", "B": 2, "T": 3, **res})
+
+
+def phase_clip_train(exp_path):
+    """The 02 CLI on ExtendedDINOSAUR at B=64, T=8, ``accum_steps`` 8, over
+    the CLIPort set (two epochs of one step after one B=16 valid batch each):
+    the CLIPort train path's main path. Then a second run resumes from
+    ``checkpoint_last_saved`` for a third epoch. Returns the main path's
+    launches and the resumed trainer."""
+    from textocvp_tpu_torch.cli import train_decomp
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    epochs = 2
+    steps, valid = 1, 1  # an epoch: 64 train episodes, 16 valid
+    reset_launches()  # the main path starts here
+    t = time.perf_counter()
+    trainer, out = run_cli(train_decomp.main, ["-d", str(exp_path)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = launches()  # and ends here
+    # one slot-attention call a frame of a (micro)batch; one ViT call a
+    # (micro)batch, one attention launch a block
+    want = {"slot_attention": epochs * (steps * CLIP_ACCUM + valid) * CLIP_FRAMES,
+            "vit_attention": epochs * (steps * CLIP_ACCUM + valid) * VIT_BLOCKS, "conv5": 0}
+    check(counts == want, f"clip_train: kernel launches on the main path {counts}, want {want}")
+    losses = loss_lines(out)
+    check(len(losses) == epochs * steps and bool(np.isfinite(losses).all()),
+          f"clip_train losses {losses}")
+    check(trainer.global_step == epochs * (valid + steps)
+          and trainer.optimizer.count == epochs * steps,
+          f"clip_train: step {trainer.global_step}, updates {trainer.optimizer.count}")
+    models = Experiment(exp_path).models_dir
+    for name in ("checkpoint_last_saved.pt", "checkpoint_epoch_2.pt", "checkpoint_epoch_final.pt"):
+        check((models / name).is_file(), f"clip_train: {name} not written")
+    params = torch.load(models / "checkpoint_epoch_final.pt", weights_only=True)["params"]
+    check(any(k.startswith("image_encoder.") for k in params)
+          and "patch_decoder.cnns.3.bn.running_var" in params,
+          "clip_train: the checkpoint lacks the ViT or the BatchNorm statistics")
+    vit = {k: v for k, v in params.items() if k.startswith("image_encoder.")}
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    exp = Experiment(exp_path)
+    p = exp.params
+    p["training"]["num_epochs"] = epochs + 1
+    exp.save_params(p)
+    t = time.perf_counter()
+    resumed, out2 = run_cli(train_decomp.main, ["-d", str(exp_path), "--checkpoint",
+                                                "checkpoint_last_saved", "--resume_training"])
+    resume_seconds = time.perf_counter() - t
+    losses2 = loss_lines(out2)
+    check(f"Resuming training from epoch {epochs}" in out2 and resumed.start_epoch == epochs
+          and resumed.global_step == (epochs + 1) * (valid + steps)
+          and resumed.optimizer.count == (epochs + 1) * steps,
+          f"clip_train resume: epoch {resumed.start_epoch}, step {resumed.global_step}, "
+          f"updates {resumed.optimizer.count}")
+    check(len(losses2) == steps and bool(np.isfinite(losses2).all()),
+          f"clip_train resumed losses {losses2}")
+    now = resumed.model.image_encoder.state_dict()
+    check(all(torch.equal(now[k[len("image_encoder."):]].cpu(), v) for k, v in vit.items()),
+          "clip_train: the ViT moved")
+    emit({"phase": "clip_train", "batch": CLIP_TRAIN_BATCH, "frames": CLIP_FRAMES,
+          "accum_steps": CLIP_ACCUM, "episodes": dict(CLIP_EPISODES),
+          "cli_seconds": seconds, "resume_cli_seconds": resume_seconds, "launches": counts,
+          "losses": losses, "resumed_losses": losses2,
+          "epoch_lines": [line for line in (out + out2).splitlines() if line.startswith("Epoch")]})
+    return counts, resumed
+
+
+def accumulated_split(trainer, b, forward_loss, encode=None):
+    """One update of a batch of ``b`` split on the host clock with
+    synchronize: each microbatch's (``encode(sl, out)``, the frozen encode,)
+    ``forward_loss(sl, out)`` and backward, summed over the microbatches,
+    then the optimizer, as ``Trainer.backward`` and ``train_step`` run them;
+    ``sl`` is the microbatch's slice of the batch, ``out`` a dict the two
+    share."""
+    from textocvp_tpu_torch.train.trainer import ragged_accum
+
+    accum = ragged_accum(b, trainer.accum, trainer.training_params["batch_size"])
+    mb = b // accum
+    names = ("frozen_encode", "forward", "backward") if encode else ("forward", "backward")
+    split = dict.fromkeys(names, 0.0)
+    trainer.optimizer.zero_grad()
+    for i in range(0, b, mb):
+        sl, out = slice(i, i + mb), {}
+        stages = ([lambda: encode(sl, out)] if encode else []) + [
+            lambda: out.update(total=forward_loss(sl, out)),
+            lambda: (out.pop("total") / accum).backward()]
+        for k, ms in split_ms(names, stages).items():
+            split[k] += ms
+    split.update(split_ms(("optimizer",), (trainer.optimizer.step,)))
+    return split
+
+
+def launch_counts_clip():
+    """(slot-attention launches, ViT-attention launches) so far."""
+    from textocvp_tpu_torch.ops import slot_attention_kernel as sak
+    from textocvp_tpu_torch.ops import vit_attention as va
+
+    return sak.slot_attention_cuda.launches, va.vit_attention_cuda.launches
+
+
+def check_traced(what, slot_attention, vit, want):
+    """Check the device kernels of a whole trace (``traced``) against the
+    launches its call made (``want``: slot attention, ViT attention): one
+    slot-attention device kernel a call and one ViT-attention kernel a
+    launch, exactly."""
+    traced_counts = tuple(sum(e["count"] for e in k) for k in (slot_attention, vit))
+    check(traced_counts == tuple(want),
+          f"{what}: device kernels in the trace (slot attention, ViT attention) "
+          f"{traced_counts}, launched {want}: {slot_attention}, {vit}")
+    return traced_counts
+
+
+def clip_step_report(phase, trainer, run, per_step, want, frames_per_step, step_ms, peak_gb,
+                     split):
+    """Check a step's launches (``per_step`` against ``want``: slot attention,
+    ViT attention) and the device kernels of one profiled step, and emit the
+    step's line."""
+    check(per_step == want, f"{phase} launches (slot attention, ViT attention): {per_step}, "
+                            f"want {want}")
+    prof, entries = profiled_step(run, cpu=False)
+    slot_attention = entries(SLOT_ATTENTION_KERNEL)
+    vit = entries(VIT_ATTENTION_KERNEL)
+    counts = check_traced(phase, slot_attention, vit, want)
+    mean_ms = sum(step_ms) / len(step_ms)
+    emit({"phase": phase, "batch": CLIP_TRAIN_BATCH, "accum_steps": trainer.accum,
+          "step_ms": step_ms, "frames_per_s": 1e3 * frames_per_step / mean_ms,
+          "split_ms": split, "peak_mem_gb": peak_gb,
+          "launches_per_step": dict(zip(("slot_attention", "vit_attention"), per_step)),
+          **prof, "device_idle_share_of_mean_step": 1 - prof["device_busy_ms"] / mean_ms,
+          "slot_attention": slot_attention, "vit_attention": vit,
+          "traced_device_kernels": dict(zip(("slot_attention", "vit_attention"), counts))})
+
+
+def phase_clip_train_step(trainer, videos):
+    """The steady 02 step at B=64, T=8, ``accum_steps`` 8 on the resumed
+    trainer: three steps on the host clock with synchronize, one split into
+    forward, backward (each summed over the microbatches) and optimizer, the
+    peak memory, the launches of a step (one slot-attention call a frame of
+    each microbatch, 12 ViT-attention launches a microbatch), and one step
+    under torch.profiler. Off the main path."""
+    batch = trainer.to_device(videos)
+    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch))
+    before = launch_counts_clip()
+    noise = trainer._noise(batch.shape[0])
+    split = accumulated_split(trainer, batch.shape[0],
+                              lambda sl, out: trainer.forward_loss(batch[sl], noise[sl])[0])
+    per_step = tuple(a - b for a, b in zip(launch_counts_clip(), before))
+    clip_step_report("clip_train_step", trainer, lambda: trainer.train_step(batch), per_step,
+                     (CLIP_ACCUM * CLIP_FRAMES, CLIP_ACCUM * VIT_BLOCKS),
+                     CLIP_TRAIN_BATCH * CLIP_FRAMES, step_ms, peak_gb, split)
+
+
+def phase_clip_train_sign(data_root, tmp: Path, videos):
+    """10 steps on one fixed batch of 8 (no accumulation) and one fixed draw
+    of slot noise at lr 1e-6, no warmup: the loss must fall. The config's
+    warmup reaches 1e-6 at its 20th update; at 1e-4 and 4e-4 the random
+    ExtendedDINOSAUR's loss moved by about 10 % from step to step around a
+    flat line: Adam moves every weight of the CNN head's last conv by lr at
+    once, and its 1152 inputs add up to a jump of the image's level. Off the
+    main path."""
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    tr = DecompTrainer(clip_experiment(tmp / "clip_train_sign", data_root, batch_size=8,
+                                       accum_steps=1, lr=1e-6, lr_warmup=False))
+    tr.setup_model()
+    batch = tr.to_device(videos[:8])
+    noise = tr._noise(8)
+    values = [tr.train_step(batch, noise) for _ in range(10)]
+    losses = [float(v["_total"]) for v in values]
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"clip sign check: the loss did not fall over 10 steps: {losses}")
+    emit({"phase": "clip_train_sign", "batch": 8, "frames": CLIP_FRAMES, "lr": 1e-6,
+          "steps": 10, "losses": losses,
+          "parts": {k: [float(v[k]) for v in values] for k in values[0] if k != "_total"}})
+
+
+def phase_clip_pred_train_parity(parent: Path):
+    """PredictorTrainer on the card and on the CPU at full width, B=2, c=1,
+    p=9, through the frozen ExtendedDINOSAUR of ``parent``'s
+    ``checkpoint_epoch_final`` (its BatchNorm in ``eval()``), the same
+    predictor weights, video, captions and slot noise, warmup off, lr 1e-5
+    (``trainer_parity``: the predictor's MLPs and the frozen decoder's ReLUs
+    replayed from the card). Off the main path."""
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+
+    exp = pred_experiment(parent, "clip_pred_parity", batch_size=2, accum_steps=1, lr=1e-5,
+                          lr_warmup=False)
+    gen = torch.Generator().manual_seed(SEED + 22)
+    video = torch.rand((2, PRED_FRAMES, CLIP_RES, CLIP_RES, 3), generator=gen)
+    noise = [torch.randn((2, CLIP_SLOTS, CLIP_SLOT_DIM), generator=gen) for _ in range(2)]
+    text = caption_batch(2, PATHS[1])
+
+    def make(dev):
+        tr = PredictorTrainer(exp, "checkpoint_epoch_final", device=dev)
+        tr.setup_model()
+        random_predictor_(tr)
+        return tr
+
+    def step(tr, dev, i):
+        tx = {k: v.to(dev) for k, v in text.items()}
+        return float(tr.train_step(video.to(dev), noise[i], **tx)["_total"])
+
+    def finish(trainers):
+        card, cpu = (trainers[d].decomp_model.state_dict() for d in ("cuda", "cpu"))
+        check(all(torch.equal(v.cpu(), cpu[k]) for k, v in card.items()),
+              "clip predictor parity: the frozen model differs between the devices")
+        return {"frozen_model_unchanged": True}
+
+    res = trainer_parity("clip predictor train parity", make, step, tail_convs=0,
+                         finish=finish, replayed=ALL_KINKS)
+    emit({"phase": "clip_pred_train_parity", "B": 2, "num_context": PRED_CONTEXT,
+          "num_preds": PRED_PREDS, **res})
+
+
+def phase_clip_pred_train(parent: Path):
+    """The 04 CLI at B=64, c=1, p=9, ``accum_steps`` 8, through the frozen
+    ExtendedDINOSAUR that ``phase_clip_train`` wrote (one step after one
+    B=16 valid batch): the CLIPort predictor path's main path. Then a second
+    run resumes from ``checkpoint_last_saved`` for a second epoch. Returns
+    the main path's launches and the resumed trainer."""
+    from textocvp_tpu_torch.cli import train_predictor
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    exp_path = pred_experiment(parent, CLIP_PRED_NAME)
+    argv = ["-d", str(parent), "--name_pred_exp", CLIP_PRED_NAME, "--decomp_ckpt",
+            "checkpoint_epoch_final"]
+    steps, valid = 1, 1
+    reset_launches()  # the main path starts here
+    t = time.perf_counter()
+    trainer, out = run_cli(train_predictor.main, argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = launches()  # and ends here
+    # the frozen encode: one slot-attention call a frame, one ViT call, of
+    # each (micro)batch
+    want = {"slot_attention": (steps * CLIP_ACCUM + valid) * PRED_FRAMES,
+            "vit_attention": (steps * CLIP_ACCUM + valid) * VIT_BLOCKS, "conv5": 0}
+    check(counts == want, f"clip_pred_train: kernel launches on the main path {counts}, "
+                          f"want {want}")
+    losses = loss_lines(out)
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          f"clip_pred_train losses {losses}")
+    check(trainer.global_step == valid + steps and trainer.optimizer.count == steps
+          and trainer.accum == CLIP_ACCUM,
+          f"clip_pred_train: step {trainer.global_step}, updates {trainer.optimizer.count}")
+    exp = Experiment(exp_path)
+    for name in ("checkpoint_last_saved.pt", "checkpoint_epoch_1.pt", "checkpoint_epoch_final.pt"):
+        check((exp.models_dir / name).is_file(), f"clip_pred_train: {name} not written")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = exp.params
+    params["training"]["num_epochs"] = 2
+    exp.save_params(params)
+    t = time.perf_counter()
+    resumed, out2 = run_cli(train_predictor.main, argv + ["--checkpoint", "checkpoint_last_saved",
+                                                          "--resume_training"])
+    resume_seconds = time.perf_counter() - t
+    losses2 = loss_lines(out2)
+    check("Resuming training from epoch 1" in out2 and resumed.start_epoch == 1
+          and resumed.global_step == 2 * (valid + steps) and resumed.optimizer.count == 2 * steps,
+          f"clip_pred_train resume: epoch {resumed.start_epoch}, step {resumed.global_step}, "
+          f"updates {resumed.optimizer.count}")
+    check(len(losses2) == steps and bool(np.isfinite(losses2).all()),
+          f"clip_pred_train resumed losses {losses2}")
+    emit({"phase": "clip_pred_train", "batch": CLIP_TRAIN_BATCH, "num_context": PRED_CONTEXT,
+          "num_preds": PRED_PREDS, "accum_steps": CLIP_ACCUM,
+          "decomp_ckpt": "checkpoint_epoch_final (clip_train phase)",
+          "cli_seconds": seconds, "resume_cli_seconds": resume_seconds, "launches": counts,
+          "losses": losses, "resumed_losses": losses2,
+          "epoch_lines": [line for line in (out + out2).splitlines() if line.startswith("Epoch")]})
+    return counts, resumed
+
+
+def phase_clip_pred_train_step(trainer, videos, info):
+    """The steady 04 step at B=64, c=1, p=9, ``accum_steps`` 8 on the resumed
+    trainer: three steps on the host clock with synchronize, one split into
+    frozen encode, forward (rollout, decode of 72 frames, loss), backward
+    (each summed over the microbatches) and optimizer, the peak memory, the
+    launches of a step (10 slot-attention calls and 12 ViT-attention
+    launches a microbatch), and one step under torch.profiler. Off the main
+    path."""
+    batch, text = trainer.batch_to_device(videos, info)
+    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch, **text))
+    before = launch_counts_clip()
+    noise = trainer._noise(batch.shape[0])
+    split = accumulated_split(
+        trainer, batch.shape[0],
+        lambda sl, out: trainer.predict_loss(batch[sl], out.pop("slots"),
+                                             **{k: t[sl] for k, t in text.items()})[0],
+        encode=lambda sl, out: out.update(slots=trainer.encode(batch[sl], noise[sl])))
+    per_step = tuple(a - b for a, b in zip(launch_counts_clip(), before))
+    clip_step_report("clip_pred_train_step", trainer,
+                     lambda: trainer.train_step(batch, **text), per_step,
+                     (CLIP_ACCUM * PRED_FRAMES, CLIP_ACCUM * VIT_BLOCKS),
+                     CLIP_TRAIN_BATCH * PRED_PREDS, step_ms, peak_gb, split)
+
+
+def phase_clip_pred_train_sign(parent: Path, videos, info):
+    """10 predictor steps on one fixed batch of 8 (no accumulation) at lr
+    1e-4, no warmup, the output projection scaled (``random_predictor_``):
+    the loss must fall. Off the main path."""
+    from textocvp_tpu_torch.train.predictor_trainer import TEXT_KEYS, PredictorTrainer
+
+    tr = PredictorTrainer(pred_experiment(parent, "clip_pred_sign", batch_size=8,
+                                          accum_steps=1, lr=1e-4, lr_warmup=False),
+                          "checkpoint_epoch_final")
+    tr.setup_model()
+    random_predictor_(tr)
+    batch, text = tr.batch_to_device(videos[:8], {k: np.asarray(info[k])[:8] for k in TEXT_KEYS})
+    losses = [float(tr.train_step(batch, **text)["_total"]) for _ in range(10)]
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"clip predictor sign check: the loss did not fall over 10 steps: {losses}")
+    emit({"phase": "clip_pred_train_sign", "batch": 8, "num_preds": PRED_PREDS, "lr": 1e-4,
+          "steps": 10, "losses": losses})
+
+
+def phase_clip_eval(parent: Path):
+    """The 05 CLI at B=16, 1 seed frame, 9 predictions over the 32 test
+    episodes (two batches), on the predictor ``phase_clip_pred_train`` wrote:
+    the CLIPort eval path's main path. Returns its launches."""
+    from textocvp_tpu_torch.cli import evaluate_predictor
+
+    reset_launches()  # the main path starts here
+    t = time.perf_counter()
+    rc = evaluate_predictor.main(["-d", str(parent), "--name_pred_exp", CLIP_PRED_NAME,
+                                  "--decomp_ckpt", "checkpoint_epoch_final", "--pred_ckpt",
+                                  "checkpoint_epoch_final", "--batch_size", str(CLIP_EVAL_BATCH),
+                                  "--num_seed", "1", "--num_preds", str(CLIP_PREDS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = launches()  # and ends here
+    batches = dict(CLIP_EPISODES)["test"] // CLIP_EVAL_BATCH
+    check(rc == 0, f"evaluate_predictor returned {rc}")
+    check(counts == {"slot_attention": batches, "vit_attention": VIT_BLOCKS * batches,
+                     "conv5": 0}, f"clip_eval: kernel launches on the main path: {counts}")
+    with open(parent / "predictors" / CLIP_PRED_NAME / "results" / (
+            f"eval_pred_checkpoint_epoch_final_NumSeed=1_NumPreds={CLIP_PREDS}")
+            / "results.json") as f:
+        results = json.load(f)
+    for m in ("psnr", "ssim", "lpips"):
+        vals = results[m]["framewise"] + [results[m]["mean"]]
+        check(len(results[m]["framewise"]) == CLIP_PREDS and bool(np.isfinite(vals).all()),
+              f"clip_eval results.json: {m} {results[m]}")
+    emit({"phase": "clip_eval", "batch": CLIP_EVAL_BATCH, "episodes": batches * CLIP_EVAL_BATCH,
+          "num_seed": 1, "num_preds": CLIP_PREDS, "cli_seconds": seconds, "launches": counts,
+          "results": results})
+    return counts
+
+
+def run_clip(tmp: Path):
+    """The CLIPort chain: the fixture; the 02 path (parity, the CLI and its
+    resume, the steady step, the sign check); the 04 path over the 02
+    checkpoint (the same); the 05 path over the 04 checkpoint (parity, the
+    CLI, the stage split and profile). Returns each path's main-path
+    launches."""
+    data_root = write_cliport_fixture(tmp / "CLIPort")
+    phase_clip_train_parity(tmp)
+    exp = clip_experiment(tmp / "clip_train", data_root)
+    counts = {}
+    counts["clip_train"], trainer = phase_clip_train(exp)
+    videos, _ = next(iter(trainer.train_loader))
+    phase_clip_train_step(trainer, videos)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_clip_train_sign(data_root, tmp, videos)
+    del videos
+    phase_clip_pred_train_parity(exp)
+    counts["clip_pred_train"], trainer = phase_clip_pred_train(exp)
+    videos, info = next(iter(trainer.train_loader))
+    phase_clip_pred_train_step(trainer, videos, info)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_clip_pred_train_sign(exp, videos, info)
+    del videos, info
+    ckpts = ("checkpoint_epoch_final", "checkpoint_epoch_final")
+    phase_eval_parity(exp, CLIP_PRED_NAME, ckpts, CLIP_PREDS, phase="clip_eval_parity")
+    counts["clip_eval"] = phase_clip_eval(exp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_eval_step(exp, CLIP_PRED_NAME, ckpts, CLIP_EVAL_BATCH, CLIP_PREDS, VIT_BLOCKS,
+                    phase="clip_eval_step")
+    return counts
+
+
 def run_path(path: ServedPath, tmp: Path):
     """Parity, then the main path (service + HTTP) between a reset and a read
     of the launch counters, then the profile. Returns the main path's launches."""
@@ -1736,16 +2460,19 @@ def main() -> int:
         counts["eval"] = run_eval(Path(tmp))
         counts["train"], train_input_grad, train_exp = run_train(Path(tmp))
         counts["pred_train"], pred_input_grad, pred_weight_grad = run_pred_train(train_exp)
+        counts.update(run_clip(Path(tmp)))
 
     sa = next(r for r in rows["slot_attention_cater"] if r["B"] == BATCH and r["iters"] == 3)
     sa64 = next(r for r in rows["slot_attention_cater"] if r["B"] == EVAL_BATCH
                 and r["iters"] == 3)
-    sa_clip = next(r for r in rows["slot_attention_clipport"] if r["iters"] == 3)
-    vit8, vit16 = rows["vit_attention"]
+    sa_clip = {r["B"]: r for r in rows["slot_attention_clipport"] if r["iters"] == 3}
+    vit = {r["B"]: r for r in rows["vit_attention"]}
+    vit8 = vit[BATCH]
     conv_req, conv_eval = rows["conv5"]
     conv_bwd = {r["N"]: r for r in rows["conv5_backward"]}
     conv_train = conv_bwd[TRAIN_BATCH * TRAIN_FRAMES * 8]
     sa_bwd = {r["iters"]: r for r in rows["slot_attention_backward"]}
+    sa_bwd_clip = {r["iters"]: r for r in rows["slot_attention_backward_clipport"]}
     (conv_frozen,) = rows["conv5_frozen_backward"]
     emit({"kernels": [{
         "name": "slot_attention",
@@ -1766,16 +2493,23 @@ def main() -> int:
                                         rows["slot_attention_cater"] + rows["slot_attention_clipport"]),
         "b64": {k: sa64[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
         | {"max_abs_err": max(sa64["max_abs_err_slots"], sa64["max_abs_err_attn"])},
-        "clipport_shape": {k: sa_clip[k] for k in ("B", "N", "S", "mlp", "iters", "ms",
-                                                   "plain_ms", "bound_ms", "bound_by")}
-        | {"max_abs_err": max(sa_clip["max_abs_err_slots"], sa_clip["max_abs_err_attn"])},
+        **{"clipport_shape" if b == BATCH else f"clipport_b{b}":
+           {k: r[k] for k in ("B", "N", "S", "mlp", "iters", "ms", "plain_ms", "bound_ms",
+                              "bound_by")}
+           | {"max_abs_err": max(r["max_abs_err_slots"], r["max_abs_err_attn"])}
+           for b, r in sa_clip.items()},
         "backward": {"route": "torch.autograd.Function; backward recomputes through "
                               "slot_attention_plain (the JAX _fused_bwd)",
                      "shape": {"B": TRAIN_BATCH, "N": CONV5_RES * CONV5_RES, "S": 8, "mlp": 256},
                      **{f"{it}_it": {k: r[k] for k in ("backward_ms", "bound_ms", "bound_by",
                                                       "max_rel_err")}
                         for it, r in sa_bwd.items()},
-                     "tolerance_rel": GRAD_TOLERANCE, "library_ms": None},
+                     "tolerance_rel": GRAD_TOLERANCE, "library_ms": None,
+                     "clipport": {"shape": {"B": CLIP_TRAIN_BATCH // CLIP_ACCUM,
+                                            "N": CLIP_PATCHES, "S": CLIP_SLOTS, "mlp": 512},
+                                  **{f"{it}_it": {k: r[k] for k in (
+                                      "backward_ms", "bound_ms", "bound_by", "max_rel_err")}
+                                     for it, r in sa_bwd_clip.items()}}},
     }, {
         "name": "vit_attention",
         "route": "cuda",
@@ -1783,15 +2517,16 @@ def main() -> int:
         "replaces": "textocvp_tpu/nn/vit.py:43",
         "launches": sum(c["vit_attention"] for c in counts.values()),
         "launches_by_path": {p: c["vit_attention"] for p, c in counts.items()},
-        "max_abs_err": max(vit8["max_abs_err"], vit16["max_abs_err"]),
+        "max_abs_err": max(r["max_abs_err"] for r in rows["vit_attention"]),
         "ms": vit8["ms"],
         "plain_ms": vit8["plain_ms"],
         "bound_ms": vit8["bound_ms"],
         "bound_by": vit8["bound_by"],
         "bound_ms_fp32_cores": vit8["bound_ms_fp32_cores"],
         "library_ms": vit8["library_ms"],
-        "b16": {k: vit16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_ms_fp32_cores",
-                                      "library_ms", "max_abs_err")},
+        **{f"b{b}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_ms_fp32_cores",
+                                       "library_ms", "max_abs_err")}
+           for b, r in vit.items() if b != BATCH},
     }, {
         "name": "conv5",
         "route": "cuda",

@@ -7,8 +7,10 @@ CPU; the gradients of the slot-attention and conv5 Functions against
 autograd through the plain versions on the card (conv5's input gradient
 alone behind frozen weights too), a SAVi train step that leaves no parameter
 without a gradient, a predictor train step through the frozen SAVi that
-gives every trainable predictor parameter one and the SAVi and T5 none, and
-the ViT attention's refusal of grad. Marked ``gpu``;
+gives every trainable predictor parameter one and the SAVi and T5 none, an
+ExtendedDINOSAUR train step that trains all but the frozen ViT, the CNN
+head's BatchNorm block in training mode against the CPU, and the ViT
+attention's refusal of grad. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -24,6 +26,8 @@ the reference's max |value|, 1e-4 (conv5's input gradient is the kernel
 itself on the 3xTF32 tensor cores, its weight gradient float32 products over
 every pixel). TF32 is off for the plain versions' matmuls.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -211,10 +215,11 @@ def test_conv5_function_gradients_across_tile_edges(cuda, n, h, w, relu):
 
 
 @pytest.mark.parametrize("b,n,s,h,iters", [(2, 5, 3, 64, 3), (1, 7, 8, 256, 1),
-                                           (64, 4096, 8, 256, 3), (64, 4096, 8, 256, 1)])
+                                           (64, 4096, 8, 256, 3), (64, 4096, 8, 256, 1),
+                                           (8, 576, 10, 512, 3), (8, 576, 10, 512, 1)])
 def test_slot_attention_function_gradients(cuda, b, n, s, h, iters):
-    """N < 8 (CTAs of a cluster that own no location) and the CATER train
-    shape, B=64, N=4096."""
+    """N < 8 (CTAs of a cluster that own no location), the CATER train shape,
+    B=64, N=4096, and the CLIPort 02 microbatch, B=8, N=576, S=10, MLP 512."""
     k, v, slots, params = _case(b, n, s, h)
     leaves = [t.requires_grad_() for t in (k, v, slots, *params.values())]
     k, v, slots = leaves[:3]
@@ -382,7 +387,7 @@ def _qkv(b, h, n, dh=64, seed=0):
     return [torch.randn((b, h, n, dh), generator=gen).cuda() for _ in range(3)]
 
 
-@pytest.mark.parametrize("b,h,n", [(8, 12, 577), (2, 4, 150), (1, 1, 1), (3, 2, 64),
+@pytest.mark.parametrize("b,h,n", [(8, 12, 577), (64, 12, 577), (2, 4, 150), (1, 1, 1), (3, 2, 64),
                                    (2, 3, 63), (2, 3, 65), (1, 2, 128), (1, 2, 129)])
 def test_vit_attention_kernel_matches_plain(cuda, b, h, n):
     q, k, v = _qkv(b, h, n)
@@ -513,3 +518,71 @@ def test_savi_decode_on_the_card_matches_the_cpu_with_one_launch_per_tail_conv(c
         torch.cuda.synchronize()
     assert c5.conv5_cuda.launches == before + 3
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-4)
+
+
+def test_batchnorm_conv_block_in_training_mode_on_the_card_matches_the_cpu(cuda):
+    """A CNN-head block (3x3 conv, flax's BatchNorm, ReLU) in ``train()``: the
+    output, the running statistics after the call and the input and weight
+    gradients on the card against the CPU (1e-5 relative to each tensor's
+    largest value; the gradients with the card's ReLU mask on both)."""
+    from textocvp_tpu_torch.nn.blocks import ConvBlock
+
+    gen = torch.Generator().manual_seed(9)
+    block = random_init_(ConvBlock(32, 16, 3, batch_norm=True), gen).train()
+    with torch.no_grad():
+        block.bn.running_mean.normal_(0, 0.3, generator=gen)
+        block.bn.running_var.uniform_(0.5, 2.0, generator=gen)
+    x = (1.0 + torch.randn((6, 32, 24, 24), generator=gen)).requires_grad_()
+    g = torch.randn((6, 16, 24, 24), generator=gen)
+    card = copy.deepcopy(block).cuda()
+    xc = x.detach().cuda().requires_grad_()
+    out = card(xc)
+    (gx,) = torch.autograd.grad(out, xc, g.cuda())
+    mask = out.detach().cpu() > 0
+    pre = block.bn(block.conv(x))
+    ref = torch.where(mask, pre, 0.0)
+    (rx,) = torch.autograd.grad(ref, x, g)
+    for got, want in ((out.detach().cpu(), ref.detach()), (gx.cpu(), rx),
+                      (card.bn.running_mean.cpu(), block.bn.running_mean),
+                      (card.bn.running_var.cpu(), block.bn.running_var)):
+        assert _rel_err(got, want) <= 1e-5
+    assert int(card.bn.num_batches_tracked) == int(block.bn.num_batches_tracked) == 1
+
+
+def test_dinosaur_train_step_on_the_card_trains_all_but_the_vit(cuda, tmp_path):
+    """One DecompTrainer step of ExtendedDINOSAUR on the card (DINOv2 ViT-B/14
+    at 112 px, 2 ViT blocks, full-width slots, decoder and CNN head), B=2,
+    T=3: every trainable parameter gets a finite gradient, the ViT none and
+    stays bit for bit; one slot-attention call a frame and one ViT-attention
+    launch a block, the running statistics moved."""
+    from textocvp_tpu_torch.core.config import build_exp_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    p = build_exp_params("ExtendedDINOSAUR", "CLIPort")
+    mp = p["model"]["model_params"]
+    mp["img_size"] = 112
+    mp["encoder"]["encoder_params"]["encoder_num_blocks"] = 2
+    mp["decoder"]["decoder_params"]["num_patches"] = 64
+    p["training"].update(batch_size=2, lr_warmup=False, accum_steps=1)
+    Experiment(tmp_path).save_params(p)
+    tr = DecompTrainer(tmp_path)
+    tr.setup_model()
+    vit = {k: v.clone() for k, v in tr.model.image_encoder.state_dict().items()}
+    stats = tr.model.patch_decoder.cnns[0].bn.running_mean.clone()
+    video = torch.rand((2, 3, 112, 112, 3), generator=torch.Generator().manual_seed(6)).cuda()
+    counts = (sak.slot_attention_cuda.launches, va.vit_attention_cuda.launches)
+    values = tr.train_step(video)
+    torch.cuda.synchronize()
+    assert (sak.slot_attention_cuda.launches - counts[0],
+            va.vit_attention_cuda.launches - counts[1]) == (3, 2)
+    assert set(values) == {"pred_feature_mse", "mse", "_total"}
+    assert np.isfinite(float(values["_total"]))
+    for name, t in tr.model.named_parameters():
+        if name.startswith("image_encoder."):
+            assert not t.requires_grad and t.grad is None, name
+        else:
+            assert t.grad is not None and bool(torch.isfinite(t.grad).all()), name
+    for k, v in tr.model.image_encoder.state_dict().items():
+        assert torch.equal(v, vit[k]), k
+    assert not torch.equal(tr.model.patch_decoder.cnns[0].bn.running_mean, stats)

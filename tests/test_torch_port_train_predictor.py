@@ -477,9 +477,9 @@ def test_cli_defaults_to_the_card_and_refuses_cuda_without_one(decomp_exp, monke
 def test_trainer_refuses_what_is_not_ported(decomp_exp):
     with pytest.raises(ValueError, match="not a nested predictor experiment"):
         PredictorTrainer(decomp_exp.exp_path, "checkpoint_epoch_final", device="cpu")
-    pred = _predictor_experiment(decomp_exp, "dino")
+    pred = _predictor_experiment(decomp_exp, "ocvp")
     p = pred.params
-    p["model"]["model_name"] = "ExtendedDINOSAUR"
+    p["predictor"]["predictor_name"] = "OCVPSeq"  # a predictor the port does not have yet
     pred.save_params(p)
-    with pytest.raises(NotImplementedError, match="section 1, item 4"):
+    with pytest.raises(NameError, match="is not ported; the port has"):
         PredictorTrainer(pred.exp_path, "checkpoint_epoch_final", device="cpu")

@@ -289,9 +289,9 @@ def test_trainer_refuses_cuda_without_a_card_and_unported_models(tmp_path, monke
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DecompTrainer(exp)
     p = Experiment(exp).params
-    p["model"]["model_name"] = "ExtendedDINOSAUR"
+    p["model"]["model_name"] = "SlotFormer"  # a model neither package has
     Experiment(exp).save_params(p)
-    with pytest.raises(NotImplementedError, match="4\\(d\\)"):
+    with pytest.raises(NameError, match="is not ported; the port has"):
         DecompTrainer(exp, device="cpu")
 
 

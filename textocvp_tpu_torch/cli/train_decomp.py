@@ -1,4 +1,4 @@
-"""Train a decomposition model (02; SAVi).
+"""Train a decomposition model (02; SAVi or ExtendedDINOSAUR).
 
     python -m textocvp_tpu_torch.cli.train_decomp -d EXP [--checkpoint C]
         [--resume_training] [--device cuda]

@@ -1,11 +1,11 @@
-"""Train a slot predictor with a frozen decomposition model (04; CATER SAVi +
-TextOCVP_T5).
+"""Train a slot predictor with a frozen decomposition model (04; TextOCVP_T5
+on CATER SAVi or CLIPort ExtendedDINOSAUR).
 
     python -m textocvp_tpu_torch.cli.train_predictor -d EXP --name_pred_exp P
         --decomp_ckpt C [--checkpoint C] [--resume_training] [--device cuda]
 
 ``EXP`` is the decomposition experiment, whose ``models/<decomp_ckpt>.pt``
-holds the frozen SAVi; the predictor experiment is ``EXP/predictors/P``
+holds the frozen decomposition model; the predictor experiment is ``EXP/predictors/P``
 (its ``experiment_params.json``), and its checkpoints land in
 ``EXP/predictors/P/models/*.pt``. ``--checkpoint`` starts the predictor from
 ``models/<C>.pt`` of the predictor experiment; with ``--resume_training`` its

@@ -1,6 +1,7 @@
 """
 Host input pipeline of the port: the dataset factory and a batching loader
-(counterpart of ``textocvp_tpu/data/loader.py``, CATER only).
+(counterpart of ``textocvp_tpu/data/loader.py``): CATER_Easy, CATER_Hard and
+CLIPort from their pre-decoded arrays (``data/datasets.py``).
 
 :class:`EpochLoader` keeps the JAX package's batch contract: ``(videos,
 info)`` with videos (B, T, H, W, C) as a numpy array (uint8 under the
@@ -17,10 +18,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from textocvp_tpu_torch.data.datasets import CATER
+from textocvp_tpu_torch.data.datasets import CATER, CLIPort
 from textocvp_tpu_torch.data.tokenizers import get_tokenizer
 
-DATASETS = ["CATER_Easy", "CATER_Hard"]
+DATASETS = ["CATER_Easy", "CATER_Hard", "CLIPort"]
 
 
 def load_data(exp_params: dict, split: str = "train"):
@@ -33,7 +34,11 @@ def load_data(exp_params: dict, split: str = "train"):
     # uint8 on the wire: items stay uint8 and are normalized on the device
     uint8_wire = bool(db_params.pop("uint8_wire", False))
     db_params.setdefault("uint8_output", uint8_wire)
-    dataset = CATER(split=split, mode="easy" if db_name == "CATER_Easy" else "hard", **db_params)
+    if db_name == "CLIPort":
+        dataset = CLIPort(split=split, **db_params)
+    else:
+        dataset = CATER(split=split, mode="easy" if db_name == "CATER_Easy" else "hard",
+                        **db_params)
     dataset.tokenizer = get_tokenizer(tokenizer_name, vocabulary=dataset.vocabulary)
     return dataset
 

@@ -7,6 +7,11 @@ over its projected patch features, and the MLP patch decoder. Video is NHWC,
 The ViT runs once over all B*T frames, then LayerNorm (eps 1e-6) and the
 projection MLP (mlp_encoder_dim -> ReLU -> slot_dim) and the K/V projection;
 only the slot recurrence walks the frames.
+
+The ViT is frozen, as the JAX package's ``stop_gradient`` and its trainer's
+freeze of the ``image_encoder`` subtree have it: its parameters require no
+grad, and it runs under ``torch.no_grad()``, out of the autograd graph. Its
+weights stay in the state dict and in every checkpoint.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ class ExtendedDINOSAUR(nn.Module):
             raise ValueError("ExtendedDINOSAUR expects a ViT-based encoder")
         if decoder["decoder_name"] != "MLPPatchDecoder":
             raise ValueError("ExtendedDINOSAUR expects an 'MLPPatchDecoder'")
+        self.num_slots = num_slots
+        self.slot_dim = slot_dim
         self.num_iterations = num_iterations
         self.num_iterations_first = num_iterations_first
 
@@ -43,6 +50,7 @@ class ExtendedDINOSAUR(nn.Module):
         enc = {**encoder, "encoder_params": {**encoder.get("encoder_params", {}),
                                              "img_size": img_size}}
         self.image_encoder, feats = get_encoder(enc)
+        self.image_encoder.requires_grad_(False)
         self.feat_proj_ln = nn.LayerNorm(feats, eps=1e-6)
         self.feat_proj_mlp = MLP(feats, [mlp_encoder_dim, slot_dim])
         dec = {**decoder, "decoder_params": {**decoder.get("decoder_params", {}),
@@ -84,3 +92,25 @@ class ExtendedDINOSAUR(nn.Module):
         return {"slot_history": torch.stack(slot_hist, 1),
                 "attn_masks": torch.stack(attn_hist, 1),
                 "encoded_img_feats": img_feats.reshape(b, t, *img_feats.shape[1:])}
+
+    def forward(self, x, noise=None, generator: Optional[torch.Generator] = None,
+                decode: bool = True):
+        """Video (B, T, H, W, C) -> the JAX ``decompose(x, decode=decode)``
+        dict: slot_history, attn_masks, encoded_img_feats and, with
+        ``decode``, recons_feats (B, T, P, F), masks (B, T, S, 1, gh, gw) and,
+        when the decoder reconstructs images, recons_imgs (B, T, H, W, 3), all
+        B * T frames decoded in one call.
+
+        The initial slots come from the slot initializer, with ``noise``
+        (B, S, D) when given (``LearnedRandom``: mu + sigma * noise, so their
+        gradients reach mu and sigma), else drawn with ``generator``."""
+        b, t = x.shape[:2]
+        out = self.decompose(x, initial_slots=self.slot_initializer(b, generator, noise=noise))
+        if decode:
+            dec = self.decode(out["slot_history"].reshape(b * t, self.num_slots, self.slot_dim))
+            out["recons_feats"] = dec["recons_feats"].reshape(b, t, *dec["recons_feats"].shape[1:])
+            out["masks"] = dec["masks"].reshape(b, t, *dec["masks"].shape[1:])
+            if dec["recons_imgs"] is not None:
+                out["recons_imgs"] = dec["recons_imgs"].reshape(
+                    b, t, *dec["recons_imgs"].shape[1:])
+        return out

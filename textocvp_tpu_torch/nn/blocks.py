@@ -46,18 +46,44 @@ class MLP(nn.Module):
         return x
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """flax's ``nn.BatchNorm`` over the channels of NCHW input, eps 1e-5, with
+    ``torch.nn.BatchNorm2d``'s parameters and buffers.
+
+    In ``eval()`` it normalizes with its running statistics. In ``train()``
+    it normalizes with the batch's mean and biased variance, then moves the
+    running statistics as flax does: ``ra = 0.99 * ra + 0.01 * batch``, the
+    batch variance the biased ``E[x^2] - E[x]^2`` (``torch.nn.BatchNorm2d``
+    moves them by 0.1 with the unbiased variance)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.01)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            xd = x.detach()
+            mean = xd.mean((0, 2, 3))
+            var = (xd.square().mean((0, 2, 3)) - mean.square()).clamp_(min=0)
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class ConvBlock(nn.Module):
     """k x k conv, symmetric padding k // 2, then (BatchNorm) and ReLU (NCHW).
-
-    The BatchNorm normalizes with its running statistics, as the port only
-    serves (``eval()`` mode; eps 1e-5, flax's and torch's default)."""
+    The BatchNorm is :class:`BatchNorm`, flax's: running statistics in
+    ``eval()``, the batch's in ``train()``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, activation: bool = True, batch_norm: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                               padding=kernel_size // 2)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5) if batch_norm else None
+        self.bn = BatchNorm(out_channels) if batch_norm else None
         self.activation = activation
 
     def forward(self, x):

@@ -1,17 +1,20 @@
 """
-Stage-2 (predictor) trainer of the port for CATER SAVi + TextOCVP_T5
-(counterpart of the JAX package's ``textocvp_tpu/train/predictor_trainer.py::
-PredictorTrainer``).
+Stage-2 (predictor) trainer of the port for TextOCVP_T5 on SAVi (CATER) or
+ExtendedDINOSAUR (CLIPort) (counterpart of the JAX package's
+``textocvp_tpu/train/predictor_trainer.py::PredictorTrainer``).
 
 A nested predictor experiment (``<exp>/predictors/<name>``) trains its
-predictor through the parent experiment's frozen SAVi, loaded from
-``decomp_ckpt`` (a training checkpoint or a bare state dict,
-``train/checkpoints.py::load_params``). Each (micro)batch of ``num_context +
+predictor through the parent experiment's frozen decomposition model, loaded
+from ``decomp_ckpt`` (a training checkpoint or a bare state dict,
+``train/checkpoints.py::load_params``) and run in ``eval()``: an
+ExtendedDINOSAUR's BatchNorm normalizes with its running statistics, as the
+JAX ``decomp_vars()`` hand it. Each (micro)batch of ``num_context +
 num_preds`` frames:
 
-1. is encoded into slots by the frozen SAVi under ``torch.no_grad()`` (the
-   JAX ``stop_gradient``), with the slot noise of the shared stream
-   (``Trainer._noise``, every train and every valid batch);
+1. is encoded into slots by the frozen model under ``torch.no_grad()`` (the
+   JAX ``stop_gradient``), ``forward(..., decode=False)``, with the slot
+   noise of the shared stream (``Trainer._noise``, every train and every
+   valid batch);
 2. is rolled out by the predictor for ``num_preds`` frames, with teacher
    forcing when the config's ``teacher_force`` says so (the valid step never
    forces);
@@ -21,16 +24,19 @@ num_preds`` frames:
    encoded slots. The predicted images are not clipped, as in the JAX
    trainer.
 
-Adam (``train/schedulers.py``) updates the predictor's parameters that
-require grad: every one but the frozen T5's. On the card every slot-attention
-call of the encode launches ``csrc/slot_attention.cu`` (forward only), and
-every decoder-tail conv launches ``csrc/conv5.cu`` forward and again for its
-input gradient; the decoder is frozen, so no weight gradient is computed.
+The image loss's gradient flows back through the frozen decoder (SAVi's
+conv decoder, or ExtendedDINOSAUR's MLP patch decoder and CNN head) into the
+predictor. Adam (``train/schedulers.py``) updates the predictor's parameters
+that require grad: every one but the frozen T5's. On the card every
+slot-attention call of the encode launches ``csrc/slot_attention.cu``
+(forward only), every ViT block of an ExtendedDINOSAUR's encode launches
+``csrc/vit_attention.cu``, and every SAVi decoder-tail conv launches
+``csrc/conv5.cu`` forward and again for its input gradient; the decoder is
+frozen, so no weight gradient is computed.
 
-Not ported (ROADMAP.md): predictor training on ExtendedDINOSAUR, the other
-predictors, ``tpu.remat``, the background checkpoint writer, TensorBoard
-scalars and image panels, ``train_decode_chunks`` / ``valid_decode_kwargs``
-and the mesh.
+Not ported (ROADMAP.md): the other predictors, ``tpu.remat``, the background
+checkpoint writer, TensorBoard scalars and image panels,
+``train_decode_chunks`` / ``valid_decode_kwargs`` and the mesh.
 """
 
 from __future__ import annotations
@@ -50,8 +56,8 @@ TEXT_KEYS = ("caption_tokens", "attn_masks")
 
 class PredictorTrainer(Trainer):
     """Trainer of a TextOCVP_T5 predictor with the parent experiment's frozen
-    SAVi. ``model`` is the predictor (a ``PredictorWrapper``), ``decomp_model``
-    the SAVi.
+    decomposition model. ``model`` is the predictor (a ``PredictorWrapper``),
+    ``decomp_model`` the SAVi or ExtendedDINOSAUR.
 
     Call :meth:`load_data`, :meth:`setup_model`, then :meth:`training_loop`."""
 
@@ -62,11 +68,6 @@ class PredictorTrainer(Trainer):
         if self.parent is None:
             raise ValueError(f"{exp_path} is not a nested predictor experiment "
                              "(<exp>/predictors/<name>)")
-        model_name = self.exp_params["model"]["model_name"]
-        if model_name != "SAVi":
-            raise NotImplementedError(
-                f"the port trains predictors on SAVi only; on {model_name} it is not ported "
-                "yet (ROADMAP.md, section 1, item 4)")
         pp = self.exp_params["prediction_params"]
         self.num_context, self.num_preds = pp["num_context"], pp["num_preds"]
         # the clips hold the context and the frames to predict
@@ -79,7 +80,8 @@ class PredictorTrainer(Trainer):
         self.loss_fn = build_loss_fn(self.exp_params["predictor_loss"])
 
     def setup_model(self):
-        """The frozen SAVi from the parent's ``decomp_ckpt``; the predictor from
+        """The frozen decomposition model from the parent's ``decomp_ckpt``, in
+        ``eval()``; the predictor from
         ``random_init_`` with a generator seeded ``INIT_SEED``, or from
         ``checkpoint``, with ``resume_training`` also the optimizer state, the
         epoch and the step."""
@@ -96,7 +98,7 @@ class PredictorTrainer(Trainer):
 
     @torch.no_grad()
     def encode(self, videos, noise):
-        """Slots (B, c + p, S, D) of the first c + p frames, by the frozen SAVi."""
+        """Slots (B, c + p, S, D) of the first c + p frames, by the frozen model."""
         return self.decomp_model(videos[:, :self.num_context + self.num_preds], noise=noise,
                                  decode=False)["slot_history"]
 
@@ -123,5 +125,6 @@ class PredictorTrainer(Trainer):
 
     @torch.no_grad()
     def valid_step(self, videos, **text) -> dict:
-        return self.forward_loss(videos, self._noise(videos.shape[0]), teacher_force=False,
-                                 **text)[1]
+        with self.evaluating():
+            return self.forward_loss(videos, self._noise(videos.shape[0]), teacher_force=False,
+                                     **text)[1]

@@ -18,7 +18,9 @@ What the optax chain does, and this module repeats:
   ``-schedule(count)``.
 
 The freeze mask of the JAX ``build_optimizer`` (``optax.multi_transform``,
-ExtendedDINOSAUR's frozen ViT) is not ported: ExtendedDINOSAUR training is.
+ExtendedDINOSAUR's frozen ViT) has no counterpart here: the trainers hand
+:class:`Adam` only the parameters that require grad, so its clip's global
+norm and its updates cover the JAX ``"train"`` leaves alone.
 """
 
 from __future__ import annotations

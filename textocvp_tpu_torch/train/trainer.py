@@ -1,8 +1,8 @@
 """
-Stage-1 (decomposition) trainer of the port for SAVi (counterpart of the JAX
-package's ``textocvp_tpu/train/trainer.py::DecompTrainer``), and the loop it
-shares with the 04 predictor trainer (:class:`Trainer`,
-``train/predictor_trainer.py``).
+Stage-1 (decomposition) trainer of the port for SAVi and ExtendedDINOSAUR
+(counterpart of the JAX package's ``textocvp_tpu/train/trainer.py::
+DecompTrainer``), and the loop it shares with the 04 predictor trainer
+(:class:`Trainer`, ``train/predictor_trainer.py``).
 
 What it keeps of the JAX trainer:
 
@@ -12,8 +12,19 @@ What it keeps of the JAX trainer:
   ``save_frequency`` epochs, ``checkpoint_epoch_final`` at the end and
   ``emergency_checkpoint_epoch_<E>`` on an exception or an interrupt
   (``train/checkpoints.py``); the log lines' text;
-* the loss: the config's losses (``mse`` for SAVi) on the reconstruction and
-  the video, both clipped to [0, 1];
+* the loss: the config's losses on the reconstruction and the video, both
+  clipped to [0, 1] (``mse`` for SAVi); ExtendedDINOSAUR adds the
+  reconstructed ViT features and the frozen ViT's own, both clipped too
+  (``pred_feature_mse`` + ``mse``);
+* the freeze: Adam, and its global-norm clip, take the parameters that
+  require grad, which are the JAX ``"train"`` leaves (every top-level
+  subtree but ExtendedDINOSAUR's ``image_encoder``); the frozen ViT stays in
+  the checkpoints;
+* BatchNorm (ExtendedDINOSAUR's CNN head): a training (micro)batch
+  normalizes with its own statistics and moves the running ones, the
+  microbatches of a step in order, as the JAX step threads ``batch_stats``
+  through them; the validation step runs the model in ``eval()``, with the
+  running statistics and no update (the JAX ``train=False``);
 * the step: forward, loss, backward, the global-norm clip, Adam at the
   schedule of the number of updates made (``train/schedulers.py``);
   ``training.accum_steps`` equal microbatches whose gradients are averaged
@@ -27,19 +38,21 @@ What it keeps of the JAX trainer:
 
 On the card every slot-attention call and every decoder-tail conv runs its
 CUDA kernel, their gradients through ``ops.slot_attention_kernel.
-SlotAttentionFunction`` and ``ops.conv5.Conv5Function``. Float32 with TF32
+SlotAttentionFunction`` and ``ops.conv5.Conv5Function``; the frozen ViT's
+attention runs its kernel forward only, under ``torch.no_grad()``. Float32 with TF32
 off for matmuls and cuDNN. The weights start from ``random_init_`` with a
 seeded generator (the JAX package's flax initializers draw from
 ``jax.random``, which torch cannot reproduce) or from a checkpoint.
 
-Not ported (ROADMAP.md): ExtendedDINOSAUR training, TensorBoard scalars and
-image panels, the ``TEXTOCVP_PROFILE`` trace, ``tpu.remat``,
-``tpu.train_decode_chunks``, the background checkpoint writer and the mesh.
+Not ported (ROADMAP.md): TensorBoard scalars and image panels, the
+``TEXTOCVP_PROFILE`` trace, ``tpu.remat``, ``tpu.train_decode_chunks``, the
+background checkpoint writer and the mesh.
 """
 
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
@@ -185,9 +198,20 @@ class Trainer:
         self.optimizer.step()
         return values
 
+    @contextmanager
+    def evaluating(self):
+        """``model`` in ``eval()`` inside, ``train()`` again after: BatchNorm
+        normalizes with its running statistics and moves none."""
+        self.model.eval()
+        try:
+            yield
+        finally:
+            self.model.train()
+
     @torch.no_grad()
     def valid_step(self, videos, **text) -> dict:
-        return self.forward_loss(videos, self._noise(videos.shape[0]), **text)[1]
+        with self.evaluating():
+            return self.forward_loss(videos, self._noise(videos.shape[0]), **text)[1]
 
     # ------------------------------------------------------------------ loop
     def train_epoch(self, epoch: int) -> float:
@@ -244,7 +268,7 @@ class Trainer:
 
 
 class DecompTrainer(Trainer):
-    """Trainer of a SAVi decomposition model.
+    """Trainer of a SAVi or ExtendedDINOSAUR decomposition model.
 
     Call :meth:`load_data`, :meth:`setup_model`, then :meth:`training_loop`."""
 
@@ -252,10 +276,6 @@ class DecompTrainer(Trainer):
                  resume_training: bool = False, device="cuda"):
         super().__init__(exp_path, checkpoint, resume_training, device)
         self.model_name = self.exp_params["model"]["model_name"]
-        if self.model_name != "SAVi":
-            raise NotImplementedError(
-                f"the port trains SAVi only; {self.model_name} training is not ported yet "
-                "(ROADMAP.md, section 1, item 4(d))")
         self.model = setup_model(self.exp_params)
         self.loss_fn = build_loss_fn(self.exp_params["loss"])
 
@@ -268,7 +288,12 @@ class DecompTrainer(Trainer):
         self._setup_optimizer()
 
     def _loss_tensors(self, out: dict, videos) -> dict:
-        return {"pred_imgs": out["recons_imgs"].clamp(0, 1), "target_imgs": videos.clamp(0, 1)}
+        tensors = {"pred_imgs": out["recons_imgs"].clamp(0, 1),
+                   "target_imgs": videos.clamp(0, 1)}
+        if self.model_name == "ExtendedDINOSAUR":
+            tensors["preds_feats"] = out["recons_feats"].clamp(0, 1)
+            tensors["targets_feats"] = out["encoded_img_feats"].clamp(0, 1)
+        return tensors
 
     def forward_loss(self, videos, noise):
         """(total, {name: value}) of one (micro)batch on the device."""
