@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Drives the port's two serving paths, its 05 evaluate-predictor path, its
-02 train path, its 04 predictor-train path and the CLIPort chain (02, 04
-and 05 on ExtendedDINOSAUR) at full width with random weights drawn from a
-seed, and checks them:
+02 train path, its 04 predictor-train path, the four other predictors'
+05, 04 and serving paths and the CLIPort chain (02, 04 and 05 on
+ExtendedDINOSAUR) at full width with random weights drawn from a seed, and
+checks them:
 
 * CATER: SAVi (8 slots x 128, 64x64 frames) + TextOCVP_T5 (T5-small, 8
   predictor layers), 19 predicted frames;
@@ -119,7 +120,7 @@ then the train path:
 
 then the predictor-train path, over the experiment that phase 12 trained:
 15. pred_train_parity  PredictorTrainer on the card and on the CPU at full
-            width, B=2, the same weights, video, captions and slot noise,
+            width, B=2, c=1, p=3 (``PARITY_PREDS``), the same weights, video, captions and slot noise,
             warmup off, the CPU with the card's ReLU masks as in phase 11
             (its own-mask result reported): the loss (1e-5 relative) and every
             trainable gradient leaf (1e-4 of its largest value) after one
@@ -137,6 +138,34 @@ then the predictor-train path, over the experiment that phase 12 trained:
             and launches, and one step under ``torch.profiler`` with one
             slot-attention device kernel a call;
 18. pred_train_sign  20 steps on one batch of 8 at lr 1e-4: the loss falls.
+
+then the four other predictors (VanillaTransformer, OCVPSeq, OCVPPar:
+token 128, hidden 256, 2 layers, 4 heads; TextOCVP_CustomTF: token 512, 8
+layers, its text encoder 128 wide with 2 layers over CustomTokenizer ids),
+each through phase 12's frozen SAVi, c=1, buffer 10, every line carrying
+``"predictor"``:
+P1. predictors_parity  a random predictor's 19-step rollout on the card and
+            on the CPU at B=2, the same weights, slots and captions: each
+            step within 1e-4 of its largest slot;
+P2. predictors_eval, predictors_eval_step  the 05 CLI at B=64, p=19 over
+            the eval phase's 128 videos (random weights drawn as phase 4
+            does): finite means, 19 framewise values a metric, 1
+            slot-attention call and 3 conv5 launches a batch; then one more
+            batch split into its stages, its peak memory, and one step under
+            ``torch.profiler``;
+P3. predictors_service  (OCVPSeq and TextOCVP_CustomTF) a
+            ``PredictionService`` at batch 8 with 19 predictions: warmup and
+            three requests (8 rows float32, 3 rows uint8, 8 rows), 1 / 3
+            launches a request; CustomTF refuses an out-of-vocabulary word;
+P4. predictors_train_parity  PredictorTrainer at B=2, p=3 on the card and on
+            the CPU as phase 15, also with the card's masks of the torch-style
+            feed-forward ReLUs; the attention key biases are exact-zero
+            leaves;
+P5. predictors_train, predictors_train_step  the 04 CLI at B=64, c=1, p=9,
+            2 steps after one valid batch over a set of 128 + 64 videos: the
+            launches of phase 16, the checkpoints, a resumed epoch, the 05
+            CLI on its checkpoint; then the steady step split and profiled
+            as phase 17.
 
 then the CLIPort chain, over the color-cache set:
 19. clip_train_parity  DecompTrainer on ExtendedDINOSAUR on the card and on
@@ -156,7 +185,7 @@ then the CLIPort chain, over the color-cache set:
             clip_pred_train_sign  the same for the 04 step through the frozen
             ExtendedDINOSAUR of phase 20 (B=64, c=1, p=9, ``accum_steps`` 8;
             one epoch, then a resume; 10 slot-attention calls and 12
-            ViT-attention launches a microbatch);
+            ViT-attention launches a microbatch; the parity at p=3);
 24. clip_eval_parity  the eval step at B=2 on the card and on the CPU, on
             phase 23's checkpoint, as phase 8;
 25. clip_eval  the 05 CLI at B=16, 1 seed frame, 9 predictions over the 32
@@ -167,10 +196,11 @@ then the CLIPort chain, over the color-cache set:
 
 Phases 5 and 6 are a serving path's main path, phase 9 the eval path's,
 phase 12's first run the train path's, phase 16's first run the
-predictor-train path's, and the first runs of the CLIs of phases 20, 23 and
-25 the CLIPort chain's three: every kernel's launch counter (and conv5's
-input-gradient launches and weight-gradient calls) is set to 0 before it
-and read after. Every trace under ``torch.profiler`` is taken whole
+predictor-train path's, P2's and P5's CLI runs and P3 the other predictors'
+paths, and the first runs of the CLIs of phases 20, 23 and 25 the CLIPort
+chain's three: every kernel's launch counter (and conv5's input-gradient
+launches and weight-gradient calls) is set to 0 before it and read after.
+Every phase's line carries ``phase_s``, the seconds since the line before. Every trace under ``torch.profiler`` is taken whole
 (``traced``: device spins before and after the call, and taken again behind
 a longer spin when the profiler dropped the trace's first records), and the
 port's device kernels in it are counted exactly. Then one
@@ -215,6 +245,11 @@ GRAD_TOLERANCE = 1e-4  # gradients: max abs error over the reference's max |valu
 PRED_NAME = "textocvp_t5"
 PRED_CONTEXT, PRED_PREDS = 1, 9          # the 04 defaults (core/config.py DEFAULTS)
 PRED_FRAMES = PRED_CONTEXT + PRED_PREDS  # frames of a predictor-training clip
+# predictions of a 04 parity step: it runs at B=2 on the CPU twice (its own
+# masks and the card's) at full width, the decode of every predicted frame
+# and its backward most of that time; at p=9 the six 04 parities took 554 s
+# of a 1318 s run (an H100 80GB HBM3 at 700 W and its host)
+PARITY_PREDS = 3
 PRED_TAIL_N = TRAIN_BATCH * PRED_PREDS * 8  # slot maps through the decoder tail a step
 CLIP_RES, CLIP_PATCHES, CLIP_SLOTS, CLIP_SLOT_DIM = 336, 576, 10, 128  # ExtendedDINOSAUR
 CLIP_TRAIN_BATCH, CLIP_FRAMES = 64, 8   # configs/datasets/CLIPort.json, the 02 batch
@@ -265,7 +300,16 @@ PATHS = (
 )
 
 
+PHASE_CLOCK = [time.perf_counter()]  # when the last phase line was printed
+
+
 def emit(obj):
+    """Print ``obj`` as one JSON line; a phase's line gets ``phase_s``, the
+    seconds since the line before it."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "phase_s": now - PHASE_CLOCK[0]}
+        PHASE_CLOCK[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -825,11 +869,12 @@ def full_width_params(path: ServedPath):
     return params, pred_params
 
 
-def random_models(params, pred_params, gen):
-    from textocvp_tpu_torch.models import setup_model, setup_predictor
+def random_predictor(pred_params, gen):
+    """The predictor of ``pred_params`` with weights drawn from ``gen``, in
+    ``eval()``, its output projection scaled by PRED_OUT_SCALE."""
+    from textocvp_tpu_torch.models import setup_predictor
     from textocvp_tpu_torch.models.factory import random_init_
 
-    model = random_init_(setup_model(params), gen).eval().requires_grad_(False)
     predictor = random_init_(setup_predictor(pred_params), gen).eval().requires_grad_(False)
     # With Xavier draws alone each rollout step adds a change larger than the
     # slots it started from: they grow about 1.7x a step, to 1e5 by step 19,
@@ -837,13 +882,19 @@ def random_models(params, pred_params, gen):
     # a little per step; so does this one with its output projection scaled
     # by 0.02 (slots of order 1 to 10 over the 19 steps).
     predictor.predictor.mlp_out.weight.mul_(PRED_OUT_SCALE)
-    return model, predictor
+    return predictor
+
+
+def random_models(params, pred_params, gen):
+    from textocvp_tpu_torch.models import setup_model
+    from textocvp_tpu_torch.models.factory import random_init_
+
+    model = random_init_(setup_model(params), gen).eval().requires_grad_(False)
+    return model, random_predictor(pred_params, gen)
 
 
 def phase_parity(path: ServedPath, params, pred_params):
     import copy
-
-    from textocvp_tpu_torch.data.tokenizers import HashFallbackT5Tokenizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -852,15 +903,12 @@ def phase_parity(path: ServedPath, params, pred_params):
     b = path.parity_batch
     video = torch.rand((b, 1, path.res, path.res, 3), generator=gen)
     init = model.slot_initializer(b, gen)
-    tok = HashFallbackT5Tokenizer()(list(path.captions[:b]))
-    pad = ((0, 0), (0, MAX_TOKENS - tok["caption_tokens"].shape[1]))
-    ids = torch.from_numpy(np.pad(tok["caption_tokens"], pad))
-    mask = torch.from_numpy(np.pad(tok["attn_masks"], pad))
+    text = caption_batch(pred_params, b, path)
 
     def predict(dev, m, p):
         with torch.inference_mode():
             hist = m.decompose(video.to(dev), initial_slots=init.to(dev))["slot_history"]
-            return p(hist, ids.to(dev), mask.to(dev), num_preds=path.num_preds)
+            return p(hist, num_preds=path.num_preds, **{k: v.to(dev) for k, v in text.items()})
 
     ref = predict("cpu", model, predictor)
     cmodel, cpred = copy.deepcopy(model).cuda(), copy.deepcopy(predictor).cuda()
@@ -1162,11 +1210,13 @@ def phase_eval(exp_path):
 
 
 def phase_eval_step(exp_path, pred_name="textocvp_t5", ckpts=("random", "random"),
-                    batch=EVAL_BATCH, num_preds=EVAL_PREDS, vit_launches=0, phase="eval_step"):
+                    batch=EVAL_BATCH, num_preds=EVAL_PREDS, vit_launches=0, phase="eval_step",
+                    **extra):
     """One more batch split into its stages with synchronize, the peak
     memory of the step, and one step under torch.profiler (``profiled_step``)
     with one slot-attention device kernel and ``vit_launches`` ViT-attention
-    launches (``check_traced``). Off the main path."""
+    launches (``check_traced``). Off the main path. ``extra`` goes into the
+    phase's line."""
     from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
 
     ev = PredictorEvaluator(exp_path, pred_name, *ckpts, num_seed=1, num_preds=num_preds,
@@ -1202,7 +1252,7 @@ def phase_eval_step(exp_path, pred_name="textocvp_t5", ckpts=("random", "random"
     prof, entries = profiled_step(lambda: ev.eval_step(videos, info), top=12)
     slot_attention = entries(SLOT_ATTENTION_KERNEL)
     vit = entries(VIT_ATTENTION_KERNEL)
-    emit({"phase": phase, "batch": batch, "num_preds": num_preds,
+    emit({"phase": phase, **extra, "batch": batch, "num_preds": num_preds,
           "step_ms": step_ms, "stage_ms": stage_ms,
           "pred_frames_per_s": 1e3 * batch * num_preds / step_ms,
           "peak_mem_gb": peak_gb, **prof, "slot_attention": slot_attention,
@@ -1245,10 +1295,12 @@ def train_experiment(root: Path, data_root, **training) -> Path:
 
 CLIPPED = (("pred_imgs", "recons_imgs"), ("preds_feats", "recons_feats"))  # loss inputs
 # the kinks whose masks the CPU takes from the card: on the CATER paths the
-# decoder-tail convs and each ``MLP``'s hidden layer, on the CLIPort paths
-# every kink on the gradient's path
+# decoder-tail convs and each ``MLP``'s hidden layer (and the feed-forward
+# ReLU of the torch-style layers for the other predictors), on the CLIPort
+# paths every kink on the gradient's path
 CATER_KINKS = ("conv5", "mlp")
-ALL_KINKS = ("conv5", "mlp", "relu", "sa_relu", "clip")
+PREDICTOR_KINKS = CATER_KINKS + ("ff",)
+ALL_KINKS = ("conv5", "mlp", "ff", "relu", "sa_relu", "clip")
 
 
 def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), finish=None,
@@ -1267,7 +1319,8 @@ def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), finish=None,
     The CPU runs twice. Its own run is reported. The checked one takes the
     masks of the kinks of ``replayed`` from the card's run, in call order:
     "conv5" the ReLU of each decoder-tail conv; "mlp" each ReLU of an
-    ``MLP``'s hidden layer; "relu" every other ReLU
+    ``MLP``'s hidden layer; "ff" the ReLU of a ``TorchStyleEncoderLayer``'s
+    or an ``OCVPParLayer``'s feed-forward; "relu" every other ReLU
     (``torch.nn.functional.relu``) whose input requires grad; "sa_relu" each
     ReLU of the slot-attention MLP, which the card computes in the
     backward's recompute, frames in reverse, and the CPU in the forward;
@@ -1278,6 +1331,7 @@ def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), finish=None,
     such values by kind, over the kinks of ``ALL_KINKS``), which no float32
     tolerance covers. ``tail_convs`` is the number of conv5 masks the two
     steps give."""
+    from textocvp_tpu_torch.models import predictors
     from textocvp_tpu_torch.nn import blocks, decoders
     from textocvp_tpu_torch.ops import conv5 as c5
     from textocvp_tpu_torch.ops import slot_attention_kernel as sak
@@ -1285,6 +1339,8 @@ def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), finish=None,
 
     F = torch.nn.functional
     relu, tail_conv, mlp_forward = F.relu, decoders.conv5, blocks.MLP.forward
+    feed_forwards = {cls: cls.feed_forward for cls in (blocks.TorchStyleEncoderLayer,
+                                                       predictors.OCVPParLayer)}
     sa_plain, loss_tensors = sak.slot_attention_plain, DecompTrainer._loss_tensors
 
     def tracked(*tensors):
@@ -1295,15 +1351,16 @@ def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), finish=None,
         ``relu_mask_flips``); None off the gradient's path."""
         if not x.requires_grad:
             return None
-        return "sa_relu" if state["in_sa"] else "mlp" if state["in_mlp"] else "relu"
+        return ("sa_relu" if state["in_sa"] else "mlp" if state["in_mlp"]
+                else "ff" if state["in_ff"] else "relu")
 
-    def mlp_fn(state):
+    def flagged(state, flag, fn):
         def forward(self, x):
-            state["in_mlp"] = True
+            state[flag] = True
             try:
-                return mlp_forward(self, x)
+                return fn(self, x)
             finally:
-                state["in_mlp"] = False
+                state[flag] = False
         return forward
 
     def recording(rec):
@@ -1384,9 +1441,9 @@ def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), finish=None,
             return tensors
         return relu_fn, sa_fn, conv_fn, loss_fn
 
-    recs = {run: {"main": [], "sa": [], "in_sa": False, "in_mlp": False, "marks": []}
-            for run in ("cuda", "cpu_own_masks")}
-    rep = {"in_sa": False, "in_mlp": False}
+    recs = {run: {"main": [], "sa": [], "in_sa": False, "in_mlp": False, "in_ff": False,
+                  "marks": []} for run in ("cuda", "cpu_own_masks")}
+    rep = {"in_sa": False, "in_mlp": False, "in_ff": False}
     runs = {"cuda": ("cuda", recording(recs["cuda"])),
             "cpu_own_masks": ("cpu", recording(recs["cpu_own_masks"])),
             "cpu": ("cpu", replaying(rep))}
@@ -1401,7 +1458,10 @@ def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), finish=None,
                               for call in reversed(card["sa"][a:b])])
         F.relu, decoders.conv5, sak.slot_attention_plain = relu_fn, conv_fn, sa_fn
         DecompTrainer._loss_tensors = loss_fn
-        blocks.MLP.forward = mlp_fn(rep if run == "cpu" else recs[run])
+        state = rep if run == "cpu" else recs[run]
+        blocks.MLP.forward = flagged(state, "in_mlp", mlp_forward)
+        for cls, fn in feed_forwards.items():
+            cls.feed_forward = flagged(state, "in_ff", fn)
         try:
             tr = trainers[run] = make(dev)
             losses[run] = []
@@ -1418,6 +1478,8 @@ def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), finish=None,
             F.relu, decoders.conv5, sak.slot_attention_plain = relu, tail_conv, sa_plain
             DecompTrainer._loss_tensors = loss_tensors
             blocks.MLP.forward = mlp_forward
+            for cls, fn in feed_forwards.items():
+                cls.feed_forward = fn
     card, own = recs["cuda"], recs["cpu_own_masks"]
     kinds = [k for k, _ in card["main"]]
     check(kinds == [k for k, _ in own["main"]] and kinds.count("conv5") == tail_convs
@@ -1704,15 +1766,17 @@ def run_train(tmp: Path):
     return counts, input_grad, exp_path
 
 
-def pred_experiment(parent: Path, name: str, **training) -> Path:
+def pred_experiment(parent: Path, name: str, num_preds=PRED_PREDS, **training) -> Path:
     """A TextOCVP_T5 predictor experiment at full width nested in the SAVi
     experiment ``parent``: the 04 defaults (c=1, p=9, buffer 10, no teacher
     forcing, Adam lr 1e-4, warmup 2000, cosine, clip 0.05, ``pred_img_mse`` +
-    ``pred_slot_mse``), B=64, one epoch, with ``training`` over them."""
+    ``pred_slot_mse``), B=64, one epoch, with ``num_preds`` and ``training``
+    over them."""
     from textocvp_tpu_torch.core.config import add_predictor_params
     from textocvp_tpu_torch.core.experiment import Experiment
 
     params = add_predictor_params(Experiment(parent).params, "TextOCVP_T5")
+    params["prediction_params"]["num_preds"] = num_preds
     params["training"].update({"batch_size": TRAIN_BATCH, "num_epochs": 1, "log_frequency": 1,
                                "save_frequency": 1, **training})
     exp = Experiment(parent / "predictors" / name)
@@ -1720,14 +1784,30 @@ def pred_experiment(parent: Path, name: str, **training) -> Path:
     return exp.exp_path
 
 
-def caption_batch(b, path=PATHS[0]):
-    """T5 ids and masks (hash tokenizer) of ``b`` captions of ``path``, MAX_TOKENS long."""
-    from textocvp_tpu_torch.data.tokenizers import HashFallbackT5Tokenizer
+def caption_batch(exp_params, b, path=PATHS[0]):
+    """``b`` captions of ``path`` through the tokenizer of ``exp_params``'
+    dataset (``serving_tokenizer``): {key of TEXT_KEYS: tensor}, each (b, L)
+    array padded to MAX_TOKENS."""
+    from textocvp_tpu_torch.data.tokenizers import TEXT_KEYS
+    from textocvp_tpu_torch.serve.pipeline import serving_tokenizer
 
-    captions = [path.captions[i % len(path.captions)] for i in range(b)]
-    tok = HashFallbackT5Tokenizer()(captions)
-    pad = ((0, 0), (0, MAX_TOKENS - tok["caption_tokens"].shape[1]))
-    return {k: torch.from_numpy(np.pad(tok[k], pad)) for k in ("caption_tokens", "attn_masks")}
+    tok = serving_tokenizer(exp_params)([path.captions[i % len(path.captions)]
+                                         for i in range(b)])
+    out = {}
+    for k in TEXT_KEYS:
+        if tok.get(k) is not None:
+            v = np.asarray(tok[k])
+            out[k] = torch.from_numpy(np.pad(v, ((0, 0), (0, MAX_TOKENS - v.shape[1])))
+                                      if v.ndim == 2 else v)
+    return out
+
+
+def rows(info, n):
+    """The first ``n`` rows of a loader batch's caption arrays (``TEXT_KEYS``
+    the tokenizer filled)."""
+    from textocvp_tpu_torch.data.tokenizers import TEXT_KEYS
+
+    return {k: np.asarray(info[k])[:n] for k in TEXT_KEYS if info.get(k) is not None}
 
 
 def random_predictor_(trainer):
@@ -1740,7 +1820,7 @@ def random_predictor_(trainer):
 
 def phase_pred_train_parity(parent: Path):
     """PredictorTrainer on the card and on the CPU at full width, B=2, c=1,
-    p=9, the frozen SAVi of ``parent``'s ``checkpoint_epoch_final``, the same
+    p=PARITY_PREDS, the frozen SAVi of ``parent``'s ``checkpoint_epoch_final``, the same
     predictor weights, video, captions and slot noise, warmup off
     (``trainer_parity``; the predictor's 16 MLPs a rollout step are where
     most of its ReLU masks differ between the devices). Off the main path.
@@ -1750,13 +1830,15 @@ def phase_pred_train_parity(parent: Path):
     either way on the two devices; at lr 1e-4 that alone put the second loss
     4.9e-5 apart (relative) with every gradient leaf within its limit, at
     1e-5 it is a tenth of that."""
+    from textocvp_tpu_torch.core.experiment import Experiment
     from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
 
-    exp = pred_experiment(parent, "pred_parity", batch_size=2, lr=1e-5, lr_warmup=False)
+    exp = pred_experiment(parent, "pred_parity", PARITY_PREDS, batch_size=2, lr=1e-5,
+                          lr_warmup=False)
     gen = torch.Generator().manual_seed(SEED + 10)
-    video = torch.rand((2, PRED_FRAMES, CONV5_RES, CONV5_RES, 3), generator=gen)
+    video = torch.rand((2, PRED_CONTEXT + PARITY_PREDS, CONV5_RES, CONV5_RES, 3), generator=gen)
     noise = [torch.randn((2, 8, 128), generator=gen) for _ in range(2)]
-    text = caption_batch(2)
+    text = caption_batch(Experiment(exp).params, 2)
 
     def make(dev):
         tr = PredictorTrainer(exp, "checkpoint_epoch_final", device=dev)
@@ -1770,25 +1852,26 @@ def phase_pred_train_parity(parent: Path):
 
     res = trainer_parity("predictor train parity", make, step)
     emit({"phase": "pred_train_parity", "B": 2, "num_context": PRED_CONTEXT,
-          "num_preds": PRED_PREDS, **res})
+          "num_preds": PARITY_PREDS, **res})
 
 
-def phase_pred_train(parent: Path):
-    """The 04 CLI at B=64, c=1, p=9 over the 02 fixture (5 steps after one
-    B=64 valid batch), its frozen SAVi the ``checkpoint_epoch_final.pt`` that
-    the 02 phase wrote: the predictor path's main path. Then a second run
-    resumes from ``checkpoint_last_saved`` for a second epoch, and the 05 CLI
-    evaluates the predictor's ``checkpoint_epoch_final`` (B=64, 19
-    predictions). Returns the main path's launches, its conv5 input-gradient
-    launches and weight-gradient calls, and the resumed trainer."""
+def phase_pred_train(parent: Path, exp_path: Path, steps: int, phase="pred_train", **extra):
+    """The 04 CLI at B=64, c=1, p=9 on the predictor experiment ``exp_path``
+    nested in ``parent`` (``steps`` steps after one B=64 valid batch), its
+    frozen SAVi the ``checkpoint_epoch_final.pt`` that the 02 phase wrote: a
+    predictor-train path's main path. Then a second run resumes from
+    ``checkpoint_last_saved`` for a second epoch, and the 05 CLI evaluates
+    the predictor's ``checkpoint_epoch_final`` (B=64, 19 predictions).
+    Returns the main path's launches, its conv5 input-gradient launches and
+    weight-gradient calls, and the resumed trainer. ``extra`` goes into the
+    phase's line."""
     from textocvp_tpu_torch.cli import evaluate_predictor, train_predictor
     from textocvp_tpu_torch.core.experiment import Experiment
     from textocvp_tpu_torch.ops import conv5 as c5
 
-    exp_path = pred_experiment(parent, PRED_NAME)
-    argv = ["-d", str(parent), "--name_pred_exp", PRED_NAME, "--decomp_ckpt",
+    argv = ["-d", str(parent), "--name_pred_exp", exp_path.name, "--decomp_ckpt",
             "checkpoint_epoch_final"]
-    steps, valid = TRAIN_VIDEOS // TRAIN_BATCH, TRAIN_VALID_VIDEOS // TRAIN_BATCH
+    valid = TRAIN_VALID_VIDEOS // TRAIN_BATCH
     reset_launches()  # the main path starts here
     c5.conv5_input_grad_cuda.launches = 0
     c5.conv5_weight_grad.calls = 0
@@ -1800,16 +1883,17 @@ def phase_pred_train(parent: Path):
     input_grad, weight_grad = c5.conv5_input_grad_cuda.launches, c5.conv5_weight_grad.calls
     want = {"slot_attention": PRED_FRAMES * (valid + steps), "vit_attention": 0,
             "conv5": 3 * valid + 6 * steps}
+    what = f"{phase} {exp_path.name}"
     check(counts == want and input_grad == 3 * steps and weight_grad == 0,
-          f"pred_train: kernel launches on the main path {counts}, input-gradient {input_grad}, "
+          f"{what}: kernel launches on the main path {counts}, input-gradient {input_grad}, "
           f"weight-gradient calls {weight_grad}; want {want}, {3 * steps}, 0")
     losses = loss_lines(out)
-    check(len(losses) == steps and bool(np.isfinite(losses).all()), f"pred_train losses {losses}")
+    check(len(losses) == steps and bool(np.isfinite(losses).all()), f"{what} losses {losses}")
     check(trainer.global_step == valid + steps and trainer.optimizer.count == steps,
-          f"pred_train: step {trainer.global_step}, updates {trainer.optimizer.count}")
+          f"{what}: step {trainer.global_step}, updates {trainer.optimizer.count}")
     exp = Experiment(exp_path)
     for name in ("checkpoint_last_saved.pt", "checkpoint_epoch_1.pt", "checkpoint_epoch_final.pt"):
-        check((exp.models_dir / name).is_file(), f"pred_train: {name} not written")
+        check((exp.models_dir / name).is_file(), f"{what}: {name} not written")
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -1824,13 +1908,13 @@ def phase_pred_train(parent: Path):
     losses2 = loss_lines(out2)
     check("Resuming training from epoch 1" in out2 and resumed.start_epoch == 1
           and resumed.global_step == 2 * (valid + steps) and resumed.optimizer.count == 2 * steps,
-          f"pred_train resume: epoch {resumed.start_epoch}, step {resumed.global_step}, "
+          f"{what} resume: epoch {resumed.start_epoch}, step {resumed.global_step}, "
           f"updates {resumed.optimizer.count}")
     check(len(losses2) == steps and bool(np.isfinite(losses2).all()),
-          f"pred_train resumed losses {losses2}")
+          f"{what} resumed losses {losses2}")
 
     t = time.perf_counter()
-    evaluate_predictor.main(["-d", str(parent), "--name_pred_exp", PRED_NAME, "--decomp_ckpt",
+    evaluate_predictor.main(["-d", str(parent), "--name_pred_exp", exp_path.name, "--decomp_ckpt",
                              "checkpoint_epoch_final", "--pred_ckpt", "checkpoint_epoch_final",
                              "--batch_size", str(EVAL_BATCH), "--num_seed", "1",
                              "--num_preds", str(EVAL_PREDS)])
@@ -1841,9 +1925,9 @@ def phase_pred_train(parent: Path):
     for m in ("psnr", "ssim", "lpips"):
         vals = results[m]["framewise"] + [results[m]["mean"]]
         check(len(results[m]["framewise"]) == EVAL_PREDS and bool(np.isfinite(vals).all()),
-              f"05 on the 04 checkpoint: {m} {results[m]}")
-    emit({"phase": "pred_train", "batch": TRAIN_BATCH, "num_context": PRED_CONTEXT,
-          "num_preds": PRED_PREDS, "train_videos": TRAIN_VIDEOS,
+              f"{what}: 05 on the 04 checkpoint: {m} {results[m]}")
+    emit({"phase": phase, **extra, "batch": TRAIN_BATCH, "num_context": PRED_CONTEXT,
+          "num_preds": PRED_PREDS, "train_videos": steps * TRAIN_BATCH,
           "valid_videos": TRAIN_VALID_VIDEOS, "decomp_ckpt": "checkpoint_epoch_final (02 phase)",
           "cli_seconds": seconds, "resume_cli_seconds": resume_seconds, "launches": counts,
           "conv5_input_grad_launches": input_grad, "conv5_weight_grad_calls": weight_grad,
@@ -1854,12 +1938,12 @@ def phase_pred_train(parent: Path):
     return counts, input_grad, weight_grad, resumed
 
 
-def phase_pred_train_step(trainer, videos, info):
+def phase_pred_train_step(trainer, videos, info, phase="pred_train_step", **extra):
     """The steady predictor step at B=64 on the resumed trainer: three steps
     on the host clock with synchronize, one split into frozen encode,
     forward (rollout, decode, loss), backward and optimizer, the peak memory,
     the launches of a step, and one step under torch.profiler. Off the main
-    path."""
+    path. ``extra`` goes into the phase's line."""
     batch, text = trainer.batch_to_device(videos, info)
     step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch, **text))
     before = launch_counts()
@@ -1887,7 +1971,7 @@ def phase_pred_train_step(trainer, videos, info):
           and sum(e["count"] for e in conv5) == 6,
           f"predictor step device kernels: slot attention {slot_attention}, conv5 {conv5}")
     mean_ms = sum(step_ms) / len(step_ms)
-    emit({"phase": "pred_train_step", "batch": TRAIN_BATCH, "num_context": PRED_CONTEXT,
+    emit({"phase": phase, **extra, "batch": TRAIN_BATCH, "num_context": PRED_CONTEXT,
           "num_preds": PRED_PREDS, "step_ms": step_ms,
           "pred_train_frames_per_s": 1e3 * TRAIN_BATCH * PRED_PREDS / mean_ms,
           "split_ms": split, "peak_mem_gb": peak_gb, "accum_steps": trainer.accum,
@@ -1901,13 +1985,13 @@ def phase_pred_train_sign(parent: Path, videos, info):
     """20 predictor steps on one fixed batch of 8 at lr 1e-4, no warmup, the
     random predictor's output projection scaled (``random_predictor_``): the
     loss must fall. Off the main path."""
-    from textocvp_tpu_torch.train.predictor_trainer import TEXT_KEYS, PredictorTrainer
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
 
     tr = PredictorTrainer(pred_experiment(parent, "pred_sign", batch_size=8, lr=1e-4,
                                           lr_warmup=False), "checkpoint_epoch_final")
     tr.setup_model()
     random_predictor_(tr)
-    batch, text = tr.batch_to_device(videos[:8], {k: np.asarray(info[k])[:8] for k in TEXT_KEYS})
+    batch, text = tr.batch_to_device(videos[:8], rows(info, 8))
     losses = [float(tr.train_step(batch, **text)["_total"]) for _ in range(20)]
     check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
           f"predictor sign check: the loss did not fall over 20 steps: {losses}")
@@ -1922,7 +2006,8 @@ def run_pred_train(parent: Path):
     main path's launches, conv5 input-gradient launches and weight-gradient
     calls."""
     phase_pred_train_parity(parent)
-    counts, input_grad, weight_grad, trainer = phase_pred_train(parent)
+    counts, input_grad, weight_grad, trainer = phase_pred_train(
+        parent, pred_experiment(parent, PRED_NAME), TRAIN_VIDEOS // TRAIN_BATCH)
     videos, info = next(iter(trainer.train_loader))
     phase_pred_train_step(trainer, videos, info)
     del trainer
@@ -1930,6 +2015,241 @@ def run_pred_train(parent: Path):
     torch.cuda.empty_cache()
     phase_pred_train_sign(parent, videos, info)
     return counts, input_grad, weight_grad
+
+
+# ------------------------------------------------------------ the other predictors
+
+OTHER_PREDICTORS = ("VanillaTransformer", "OCVPSeq", "OCVPPar", "TextOCVP_CustomTF")
+SERVED_OTHERS = ("OCVPSeq", "TextOCVP_CustomTF")
+OTHER_TRAIN_STEPS = 2  # steps of the 04 CLI's first run, after one valid batch
+
+
+def other_experiment(parent: Path, name: str, data_root, tag: str, num_preds=PRED_PREDS,
+                     **training):
+    """The predictor experiment ``<name>_<tag>`` nested in the SAVi experiment
+    ``parent``: the published config of predictor ``name`` at full width,
+    c=1, p=9, buffer 10, Adam lr 1e-4, warmup 2000, cosine, clip 0.05, B=64,
+    one epoch, with ``num_preds`` and ``training`` over them, over the CATER
+    set at ``data_root``; TextOCVP_CustomTF's dataset tokenizes with the
+    CustomTokenizer (CATER_Easy vocabulary)."""
+    from textocvp_tpu_torch.core.config import add_predictor_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    params = add_predictor_params(Experiment(parent).params, name)
+    params["prediction_params"]["num_preds"] = num_preds
+    params["dataset"]["root"] = str(data_root)
+    if name == "TextOCVP_CustomTF":
+        params["dataset"]["tokenizer"] = "CustomTokenizer"
+    params["training"].update({"batch_size": TRAIN_BATCH, "num_epochs": 1, "log_frequency": 1,
+                               "save_frequency": 1, **training})
+    exp = Experiment(parent / "predictors" / f"{name}_{tag}")
+    exp.save_params(params)
+    exp.models_dir.mkdir(parents=True, exist_ok=True)
+    return exp
+
+
+def phase_predictors_parity(name, exp):
+    """The rollout of a random predictor (``random_predictor``) on the card
+    and on the CPU at B=2, 19 steps, the same weights, slots and captions,
+    TF32 off: each step's error within 1e-4 of that step's largest slot.
+    Off the main path."""
+    import copy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 20)
+    predictor = random_predictor(exp.params, gen)
+    hist = torch.randn((2, PRED_CONTEXT, 8, 128), generator=gen)
+    text = caption_batch(exp.params, 2)
+    with torch.inference_mode():
+        ref = predictor(hist, num_preds=EVAL_PREDS, **text)
+        card = copy.deepcopy(predictor).cuda()
+        out = card(hist.cuda(), num_preds=EVAL_PREDS,
+                   **{k: v.cuda() for k, v in text.items()}).cpu()
+    check(bool(torch.isfinite(out).all()), f"{name}: card pred_slots not finite")
+    step_err = (out - ref).abs().amax(dim=(0, 2, 3))
+    step_ref = ref.abs().amax(dim=(0, 2, 3))
+    ratios = (step_err / step_ref).tolist()
+    check(max(ratios) <= 1e-4,
+          f"{name}: pred_slots card vs CPU, error / max|ref| per step: {ratios}")
+    emit({"phase": "predictors_parity", "predictor": name, "B": 2, "num_preds": EVAL_PREDS,
+          "text_keys": sorted(text), "pred_slots_max_abs_err": step_err.max().item(),
+          "pred_slots_max_abs_ref_per_step": step_ref.tolist(),
+          "pred_slots_err_ratio_per_step": ratios, "pred_slots_ratio_tolerance": 1e-4,
+          "tf32": False})
+
+
+def phase_predictors_eval(parent: Path, name, exp):
+    """The 05 CLI at B=64, p=19 over EVAL_VIDEOS videos on the random
+    predictor ``exp`` holds as ``random`` and the frozen SAVi of ``parent``:
+    a main path. Then one more batch split into its stages and profiled
+    (``phase_eval_step``). Returns the main path's launches."""
+    from textocvp_tpu_torch.cli import evaluate_predictor
+
+    ckpts = ("checkpoint_epoch_final", "random")
+    reset_launches()  # the main path starts here
+    t = time.perf_counter()
+    rc = evaluate_predictor.main(["-d", str(parent), "--name_pred_exp", exp.exp_path.name,
+                                  "--decomp_ckpt", ckpts[0], "--pred_ckpt", ckpts[1],
+                                  "--batch_size", str(EVAL_BATCH), "--num_seed", "1",
+                                  "--num_preds", str(EVAL_PREDS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = launches()  # and ends here
+    batches = EVAL_VIDEOS // EVAL_BATCH
+    check(rc == 0 and counts == {"slot_attention": batches, "vit_attention": 0,
+                                 "conv5": 3 * batches},
+          f"predictors_eval {name}: kernel launches on the main path: {counts}")
+    with open(exp.exp_path / "results" / f"eval_pred_random_NumSeed=1_NumPreds={EVAL_PREDS}"
+              / "results.json") as f:
+        results = json.load(f)
+    for m in ("psnr", "ssim", "lpips"):
+        vals = results[m]["framewise"] + [results[m]["mean"]]
+        check(len(results[m]["framewise"]) == EVAL_PREDS and bool(np.isfinite(vals).all()),
+              f"predictors_eval {name} results.json: {m} {results[m]}")
+    emit({"phase": "predictors_eval", "predictor": name, "batch": EVAL_BATCH,
+          "videos": EVAL_VIDEOS, "num_seed": 1, "num_preds": EVAL_PREDS, "cli_seconds": seconds,
+          "launches": counts, "means": {m: results[m]["mean"] for m in ("psnr", "ssim", "lpips")}})
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_eval_step(parent, exp.exp_path.name, ckpts, phase="predictors_eval_step",
+                    predictor=name)
+    return counts
+
+
+def phase_predictors_service(parent: Path, name, exp):
+    """A ``PredictionService`` (batch 8, 24 tokens, 19 predictions) of the
+    random predictor ``exp`` holds and the frozen SAVi of ``parent``: its
+    warmup and three requests (8 rows float32, 3 rows uint8, 8 rows), each
+    with 1 slot-attention call and 3 conv5 launches: a main path. A closed
+    vocabulary refuses a word outside it before any launch. Returns the main
+    path's launches."""
+    from textocvp_tpu_torch.serve import PredictionService
+
+    per_request = {"slot_attention": 1, "vit_attention": 0, "conv5": 3}
+    reset_launches()  # the main path starts here
+    t = time.perf_counter()
+    service = PredictionService(parent, exp.exp_path.name, "checkpoint_epoch_final", "random",
+                                num_preds=EVAL_PREDS, batch_size=BATCH, max_tokens=MAX_TOKENS,
+                                device="cuda")
+    load_s = time.perf_counter() - t
+    rng = np.random.default_rng(SEED + 3)
+    video = rng.uniform(0, 1, (BATCH, 1, CONV5_RES, CONV5_RES, 3)).astype(np.float32)
+    captions = list(PATHS[0].captions[:BATCH])
+    requests = (("warmup", None, 1), ("8_float32", video, BATCH),
+                ("3_uint8", np.round(video[:3] * 255).astype(np.uint8), 3),
+                ("8_float32_again", video, BATCH))
+    request_ms, unsaturated = {}, []
+    for label, frames, rows in requests:
+        before = launches()
+        t = time.perf_counter()
+        if frames is None:
+            service.warmup()
+        else:
+            out = service.predict(frames, captions[:rows])
+        request_ms[label] = 1e3 * (time.perf_counter() - t)
+        after = launches()
+        for k, n in per_request.items():
+            check(after[k] - before[k] == n,
+                  f"predictors_service {name}: {after[k] - before[k]} {k} launches in a "
+                  f"request, want {n}")
+        if frames is None:
+            continue
+        check(out.shape == (rows, EVAL_PREDS, CONV5_RES, CONV5_RES, 3)
+              and bool(np.isfinite(out).all()) and out.min() >= 0 and out.max() <= 1,
+              f"predictors_service {name}: output {out.shape} not finite in [0, 1]")
+        inside = float(((out > 0) & (out < 1)).mean())
+        check(inside >= 0.05, f"predictors_service {name}: share inside (0, 1) {inside}")
+        unsaturated.append(inside)
+    counts = launches()  # and ends here
+    check(counts == {k: len(requests) * n for k, n in per_request.items()},
+          f"predictors_service {name}: kernel launches on the main path: {counts}")
+    refused = None
+    if name == "TextOCVP_CustomTF":
+        try:
+            service.predict(video[:1], ["warmup"])
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and launches() == counts,
+              f"predictors_service {name}: an out-of-vocabulary caption was not refused")
+    emit({"phase": "predictors_service", "predictor": name, "batch": BATCH,
+          "num_preds": EVAL_PREDS, "load_s": load_s, "request_ms": request_ms,
+          "unsaturated_share": unsaturated, "launches": counts,
+          "tokenizer": type(service.tokenizer).__name__,
+          "warmup_caption": service._warmup_caption(), "out_of_vocabulary": refused})
+    del service
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_predictors_train_parity(parent: Path, name):
+    """PredictorTrainer on the card and on the CPU at full width, B=2, c=1,
+    p=PARITY_PREDS, lr 1e-5, warmup off, a random predictor ``name`` through the frozen
+    SAVi of ``parent``, the same weights, video, captions and slot noise
+    (``trainer_parity``), the CPU with the card's masks of conv5, each
+    ``MLP`` and each torch-style feed-forward ReLU (its own-mask result
+    reported); the attention key biases are exact-zero leaves. Off the main
+    path."""
+    from textocvp_tpu_torch.models import setup_predictor
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+
+    exp = other_experiment(parent, name, parent / "none", "parity", PARITY_PREDS,
+                           batch_size=2, lr=1e-5, lr_warmup=False)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    video = torch.rand((2, PRED_CONTEXT + PARITY_PREDS, CONV5_RES, CONV5_RES, 3), generator=gen)
+    noise = [torch.randn((2, 8, 128), generator=gen) for _ in range(2)]
+    text = caption_batch(exp.params, 2)
+    key_biases = tuple(n for n, _ in setup_predictor(exp.params).named_parameters()
+                       if n.endswith(".k.bias"))
+
+    def make(dev):
+        tr = PredictorTrainer(exp.exp_path, "checkpoint_epoch_final", device=dev)
+        tr.setup_model()
+        random_predictor_(tr)
+        return tr
+
+    def step(tr, dev, i):
+        tx = {k: v.to(dev) for k, v in text.items()}
+        return float(tr.train_step(video.to(dev), noise[i], **tx)["_total"])
+
+    res = trainer_parity(f"{name} train parity", make, step, exact_zero=key_biases,
+                         replayed=PREDICTOR_KINKS)
+    emit({"phase": "predictors_train_parity", "predictor": name, "B": 2,
+          "num_context": PRED_CONTEXT, "num_preds": PARITY_PREDS, "text_keys": sorted(text),
+          **res})
+
+
+def run_predictors(tmp: Path, parent: Path):
+    """The four other predictors through the frozen SAVi of the 02 phase's
+    experiment ``parent``: for each, the rollout parity, the 05 path (the
+    CLI, then a step split and profiled) over the eval phase's set, the
+    service (OCVPSeq and TextOCVP_CustomTF), the 04 parity, and the 04 path
+    (the CLI for OTHER_TRAIN_STEPS steps, its resume and the 05 CLI on its
+    checkpoint, then the steady step) over a set of its own. Returns each
+    main path's launches and, by predictor, the 04 paths' conv5
+    input-gradient launches and weight-gradient calls."""
+    data_root = write_cater_fixture(tmp / "CATER_predictors", (
+        ("train", OTHER_TRAIN_STEPS * TRAIN_BATCH), ("test", TRAIN_VALID_VIDEOS)))
+    counts, input_grads, weight_grads = {}, {}, {}
+    for name in OTHER_PREDICTORS:
+        exp = other_experiment(parent, name, tmp / "CATER", "eval")
+        torch.save(random_predictor(exp.params, torch.Generator().manual_seed(SEED + 4))
+                   .state_dict(), exp.checkpoint_path("random"))
+        phase_predictors_parity(name, exp)
+        counts[f"predictors_eval:{name}"] = phase_predictors_eval(parent, name, exp)
+        if name in SERVED_OTHERS:
+            counts[f"predictors_service:{name}"] = phase_predictors_service(parent, name, exp)
+        phase_predictors_train_parity(parent, name)
+        exp = other_experiment(parent, name, data_root, "train")
+        key = f"predictors_train:{name}"
+        counts[key], input_grads[name], weight_grads[name], trainer = phase_pred_train(
+            parent, exp.exp_path, OTHER_TRAIN_STEPS, phase="predictors_train", predictor=name)
+        videos, info = next(iter(trainer.train_loader))
+        phase_pred_train_step(trainer, videos, info, phase="predictors_train_step",
+                              predictor=name)
+        del trainer, videos, info
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, input_grads, weight_grads
 
 
 # ---------------------------------------------------------------- CLIPort chain
@@ -2214,19 +2534,20 @@ def phase_clip_train_sign(data_root, tmp: Path, videos):
 
 def phase_clip_pred_train_parity(parent: Path):
     """PredictorTrainer on the card and on the CPU at full width, B=2, c=1,
-    p=9, through the frozen ExtendedDINOSAUR of ``parent``'s
+    p=PARITY_PREDS, through the frozen ExtendedDINOSAUR of ``parent``'s
     ``checkpoint_epoch_final`` (its BatchNorm in ``eval()``), the same
     predictor weights, video, captions and slot noise, warmup off, lr 1e-5
     (``trainer_parity``: the predictor's MLPs and the frozen decoder's ReLUs
     replayed from the card). Off the main path."""
+    from textocvp_tpu_torch.core.experiment import Experiment
     from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
 
-    exp = pred_experiment(parent, "clip_pred_parity", batch_size=2, accum_steps=1, lr=1e-5,
-                          lr_warmup=False)
+    exp = pred_experiment(parent, "clip_pred_parity", PARITY_PREDS, batch_size=2,
+                          accum_steps=1, lr=1e-5, lr_warmup=False)
     gen = torch.Generator().manual_seed(SEED + 22)
-    video = torch.rand((2, PRED_FRAMES, CLIP_RES, CLIP_RES, 3), generator=gen)
+    video = torch.rand((2, PRED_CONTEXT + PARITY_PREDS, CLIP_RES, CLIP_RES, 3), generator=gen)
     noise = [torch.randn((2, CLIP_SLOTS, CLIP_SLOT_DIM), generator=gen) for _ in range(2)]
-    text = caption_batch(2, PATHS[1])
+    text = caption_batch(Experiment(exp).params, 2, PATHS[1])
 
     def make(dev):
         tr = PredictorTrainer(exp, "checkpoint_epoch_final", device=dev)
@@ -2247,7 +2568,7 @@ def phase_clip_pred_train_parity(parent: Path):
     res = trainer_parity("clip predictor train parity", make, step, tail_convs=0,
                          finish=finish, replayed=ALL_KINKS)
     emit({"phase": "clip_pred_train_parity", "B": 2, "num_context": PRED_CONTEXT,
-          "num_preds": PRED_PREDS, **res})
+          "num_preds": PARITY_PREDS, **res})
 
 
 def phase_clip_pred_train(parent: Path):
@@ -2339,14 +2660,14 @@ def phase_clip_pred_train_sign(parent: Path, videos, info):
     """10 predictor steps on one fixed batch of 8 (no accumulation) at lr
     1e-4, no warmup, the output projection scaled (``random_predictor_``):
     the loss must fall. Off the main path."""
-    from textocvp_tpu_torch.train.predictor_trainer import TEXT_KEYS, PredictorTrainer
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
 
     tr = PredictorTrainer(pred_experiment(parent, "clip_pred_sign", batch_size=8,
                                           accum_steps=1, lr=1e-4, lr_warmup=False),
                           "checkpoint_epoch_final")
     tr.setup_model()
     random_predictor_(tr)
-    batch, text = tr.batch_to_device(videos[:8], {k: np.asarray(info[k])[:8] for k in TEXT_KEYS})
+    batch, text = tr.batch_to_device(videos[:8], rows(info, 8))
     losses = [float(tr.train_step(batch, **text)["_total"]) for _ in range(10)]
     check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
           f"clip predictor sign check: the loss did not fall over 10 steps: {losses}")
@@ -2460,6 +2781,8 @@ def main() -> int:
         counts["eval"] = run_eval(Path(tmp))
         counts["train"], train_input_grad, train_exp = run_train(Path(tmp))
         counts["pred_train"], pred_input_grad, pred_weight_grad = run_pred_train(train_exp)
+        other_counts, other_input_grad, other_weight_grad = run_predictors(Path(tmp), train_exp)
+        counts.update(other_counts)
         counts.update(run_clip(Path(tmp)))
 
     sa = next(r for r in rows["slot_attention_cater"] if r["B"] == BATCH and r["iters"] == 3)
@@ -2549,6 +2872,8 @@ def main() -> int:
         "train_input_grad_launches": train_input_grad,
         "pred_train_input_grad_launches": pred_input_grad,
         "pred_train_weight_grad_calls": pred_weight_grad,
+        "predictors_train_input_grad_launches": other_input_grad,
+        "predictors_train_weight_grad_calls": other_weight_grad,
         "frozen_backward": {k: conv_frozen[k] for k in (
             "N", "rel_err", "forward_ms", "input_grad_ms", "plain_input_grad_ms", "library_ms",
             "bound_ms", "bound_by", "bound_ms_fp32_cores")},

@@ -9,8 +9,10 @@ alone behind frozen weights too), a SAVi train step that leaves no parameter
 without a gradient, a predictor train step through the frozen SAVi that
 gives every trainable predictor parameter one and the SAVi and T5 none, an
 ExtendedDINOSAUR train step that trains all but the frozen ViT, the CNN
-head's BatchNorm block in training mode against the CPU, and the ViT
-attention's refusal of grad. Marked ``gpu``;
+head's BatchNorm block in training mode against the CPU, the ViT
+attention's refusal of grad, the four other predictors' rollouts on the card
+against the CPU, and a CustomTF predictor's refusal of ids past its
+vocabulary before the lookup. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -307,6 +309,64 @@ def test_predictor_train_step_on_the_card_reaches_the_predictor_and_nothing_froz
             trainable += 1
     assert trainable == len(tr.optimizer.params)
     assert all(t.grad is None and not t.requires_grad for t in tr.decomp_model.parameters())
+
+
+OTHER_PREDICTORS = ("VanillaTransformer", "OCVPSeq", "OCVPPar", "TextOCVP_CustomTF")
+
+
+def _tiny_predictor(name):
+    """Predictor ``name`` at a small width over 4 slots of 32, buffer 4, its
+    weights drawn from a seed, in ``eval()``."""
+    from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params
+    from textocvp_tpu_torch.models import setup_predictor
+
+    p = add_predictor_params(build_exp_params("SAVi", "CATER_Easy"), name)
+    p["model"]["model_params"].update(num_slots=4, slot_dim=32)
+    pp = p["predictor"]["predictor_params"]
+    if name == "TextOCVP_CustomTF":
+        pp["predictor_params"].update(token_dim=32, n_heads=4, hidden_dim=64, num_layers=2)
+        pp["fusion_params"].update(num_heads=2, head_dim=16, mlp_size=64)
+        pp["text_encoder_params"].update(input_dim=32)
+    else:
+        pp.update(token_dim=32, hidden_dim=64)
+    p["prediction_params"].update(num_context=2, num_preds=5, input_buffer_size=4)
+    return random_init_(setup_predictor(p), torch.Generator().manual_seed(2)).eval()
+
+
+@pytest.mark.parametrize("name", OTHER_PREDICTORS)
+def test_other_predictors_roll_out_on_the_card_as_on_the_cpu(cuda, name):
+    """A 5-step rollout over a buffer of 4 (its padding masked, then sliding)
+    on the card and on the CPU, the same weights, slots and CustomTokenizer
+    captions: within 1e-5 of each step's largest slot."""
+    from textocvp_tpu_torch.data.tokenizers import CustomTokenizer
+    from textocvp_tpu_torch.data.vocabularies import CATER_EASY_VOCAB
+
+    pred = _tiny_predictor(name)
+    hist = torch.randn((2, 2, 4, 32), generator=torch.Generator().manual_seed(3))
+    tok = CustomTokenizer(CATER_EASY_VOCAB)(["the cone is rotating", "the snitch is sliding"])
+    text = {k: torch.from_numpy(tok[k]) for k in ("caption_tokens", "caption_lengths")}
+    with torch.no_grad():
+        ref = pred(hist, **text)
+        out = copy.deepcopy(pred).to(cuda)(hist.to(cuda), **{k: v.to(cuda)
+                                                              for k, v in text.items()}).cpu()
+    err = (out - ref).abs().amax(dim=(0, 2, 3)) / ref.abs().amax(dim=(0, 2, 3))
+    assert out.shape == (2, 5, 4, 32) and err.max() <= 1e-5, err
+
+
+def test_custom_tf_refuses_out_of_range_ids_on_the_card_before_any_lookup(cuda):
+    """T5 ids into a CustomTF predictor on the card raise ValueError, not a
+    device-side assert: the process goes on to a good call."""
+    pred = _tiny_predictor("TextOCVP_CustomTF").to(cuda)
+    hist = torch.randn((2, 2, 4, 32), device=cuda)
+    lengths = torch.tensor([5, 3], device=cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="vocab_size"):
+            pred(hist, caption_tokens=torch.full((2, 5), 32000, device=cuda),
+                 caption_lengths=lengths)
+        out = pred(hist, caption_tokens=torch.full((2, 5), 3, device=cuda),
+                   caption_lengths=lengths)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
 
 
 def test_conv5_input_gradient_behind_frozen_weights_matches_plain(cuda):

@@ -40,7 +40,7 @@ def test_exp_params_match_without_tpu_knobs():
 
 def test_unknown_config_raises():
     with pytest.raises(ValueError, match="Available"):
-        config.get_config("predictors", "OCVPSeq")  # a predictor the port does not have
+        config.get_config("predictors", "SlotFormer")  # a predictor neither package has
 
 
 def test_experiment_round_trip(tmp_path):

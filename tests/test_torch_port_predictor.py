@@ -122,6 +122,6 @@ def test_rollout_matches_jax(num_context):
 
 def test_unported_predictor_raises():
     p = tiny_predictor_params(build_exp_params, add_predictor_params)
-    p["predictor"]["predictor_name"] = "OCVPSeq"
+    p["predictor"]["predictor_name"] = "SlotFormer"  # a predictor neither package has
     with pytest.raises(NameError, match="not ported"):
         setup_predictor(p)

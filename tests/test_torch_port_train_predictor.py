@@ -118,8 +118,10 @@ def jax_loss_fn(case, tf):
     loss_fn = jax_build_loss_fn(case["jp"]["predictor_loss"])
     c, p = C, P
     num_slots, slot_dim = S, D
-    text_kwargs = {"caption_tokens": jnp.asarray(case["tokens"]),
-                   "attn_masks": jnp.asarray(case["masks"])}
+    # the JAX _text_kwargs: the tokenizer's arrays that are not None
+    text_kwargs = {key: jnp.asarray(case[name]) for key, name in (
+        ("caption_tokens", "tokens"), ("caption_lengths", "lengths"), ("attn_masks", "masks"))
+        if case.get(name) is not None}
 
     def decomp_vars():
         return {"params": case["mparams"]}
@@ -479,7 +481,7 @@ def test_trainer_refuses_what_is_not_ported(decomp_exp):
         PredictorTrainer(decomp_exp.exp_path, "checkpoint_epoch_final", device="cpu")
     pred = _predictor_experiment(decomp_exp, "ocvp")
     p = pred.params
-    p["predictor"]["predictor_name"] = "OCVPSeq"  # a predictor the port does not have yet
+    p["predictor"]["predictor_name"] = "SlotFormer"  # a predictor neither package has
     pred.save_params(p)
     with pytest.raises(NameError, match="is not ported; the port has"):
         PredictorTrainer(pred.exp_path, "checkpoint_epoch_final", device="cpu")

@@ -23,7 +23,11 @@ Every other name (T5's ``shared``, ``layer_i/attn/{q,k,v,o}``, ``ln_attn``,
 ``ln_ff``, ``wi``, ``wo``, ``final_ln``; the learned PE ``pe``; the slot
 initializer's tables; the ViT's ``patch_embed``, ``cls_token``, ``pos_embed``,
 ``norm1``, ``qkv``, ``proj``, ``fc1``, ``fc2``, ``ls1_gamma``, ``ls2_gamma``;
-the patch decoder's ``pos_embed``, ``initial_ln`` and ``cnn_final``) is kept.
+the patch decoder's ``pos_embed``, ``initial_ln`` and ``cnn_final``; the
+torch-style layers' ``self_attn``, ``linear1``, ``linear2``, OCVP's
+``object_block``, ``time_block``, ``self_attn_obj``, ``self_attn_time``; the
+text encoder's ``token_embedding``, ``position_embedding``, ``ln_in``,
+``ln_out``, ``out_projection``) is kept.
 """
 
 from __future__ import annotations

@@ -3,9 +3,11 @@ Config registry of the PyTorch port: JSON configs shipped under
 ``textocvp_tpu_torch/configs/{datasets,models,predictors}`` merged over
 ``DEFAULTS`` into an ``experiment_params.json`` dict.
 
-The port keeps its own copy of the registry and of the configs it serves
-(SAVi, ExtendedDINOSAUR, CATER_Easy, CLIPort, TextOCVP_T5), so it runs where
-the JAX package cannot be imported. The layout of the materialized dict is
+The port keeps its own copy of the registry and of the configs it serves,
+the JAX package's files unchanged (models SAVi and ExtendedDINOSAUR;
+datasets CATER_Easy, CATER_Hard, CLIPort and Synthetic; predictors
+VanillaTransformer, OCVPSeq, OCVPPar, TextOCVP_CustomTF and TextOCVP_T5),
+so it runs where the JAX package cannot be imported. The layout of the materialized dict is
 the JAX package's, so one ``experiment_params.json`` drives both packages.
 """
 

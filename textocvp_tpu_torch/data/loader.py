@@ -1,7 +1,8 @@
 """
 Host input pipeline of the port: the dataset factory and a batching loader
 (counterpart of ``textocvp_tpu/data/loader.py``): CATER_Easy, CATER_Hard and
-CLIPort from their pre-decoded arrays (``data/datasets.py``).
+CLIPort from their pre-decoded arrays (``data/datasets.py``), and the
+procedural Synthetic set (``data/synthetic.py``).
 
 :class:`EpochLoader` keeps the JAX package's batch contract: ``(videos,
 info)`` with videos (B, T, H, W, C) as a numpy array (uint8 under the
@@ -19,9 +20,10 @@ from __future__ import annotations
 import numpy as np
 
 from textocvp_tpu_torch.data.datasets import CATER, CLIPort
+from textocvp_tpu_torch.data.synthetic import SyntheticBalls
 from textocvp_tpu_torch.data.tokenizers import get_tokenizer
 
-DATASETS = ["CATER_Easy", "CATER_Hard", "CLIPort"]
+DATASETS = ["CATER_Easy", "CATER_Hard", "CLIPort", "Synthetic"]
 
 
 def load_data(exp_params: dict, split: str = "train"):
@@ -36,6 +38,12 @@ def load_data(exp_params: dict, split: str = "train"):
     db_params.setdefault("uint8_output", uint8_wire)
     if db_name == "CLIPort":
         dataset = CLIPort(split=split, **db_params)
+    elif db_name == "Synthetic":
+        n = db_params.pop("num_train_seqs", 64) if split == "train" \
+            else db_params.pop("num_eval_seqs", 16)
+        for key in ("num_train_seqs", "num_eval_seqs", "root"):
+            db_params.pop(key, None)
+        dataset = SyntheticBalls(split=split, num_seqs=n, **db_params)
     else:
         dataset = CATER(split=split, mode="easy" if db_name == "CATER_Easy" else "hard",
                         **db_params)

@@ -19,6 +19,11 @@ import warnings
 from typing import Optional
 
 import numpy as np
+import torch
+
+# what a tokenizer returns besides the captions; a key whose value is None
+# (a CustomTokenizer's attn_masks) is left out of what a predictor gets
+TEXT_KEYS = ("caption_tokens", "caption_lengths", "attn_masks")
 
 _WORD_RE = re.compile(r"-?\d+|[A-Za-z_]+|[^\w\s]")
 
@@ -118,3 +123,10 @@ def get_tokenizer(name: str, vocabulary: Optional[dict] = None):
             )
             return HashFallbackT5Tokenizer()
     raise NameError(f"Unknown tokenizer {name!r}. Use 'T5'|'CustomTokenizer'")
+
+
+def text_tensors(info: dict, device) -> dict:
+    """The tokenizer's arrays in ``info`` as tensors on ``device``: each key of
+    TEXT_KEYS whose value is not None (the JAX package's ``_text_kwargs``)."""
+    return {k: torch.as_tensor(np.asarray(info[k])).to(device) for k in TEXT_KEYS
+            if info.get(k) is not None}

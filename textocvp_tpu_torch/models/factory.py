@@ -1,5 +1,5 @@
-"""Model and predictor factories over ``experiment_params`` (SAVi,
-ExtendedDINOSAUR and TextOCVP_T5)."""
+"""Model and predictor factories over ``experiment_params``: SAVi and
+ExtendedDINOSAUR; the five predictors of the JAX package."""
 
 from __future__ import annotations
 
@@ -9,11 +9,19 @@ import torch
 from torch import nn
 
 from textocvp_tpu_torch.models.extended_dinosaur import ExtendedDINOSAUR
-from textocvp_tpu_torch.models.predictors import PredictorWrapper, TextOCVP
+from textocvp_tpu_torch.models.predictors import (
+    OCVPPar,
+    OCVPSeq,
+    PredictorWrapper,
+    TextOCVP,
+    VanillaTransformerPredictor,
+)
 from textocvp_tpu_torch.models.savi import SAVi
 
 MODELS = ["SAVi", "ExtendedDINOSAUR"]
-PREDICTORS = ["TextOCVP_T5"]
+PREDICTORS = ["VanillaTransformer", "OCVPSeq", "OCVPPar", "TextOCVP_CustomTF", "TextOCVP_T5"]
+UNCONDITIONED = {"VanillaTransformer": VanillaTransformerPredictor, "OCVPSeq": OCVPSeq,
+                 "OCVPPar": OCVPPar}
 
 
 def check_image_reconstruction(exp_params: dict, purpose: str = "evaluate"):
@@ -54,28 +62,38 @@ def setup_model(exp_params: dict) -> SAVi | ExtendedDINOSAUR:
 
 
 def setup_predictor(exp_params: dict) -> PredictorWrapper:
+    """The predictor of ``exp_params`` in its rollout wrapper: an
+    unconditioned one from ``predictor_params`` as they stand, a TextOCVP
+    from its nested ``predictor_params``, ``fusion_params`` and
+    ``text_encoder_params``, its text encoder named by the predictor."""
     name = exp_params["predictor"]["predictor_name"]
     if name not in PREDICTORS:
         raise NameError(f"Predictor '{name}' is not ported; the port has {PREDICTORS}")
     mp = exp_params["model"]["model_params"]
     prediction = exp_params["prediction_params"]
     params = exp_params["predictor"]["predictor_params"]
-    pp = params.get("predictor_params", {})
-    fusion = params.get("fusion_params", {})
-    predictor = TextOCVP(
-        num_slots=mp["num_slots"],
-        slot_dim=mp["slot_dim"],
-        token_dim=pp.get("token_dim", 512),
-        n_heads=pp.get("n_heads", 8),
-        hidden_dim=pp.get("hidden_dim", 2048),
-        num_layers=pp.get("num_layers", 8),
-        residual=pp.get("residual", True),
-        input_buffer_size=prediction["input_buffer_size"],
-        fusion_num_heads=fusion.get("num_heads", 8),
-        fusion_head_dim=fusion.get("head_dim", 64),
-        fusion_mlp_size=fusion.get("mlp_size", 2048),
-        text_encoder_params=params.get("text_encoder_params"),
-    )
+    if name in UNCONDITIONED:
+        predictor = UNCONDITIONED[name](
+            num_slots=mp["num_slots"], slot_dim=mp["slot_dim"],
+            input_buffer_size=prediction["input_buffer_size"], **params)
+    else:
+        pp = params.get("predictor_params", {})
+        fusion = params.get("fusion_params", {})
+        predictor = TextOCVP(
+            num_slots=mp["num_slots"],
+            slot_dim=mp["slot_dim"],
+            token_dim=pp.get("token_dim", 512),
+            n_heads=pp.get("n_heads", 8),
+            hidden_dim=pp.get("hidden_dim", 2048),
+            num_layers=pp.get("num_layers", 8),
+            residual=pp.get("residual", True),
+            input_buffer_size=prediction["input_buffer_size"],
+            fusion_num_heads=fusion.get("num_heads", 8),
+            fusion_head_dim=fusion.get("head_dim", 64),
+            fusion_mlp_size=fusion.get("mlp_size", 2048),
+            text_encoder_type="t5" if name == "TextOCVP_T5" else "custom_tf",
+            text_encoder_params=params.get("text_encoder_params"),
+        )
     return PredictorWrapper(predictor, num_context=prediction["num_context"],
                             num_preds=prediction["num_preds"],
                             input_buffer_size=prediction.get("input_buffer_size"),

@@ -13,6 +13,7 @@ Conventions:
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -150,18 +151,20 @@ def merge_heads(x):
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """Multi-head self-attention, bias-free q/k/v/out projections."""
+    """Multi-head self-attention; q/k/v/out projections bias-free unless
+    ``use_bias`` (the torch-style layers of the unconditioned predictors and
+    the custom text encoder)."""
 
-    def __init__(self, emb_dim: int, num_heads: int = 8):
+    def __init__(self, emb_dim: int, num_heads: int = 8, use_bias: bool = False):
         super().__init__()
         if emb_dim % num_heads:
             raise ValueError(f"emb_dim {emb_dim} not divisible by {num_heads} heads")
         self.num_heads = num_heads
         self.dim_head = emb_dim // num_heads
-        self.q = nn.Linear(emb_dim, emb_dim, bias=False)
-        self.k = nn.Linear(emb_dim, emb_dim, bias=False)
-        self.v = nn.Linear(emb_dim, emb_dim, bias=False)
-        self.out = nn.Linear(emb_dim, emb_dim, bias=False)
+        self.q = nn.Linear(emb_dim, emb_dim, bias=use_bias)
+        self.k = nn.Linear(emb_dim, emb_dim, bias=use_bias)
+        self.v = nn.Linear(emb_dim, emb_dim, bias=use_bias)
+        self.out = nn.Linear(emb_dim, emb_dim, bias=use_bias)
 
     def forward(self, x, mask=None):
         q = split_heads(self.q(x), self.num_heads)
@@ -274,3 +277,65 @@ class TemporalPositionalEncoding(nn.Module):
     def forward(self, x):
         t = x.shape[1]
         return x + self.pe[:t].flip(0)[None, :, None, :]
+
+
+class TorchStyleEncoderLayer(nn.Module):
+    """``torch.nn.TransformerEncoderLayer``'s arithmetic with the JAX
+    package's leaves: biased ``self_attn``, ``norm1``/``norm2`` (eps 1e-5),
+    ``linear1`` -> relu or gelu -> ``linear2``; pre-norm (``norm_first``) or
+    post-norm. No dropout in any mode: the JAX callers never turn it on.
+    The gelu is flax's, the tanh approximation."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 activation: str = "relu", norm_first: bool = True):
+        super().__init__()
+        if activation not in ("relu", "gelu"):
+            raise ValueError(f"activation {activation!r}: use relu|gelu")
+        self.activation = activation
+        self.norm_first = norm_first
+        self.self_attn = MultiHeadSelfAttention(d_model, nhead, use_bias=True)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+
+    def feed_forward(self, x):
+        h = self.linear1(x)
+        h = F.relu(h) if self.activation == "relu" else F.gelu(h, approximate="tanh")
+        return self.linear2(h)
+
+    def forward(self, x, mask=None):
+        if self.norm_first:
+            x = x + self.self_attn(self.norm1(x), mask)
+            return x + self.feed_forward(self.norm2(x))
+        x = self.norm1(x + self.self_attn(x, mask))
+        return self.norm2(x + self.feed_forward(x))
+
+
+def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
+    """The standard sinusoidal PE table (max_len, d_model), float32 (copy of
+    the JAX package's ``nn/blocks.py::sinusoid_table``)."""
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float32)
+                      * (-math.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe
+
+
+class SlotPositionalEncoding(nn.Module):
+    """Sinusoidal per-frame PE shared by the slots of a frame, not flipped:
+    on (B, T, S, D) frame ``i`` gets ``pe[max(i - offset, 0)]``, so with the
+    ring buffer's ``offset`` (its count of padding frames) the oldest valid
+    frame gets ``pe[0]`` and padding frames ``pe[0]`` too. The table is a
+    constant, a non-persistent buffer: the state dict holds none of it."""
+
+    def __init__(self, d_model: int, max_len: int = 50):
+        super().__init__()
+        self.register_buffer("pe", torch.from_numpy(sinusoid_table(max_len, d_model)),
+                             persistent=False)
+
+    def forward(self, x, offset: int = 0):
+        idx = (torch.arange(x.shape[1], device=x.device) - offset).clamp(min=0)
+        return x + self.pe[idx][None, :, None, :]

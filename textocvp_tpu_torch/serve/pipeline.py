@@ -9,7 +9,8 @@ the reply:
 
 1. predict: the decomposition model's encode (SAVi's conv stack, or
    ExtendedDINOSAUR's frozen ViT) + slot attention on the context frames,
-   then the TextOCVP rollout of ``num_preds`` slot frames;
+   then the predictor's rollout of ``num_preds`` slot frames (the caption
+   read by TextOCVP, ignored by the predictors without text);
 2. decode: the model's decoder (SAVi's spatial-broadcast conv decoder, or
    ExtendedDINOSAUR's MLP patch decoder and CNN head) on every predicted
    frame, clipped to [0, 1] and rounded to uint8 on the device.
@@ -30,7 +31,13 @@ import numpy as np
 import torch
 
 from textocvp_tpu_torch.core.experiment import Experiment
-from textocvp_tpu_torch.data.tokenizers import get_tokenizer
+from textocvp_tpu_torch.data.tokenizers import TEXT_KEYS, get_tokenizer
+from textocvp_tpu_torch.data.vocabularies import (
+    CATER_EASY_VOCAB,
+    CATER_HARD_VOCAB,
+    CLIPORT_VOCAB,
+    SYNTHETIC_VOCAB,
+)
 from textocvp_tpu_torch.data.wire import as_float_video, to_uint8_frames
 from textocvp_tpu_torch.models.factory import (
     check_image_reconstruction,
@@ -38,6 +45,21 @@ from textocvp_tpu_torch.models.factory import (
     setup_predictor,
 )
 from textocvp_tpu_torch.train.checkpoints import load_params
+
+_VOCABS = {
+    "CATER_Easy": CATER_EASY_VOCAB,
+    "CATER_Hard": CATER_HARD_VOCAB,
+    "CLIPort": CLIPORT_VOCAB,
+    "Synthetic": SYNTHETIC_VOCAB,
+}
+
+
+def serving_tokenizer(exp_params: dict):
+    """The dataset config's tokenizer (``T5`` by default), a CustomTokenizer
+    over the dataset's vocabulary, as the JAX service picks it."""
+    ds = exp_params["dataset"]
+    return get_tokenizer(ds.get("tokenizer", "T5"),
+                         vocabulary=_VOCABS.get(ds.get("dataset_name")))
 
 
 class InferenceFrontend:
@@ -47,23 +69,43 @@ class InferenceFrontend:
     resolution, max_tokens, tokenizer, wire_dtype)."""
 
     def _tokenize(self, captions: Sequence[str]) -> dict:
-        info = self.tokenizer(list(captions))
+        """{key of TEXT_KEYS: array} of the captions, each (B, L) array padded
+        to ``max_tokens``, ``caption_lengths`` as it is; None values left out."""
+        try:
+            info = self.tokenizer(list(captions))
+        except KeyError as e:
+            # a CustomTokenizer's vocabulary is closed: a request error
+            raise ValueError(f"caption contains out-of-vocabulary word: {e}") from e
         out = {}
-        for key in ("caption_tokens", "attn_masks"):
+        for key in TEXT_KEYS:
+            if info.get(key) is None:
+                continue
             v = np.asarray(info[key])
-            if v.shape[1] > self.max_tokens:
-                # rejected, not truncated: a silent cut would degrade the
-                # prediction with no signal to the client
-                raise ValueError(f"caption too long: {v.shape[1]} tokens exceed "
-                                 f"max_tokens={self.max_tokens}")
-            out[key] = np.pad(v, ((0, 0), (0, self.max_tokens - v.shape[1])))
+            if v.ndim == 2:
+                if v.shape[1] > self.max_tokens:
+                    # rejected, not truncated: a silent cut would degrade the
+                    # prediction with no signal to the client
+                    raise ValueError(f"caption too long: {v.shape[1]} tokens exceed "
+                                     f"max_tokens={self.max_tokens}")
+                v = np.pad(v, ((0, 0), (0, self.max_tokens - v.shape[1])))
+            out[key] = v
         return out
+
+    def _warmup_caption(self) -> str:
+        """The in-vocabulary word of lowest id that is not a special token
+        (a closed vocabulary refuses any other), else ``"warmup"``."""
+        vocab = getattr(self.tokenizer, "vocabulary", None)
+        if isinstance(vocab, dict):
+            for word, _ in sorted(vocab.items(), key=lambda kv: kv[1]):
+                if not (word.startswith("[") and word.endswith("]")):
+                    return word
+        return "warmup"
 
     def warmup(self):
         """One dummy request: builds the kernel and warms the device up."""
         h, w = self.resolution
         self.predict(np.zeros((1, self.num_context, h, w, 3), np.float32),
-                     ["warmup"])
+                     [self._warmup_caption()])
 
     def predict(self, frames: np.ndarray, captions: Sequence[str]) -> np.ndarray:
         """frames (B, num_context, H, W, 3) uint8 or float32 in [0, 1]; B captions.
@@ -149,8 +191,7 @@ class PredictionService(InferenceFrontend):
         self.resolution = (int(res[0]), int(res[1]))
 
         check_image_reconstruction(self.exp_params, purpose="serve")
-        # TextOCVP_T5, the one predictor of the port, reads T5 ids and masks
-        self.tokenizer = get_tokenizer("T5")
+        self.tokenizer = serving_tokenizer(self.exp_params)
         self.model = self._load(setup_model(self.exp_params),
                                 self.parent.checkpoint_path(decomp_ckpt))
         self.predictor = self._load(setup_predictor(self.exp_params),
@@ -166,10 +207,9 @@ class PredictionService(InferenceFrontend):
     def _predict_stage(self, frames: np.ndarray, text: dict):
         videos = as_float_video(torch.from_numpy(frames).to(self.device))
         slots = self.model.decompose(videos, generator=self.generator)
-        tokens = torch.from_numpy(text["caption_tokens"]).to(self.device)
-        masks = torch.from_numpy(text["attn_masks"]).to(self.device)
-        return self.predictor(slots["slot_history"], tokens, masks, num_preds=self.num_preds,
-                              teacher_force=False)
+        text = {k: torch.from_numpy(v).to(self.device) for k, v in text.items()}
+        return self.predictor(slots["slot_history"], num_preds=self.num_preds,
+                              teacher_force=False, **text)
 
     @torch.inference_mode()
     def _decode_stage(self, pred_slots):

@@ -29,6 +29,7 @@ import torch
 
 from textocvp_tpu_torch.core.experiment import Experiment
 from textocvp_tpu_torch.data.loader import EpochLoader, load_data
+from textocvp_tpu_torch.data.tokenizers import text_tensors
 from textocvp_tpu_torch.data.wire import as_float_video
 from textocvp_tpu_torch.models.factory import (
     check_image_reconstruction,
@@ -114,8 +115,7 @@ class PredictorEvaluator:
         slots = self.model.decompose(
             seed, initial_slots=None if initial_slots is None else initial_slots.to(self.device),
             generator=self.generator)["slot_history"]
-        return self.predictor(slots, text["caption_tokens"], text["attn_masks"],
-                              num_preds=self.num_preds, teacher_force=False)
+        return self.predictor(slots, num_preds=self.num_preds, teacher_force=False, **text)
 
     @torch.inference_mode()
     def decode_stage(self, pred_slots):
@@ -131,11 +131,10 @@ class PredictorEvaluator:
         return self.metric_tracker.compute(pred_imgs, targets)
 
     def to_device(self, videos, info: dict):
-        """A loader batch -> float video and caption tensors on the device."""
+        """A loader batch -> float video and caption tensors on the device
+        (``data/tokenizers.py::text_tensors``)."""
         videos = as_float_video(torch.as_tensor(np.asarray(videos)).to(self.device))
-        text = {k: None if info.get(k) is None else torch.as_tensor(info[k]).to(self.device)
-                for k in ("caption_tokens", "attn_masks")}
-        return videos, text
+        return videos, text_tensors(info, self.device)
 
     def eval_step(self, videos, info: dict, initial_slots=None) -> dict:
         """One batch: framewise metrics {name: (B, num_preds)} on the device."""

@@ -1,6 +1,6 @@
 """
-Stage-2 (predictor) trainer of the port for TextOCVP_T5 on SAVi (CATER) or
-ExtendedDINOSAUR (CLIPort) (counterpart of the JAX package's
+Stage-2 (predictor) trainer of the port for any of the five predictors on
+SAVi (CATER) or ExtendedDINOSAUR (CLIPort) (counterpart of the JAX package's
 ``textocvp_tpu/train/predictor_trainer.py::PredictorTrainer``).
 
 A nested predictor experiment (``<exp>/predictors/<name>``) trains its
@@ -17,7 +17,8 @@ num_preds`` frames:
    valid batch);
 2. is rolled out by the predictor for ``num_preds`` frames, with teacher
    forcing when the config's ``teacher_force`` says so (the valid step never
-   forces);
+   forces), the caption's arrays (``TEXT_KEYS`` that the tokenizer filled)
+   handed to it as keywords;
 3. has its predicted slots decoded by the frozen decoder, all B * num_preds
    frames at once, and the config's ``predictor_loss`` (``pred_img_mse`` +
    ``pred_slot_mse`` by default) taken against the true frames and the
@@ -27,35 +28,34 @@ num_preds`` frames:
 The image loss's gradient flows back through the frozen decoder (SAVi's
 conv decoder, or ExtendedDINOSAUR's MLP patch decoder and CNN head) into the
 predictor. Adam (``train/schedulers.py``) updates the predictor's parameters
-that require grad: every one but the frozen T5's. On the card every
+that require grad: every one but the frozen T5's (TextOCVP_CustomTF's text
+encoder trains). On the card every
 slot-attention call of the encode launches ``csrc/slot_attention.cu``
 (forward only), every ViT block of an ExtendedDINOSAUR's encode launches
 ``csrc/vit_attention.cu``, and every SAVi decoder-tail conv launches
 ``csrc/conv5.cu`` forward and again for its input gradient; the decoder is
 frozen, so no weight gradient is computed.
 
-Not ported (ROADMAP.md): the other predictors, ``tpu.remat``, the background
-checkpoint writer, TensorBoard scalars and image panels,
-``train_decode_chunks`` / ``valid_decode_kwargs`` and the mesh.
+Not ported (ROADMAP.md): ``tpu.remat``, the background checkpoint writer,
+TensorBoard scalars and image panels, ``train_decode_chunks`` /
+``valid_decode_kwargs`` and the mesh.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
+from textocvp_tpu_torch.data.tokenizers import text_tensors
 from textocvp_tpu_torch.models.factory import random_init_, setup_model, setup_predictor
 from textocvp_tpu_torch.train.checkpoints import load_params
 from textocvp_tpu_torch.train.losses import build_loss_fn
 from textocvp_tpu_torch.train.trainer import INIT_SEED, Trainer
 
-TEXT_KEYS = ("caption_tokens", "attn_masks")
-
 
 class PredictorTrainer(Trainer):
-    """Trainer of a TextOCVP_T5 predictor with the parent experiment's frozen
+    """Trainer of a slot predictor with the parent experiment's frozen
     decomposition model. ``model`` is the predictor (a ``PredictorWrapper``),
     ``decomp_model`` the SAVi or ExtendedDINOSAUR.
 
@@ -93,8 +93,7 @@ class PredictorTrainer(Trainer):
         self._setup_optimizer()
 
     def batch_to_device(self, videos, info) -> tuple:
-        text = {k: torch.as_tensor(np.asarray(info[k])).to(self.device) for k in TEXT_KEYS}
-        return self.to_device(videos), text
+        return self.to_device(videos), text_tensors(info, self.device)
 
     @torch.no_grad()
     def encode(self, videos, noise):
@@ -102,13 +101,12 @@ class PredictorTrainer(Trainer):
         return self.decomp_model(videos[:, :self.num_context + self.num_preds], noise=noise,
                                  decode=False)["slot_history"]
 
-    def predict_loss(self, videos, slot_history, caption_tokens, attn_masks,
-                     teacher_force: Optional[bool] = None):
+    def predict_loss(self, videos, slot_history, teacher_force: Optional[bool] = None,
+                     **text):
         """(total, {name: value}): the rollout from the encoded slots, the
         decode of every predicted frame and the losses."""
         c, p = self.num_context, self.num_preds
-        pred_slots = self.model(slot_history, caption_tokens, attn_masks,
-                                teacher_force=teacher_force)
+        pred_slots = self.model(slot_history, teacher_force=teacher_force, **text)
         b, _, s, d = pred_slots.shape
         target_imgs = videos[:, c:c + p]
         pred_imgs = self.decomp_model.decode(pred_slots.reshape(b * p, s, d))["recons_imgs"]
@@ -116,12 +114,11 @@ class PredictorTrainer(Trainer):
                             pred_imgs=pred_imgs.reshape(target_imgs.shape),
                             target_imgs=target_imgs)
 
-    def forward_loss(self, videos, noise, caption_tokens, attn_masks,
-                     teacher_force: Optional[bool] = None):
+    def forward_loss(self, videos, noise, teacher_force: Optional[bool] = None, **text):
         """(total, {name: value}) of one (micro)batch on the device;
-        ``teacher_force`` None is the config's."""
-        return self.predict_loss(videos, self.encode(videos, noise), caption_tokens, attn_masks,
-                                 teacher_force)
+        ``teacher_force`` None is the config's; ``text`` the caption's
+        tensors by their ``TEXT_KEYS`` names."""
+        return self.predict_loss(videos, self.encode(videos, noise), teacher_force, **text)
 
     @torch.no_grad()
     def valid_step(self, videos, **text) -> dict:
