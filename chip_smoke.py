@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths, its 05 evaluate-predictor path, its
-02 train path, its 04 predictor-train path, the four other predictors'
-05, 04 and serving paths and the CLIPort chain (02, 04 and 05 on
-ExtendedDINOSAUR) at full width with random weights drawn from a seed, and
-checks them:
+Drives the port's 01 CLIs, its two serving paths, its 05
+evaluate-predictor path, its 02 train path, its 03 evaluate-decomposition
+path on the SAVi that 02 trained, its 04 predictor-train path, the four
+other predictors' 05, 04 and serving paths and the CLIPort chain (02, 04,
+05 and 03 on ExtendedDINOSAUR) at full width with random weights drawn from
+a seed, and checks them:
 
 * CATER: SAVi (8 slots x 128, 64x64 frames) + TextOCVP_T5 (T5-small, 8
   predictor layers), 19 predicted frames;
@@ -31,6 +32,13 @@ checks them:
   frames, over a temporary CLIPort color-cache set (64 train, 16 val and 32
   test episodes of 12 frames at 336 x 336, coloured blocks over a shaded
   table, about 450 MB).
+
+* 03: the decomposition model a user evaluates first
+  (``scripts/03_evaluate_decomp_{CATER,CLIPort}.sh``): the 01 CLI's
+  experiment, the 02 phase's checkpoint dropped into its ``models/`` under
+  the released name (``SAVi_CATER``, ``ExtendedDINOSAUR_CLIPort``), the 03
+  CLI at B=64 (CATER, 128 test videos) and B=16 (CLIPort, 32 test
+  episodes), T=8, ``--results_name results_DecompModel``.
 
 Phases, one JSON line each:
 
@@ -71,6 +79,13 @@ Phases, one JSON line each:
             input-gradient launch, no weight gradient), its input gradient
             against the plain version's and both launches timed. Gradients are
             held to 1e-4 of the reference's largest value;
+then
+C. create   the 01 CLIs: a SAVi / CATER_Easy and an ExtendedDINOSAUR /
+            CLIPort experiment (``--name``), each ``experiment_params.json``
+            equal to ``build_exp_params``; a TextOCVP_T5 experiment under the
+            first refused while its ``models/`` is empty, then made with
+            ``--skip_ckpt_check``, its params equal to ``add_predictor_params``;
+
 then for each serving path:
 4. parity   the predict stage (seed encode + rollout) on the card and on the
             CPU with the same weights and initial slots, TF32 off, each
@@ -117,6 +132,20 @@ then the train path:
             backward and optimizer, its peak memory and launches, and one
             step under ``torch.profiler``;
 14. train_sign  20 steps on one batch of 8 at lr 4e-4: the loss falls.
+
+then the 03 path on CATER, over phase C's SAVi experiment with phase 12's
+``checkpoint_epoch_final.pt`` as ``models/SAVi_CATER.pt`` and the eval
+path's 128 test videos:
+D1. decomp_eval_parity  the 03 step (all T frames decomposed, all B x T
+            decoded) at B=2, T=8 on the card and on the CPU, the same weights,
+            initial slots and frames: reconstructions within 1e-4 of their
+            largest value, framewise PSNR within 1e-3 dB, SSIM and LPIPS
+            within 1e-4;
+D2. decomp_eval  ``textocvp_tpu_torch.cli.evaluate_decomp.main`` at B=64:
+            finite means, 8 framewise values a metric, 8 slot-attention calls
+            and 3 conv5 launches a batch; then one batch's steady step on the
+            host clock (reconstructed frames/s = 512 / step), split into its
+            stages, its peak memory, and one step under ``torch.profiler``.
 
 then the predictor-train path, over the experiment that phase 12 trained:
 15. pred_train_parity  PredictorTrainer on the card and on the CPU at full
@@ -192,10 +221,17 @@ then the CLIPort chain, over the color-cache set:
             test episodes (two batches): finite means, 9 framewise values a
             metric, 1 slot-attention call and 12 ViT-attention launches a batch;
 26. clip_eval_step  one more B=16 batch split into its stages, and one step
-            under ``torch.profiler``.
+            under ``torch.profiler``;
+27. clip_decomp_eval_parity, clip_decomp_eval  phases D1 and D2 on phase C's
+            ExtendedDINOSAUR experiment with phase 20's checkpoint as
+            ``models/ExtendedDINOSAUR_CLIPort.pt``: the parity at B=2, T=3
+            (the ViT on the CPU), the 03 CLI at B=16 over the 32 test
+            episodes, 8 slot-attention calls, 12 ViT-attention launches and
+            no conv5 launch a batch.
 
 Phases 5 and 6 are a serving path's main path, phase 9 the eval path's,
-phase 12's first run the train path's, phase 16's first run the
+phase 12's first run the train path's, the 03 CLI runs of D2 and 27 the
+03 paths', phase 16's first run the
 predictor-train path's, P2's and P5's CLI runs and P3 the other predictors'
 paths, and the first runs of the CLIs of phases 20, 23 and 25 the CLIPort
 chain's three: every kernel's launch counter (and conv5's input-gradient
@@ -2252,6 +2288,199 @@ def run_predictors(tmp: Path, parent: Path):
     return counts, input_grads, weight_grads
 
 
+# ------------------------------------------------------------ 01 and 03: a user's first day
+
+DECOMP_FRAMES = 8  # configs/datasets/{CATER_Easy,CLIPort}.json num_frames
+CLIP_DECOMP_PARITY_FRAMES = 3  # the ViT on the CPU at B=2 is the parity's cost
+DECOMP_RESULTS = "results_DecompModel"  # scripts/03_evaluate_decomp_*.sh
+
+
+@dataclass(frozen=True)
+class DecompPath:
+    """One 03 path: the experiment the 01 CLI made, the checkpoint a user drops
+    into its ``models/`` and the launches of one batch."""
+    name: str
+    model: str
+    dataset: str
+    ckpt: str  # the released checkpoint's name (scripts/03_evaluate_decomp_*.sh)
+    batch: int
+    parity_frames: int
+    launches: dict  # a batch's kernel launches
+
+
+DECOMP_PATHS = {
+    "cater": DecompPath("decomp_eval", "SAVi", "CATER_Easy", "SAVi_CATER", EVAL_BATCH,
+                        DECOMP_FRAMES, {"slot_attention": DECOMP_FRAMES, "vit_attention": 0,
+                                        "conv5": 3}),
+    "clipport": DecompPath("clip_decomp_eval", "ExtendedDINOSAUR", "CLIPort",
+                           "ExtendedDINOSAUR_CLIPort", CLIP_EVAL_BATCH, CLIP_DECOMP_PARITY_FRAMES,
+                           {"slot_attention": DECOMP_FRAMES, "vit_attention": VIT_BLOCKS,
+                            "conv5": 0}),
+}
+
+
+def phase_create(tmp: Path):
+    """The 01 CLIs as a user runs them: a decomposition experiment a path
+    (``--name``), each ``experiment_params.json`` equal to ``build_exp_params``;
+    a predictor experiment under the CATER one is refused while its
+    ``models/`` is empty, and made with ``--skip_ckpt_check``, its params equal
+    to ``add_predictor_params``. Returns {path: experiment}."""
+    from textocvp_tpu_torch.cli import create_experiment, create_predictor_experiment
+    from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params
+
+    made = {}
+    for key, path in DECOMP_PATHS.items():
+        exp = create_experiment.main(["-d", str(tmp / "experiments"), "--name", key,
+                                      "--model_name", path.model, "--dataset_name", path.dataset])
+        written = json.loads((exp.exp_path / "experiment_params.json").read_text())
+        check(written == build_exp_params(path.model, path.dataset),
+              f"create: {key} experiment_params.json is not build_exp_params")
+        check(all((exp.exp_path / d).is_dir() for d in ("models", "plots", "tboard_logs")),
+              f"create: {key} directories")
+        made[key] = exp.exp_path
+    pred_args = ["-d", str(made["cater"]), "--name", PRED_NAME, "--predictor_name", "TextOCVP_T5"]
+    try:
+        create_predictor_experiment.main(pred_args)
+        refused = None
+    except FileNotFoundError as e:
+        refused = str(e)
+    check(refused is not None and "no trained checkpoints" in refused,
+          f"create: a parent without a checkpoint was not refused ({refused})")
+    pred = create_predictor_experiment.main(pred_args + ["--skip_ckpt_check"])
+    check(pred.params == add_predictor_params(build_exp_params("SAVi", "CATER_Easy"),
+                                              "TextOCVP_T5"),
+          "create: the predictor experiment's params are not add_predictor_params")
+    emit({"phase": "create", "experiments": {k: str(v) for k, v in made.items()},
+          "predictor": str(pred.exp_path), "refused_without_checkpoint": refused})
+    return made
+
+
+def drop_in(exp_path: Path, path: DecompPath, trained: Path, data_root: Path):
+    """What a user does before 03: put the checkpoint in ``models/`` under its
+    released name and point the dataset's ``root`` at the data."""
+    import shutil
+
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    exp = Experiment(exp_path)
+    shutil.copyfile(trained, exp.checkpoint_path(path.ckpt))
+    params = exp.params
+    params["dataset"]["root"] = str(data_root)
+    exp.save_params(params)
+
+
+def decomp_evaluator(exp_path, path: DecompPath, device="cuda", batch=None, frames=None):
+    from textocvp_tpu_torch.train.evaluator import DecompEvaluator
+
+    ev = DecompEvaluator(exp_path, path.ckpt, batch_size=batch or path.batch, device=device)
+    if frames is not None:
+        ev.exp_params["dataset"]["num_frames"] = frames
+    ev.load_data()
+    ev.load_model()
+    return ev
+
+
+def phase_decomp_eval_parity(exp_path, path: DecompPath):
+    """The 03 step at B=2 on the card and on the CPU: the same weights,
+    initial slots and frames (T=8 on CATER, 3 on CLIPort). Framewise PSNR
+    within 1e-3 dB, SSIM and LPIPS within 1e-4, reconstructions within 1e-4
+    of their largest value. Off the main path."""
+    evs = {dev: decomp_evaluator(exp_path, path, dev, batch=2, frames=path.parity_frames)
+           for dev in ("cpu", "cuda")}
+    videos, _ = next(iter(evs["cpu"].test_loader))
+    init = evs["cpu"].model.slot_initializer(2, torch.Generator().manual_seed(SEED + 7))
+    recons, vals = {}, {}
+    for dev, ev in evs.items():
+        v = ev.to_device(videos)
+        rec = ev.reconstruct(v, init)
+        vals[dev] = {m: x.cpu() for m, x in ev.metric_tracker.compute(rec, v.clamp(0, 1)).items()}
+        recons[dev] = rec.cpu()
+    what = f"{path.name}_parity"
+    rec_err = ((recons["cuda"] - recons["cpu"]).abs().max() / recons["cpu"].abs().max()).item()
+    check(rec_err <= 1e-4, f"{what}: reconstructions card vs CPU {rec_err} of their max > 1e-4")
+    tol = {"psnr": 1e-3, "ssim": 1e-4, "lpips": 1e-4}
+    errs = {}
+    for m, limit in tol.items():
+        out, ref = vals["cuda"][m], vals["cpu"][m]
+        check(out.shape == (2, path.parity_frames) and bool(torch.isfinite(out).all()),
+              f"{what}: {m} {tuple(out.shape)} not finite or misshapen")
+        errs[m] = (out - ref).abs().max().item()
+        check(errs[m] <= limit, f"{what}: framewise {m} card vs CPU {errs[m]} > {limit}")
+    emit({"phase": what, "B": 2, "T": path.parity_frames, "max_abs_err": errs,
+          "recons_rel_err": rec_err, "tolerance": tol | {"recons_rel": 1e-4},
+          "cpu_framewise_mean": {m: v.mean(0).tolist() for m, v in vals["cpu"].items()}})
+
+
+def phase_decomp_eval(exp_path, path: DecompPath, videos_in_split: int):
+    """The 03 CLI over the test split at the path's batch and T=8: the 03
+    path's main path (``scripts/03_evaluate_decomp_*.sh``). Then, off it, one
+    batch's steady step on the host clock with synchronize, split into its
+    stages, its peak memory, and one step under ``torch.profiler`` with one
+    slot-attention device kernel a frame and one ViT-attention kernel a
+    block. Returns the main path's launches."""
+    from textocvp_tpu_torch.cli import evaluate_decomp
+
+    reset_launches()  # the main path starts here
+    t = time.perf_counter()
+    rc = evaluate_decomp.main(["-d", str(exp_path), "--decomp_ckpt", path.ckpt, "--results_name",
+                               DECOMP_RESULTS, "--batch_size", str(path.batch)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = launches()  # and ends here
+    batches = videos_in_split // path.batch
+    check(rc == 0, f"{path.name}: evaluate_decomp returned {rc}")
+    check(counts == {k: n * batches for k, n in path.launches.items()},
+          f"{path.name}: kernel launches on the main path {counts}, want "
+          f"{path.launches} x {batches}")
+    results = json.loads((exp_path / "results" / DECOMP_RESULTS / "results.json").read_text())
+    for m in ("psnr", "ssim", "lpips"):
+        vals = results[m]["framewise"] + [results[m]["mean"]]
+        check(len(results[m]["framewise"]) == DECOMP_FRAMES and bool(np.isfinite(vals).all()),
+              f"{path.name} results.json: {m} {results[m]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ev = decomp_evaluator(exp_path, path)
+    videos, _ = next(iter(ev.test_loader))
+    step_ms, peak_gb = steady_steps(lambda: ev.eval_step(videos))
+    out = {}
+    split = split_ms(("to_device", "reconstruct", "metrics"), (
+        lambda: out.update(v=ev.to_device(videos)),
+        lambda: out.update(rec=ev.reconstruct(out["v"])),
+        lambda: ev.metric_tracker.compute(out["rec"], out["v"].clamp(0, 1))))
+    del out
+    prof, entries = profiled_step(lambda: ev.eval_step(videos))
+    slot_attention = entries(SLOT_ATTENTION_KERNEL)
+    vit = entries(VIT_ATTENTION_KERNEL)
+    conv5 = entries("conv5_kernel")
+    launched = path.launches
+    check_traced(path.name, slot_attention, vit,
+                 (launched["slot_attention"], launched["vit_attention"]))
+    check(sum(e["count"] for e in conv5) == launched["conv5"],
+          f"{path.name}: conv5 device kernels in the trace {conv5}, launched {launched['conv5']}")
+    mean_ms = sum(step_ms) / len(step_ms)
+    frames = path.batch * DECOMP_FRAMES
+    emit({"phase": path.name, "model": path.model, "batch": path.batch, "frames": DECOMP_FRAMES,
+          "videos": batches * path.batch, "cli_seconds": seconds, "launches": counts,
+          "results": results, "step_ms": step_ms, "recons_frames_per_s": 1e3 * frames / mean_ms,
+          "split_ms": split, "peak_mem_gb": peak_gb, **prof,
+          "slot_attention": slot_attention, "vit_attention": vit, "conv5": conv5})
+    return counts
+
+
+def run_decomp_eval(key, exp_path, trained: Path, data_root: Path, videos_in_split: int):
+    """A 03 path over the experiment the 01 CLI made: the trained checkpoint
+    dropped in, the card-against-CPU parity, then the main path (the 03 CLI)
+    and its step. Returns the main path's launches."""
+    path = DECOMP_PATHS[key]
+    drop_in(exp_path, path, trained, data_root)
+    phase_decomp_eval_parity(exp_path, path)
+    counts = phase_decomp_eval(exp_path, path, videos_in_split)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------- CLIPort chain
 
 CLIP_COLORS = {"train": ("red", "green", "blue", "yellow", "brown", "gray", "cyan"),
@@ -2708,12 +2937,13 @@ def phase_clip_eval(parent: Path):
     return counts
 
 
-def run_clip(tmp: Path):
+def run_clip(tmp: Path, created: Path):
     """The CLIPort chain: the fixture; the 02 path (parity, the CLI and its
     resume, the steady step, the sign check); the 04 path over the 02
     checkpoint (the same); the 05 path over the 04 checkpoint (parity, the
-    CLI, the stage split and profile). Returns each path's main-path
-    launches."""
+    CLI, the stage split and profile); the 03 path over the 02 checkpoint,
+    dropped into ``created`` (the 01 CLI's experiment). Returns each path's
+    main-path launches."""
     data_root = write_cliport_fixture(tmp / "CLIPort")
     phase_clip_train_parity(tmp)
     exp = clip_experiment(tmp / "clip_train", data_root)
@@ -2742,6 +2972,11 @@ def run_clip(tmp: Path):
     torch.cuda.empty_cache()
     phase_eval_step(exp, CLIP_PRED_NAME, ckpts, CLIP_EVAL_BATCH, CLIP_PREDS, VIT_BLOCKS,
                     phase="clip_eval_step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["clip_decomp_eval"] = run_decomp_eval(
+        "clipport", created, exp / "models" / "checkpoint_epoch_final.pt", data_root,
+        dict(CLIP_EPISODES)["test"])
     return counts
 
 
@@ -2777,13 +3012,18 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        made = phase_create(Path(tmp))
         counts = {path.name: run_path(path, Path(tmp)) for path in PATHS}
         counts["eval"] = run_eval(Path(tmp))
         counts["train"], train_input_grad, train_exp = run_train(Path(tmp))
+        # 03 on the SAVi that 02 wrote, over the eval path's 128 test videos
+        counts["decomp_eval"] = run_decomp_eval(
+            "cater", made["cater"], train_exp / "models" / "checkpoint_epoch_final.pt",
+            Path(tmp) / "CATER", EVAL_VIDEOS)
         counts["pred_train"], pred_input_grad, pred_weight_grad = run_pred_train(train_exp)
         other_counts, other_input_grad, other_weight_grad = run_predictors(Path(tmp), train_exp)
         counts.update(other_counts)
-        counts.update(run_clip(Path(tmp)))
+        counts.update(run_clip(Path(tmp), made["clipport"]))
 
     sa = next(r for r in rows["slot_attention_cater"] if r["B"] == BATCH and r["iters"] == 3)
     sa64 = next(r for r in rows["slot_attention_cater"] if r["B"] == EVAL_BATCH

@@ -11,7 +11,7 @@ gives every trainable predictor parameter one and the SAVi and T5 none, an
 ExtendedDINOSAUR train step that trains all but the frozen ViT, the CNN
 head's BatchNorm block in training mode against the CPU, the ViT
 attention's refusal of grad, the four other predictors' rollouts on the card
-against the CPU, and a CustomTF predictor's refusal of ids past its
+against the CPU, the 03 step on the card against the CPU, and a CustomTF predictor's refusal of ids past its
 vocabulary before the lookup. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
@@ -578,6 +578,38 @@ def test_savi_decode_on_the_card_matches_the_cpu_with_one_launch_per_tail_conv(c
         torch.cuda.synchronize()
     assert c5.conv5_cuda.launches == before + 3
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-4)
+
+
+def test_03_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The 03 step (every frame decomposed, every frame decoded, the metrics)
+    of a full-width SAVi on an imported-style bare state dict, B=1, T=3: one
+    slot-attention call a frame, three conv5 launches, PSNR within 1e-3 dB,
+    SSIM and LPIPS within 1e-4 of the CPU's."""
+    from textocvp_tpu_torch.core.config import build_exp_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.models import setup_model
+    from textocvp_tpu_torch.train.evaluator import DecompEvaluator
+
+    exp = Experiment(tmp_path / "exp")
+    exp.save_params(build_exp_params("SAVi", "CATER_Easy"))
+    exp.models_dir.mkdir()
+    model = random_init_(setup_model(exp.params), torch.Generator().manual_seed(10))
+    torch.save(model.state_dict(), exp.checkpoint_path("SAVi_CATER"))
+    videos = np.random.default_rng(11).uniform(0, 1, (1, 3, 64, 64, 3)).astype(np.float32)
+    vals = {}
+    for dev in ("cpu", "cuda"):
+        ev = DecompEvaluator(exp.exp_path, "SAVi_CATER", device=dev)
+        ev.load_model()
+        init = ev.model.slot_initializer(1, torch.Generator().manual_seed(12))
+        before = (sak.slot_attention_cuda.launches, c5.conv5_cuda.launches)
+        vals[dev] = {m: v.cpu() for m, v in ev.eval_step(videos, initial_slots=init).items()}
+        torch.cuda.synchronize()
+        launched = (sak.slot_attention_cuda.launches - before[0],
+                    c5.conv5_cuda.launches - before[1])
+        assert launched == ((0, 0) if dev == "cpu" else (3, 3))
+    for m, tol in (("psnr", 1e-3), ("ssim", 1e-4), ("lpips", 1e-4)):
+        assert vals["cuda"][m].shape == (1, 3)
+        torch.testing.assert_close(vals["cuda"][m], vals["cpu"][m], rtol=0, atol=tol)
 
 
 def test_batchnorm_conv_block_in_training_mode_on_the_card_matches_the_cpu(cuda):

@@ -1,4 +1,5 @@
-"""Command-line entry points of the port (02, 04, 05, 07)."""
+"""Command-line entry points of the port (01, 02, 03, 04, 05, 07, and the
+checkpoint importer)."""
 
 import os
 

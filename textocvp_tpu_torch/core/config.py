@@ -9,12 +9,17 @@ datasets CATER_Easy, CATER_Hard, CLIPort and Synthetic; predictors
 VanillaTransformer, OCVPSeq, OCVPPar, TextOCVP_CustomTF and TextOCVP_T5),
 so it runs where the JAX package cannot be imported. The layout of the materialized dict is
 the JAX package's, so one ``experiment_params.json`` drives both packages.
+
+A directory named by ``TEXTOCVP_CONFIGS`` is searched first: a JSON file under
+its ``datasets/``, ``models/`` or ``predictors/`` registers a new option, or
+takes the place of a shipped one of the same name.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import os
 from pathlib import Path
 
 _PKG_CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
@@ -67,16 +72,33 @@ DEFAULTS = {
 _KINDS = ("datasets", "models", "predictors")
 
 
-def get_config(kind: str, name: str) -> dict:
-    """Load one registered JSON config by kind and name."""
+def _config_dirs(kind: str) -> list[Path]:
+    """The directories searched for configs of ``kind``, the user's
+    (``$TEXTOCVP_CONFIGS/<kind>``) first."""
     if kind not in _KINDS:
         raise ValueError(f"unknown config kind {kind!r}; use one of {_KINDS}")
-    path = _PKG_CONFIG_DIR / kind / f"{name}.json"
-    if not path.is_file():
-        available = sorted(p.stem for p in (_PKG_CONFIG_DIR / kind).glob("*.json"))
-        raise ValueError(f"Unknown {kind} config {name!r}. Available: {available}")
-    with open(path) as f:
-        return json.load(f)
+    dirs = []
+    user = os.environ.get("TEXTOCVP_CONFIGS")
+    if user and (Path(user) / kind).is_dir():
+        dirs.append(Path(user) / kind)
+    if (_PKG_CONFIG_DIR / kind) not in dirs:
+        dirs.append(_PKG_CONFIG_DIR / kind)
+    return dirs
+
+
+def get_available_configs(kind: str) -> list[str]:
+    """Names of every registered config of ``kind``, sorted."""
+    return sorted({p.stem for d in _config_dirs(kind) for p in d.glob("*.json")})
+
+
+def get_config(kind: str, name: str) -> dict:
+    """Load one registered JSON config by kind and name."""
+    for d in _config_dirs(kind):
+        path = d / f"{name}.json"
+        if path.is_file():
+            with open(path) as f:
+                return json.load(f)
+    raise ValueError(f"Unknown {kind} config {name!r}. Available: {get_available_configs(kind)}")
 
 
 def build_exp_params(model_name: str, dataset_name: str) -> dict:

@@ -32,7 +32,7 @@ from textocvp_tpu_torch.nn.blocks import (
     TemporalPositionalEncoding,
     TorchStyleEncoderLayer,
 )
-from textocvp_tpu_torch.nn.t5 import T5_SMALL, T5Config, T5EncoderStack
+from textocvp_tpu_torch.nn.t5 import T5EncoderStack, t5_config
 from textocvp_tpu_torch.nn.text_encoders import TransformerTextEncoder
 
 TEXT_ENCODERS = ("t5", "custom_tf")
@@ -180,9 +180,7 @@ class TextOCVP(nn.Module):
                 num_heads=tep.get("num_heads", 4), output_dim=token_dim,
                 vocab_size=tep.get("vocab_size", 50))
         else:
-            # stock configs use t5-small; geometry overrides shrink it for tests
-            overrides = {k: v for k, v in tep.items() if k in T5Config.__dataclass_fields__}
-            self.text_encoder = T5EncoderStack(T5Config(**overrides) if overrides else T5_SMALL)
+            self.text_encoder = T5EncoderStack(t5_config(tep))
             self.text_encoder.requires_grad_(False)
 
     def encode_text(self, caption_tokens, caption_lengths=None, attn_masks=None):

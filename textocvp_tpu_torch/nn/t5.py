@@ -3,6 +3,10 @@ T5 encoder stack (the frozen "t5-small" text encoder of TextOCVP_T5):
 RMSNorm pre-norm without bias, bias-free projections, UNscaled attention with
 one relative-position bias owned by layer 0 and reused by every layer, ReLU
 feed-forward, final RMSNorm.
+
+:func:`import_hf_t5_encoder` turns a HuggingFace ``T5EncoderModel`` state dict
+into the JAX package's T5 params tree, which ``convert.from_jax_params``
+carries into :class:`T5EncoderStack`.
 """
 
 from __future__ import annotations
@@ -10,6 +14,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,6 +34,14 @@ class T5Config:
 
 
 T5_SMALL = T5Config()
+
+
+def t5_config(text_encoder_params: dict | None) -> T5Config:
+    """The T5 of a TextOCVP_T5's ``text_encoder_params``: t5-small, with the
+    geometry those params give (tests shrink it)."""
+    overrides = {k: v for k, v in (text_encoder_params or {}).items()
+                 if k in T5Config.__dataclass_fields__}
+    return T5Config(**overrides) if overrides else T5_SMALL
 
 
 class RMSNorm(nn.Module):
@@ -133,3 +146,36 @@ class T5EncoderStack(nn.Module):
         for layer in self.layers:
             x, position_bias = layer(x, attention_mask, position_bias)
         return self.final_ln(x)
+
+
+def import_hf_t5_encoder(state_dict: dict, config: T5Config = T5_SMALL) -> dict:
+    """A HuggingFace ``T5EncoderModel`` state dict (numpy-valued, keys such as
+    ``encoder.block.0.layer.0.SelfAttention.q.weight``) -> the JAX package's
+    T5 params tree of ``config.num_layers`` layers: Linear weights transposed,
+    the relative-attention table in layer 0, the embedding ``shared.weight``
+    or ``encoder.embed_tokens.weight``."""
+    sd = {k: np.asarray(v) for k, v in state_dict.items()}
+
+    def get(*names):
+        for name in names:
+            if name in sd:
+                return sd[name]
+        raise KeyError(f"none of {names} in the T5 state dict")
+
+    p = {"shared": {"embedding": get("shared.weight", "encoder.embed_tokens.weight")}}
+    for i in range(config.num_layers):
+        pre = f"encoder.block.{i}.layer"
+        attn = {n: {"kernel": get(f"{pre}.0.SelfAttention.{n}.weight").T}
+                for n in ("q", "k", "v", "o")}
+        if i == 0:
+            attn["relative_attention_bias"] = get(
+                f"{pre}.0.SelfAttention.relative_attention_bias.weight")
+        p[f"layer_{i}"] = {
+            "ln_attn": {"weight": get(f"{pre}.0.layer_norm.weight")},
+            "ln_ff": {"weight": get(f"{pre}.1.layer_norm.weight")},
+            "attn": attn,
+            "wi": {"kernel": get(f"{pre}.1.DenseReluDense.wi.weight").T},
+            "wo": {"kernel": get(f"{pre}.1.DenseReluDense.wo.weight").T},
+        }
+    p["final_ln"] = {"weight": get("encoder.final_layer_norm.weight")}
+    return p

@@ -1,13 +1,22 @@
 """
-05 evaluate-predictor protocol of the port (counterpart of
-``textocvp_tpu/train/evaluator.py::PredictorEvaluator``).
+03 evaluate-decomposition and 05 evaluate-predictor protocols of the port
+(counterparts of ``textocvp_tpu/train/evaluator.py::DecompEvaluator`` and
+``PredictorEvaluator``).
 
-Per batch, on one device: the seed encode of the first ``num_seed`` frames
-(the decomposition model's encoder and slot attention), the predictor's
-rollout of ``num_preds`` slot frames, the decode of all B * num_preds
-predicted frames, and PSNR/SSIM/LPIPS of the predictions, clipped to [0, 1],
-against the true frames, clipped too. Only the seed frames are encoded: the
-slot recurrence is causal.
+03 (:class:`DecompEvaluator`): each test video of the dataset's
+``num_frames`` frames is decomposed whole (every frame encoded, the slot
+recurrence over all of them) and all B * T frames decoded in one call;
+PSNR/SSIM/LPIPS of the reconstructions, clipped to [0, 1], against the
+frames, clipped too, for every frame. The JAX class's chunked, autotuned,
+int8 and multi-device branches change no output and are not ported, nor
+are its framewise plots.
+
+05 (:class:`PredictorEvaluator`): per batch, on one device, the seed encode
+of the first ``num_seed`` frames (the decomposition model's encoder and slot
+attention), the predictor's rollout of ``num_preds`` slot frames, the decode
+of all B * num_preds predicted frames, and PSNR/SSIM/LPIPS of the
+predictions, clipped to [0, 1], against the true frames, clipped too. Only
+the seed frames are encoded: the slot recurrence is causal.
 
 Overrides as in the JAX package: ``num_seed`` overrides ``num_context``,
 ``num_preds`` the rollout length, and the dataset's ``num_frames`` becomes
@@ -40,12 +49,101 @@ from textocvp_tpu_torch.train.checkpoints import load_params
 from textocvp_tpu_torch.train.metrics import MetricTracker
 
 
+def _setup_device(device, who: str) -> torch.device:
+    """The evaluators' device, float32 matmuls and convolutions (TF32 off);
+    raises on a CUDA device where there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' to evaluate on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def _load(module, path, device):
+    """``module`` with the weights of ``path`` on ``device``, in ``eval()``, frozen."""
+    module.load_state_dict(load_params(path))
+    return module.to(device).eval().requires_grad_(False)
+
+
 def _tokenizer_fallback_flags(dataset) -> dict:
     """Results made with the hash tokenizer (ids that are not T5's) say so."""
     tok = getattr(dataset, "tokenizer", None)
     if tok is not None and getattr(tok, "is_fallback", False):
         return {"tokenizer_fallback": True}
     return {}
+
+
+class DecompEvaluator:
+    """Evaluate a decomposition checkpoint on whole-sequence reconstruction.
+
+    ``checkpoint`` is ``models/<checkpoint>.pt`` of the experiment at
+    ``exp_path`` (a training checkpoint or a bare state dict,
+    ``train/checkpoints.py::load_params``). ``batch_size`` defaults to the
+    training batch size, ``results_name`` to ``eval_decomp_<checkpoint>``.
+    A ragged last batch runs as it is; its rows' metrics equal the JAX
+    package's pad-and-slice. Float32 throughout, TF32 off. ``LearnedRandom``
+    slot noise comes from one ``torch.Generator`` on the device seeded 14 (it
+    cannot match ``jax.random``). Call :meth:`load_data`, :meth:`load_model`,
+    then :meth:`evaluate`.
+    """
+
+    def __init__(self, exp_path, checkpoint: str, batch_size: Optional[int] = None,
+                 results_name: Optional[str] = None, metrics=("psnr", "ssim", "lpips"),
+                 device="cuda"):
+        self.exp = Experiment(exp_path)
+        self.exp_params = self.exp.params
+        check_image_reconstruction(self.exp_params,
+                                   purpose="compute reconstruction metrics for")
+        self.device = _setup_device(device, "DecompEvaluator")
+        self.checkpoint = checkpoint
+        self.batch_size = batch_size or self.exp_params["training"]["batch_size"]
+        self.results_name = results_name or f"eval_decomp_{checkpoint}"
+        self.model = setup_model(self.exp_params)
+        self.metric_tracker = MetricTracker(metrics, device=self.device)
+        self.generator = torch.Generator(self.device).manual_seed(14)
+
+    def load_data(self):
+        self.test_set = load_data(self.exp_params, split="test")
+        self.test_loader = EpochLoader(self.test_set, self.batch_size)
+
+    def load_model(self):
+        self.model = _load(self.model, self.exp.checkpoint_path(self.checkpoint), self.device)
+
+    def to_device(self, videos):
+        """A loader batch's videos -> float (B, T, H, W, 3) on the device."""
+        return as_float_video(torch.as_tensor(np.asarray(videos)).to(self.device))
+
+    @torch.inference_mode()
+    def reconstruct(self, videos, initial_slots=None):
+        """The model's whole-sequence forward on videos (B, T, H, W, 3) on the
+        device: decompose all T frames, then decode all B * T frames in one
+        call -> reconstructions (B, T, H, W, 3) clipped to [0, 1]. The initial
+        slots are ``initial_slots`` when given, else the initializer's."""
+        b, t = videos.shape[:2]
+        slots = self.model.decompose(
+            videos, initial_slots=None if initial_slots is None else initial_slots.to(self.device),
+            generator=self.generator)["slot_history"]
+        imgs = self.model.decode(slots.reshape(b * t, *slots.shape[2:]))["recons_imgs"]
+        return imgs.reshape(b, t, *imgs.shape[1:]).clamp(0.0, 1.0)
+
+    @torch.inference_mode()
+    def eval_step(self, videos, initial_slots=None) -> dict:
+        """One batch: framewise metrics {name: (B, T)} on the device."""
+        videos = self.to_device(videos)
+        recons = self.reconstruct(videos, initial_slots)
+        return self.metric_tracker.compute(recons, videos.clamp(0.0, 1.0))
+
+    def evaluate(self) -> dict:
+        self.metric_tracker.reset()
+        for videos, _ in self.test_loader:
+            self.metric_tracker.accumulate(precomputed=self.eval_step(videos))
+        self.metric_tracker.aggregate()
+        results = self.metric_tracker.to_json()
+        results.update(_tokenizer_fallback_flags(self.test_set))
+        self.exp.save_results(self.results_name, results)
+        print(f"Results: { {k: v['mean'] for k, v in results.items() if isinstance(v, dict)} }")
+        return results
 
 
 class PredictorEvaluator:
@@ -62,13 +160,7 @@ class PredictorEvaluator:
                  num_seed: Optional[int] = None, num_preds: Optional[int] = None,
                  batch_size: Optional[int] = None, results_name: Optional[str] = None,
                  metrics=("psnr", "ssim", "lpips"), device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("PredictorEvaluator: no CUDA device; pass device='cpu' to "
-                               "evaluate on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
+        self.device = _setup_device(device, "PredictorEvaluator")
         self.parent = Experiment(exp_path)
         pred_path = Path(name_pred_exp)
         self.exp = Experiment(pred_path if pred_path.is_absolute()
@@ -100,12 +192,9 @@ class PredictorEvaluator:
         self.test_loader = EpochLoader(self.test_set, self.batch_size)
 
     def load_models(self):
-        self.model = self._load(self.model, self.parent.checkpoint_path(self.decomp_ckpt))
-        self.predictor = self._load(self.predictor, self.exp.checkpoint_path(self.pred_ckpt))
-
-    def _load(self, module, path):
-        module.load_state_dict(load_params(path))
-        return module.to(self.device).eval().requires_grad_(False)
+        self.model = _load(self.model, self.parent.checkpoint_path(self.decomp_ckpt), self.device)
+        self.predictor = _load(self.predictor, self.exp.checkpoint_path(self.pred_ckpt),
+                               self.device)
 
     @torch.inference_mode()
     def predict_stage(self, videos, text: dict, initial_slots=None):
