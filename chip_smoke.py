@@ -149,7 +149,7 @@ D2. decomp_eval  ``textocvp_tpu_torch.cli.evaluate_decomp.main`` at B=64:
 
 then the predictor-train path, over the experiment that phase 12 trained:
 15. pred_train_parity  PredictorTrainer on the card and on the CPU at full
-            width, B=2, c=1, p=3 (``PARITY_PREDS``), the same weights, video, captions and slot noise,
+            width, B=2, c=1, p=2 (``PARITY_PREDS``), the same weights, video, captions and slot noise,
             warmup off, the CPU with the card's ReLU masks as in phase 11
             (its own-mask result reported): the loss (1e-5 relative) and every
             trainable gradient leaf (1e-4 of its largest value) after one
@@ -186,7 +186,7 @@ P3. predictors_service  (OCVPSeq and TextOCVP_CustomTF) a
             ``PredictionService`` at batch 8 with 19 predictions: warmup and
             three requests (8 rows float32, 3 rows uint8, 8 rows), 1 / 3
             launches a request; CustomTF refuses an out-of-vocabulary word;
-P4. predictors_train_parity  PredictorTrainer at B=2, p=3 on the card and on
+P4. predictors_train_parity  PredictorTrainer at B=2, p=2 on the card and on
             the CPU as phase 15, also with the card's masks of the torch-style
             feed-forward ReLUs; the attention key biases are exact-zero
             leaves;
@@ -214,7 +214,7 @@ then the CLIPort chain, over the color-cache set:
             clip_pred_train_sign  the same for the 04 step through the frozen
             ExtendedDINOSAUR of phase 20 (B=64, c=1, p=9, ``accum_steps`` 8;
             one epoch, then a resume; 10 slot-attention calls and 12
-            ViT-attention launches a microbatch; the parity at p=3);
+            ViT-attention launches a microbatch; the parity at p=2);
 24. clip_eval_parity  the eval step at B=2 on the card and on the CPU, on
             phase 23's checkpoint, as phase 8;
 25. clip_eval  the 05 CLI at B=16, 1 seed frame, 9 predictions over the 32
@@ -229,7 +229,40 @@ then the CLIPort chain, over the color-cache set:
             episodes, 8 slot-attention calls, 12 ViT-attention launches and
             no conv5 launch a batch.
 
-Phases 5 and 6 are a serving path's main path, phase 9 the eval path's,
+and the host input and the trainers' extras:
+H1. host_io  what the machine offers the host input path (``native.host_io``:
+            the compiler, the build against zlib, PIL, imageio and ffmpeg,
+            tensorboard), the ``native/imgio.cpp`` build and its
+            seconds, the C++ resize against ``resize_bilinear_plain`` on
+            320 x 240 -> 64 x 64 and 640 x 480 -> 336 x 336 frames and PNGs
+            of the stdlib writer (rows through filter types 0-4) decoded back,
+            bit for bit; decode plus resize in frames/s on 1 thread and 8;
+H2. png_eval  (after phase 10) the CATER 05 CLI at B=64, p=19 over 64
+            frame-directory videos of 21 PNG frames at 320 x 240 (8 loader
+            threads), then over the ``.npy`` caches ``cli/make_npy_cache.py``
+            builds from them: the same items bit for bit and the same
+            ``results.json``; the loader's frames/s against the step's
+            demand, and the device's idle share of a loader pass and its step;
+H3. train_extras, train_remat  (after phase D2) the 02 CLI on CATER (B=16,
+            2 steps) with ``tpu.async_checkpoint`` and ``TEXTOCVP_PROFILE``:
+            ``logs.txt``, the Chrome trace with the slot-attention and conv5
+            kernels, the checkpoints equal to the trainer's state,
+            TensorBoard's event files where ``tensorboard`` imports; one CATER
+            02 step (B=64, T=8) and one 04 step (B=64, c=1, p=9), each
+            without and with ``tpu.remat``: ms, peak GB and the largest
+            gradient difference over the largest leaf (held to
+            REMAT_TOLERANCE);
+H4. clip_remat, clip_png_eval  (after phase 27) one CLIPort 02 microbatch of
+            8 without and with remat (ms, peak GB, gradient difference);
+            one CLIPort 04 microbatch of 16 (``accum_steps`` 4) with remat,
+            its peak; the CLIPort 05 CLI at
+            B=16, p=9 over 16 test episodes of 12 PNG frames at 640 x 480
+            without a cache, against the cache route as H2.
+
+The trainers' CLI runs add one TensorBoard image strip an epoch where
+``tensorboard`` imports (``Trainer.image_strips``), and their launch counts
+count it. Phases 5 and 6 are a serving path's main path, phase 9 the eval path's, H2's
+and H4's PNG runs the PNG routes',
 phase 12's first run the train path's, the 03 CLI runs of D2 and 27 the
 03 paths', phase 16's first run the
 predictor-train path's, P2's and P5's CLI runs and P3 the other predictors'
@@ -251,6 +284,7 @@ from __future__ import annotations
 import gc
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -278,14 +312,21 @@ EVAL_BATCH, EVAL_PREDS, EVAL_VIDEOS = 64, 19, 128
 TRAIN_BATCH, TRAIN_FRAMES = 64, 8                  # bench_train.py's flagship step
 TRAIN_VIDEOS, TRAIN_VALID_VIDEOS = 5 * TRAIN_BATCH, TRAIN_BATCH  # 5 steps, 1 valid batch
 GRAD_TOLERANCE = 1e-4  # gradients: max abs error over the reference's max |value|
+# remat's gradients against the plain step's, over the largest leaf, a
+# step: limits a little above the H100 readings in PERF.md (02: 4.4e-6 to
+# 5.0e-6, the decoder's final conv's weight gradient summed over 8 regions of
+# frames, where the plain step differs from itself by 1.1e-7; 04: 6.5e-7 to
+# 8.3e-7)
+REMAT_TOLERANCE = {"02": 1e-5, "04": 2e-6}
 PRED_NAME = "textocvp_t5"
 PRED_CONTEXT, PRED_PREDS = 1, 9          # the 04 defaults (core/config.py DEFAULTS)
 PRED_FRAMES = PRED_CONTEXT + PRED_PREDS  # frames of a predictor-training clip
 # predictions of a 04 parity step: it runs at B=2 on the CPU twice (its own
 # masks and the card's) at full width, the decode of every predicted frame
 # and its backward most of that time; at p=9 the six 04 parities took 554 s
-# of a 1318 s run (an H100 80GB HBM3 at 700 W and its host)
-PARITY_PREDS = 3
+# of a 1318 s run, at p=3 186 s of a 1048 s one (an H100 80GB HBM3 at 700 W
+# and its host)
+PARITY_PREDS = 2
 PRED_TAIL_N = TRAIN_BATCH * PRED_PREDS * 8  # slot maps through the decoder tail a step
 CLIP_RES, CLIP_PATCHES, CLIP_SLOTS, CLIP_SLOT_DIM = 336, 576, 10, 128  # ExtendedDINOSAUR
 CLIP_TRAIN_BATCH, CLIP_FRAMES = 64, 8   # configs/datasets/CLIPort.json, the 02 batch
@@ -294,6 +335,7 @@ CLIP_EPISODES = (("train", 64), ("val", 16), ("test", 32))
 CLIP_EPISODE_FRAMES = 12                # c + p = 10 for the 04 step, and room for random_start
 CLIP_EVAL_BATCH, CLIP_PREDS = 16, 9     # scripts/05_evaluate_TextOCVP_CLIPort.sh
 CLIP_VALID_BATCH = dict(CLIP_EPISODES)["val"]  # one valid batch, no accumulation
+CLIP_STEADY_REPS = 2  # timed steady CLIPort train steps (5.5 and 7.6 s each)
 # the batches of one ViT call on the main paths, in frames: a request's and
 # the 05 seed frames, the 02 microbatch and valid batch, the 04 microbatch
 # and valid batch
@@ -1632,11 +1674,14 @@ def phase_train(exp_path):
     seconds = time.perf_counter() - t
     counts = launches()  # and ends here
     input_grad = c5.conv5_input_grad_cuda.launches
-    want = {"slot_attention": TRAIN_FRAMES * (valid + steps), "vit_attention": 0,
-            "conv5": 3 * valid + 6 * steps}
-    check(counts == want and input_grad == 3 * steps,
-          f"train: kernel launches on the main path {counts}, input-gradient {input_grad}; "
-          f"want {want}, {3 * steps}")
+    # and the TensorBoard image strip of iteration 0 (one sequence's forward)
+    # where tensorboard imports
+    strips = trainer.image_strips
+    want = {"slot_attention": TRAIN_FRAMES * (valid + steps + strips), "vit_attention": 0,
+            "conv5": 3 * (valid + strips) + 6 * steps}
+    check(counts == want and input_grad == 3 * steps and strips == int(trainer.writer is not None),
+          f"train: kernel launches on the main path {counts}, input-gradient {input_grad}, "
+          f"image strips {strips}; want {want}, {3 * steps}")
     losses = loss_lines(out)
     check(len(losses) == steps and bool(np.isfinite(losses).all()), f"train losses {losses}")
     check(trainer.global_step == valid + steps and trainer.optimizer.count == steps,
@@ -1665,6 +1710,7 @@ def phase_train(exp_path):
     emit({"phase": "train", "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
           "train_videos": TRAIN_VIDEOS, "valid_videos": TRAIN_VALID_VIDEOS,
           "cli_seconds": seconds, "resume_cli_seconds": resume_seconds, "launches": counts,
+          "image_strips": strips,
           "conv5_input_grad_launches": input_grad, "losses": losses, "resumed_losses": losses2,
           "epoch_lines": [line for line in (out + out2).splitlines() if line.startswith("Epoch")]})
     return counts, input_grad, resumed
@@ -1917,9 +1963,13 @@ def phase_pred_train(parent: Path, exp_path: Path, steps: int, phase="pred_train
     seconds = time.perf_counter() - t
     counts = launches()  # and ends here
     input_grad, weight_grad = c5.conv5_input_grad_cuda.launches, c5.conv5_weight_grad.calls
-    want = {"slot_attention": PRED_FRAMES * (valid + steps), "vit_attention": 0,
-            "conv5": 3 * valid + 6 * steps}
+    # and the image strip of iteration 0 where tensorboard imports: one
+    # sequence encoded, rolled out and its predictions decoded
+    strips = trainer.image_strips
+    want = {"slot_attention": PRED_FRAMES * (valid + steps + strips), "vit_attention": 0,
+            "conv5": 3 * (valid + strips) + 6 * steps}
     what = f"{phase} {exp_path.name}"
+    check(strips == int(trainer.writer is not None), f"{what}: {strips} image strips")
     check(counts == want and input_grad == 3 * steps and weight_grad == 0,
           f"{what}: kernel launches on the main path {counts}, input-gradient {input_grad}, "
           f"weight-gradient calls {weight_grad}; want {want}, {3 * steps}, 0")
@@ -1966,6 +2016,7 @@ def phase_pred_train(parent: Path, exp_path: Path, steps: int, phase="pred_train
           "num_preds": PRED_PREDS, "train_videos": steps * TRAIN_BATCH,
           "valid_videos": TRAIN_VALID_VIDEOS, "decomp_ckpt": "checkpoint_epoch_final (02 phase)",
           "cli_seconds": seconds, "resume_cli_seconds": resume_seconds, "launches": counts,
+          "image_strips": strips,
           "conv5_input_grad_launches": input_grad, "conv5_weight_grad_calls": weight_grad,
           "losses": losses, "resumed_losses": losses2,
           "epoch_lines": [line for line in (out + out2).splitlines() if line.startswith("Epoch")],
@@ -2603,10 +2654,15 @@ def phase_clip_train(exp_path):
     seconds = time.perf_counter() - t
     counts = launches()  # and ends here
     # one slot-attention call a frame of a (micro)batch; one ViT call a
-    # (micro)batch, one attention launch a block
-    want = {"slot_attention": epochs * (steps * CLIP_ACCUM + valid) * CLIP_FRAMES,
-            "vit_attention": epochs * (steps * CLIP_ACCUM + valid) * VIT_BLOCKS, "conv5": 0}
-    check(counts == want, f"clip_train: kernel launches on the main path {counts}, want {want}")
+    # (micro)batch, one attention launch a block; and each epoch's image
+    # strip where tensorboard imports
+    strips = trainer.image_strips
+    calls = epochs * (steps * CLIP_ACCUM + valid) + strips
+    want = {"slot_attention": calls * CLIP_FRAMES, "vit_attention": calls * VIT_BLOCKS,
+            "conv5": 0}
+    check(counts == want and strips == epochs * int(trainer.writer is not None),
+          f"clip_train: kernel launches on the main path {counts}, want {want}; "
+          f"{strips} image strips")
     losses = loss_lines(out)
     check(len(losses) == epochs * steps and bool(np.isfinite(losses).all()),
           f"clip_train losses {losses}")
@@ -2726,7 +2782,7 @@ def phase_clip_train_step(trainer, videos):
     each microbatch, 12 ViT-attention launches a microbatch), and one step
     under torch.profiler. Off the main path."""
     batch = trainer.to_device(videos)
-    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch))
+    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch), reps=CLIP_STEADY_REPS)
     before = launch_counts_clip()
     noise = trainer._noise(batch.shape[0])
     split = accumulated_split(trainer, batch.shape[0],
@@ -2820,11 +2876,14 @@ def phase_clip_pred_train(parent: Path):
     seconds = time.perf_counter() - t
     counts = launches()  # and ends here
     # the frozen encode: one slot-attention call a frame, one ViT call, of
-    # each (micro)batch
-    want = {"slot_attention": (steps * CLIP_ACCUM + valid) * PRED_FRAMES,
-            "vit_attention": (steps * CLIP_ACCUM + valid) * VIT_BLOCKS, "conv5": 0}
-    check(counts == want, f"clip_pred_train: kernel launches on the main path {counts}, "
-                          f"want {want}")
+    # each (micro)batch and of the image strip where tensorboard imports
+    strips = trainer.image_strips
+    calls = steps * CLIP_ACCUM + valid + strips
+    want = {"slot_attention": calls * PRED_FRAMES, "vit_attention": calls * VIT_BLOCKS,
+            "conv5": 0}
+    check(counts == want and strips == int(trainer.writer is not None),
+          f"clip_pred_train: kernel launches on the main path {counts}, want {want}; "
+          f"{strips} image strips")
     losses = loss_lines(out)
     check(len(losses) == steps and bool(np.isfinite(losses).all()),
           f"clip_pred_train losses {losses}")
@@ -2870,7 +2929,8 @@ def phase_clip_pred_train_step(trainer, videos, info):
     launches a microbatch), and one step under torch.profiler. Off the main
     path."""
     batch, text = trainer.batch_to_device(videos, info)
-    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch, **text))
+    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch, **text),
+                                    reps=CLIP_STEADY_REPS)
     before = launch_counts_clip()
     noise = trainer._noise(batch.shape[0])
     split = accumulated_split(
@@ -2980,6 +3040,514 @@ def run_clip(tmp: Path, created: Path):
     return counts
 
 
+# ------------------------------------- host input, the PNG routes, the trainers' extras
+
+HOST_SHAPES = {"cater": ((240, 320), (CONV5_RES, CONV5_RES)),    # a CATER frame, the model's
+               "clipport": ((480, 640), (CLIP_RES, CLIP_RES))}   # a CLIPort frame, the model's
+HOST_THREADS = 8        # the loader's default workers (TEXTOCVP_NUM_WORKERS)
+HOST_RATE_FRAMES = 192  # PNG files read, decoded and resized for each rate
+PNG_VIDEOS, PNG_VIDEO_FRAMES = EVAL_BATCH, EVAL_PREDS + 2  # frame 0, then 1 + 19 read
+CLIP_PNG_EPISODES = CLIP_EVAL_BATCH
+EXTRAS_BATCH, EXTRAS_VIDEOS = 16, 32  # the 02 CLI with the extras: 2 steps, 1 valid batch
+CLIP_REMAT_MICROBATCH = CLIP_TRAIN_BATCH // 4  # a microbatch of accum_steps 4
+
+
+def scene_frames(rng, n, h, w, blocks=3):
+    """``n`` uint8 (h, w, 3) frames: coloured squares sliding over a shaded
+    floor, a little noise."""
+    yy, xx = np.mgrid[:h, :w]
+    floor = np.stack([90 + 60 * yy // h + 25 * xx // w, 85 + 55 * yy // h + 20 * xx // w,
+                      80 + 50 * yy // h + 20 * xx // w], -1).astype(np.int16)
+    frames = np.repeat(floor[None], n, 0)
+    side = min(h, w)
+    for _ in range(blocks):
+        color = rng.integers(0, 256, 3)
+        size = int(rng.integers(side // 20, side // 8))
+        cy, cx = rng.uniform(0.15, 0.85) * h, rng.uniform(0.15, 0.85) * w
+        vy, vx = rng.uniform(-1.5, 1.5, 2) * side / 64
+        for t in range(n):
+            y, x = int(cy + vy * t), int(cx + vx * t)
+            frames[t, max(y - size, 0):max(y + size, 0), max(x - size, 0):max(x + size, 0)] = color
+    frames += rng.integers(-5, 6, frames.shape, dtype=np.int16)
+    return np.clip(frames, 0, 255).astype(np.uint8)
+
+
+def write_pngs(jobs):
+    """(path, frame) pairs written as PNGs by the port's stdlib writer (each
+    row the next of the five filter types), on HOST_THREADS threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from textocvp_tpu_torch.native.png import encode_png
+
+    def write(job):
+        job[0].write_bytes(encode_png(job[1], 2))
+
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        list(pool.map(write, jobs))
+
+
+def phase_host_io(tmp: Path):
+    """What the machine offers the host input path (the compiler, the imgio
+    build against zlib, PIL, imageio and ffmpeg, tensorboard), the
+    imgio build and its seconds; the C++ resize against
+    ``resize_bilinear_plain`` on CATER-like 320 x 240 -> 64 x 64 and
+    CLIPort-like 640 x 480 -> 336 x 336 frames, and PNGs of the stdlib
+    writer decoded back, bit for bit; then PNG files read, decoded and
+    resized (``datasets._load_image_resized``) in frames/s on 1 thread and
+    on HOST_THREADS. Off the main paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from textocvp_tpu_torch import native
+    from textocvp_tpu_torch.data.datasets import _load_image_resized
+    from textocvp_tpu_torch.native.png import encode_png
+
+    t = time.perf_counter()
+    info = native.host_io()
+    lib = native.build()
+    native.load()
+    build_s = time.perf_counter() - t
+    rng = np.random.default_rng(SEED + 30)
+    rates = {}
+    for name, (src, dst) in HOST_SHAPES.items():
+        for frame in scene_frames(rng, 3, *src):
+            check(np.array_equal(native.resize_bilinear_rgb(frame, *dst),
+                                 native.resize_bilinear_plain(frame, *dst)),
+                  f"host_io {name}: the C++ resize differs from resize_bilinear_plain")
+            check(np.array_equal(native.decode_png_rgb(encode_png(frame, 2)), frame),
+                  f"host_io {name}: a PNG of the stdlib writer did not decode to its frame")
+        folder = tmp / f"host_io_{name}"
+        folder.mkdir()
+        video = scene_frames(rng, 24, *src)
+        paths = [folder / f"{i:04d}.png" for i in range(HOST_RATE_FRAMES)]
+        write_pngs([(p, video[i % len(video)]) for i, p in enumerate(paths)])
+
+        def load(p, dst=dst):
+            return _load_image_resized(str(p), tuple(dst), as_uint8=True)
+
+        def rate(threads):
+            t = time.perf_counter()
+            with ThreadPoolExecutor(threads) as pool:
+                list(pool.map(load, paths))
+            return len(paths) / (time.perf_counter() - t)
+
+        rate(HOST_THREADS)  # the files in the page cache
+        rates[name] = {"src_hw": list(src), "dst_hw": list(dst),
+                       "png_kb_mean": sum(p.stat().st_size for p in paths) / len(paths) / 1e3,
+                       "frames_per_s_1_thread": rate(1),
+                       f"frames_per_s_{HOST_THREADS}_threads": rate(HOST_THREADS)}
+    emit({"phase": "host_io", "host_io": info, "imgio_library": lib.name,
+          "imgio_build_s": build_s, "bit_exact": ["resize vs resize_bilinear_plain",
+                                                  "stdlib PNG writer -> decode"],
+          "host_cpus": os.cpu_count(), "decode_resize": rates})
+
+
+def write_cater_png_fixture(root: Path) -> Path:
+    """PNG_VIDEOS CATER videos of PNG_VIDEO_FRAMES frames at 320 x 240 as
+    frame directories (``easy/video_XXXX/frame_XXXXX.png``), and
+    ``easy/test_explicit.json``."""
+    rng = np.random.default_rng(SEED + 31)
+    mode = root / "easy"
+    mode.mkdir(parents=True)
+    captions = PATHS[0].captions
+    jobs, ann = [], {}
+    for i in range(PNG_VIDEOS):
+        folder = mode / f"video_{i:04d}"
+        folder.mkdir()
+        for t, frame in enumerate(scene_frames(rng, PNG_VIDEO_FRAMES, *HOST_SHAPES["cater"][0])):
+            jobs.append((folder / f"frame_{t:05d}.png", frame))
+        ann[str(i)] = {"video": folder.name, "caption": captions[i % len(captions)]}
+    write_pngs(jobs)
+    (mode / "test_explicit.json").write_text(json.dumps(ann))
+    return root
+
+
+def write_cliport_png_fixture(root: Path) -> Path:
+    """CLIP_PNG_EPISODES CLIPort test episodes of CLIP_EPISODE_FRAMES PNG
+    frames at 640 x 480 (``test/episodeNNNNN/color/<n>_color.png``) with
+    their ``task_description.txt``, and no cache."""
+    rng = np.random.default_rng(SEED + 32)
+    jobs = []
+    for n in range(CLIP_PNG_EPISODES):
+        ep = root / "test" / f"episode{n:05d}"
+        (ep / "color").mkdir(parents=True)
+        for t, frame in enumerate(scene_frames(rng, CLIP_EPISODE_FRAMES,
+                                               *HOST_SHAPES["clipport"][0], blocks=4)):
+            jobs.append((ep / "color" / f"{t:06d}_color.png", frame))
+        block, bowl = rng.choice(CLIP_COLORS["test"], 2, replace=False)
+        (ep / "task_description.txt").write_text(f"put the {block} block in the {bowl} bowl\n")
+    write_pngs(jobs)
+    return root
+
+
+def png_route_eval(tmp: Path, phase, path: ServedPath, png_root: Path, cache_args, batch,
+                   want_launches):
+    """The 05 CLI (B=``batch``, 1 seed frame, ``path.num_preds``) over the
+    PNG set ``png_root`` on the card, a PNG route's main path, then over the
+    ``.npy`` caches that ``cli/make_npy_cache.py`` builds from it (args
+    ``cache_args``): the same weights, the same frames bit for bit, so the
+    same ``results.json``. Then the loader's frames/s on the PNG set against
+    the eval step's demand, and the device's idle share of the loader's
+    batch and its step under ``torch.profiler``. Returns the main path's
+    launches."""
+    from textocvp_tpu_torch.cli import evaluate_predictor, make_npy_cache
+    from textocvp_tpu_torch.data.loader import load_data
+    from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
+
+    cache_root = png_root.with_name(png_root.name + "_npy")
+    t = time.perf_counter()
+    make_npy_cache.main([*cache_args, "--root", str(png_root), "--out", str(cache_root)])
+    cache_s = time.perf_counter() - t
+    params, pred_params = full_width_params(path)
+    results, exps, cli_s = {}, {}, {}
+    for route, root in (("png", png_root), ("cache", cache_root)):
+        for p in (params, pred_params):
+            p["dataset"]["root"] = str(root)
+        exps[route] = write_experiment(tmp / f"{phase}_{route}", params, pred_params)
+        argv = ["-d", str(exps[route]), "--name_pred_exp", "textocvp_t5", "--decomp_ckpt",
+                "random", "--pred_ckpt", "random", "--batch_size", str(batch), "--num_seed",
+                "1", "--num_preds", str(path.num_preds)]
+        if route == "png":
+            reset_launches()  # the main path starts here
+        t = time.perf_counter()
+        rc = evaluate_predictor.main(argv)
+        torch.cuda.synchronize()
+        cli_s[route] = time.perf_counter() - t
+        if route == "png":
+            counts = launches()  # and ends here
+        check(rc == 0, f"{phase} {route}: evaluate_predictor returned {rc}")
+        with open(exps[route] / "predictors" / "textocvp_t5" / "results" / (
+                f"eval_pred_random_NumSeed=1_NumPreds={path.num_preds}") / "results.json") as f:
+            results[route] = json.load(f)
+    check(counts == want_launches, f"{phase}: kernel launches on the main path {counts}, "
+                                   f"want {want_launches}")
+    for m in ("psnr", "ssim", "lpips"):
+        check(len(results["png"][m]["framewise"]) == path.num_preds
+              and bool(np.isfinite(results["png"][m]["framewise"]).all()),
+              f"{phase}: {m} {results['png'][m]}")
+    check(results["png"] == results["cache"],
+          f"{phase}: results.json over the PNGs differs from the cache route's")
+
+    ev = PredictorEvaluator(exps["png"], "textocvp_t5", "random", "random", num_seed=1,
+                            num_preds=path.num_preds, batch_size=batch)
+    ev.load_data()
+    ev.load_models()
+    # the items themselves, bit for bit
+    cached = load_data({**ev.exp_params, "dataset": {**ev.exp_params["dataset"],
+                                                     "root": str(cache_root)}}, "test")
+    check(len(cached) == len(ev.test_set), f"{phase}: {len(cached)} cached items")
+    for i in range(len(cached)):
+        check(np.array_equal(ev.test_set[i][0], cached[i][0]),
+              f"{phase}: item {i} of the PNG route differs from the cache's")
+    t = time.perf_counter()
+    frames = sum(v.shape[0] * v.shape[1] for v, _ in ev.test_loader)
+    loader_fps = frames / (time.perf_counter() - t)
+    videos, info = next(iter(ev.test_loader))
+    step_ms, peak_gb = steady_steps(lambda: ev.eval_step(videos, info), reps=2)
+    demand = 1e3 * videos.shape[0] * videos.shape[1] / (sum(step_ms) / len(step_ms))
+    prof, _ = profiled_step(lambda: [ev.eval_step(v, i) for v, i in ev.test_loader], cpu=False)
+    emit({"phase": phase, "batch": batch, "num_preds": path.num_preds,
+          "items": len(cached), "src_hw": list(HOST_SHAPES[path.name][0]),
+          "img_hw": [path.res, path.res], "loader_workers": ev.test_loader.num_workers,
+          "cli_seconds": cli_s, "cache_seconds": cache_s, "launches": counts,
+          "results_equal_to_cache_route": True,
+          "loader_frames_per_s": loader_fps, "eval_step_ms": step_ms,
+          "eval_step_demand_frames_per_s": demand, "peak_mem_gb": peak_gb,
+          "loader_and_step_wall_ms": prof["profiled_step_wall_ms"],
+          "loader_and_step_device_busy_ms": prof["device_busy_ms"],
+          "loader_and_step_device_idle_share": prof["device_idle_share"],
+          "means": {m: results["png"][m]["mean"] for m in ("psnr", "ssim", "lpips")}})
+    del ev, cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_png_eval(tmp: Path):
+    """The CATER 05 over frame directories of PNGs (``png_eval``)."""
+    root = write_cater_png_fixture(tmp / "CATER_png")
+    return png_route_eval(tmp, "png_eval", PATHS[0], root,
+                          ["--dataset", "cater", "--mode", "easy", "--split", "test",
+                           "--img-size", f"{PATHS[0].res}x{PATHS[0].res}",
+                           "--num-frames", str(1 + EVAL_PREDS)],
+                          EVAL_BATCH, {"slot_attention": 1, "vit_attention": 0, "conv5": 3})
+
+
+def run_clip_png_eval(tmp: Path):
+    """The CLIPort 05 over PNG episodes without a cache (``clip_png_eval``)."""
+    root = write_cliport_png_fixture(tmp / "CLIPort_png")
+    return png_route_eval(tmp, "clip_png_eval", PATHS[1], root,
+                          ["--dataset", "cliport", "--split", "test",
+                           "--img-size", f"{PATHS[1].res}x{PATHS[1].res}"],
+                          CLIP_EVAL_BATCH,
+                          {"slot_attention": 1, "vit_attention": VIT_BLOCKS, "conv5": 0})
+
+
+def same_tensors(a, b) -> bool:
+    """Whether two nested states hold the same tensors bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tensors(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def phase_train_extras(tmp: Path):
+    """The 02 CLI on CATER for one epoch (EXTRAS_VIDEOS videos at
+    B=EXTRAS_BATCH after one valid batch) with ``tpu.async_checkpoint`` and
+    ``TEXTOCVP_PROFILE``: ``logs.txt`` holds its lines, the Chrome trace the
+    slot-attention and conv5 kernels, the checkpoints the trainer's state
+    bit for bit and as a synchronous save of it loads, TensorBoard's event
+    files where ``tensorboard`` imports. Off the main paths."""
+    from textocvp_tpu_torch import native
+    from textocvp_tpu_torch.cli import train_decomp
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.train.checkpoints import load_checkpoint, save_checkpoint
+
+    data_root = write_cater_fixture(tmp / "CATER_extras", (("train", EXTRAS_VIDEOS),
+                                                           ("test", EXTRAS_BATCH)))
+    exp_path = train_experiment(tmp / "extras", data_root, batch_size=EXTRAS_BATCH)
+    exp = Experiment(exp_path)
+    params = exp.params
+    params["tpu"] = {"async_checkpoint": True}
+    exp.save_params(params)
+    profile_dir = tmp / "extras_profile"
+    os.environ["TEXTOCVP_PROFILE"] = str(profile_dir)
+    try:
+        t = time.perf_counter()
+        trainer, out = run_cli(train_decomp.main, ["-d", str(exp_path)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    finally:
+        del os.environ["TEXTOCVP_PROFILE"]
+    steps = EXTRAS_VIDEOS // EXTRAS_BATCH
+    logged = (exp_path / "logs.txt").read_text()
+    check(all(f"epoch 0 iter {i}: loss=" in logged for i in range(steps))
+          and "Epoch 1/1: train=" in logged and "Calling: training_loop..." in logged,
+          "train_extras: logs.txt lacks the iteration or epoch lines")
+    traces = sorted(profile_dir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"train_extras: Chrome traces {traces}")
+    names = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    kernels = {k: sum(k in n for n in names) for k in (SLOT_ATTENTION_KERNEL, "conv5_kernel")}
+    check(all(kernels.values()), f"train_extras: the trace lacks a port kernel: {kernels}")
+    state = trainer._state(1)
+    sync = save_checkpoint(tmp / "extras_sync.pt", state)
+    for name in ("checkpoint_last_saved", "checkpoint_epoch_final"):
+        written = load_checkpoint(exp.checkpoint_path(name))
+        check(same_tensors(written["params"], state["params"])
+              and same_tensors(written["opt_state"], state["opt_state"])
+              and same_tensors(written, load_checkpoint(sync)),
+              f"train_extras: {name} differs from the trainer's state")
+    events = sorted((exp_path / "tboard_logs").glob("events.out.tfevents.*"))
+    tensorboard = native.host_io()["tensorboard"]
+    check(bool(events) == tensorboard and trainer.image_strips == int(tensorboard),
+          f"train_extras: tensorboard {tensorboard}, event files {events}, "
+          f"image strips {trainer.image_strips}")
+    emit({"phase": "train_extras", "batch": EXTRAS_BATCH, "frames": TRAIN_FRAMES,
+          "train_videos": EXTRAS_VIDEOS, "cli_seconds": seconds, "async_checkpoint": True,
+          "logs_txt_lines": len(logged.splitlines()), "trace": traces[0].name,
+          "trace_mb": traces[0].stat().st_size / 1e6, "trace_kernel_events": kernels,
+          "checkpoints_equal_trainer_state": True, "tensorboard": tensorboard,
+          "event_files": len(events), "image_strips": trainer.image_strips})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def remat_rows(make, batch, reps=2):
+    """``make(remat)``'s trainer without and with ``tpu.remat`` on one batch
+    (``batch(trainer)`` -> (videos, noise, text)): the gradients of a first
+    backward, then ``reps`` steady steps (backward and Adam) on the host
+    clock, their peak GB. Returns the rows and the largest gradient
+    difference over the largest leaf (checked by the caller, after it has
+    printed it)."""
+    rows, grads = {}, {}
+    for knob in (False, True):
+        tr = make(knob)
+        videos, noise, text = batch(tr)
+        tr.backward(videos, noise, **text)
+        grads[knob] = {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()
+                       if p.grad is not None}
+
+        def step():
+            tr.backward(videos, noise, **text)
+            tr.optimizer.step()
+
+        step_ms, peak_gb = steady_steps(step, reps)
+        rows["remat" if knob else "plain"] = {"step_ms": step_ms, "peak_mem_gb": peak_gb}
+        del tr, videos, noise, text
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(grads[True].keys() == grads[False].keys(), "remat: other leaves take gradients")
+    top = max(g.abs().max().item() for g in grads[False].values())
+    diff = max((grads[True][n] - g).abs().max().item() for n, g in grads[False].items())
+    return rows, diff / top
+
+
+def phase_train_remat(train_exp: Path, data_root: Path):
+    """One CATER 02 step (B=64, T=8) and one CATER 04 step (B=64, c=1, p=9,
+    through the 02 path's SAVi), each without and with ``tpu.remat``, on
+    one batch and one noise draw: the step's ms and peak GB, and the largest
+    gradient difference over the largest leaf. Off the main paths."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+    from textocvp_tpu_torch.train.trainer import REMAT_REGIONS, DecompTrainer
+
+    def with_remat(path, knob):
+        exp = Experiment(path)
+        params = exp.params
+        params["tpu"] = {"remat": knob}
+        exp.save_params(params)
+        return path
+
+    decomp = train_experiment(train_exp.parent / "remat_02", data_root)
+
+    def noise(tr, b):  # one draw for both trainers
+        return tr._noise(b, torch.Generator().manual_seed(SEED + 6))
+
+    def make02(knob):
+        tr = DecompTrainer(with_remat(decomp, knob))
+        tr.setup_model()
+        return tr
+
+    def batch02(tr):
+        tr.load_data()
+        videos, _ = next(iter(tr.train_loader))
+        return tr.to_device(videos), noise(tr, videos.shape[0]), {}
+
+    rows02, rel02 = remat_rows(make02, batch02)
+
+    def make04(knob):
+        tr = PredictorTrainer(with_remat(pred_experiment(train_exp, f"remat_04_{knob}"), knob),
+                              "checkpoint_epoch_final")
+        tr.setup_model()
+        return tr
+
+    def batch04(tr):
+        tr.load_data()
+        videos, info = next(iter(tr.train_loader))
+        videos, text = tr.batch_to_device(videos, info)
+        return videos, noise(tr, videos.shape[0]), text
+
+    rows04, rel04 = remat_rows(make04, batch04)
+    emit({"phase": "train_remat", "train_02": {"batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
+                                               **rows02, "grad_diff_over_max": rel02},
+          "pred_train_04": {"batch": TRAIN_BATCH, "num_context": PRED_CONTEXT,
+                            "num_preds": PRED_PREDS, **rows04, "grad_diff_over_max": rel04},
+          "remat_regions_of_a_decode": REMAT_REGIONS, "tolerance_rel": REMAT_TOLERANCE})
+    for step, rel in (("02", rel02), ("04", rel04)):
+        check(rel <= REMAT_TOLERANCE[step], f"train_remat: the {step} step's gradients under "
+              f"remat differ from the plain step's by {rel} of the largest leaf > "
+              f"{REMAT_TOLERANCE[step]}")
+
+
+def clip_decomp_remat_rows(parent: Path):
+    """One CLIPort 02 microbatch of 8 episodes (``accum_steps`` 8) of the
+    ExtendedDINOSAUR of ``parent``'s config, without and with ``tpu.remat``,
+    on one batch and one noise draw: its forward and backward on the host
+    clock, its peak GB, the GB its forward keeps for the backward, and the
+    largest gradient difference over the largest leaf. (The peak holds the
+    workspace cuDNN takes for one conv of the CNN head, 27.56 GB in a
+    memory history on the H100, which remat does not touch.)"""
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    data_root = Experiment(parent).params["dataset"]["root"]
+    mb = CLIP_TRAIN_BATCH // CLIP_ACCUM
+    rows, grads = {}, {}
+    for knob in (False, True):
+        exp = Experiment(clip_experiment(parent.parent / f"clip_remat_02_{knob}", data_root))
+        params = exp.params
+        params["tpu"] = {"remat": knob}
+        exp.save_params(params)
+        tr = DecompTrainer(exp.exp_path)
+        tr.setup_model()
+        tr.load_data()
+        batch = tr.to_device(next(iter(tr.train_loader))[0][:mb])
+        noise = tr._noise(mb, torch.Generator().manual_seed(SEED + 6))
+
+        def micro():
+            tr.optimizer.zero_grad()
+            tr.forward_loss(batch, noise)[0].backward()
+
+        micro()
+        grads[knob] = {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()
+                       if p.grad is not None}
+        tr.optimizer.zero_grad()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loss = tr.forward_loss(batch, noise)[0]
+        torch.cuda.synchronize()
+        kept_gb = (torch.cuda.memory_allocated() - before) / 2**30
+        loss.backward()
+        del loss
+        step_ms, peak_gb = steady_steps(micro, reps=1)
+        rows["remat" if knob else "plain"] = {"step_ms": step_ms, "peak_mem_gb": peak_gb,
+                                              "kept_after_forward_gb": kept_gb}
+        del tr, batch, noise
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(grads[True].keys() == grads[False].keys(), "clip_remat: other leaves take gradients")
+    top = max(g.abs().max().item() for g in grads[False].values())
+    diff = max((grads[True][n] - g).abs().max().item() for n, g in grads[False].items())
+    return {"microbatch": mb, **rows, "grad_diff_over_max": diff / top}
+
+
+def phase_clip_remat(parent: Path):
+    """One CLIPort 02 microbatch without and with ``tpu.remat``
+    (:func:`clip_decomp_remat_rows`); then one CLIPort 04 microbatch with
+    ``tpu.remat`` through the CLIPort 02 path's ExtendedDINOSAUR (c=1,
+    p=9): of 8 episodes (``accum_steps`` 8 of B=64, the configured one;
+    48.07 GB without remat, PERF.md §5) and of CLIP_REMAT_MICROBATCH
+    (``accum_steps`` 4): its forward and backward on the host clock and its
+    peak GB, or the card's refusal of the memory. Off the main paths."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+    from textocvp_tpu_torch.train.trainer import REMAT_REGIONS
+
+    decomp = clip_decomp_remat_rows(parent)
+
+    exp = Experiment(pred_experiment(parent, "clip_remat", accum_steps=4))
+    params = exp.params
+    params["tpu"] = {"remat": True}
+    exp.save_params(params)
+    tr = PredictorTrainer(exp.exp_path, "checkpoint_epoch_final")
+    tr.setup_model()
+    tr.load_data()
+    videos, info = next(iter(tr.train_loader))
+    rows_out = []
+    for mb in (CLIP_TRAIN_BATCH // CLIP_ACCUM, CLIP_REMAT_MICROBATCH):
+        batch, text = tr.batch_to_device(videos[:mb], rows(info, mb))
+        noise = tr._noise(mb)
+
+        def micro():
+            tr.optimizer.zero_grad()
+            tr.forward_loss(batch, noise, **text)[0].backward()
+
+        row = {"microbatch": mb, "accum_steps": CLIP_TRAIN_BATCH // mb}
+        try:
+            step_ms, peak_gb = steady_steps(micro, reps=1)
+            row.update(fits=True, step_ms=step_ms, peak_mem_gb=peak_gb)
+        except torch.cuda.OutOfMemoryError as e:
+            row.update(fits=False, error=str(e).splitlines()[0])
+        rows_out.append(row)
+        del batch, text, noise
+        tr.optimizer.zero_grad()
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "clip_remat", "decomp_02": decomp, "num_preds": PRED_PREDS,
+          "remat_regions_of_a_decode": REMAT_REGIONS, "microbatches": rows_out,
+          "card_gb": torch.cuda.get_device_properties(0).total_memory / 2**30})
+    check(decomp["grad_diff_over_max"] <= REMAT_TOLERANCE["02"],
+          f"clip_remat: the 02 microbatch's gradients under remat differ from the plain "
+          f"one's by {decomp['grad_diff_over_max']} of the largest leaf > "
+          f"{REMAT_TOLERANCE['02']}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_path(path: ServedPath, tmp: Path):
     """Parity, then the main path (service + HTTP) between a reset and a read
     of the launch counters, then the profile. Returns the main path's launches."""
@@ -3012,18 +3580,24 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_host_io(Path(tmp))
         made = phase_create(Path(tmp))
         counts = {path.name: run_path(path, Path(tmp)) for path in PATHS}
         counts["eval"] = run_eval(Path(tmp))
+        counts["png_eval"] = run_png_eval(Path(tmp))
         counts["train"], train_input_grad, train_exp = run_train(Path(tmp))
         # 03 on the SAVi that 02 wrote, over the eval path's 128 test videos
         counts["decomp_eval"] = run_decomp_eval(
             "cater", made["cater"], train_exp / "models" / "checkpoint_epoch_final.pt",
             Path(tmp) / "CATER", EVAL_VIDEOS)
+        phase_train_extras(Path(tmp))
+        phase_train_remat(train_exp, Path(tmp) / "CATER_train")
         counts["pred_train"], pred_input_grad, pred_weight_grad = run_pred_train(train_exp)
         other_counts, other_input_grad, other_weight_grad = run_predictors(Path(tmp), train_exp)
         counts.update(other_counts)
         counts.update(run_clip(Path(tmp), made["clipport"]))
+        phase_clip_remat(Path(tmp) / "clip_train")
+        counts["clip_png_eval"] = run_clip_png_eval(Path(tmp))
 
     sa = next(r for r in rows["slot_attention_cater"] if r["B"] == BATCH and r["iters"] == 3)
     sa64 = next(r for r in rows["slot_attention_cater"] if r["B"] == EVAL_BATCH

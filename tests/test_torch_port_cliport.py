@@ -131,9 +131,12 @@ def test_refuses_too_few_frames_and_the_png_route(cliport_root, tmp_path):
     root = write_cliport(tmp_path / "png", {"test": (1,)})
     ep = root / "test" / "episode1"
     (ep / f"color_cache_{IMG}x{IMG}.npy").unlink()
-    (ep / "color").mkdir()
-    with pytest.raises(NotImplementedError, match="PNG"):
+    with pytest.raises(FileNotFoundError, match="make_npy_cache"):
         CLIPort(str(root), "test", num_frames=2, img_size=[IMG, IMG])[0]
+    (ep / "color").mkdir()  # the PNG route, and no frame in it
+    for cls in (CLIPort, JaxCLIPort):
+        with pytest.raises(ValueError, match="2 frames required but 0 available"):
+            cls(str(root), "test", num_frames=2, img_size=[IMG, IMG])[0]
     with pytest.raises(FileNotFoundError):
         CLIPort(str(tmp_path / "nowhere"), "test", num_frames=2, img_size=[IMG, IMG])
     with pytest.raises(ValueError, match="Unknown split"):

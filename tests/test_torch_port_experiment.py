@@ -56,7 +56,15 @@ def test_create_experiment_writes_the_jax_params(tmp_path, model, dataset):
     assert params_of(ours.exp_path) == build_exp_params(model, dataset)
     for sub in ("models", "plots", "tboard_logs"):
         assert (ours.exp_path / sub).is_dir() and not any((ours.exp_path / sub).iterdir())
-    assert not (ours.exp_path / "logs.txt").exists()  # the port's logger is not ported
+    # the CLI's lines in the experiment's logs.txt, as the JAX CLI writes them
+    logged = [line.split("    ", 1)[1] for line in
+              (ours.exp_path / "logs.txt").read_text().splitlines()]
+    jax_logged = [line.split("    ", 1)[1] for line in
+                  (tmp_path / "jax" / "logs.txt").read_text().splitlines()]
+    assert logged == [f"INFO: Created experiment at {ours.exp_path}",
+                      f"INFO:   model: {model}  dataset: {dataset}"]
+    assert [line.replace(str(tmp_path / "jax"), str(ours.exp_path))
+            for line in jax_logged] == logged
 
 
 @pytest.mark.parametrize("predictor", PREDICTORS)

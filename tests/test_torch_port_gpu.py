@@ -11,8 +11,10 @@ gives every trainable predictor parameter one and the SAVi and T5 none, an
 ExtendedDINOSAUR train step that trains all but the frozen ViT, the CNN
 head's BatchNorm block in training mode against the CPU, the ViT
 attention's refusal of grad, the four other predictors' rollouts on the card
-against the CPU, the 03 step on the card against the CPU, and a CustomTF predictor's refusal of ids past its
-vocabulary before the lookup. Marked ``gpu``;
+against the CPU, the 03 step on the card against the CPU, a CustomTF predictor's refusal of ids past its
+vocabulary before the lookup, the host image library's build on the card's
+machine, remat steps against plain ones (gradients within 1e-6 of the
+largest leaf) and the PNG route into a 05 batch. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -678,3 +680,125 @@ def test_dinosaur_train_step_on_the_card_trains_all_but_the_vit(cuda, tmp_path):
     for k, v in tr.model.image_encoder.state_dict().items():
         assert torch.equal(v, vit[k]), k
     assert not torch.equal(tr.model.patch_decoder.cnns[0].bn.running_mean, stats)
+
+
+def test_imgio_builds_on_this_machine_and_is_exact(cuda, tmp_path):
+    """The host image library builds here against zlib; its resize equals ``resize_bilinear_plain`` at the CATER and
+    CLIPort shapes, and PNGs of the stdlib writer decode back to their
+    frames."""
+    from textocvp_tpu_torch import native
+    from textocvp_tpu_torch.native.png import encode_png
+
+    assert native.build().is_file()
+    assert native.host_io()["imgio_with_zlib"] is True
+    rng = np.random.default_rng(0)
+    for (h, w), (oh, ow) in (((240, 320), (64, 64)), ((480, 640), (336, 336))):
+        frame = rng.integers(0, 256, (h, w, 3), np.uint8)
+        np.testing.assert_array_equal(native.resize_bilinear_rgb(frame, oh, ow),
+                                      native.resize_bilinear_plain(frame, oh, ow))
+        for color_type, arr in ((2, frame), (6, np.concatenate([frame, frame[..., :1]], -1))):
+            np.testing.assert_array_equal(native.decode_png_rgb(encode_png(arr, color_type)),
+                                          frame)
+
+
+def _remat_grads(tmp_path, params, video, noise, frozen=None):
+    """The gradients of one DecompTrainer backward on the card without and
+    with ``tpu.remat``, and the buffers after it."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    out = {}
+    for knob in (False, True):
+        Experiment(tmp_path / str(knob)).save_params({**params, "tpu": {"remat": knob}})
+        tr = DecompTrainer(tmp_path / str(knob))
+        tr.setup_model()
+        tr.backward(video, noise)
+        out[knob] = ({n: p.grad.clone() for n, p in tr.model.named_parameters()
+                      if p.grad is not None},
+                     {n: b.clone() for n, b in tr.model.named_buffers()})
+    (g0, b0), (g1, b1) = out[False], out[True]
+    assert g0.keys() == g1.keys() and g0
+    top = max(g.abs().max().item() for g in g0.values())
+    for name, g in g0.items():
+        assert (g1[name] - g).abs().max().item() <= 1e-6 * top, name
+    for name, b in b0.items():
+        torch.testing.assert_close(b1[name], b, rtol=1e-6, atol=1e-7, msg=name)
+    return b0
+
+
+@pytest.mark.parametrize("model", ["SAVi", "ExtendedDINOSAUR"])
+def test_a_remat_step_on_the_card_matches_the_plain_step(cuda, tmp_path, model):
+    """One 02 backward on the card (SAVi at full width, B=2, T=3;
+    ExtendedDINOSAUR at 112 px with 2 ViT blocks, two microbatches) with
+    ``tpu.remat``: every gradient within 1e-6 of the largest leaf of the
+    step without it, and the BatchNorm statistics moved as without it."""
+    from textocvp_tpu_torch.core.config import build_exp_params
+
+    p = build_exp_params(model, "CATER_Easy" if model == "SAVi" else "CLIPort")
+    mp = p["model"]["model_params"]
+    res = 64
+    if model == "ExtendedDINOSAUR":
+        res = mp["img_size"] = 112
+        mp["encoder"]["encoder_params"]["encoder_num_blocks"] = 2
+        mp["decoder"]["decoder_params"]["num_patches"] = 64
+    p["training"].update(batch_size=2, lr_warmup=False, accum_steps=2 if res == 112 else 1)
+    gen = torch.Generator().manual_seed(7)
+    video = torch.rand((2, 3, res, res, 3), generator=gen).cuda()
+    noise = torch.randn((2, mp["num_slots"], mp["slot_dim"]), generator=gen)
+    buffers = _remat_grads(tmp_path, p, video, noise)
+    if model == "ExtendedDINOSAUR":
+        tracked = [b for n, b in buffers.items() if n.endswith("num_batches_tracked")]
+        assert tracked and all(int(b) == 2 for b in tracked)
+
+
+def test_the_png_route_feeds_a_05_batch_on_the_card(cuda, tmp_path):
+    """CATER frame directories of 320 x 240 PNGs resized to 64 x 64 into a
+    05 batch at full width (B=2, p=3) on the card: the same metrics as the
+    ``.npy`` cache of the same PNGs."""
+    import json
+
+    from textocvp_tpu_torch.cli import make_npy_cache
+    from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.models import setup_model, setup_predictor
+    from textocvp_tpu_torch.native.png import encode_png
+    from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
+
+    rng = np.random.default_rng(8)
+    mode = tmp_path / "png" / "easy"
+    ann = {}
+    for i in range(2):
+        (mode / f"v{i}").mkdir(parents=True)
+        for t in range(5):
+            frame = rng.integers(0, 256, (240, 320, 3), np.uint8)
+            (mode / f"v{i}" / f"{t:03d}.png").write_bytes(encode_png(frame, 2))
+        ann[str(i)] = {"video": f"v{i}", "caption": "the cone is rotating"}
+    (mode / "test_explicit.json").write_text(json.dumps(ann))
+    make_npy_cache.main(["--root", str(tmp_path / "png"), "--split", "test", "--img-size",
+                         "64x64", "--out", str(tmp_path / "npy")])
+    params = build_exp_params("SAVi", "CATER_Easy")
+    gen = torch.Generator().manual_seed(9)
+    model = random_init_(setup_model(params), gen)
+    pred_params = add_predictor_params(params, "TextOCVP_T5")
+    predictor = random_init_(setup_predictor(pred_params), gen)
+    metrics = {}
+    for route in ("png", "npy"):
+        for q in (params, pred_params):
+            q["dataset"]["root"] = str(tmp_path / route)
+        exp = Experiment(tmp_path / f"exp_{route}")
+        exp.save_params(params)
+        pred = Experiment(exp.exp_path / "predictors" / "p")
+        pred.save_params(pred_params)
+        for e in (exp, pred):
+            e.models_dir.mkdir(parents=True, exist_ok=True)
+        torch.save(model.state_dict(), exp.checkpoint_path("m"))
+        torch.save(predictor.state_dict(), pred.checkpoint_path("m"))
+        ev = PredictorEvaluator(exp.exp_path, "p", "m", "m", num_seed=1, num_preds=3,
+                                batch_size=2)
+        ev.load_data()
+        ev.load_models()
+        videos, info = next(iter(ev.test_loader))
+        assert videos.shape == (2, 4, 64, 64, 3)
+        metrics[route] = {k: v.cpu() for k, v in ev.eval_step(videos, info).items()}
+    for k, v in metrics["png"].items():
+        assert bool(torch.isfinite(v).all()) and torch.equal(v, metrics["npy"][k]), k

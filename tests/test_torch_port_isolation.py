@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``textocvp_tpu_torch`` and
-nothing in ``chip_smoke.py``, ``chip_slot_attention_probe.py`` or
-``chip_trace_probe.py`` imports JAX, flax, optax or the JAX package."""
+nothing in ``chip_smoke.py``, ``chip_slot_attention_probe.py``,
+``chip_trace_probe.py`` or ``chip_remat_probe.py`` imports JAX, flax, optax
+or the JAX package."""
 
 import ast
 import subprocess
@@ -12,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "textocvp_tpu")
 SOURCES = sorted((ROOT / "textocvp_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_slot_attention_probe.py", ROOT / "chip_trace_probe.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_slot_attention_probe.py", ROOT / "chip_trace_probe.py",
+    ROOT / "chip_remat_probe.py"]
 
 
 def _imported_roots(path: Path):

@@ -1,5 +1,5 @@
-"""Command-line entry points of the port (01, 02, 03, 04, 05, 07, and the
-checkpoint importer)."""
+"""Command-line entry points of the port (01, 02, 03, 04, 05, 07, the
+checkpoint importer and the ``.npy`` cache builder)."""
 
 import os
 

@@ -18,6 +18,7 @@ import os
 
 from textocvp_tpu_torch.cli import resolve_exp_dir
 from textocvp_tpu_torch.core.config import get_available_configs
+from textocvp_tpu_torch.core.logger import print_
 
 
 def create_experiment_args(argv=None):
@@ -41,8 +42,8 @@ def main(argv=None):
     from textocvp_tpu_torch.core.experiment import Experiment
 
     exp = Experiment.create(args.exp_directory, args.model_name, args.dataset_name)
-    print(f"Created experiment at {exp.exp_path}")
-    print(f"  model: {args.model_name}  dataset: {args.dataset_name}")
+    print_(f"Created experiment at {exp.exp_path}")
+    print_(f"  model: {args.model_name}  dataset: {args.dataset_name}")
     return exp
 
 

@@ -15,6 +15,7 @@ import argparse
 
 from textocvp_tpu_torch.cli import resolve_exp_dir
 from textocvp_tpu_torch.core.config import get_available_configs
+from textocvp_tpu_torch.core.logger import print_
 
 
 def create_predictor_experiment_args(argv=None):
@@ -39,7 +40,7 @@ def main(argv=None):
     exp = Experiment.create_predictor(args.exp_directory, args.name_pred_exp,
                                       args.predictor_name,
                                       require_parent_ckpt=not args.skip_ckpt_check)
-    print(f"Created predictor experiment at {exp.exp_path}")
+    print_(f"Created predictor experiment at {exp.exp_path}")
     return exp
 
 

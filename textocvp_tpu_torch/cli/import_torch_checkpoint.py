@@ -21,6 +21,7 @@ import argparse
 from pathlib import Path
 
 from textocvp_tpu_torch.cli import resolve_exp_dir
+from textocvp_tpu_torch.core.logger import print_
 
 
 def import_args(argv=None):
@@ -56,7 +57,7 @@ def main(argv=None):
     (setup_model if args.kind == "decomp" else setup_predictor)(exp.params).load_state_dict(params)
     path = save_checkpoint(exp.checkpoint_path(args.output_name or Path(source).stem),
                            {"params": params, "opt_state": {}, "epoch": 0, "step": 0})
-    print(f"Imported {source} -> {path}")
+    print_(f"Imported {source} -> {path}")
     return path
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import argparse
 
 from textocvp_tpu_torch.cli import resolve_exp_dir
+from textocvp_tpu_torch.core.logger import print_
 
 
 def train_decomp_args(argv=None):
@@ -35,7 +36,7 @@ def main(argv=None):
                             resume_training=args.resume_training, device=args.device)
     trainer.load_data()
     trainer.setup_model()
-    print("Starting training loop", flush=True)
+    print_("Starting training loop")
     trainer.training_loop()
     return trainer
 

@@ -19,6 +19,7 @@ import argparse
 import os
 
 from textocvp_tpu_torch.cli import resolve_exp_dir
+from textocvp_tpu_torch.core.logger import print_
 
 
 def train_predictor_args(argv=None):
@@ -46,7 +47,7 @@ def main(argv=None):
                                resume_training=args.resume_training, device=args.device)
     trainer.load_data()
     trainer.setup_model()
-    print("Starting predictor training loop", flush=True)
+    print_("Starting predictor training loop")
     trainer.training_loop()
     return trainer
 

@@ -24,6 +24,13 @@ from pathlib import Path
 
 _PKG_CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
 
+# Machine-level settings, the JAX package's CONFIG keys the port reads:
+# the data loader's workers (TEXTOCVP_NUM_WORKERS, default 8).
+CONFIG = {
+    "random_seed": 14,
+    "num_workers": int(os.environ.get("TEXTOCVP_NUM_WORKERS", "8")),
+}
+
 # Training/prediction defaults, the same keys and values as the JAX package's
 # DEFAULTS minus its TPU runtime knobs.
 DEFAULTS = {

@@ -9,8 +9,8 @@ Experiment directory (counterpart of ``textocvp_tpu/core/experiment.py``):
     <exp>/predictors/<pname>/...       nested predictor experiment, same layout
 
 :meth:`Experiment.create` and :meth:`Experiment.create_predictor` make the
-directories the 01 CLIs make. The JAX package's ``logs.txt`` (its
-``core/logger.py``) is not written: the port's logger is not ported yet.
+directories the 01 CLIs make, and open the experiment's ``logs.txt``
+(``core/logger.py``), as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import os
 from pathlib import Path
 
 from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params
+from textocvp_tpu_torch.core.logger import Logger
 
 SUBDIRS = ("models", "plots", "tboard_logs")
 
@@ -43,6 +44,7 @@ class Experiment:
         params = build_exp_params(model_name, dataset_name)
         exp._make_dirs()
         exp.save_params(params)
+        Logger(exp.exp_path)
         return exp
 
     @classmethod
@@ -64,6 +66,7 @@ class Experiment:
         params = add_predictor_params(parent.params, predictor_name)
         exp._make_dirs()
         exp.save_params(params)
+        Logger(exp.exp_path)
         return exp
 
     def _make_dirs(self):

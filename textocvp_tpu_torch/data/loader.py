@@ -1,8 +1,8 @@
 """
 Host input pipeline of the port: the dataset factory and a batching loader
 (counterpart of ``textocvp_tpu/data/loader.py``): CATER_Easy, CATER_Hard and
-CLIPort from their pre-decoded arrays (``data/datasets.py``), and the
-procedural Synthetic set (``data/synthetic.py``).
+CLIPort (``data/datasets.py``: frame directories, PNG episodes, arrays and
+caches), and the procedural Synthetic set (``data/synthetic.py``).
 
 :class:`EpochLoader` keeps the JAX package's batch contract: ``(videos,
 info)`` with videos (B, T, H, W, C) as a numpy array (uint8 under the
@@ -10,20 +10,32 @@ info)`` with videos (B, T, H, W, C) as a numpy array (uint8 under the
 caption_lengths, attn_masks}`` from the dataset's tokenizer; and the JAX
 ``DataLoader``'s order: in order, or shuffled by
 ``numpy.random.default_rng(seed + epoch)``, the last batch ragged unless
-``drop_last``, the epoch handed to the dataset (``set_epoch``) first. It
-runs in the calling thread: the memory-mapped ``.npy`` route needs no decode
-workers.
+``drop_last``, the epoch handed to the dataset (``set_epoch``) before any
+item is fetched.
+
+Items are fetched on ``num_workers`` threads (the decode and resize run in
+C++ with the GIL released), and a producer thread keeps up to
+:data:`PREFETCH` batches ready. ``num_workers`` 0 fetches in the calling
+thread. The batches and their order are the same for
+any worker count, and a worker's exception is raised in the consumer.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
 import numpy as np
 
+from textocvp_tpu_torch.core.config import CONFIG
 from textocvp_tpu_torch.data.datasets import CATER, CLIPort
 from textocvp_tpu_torch.data.synthetic import SyntheticBalls
 from textocvp_tpu_torch.data.tokenizers import get_tokenizer
 
 DATASETS = ["CATER_Easy", "CATER_Hard", "CLIPort", "Synthetic"]
+PREFETCH = 2  # batches a producer keeps ready, as the JAX DataLoader's default
 
 
 def load_data(exp_params: dict, split: str = "train"):
@@ -74,16 +86,19 @@ class EpochLoader:
     Each iteration is one epoch: it first hands the dataset its epoch
     (``set_epoch``, the random clip starts), then walks ``0..len-1``,
     shuffled by ``np.random.default_rng(seed + epoch)`` when ``shuffle``, in
-    batches of ``batch_size`` (the last one ragged unless ``drop_last``)."""
+    batches of ``batch_size`` (the last one ragged unless ``drop_last``).
+    ``num_workers`` (default ``CONFIG["num_workers"]``) threads fetch the
+    items, :data:`PREFETCH` batches ahead."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 14):
+                 drop_last: bool = False, seed: int = 14, num_workers: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
+        self.num_workers = CONFIG["num_workers"] if num_workers is None else int(num_workers)
         self.collate = Collate(getattr(dataset, "tokenizer", None))
 
     def __len__(self) -> int:
@@ -102,8 +117,57 @@ class EpochLoader:
     def __iter__(self):
         epoch = self.epoch
         set_epoch = getattr(self.dataset, "set_epoch", None)
-        if set_epoch is not None:
+        if set_epoch is not None:  # before any item is fetched, and before workers start
             set_epoch(epoch)
         self.epoch += 1
-        for idxs in self.batch_indices(epoch):
-            yield self.collate([self.dataset[int(i)] for i in idxs])
+        batches = self.batch_indices(epoch)
+        if self.num_workers <= 0:
+            for idxs in batches:
+                yield self.collate([self.dataset[int(i)] for i in idxs])
+            return
+        yield from self._prefetched(batches)
+
+    def _prefetched(self, batches):
+        """The batches from a producer thread that keeps :data:`PREFETCH` ready;
+        the producer stops when the consumer stops early."""
+        q: queue.Queue = queue.Queue(maxsize=PREFETCH)
+        stop = threading.Event()
+        done = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for idxs in batches:
+                        if stop.is_set():
+                            return
+                        items = list(pool.map(self.dataset.__getitem__, [int(i) for i in idxs]))
+                        if not put(self.collate(items)):
+                            return
+            except BaseException as e:  # raised again in the consumer
+                put(e)
+            finally:
+                put(done)
+
+        thread = threading.Thread(target=producer, daemon=True, name="EpochLoader")
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            thread.join()
+

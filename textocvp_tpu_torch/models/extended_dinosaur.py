@@ -64,17 +64,25 @@ class ExtendedDINOSAUR(nn.Module):
         decoder reconstructs features only."""
         return self.patch_decoder(slots)
 
-    def decompose(self, x, initial_slots=None, generator: Optional[torch.Generator] = None):
+    def frozen_features(self, x):
+        """The frozen ViT's features (B * T, P, F) of video (B, T, H, W, C),
+        under ``torch.no_grad()``: out of the autograd graph."""
+        with torch.no_grad():
+            return self.image_encoder(x.reshape(-1, *x.shape[2:]))
+
+    def decompose(self, x, initial_slots=None, generator: Optional[torch.Generator] = None,
+                  img_feats=None):
         """Video (B, T, H, W, C) -> dict of slot_history (B, T, S, D),
         attn_masks (B, T, S, P) and encoded_img_feats (B, T, P, F) (the JAX
         ``decompose(..., decode=False)``).
 
         The initial slots are ``initial_slots`` when given, else drawn by the
-        slot initializer with ``generator``.
+        slot initializer with ``generator``. ``img_feats`` are the ViT's
+        features of ``x`` (:meth:`frozen_features`) when the caller has them.
         """
         b, t = x.shape[:2]
-        with torch.no_grad():  # the ViT is frozen
-            img_feats = self.image_encoder(x.reshape(b * t, *x.shape[2:]))
+        if img_feats is None:
+            img_feats = self.frozen_features(x)
         k, v = self.slot_attention.project_inputs(self.feat_proj_mlp(self.feat_proj_ln(img_feats)))
         k = k.reshape(b, t, *k.shape[1:])
         v = v.reshape(b, t, *v.shape[1:])
@@ -94,7 +102,7 @@ class ExtendedDINOSAUR(nn.Module):
                 "encoded_img_feats": img_feats.reshape(b, t, *img_feats.shape[1:])}
 
     def forward(self, x, noise=None, generator: Optional[torch.Generator] = None,
-                decode: bool = True):
+                decode: bool = True, img_feats=None):
         """Video (B, T, H, W, C) -> the JAX ``decompose(x, decode=decode)``
         dict: slot_history, attn_masks, encoded_img_feats and, with
         ``decode``, recons_feats (B, T, P, F), masks (B, T, S, 1, gh, gw) and,
@@ -103,14 +111,23 @@ class ExtendedDINOSAUR(nn.Module):
 
         The initial slots come from the slot initializer, with ``noise``
         (B, S, D) when given (``LearnedRandom``: mu + sigma * noise, so their
-        gradients reach mu and sigma), else drawn with ``generator``."""
-        b, t = x.shape[:2]
-        out = self.decompose(x, initial_slots=self.slot_initializer(b, generator, noise=noise))
+        gradients reach mu and sigma), else drawn with ``generator``.
+        ``img_feats`` as :meth:`decompose` takes them."""
+        out = self.decompose(x, initial_slots=self.slot_initializer(x.shape[0], generator,
+                                                                    noise=noise),
+                             img_feats=img_feats)
         if decode:
-            dec = self.decode(out["slot_history"].reshape(b * t, self.num_slots, self.slot_dim))
-            out["recons_feats"] = dec["recons_feats"].reshape(b, t, *dec["recons_feats"].shape[1:])
-            out["masks"] = dec["masks"].reshape(b, t, *dec["masks"].shape[1:])
-            if dec["recons_imgs"] is not None:
-                out["recons_imgs"] = dec["recons_imgs"].reshape(
-                    b, t, *dec["recons_imgs"].shape[1:])
+            out.update(self.decoded(out["slot_history"]))
+        return out
+
+    def decoded(self, slot_history, decode=None) -> dict:
+        """recons_feats (B, T, P, F), masks (B, T, S, 1, gh, gw) and, when
+        the decoder reconstructs images, recons_imgs (B, T, H, W, 3) of
+        slot_history (B, T, S, D), its B * T frames through ``decode``
+        (default :meth:`decode`)."""
+        b, t = slot_history.shape[:2]
+        dec = (decode or self.decode)(slot_history.reshape(b * t, self.num_slots, self.slot_dim))
+        out = {k: dec[k].reshape(b, t, *dec[k].shape[1:]) for k in ("recons_feats", "masks")}
+        if dec["recons_imgs"] is not None:
+            out["recons_imgs"] = dec["recons_imgs"].reshape(b, t, *dec["recons_imgs"].shape[1:])
         return out

@@ -111,13 +111,21 @@ class SAVi(nn.Module):
         The initial slots come from the slot initializer, with ``noise``
         (B, S, D) when given (``LearnedRandom``: mu + sigma * noise, so their
         gradients reach mu and sigma), else drawn with ``generator``."""
-        b, t = x.shape[:2]
-        out = self.decompose(x, initial_slots=self.slot_initializer(b, generator, noise=noise))
+        out = self.decompose(x, initial_slots=self.slot_initializer(x.shape[0], generator,
+                                                                    noise=noise))
         if decode:
-            dec = self.decode(out["slot_history"].reshape(b * t, self.num_slots, self.slot_dim))
-            h, w = dec["recons_imgs"].shape[1:3]
-            out["recons_imgs"] = dec["recons_imgs"].reshape(b, t, h, w, self.in_channels)
-            out["recons_objs"] = dec["recons"].reshape(b, t, self.num_slots, h, w,
-                                                       self.in_channels)
-            out["masks"] = dec["masks"].reshape(b, t, self.num_slots, h, w, 1)
+            out.update(self.decoded(out["slot_history"]))
         return out
+
+    def decoded(self, slot_history, decode=None) -> dict:
+        """recons_imgs (B, T, H, W, C), recons_objs (B, T, S, H, W, C) and
+        masks (B, T, S, H, W, 1) of slot_history (B, T, S, D), its B * T
+        frames through ``decode`` (default :meth:`decode`), which decodes
+        each frame apart."""
+        b, t = slot_history.shape[:2]
+        dec = (decode or self.decode)(slot_history.reshape(b * t, self.num_slots, self.slot_dim))
+        h, w = dec["recons_imgs"].shape[1:3]
+        return {"recons_imgs": dec["recons_imgs"].reshape(b, t, h, w, self.in_channels),
+                "recons_objs": dec["recons"].reshape(b, t, self.num_slots, h, w,
+                                                     self.in_channels),
+                "masks": dec["masks"].reshape(b, t, self.num_slots, h, w, 1)}

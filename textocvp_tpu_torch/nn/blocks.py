@@ -14,6 +14,8 @@ Conventions:
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 from typing import Optional, Sequence
 
 import numpy as np
@@ -47,6 +49,23 @@ class MLP(nn.Module):
         return x
 
 
+_STATS = threading.local()
+
+
+@contextmanager
+def running_stats_frozen(frozen: bool = True):
+    """Inside, with ``frozen``, :class:`BatchNorm` in ``train()`` normalizes
+    with the batch's statistics as always but does not move its running ones
+    (the trainers' remat recompute: a replayed forward must not apply the
+    momentum a second time). Per thread."""
+    before = getattr(_STATS, "frozen", False)
+    _STATS.frozen = bool(frozen)
+    try:
+        yield
+    finally:
+        _STATS.frozen = before
+
+
 class BatchNorm(nn.BatchNorm2d):
     """flax's ``nn.BatchNorm`` over the channels of NCHW input, eps 1e-5, with
     ``torch.nn.BatchNorm2d``'s parameters and buffers.
@@ -64,6 +83,8 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if getattr(_STATS, "frozen", False):
+            return y
         with torch.no_grad():
             xd = x.detach()
             mean = xd.mean((0, 2, 3))

@@ -167,6 +167,12 @@ class MLPPatchDecoder(nn.Module):
     def forward(self, slots):
         """slots (B, S, in_dim) -> dict of recons_feats (B, P, out_dim - 1),
         masks (B, S, 1, gh, gw) and recons_imgs (B, H, W, 3) or None."""
+        out = self.mix(slots)
+        return {"recons_imgs": self.render(out["recons_feats"]), **out}
+
+    def mix(self, slots):
+        """The per-frame part: slots (B, S, in_dim) -> dict of recons_feats
+        (B, P, out_dim - 1) and masks (B, S, 1, gh, gw)."""
         b, s, _ = slots.shape
         x = slots[:, :, None, :] + self.pos_embed
         if self.initial_ln is not None:
@@ -177,20 +183,43 @@ class MLPPatchDecoder(nn.Module):
                 x = F.relu(x)
         feats, alpha = x[..., :-1], x[..., -1:]
         alpha = torch.softmax(alpha.float(), dim=1).to(x.dtype)
-        recons_feats = (feats * alpha).sum(1)
-        masks = alpha.reshape(b, s, 1, self.grid, self.grid)
-        recons_imgs = None
-        if self.cnns is not None:
-            y = recons_feats.transpose(1, 2).reshape(b, -1, self.grid, self.grid)
-            for block, (_, grow) in zip(self.cnns, self.cnn_plan()):
-                y = block(y)
-                if grow:
+        return {"recons_feats": (feats * alpha).sum(1),
+                "masks": alpha.reshape(b, s, 1, self.grid, self.grid)}
+
+    def render(self, recons_feats):
+        """The CNN head, whose BatchNorm normalizes over all B frames:
+        recons_feats (B, P, out_dim - 1) -> recons_imgs (B, H, W, 3), or None
+        without ``reconstruct_images``."""
+        if self.cnns is None:
+            return None
+        y = recons_feats
+        for stage in self.render_stages():
+            y = stage(y)
+        return y
+
+    def render_stages(self) -> list:
+        """The CNN head as a chain of functions, cut after each block's ReLU
+        and before its upsampling (the smallest activation between blocks):
+        recons_feats to the grid and block 0; each later block with the
+        upsampling before it; the last upsampling, the final conv and the
+        resize, NHWC out. :meth:`render` composes them."""
+        plan = self.cnn_plan()
+
+        def stage(i):
+            def run(y):
+                if i == 0:
+                    y = y.transpose(1, 2).reshape(y.shape[0], -1, self.grid, self.grid)
+                elif plan[i - 1][1]:
                     y = upsample_nearest(y, 2)
-            y = self.cnn_final(y)
-            if y.shape[-1] != self.img_size:
-                y = upsample_bilinear(y, (self.img_size, self.img_size))
-            recons_imgs = y.permute(0, 2, 3, 1)
-        return {"recons_imgs": recons_imgs, "recons_feats": recons_feats, "masks": masks}
+                if i < len(self.cnns):
+                    return self.cnns[i](y)
+                y = self.cnn_final(y)
+                if y.shape[-1] != self.img_size:
+                    y = upsample_bilinear(y, (self.img_size, self.img_size))
+                return y.permute(0, 2, 3, 1)
+            return run
+
+        return [stage(i) for i in range(len(self.cnns) + 1)]
 
 
 def get_decoder(decoder: dict, in_channels: int):

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from textocvp_tpu_torch.core.experiment import Experiment
+from textocvp_tpu_torch.core.logger import Logger
 from textocvp_tpu_torch.data.tokenizers import TEXT_KEYS, get_tokenizer
 from textocvp_tpu_torch.data.vocabularies import (
     CATER_EASY_VOCAB,
@@ -168,6 +169,7 @@ class PredictionService(InferenceFrontend):
         pred_path = Path(name_pred_exp)
         self.exp = Experiment(pred_path if pred_path.is_absolute()
                               else self.parent.exp_path / "predictors" / name_pred_exp)
+        Logger(self.exp.exp_path)
         self.exp_params = self.exp.params
         pp = self.exp_params["prediction_params"]
         if num_seed is not None:

@@ -14,8 +14,9 @@ of ``.msgpack``:
 * ``checkpoint_epoch_final.pt``  at the end of training
 * ``emergency_checkpoint_epoch_<E>.pt`` on an exception or an interrupt
 
-The JAX package's background writer (``tpu.async_checkpoint``) is not
-ported: the port writes in the training loop's thread.
+Under ``tpu.async_checkpoint`` the trainers save through an
+:class:`AsyncCheckpointWriter` (:func:`make_checkpoint_saver`): the loop
+copies the state to the host and a writer thread writes it.
 
 Readers of model weights (the 04 trainer's frozen decomposition model, the
 03 and 05 evaluators, the service) go through :func:`load_params`, which takes
@@ -39,13 +40,15 @@ import numpy as np
 import torch
 
 
-def _to_cpu(obj):
+def _to_cpu(obj, copy: bool = False):
+    """Tensors of ``obj`` (nested dicts, lists, tuples) on the CPU; with
+    ``copy`` each one a copy of its own, even where it is on the CPU already."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu()
+        return obj.detach().to("cpu", copy=copy)
     if isinstance(obj, dict):
-        return {k: _to_cpu(v) for k, v in obj.items()}
+        return {k: _to_cpu(v, copy) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_cpu(v) for v in obj)
+        return type(obj)(_to_cpu(v, copy) for v in obj)
     return obj
 
 
@@ -58,6 +61,80 @@ def save_checkpoint(path, state: dict) -> Path:
     torch.save(_to_cpu(state), tmp)
     os.replace(tmp, path)
     return path
+
+
+class AsyncCheckpointWriter:
+    """Checkpoints written on a thread of their own (``tpu.async_checkpoint``;
+    the JAX package's ``train/checkpoints.py::AsyncCheckpointWriter``).
+
+    :meth:`save` copies the state to the host before it returns (the next
+    step updates the parameters in place), then the writer thread serializes
+    it and moves it into place, in the order of the calls. A failed write is
+    raised by the next :meth:`save` or by :meth:`wait`. The queue holds two
+    states: when the disk is slower than the epochs, :meth:`save` waits."""
+
+    def __init__(self):
+        import queue
+        import threading
+
+        self._q = queue.Queue(maxsize=2)
+        self._error = None
+        self._closed = False
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="AsyncCheckpointWriter")
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            try:
+                save_checkpoint(*item)
+            except BaseException as e:  # raised by the next save() or wait()
+                self._error = e
+            finally:
+                self._q.task_done()
+
+    def _check(self):
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint write failed") from err
+
+    def save(self, path, state: dict):
+        if self._closed:
+            raise RuntimeError("AsyncCheckpointWriter is closed")
+        self._check()
+        self._q.put((path, _to_cpu(state, copy=True)))
+
+    def wait(self):
+        """Block until every submitted checkpoint is on disk."""
+        self._q.join()
+        self._check()
+
+    def close(self):
+        """:meth:`wait`, then end the writer thread; later saves raise."""
+        if self._closed:
+            return
+        try:
+            self.wait()
+        finally:
+            self._closed = True
+            self._q.put(None)
+            self._thread.join()
+
+
+def make_checkpoint_saver(exp_params: dict):
+    """``(save, flush)`` under ``tpu.async_checkpoint``: ``save(path, state)``
+    returns after the host copy when it is set (an
+    :class:`AsyncCheckpointWriter` writes), after the write when it is not;
+    ``flush()`` waits for every write and ends the writer, once, when
+    training ends (the emergency path flushes, then writes with
+    :func:`save_checkpoint`)."""
+    if (exp_params.get("tpu") or {}).get("async_checkpoint"):
+        writer = AsyncCheckpointWriter()
+        return writer.save, writer.close
+    return save_checkpoint, lambda: None
 
 
 def load_checkpoint(path) -> dict:

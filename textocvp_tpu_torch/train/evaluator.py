@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from textocvp_tpu_torch.core.experiment import Experiment
+from textocvp_tpu_torch.core.logger import Logger, print_
 from textocvp_tpu_torch.data.loader import EpochLoader, load_data
 from textocvp_tpu_torch.data.tokenizers import text_tensors
 from textocvp_tpu_torch.data.wire import as_float_video
@@ -92,6 +93,7 @@ class DecompEvaluator:
                  results_name: Optional[str] = None, metrics=("psnr", "ssim", "lpips"),
                  device="cuda"):
         self.exp = Experiment(exp_path)
+        Logger(self.exp.exp_path)
         self.exp_params = self.exp.params
         check_image_reconstruction(self.exp_params,
                                    purpose="compute reconstruction metrics for")
@@ -142,7 +144,7 @@ class DecompEvaluator:
         results = self.metric_tracker.to_json()
         results.update(_tokenizer_fallback_flags(self.test_set))
         self.exp.save_results(self.results_name, results)
-        print(f"Results: { {k: v['mean'] for k, v in results.items() if isinstance(v, dict)} }")
+        print_(f"Results: { {k: v['mean'] for k, v in results.items() if isinstance(v, dict)} }")
         return results
 
 
@@ -165,6 +167,7 @@ class PredictorEvaluator:
         pred_path = Path(name_pred_exp)
         self.exp = Experiment(pred_path if pred_path.is_absolute()
                               else self.parent.exp_path / "predictors" / name_pred_exp)
+        Logger(self.exp.exp_path)
         self.exp_params = self.exp.params
         self.decomp_ckpt = decomp_ckpt
         self.pred_ckpt = pred_ckpt
@@ -239,5 +242,5 @@ class PredictorEvaluator:
         results = self.metric_tracker.to_json()
         results.update(_tokenizer_fallback_flags(self.test_set))
         self.exp.save_results(self.results_name, results)
-        print(f"Results: { {k: v['mean'] for k, v in results.items() if isinstance(v, dict)} }")
+        print_(f"Results: { {k: v['mean'] for k, v in results.items() if isinstance(v, dict)} }")
         return results

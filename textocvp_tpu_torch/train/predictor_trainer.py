@@ -36,9 +36,16 @@ slot-attention call of the encode launches ``csrc/slot_attention.cu``
 ``csrc/conv5.cu`` forward and again for its input gradient; the decoder is
 frozen, so no weight gradient is computed.
 
-Not ported (ROADMAP.md): ``tpu.remat``, the background checkpoint writer,
-TensorBoard scalars and image panels, ``train_decode_chunks`` /
-``valid_decode_kwargs`` and the mesh.
+It has the 02 trainer's extras (``train/trainer.py``): ``logs.txt``,
+TensorBoard (its image strip the ground truth over a free-running rollout's
+decode, the JAX ``viz_forward``), ``TEXTOCVP_PROFILE``, the background
+checkpoint writer, and ``tpu.remat``, which recomputes the rollout and the
+frozen decode of the predicted slots in the backward, the decode region by
+region (``trainer.py::remat_frames``), while the frozen encode's slots,
+computed outside the regions, are kept.
+
+Not ported (ROADMAP.md): ``train_decode_chunks`` / ``valid_decode_kwargs``
+and the mesh.
 """
 
 from __future__ import annotations
@@ -47,11 +54,12 @@ from typing import Optional
 
 import torch
 
+from textocvp_tpu_torch.core.logger import log_function
 from textocvp_tpu_torch.data.tokenizers import text_tensors
 from textocvp_tpu_torch.models.factory import random_init_, setup_model, setup_predictor
 from textocvp_tpu_torch.train.checkpoints import load_params
 from textocvp_tpu_torch.train.losses import build_loss_fn
-from textocvp_tpu_torch.train.trainer import INIT_SEED, Trainer
+from textocvp_tpu_torch.train.trainer import INIT_SEED, Trainer, remat, remat_frames
 
 
 class PredictorTrainer(Trainer):
@@ -60,6 +68,8 @@ class PredictorTrainer(Trainer):
     ``decomp_model`` the SAVi or ExtendedDINOSAUR.
 
     Call :meth:`load_data`, :meth:`setup_model`, then :meth:`training_loop`."""
+
+    IMAGE_TAG = "train/predictions"
 
     def __init__(self, exp_path, decomp_ckpt: str, checkpoint: Optional[str] = None,
                  resume_training: bool = False, device="cuda"):
@@ -79,6 +89,7 @@ class PredictorTrainer(Trainer):
         self.model = setup_predictor(self.exp_params)
         self.loss_fn = build_loss_fn(self.exp_params["predictor_loss"])
 
+    @log_function
     def setup_model(self):
         """The frozen decomposition model from the parent's ``decomp_ckpt``, in
         ``eval()``; the predictor from
@@ -101,15 +112,28 @@ class PredictorTrainer(Trainer):
         return self.decomp_model(videos[:, :self.num_context + self.num_preds], noise=noise,
                                  decode=False)["slot_history"]
 
+    def rollout(self, slot_history, teacher_force: Optional[bool], text: dict):
+        """Predicted slots (B, p, S, D)."""
+        return self.model(slot_history, teacher_force=teacher_force, **text)
+
+    def decode_frames(self, slots):
+        """Slots (N, S, D) -> the frozen decoder's frames (N, H, W, C)."""
+        return self.decomp_model.decode(slots)["recons_imgs"]
+
     def predict_loss(self, videos, slot_history, teacher_force: Optional[bool] = None,
                      **text):
         """(total, {name: value}): the rollout from the encoded slots, the
-        decode of every predicted frame and the losses."""
+        decode of every predicted frame (with ``tpu.remat``: the rollout one
+        :func:`remat` region, the decode :func:`remat_frames`) and the
+        losses."""
         c, p = self.num_context, self.num_preds
-        pred_slots = self.model(slot_history, teacher_force=teacher_force, **text)
-        b, _, s, d = pred_slots.shape
+        if self.remat and torch.is_grad_enabled():
+            pred_slots = remat(self.rollout, slot_history, teacher_force, text)
+            pred_imgs = remat_frames(self.decode_frames, pred_slots.flatten(0, 1))
+        else:
+            pred_slots = self.rollout(slot_history, teacher_force, text)
+            pred_imgs = self.decode_frames(pred_slots.flatten(0, 1))
         target_imgs = videos[:, c:c + p]
-        pred_imgs = self.decomp_model.decode(pred_slots.reshape(b * p, s, d))["recons_imgs"]
         return self.loss_fn(pred_slots=pred_slots, target_slots=slot_history[:, c:c + p],
                             pred_imgs=pred_imgs.reshape(target_imgs.shape),
                             target_imgs=target_imgs)
@@ -119,6 +143,15 @@ class PredictorTrainer(Trainer):
         ``teacher_force`` None is the config's; ``text`` the caption's
         tensors by their ``TEXT_KEYS`` names."""
         return self.predict_loss(videos, self.encode(videos, noise), teacher_force, **text)
+
+    def image_strip(self, videos, noise, **text):
+        """Ground truth over a free-running rollout's decode, the predicted
+        frames left to right (the JAX ``viz_forward``)."""
+        c, p = self.num_context, self.num_preds
+        pred_slots = self.rollout(self.encode(videos, noise), False, text)
+        imgs = self.decode_frames(pred_slots.flatten(0, 1))
+        panel = torch.cat([videos[0, c:c + p].clamp(0, 1), imgs.clamp(0, 1)], dim=1)
+        return torch.cat(list(panel), dim=1).permute(2, 0, 1)
 
     @torch.no_grad()
     def valid_step(self, videos, **text) -> dict:

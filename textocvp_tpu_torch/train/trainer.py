@@ -44,29 +44,67 @@ off for matmuls and cuDNN. The weights start from ``random_init_`` with a
 seeded generator (the JAX package's flax initializers draw from
 ``jax.random``, which torch cannot reproduce) or from a checkpoint.
 
-Not ported (ROADMAP.md): TensorBoard scalars and image panels, the
-``TEXTOCVP_PROFILE`` trace, ``tpu.remat``, ``tpu.train_decode_chunks``, the
-background checkpoint writer and the mesh.
+The JAX trainer's extras:
+
+* ``logs.txt`` (``core/logger.py``): the log lines, the calls of the
+  trainer's public steps and any exception;
+* TensorBoard (``tboard_logs/``), where ``torch.utils.tensorboard``
+  imports: the train losses and ``train/lr`` every ``log_frequency``
+  iterations, the valid loss each epoch, and a strip of ground truth over
+  reconstruction (02) or prediction (04) every ``image_log_frequency``
+  iterations, its slot noise drawn apart from the step stream, so that the
+  stream does not depend on whether TensorBoard is installed (the JAX
+  trainers draw it from the stream);
+* ``TEXTOCVP_PROFILE=<dir>``: the first epoch traced by ``torch.profiler``
+  (CPU, and CUDA on the card), a Chrome trace written into ``<dir>``;
+* ``tpu.async_checkpoint``: checkpoints copied to the host in the loop and
+  written by a thread (``train/checkpoints.py::AsyncCheckpointWriter``); the
+  emergency path waits for them before it writes its own;
+* ``tpu.remat``: the trainable forward in regions of
+  ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` (:func:`remat`),
+  their activations recomputed in the backward, one region at a time. The
+  frozen parts are computed outside the regions and kept, the JAX
+  ``save_only_these_names("frozen_feats")`` policy: ExtendedDINOSAUR's ViT
+  features (02) and the frozen encode's slots (04). In the 02 step the
+  decomposition is one region and the decode REMAT_REGIONS more, of
+  consecutive frames (:func:`remat_frames`); ExtendedDINOSAUR's CNN head,
+  whose BatchNorm spans all frames, is a region a block. The weight
+  gradient of the frame-wise decode is then summed region by region, equal
+  to the plain step's to the last few bits. In the 04 step the rollout is
+  one region and the frozen decode of the predicted frames REMAT_REGIONS
+  more, equal bit for bit. BatchNorm moves its running statistics in the
+  forward only, not in the recompute.
+
+Not ported (ROADMAP.md): ``tpu.train_decode_chunks`` and the mesh.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from contextlib import contextmanager
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
 from textocvp_tpu_torch.core.experiment import Experiment
+from textocvp_tpu_torch.core.logger import Logger, log_exception, log_function, log_info, print_
 from textocvp_tpu_torch.data.loader import EpochLoader, load_data
 from textocvp_tpu_torch.data.wire import as_float_video
 from textocvp_tpu_torch.models.factory import random_init_, setup_model
-from textocvp_tpu_torch.train.checkpoints import load_checkpoint, save_checkpoint
+from textocvp_tpu_torch.nn.blocks import running_stats_frozen
+from textocvp_tpu_torch.train.checkpoints import (
+    load_checkpoint,
+    make_checkpoint_saver,
+    save_checkpoint,
+)
 from textocvp_tpu_torch.train.losses import build_loss_fn
 from textocvp_tpu_torch.train.schedulers import build_optimizer
 
 NOISE_SEED = 14
+IMAGE_NOISE_SEED = 15  # the image strips' slot noise, apart from the step stream
 INIT_SEED = 0
 
 
@@ -97,10 +135,46 @@ def ragged_accum(n: int, accum: int, batch_size: int) -> int:
     return min(d for d in range(1, n + 1) if n % d == 0 and n // d <= mb)
 
 
-def noise_generator(step: int) -> torch.Generator:
-    """A CPU generator seeded by (NOISE_SEED, step), a hash of both."""
-    state = np.random.SeedSequence([NOISE_SEED, step]).generate_state(1)[0]
+def noise_generator(step: int, seed: int = NOISE_SEED) -> torch.Generator:
+    """A CPU generator seeded by (seed, step), a hash of both."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1)[0]
     return torch.Generator().manual_seed(int(state))
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint.checkpoint(...,
+    use_reentrant=False)``: its activations are not kept but recomputed in
+    the backward. The recompute runs with BatchNorm's running statistics
+    frozen (``nn/blocks.py::running_stats_frozen``), so that they move once,
+    in the forward. ``fn`` draws no random numbers of its own: the noise
+    comes in ``args``."""
+    from torch.utils.checkpoint import checkpoint
+
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        with running_stats_frozen(calls[0] > 1):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+REMAT_REGIONS = 8  # remat regions of a frame-wise stage (remat_frames)
+
+
+def remat_frames(fn, x):
+    """``fn(x)`` as :func:`remat` regions of consecutive frames of ``x`` (its
+    first axis), for a ``fn`` that treats each frame apart and returns a
+    tensor or a dict of them: the backward recomputes one region at a time,
+    and the peak holds one region's activations. Where ``fn``'s weights
+    train, their gradient is summed region by region, in another order
+    than one call sums it (equal to the last few bits)."""
+    size = -(-x.shape[0] // REMAT_REGIONS)
+    parts = [remat(fn, x[i:i + size]) for i in range(0, x.shape[0], size)]
+    if isinstance(parts[0], dict):
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    return torch.cat(parts)
 
 
 class Trainer:
@@ -123,15 +197,20 @@ class Trainer:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.exp = Experiment(exp_path)
+        Logger(self.exp.exp_path)
         self.exp_params = self.exp.params
         self.training_params = self.exp_params["training"]
         self.checkpoint = checkpoint
         self.resume_training = resume_training
         self.accum = accum_steps_of(self.training_params)
+        self.remat = bool((self.exp_params.get("tpu") or {}).get("remat", False))
         self.start_epoch = 0
         self.global_step = 0
+        self.writer = None
+        self.image_strips = 0  # strips written to TensorBoard
 
     # ------------------------------------------------------------------ data
+    @log_function
     def load_data(self):
         bs = self.training_params["batch_size"]
         ds = self.exp_params["dataset"]
@@ -139,8 +218,7 @@ class Trainer:
         self.valid_set = load_data(self.exp_params, split="valid")
         self.train_loader = EpochLoader(self.train_set, bs, shuffle=ds.get("shuffle_train", True))
         self.valid_loader = EpochLoader(self.valid_set, bs, shuffle=ds.get("shuffle_eval", False))
-        print(f"Loaded {len(self.train_set)} train / {len(self.valid_set)} valid sequences",
-              flush=True)
+        print_(f"Loaded {len(self.train_set)} train / {len(self.valid_set)} valid sequences")
 
     def to_device(self, videos):
         """A loader batch (numpy, uint8 or float) -> float video on the device."""
@@ -165,14 +243,18 @@ class Trainer:
                 self.optimizer.load_state_dict(state["opt_state"])
                 self.start_epoch = int(state["epoch"])
                 self.global_step = int(state["step"])
-                print(f"Resuming training from epoch {self.start_epoch}", flush=True)
+                print_(f"Resuming training from epoch {self.start_epoch}")
 
-    def _noise(self, batch_size: int) -> torch.Tensor:
-        """The slot noise of the next batch; advances ``global_step``."""
-        self.global_step += 1
+    def _noise(self, batch_size: int, generator: Optional[torch.Generator] = None
+               ) -> torch.Tensor:
+        """The slot noise of the next batch, which advances ``global_step``;
+        with ``generator``, a draw from it, and the step stays."""
+        if generator is None:
+            self.global_step += 1
+            generator = noise_generator(self.global_step)
         mp = self.exp_params["model"]["model_params"]
         shape = (batch_size, mp["num_slots"], mp["slot_dim"])
-        return torch.randn(shape, generator=noise_generator(self.global_step))
+        return torch.randn(shape, generator=generator)
 
     def backward(self, videos, noise, **text) -> dict:
         """Fresh gradients of the batch's loss in every parameter's ``.grad``,
@@ -213,39 +295,117 @@ class Trainer:
         with self.evaluating():
             return self.forward_loss(videos, self._noise(videos.shape[0]), **text)[1]
 
+    # ------------------------------------------------------------------ logs
+    def _setup_writer(self):
+        """TensorBoard's writer into ``tboard_logs/``, or None where
+        ``torch.utils.tensorboard`` does not import (no ``tensorboard``)."""
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self.writer = SummaryWriter(log_dir=str(self.exp.exp_path / "tboard_logs"))
+        except Exception as e:
+            log_info(f"no TensorBoard writer: {type(e).__name__}: {e}")
+            self.writer = None
+
+    def _log_scalars(self, values: dict, prefix: str):
+        if self.writer is not None:
+            for k, v in values.items():
+                self.writer.add_scalar(f"{prefix}/{k}", float(v), self.global_step)
+
+    def image_strip(self, videos, noise, **text) -> torch.Tensor:
+        """A (3, H', W') image of the first sequence for TensorBoard; a
+        subclass defines it."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def _log_images(self, videos, **text):
+        """The image strip of the batch's first sequence, with slot noise of
+        its own (the step stream does not move), in ``eval()``. A failure is
+        logged to ``logs.txt`` and training goes on."""
+        try:
+            noise = self._noise(1, noise_generator(self.global_step, IMAGE_NOISE_SEED))
+            with self.evaluating():
+                strip = self.image_strip(videos[:1], noise.to(self.device),
+                                         **{k: t[:1] for k, t in text.items()})
+            self.writer.add_image(self.IMAGE_TAG, strip.clamp(0, 1).cpu(), self.global_step)
+            self.image_strips += 1
+        except Exception as e:
+            log_info(f"image logging skipped: {type(e).__name__}: {e}")
+
+    def _start_profile(self):
+        """A ``torch.profiler`` trace (CPU, and CUDA on the card), started."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.__enter__()
+        return prof
+
+    def _stop_profile(self, prof, profile_dir: str, epoch: int):
+        """Stop ``prof`` and write its Chrome trace into ``profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        path = Path(profile_dir) / f"{type(self).__name__}_epoch{epoch}.pt.trace.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path))
+        print_(f"Profile of epoch {epoch} written to {path}")
+        return path
+
     # ------------------------------------------------------------------ loop
+    @log_function
     def train_epoch(self, epoch: int) -> float:
         losses = []
         log_freq = self.training_params.get("log_frequency", 100)
+        img_freq = self.training_params.get("image_log_frequency", 300)
         for i, (videos, info) in enumerate(self.train_loader):
             videos, text = self.batch_to_device(videos, info)
             values = self.train_step(videos, **text)
             loss = float(values["_total"])
             if i % log_freq == 0:
-                print(f"  epoch {epoch} iter {i}: loss={loss:.6f}", flush=True)
+                self._log_scalars(values, "train")
+                if self.writer is not None:
+                    self.writer.add_scalar("train/lr", self.lr_schedule(self.optimizer.count),
+                                           self.global_step)
+                print_(f"  epoch {epoch} iter {i}: loss={loss:.6f}")
+            if self.writer is not None and i % img_freq == 0:
+                self._log_images(videos, **text)
             losses.append(loss)
         return float(np.mean(losses)) if losses else float("nan")
 
+    @log_function
     def valid_epoch(self, epoch: int) -> float:
         losses = []
         for videos, info in self.valid_loader:
             videos, text = self.batch_to_device(videos, info)
             losses.append(float(self.valid_step(videos, **text)["_total"]))
-        return float(np.mean(losses)) if losses else float("nan")
+        mean = float(np.mean(losses)) if losses else float("nan")
+        self._log_scalars({"_total": mean}, "valid")
+        return mean
+
+    def _state(self, epoch: int) -> dict:
+        return {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
+                "epoch": epoch, "step": self.global_step}
 
     def _save(self, name: str, epoch: int):
-        save_checkpoint(self.exp.checkpoint_path(name),
-                        {"params": self.model.state_dict(),
-                         "opt_state": self.optimizer.state_dict(),
-                         "epoch": epoch, "step": self.global_step})
+        save_checkpoint(self.exp.checkpoint_path(name), self._state(epoch))
 
+    @log_function
     def training_loop(self):
         """Epochs from ``start_epoch`` to ``num_epochs``: validation, then
-        training, then the checkpoints; the emergency checkpoint on an
-        exception or an interrupt, which is raised again."""
+        training, then the checkpoints (through the background writer under
+        ``tpu.async_checkpoint``); the first epoch traced under
+        ``TEXTOCVP_PROFILE``; the emergency checkpoint on an exception or an
+        interrupt, after the pending writes, which is raised again."""
+        self._setup_writer()
         num_epochs = self.training_params["num_epochs"]
         save_freq = self.training_params.get("save_frequency", 25)
         epoch = self.start_epoch
+        profile_dir = os.environ.get("TEXTOCVP_PROFILE")
+        prof = self._start_profile() if profile_dir else None
+        save_ckpt, flush_ckpts = make_checkpoint_saver(self.exp_params)
         try:
             for epoch in range(self.start_epoch, num_epochs):
                 t0 = time.time()
@@ -255,22 +415,41 @@ class Trainer:
                 val_loss = self.valid_epoch(epoch)
                 train_loss = self.train_epoch(epoch)
                 dt = time.time() - t0
-                print(f"Epoch {epoch + 1}/{num_epochs}: train={train_loss:.6f} "
-                      f"valid={val_loss:.6f} ({dt:.1f}s)", flush=True)
-                self._save("checkpoint_last_saved", epoch + 1)
+                print_(f"Epoch {epoch + 1}/{num_epochs}: train={train_loss:.6f} "
+                       f"valid={val_loss:.6f} ({dt:.1f}s)")
+                save_ckpt(self.exp.checkpoint_path("checkpoint_last_saved"),
+                          self._state(epoch + 1))
                 if (epoch + 1) % save_freq == 0:
-                    self._save(f"checkpoint_epoch_{epoch + 1}", epoch + 1)
-            self._save("checkpoint_epoch_final", num_epochs)
+                    save_ckpt(self.exp.checkpoint_path(f"checkpoint_epoch_{epoch + 1}"),
+                              self._state(epoch + 1))
+                if prof is not None:
+                    self._stop_profile(prof, profile_dir, epoch)
+                    prof = None
+            save_ckpt(self.exp.checkpoint_path("checkpoint_epoch_final"), self._state(num_epochs))
+            flush_ckpts()
         except (Exception, KeyboardInterrupt) as e:
+            try:
+                flush_ckpts()  # the pending writes first
+            except BaseException as flush_err:
+                print_(f"async checkpoint flush failed during emergency handling: {flush_err}",
+                       "error")
             self._save(f"emergency_checkpoint_epoch_{epoch}", epoch)
-            print(f"Emergency checkpoint saved at epoch {epoch} ({type(e).__name__})", flush=True)
+            log_exception(e)
+            print_(f"Emergency checkpoint saved at epoch {epoch} ({type(e).__name__})", "error")
             raise
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            if self.writer is not None:
+                self.writer.close()
 
 
 class DecompTrainer(Trainer):
     """Trainer of a SAVi or ExtendedDINOSAUR decomposition model.
 
     Call :meth:`load_data`, :meth:`setup_model`, then :meth:`training_loop`."""
+
+    IMAGE_TAG = "train/recons"
 
     def __init__(self, exp_path, checkpoint: Optional[str] = None,
                  resume_training: bool = False, device="cuda"):
@@ -279,6 +458,7 @@ class DecompTrainer(Trainer):
         self.model = setup_model(self.exp_params)
         self.loss_fn = build_loss_fn(self.exp_params["loss"])
 
+    @log_function
     def setup_model(self):
         """Weights from ``random_init_`` with a generator seeded ``INIT_SEED``,
         or from ``checkpoint``; with ``resume_training`` also the optimizer
@@ -295,11 +475,50 @@ class DecompTrainer(Trainer):
             tensors["targets_feats"] = out["encoded_img_feats"].clamp(0, 1)
         return tensors
 
+    def forward(self, videos, noise) -> dict:
+        """The model's output dict of one (micro)batch; under ``tpu.remat``
+        in regions: the decomposition one :func:`remat` region (the frozen
+        ViT's features of ExtendedDINOSAUR computed outside it and kept), the
+        decode :meth:`remat_decode`."""
+        if not (self.remat and torch.is_grad_enabled()):  # nothing to recompute without grad
+            return self.model(videos, noise=noise, decode=True)
+        m = self.model
+        frozen = getattr(m, "frozen_features", None)
+        if frozen is None:  # SAVi: nothing frozen
+            out = remat(lambda v, n: m(v, noise=n, decode=False), videos, noise)
+        else:
+            out = remat(lambda v, n, f: m(v, noise=n, decode=False, img_feats=f),
+                        videos, noise, frozen(videos))
+        out.update(m.decoded(out["slot_history"], decode=self.remat_decode))
+        return out
+
+    def remat_decode(self, slots) -> dict:
+        """The decode of (N, S, D) slots in remat regions of frames
+        (:func:`remat_frames`): SAVi's whole decoder, ExtendedDINOSAUR's
+        per-frame ``mix``; its CNN head, whose BatchNorm normalizes over all
+        N frames, a region a block (``render_stages``)."""
+        dec = getattr(self.model, "patch_decoder", None)
+        if dec is None:
+            return remat_frames(self.model.decode, slots)
+        out = remat_frames(dec.mix, slots)
+        recons_imgs = None
+        if dec.cnns is not None:
+            recons_imgs = out["recons_feats"]
+            for stage in dec.render_stages():
+                recons_imgs = remat(stage, recons_imgs)
+        return {"recons_imgs": recons_imgs, **out}
+
     def forward_loss(self, videos, noise):
         """(total, {name: value}) of one (micro)batch on the device."""
-        out = self.model(videos, noise=noise, decode=True)
-        return self.loss_fn(**self._loss_tensors(out, videos))
+        return self.loss_fn(**self._loss_tensors(self.forward(videos, noise), videos))
 
+    def image_strip(self, videos, noise):
+        """Ground truth over reconstruction, the frames left to right."""
+        recons = self.model(videos, noise=noise, decode=True)["recons_imgs"][0].clamp(0, 1)
+        panel = torch.cat([videos[0].clamp(0, 1), recons], dim=1)  # (T, 2H, W, C)
+        return torch.cat(list(panel), dim=1).permute(2, 0, 1)
+
+    @log_function
     def log_architecture(self):
         """The module structure and the count of learnable parameters, to
         ``model_architecture.txt``."""
