@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's 01 CLIs, its two serving paths, its 05
-evaluate-predictor path, its 02 train path, its 03 evaluate-decomposition
-path on the SAVi that 02 trained, its 04 predictor-train path, the four
-other predictors' 05, 04 and serving paths and the CLIPort chain (02, 04,
-05 and 03 on ExtendedDINOSAUR) at full width with random weights drawn from
-a seed, and checks them:
+Drives the port's 01 CLIs, its two serving paths and dynamic request
+batching, its 05 evaluate-predictor path, its 02 train path, its 03
+evaluate-decomposition path on the SAVi that 02 trained, its 04
+predictor-train path, the 06 figure CLIs on both, the four other
+predictors' 05, 04 and serving paths and the CLIPort chain (02, 04, 05, 03
+and 06 on ExtendedDINOSAUR) at full width with random weights drawn from a
+seed, and checks them:
 
 * CATER: SAVi (8 slots x 128, 64x64 frames) + TextOCVP_T5 (T5-small, 8
   predictor layers), 19 predicted frames;
@@ -48,9 +49,10 @@ Phases, one JSON line each:
             tensor-core instructions (``cuobjdump -sass``), which must not be
             0 for conv5 and the ViT attention;
 3. kernels  slot attention against its plain PyTorch version at the CATER
-            shape (N=4096, S=8, MLP 256, B in (8, 64)) and the CLIPort shape
-            (N=576, S=10, MLP 512, B in (8, 16): a request and the 02 and 04
-            microbatches, the valid batches and the 05 batch), 1 and 3
+            shape (N=4096, S=8, MLP 256, B in (1, 8, 64)) and the CLIPort shape
+            (N=576, S=10, MLP 512, B in (1, 8, 16): a 06 sequence's frame, a
+            request and the 02 and 04 microbatches, the valid batches and the
+            05 batch), 1 and 3
             iterations, each call's
             device kernels counted under ``torch.profiler`` (one cluster
             launch, ``slot_attention_cluster_kernel``) and timed with the card
@@ -58,11 +60,13 @@ Phases, one JSON line each:
             the wrapper's host time per call); the ViT attention
             against its plain version at (B, 12, 577, 64) for each B of
             ``VIT_BATCHES``, the frames of one ViT call on the main paths (8 a
-            request, 16 the 05 seed frames, 64 and 80 the 02 and 04
-            microbatches, 128 and 160 their valid batches), with
+            request or a 06a sequence, 16 the 05 seed frames, 64 and 80 the 02
+            and 04 microbatches, 128 and 160 their valid batches, 1 the 06b
+            seed frame), with
             ``F.scaled_dot_product_attention`` timed as a yardstick; conv5
-            against its plain version at N=1216 (a CATER request) and N=9728
-            (an eval batch) frames of 64x64x64, with
+            against its plain version at N=8, 64 and 152 (a 06 sequence's
+            seed, its 8 frames, its 19 predictions), N=1216 (a CATER request)
+            and N=9728 (an eval batch) maps of 64x64x64, with
             ``F.conv2d`` + ReLU (cuDNN, TF32 off) timed as a yardstick. Max abs
             error, time from CUDA events, the plain version's time, the bound
             (for conv5 and the ViT attention, which run 3xTF32 products on the
@@ -100,7 +104,16 @@ then for each serving path:
 7. profile  one more request under ``torch.profiler``: device busy time
             against wall time, the kernels that take the most time, and the
             port's kernels' own launches and time inside the request, with
-            exactly one slot-attention device kernel.
+            exactly one slot-attention device kernel;
+then on the CATER path's experiment:
+S. serve_batching  a ``PredictionService`` at batch 8 behind
+            ``serve/batching.py::DynamicBatcher``: two one-row requests
+            coalesced into one batch equal, bit for bit, a direct two-row
+            predict from the same generator state; then 32 one-row HTTP
+            requests from 16 client threads with batching off, at a 20 ms
+            window with one dispatcher and with two: requests/s, the clients'
+            p50 and p95 ms, the device batches and their mean fill, every
+            reply's shape.
 
 then the eval path:
 8. eval_parity  the eval step at B=2 on the card and on the CPU, the same
@@ -166,7 +179,20 @@ then the predictor-train path, over the experiment that phase 12 trained:
             frozen encode, forward, backward and optimizer, its peak memory
             and launches, and one step under ``torch.profiler`` with one
             slot-attention device kernel a call;
-18. pred_train_sign  20 steps on one batch of 8 at lr 1e-4: the loss falls.
+18. pred_train_sign  20 steps on one batch of 8 at lr 1e-4: the loss falls;
+F1. figs_parity  06b's figures of one sequence at p=3 on the card and on the
+            CPU with the same initial slots: every array a figure writer is
+            handed within 1e-4 of the largest value it or the decoded
+            predictions (before their clip to [0, 1]) hold, the two
+            argmax-coloured GIFs' frames on all but 1e-3 of their pixels;
+            each rollout step's slots and the decode of the same slots on
+            both devices reported beside;
+F2. figs    the 06 CLIs (``cli/generate_figs_decomp.py`` on phase 12's
+            SAVi, ``cli/generate_figs_predictor.py`` on phase 16's
+            TextOCVP_T5 at c=1, p=19), two sequences each: every figure and
+            GIF of each sequence decoded at its size and frame count, the 06b
+            directories' PSNR and LPIPS the generator's, the seconds a
+            sequence and each kernel's launches.
 
 then the four other predictors (VanillaTransformer, OCVPSeq, OCVPPar:
 token 128, hidden 256, 2 layers, 4 heads; TextOCVP_CustomTF: token 512, 8
@@ -227,7 +253,10 @@ then the CLIPort chain, over the color-cache set:
             ``models/ExtendedDINOSAUR_CLIPort.pt``: the parity at B=2, T=3
             (the ViT on the CPU), the 03 CLI at B=16 over the 32 test
             episodes, 8 slot-attention calls, 12 ViT-attention launches and
-            no conv5 launch a batch.
+            no conv5 launch a batch;
+28. clip_figs  phase F2 on the CLIPort chain's ExtendedDINOSAUR (phase 20)
+            and TextOCVP_T5 (phase 23, p=9), one sequence each, its objects
+            and masks at 96 px.
 
 and the host input and the trainers' extras:
 H1. host_io  what the machine offers the host input path (``native.host_io``:
@@ -261,10 +290,13 @@ H4. clip_remat, clip_png_eval  (after phase 27) one CLIPort 02 microbatch of
 
 The trainers' CLI runs add one TensorBoard image strip an epoch where
 ``tensorboard`` imports (``Trainer.image_strips``), and their launch counts
-count it. Phases 5 and 6 are a serving path's main path, phase 9 the eval path's, H2's
+count it. The 03 and 05 CLI runs' phases check that each metric's
+``<metric>_framewise.png`` lies beside ``results.json`` and decodes.
+Phases 5 and 6 are a serving path's main path, phase 9 the eval path's, H2's
 and H4's PNG runs the PNG routes',
 phase 12's first run the train path's, the 03 CLI runs of D2 and 27 the
-03 paths', phase 16's first run the
+03 paths', S's HTTP runs the batching path's, the 06 CLI runs of F2 and 28
+the 06 paths', phase 16's first run the
 predictor-train path's, P2's and P5's CLI runs and P3 the other predictors'
 paths, and the first runs of the CLIs of phases 20, 23 and 25 the CLIPort
 chain's three: every kernel's launch counter (and conv5's input-gradient
@@ -335,13 +367,13 @@ CLIP_EPISODES = (("train", 64), ("val", 16), ("test", 32))
 CLIP_EPISODE_FRAMES = 12                # c + p = 10 for the 04 step, and room for random_start
 CLIP_EVAL_BATCH, CLIP_PREDS = 16, 9     # scripts/05_evaluate_TextOCVP_CLIPort.sh
 CLIP_VALID_BATCH = dict(CLIP_EPISODES)["val"]  # one valid batch, no accumulation
-CLIP_STEADY_REPS = 2  # timed steady CLIPort train steps (5.5 and 7.6 s each)
+CLIP_STEADY_REPS = 1  # timed steady CLIPort train steps (5.5 and 7.6 s each)
 # the batches of one ViT call on the main paths, in frames: a request's and
 # the 05 seed frames, the 02 microbatch and valid batch, the 04 microbatch
 # and valid batch
 VIT_BATCHES = (BATCH, CLIP_EVAL_BATCH, CLIP_TRAIN_BATCH // CLIP_ACCUM * CLIP_FRAMES,
                CLIP_TRAIN_BATCH // CLIP_ACCUM * PRED_FRAMES, CLIP_VALID_BATCH * CLIP_FRAMES,
-               CLIP_VALID_BATCH * PRED_FRAMES)
+               CLIP_VALID_BATCH * PRED_FRAMES, 1)  # 1: the 06b seed frame
 CLIP_PRED_NAME = "textocvp_t5_clipport"
 VIT_BLOCKS = 12
 # the CNN head's conv biases sit before a BatchNorm in training mode: the batch
@@ -635,8 +667,8 @@ def conv5_bounds(n, h, w, c):
 
 
 def conv5_rows():
-    """conv5 against its plain version at a CATER request's and an eval
-    batch's frame counts. The error is taken over the first 256 frames and
+    """conv5 against its plain version at the 06 paths' map counts, a CATER
+    request's and an eval batch's. The error is taken over the first 256 frames and
     the last one (the plain version of all 9728 needs 50 GB); times cover
     all frames, fewer repetitions at N=9728. The yardstick is ``F.conv2d``
     (cuDNN, TF32 off) with the bias, then an in-place ReLU, timed on the
@@ -654,7 +686,10 @@ def conv5_rows():
     b = (0.1 * torch.randn((c,), generator=gen)).cuda()
     w_oihw = w.permute(3, 2, 0, 1).contiguous()
     rows = []
-    for n, reps in ((BATCH * 19 * 8, 10), (EVAL_BATCH * EVAL_PREDS * 8, 2)):
+    # the 06 paths' maps: a sequence's seed (8), 06a's 8 frames (64), 06b's
+    # 19 predicted frames (152)
+    for n, reps in ((8, 20), (DECOMP_FRAMES * 8, 20), (EVAL_PREDS * 8, 20),
+                    (BATCH * 19 * 8, 10), (EVAL_BATCH * EVAL_PREDS * 8, 2)):
         x = torch.randn((n, res, res, c), device="cuda", generator=xgen).mul_(0.5)
         launches = c5.conv5_cuda.launches
         out = c5.conv5_cuda(x, w, b)
@@ -916,11 +951,12 @@ def slot_attention_backward_rows(b, n, s, mlp, seed):
 
 def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = {"slot_attention_cater": slot_attention_rows(4096, 8, 256, (8, 64)),
+    # B=1: one 06 sequence, frame by frame
+    rows = {"slot_attention_cater": slot_attention_rows(4096, 8, 256, (1, 8, 64)),
             # a request's and the 02 and 04 microbatches (B=8), the valid
             # batches and the 05 batch (B=16)
             "slot_attention_clipport": slot_attention_rows(
-                CLIP_PATCHES, CLIP_SLOTS, 512, (BATCH, CLIP_EVAL_BATCH)),
+                CLIP_PATCHES, CLIP_SLOTS, 512, (1, BATCH, CLIP_EVAL_BATCH)),
             "vit_attention": vit_attention_rows(),
             "conv5": conv5_rows(),
             "conv5_backward": conv5_backward_rows(),
@@ -1256,6 +1292,25 @@ def eval_results_path(exp_path):
             / f"eval_pred_random_NumSeed=1_NumPreds={EVAL_PREDS}" / "results.json")
 
 
+def check_framewise_plots(results_dir: Path, results: dict, what: str) -> list:
+    """Each metric's ``<metric>_framewise.png`` beside ``results.json``
+    (``train/evaluator.py::_save_framewise_plots``) decodes through PIL at the
+    plot's size. Returns their names."""
+    from PIL import Image
+
+    from textocvp_tpu_torch.viz.figures import METRIC_SIZE
+
+    names = [f"{m}_framewise.png" for m, v in results.items()
+             if isinstance(v, dict) and "framewise" in v]
+    check(len(names) == 3, f"{what}: metrics with framewise values {names}")
+    for name in names:
+        check((results_dir / name).is_file(), f"{what}: no {name} beside results.json")
+        with Image.open(results_dir / name) as img:
+            img.load()
+            check(img.size == METRIC_SIZE, f"{what}: {name} is {img.size}")
+    return names
+
+
 def phase_eval(exp_path):
     """The 05 CLI at B=64 over EVAL_VIDEOS videos, on the card: the eval
     path's main path. Returns its kernel launches."""
@@ -1281,9 +1336,10 @@ def phase_eval(exp_path):
         check(len(results[m]["framewise"]) == EVAL_PREDS and bool(np.isfinite(vals).all()),
               f"eval results.json: {m} {results[m]}")
     check(results["lpips"]["comparable"] is False, "lpips.comparable false (random AlexNet)")
+    plots = check_framewise_plots(eval_results_path(exp_path).parent, results, "eval")
     emit({"phase": "eval", "batch": EVAL_BATCH, "videos": EVAL_VIDEOS, "num_seed": 1,
           "num_preds": EVAL_PREDS, "cli_seconds": seconds, "launches": counts,
-          "results": results})
+          "results": results, "framewise_plots": plots})
     return counts
 
 
@@ -1742,10 +1798,13 @@ def launch_counts():
             c5.conv5_input_grad_cuda.launches, c5.conv5_weight_grad.calls)
 
 
-def steady_steps(step, reps=3):
-    """``step()`` once to warm up, then ``reps`` times on the host clock with
-    synchronize: (ms of each, peak GB of the timed steps)."""
-    step()
+def steady_steps(step, reps=2, warm=True):
+    """``step()`` once to warm up (unless ``warm`` is False: a trainer that
+    its CLI run has just trained on the same shapes), then ``reps`` times on
+    the host clock with synchronize: (ms of each, peak GB of the timed
+    steps)."""
+    if warm:
+        step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
@@ -1792,12 +1851,12 @@ def profiled_step(step, top=15, cpu=True):
 
 
 def phase_train_step(trainer, videos):
-    """The steady train step at B=64, T=8 on the resumed trainer: three
+    """The steady train step at B=64, T=8 on the resumed trainer: two
     steps on the host clock with synchronize, one split into forward,
     backward and optimizer, the peak memory, the launches of a step, and
     one step under torch.profiler. Off the main path."""
     batch = trainer.to_device(videos)
-    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch))
+    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch), warm=False)
     before = launch_counts()
     noise = trainer._noise(batch.shape[0])
     out = {}
@@ -2005,13 +2064,15 @@ def phase_pred_train(parent: Path, exp_path: Path, steps: int, phase="pred_train
                              "--batch_size", str(EVAL_BATCH), "--num_seed", "1",
                              "--num_preds", str(EVAL_PREDS)])
     eval_seconds = time.perf_counter() - t
-    with open(exp_path / "results" / f"eval_pred_checkpoint_epoch_final_NumSeed=1_NumPreds="
-              f"{EVAL_PREDS}" / "results.json") as f:
+    results_dir = exp_path / "results" / (
+        f"eval_pred_checkpoint_epoch_final_NumSeed=1_NumPreds={EVAL_PREDS}")
+    with open(results_dir / "results.json") as f:
         results = json.load(f)
     for m in ("psnr", "ssim", "lpips"):
         vals = results[m]["framewise"] + [results[m]["mean"]]
         check(len(results[m]["framewise"]) == EVAL_PREDS and bool(np.isfinite(vals).all()),
               f"{what}: 05 on the 04 checkpoint: {m} {results[m]}")
+    check_framewise_plots(results_dir, results, f"{what}: 05 on the 04 checkpoint")
     emit({"phase": phase, **extra, "batch": TRAIN_BATCH, "num_context": PRED_CONTEXT,
           "num_preds": PRED_PREDS, "train_videos": steps * TRAIN_BATCH,
           "valid_videos": TRAIN_VALID_VIDEOS, "decomp_ckpt": "checkpoint_epoch_final (02 phase)",
@@ -2026,13 +2087,13 @@ def phase_pred_train(parent: Path, exp_path: Path, steps: int, phase="pred_train
 
 
 def phase_pred_train_step(trainer, videos, info, phase="pred_train_step", **extra):
-    """The steady predictor step at B=64 on the resumed trainer: three steps
+    """The steady predictor step at B=64 on the resumed trainer: two steps
     on the host clock with synchronize, one split into frozen encode,
     forward (rollout, decode, loss), backward and optimizer, the peak memory,
     the launches of a step, and one step under torch.profiler. Off the main
     path. ``extra`` goes into the phase's line."""
     batch, text = trainer.batch_to_device(videos, info)
-    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch, **text))
+    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch, **text), warm=False)
     before = launch_counts()
     noise = trainer._noise(batch.shape[0])
     out = {}
@@ -2186,13 +2247,14 @@ def phase_predictors_eval(parent: Path, name, exp):
     check(rc == 0 and counts == {"slot_attention": batches, "vit_attention": 0,
                                  "conv5": 3 * batches},
           f"predictors_eval {name}: kernel launches on the main path: {counts}")
-    with open(exp.exp_path / "results" / f"eval_pred_random_NumSeed=1_NumPreds={EVAL_PREDS}"
-              / "results.json") as f:
+    results_dir = exp.exp_path / "results" / f"eval_pred_random_NumSeed=1_NumPreds={EVAL_PREDS}"
+    with open(results_dir / "results.json") as f:
         results = json.load(f)
     for m in ("psnr", "ssim", "lpips"):
         vals = results[m]["framewise"] + [results[m]["mean"]]
         check(len(results[m]["framewise"]) == EVAL_PREDS and bool(np.isfinite(vals).all()),
               f"predictors_eval {name} results.json: {m} {results[m]}")
+    check_framewise_plots(results_dir, results, f"predictors_eval {name}")
     emit({"phase": "predictors_eval", "predictor": name, "batch": EVAL_BATCH,
           "videos": EVAL_VIDEOS, "num_seed": 1, "num_preds": EVAL_PREDS, "cli_seconds": seconds,
           "launches": counts, "means": {m: results[m]["mean"] for m in ("psnr", "ssim", "lpips")}})
@@ -2488,6 +2550,7 @@ def phase_decomp_eval(exp_path, path: DecompPath, videos_in_split: int):
         vals = results[m]["framewise"] + [results[m]["mean"]]
         check(len(results[m]["framewise"]) == DECOMP_FRAMES and bool(np.isfinite(vals).all()),
               f"{path.name} results.json: {m} {results[m]}")
+    plots = check_framewise_plots(exp_path / "results" / DECOMP_RESULTS, results, path.name)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2513,7 +2576,8 @@ def phase_decomp_eval(exp_path, path: DecompPath, videos_in_split: int):
     frames = path.batch * DECOMP_FRAMES
     emit({"phase": path.name, "model": path.model, "batch": path.batch, "frames": DECOMP_FRAMES,
           "videos": batches * path.batch, "cli_seconds": seconds, "launches": counts,
-          "results": results, "step_ms": step_ms, "recons_frames_per_s": 1e3 * frames / mean_ms,
+          "results": results, "framewise_plots": plots, "step_ms": step_ms,
+          "recons_frames_per_s": 1e3 * frames / mean_ms,
           "split_ms": split, "peak_mem_gb": peak_gb, **prof,
           "slot_attention": slot_attention, "vit_attention": vit, "conv5": conv5})
     return counts
@@ -2776,13 +2840,14 @@ def clip_step_report(phase, trainer, run, per_step, want, frames_per_step, step_
 
 def phase_clip_train_step(trainer, videos):
     """The steady 02 step at B=64, T=8, ``accum_steps`` 8 on the resumed
-    trainer: three steps on the host clock with synchronize, one split into
-    forward, backward (each summed over the microbatches) and optimizer, the
+    trainer: CLIP_STEADY_REPS steps on the host clock with synchronize, one
+    split into forward, backward (each summed over the microbatches) and optimizer, the
     peak memory, the launches of a step (one slot-attention call a frame of
     each microbatch, 12 ViT-attention launches a microbatch), and one step
     under torch.profiler. Off the main path."""
     batch = trainer.to_device(videos)
-    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch), reps=CLIP_STEADY_REPS)
+    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch), reps=CLIP_STEADY_REPS,
+                                    warm=False)
     before = launch_counts_clip()
     noise = trainer._noise(batch.shape[0])
     split = accumulated_split(trainer, batch.shape[0],
@@ -2922,15 +2987,15 @@ def phase_clip_pred_train(parent: Path):
 
 def phase_clip_pred_train_step(trainer, videos, info):
     """The steady 04 step at B=64, c=1, p=9, ``accum_steps`` 8 on the resumed
-    trainer: three steps on the host clock with synchronize, one split into
-    frozen encode, forward (rollout, decode of 72 frames, loss), backward
+    trainer: CLIP_STEADY_REPS steps on the host clock with synchronize, one
+    split into frozen encode, forward (rollout, decode of 72 frames, loss), backward
     (each summed over the microbatches) and optimizer, the peak memory, the
     launches of a step (10 slot-attention calls and 12 ViT-attention
     launches a microbatch), and one step under torch.profiler. Off the main
     path."""
     batch, text = trainer.batch_to_device(videos, info)
     step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch, **text),
-                                    reps=CLIP_STEADY_REPS)
+                                    reps=CLIP_STEADY_REPS, warm=False)
     before = launch_counts_clip()
     noise = trainer._noise(batch.shape[0])
     split = accumulated_split(
@@ -2983,17 +3048,18 @@ def phase_clip_eval(parent: Path):
     check(rc == 0, f"evaluate_predictor returned {rc}")
     check(counts == {"slot_attention": batches, "vit_attention": VIT_BLOCKS * batches,
                      "conv5": 0}, f"clip_eval: kernel launches on the main path: {counts}")
-    with open(parent / "predictors" / CLIP_PRED_NAME / "results" / (
-            f"eval_pred_checkpoint_epoch_final_NumSeed=1_NumPreds={CLIP_PREDS}")
-            / "results.json") as f:
+    results_dir = parent / "predictors" / CLIP_PRED_NAME / "results" / (
+        f"eval_pred_checkpoint_epoch_final_NumSeed=1_NumPreds={CLIP_PREDS}")
+    with open(results_dir / "results.json") as f:
         results = json.load(f)
     for m in ("psnr", "ssim", "lpips"):
         vals = results[m]["framewise"] + [results[m]["mean"]]
         check(len(results[m]["framewise"]) == CLIP_PREDS and bool(np.isfinite(vals).all()),
               f"clip_eval results.json: {m} {results[m]}")
+    plots = check_framewise_plots(results_dir, results, "clip_eval")
     emit({"phase": "clip_eval", "batch": CLIP_EVAL_BATCH, "episodes": batches * CLIP_EVAL_BATCH,
           "num_seed": 1, "num_preds": CLIP_PREDS, "cli_seconds": seconds, "launches": counts,
-          "results": results})
+          "results": results, "framewise_plots": plots})
     return counts
 
 
@@ -3355,7 +3421,7 @@ def phase_train_extras(tmp: Path):
     torch.cuda.empty_cache()
 
 
-def remat_rows(make, batch, reps=2):
+def remat_rows(make, batch, reps=1):
     """``make(remat)``'s trainer without and with ``tpu.remat`` on one batch
     (``batch(trainer)`` -> (videos, noise, text)): the gradients of a first
     backward, then ``reps`` steady steps (backward and Adam) on the host
@@ -3548,6 +3614,369 @@ def phase_clip_remat(parent: Path):
     torch.cuda.empty_cache()
 
 
+# -------------------------------------- 06 figures and dynamic request batching
+
+FIG_SEQS = 2           # 06 sequences on CATER (the CLIs' --num_seqs)
+FIG_PARITY_PREDS = 3   # predictions of the card-against-CPU 06b sequence
+DINOSAUR_OBJ_RES = 96  # ExtendedDINOSAUR's objects and masks (process_objs_masks_dinosaur)
+FIG_WRITERS = ("visualize_recons", "visualize_decomp", "visualize_sequence",
+               "visualize_qualitative_eval", "visualize_aligned_slots", "make_gif")
+# GIFs coloured by the argmax over the slots' masks: a pixel whose two
+# largest masks lie within rounding of each other may take either colour
+ARGMAX_FIGS = ("masks_GIF_masks.gif", "overlay_GIF.gif")
+BATCHING_CLIENTS, BATCHING_REQUESTS, BATCHING_WINDOW_MS = 16, 32, 20.0
+
+
+GIF_FRAME_MS = 250  # make_gif's 1000 / fps ms at 4 fps
+
+
+def image_info(path):
+    """(size, frames) of a PNG or a GIF, every frame decoded through PIL. A
+    GIF's frames are its duration over GIF_FRAME_MS: PIL's writer (and so
+    imageio's) merges a frame equal to the one before into it."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        ms = 0
+        for i in range(getattr(img, "n_frames", 1)):
+            img.seek(i)
+            img.load()
+            ms += img.info.get("duration", 0)
+        return img.size, (ms // GIF_FRAME_MS if img.format == "GIF" else 1)
+
+
+def expected_06a(t, s, res, obj_res):
+    """{file: (size, frames)} of one 06a sequence of t frames at res and s
+    slots, objects and masks at obj_res."""
+    from textocvp_tpu_torch import viz
+
+    z = np.zeros
+    gif = 2 * res + 8  # upscaled 2x, a 4 px border
+    return {"recons.png": (viz.visualize_recons(z((t, res, res, 3)), z((t, res, res, 3)))
+                           .image.size, 1),
+            "recons.gif": ((gif, gif), t),
+            "objects.png": (viz.visualize_decomp(z((t, s, obj_res, obj_res, 3))).image.size, 1),
+            "masks.png": (viz.visualize_decomp(z((t, s, obj_res, obj_res, 1))).image.size, 1),
+            "segmentation.png": (viz.visualize_sequence(z((t, obj_res, obj_res, 3))).image.size,
+                                 1)}
+
+
+def expected_06b(c, p, s, res, obj_res):
+    """{file: (size, frames)} of one 06b sequence (c seed frames, p
+    predictions at res, s slots, objects and masks at obj_res)."""
+    from textocvp_tpu_torch import viz
+
+    z = np.zeros
+    gif, seg, obj = 2 * res + 8, 2 * obj_res + 8, obj_res + 4  # obj: 2 px borders
+    return {"qual_eval_rgb.png": (viz.visualize_qualitative_eval(
+                z((c, res, res, 3)), z((p, res, res, 3)), z((p, res, res, 3))).image.size, 1),
+            "aligned_slots.png": (viz.visualize_aligned_slots(z((c + p, s, obj, obj, 3)))
+                                  .image.size, 1),
+            "masks_GIF_masks.gif": ((seg, seg), c + p), "overlay_GIF.gif": ((seg, seg), c + p),
+            "gt_GIF_frames.gif": ((gif, gif), c + p), "pred_GIF_frames.gif": ((gif, gif), c + p),
+            **{f"gt_obj_{k + 1}.gif": ((2 * obj, 2 * obj), c + p) for k in range(s)}}
+
+
+def check_inventory(seq_dir: Path, expected: dict, what: str):
+    """The sequence directory holds exactly the expected figures (and, for
+    06b, ``prompt.txt`` with a caption), each decoding at its size and frame
+    count."""
+    names = {p.name for p in seq_dir.iterdir()}
+    want = set(expected) | ({"prompt.txt"} if "qual_eval_rgb.png" in expected else set())
+    check(names == want, f"{what}: {seq_dir.name} holds {sorted(names)}, want {sorted(want)}")
+    for name, info in expected.items():
+        got = image_info(seq_dir / name)
+        check(got == info, f"{what}: {seq_dir.name}/{name} is {got}, want {info}")
+    if "prompt.txt" in want:
+        check(len((seq_dir / "prompt.txt").read_text().strip()) > 0, f"{what}: empty prompt.txt")
+
+
+def run_06(what, main, argv, want, sequences):
+    """One 06 CLI run between a reset and a read of the launch counters: the
+    06 path's main path. Checks the launches (``want`` a sequence); returns
+    the generator, its seconds and the launches."""
+    reset_launches()  # the main path starts here
+    t = time.perf_counter()
+    gen = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = launches()  # and ends here
+    check(counts == {k: n * sequences for k, n in want.items()},
+          f"{what}: kernel launches on the main path {counts}, want {want} x {sequences}")
+    return gen, seconds, counts
+
+
+def phase_figs_06(phase, exp_path, pred_name, num_preds, sequences, slots, res, obj_res,
+                  want_a, want_b):
+    """06a and 06b through their CLIs on the card (``sequences`` each, c=1,
+    ``num_preds``): the launches, each sequence's whole inventory, the 06b
+    directories' PSNR and LPIPS those the generator computed, the seconds a
+    sequence (the CLI's, loads included). Returns each path's launches."""
+    from textocvp_tpu_torch.cli import generate_figs_decomp, generate_figs_predictor
+
+    ckpt = "checkpoint_epoch_final"
+    gen, seconds_a, counts_a = run_06(
+        f"{phase} 06a", generate_figs_decomp.main,
+        ["-d", str(exp_path), "--decomp_ckpt", ckpt, "--num_seqs", str(sequences)], want_a,
+        sequences)
+    dirs = sorted(p for p in gen.out_dir.iterdir())
+    check([p.name for p in dirs] == [f"sequence_{i:02d}" for i in range(sequences)],
+          f"{phase} 06a: {[p.name for p in dirs]}")
+    t = gen.exp_params["dataset"]["num_frames"]
+    for d in dirs:
+        check_inventory(d, expected_06a(t, slots, res, obj_res), f"{phase} 06a")
+    del gen
+
+    gen, seconds_b, counts_b = run_06(
+        f"{phase} 06b", generate_figs_predictor.main,
+        ["-d", str(exp_path), "--name_pred_exp", pred_name, "--decomp_ckpt", ckpt,
+         "--pred_ckpt", ckpt, "--num_seed", "1", "--num_preds", str(num_preds),
+         "--num_seqs", str(sequences)], want_b, sequences)
+    dirs = sorted(p for p in gen.out_dir.iterdir())
+    check(len(dirs) == len(gen.sequence_metrics) == sequences, f"{phase} 06b: {dirs}")
+    for i, (d, m) in enumerate(zip(dirs, gen.sequence_metrics)):
+        check(np.isfinite([m["psnr"], m["lpips"]]).all(), f"{phase} 06b: metrics {m}")
+        name = f"sequence_{i:02d}_psnr={m['psnr']:.2f}_lpips={m['lpips']:.3f}"
+        check(d.name == name, f"{phase} 06b: directory {d.name}, the generator's {name}")
+        check_inventory(d, expected_06b(1, num_preds, slots, res, obj_res), f"{phase} 06b")
+    emit({"phase": phase, "sequences": sequences, "num_preds": num_preds,
+          "06a": {"cli_seconds": seconds_a, "seconds_a_sequence": seconds_a / sequences,
+                  "launches": counts_a,
+                  "frames": t, "out_dir": str(exp_path / "plots" / f"figs_{ckpt}")},
+          "06b": {"cli_seconds": seconds_b, "seconds_a_sequence": seconds_b / sequences,
+                  "launches": counts_b,
+                  "sequence_metrics": gen.sequence_metrics, "directories": [d.name for d in dirs]}})
+    return {f"{phase}_decomp": counts_a, f"{phase}_pred": counts_b}
+
+
+def phase_figs_parity(exp_path: Path):
+    """06b's figures of one CATER sequence at p=FIG_PARITY_PREDS on the card
+    and on the CPU: the same weights, frames, caption and initial slots.
+    Every array handed to a figure writer within 1e-4 of the largest |value|
+    among it and the decoded predictions before their clip to [0, 1] (the
+    clip keeps the decoder's error and drops its scale: trained weights
+    decode values well outside [0, 1]); the two argmax-coloured GIFs' frames
+    differ on at most 1e-3 of their pixels; PSNR within 1e-3 dB, LPIPS within
+    1e-4. Reported beside them: each rollout step's slots, and the decode of
+    the CPU's predicted slots on both devices, each error over its largest
+    value. Off the main path; the writers record here and write nothing."""
+    from textocvp_tpu_torch.train.fig_generation import PredictorFigGenerator
+    from textocvp_tpu_torch.viz import figures
+
+    gens = {dev: PredictorFigGenerator(exp_path, PRED_NAME, "checkpoint_epoch_final",
+                                       "checkpoint_epoch_final", num_seed=1,
+                                       num_preds=FIG_PARITY_PREDS, num_seqs=1, device=dev)
+            for dev in ("cpu", "cuda")}
+    for gen in gens.values():
+        gen.load_data()
+        gen.load_models()
+    videos, info = next(iter(gens["cpu"].test_loader))
+    init = gens["cpu"].model.slot_initializer(1, torch.Generator().manual_seed(SEED + 8))
+
+    pred_slots, decoded = {}, {}
+    with torch.inference_mode():
+        for dev, gen in gens.items():
+            v, text = gen.to_device(videos, info)
+            slots = gen.model.decompose(v[:, :1], initial_slots=init.to(gen.device))
+            pred_slots[dev] = gen.predictor(slots["slot_history"], num_preds=FIG_PARITY_PREDS,
+                                            teacher_force=False, **text).cpu()
+        flat = pred_slots["cpu"].reshape(-1, *pred_slots["cpu"].shape[2:])
+        for dev, gen in gens.items():
+            decoded[dev] = gen.model.decode(flat.to(gen.device))["recons_imgs"].cpu()
+    step_rel = ((pred_slots["cuda"] - pred_slots["cpu"]).abs().amax(dim=(0, 2, 3))
+                / pred_slots["cpu"].abs().amax(dim=(0, 2, 3))).tolist()
+    decode_rel = rel_err(decoded["cuda"], decoded["cpu"])
+    scale = decoded["cpu"].abs().max().item()
+
+    recorded, metrics = {}, {}
+    originals = {name: getattr(figures, name) for name in FIG_WRITERS}
+
+    def recorder(into):
+        def rec(*args, **kwargs):
+            path = Path(kwargs["savepath"] if "savepath" in kwargs else args[1])
+            into[path.name] = [np.asarray(a, np.float32) for a in args
+                               if not isinstance(a, (str, Path))]
+        return rec
+
+    try:
+        for dev, gen in gens.items():
+            recorded[dev] = {}
+            for name in FIG_WRITERS:
+                setattr(figures, name, recorder(recorded[dev]))
+            metrics[dev] = gen.sequence_figs(0, videos, info, initial_slots=init)[1]
+    finally:
+        for name, fn in originals.items():
+            setattr(figures, name, fn)
+    del gens
+    check(set(recorded["cuda"]) == set(recorded["cpu"]) and len(recorded["cpu"]) == 14,
+          f"figs_parity: files {sorted(recorded['cuda'])} / {sorted(recorded['cpu'])}")
+    errs, mismatch = {}, {}
+    for name, ref in recorded["cpu"].items():
+        got = recorded["cuda"][name]
+        check([a.shape for a in got] == [a.shape for a in ref], f"figs_parity: {name} shapes")
+        if name in ARGMAX_FIGS:
+            (a,), (b,) = got, ref
+            mismatch[name] = float((np.abs(a - b).max(-1) > 1e-4 * np.abs(b).max()).mean())
+            check(mismatch[name] <= 1e-3, f"figs_parity: {name} differs on {mismatch[name]} "
+                                          "of its pixels > 1e-3")
+            continue
+        errs[name] = max(float(np.abs(a - b).max() / max(np.abs(b).max(), scale))
+                         for a, b in zip(got, ref))
+        check(errs[name] <= 1e-4, f"figs_parity: {name} card vs CPU {errs[name]} of the "
+                                  f"largest value (decoded before the clip: {scale})")
+    dm = {m: abs(metrics["cuda"][m] - metrics["cpu"][m]) for m in ("psnr", "lpips")}
+    check(dm["psnr"] <= 1e-3 and dm["lpips"] <= 1e-4, f"figs_parity: metrics {metrics}")
+    emit({"phase": "figs_parity", "num_preds": FIG_PARITY_PREDS, "rel_err": errs,
+          "argmax_pixel_mismatch": mismatch, "metrics": metrics, "metric_abs_err": dm,
+          "pred_slots_rel_err_per_step": step_rel, "decode_of_cpu_slots_rel_err": decode_rel,
+          "decoded_max_abs_before_clip": scale,
+          "decoded_range": [decoded["cpu"].min().item(), decoded["cpu"].max().item()],
+          "tolerance": {"rel": 1e-4, "argmax_mismatch": 1e-3, "psnr": 1e-3, "lpips": 1e-4}})
+
+
+def run_figs(train_exp: Path):
+    """The 06 paths on CATER over the 02 phase's SAVi and the 04 phase's
+    TextOCVP_T5: the card-against-CPU sequence, then the two CLIs. Returns
+    their main paths' launches."""
+    phase_figs_parity(train_exp)
+    gc.collect()
+    return phase_figs_06("figs", train_exp, PRED_NAME, EVAL_PREDS, FIG_SEQS, 8, CONV5_RES,
+                         CONV5_RES, {"slot_attention": DECOMP_FRAMES, "vit_attention": 0,
+                                     "conv5": 3},
+                         {"slot_attention": 1, "vit_attention": 0, "conv5": 6})
+
+
+def run_clip_figs(clip_exp: Path):
+    """The 06 paths on the CLIPort chain's ExtendedDINOSAUR and TextOCVP_T5
+    (p=9), one sequence each. Returns their main paths' launches."""
+    return phase_figs_06("clip_figs", clip_exp, CLIP_PRED_NAME, CLIP_PREDS, 1, CLIP_SLOTS,
+                         CLIP_RES, DINOSAUR_OBJ_RES,
+                         {"slot_attention": DECOMP_FRAMES, "vit_attention": VIT_BLOCKS,
+                          "conv5": 0},
+                         {"slot_attention": 1, "vit_attention": VIT_BLOCKS, "conv5": 0})
+
+
+def batching_run(service, path: ServedPath, rows, dynamic_batch_ms, depth):
+    """BATCHING_REQUESTS one-row requests from BATCHING_CLIENTS client threads
+    over HTTP, each client's requests one after another: requests/s, the
+    clients' p50 and p95 ms, /stats, and the device batches (slot-attention
+    launches, one a batch)."""
+    from textocvp_tpu_torch.serve import serve
+
+    httpd = serve(service, host="127.0.0.1", port=0, warmup=False,
+                  dynamic_batch_ms=dynamic_batch_ms, pipeline_depth=depth)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    per_client = BATCHING_REQUESTS // BATCHING_CLIENTS
+    lat, outs, errors = [], {}, []
+
+    def client(c):
+        try:
+            for i in range(c * per_client, (c + 1) * per_client):
+                buf = io.BytesIO()
+                np.savez(buf, frames=rows[i:i + 1],
+                         captions=np.array([path.captions[i % len(path.captions)]]))
+                req = urllib.request.Request(url + "/predict", data=buf.getvalue(),
+                                             headers={"Content-Type": "application/npz"})
+                t = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    outs[i] = np.load(io.BytesIO(r.read()))["pred_frames"]
+                lat.append(1e3 * (time.perf_counter() - t))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    before = launches()["slot_attention"]
+    try:
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(BATCHING_CLIENTS)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        if httpd.batcher is not None:
+            httpd.batcher.close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "serve_batching: server thread stopped")
+    batches = launches()["slot_attention"] - before
+    what = f"serve_batching ({dynamic_batch_ms} ms, depth {depth})"
+    check(not errors and len(outs) == BATCHING_REQUESTS, f"{what}: errors {errors[:3]}")
+    for out in outs.values():
+        check(out.dtype == np.uint8 and out.shape == (1, path.num_preds, path.res, path.res, 3),
+              f"{what}: reply {out.dtype} {out.shape}")
+    check(stats["requests"] == stats["rows"] == BATCHING_REQUESTS and stats["errors"] == 0,
+          f"{what}: stats {stats}")
+    if dynamic_batch_ms is None:
+        check(batches == BATCHING_REQUESTS, f"{what}: {batches} device batches")
+    else:
+        check(stats["batches_dispatched"] == batches < BATCHING_REQUESTS,
+              f"{what}: {batches} device batches, stats {stats}")
+    lat.sort()
+    return {"dynamic_batch_ms": dynamic_batch_ms, "pipeline_depth": depth,
+            "requests": BATCHING_REQUESTS, "clients": BATCHING_CLIENTS, "seconds": wall,
+            "requests_per_s": BATCHING_REQUESTS / wall, "p50_ms": lat[len(lat) // 2],
+            "p95_ms": lat[min(len(lat) - 1, int(len(lat) * 0.95))],
+            "batches_dispatched": batches,
+            "mean_batch_fill": BATCHING_REQUESTS / (batches * service.batch_size),
+            "stats": stats}
+
+
+def phase_serve_batching(exp_path: Path):
+    """The CATER service at batch 8 behind the dynamic batcher: two one-row
+    requests coalesced into one batch equal, bit for bit, a direct two-row
+    predict from the same generator state (off the main path); then the main
+    path, BATCHING_REQUESTS one-row HTTP requests from BATCHING_CLIENTS
+    clients with batching off, at a BATCHING_WINDOW_MS window with one
+    dispatcher, and with two. Returns the main path's launches."""
+    from textocvp_tpu_torch.serve import DynamicBatcher, PredictionService
+
+    path = PATHS[0]
+    service = PredictionService(exp_path, "textocvp_t5", "random", "random", batch_size=BATCH,
+                                max_tokens=MAX_TOKENS, device="cuda")
+    service.warmup()
+    rng = np.random.default_rng(SEED + 9)
+    rows = rng.uniform(0, 1, (BATCHING_REQUESTS, 1, path.res, path.res, 3)).astype(np.float32)
+    captions = list(path.captions[:2])
+    state = service.generator.get_state()
+    direct = service.predict(rows[:2], captions)
+    service.generator.set_state(state)
+    batcher, coalesced = DynamicBatcher(service, max_wait_ms=500.0), {}
+    try:
+        threads = [threading.Thread(target=lambda i=i: coalesced.update(
+            {i: batcher.predict(rows[i:i + 1], captions[i:i + 1])})) for i in range(2)]
+        threads[0].start()
+        time.sleep(0.1)  # request 0 enqueues first
+        threads[1].start()
+        for t in threads:
+            t.join(timeout=300)
+        dispatches = batcher._dispatches
+    finally:
+        batcher.close()
+    check(dispatches == 1 and set(coalesced) == {0, 1}
+          and np.array_equal(np.concatenate([coalesced[0], coalesced[1]]), direct),
+          f"serve_batching: two coalesced rows ({dispatches} batches) differ from a direct "
+          "2-row predict")
+
+    reset_launches()  # the main path starts here
+    runs = [batching_run(service, path, rows, ms, depth)
+            for ms, depth in ((None, 2), (BATCHING_WINDOW_MS, 1), (BATCHING_WINDOW_MS, 2))]
+    counts = launches()  # and ends here
+    batches = sum(r["batches_dispatched"] for r in runs)
+    check(counts == {"slot_attention": batches, "vit_attention": 0, "conv5": 3 * batches},
+          f"serve_batching: kernel launches on the main path {counts}, {batches} batches")
+    emit({"phase": "serve_batching", "path": path.name, "batch": BATCH,
+          "coalesced_equals_direct": True, "runs": runs, "launches": counts})
+    del service
+    torch.cuda.empty_cache()
+    return counts
+
+
 def run_path(path: ServedPath, tmp: Path):
     """Parity, then the main path (service + HTTP) between a reset and a read
     of the launch counters, then the profile. Returns the main path's launches."""
@@ -3583,6 +4012,7 @@ def main() -> int:
         phase_host_io(Path(tmp))
         made = phase_create(Path(tmp))
         counts = {path.name: run_path(path, Path(tmp)) for path in PATHS}
+        counts["serve_batching"] = phase_serve_batching(Path(tmp) / PATHS[0].name / "exp")
         counts["eval"] = run_eval(Path(tmp))
         counts["png_eval"] = run_png_eval(Path(tmp))
         counts["train"], train_input_grad, train_exp = run_train(Path(tmp))
@@ -3593,19 +4023,23 @@ def main() -> int:
         phase_train_extras(Path(tmp))
         phase_train_remat(train_exp, Path(tmp) / "CATER_train")
         counts["pred_train"], pred_input_grad, pred_weight_grad = run_pred_train(train_exp)
+        counts.update(run_figs(train_exp))
         other_counts, other_input_grad, other_weight_grad = run_predictors(Path(tmp), train_exp)
         counts.update(other_counts)
         counts.update(run_clip(Path(tmp), made["clipport"]))
+        counts.update(run_clip_figs(Path(tmp) / "clip_train"))
         phase_clip_remat(Path(tmp) / "clip_train")
         counts["clip_png_eval"] = run_clip_png_eval(Path(tmp))
 
     sa = next(r for r in rows["slot_attention_cater"] if r["B"] == BATCH and r["iters"] == 3)
     sa64 = next(r for r in rows["slot_attention_cater"] if r["B"] == EVAL_BATCH
                 and r["iters"] == 3)
+    sa1 = next(r for r in rows["slot_attention_cater"] if r["B"] == 1 and r["iters"] == 3)
     sa_clip = {r["B"]: r for r in rows["slot_attention_clipport"] if r["iters"] == 3}
     vit = {r["B"]: r for r in rows["vit_attention"]}
     vit8 = vit[BATCH]
-    conv_req, conv_eval = rows["conv5"]
+    conv_by_n = {r["N"]: r for r in rows["conv5"]}
+    conv_eval = conv_by_n[EVAL_BATCH * EVAL_PREDS * 8]
     conv_bwd = {r["N"]: r for r in rows["conv5_backward"]}
     conv_train = conv_bwd[TRAIN_BATCH * TRAIN_FRAMES * 8]
     sa_bwd = {r["iters"]: r for r in rows["slot_attention_backward"]}
@@ -3618,7 +4052,8 @@ def main() -> int:
         "replaces": "textocvp_tpu/ops/pallas/slot_attention_kernel.py:37",
         "launches": sum(c["slot_attention"] for c in counts.values()),
         "launches_by_path": {p: c["slot_attention"] for p, c in counts.items()},
-        "max_abs_err": max(sa["max_abs_err_slots"], sa["max_abs_err_attn"]),
+        "max_abs_err": max(max(r["max_abs_err_slots"], r["max_abs_err_attn"]) for r in
+                           rows["slot_attention_cater"] + rows["slot_attention_clipport"]),
         "ms": sa["ms"],
         "plain_ms": sa["plain_ms"],
         "bound_ms": sa["bound_ms"],
@@ -3628,8 +4063,9 @@ def main() -> int:
         "active_clusters": sa["active_clusters"],
         "device_launches_per_call": max(r["device_launches"] for r in
                                         rows["slot_attention_cater"] + rows["slot_attention_clipport"]),
-        "b64": {k: sa64[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
-        | {"max_abs_err": max(sa64["max_abs_err_slots"], sa64["max_abs_err_attn"])},
+        **{name: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+           | {"max_abs_err": max(r["max_abs_err_slots"], r["max_abs_err_attn"])}
+           for name, r in (("b64", sa64), ("b1", sa1))},
         **{"clipport_shape" if b == BATCH else f"clipport_b{b}":
            {k: r[k] for k in ("B", "N", "S", "mlp", "iters", "ms", "plain_ms", "bound_ms",
                               "bound_by")}
@@ -3671,7 +4107,7 @@ def main() -> int:
         "replaces": "bench_pallas_conv.py:85",
         "launches": sum(c["conv5"] for c in counts.values()),
         "launches_by_path": {p: c["conv5"] for p, c in counts.items()},
-        "max_abs_err": max(conv_req["max_abs_err"], conv_eval["max_abs_err"]),
+        "max_abs_err": max(r["max_abs_err"] for r in rows["conv5"]),
         "ms": conv_eval["ms"],
         "plain_ms": conv_eval["plain_ms"],
         "bound_ms": conv_eval["bound_ms"],
@@ -3680,9 +4116,10 @@ def main() -> int:
         "library_ms": conv_eval["library_ms"],
         "library_layout": conv_eval["library_layout"],
         "shape": [conv_eval["N"], CONV5_RES, CONV5_RES, CONV5_CH],
-        "n1216": {k: conv_req[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                           "bound_ms_fp32_cores", "library_ms",
-                                           "library_layout", "max_abs_err")},
+        **{f"n{n}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                       "bound_ms_fp32_cores", "library_ms",
+                                       "library_layout", "max_abs_err")}
+           for n, r in conv_by_n.items() if r is not conv_eval},
         "train_input_grad_launches": train_input_grad,
         "pred_train_input_grad_launches": pred_input_grad,
         "pred_train_weight_grad_calls": pred_weight_grad,

@@ -64,7 +64,7 @@ def savi_exp(tmp_path_factory):
 
 
 def jax_results(exp_dir, monkeypatch):
-    # the framewise plots (matplotlib) change no number; the port has none
+    # the JAX package's framewise plots (matplotlib) change no number
     monkeypatch.setattr(jax_evaluator, "_save_framewise_plots", lambda *a, **k: None)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -133,6 +133,8 @@ def test_the_cli_on_the_cpu(savi_exp, capsys):
                                  "--device", "cpu"]) == 0
     assert "Results: {" in capsys.readouterr().out
     out = json.loads((savi_exp / "results" / "results_DecompModel" / "results.json").read_text())
+    assert {p.name for p in (savi_exp / "results" / "results_DecompModel").glob("*.png")} == {
+        f"{m}_framewise.png" for m in TOL}
     ref = port_evaluator(savi_exp).evaluate()  # batches of 2
     for m, tol in TOL.items():
         np.testing.assert_allclose(out[m]["framewise"], ref[m]["framewise"], rtol=0, atol=tol)

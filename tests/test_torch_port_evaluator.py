@@ -203,10 +203,11 @@ def test_cli_writes_results_on_the_cpu(exp_dir):
         assert main(["-d", str(exp_dir), "--name_pred_exp", "tiny_t5", "--decomp_ckpt", "ckpt",
                      "--pred_ckpt", "ckpt", "--num_preds", "2", "--batch_size", "4",
                      "--device", "cpu"]) == 0
-    res = json.loads((exp_dir / "predictors" / "tiny_t5" / "results"
-                      / "eval_pred_ckpt_NumSeed=1_NumPreds=2" / "results.json").read_text())
+    out_dir = exp_dir / "predictors" / "tiny_t5" / "results" / "eval_pred_ckpt_NumSeed=1_NumPreds=2"
+    res = json.loads((out_dir / "results.json").read_text())
     for m in ("psnr", "ssim", "lpips"):
         assert len(res[m]["framewise"]) == 2 and np.isfinite(res[m]["mean"])
+        assert (out_dir / f"{m}_framewise.png").is_file()  # from frame num_seed = 1
 
 
 def test_save_results_merges_with_an_earlier_file(tmp_path):

@@ -14,7 +14,9 @@ attention's refusal of grad, the four other predictors' rollouts on the card
 against the CPU, the 03 step on the card against the CPU, a CustomTF predictor's refusal of ids past its
 vocabulary before the lookup, the host image library's build on the card's
 machine, remat steps against plain ones (gradients within 1e-6 of the
-largest leaf) and the PNG route into a 05 batch. Marked ``gpu``;
+largest leaf), the PNG route into a 05 batch, the three kernels at the 06
+paths' batch-1 shapes, figures and GIFs of card tensors, and two requests
+coalesced by the dynamic batcher against a direct predict. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -802,3 +804,105 @@ def test_the_png_route_feeds_a_05_batch_on_the_card(cuda, tmp_path):
         metrics[route] = {k: v.cpu() for k, v in ev.eval_step(videos, info).items()}
     for k, v in metrics["png"].items():
         assert bool(torch.isfinite(v).all()) and torch.equal(v, metrics["npy"][k]), k
+
+
+# the batch-1 shapes of the 06 paths: one sequence's seed encode (CATER N=4096,
+# S=8; CLIPort N=576, S=10) and its decodes (conv5 over the 8 seed maps, the
+# 64 maps of 06a's 8 frames, the 152 predicted maps at p=19), and the ViT on
+# one frame
+@pytest.mark.parametrize("n,s,h", [(4096, 8, 256), (576, 10, 512)])
+@pytest.mark.parametrize("iters", [1, 3])
+def test_slot_attention_at_batch_1_matches_plain(cuda, n, s, h, iters):
+    k, v, slots, params = _case(1, n, s, h, seed=3)
+    out, attn = sak.slot_attention_cuda(k, v, slots, params, iters, 128 ** -0.5)
+    ref, ref_attn = sak.slot_attention_plain(k, v, slots, params, iters, 128 ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    torch.testing.assert_close(attn, ref_attn, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [8, 64, 152])
+def test_conv5_at_the_06_map_counts_matches_plain(cuda, n):
+    x, wt, b = _conv5_case(n, 64, 64, seed=3)
+    out = c5.conv5_cuda(x, wt, b)
+    ref = c5.conv5_plain(x, wt, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+def test_vit_attention_at_batch_1_matches_plain(cuda):
+    q, k, v = _qkv(1, 12, 577, seed=3)
+    out = va.vit_attention_cuda(q, k, v, 64 ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, va.vit_attention_plain(q, k, v, 64 ** -0.5), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_figures_and_gifs_take_card_tensors(cuda, tmp_path):
+    """A figure and a GIF of tensors on the card equal those of the same
+    tensors on the CPU, read back from their files."""
+    from PIL import Image
+
+    from textocvp_tpu_torch import viz
+
+    x = torch.rand((4, 16, 16, 3), device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+
+    def frames(path):
+        with Image.open(path) as img:
+            out = []
+            for i in range(getattr(img, "n_frames", 1)):
+                img.seek(i)
+                out.append(np.asarray(img.convert("RGB")))
+        return np.stack(out)
+
+    for d, a in (("card", x), ("cpu", x.cpu())):
+        viz.visualize_recons(a, a.flip(0), savepath=tmp_path / f"{d}.png")
+        viz.make_gif(a, tmp_path / f"{d}.gif", n_seed=1)
+    for ext, n in (("png", 1), ("gif", 4)):
+        card, cpu = frames(tmp_path / f"card.{ext}"), frames(tmp_path / f"cpu.{ext}")
+        assert len(card) == n
+        np.testing.assert_array_equal(card, cpu)
+
+
+def test_coalesced_requests_equal_a_direct_predict_on_the_card(cuda, tmp_path):
+    """Two one-row requests through the dynamic batcher equal a direct two-row
+    predict at the same generator state, bit for bit, on a full-width CATER
+    service (batch 8, ``LearnedRandom`` slots, random weights)."""
+    import threading
+    import time
+
+    from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.models import setup_model, setup_predictor
+    from textocvp_tpu_torch.serve import DynamicBatcher, PredictionService
+
+    params = build_exp_params("SAVi", "CATER_Easy")
+    params["model"]["model_params"]["initializer"] = "LearnedRandom"
+    pred_params = add_predictor_params(params, "TextOCVP_T5")
+    gen = torch.Generator().manual_seed(6)
+    exp, pred = Experiment(tmp_path / "exp"), Experiment(tmp_path / "exp" / "predictors" / "p")
+    for e, p, module in ((exp, params, random_init_(setup_model(params), gen)),
+                         (pred, pred_params, random_init_(setup_predictor(pred_params), gen))):
+        e.save_params(p)
+        e.models_dir.mkdir(parents=True, exist_ok=True)
+        torch.save(module.state_dict(), e.checkpoint_path("m"))
+    service = PredictionService(exp.exp_path, "p", "m", "m", batch_size=8)
+    frames = np.random.default_rng(7).random((2, 1, 64, 64, 3), np.float32)
+    captions = ["the cone is rotating", "the snitch is sliding to (2, 2)"]
+    state = service.generator.get_state()
+    ref = service.predict(frames, captions)
+    batcher = DynamicBatcher(service, max_wait_ms=2000.0)
+    try:
+        service.generator.set_state(state)
+        out = {}
+        threads = [threading.Thread(target=lambda i=i: out.update(
+            {i: batcher.predict(frames[i:i + 1], captions[i:i + 1])})) for i in range(2)]
+        threads[0].start()
+        time.sleep(0.1)  # request 0 enqueues first
+        threads[1].start()
+        for t in threads:
+            t.join(timeout=120)
+        assert batcher._dispatches == 1
+        np.testing.assert_array_equal(np.concatenate([out[0], out[1]]), ref)
+    finally:
+        batcher.close()

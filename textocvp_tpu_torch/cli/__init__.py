@@ -1,5 +1,8 @@
-"""Command-line entry points of the port (01, 02, 03, 04, 05, 07, the
-checkpoint importer and the ``.npy`` cache builder)."""
+"""Command-line entry points of the port: 01 (``create_experiment``,
+``create_predictor_experiment``), 02 (``train_decomp``), 03
+(``evaluate_decomp``), 04 (``train_predictor``), 05 (``evaluate_predictor``),
+06 (``generate_figs_decomp``, ``generate_figs_predictor``), 07 (``serve``),
+the checkpoint importer and the ``.npy`` cache builder."""
 
 import os
 

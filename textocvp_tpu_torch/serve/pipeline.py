@@ -110,7 +110,9 @@ class InferenceFrontend:
 
     def predict(self, frames: np.ndarray, captions: Sequence[str]) -> np.ndarray:
         """frames (B, num_context, H, W, 3) uint8 or float32 in [0, 1]; B captions.
-        Returns (B, num_preds, H, W, 3) float32 in [0, 1], on the 1/255 grid."""
+        Returns (B, num_preds, H, W, 3) float32 in [0, 1], on the 1/255 grid.
+        The dispatch lock covers the H2D copy, both stages and the start of the
+        D2H copy; the wait for the reply's bytes runs outside it."""
         frames = np.asarray(frames)
         if self.wire_dtype == "uint8":
             frames = to_uint8_frames(frames)
@@ -134,10 +136,27 @@ class InferenceFrontend:
             captions = list(captions) + [captions[-1]] * pad
         text = self._tokenize(captions)
         with self._lock:
-            pred_slots = self._predict_stage(frames, text)
-            imgs = self._decode_stage(pred_slots)
-            out = imgs.cpu().numpy()
-        return out[:b].astype(np.float32) / 255.0
+            imgs, done = self._start_fetch(self._decode_stage(self._predict_stage(frames, text)))
+        # wait outside the lock, as the JAX service does: a second caller
+        # (serve/batching.py's dispatchers) enqueues batch N+1 while batch N's
+        # bytes come back
+        if done is not None:
+            done.synchronize()
+        return imgs.numpy()[:b].astype(np.float32) / 255.0
+
+    @staticmethod
+    def _start_fetch(imgs):
+        """Start the copy of ``imgs`` to the host -> (host tensor, event). On a
+        CUDA device a ``non_blocking`` copy into pinned memory and an event
+        recorded after it, to wait on before reading; on the CPU ``imgs``
+        itself and None."""
+        if imgs.device.type != "cuda":
+            return imgs, None
+        host = torch.empty(imgs.shape, dtype=imgs.dtype, pin_memory=True)
+        host.copy_(imgs, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
 
 class PredictionService(InferenceFrontend):

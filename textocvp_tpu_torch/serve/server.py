@@ -4,7 +4,8 @@ Requests are npz payloads over plain HTTP, which any client builds with numpy.
 
 * ``GET /healthz``: JSON status and the request contract (batch_size,
   num_context, num_preds, resolution, max_tokens, wire_dtype, device).
-* ``GET /stats``: JSON request, row and error counts and latency percentiles.
+* ``GET /stats``: JSON request, row and error counts and latency percentiles;
+  with dynamic batching, ``batches_dispatched`` and ``mean_batch_fill``.
 * ``POST /predict``: body an ``.npz`` with ``frames`` (B, num_context, H, W, 3)
   uint8 or float32 in [0, 1] and ``captions`` (B,) strings; reply an ``.npz``
   with ``pred_frames`` (B, num_preds, H, W, 3) uint8.
@@ -29,8 +30,11 @@ import threading
 import time
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
 
 import numpy as np
+
+from textocvp_tpu_torch.serve.batching import DynamicBatcher
 
 log = logging.getLogger(__name__)
 
@@ -54,13 +58,20 @@ class _Stats:
                 self.rows += rows
                 self._lat.append(seconds)
 
-    def snapshot(self) -> dict:
+    def snapshot(self, service) -> dict:
         with self._lock:
             lat = sorted(self._lat)
             out = {"requests": self.requests, "rows": self.rows, "errors": self.errors}
         if lat:
             out["latency_ms_p50"] = 1000 * lat[len(lat) // 2]
             out["latency_ms_p95"] = 1000 * lat[min(len(lat) - 1, int(len(lat) * 0.95))]
+        # the dynamic batcher's device batches and their mean fill (rows a
+        # dispatch over the service batch)
+        dispatches = getattr(service, "_dispatches", None)
+        if dispatches is not None:
+            out["batches_dispatched"] = dispatches
+            if dispatches:
+                out["mean_batch_fill"] = out["rows"] / (dispatches * service.batch_size)
         return out
 
 
@@ -85,7 +96,7 @@ def make_handler(service):
 
         def do_GET(self):
             if self.path == "/stats":
-                return self._reply_json(200, stats.snapshot())
+                return self._reply_json(200, stats.snapshot(service))
             if self.path != "/healthz":
                 return self._reply_json(404, {"error": "unknown path"})
             h, w = service.resolution
@@ -130,15 +141,31 @@ def make_handler(service):
     return Handler
 
 
-def serve(service, host: str = "127.0.0.1", port: int = 8000,
-          warmup: bool = True) -> ThreadingHTTPServer:
+def serve(service, host: str = "127.0.0.1", port: int = 8000, warmup: bool = True,
+          dynamic_batch_ms: Optional[float] = None,
+          pipeline_depth: int = 2) -> ThreadingHTTPServer:
     """Create (and return) the HTTP server; the caller runs ``serve_forever()``.
-    ``port=0`` binds a free port (``server_address[1]``)."""
+    ``port=0`` binds a free port (``server_address[1]``).
+
+    ``dynamic_batch_ms``: when set, concurrent requests coalesce into shared
+    device batches (serve/batching.py); each dispatch waits at most this many
+    ms to fill ``batch_size`` rows. Off (None): every request pays its own
+    padded batch. ``pipeline_depth``: the batcher's dispatcher threads (2
+    packs batch N+1 while N runs on the device; 1 dispatches serially). The
+    server's ``batcher`` is the batcher, else None; ``close()`` it after
+    ``shutdown()``."""
     if warmup:
         log.info("serve: warmup request")
         service.warmup()
+    batcher = None
+    if dynamic_batch_ms is not None:
+        batcher = service = DynamicBatcher(service, max_wait_ms=dynamic_batch_ms,
+                                           pipeline_depth=pipeline_depth)
+        log.info("serve: dynamic batching on (window %s ms, pipeline depth %d)",
+                 dynamic_batch_ms, pipeline_depth)
     httpd = ThreadingHTTPServer((host, port), make_handler(service))
     log.info("serve: listening on http://%s:%d (batch %d, %d seed -> %d predicted frames)",
              host, httpd.server_address[1], service.batch_size, service.num_context,
              service.num_preds)
+    httpd.batcher = batcher
     return httpd

@@ -8,8 +8,7 @@
 recurrence over all of them) and all B * T frames decoded in one call;
 PSNR/SSIM/LPIPS of the reconstructions, clipped to [0, 1], against the
 frames, clipped too, for every frame. The JAX class's chunked, autotuned,
-int8 and multi-device branches change no output and are not ported, nor
-are its framewise plots.
+int8 and multi-device branches change no output and are not ported.
 
 05 (:class:`PredictorEvaluator`): per batch, on one device, the seed encode
 of the first ``num_seed`` frames (the decomposition model's encoder and slot
@@ -17,6 +16,10 @@ attention), the predictor's rollout of ``num_preds`` slot frames, the decode
 of all B * num_preds predicted frames, and PSNR/SSIM/LPIPS of the
 predictions, clipped to [0, 1], against the true frames, clipped too. Only
 the seed frames are encoded: the slot recurrence is causal.
+
+Both write ``<metric>_framewise.png`` beside ``results.json`` for every metric
+with framewise values (``viz/figures.py::visualize_metric``, PIL), its x axis
+from frame 0 (03) or ``num_context`` (05), as the JAX evaluators do.
 
 Overrides as in the JAX package: ``num_seed`` overrides ``num_context``,
 ``num_preds`` the rollout length, and the dataset's ``num_frames`` becomes
@@ -48,6 +51,7 @@ from textocvp_tpu_torch.models.factory import (
 )
 from textocvp_tpu_torch.train.checkpoints import load_params
 from textocvp_tpu_torch.train.metrics import MetricTracker
+from textocvp_tpu_torch.viz.figures import visualize_metric
 
 
 def _setup_device(device, who: str) -> torch.device:
@@ -75,6 +79,16 @@ def _tokenizer_fallback_flags(dataset) -> dict:
     return {}
 
 
+def _save_framewise_plots(exp, results_name: str, results: dict, start_x: int = 0):
+    """Per-frame metric curves next to results.json (reference
+    metrics.py:128-144, baseEvaluator.py:211-216)."""
+    out_dir = exp.results_dir(results_name)
+    for metric, vals in results.items():
+        if isinstance(vals, dict) and "framewise" in vals:
+            visualize_metric(vals["framewise"], savepath=out_dir / f"{metric}_framewise.png",
+                             title=metric, start_x=start_x)
+
+
 class DecompEvaluator:
     """Evaluate a decomposition checkpoint on whole-sequence reconstruction.
 
@@ -89,14 +103,19 @@ class DecompEvaluator:
     then :meth:`evaluate`.
     """
 
+    # DecompFigGenerator draws what a features-only decoder gives (masks and
+    # objects); the metrics need RGB reconstructions
+    requires_image_reconstruction = True
+
     def __init__(self, exp_path, checkpoint: str, batch_size: Optional[int] = None,
                  results_name: Optional[str] = None, metrics=("psnr", "ssim", "lpips"),
                  device="cuda"):
         self.exp = Experiment(exp_path)
         Logger(self.exp.exp_path)
         self.exp_params = self.exp.params
-        check_image_reconstruction(self.exp_params,
-                                   purpose="compute reconstruction metrics for")
+        if self.requires_image_reconstruction:
+            check_image_reconstruction(self.exp_params,
+                                       purpose="compute reconstruction metrics for")
         self.device = _setup_device(device, "DecompEvaluator")
         self.checkpoint = checkpoint
         self.batch_size = batch_size or self.exp_params["training"]["batch_size"]
@@ -144,6 +163,7 @@ class DecompEvaluator:
         results = self.metric_tracker.to_json()
         results.update(_tokenizer_fallback_flags(self.test_set))
         self.exp.save_results(self.results_name, results)
+        _save_framewise_plots(self.exp, self.results_name, results, start_x=0)
         print_(f"Results: { {k: v['mean'] for k, v in results.items() if isinstance(v, dict)} }")
         return results
 
@@ -242,5 +262,6 @@ class PredictorEvaluator:
         results = self.metric_tracker.to_json()
         results.update(_tokenizer_fallback_flags(self.test_set))
         self.exp.save_results(self.results_name, results)
+        _save_framewise_plots(self.exp, self.results_name, results, start_x=self.num_context)
         print_(f"Results: { {k: v['mean'] for k, v in results.items() if isinstance(v, dict)} }")
         return results
