@@ -44,10 +44,10 @@ seed, and checks them:
 Phases, one JSON line each:
 
 1. device   the card's name and power limit (``nvidia-smi``);
-2. build    compile the three CUDA kernels from ``csrc/``, one ``nvcc`` each, at
+2. build    compile the four CUDA kernels from ``csrc/``, one ``nvcc`` each, at
             once; print each library's ``ptxas -v`` report and its count of
             tensor-core instructions (``cuobjdump -sass``), which must not be
-            0 for conv5 and the ViT attention;
+            0 for conv5, the ViT attention and the int8 conv;
 3. kernels  slot attention against its plain PyTorch version at the CATER
             shape (N=4096, S=8, MLP 256, B in (1, 8, 64)) and the CLIPort shape
             (N=576, S=10, MLP 512, B in (1, 8, 16): a 06 sequence's frame, a
@@ -82,7 +82,14 @@ Phases, one JSON line each:
             frozen weights at the predictor step's N=4608 (one forward and one
             input-gradient launch, no weight gradient), its input gradient
             against the plain version's and both launches timed. Gradients are
-            held to 1e-4 of the reference's largest value;
+            held to 1e-4 of the reference's largest value. The int8 conv
+            (``csrc/conv_int8.cu``, the int8 decode's) against its plain
+            version, exactly, over every frame, at SAVi's tail (k=5, 64 -> 64
+            at 64 x 64; N=1216 and 9728) and at each of ExtendedDINOSAUR's
+            four CNN-head layers (k=3) for a CLIPort request's 72 frames and
+            a 05 batch's 144: ms, the int8 bound, the plain version's ms, and
+            the float path it replaces on the same shapes (conv5, cuDNN's
+            float32 conv);
 then
 C. create   the 01 CLIs: a SAVi / CATER_Easy and an ExtendedDINOSAUR /
             CLIPort experiment (``--name``), each ``experiment_params.json``
@@ -113,7 +120,21 @@ S. serve_batching  a ``PredictionService`` at batch 8 behind
             requests from 16 client threads with batching off, at a 20 ms
             window with one dispatcher and with two: requests/s, the clients'
             p50 and p95 ms, the device batches and their mean fill, every
-            reply's shape.
+            reply's shape;
+E. export_cater, export_clipport, quant_export_cater  each serving path's
+            service at batch 8, and a CATER one with ``decode_quant: int8``
+            calibrated on a request's frames, exported (``serve/export.py``:
+            ``predict.pt2``, ``decode.pt2``, ``manifest.json``) with the live
+            service's replies to two requests (8 rows float32, 3 rows uint8)
+            from a recorded generator state; a fresh process that imports
+            ``textocvp_tpu_torch.serve.export`` and what it pulls in
+            (``ARTIFACT_WORKER``) loads the three artifacts while the later
+            phases run, and at the end (after the parities' lines) answers
+            the same requests from the same state: bit for bit as the live
+            service, the same launches a request, one slot-attention device
+            kernel (and 3 conv5, 3 int8-conv or 12 ViT-attention kernels) a
+            request under ``torch.profiler``; the artifact's steady ms a
+            request beside the live one's. Their lines come last.
 
 then the eval path:
 8. eval_parity  the eval step at B=2 on the card and on the CPU, the same
@@ -258,6 +279,18 @@ then the CLIPort chain, over the color-cache set:
             and TextOCVP_T5 (phase 23, p=9), one sequence each, its objects
             and masks at 96 px.
 
+then int8 (``tpu.decode_quant`` / ``tpu.encode_quant``, ``models/quant.py``):
+Q1. quant_eval  the 05 CLI at B=64, p=19 on a copy of the eval path's
+            predictor experiment with ``decode_quant: int8`` (random
+            weights): ``results.json``'s flags, each metric's mean against
+            phase 9's float run, 2 slot-attention calls, 3 conv5 launches
+            (the first batch's float calibration) and 3 int8-conv launches a
+            batch, the decode stage's ms int8 against float32;
+Q2. clip_quant_eval  the same for CLIPort at B=16, p=9 with both modes, on
+            phase 23's predictor (02 and 04 trained a few steps), against
+            phase 25: 4 int8-conv launches a batch, 12 ViT-attention
+            launches a batch and 12 more for the first batch's calibration.
+
 and the host input and the trainers' extras:
 H1. host_io  what the machine offers the host input path (``native.host_io``:
             the compiler, the build against zlib, PIL, imageio and ffmpeg,
@@ -301,6 +334,11 @@ predictor-train path's, P2's and P5's CLI runs and P3 the other predictors'
 paths, and the first runs of the CLIs of phases 20, 23 and 25 the CLIPort
 chain's three: every kernel's launch counter (and conv5's input-gradient
 launches and weight-gradient calls) is set to 0 before it and read after.
+The trainer parities (11, 15, P4, 19, 23) run their card half in
+place and hand their CPU half to one spawned worker process
+(``parity_pool``, 4 torch threads), which works through them while the later
+phases use the card; their lines, checked as before, come after phase H4
+(``finish_parities``), each with ``cpu_half.waited_s_after_submit``.
 Every phase's line carries ``phase_s``, the seconds since the line before. Every trace under ``torch.profiler`` is taken whole
 (``traced``: device spins before and after the call, and taken again behind
 a longer spin when the profiler dropped the trace's first records), and the
@@ -317,6 +355,7 @@ import gc
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -324,6 +363,7 @@ import threading
 import time
 import urllib.request
 from dataclasses import dataclass
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -337,7 +377,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
 TF32X3_PRODUCTS = 3        # TF32 products per float32-accurate product (csrc/tf32x3.cuh)
-TENSOR_CORE_KERNELS = ("conv5", "vit_attention")
+TENSOR_CORE_KERNELS = ("conv5", "vit_attention", "conv_int8")
 VIT_HEADS, VIT_TOKENS, VIT_DH = 12, 577, 64  # DINOv2 ViT-B/14 at 336 px
 CONV5_RES, CONV5_CH = 64, 64                 # SAVi decoder tail on CATER
 EVAL_BATCH, EVAL_PREDS, EVAL_VIDEOS = 64, 19, 128
@@ -959,6 +999,7 @@ def phase_kernels():
                 CLIP_PATCHES, CLIP_SLOTS, 512, (1, BATCH, CLIP_EVAL_BATCH)),
             "vit_attention": vit_attention_rows(),
             "conv5": conv5_rows(),
+            "conv_int8": conv_int8_rows(),
             "conv5_backward": conv5_backward_rows(),
             "conv5_frozen_backward": conv5_frozen_backward_rows(),
             "slot_attention_backward": slot_attention_backward_rows(
@@ -967,7 +1008,7 @@ def phase_kernels():
             "slot_attention_backward_clipport": slot_attention_backward_rows(
                 CLIP_TRAIN_BATCH // CLIP_ACCUM, CLIP_PATCHES, 10, 512, SEED + 11)}
     emit({"phase": "kernels", "tolerance_abs": {"slot_attention": 1e-4, "vit_attention": 2e-5,
-                                                "conv5": 1e-4},
+                                                "conv5": 1e-4, "conv_int8": 0},
           "tolerance_rel_backward": GRAD_TOLERANCE, **rows})
     gc.collect()
     torch.cuda.empty_cache()
@@ -1070,11 +1111,17 @@ def write_experiment(root: Path, params, pred_params):
 
 def kernel_counters():
     from textocvp_tpu_torch.ops import conv5 as c5
+    from textocvp_tpu_torch.ops import conv_int8 as ci
     from textocvp_tpu_torch.ops import slot_attention_kernel as sak
     from textocvp_tpu_torch.ops import vit_attention as va
 
     return {"slot_attention": sak.slot_attention_cuda, "vit_attention": va.vit_attention_cuda,
-            "conv5": c5.conv5_cuda}
+            "conv5": c5.conv5_cuda, "conv_int8": ci.conv_int8_cuda}
+
+
+def every_kernel(counts: dict) -> dict:
+    """``counts`` with 0 for each kernel it leaves out."""
+    return {name: counts.get(name, 0) for name in kernel_counters()}
 
 
 def launches():
@@ -1099,8 +1146,8 @@ def phase_service(path: ServedPath, exp_path):
     rng = np.random.default_rng(SEED)
     video = rng.uniform(0, 1, (BATCH, 1, path.res, path.res, 3)).astype(np.float32)
     captions = list(path.captions[:BATCH])
-    per_request = {"slot_attention": 1, "vit_attention": path.vit_per_request,
-                   "conv5": path.conv5_per_request}
+    per_request = every_kernel({"slot_attention": 1, "vit_attention": path.vit_per_request,
+                                "conv5": path.conv5_per_request})
 
     unsaturated = []
 
@@ -1255,36 +1302,49 @@ def write_cater_fixture(root: Path, splits=(("test", EVAL_VIDEOS),)) -> Path:
     return root
 
 
+def eval_step_values(exp_path, pred_name, ckpts, num_preds, dev, init=None):
+    """The framewise metrics (on the CPU) of the eval step at B=2 on ``dev``
+    over the first test batch, from ``init`` initial slots (the CPU
+    evaluator's initializer's with seed SEED + 5 when None), and those slots."""
+    from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
+
+    ev = PredictorEvaluator(exp_path, pred_name, *ckpts, num_seed=1, num_preds=num_preds,
+                            batch_size=2, device=dev)
+    ev.load_data()
+    ev.load_models()
+    videos, info = next(iter(ev.test_loader))
+    if init is None:
+        with torch.no_grad():
+            init = ev.model.slot_initializer(2, torch.Generator().manual_seed(SEED + 5)).cpu()
+    vals = ev.eval_step(videos, info, initial_slots=init)
+    return {m: v.cpu() for m, v in vals.items()}, init
+
+
 def phase_eval_parity(exp_path, pred_name="textocvp_t5", ckpts=("random", "random"),
                       num_preds=EVAL_PREDS, phase="eval_parity"):
     """The eval step at B=2 on the card and on the CPU: the same weights
     (``ckpts``: the decomposition model's and the predictor's), initial
-    slots and frames. Off the main path."""
-    from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
+    slots and frames; the CPU's in the parity worker, checked at the end
+    (``defer_parity``). Off the main path."""
+    card, init = eval_step_values(exp_path, pred_name, ckpts, num_preds, "cuda")
+    job = parity_pool().apply_async(eval_step_values,
+                                    (exp_path, pred_name, ckpts, num_preds, "cpu", init))
 
-    evs = {}
-    for dev in ("cpu", "cuda"):
-        evs[dev] = PredictorEvaluator(exp_path, pred_name, *ckpts, num_seed=1,
-                                      num_preds=num_preds, batch_size=2, device=dev)
-        evs[dev].load_data()
-        evs[dev].load_models()
-    videos, info = next(iter(evs["cpu"].test_loader))
-    init = evs["cpu"].model.slot_initializer(2, torch.Generator().manual_seed(SEED + 5))
-    vals = {dev: {m: v.cpu() for m, v in ev.eval_step(videos, info, initial_slots=init).items()}
-            for dev, ev in evs.items()}
-    # float32 through encode, the rollout and the decode on two devices, sums
-    # in other orders: PSNR within 1e-3 dB, SSIM and LPIPS within 1e-4
-    tol = {"psnr": 1e-3, "ssim": 1e-4, "lpips": 1e-4}
-    errs = {}
-    for m, limit in tol.items():
-        out, ref = vals["cuda"][m], vals["cpu"][m]
-        check(out.shape == (2, num_preds) and bool(torch.isfinite(out).all()),
-              f"{phase}: {m} {tuple(out.shape)} not finite or misshapen")
-        errs[m] = (out - ref).abs().max().item()
-        check(errs[m] <= limit, f"{phase}: framewise {m} card vs CPU {errs[m]} > {limit}")
-    emit({"phase": phase, "B": 2, "num_preds": num_preds, "max_abs_err": errs,
-          "tolerance": tol, "cpu_framewise_mean": {m: v.mean(0).tolist()
-                                                   for m, v in vals["cpu"].items()}})
+    def finish():
+        cpu, _ = job.get()
+        # float32 through encode, the rollout and the decode on two devices,
+        # sums in other orders: PSNR within 1e-3 dB, SSIM and LPIPS within 1e-4
+        tol = {"psnr": 1e-3, "ssim": 1e-4, "lpips": 1e-4}
+        errs = {}
+        for m, limit in tol.items():
+            out, ref = card[m], cpu[m]
+            check(out.shape == (2, num_preds) and bool(torch.isfinite(out).all()),
+                  f"{phase}: {m} {tuple(out.shape)} not finite or misshapen")
+            errs[m] = (out - ref).abs().max().item()
+            check(errs[m] <= limit, f"{phase}: framewise {m} card vs CPU {errs[m]} > {limit}")
+        return {"max_abs_err": errs, "tolerance": tol,
+                "cpu_framewise_mean": {m: v.mean(0).tolist() for m, v in cpu.items()}}
+    defer_parity(phase, finish, B=2, num_preds=num_preds)
 
 
 def eval_results_path(exp_path):
@@ -1327,7 +1387,7 @@ def phase_eval(exp_path):
     counts = launches()  # and ends here
     batches = EVAL_VIDEOS // EVAL_BATCH
     check(rc == 0, f"evaluate_predictor returned {rc}")
-    check(counts == {"slot_attention": batches, "vit_attention": 0, "conv5": 3 * batches},
+    check(counts == every_kernel({"slot_attention": batches, "conv5": 3 * batches}),
           f"eval: kernel launches on the main path: {counts}")
     with open(eval_results_path(exp_path)) as f:
         results = json.load(f)
@@ -1437,18 +1497,241 @@ PREDICTOR_KINKS = CATER_KINKS + ("ff",)
 ALL_KINKS = ("conv5", "mlp", "ff", "relu", "sa_relu", "clip")
 
 
-def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), finish=None,
+PARITY_CPU_THREADS = 4  # the CPU halves' torch threads, beside the card phases' host work
+PARITY_POOL = []        # the worker process of the CPU halves, started at first use
+PENDING_PARITIES = []   # each parity's phase line, printed once its CPU half is checked
+
+
+def parity_pool():
+    """One spawned worker process that runs the trainer parities' CPU halves
+    in turn while the card phases go on."""
+    if not PARITY_POOL:
+        import multiprocessing
+
+        PARITY_POOL.append(multiprocessing.get_context("spawn").Pool(
+            1, initializer=_parity_worker_init))
+    return PARITY_POOL[0]
+
+
+def _parity_worker_init():
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""  # the CPU halves never touch the card
+    torch.set_num_threads(PARITY_CPU_THREADS)
+
+
+def finish_parities():
+    """Wait for every CPU half, check each parity and print its phase line;
+    then stop the worker."""
+    while PENDING_PARITIES:
+        PENDING_PARITIES.pop(0)()
+    if PARITY_POOL:
+        pool = PARITY_POOL.pop()
+        pool.close()
+        pool.join()
+
+
+def defer_parity(phase, finish, **line):
+    """Print ``phase``'s line with ``finish()``'s report once the CPU half is in."""
+    PENDING_PARITIES.append(lambda: emit({"phase": phase, **line, **finish()}))
+
+
+def _kink_functions(what, replayed, rec_or_rep, replay: bool):
+    """The functions ``trainer_parity`` patches in for one run: with
+    ``replay`` False they record each kink's mask into ``rec_or_rep`` ("main"
+    in call order, "sa" one list a tracked slot-attention call); with
+    ``replay`` True they take each mask from its iterators and apply those of
+    ``replayed``. Returns (relu, slot_attention_plain, decoder tail conv,
+    DecompTrainer._loss_tensors)."""
+    from textocvp_tpu_torch.nn import decoders
+    from textocvp_tpu_torch.ops import conv5 as c5
+    from textocvp_tpu_torch.ops import slot_attention_kernel as sak
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    relu = torch.nn.functional.relu
+    tail_conv, sa_plain, loss_tensors = decoders.conv5, sak.slot_attention_plain, \
+        DecompTrainer._loss_tensors
+    state = rec_or_rep
+
+    def tracked(*tensors):
+        return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+    def kink(x):
+        """The kind of a ReLU of ``x``, for all kinds; None off the gradient's path."""
+        if not x.requires_grad:
+            return None
+        return ("sa_relu" if state["in_sa"] else "mlp" if state["in_mlp"]
+                else "ff" if state["in_ff"] else "relu")
+
+    if not replay:
+        def relu_fn(x, inplace=False):
+            kind = kink(x)
+            if kind is not None:
+                (state["sa"][-1] if state["in_sa"] else state["main"]).append(
+                    (kind, (x.detach() > 0).cpu()))
+            return relu(x, inplace=inplace)
+
+        def sa_fn(k, v, slots, params, *args, **kwargs):
+            if not tracked(k, v, slots, *params.values()):
+                return sa_plain(k, v, slots, params, *args, **kwargs)
+            state["sa"].append([])
+            state["in_sa"] = True
+            try:
+                return sa_plain(k, v, slots, params, *args, **kwargs)
+            finally:
+                state["in_sa"] = False
+
+        def conv_fn(x, w, b, relu=True):
+            y = tail_conv(x, w, b, relu)
+            if relu:
+                state["main"].append(("conv5", (y.detach() > 0).cpu()))
+            return y
+
+        def loss_fn(self, out, videos):
+            tensors = loss_tensors(self, out, videos)
+            for key, src in CLIPPED:
+                if key in tensors:
+                    x = out[src].detach()
+                    state["main"].append(("clip", ((x > 0) & (x < 1)).cpu()))
+            return tensors
+        return relu_fn, sa_fn, conv_fn, loss_fn
+
+    def take(stream, kind, shape):
+        got, mask = next(stream)
+        check(got == kind and mask.shape == shape,
+              f"{what}: replayed {got} {tuple(mask.shape)} at a {kind} {tuple(shape)}")
+        return mask
+
+    def relu_fn(x, inplace=False):
+        kind = kink(x)
+        if kind is None:
+            return relu(x, inplace=inplace)
+        mask = take(state["call"] if state["in_sa"] else state["main"], kind, x.shape)
+        return x * mask if kind in replayed else relu(x, inplace=inplace)
+
+    def sa_fn(k, v, slots, params, *args, **kwargs):
+        if not tracked(k, v, slots, *params.values()):
+            return sa_plain(k, v, slots, params, *args, **kwargs)
+        state["call"] = iter(next(state["sa"]))
+        state["in_sa"] = True
+        try:
+            return sa_plain(k, v, slots, params, *args, **kwargs)
+        finally:
+            state["in_sa"] = False
+
+    def conv_fn(x, w, b, relu=True):
+        y = c5.conv5_plain(x, w, b, relu=False)
+        if not relu:
+            return y
+        mask = take(state["main"], "conv5", y.shape)
+        return y * mask if "conv5" in replayed else torch.relu(y)
+
+    def loss_fn(self, out, videos):
+        tensors = loss_tensors(self, out, videos)
+        for key, src in CLIPPED:
+            if key in tensors:
+                x = out[src]
+                mask = take(state["main"], "clip", x.shape)
+                if "clip" in replayed:
+                    tensors[key] = torch.where(mask, x, x.detach().clamp(0, 1))
+        return tensors
+    return relu_fn, sa_fn, conv_fn, loss_fn
+
+
+def _parity_run(what, make, step, dev, replayed, state, replay, probe=None):
+    """Two training steps of ``make(dev)`` with the kink functions patched in
+    (``_kink_functions``): (the trainer, its losses, the gradient leaves and
+    the buffers after the first step, ``probe(trainer)`` after the second);
+    without ``replay`` ``state`` records the masks, and ``state["marks"]``
+    where each step's slot-attention calls start."""
+    from textocvp_tpu_torch.models import predictors
+    from textocvp_tpu_torch.nn import blocks, decoders
+    from textocvp_tpu_torch.ops import slot_attention_kernel as sak
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    F = torch.nn.functional
+    relu, tail_conv, mlp_forward = F.relu, decoders.conv5, blocks.MLP.forward
+    feed_forwards = {cls: cls.feed_forward for cls in (blocks.TorchStyleEncoderLayer,
+                                                       predictors.OCVPParLayer)}
+    sa_plain, loss_tensors = sak.slot_attention_plain, DecompTrainer._loss_tensors
+
+    def flagged(flag, fn):
+        def forward(self, x):
+            state[flag] = True
+            try:
+                return fn(self, x)
+            finally:
+                state[flag] = False
+        return forward
+
+    relu_fn, sa_fn, conv_fn, loss_fn = _kink_functions(what, replayed, state, replay)
+    F.relu, decoders.conv5, sak.slot_attention_plain = relu_fn, conv_fn, sa_fn
+    DecompTrainer._loss_tensors = loss_fn
+    blocks.MLP.forward = flagged("in_mlp", mlp_forward)
+    for cls, fn in feed_forwards.items():
+        cls.feed_forward = flagged("in_ff", fn)
+    try:
+        tr = make(dev)
+        losses = []
+        for i in range(2):
+            if not replay:
+                state["marks"].append(len(state["sa"]))
+            losses.append(step(tr, dev, i))
+            if i == 0:
+                grads = {n: p.grad.detach().cpu()
+                         for n, p in tr.model.named_parameters() if p.requires_grad}
+                buffers = {n: b.detach().cpu().clone() for n, b in tr.model.named_buffers()}
+    finally:
+        F.relu, decoders.conv5, sak.slot_attention_plain = relu, tail_conv, sa_plain
+        DecompTrainer._loss_tensors = loss_tensors
+        blocks.MLP.forward = mlp_forward
+        for cls, fn in feed_forwards.items():
+            cls.feed_forward = fn
+    return tr, losses, grads, buffers, (probe(tr) if probe is not None else None)
+
+
+def _new_state():
+    return {"main": [], "sa": [], "in_sa": False, "in_mlp": False, "in_ff": False, "marks": []}
+
+
+def parity_cpu_half(spec_path, out_path):
+    """The CPU's two runs of a trainer parity, in the parity worker: its own
+    masks, then the card's masks replayed (the card's slot-attention calls of
+    each step ran in reverse). Writes what ``trainer_parity`` checks."""
+    spec = torch.load(spec_path, weights_only=False)
+    what, make, step, replayed, probe = (spec[k] for k in ("what", "make", "step", "replayed",
+                                                           "probe"))
+    own = _new_state()
+    _, own_losses, own_grads, _, _ = _parity_run(what, make, step, "cpu", replayed, own, False)
+    card = spec["card"]
+    bounds = card["marks"] + [len(card["sa"])]
+    rep = {"in_sa": False, "in_mlp": False, "in_ff": False, "main": iter(card["main"]),
+           "sa": iter([call for a, b in zip(bounds[:-1], bounds[1:])
+                       for call in reversed(card["sa"][a:b])])}
+    tr, losses, grads, buffers, probed = _parity_run(what, make, step, "cpu", replayed, rep, True,
+                                                     probe)
+    torch.save({"losses": losses, "grads": grads, "buffers": buffers, "probe": probed,
+                "own": {"main": own["main"], "sa": own["sa"], "losses": own_losses,
+                        "grads": own_grads},
+                "params": [p.detach() for p in tr.optimizer.params],
+                "lr": tr.lr_schedule(0), "threads": torch.get_num_threads()}, out_path)
+
+
+def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), probe=None, compare=None,
                    replayed=CATER_KINKS):
     """One trainer on the card and on the CPU from the same weights:
     ``make(dev)`` builds and sets it up on ``dev``, ``step(trainer, dev, i)``
-    takes its i-th training step (i = 0, 1) and returns the loss. Checks the
-    two losses (1e-5 relative), every trainable gradient leaf after the
-    first step (1e-4 of the leaf's largest value; a leaf of ``exact_zero``,
-    whose gradient is 0 in exact arithmetic, 1e-4 of the largest value of
-    any leaf on both devices), the module's buffers after the first step
-    (1e-5 absolute and relative: BatchNorm's running statistics) and the
-    parameters after the second. ``finish(trainers)`` may check more and
-    returns what it reports. Returns what a phase reports.
+    takes its i-th training step (i = 0, 1) and returns the loss; both
+    picklable (``functools.partial`` of module-level functions). The card's
+    run happens here; the CPU's two runs go to the parity worker
+    (``parity_cpu_half``) while the card phases after this one run. Returns
+    a function that waits for them, checks, and returns what a phase
+    reports: the two losses (1e-5 relative), every trainable gradient leaf
+    after the first step (1e-4 of the leaf's largest value; a leaf of
+    ``exact_zero``, whose gradient is 0 in exact arithmetic, 1e-4 of the
+    largest value of any leaf on both devices), the module's buffers after
+    the first step (1e-5 absolute and relative: BatchNorm's running
+    statistics) and the parameters after the second. ``probe(trainer)``, run
+    on each device after the second step, and ``compare({device: probe})``
+    may check more and return what it reports.
 
     The CPU runs twice. Its own run is reported. The checked one takes the
     masks of the kinks of ``replayed`` from the card's run, in call order:
@@ -1465,235 +1748,133 @@ def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), finish=None,
     such values by kind, over the kinks of ``ALL_KINKS``), which no float32
     tolerance covers. ``tail_convs`` is the number of conv5 masks the two
     steps give."""
-    from textocvp_tpu_torch.models import predictors
-    from textocvp_tpu_torch.nn import blocks, decoders
-    from textocvp_tpu_torch.ops import conv5 as c5
-    from textocvp_tpu_torch.ops import slot_attention_kernel as sak
-    from textocvp_tpu_torch.train.trainer import DecompTrainer
-
-    F = torch.nn.functional
-    relu, tail_conv, mlp_forward = F.relu, decoders.conv5, blocks.MLP.forward
-    feed_forwards = {cls: cls.feed_forward for cls in (blocks.TorchStyleEncoderLayer,
-                                                       predictors.OCVPParLayer)}
-    sa_plain, loss_tensors = sak.slot_attention_plain, DecompTrainer._loss_tensors
-
-    def tracked(*tensors):
-        return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-    def kink(state, x):
-        """The kind of a ReLU of ``x``, for all kinds (the masks recorded for
-        ``relu_mask_flips``); None off the gradient's path."""
-        if not x.requires_grad:
-            return None
-        return ("sa_relu" if state["in_sa"] else "mlp" if state["in_mlp"]
-                else "ff" if state["in_ff"] else "relu")
-
-    def flagged(state, flag, fn):
-        def forward(self, x):
-            state[flag] = True
-            try:
-                return fn(self, x)
-            finally:
-                state[flag] = False
-        return forward
-
-    def recording(rec):
-        """Functions that record each kink's mask into ``rec``: "main" in
-        call order, "sa" one list a tracked slot-attention call."""
-        def relu_fn(x, inplace=False):
-            kind = kink(rec, x)
-            if kind is not None:
-                (rec["sa"][-1] if rec["in_sa"] else rec["main"]).append(
-                    (kind, (x.detach() > 0).cpu()))
-            return relu(x, inplace=inplace)
-
-        def sa_fn(k, v, slots, params, *args, **kwargs):
-            if not tracked(k, v, slots, *params.values()):
-                return sa_plain(k, v, slots, params, *args, **kwargs)
-            rec["sa"].append([])
-            rec["in_sa"] = True
-            try:
-                return sa_plain(k, v, slots, params, *args, **kwargs)
-            finally:
-                rec["in_sa"] = False
-
-        def conv_fn(x, w, b, relu=True):
-            y = tail_conv(x, w, b, relu)
-            if relu:
-                rec["main"].append(("conv5", (y.detach() > 0).cpu()))
-            return y
-
-        def loss_fn(self, out, videos):
-            tensors = loss_tensors(self, out, videos)
-            for key, src in CLIPPED:
-                if key in tensors:
-                    x = out[src].detach()
-                    rec["main"].append(("clip", ((x > 0) & (x < 1)).cpu()))
-            return tensors
-        return relu_fn, sa_fn, conv_fn, loss_fn
-
-    def replaying(rep):
-        """Functions that take each kink's mask from ``rep``'s iterators."""
-        def take(stream, kind, shape):
-            got, mask = next(stream)
-            check(got == kind and mask.shape == shape,
-                  f"{what}: replayed {got} {tuple(mask.shape)} at a {kind} {tuple(shape)}")
-            return mask
-
-        def relu_fn(x, inplace=False):
-            kind = kink(rep, x)
-            if kind is None:
-                return relu(x, inplace=inplace)
-            mask = take(rep["call"] if rep["in_sa"] else rep["main"], kind, x.shape)
-            return x * mask if kind in replayed else relu(x, inplace=inplace)
-
-        def sa_fn(k, v, slots, params, *args, **kwargs):
-            if not tracked(k, v, slots, *params.values()):
-                return sa_plain(k, v, slots, params, *args, **kwargs)
-            rep["call"] = iter(next(rep["sa"]))
-            rep["in_sa"] = True
-            try:
-                return sa_plain(k, v, slots, params, *args, **kwargs)
-            finally:
-                rep["in_sa"] = False
-
-        def conv_fn(x, w, b, relu=True):
-            y = c5.conv5_plain(x, w, b, relu=False)
-            if not relu:
-                return y
-            mask = take(rep["main"], "conv5", y.shape)
-            return y * mask if "conv5" in replayed else torch.relu(y)
-
-        def loss_fn(self, out, videos):
-            tensors = loss_tensors(self, out, videos)
-            for key, src in CLIPPED:
-                if key in tensors:
-                    x = out[src]
-                    mask = take(rep["main"], "clip", x.shape)
-                    if "clip" in replayed:
-                        tensors[key] = torch.where(mask, x, x.detach().clamp(0, 1))
-            return tensors
-        return relu_fn, sa_fn, conv_fn, loss_fn
-
-    recs = {run: {"main": [], "sa": [], "in_sa": False, "in_mlp": False, "in_ff": False,
-                  "marks": []} for run in ("cuda", "cpu_own_masks")}
-    rep = {"in_sa": False, "in_mlp": False, "in_ff": False}
-    runs = {"cuda": ("cuda", recording(recs["cuda"])),
-            "cpu_own_masks": ("cpu", recording(recs["cpu_own_masks"])),
-            "cpu": ("cpu", replaying(rep))}
-    trainers, losses, grads, buffers = {}, {}, {}, {}
-    for run, (dev, (relu_fn, sa_fn, conv_fn, loss_fn)) in runs.items():
-        if run == "cpu":
-            # the card's slot-attention calls of each step ran in reverse
-            card = recs["cuda"]
-            bounds = card["marks"] + [len(card["sa"])]
-            rep["main"] = iter(card["main"])
-            rep["sa"] = iter([call for a, b in zip(bounds[:-1], bounds[1:])
-                              for call in reversed(card["sa"][a:b])])
-        F.relu, decoders.conv5, sak.slot_attention_plain = relu_fn, conv_fn, sa_fn
-        DecompTrainer._loss_tensors = loss_fn
-        state = rep if run == "cpu" else recs[run]
-        blocks.MLP.forward = flagged(state, "in_mlp", mlp_forward)
-        for cls, fn in feed_forwards.items():
-            cls.feed_forward = flagged(state, "in_ff", fn)
-        try:
-            tr = trainers[run] = make(dev)
-            losses[run] = []
-            for i in range(2):
-                if run in recs:
-                    recs[run]["marks"].append(len(recs[run]["sa"]))
-                losses[run].append(step(tr, dev, i))
-                if i == 0:
-                    grads[run] = {n: p.grad.detach().cpu()
-                                  for n, p in tr.model.named_parameters() if p.requires_grad}
-                    buffers[run] = {n: b.detach().cpu().clone()
-                                    for n, b in tr.model.named_buffers()}
-        finally:
-            F.relu, decoders.conv5, sak.slot_attention_plain = relu, tail_conv, sa_plain
-            DecompTrainer._loss_tensors = loss_tensors
-            blocks.MLP.forward = mlp_forward
-            for cls, fn in feed_forwards.items():
-                cls.feed_forward = fn
-    card, own = recs["cuda"], recs["cpu_own_masks"]
-    kinds = [k for k, _ in card["main"]]
-    check(kinds == [k for k, _ in own["main"]] and kinds.count("conv5") == tail_convs
-          and len(card["sa"]) == len(own["sa"]),
-          f"{what}: masks {len(card['main'])}, of tail convs {kinds.count('conv5')}, "
-          f"slot-attention calls {len(card['sa'])} / {len(own['sa'])}")
-    bounds = card["marks"] + [len(card["sa"])]
-    card_sa = [m for a, b in zip(bounds[:-1], bounds[1:]) for call in reversed(card["sa"][a:b])
-               for m in call]
-    pairs = list(zip(card["main"], own["main"])) + list(zip(card_sa, [
-        m for call in own["sa"] for m in call]))
-    flips = {kind: sum(int((a != b).sum()) for (k, a), (_, b) in pairs if k == kind)
-             for kind in ALL_KINKS}
-    outputs = {kind: sum(a.numel() for (k, a), _ in pairs if k == kind) for kind in flips}
-    names = list(grads["cpu"])
-    zero = [n for n in names if n in exact_zero]
-    top = max(grads["cpu"][n].abs().max().item() for n in names)
-    zero_err = {n: max(grads[run][n].abs().max().item() for run in ("cuda", "cpu")) / top
-                for n in zero}
-    kept = [n for n in names if n not in zero]
-    grad_err = {run: dict(zip(kept, grad_errs([grads["cuda"][n] for n in kept],
-                                              [grads[run][n] for n in kept])))
-                for run in ("cpu", "cpu_own_masks")}
-    worst = {run: sorted(e.items(), key=lambda kv: -kv[1]) for run, e in grad_err.items()}
-    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
-    buffer_err = {n: ((b - buffers["cpu"][n]).abs() / (1 + buffers["cpu"][n].abs())).max().item()
-                  for n, b in buffers["cuda"].items() if b.is_floating_point()}
-    # Adam moves each element by about lr a step whatever its gradient's
-    # size, so an element whose gradient is within rounding of 0 may move
-    # either way on the two devices; every other element moves alike
-    lr = trainers["cpu"].lr_schedule(0)
-    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten() for a, b in zip(
-        trainers["cuda"].optimizer.params, trainers["cpu"].optimizer.params)])
-    moved_apart = float((diffs > 1e-2 * lr).float().mean())
-    summary = (f"losses {losses}; parameters after two steps: max diff {diffs.max().item()}, "
-               f"share apart by more than lr/100 {moved_apart} (lr {lr}); flips {flips}")
-    check(worst["cpu"][0][1] <= GRAD_TOLERANCE,
-          f"{what}: gradient leaves card vs CPU, error / max |g|: {worst['cpu'][:5]}; "
-          f"with the CPU's own masks {worst['cpu_own_masks'][:3]}; {summary}")
-    check(max(zero_err.values(), default=0) <= GRAD_TOLERANCE,
-          f"{what}: leaves of exact-zero gradient, |g| / max |g| of any leaf: {zero_err}")
-    check(max(loss_err) <= 1e-5, f"{what}: loss error {loss_err}; {summary}")
-    check(max(buffer_err.values(), default=0) <= 1e-5,
-          f"{what}: buffers after the first step card vs CPU: "
-          f"{sorted(buffer_err.items(), key=lambda kv: -kv[1])[:5]}")
-    check(diffs.max().item() <= 2 * 2 * lr and moved_apart <= 1e-3, f"{what}: {summary}")
-    extra = finish(trainers) if finish is not None else {}
-    del trainers
+    card = _new_state()
+    tr, card_losses, card_grads, card_buffers, card_probe = _parity_run(
+        what, make, step, "cuda", replayed, card, False, probe)
+    card_params = [p.detach().cpu() for p in tr.optimizer.params]
+    del tr
     gc.collect()
     torch.cuda.empty_cache()
-    return {"losses": losses, "loss_rel_err": loss_err,
-            "grad_err_over_max": dict(worst["cpu"][:8]),
-            "grad_err_over_max_cpu_own_masks": dict(worst["cpu_own_masks"][:8]),
-            "exact_zero_grad_over_max": zero_err,
-            "buffer_max_err": max(buffer_err.values(), default=None),
-            "trainable_leaves": len(names), "relu_mask_flips": flips, "replayed": list(replayed),
-            "relu_mask_outputs": outputs, "grad_tolerance": GRAD_TOLERANCE,
-            "params_max_abs_diff": diffs.max().item(),
-            "params_share_apart_over_lr_100": moved_apart, "lr": lr, "tf32": False, **extra}
+    spec_path = Path(tempfile.mkstemp(prefix="parity_spec_", suffix=".pt")[1])
+    out_path = spec_path.with_name(spec_path.name.replace("spec", "cpu"))
+    torch.save({"what": what, "make": make, "step": step, "replayed": replayed, "probe": probe,
+                "card": {k: card[k] for k in ("main", "sa", "marks")}}, spec_path)
+    job = parity_pool().apply_async(parity_cpu_half, (str(spec_path), str(out_path)))
+    submitted = time.perf_counter()
+
+    def finish():
+        job.get()
+        waited = time.perf_counter() - submitted
+        cpu = torch.load(out_path, weights_only=False)
+        for path in (spec_path, out_path):
+            path.unlink()
+        own = cpu["own"]
+        grads = {"cuda": card_grads, "cpu": cpu["grads"], "cpu_own_masks": own["grads"]}
+        losses = {"cuda": card_losses, "cpu_own_masks": own["losses"], "cpu": cpu["losses"]}
+        kinds = [k for k, _ in card["main"]]
+        check(kinds == [k for k, _ in own["main"]] and kinds.count("conv5") == tail_convs
+              and len(card["sa"]) == len(own["sa"]),
+              f"{what}: masks {len(card['main'])}, of tail convs {kinds.count('conv5')}, "
+              f"slot-attention calls {len(card['sa'])} / {len(own['sa'])}")
+        bounds = card["marks"] + [len(card["sa"])]
+        card_sa = [m for a, b in zip(bounds[:-1], bounds[1:])
+                   for call in reversed(card["sa"][a:b]) for m in call]
+        pairs = list(zip(card["main"], own["main"])) + list(zip(card_sa, [
+            m for call in own["sa"] for m in call]))
+        flips = {kind: sum(int((a != b).sum()) for (k, a), (_, b) in pairs if k == kind)
+                 for kind in ALL_KINKS}
+        outputs = {kind: sum(a.numel() for (k, a), _ in pairs if k == kind) for kind in flips}
+        names = list(grads["cpu"])
+        zero = [n for n in names if n in exact_zero]
+        top = max(grads["cpu"][n].abs().max().item() for n in names)
+        zero_err = {n: max(grads[run][n].abs().max().item() for run in ("cuda", "cpu")) / top
+                    for n in zero}
+        kept = [n for n in names if n not in zero]
+        grad_err = {run: dict(zip(kept, grad_errs([grads["cuda"][n] for n in kept],
+                                                  [grads[run][n] for n in kept])))
+                    for run in ("cpu", "cpu_own_masks")}
+        worst = {run: sorted(e.items(), key=lambda kv: -kv[1]) for run, e in grad_err.items()}
+        loss_err = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+        buffer_err = {n: ((b - cpu["buffers"][n]).abs() / (1 + cpu["buffers"][n].abs())
+                          ).max().item()
+                      for n, b in card_buffers.items() if b.is_floating_point()}
+        # Adam moves each element by about lr a step whatever its gradient's
+        # size, so an element whose gradient is within rounding of 0 may move
+        # either way on the two devices; every other element moves alike
+        lr = cpu["lr"]
+        diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(card_params, cpu["params"])])
+        moved_apart = float((diffs > 1e-2 * lr).float().mean())
+        summary = (f"losses {losses}; parameters after two steps: max diff "
+                   f"{diffs.max().item()}, share apart by more than lr/100 {moved_apart} "
+                   f"(lr {lr}); flips {flips}")
+        check(worst["cpu"][0][1] <= GRAD_TOLERANCE,
+              f"{what}: gradient leaves card vs CPU, error / max |g|: {worst['cpu'][:5]}; "
+              f"with the CPU's own masks {worst['cpu_own_masks'][:3]}; {summary}")
+        check(max(zero_err.values(), default=0) <= GRAD_TOLERANCE,
+              f"{what}: leaves of exact-zero gradient, |g| / max |g| of any leaf: {zero_err}")
+        check(max(loss_err) <= 1e-5, f"{what}: loss error {loss_err}; {summary}")
+        check(max(buffer_err.values(), default=0) <= 1e-5,
+              f"{what}: buffers after the first step card vs CPU: "
+              f"{sorted(buffer_err.items(), key=lambda kv: -kv[1])[:5]}")
+        check(diffs.max().item() <= 2 * 2 * lr and moved_apart <= 1e-3, f"{what}: {summary}")
+        extra = compare({"cuda": card_probe, "cpu": cpu["probe"]}) if compare else {}
+        return {"losses": losses, "loss_rel_err": loss_err,
+                "grad_err_over_max": dict(worst["cpu"][:8]),
+                "grad_err_over_max_cpu_own_masks": dict(worst["cpu_own_masks"][:8]),
+                "exact_zero_grad_over_max": zero_err,
+                "buffer_max_err": max(buffer_err.values(), default=None),
+                "trainable_leaves": len(names), "relu_mask_flips": flips,
+                "replayed": list(replayed), "relu_mask_outputs": outputs,
+                "grad_tolerance": GRAD_TOLERANCE, "params_max_abs_diff": diffs.max().item(),
+                "params_share_apart_over_lr_100": moved_apart, "lr": lr, "tf32": False,
+                "cpu_half": {"worker_threads": cpu["threads"],
+                             "waited_s_after_submit": waited}, **extra}
+    return finish
+
+
+def make_decomp_trainer(exp, dev, keep_vit=False):
+    """A DecompTrainer of ``exp`` on ``dev``, set up (its ViT state kept with
+    ``keep_vit``, to hold it bit for bit after the steps)."""
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    tr = DecompTrainer(exp, device=dev)
+    tr.setup_model()
+    if keep_vit:
+        tr.vit0 = kept_vit(tr)
+    return tr
+
+
+def make_predictor_trainer(exp, dev):
+    """A PredictorTrainer of ``exp`` over its parent's ``checkpoint_epoch_final``
+    on ``dev``, set up, with its random predictor's output scaled."""
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+
+    tr = PredictorTrainer(exp, "checkpoint_epoch_final", device=dev)
+    tr.setup_model()
+    random_predictor_(tr)
+    return tr
+
+
+def decomp_step(video, noise, tr, dev, i):
+    return float(tr.train_step(video.to(dev), noise[i])["_total"])
+
+
+def predictor_step(video, noise, text, tr, dev, i):
+    tx = {k: v.to(dev) for k, v in text.items()}
+    return float(tr.train_step(video.to(dev), noise[i], **tx)["_total"])
 
 
 def phase_train_parity(tmp: Path):
     """DecompTrainer on the card and on the CPU at full width, B=2, T=3 (the
     first frame 3 iterations, the others 1), the same initial weights, video
     and slot noise, warmup off (``trainer_parity``). Off the main path."""
-    from textocvp_tpu_torch.train.trainer import DecompTrainer
-
     exp = train_experiment(tmp / "train_parity", tmp / "none", batch_size=2, lr_warmup=False)
     gen = torch.Generator().manual_seed(SEED + 8)
     video = torch.rand((2, 3, CONV5_RES, CONV5_RES, 3), generator=gen)
     noise = [torch.randn((2, 8, 128), generator=gen) for _ in range(2)]
-
-    def make(dev):
-        tr = DecompTrainer(exp, device=dev)
-        tr.setup_model()
-        return tr
-
-    res = trainer_parity("train parity", make, lambda tr, dev, i: float(
-        tr.train_step(video.to(dev), noise[i])["_total"]))
-    emit({"phase": "train_parity", "B": 2, "T": 3, **res})
+    finish = trainer_parity("train parity", partial(make_decomp_trainer, exp),
+                            partial(decomp_step, video, noise))
+    defer_parity("train_parity", finish, B=2, T=3)
 
 
 def run_cli(main, argv):
@@ -1733,8 +1914,8 @@ def phase_train(exp_path):
     # and the TensorBoard image strip of iteration 0 (one sequence's forward)
     # where tensorboard imports
     strips = trainer.image_strips
-    want = {"slot_attention": TRAIN_FRAMES * (valid + steps + strips), "vit_attention": 0,
-            "conv5": 3 * (valid + strips) + 6 * steps}
+    want = every_kernel({"slot_attention": TRAIN_FRAMES * (valid + steps + strips),
+                         "conv5": 3 * (valid + strips) + 6 * steps})
     check(counts == want and input_grad == 3 * steps and strips == int(trainer.writer is not None),
           f"train: kernel launches on the main path {counts}, input-gradient {input_grad}, "
           f"image strips {strips}; want {want}, {3 * steps}")
@@ -1972,7 +2153,6 @@ def phase_pred_train_parity(parent: Path):
     4.9e-5 apart (relative) with every gradient leaf within its limit, at
     1e-5 it is a tenth of that."""
     from textocvp_tpu_torch.core.experiment import Experiment
-    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
 
     exp = pred_experiment(parent, "pred_parity", PARITY_PREDS, batch_size=2, lr=1e-5,
                           lr_warmup=False)
@@ -1980,20 +2160,10 @@ def phase_pred_train_parity(parent: Path):
     video = torch.rand((2, PRED_CONTEXT + PARITY_PREDS, CONV5_RES, CONV5_RES, 3), generator=gen)
     noise = [torch.randn((2, 8, 128), generator=gen) for _ in range(2)]
     text = caption_batch(Experiment(exp).params, 2)
-
-    def make(dev):
-        tr = PredictorTrainer(exp, "checkpoint_epoch_final", device=dev)
-        tr.setup_model()
-        random_predictor_(tr)
-        return tr
-
-    def step(tr, dev, i):
-        tx = {k: v.to(dev) for k, v in text.items()}
-        return float(tr.train_step(video.to(dev), noise[i], **tx)["_total"])
-
-    res = trainer_parity("predictor train parity", make, step)
-    emit({"phase": "pred_train_parity", "B": 2, "num_context": PRED_CONTEXT,
-          "num_preds": PARITY_PREDS, **res})
+    finish = trainer_parity("predictor train parity", partial(make_predictor_trainer, exp),
+                            partial(predictor_step, video, noise, text))
+    defer_parity("pred_train_parity", finish, B=2, num_context=PRED_CONTEXT,
+                 num_preds=PARITY_PREDS)
 
 
 def phase_pred_train(parent: Path, exp_path: Path, steps: int, phase="pred_train", **extra):
@@ -2025,8 +2195,8 @@ def phase_pred_train(parent: Path, exp_path: Path, steps: int, phase="pred_train
     # and the image strip of iteration 0 where tensorboard imports: one
     # sequence encoded, rolled out and its predictions decoded
     strips = trainer.image_strips
-    want = {"slot_attention": PRED_FRAMES * (valid + steps + strips), "vit_attention": 0,
-            "conv5": 3 * (valid + strips) + 6 * steps}
+    want = every_kernel({"slot_attention": PRED_FRAMES * (valid + steps + strips),
+                         "conv5": 3 * (valid + strips) + 6 * steps})
     what = f"{phase} {exp_path.name}"
     check(strips == int(trainer.writer is not None), f"{what}: {strips} image strips")
     check(counts == want and input_grad == 3 * steps and weight_grad == 0,
@@ -2244,8 +2414,8 @@ def phase_predictors_eval(parent: Path, name, exp):
     seconds = time.perf_counter() - t
     counts = launches()  # and ends here
     batches = EVAL_VIDEOS // EVAL_BATCH
-    check(rc == 0 and counts == {"slot_attention": batches, "vit_attention": 0,
-                                 "conv5": 3 * batches},
+    check(rc == 0 and counts == every_kernel({"slot_attention": batches,
+                                              "conv5": 3 * batches}),
           f"predictors_eval {name}: kernel launches on the main path: {counts}")
     results_dir = exp.exp_path / "results" / f"eval_pred_random_NumSeed=1_NumPreds={EVAL_PREDS}"
     with open(results_dir / "results.json") as f:
@@ -2310,7 +2480,7 @@ def phase_predictors_service(parent: Path, name, exp):
         check(inside >= 0.05, f"predictors_service {name}: share inside (0, 1) {inside}")
         unsaturated.append(inside)
     counts = launches()  # and ends here
-    check(counts == {k: len(requests) * n for k, n in per_request.items()},
+    check(counts == every_kernel({k: len(requests) * n for k, n in per_request.items()}),
           f"predictors_service {name}: kernel launches on the main path: {counts}")
     refused = None
     if name == "TextOCVP_CustomTF":
@@ -2339,7 +2509,6 @@ def phase_predictors_train_parity(parent: Path, name):
     reported); the attention key biases are exact-zero leaves. Off the main
     path."""
     from textocvp_tpu_torch.models import setup_predictor
-    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
 
     exp = other_experiment(parent, name, parent / "none", "parity", PARITY_PREDS,
                            batch_size=2, lr=1e-5, lr_warmup=False)
@@ -2349,22 +2518,11 @@ def phase_predictors_train_parity(parent: Path, name):
     text = caption_batch(exp.params, 2)
     key_biases = tuple(n for n, _ in setup_predictor(exp.params).named_parameters()
                        if n.endswith(".k.bias"))
-
-    def make(dev):
-        tr = PredictorTrainer(exp.exp_path, "checkpoint_epoch_final", device=dev)
-        tr.setup_model()
-        random_predictor_(tr)
-        return tr
-
-    def step(tr, dev, i):
-        tx = {k: v.to(dev) for k, v in text.items()}
-        return float(tr.train_step(video.to(dev), noise[i], **tx)["_total"])
-
-    res = trainer_parity(f"{name} train parity", make, step, exact_zero=key_biases,
-                         replayed=PREDICTOR_KINKS)
-    emit({"phase": "predictors_train_parity", "predictor": name, "B": 2,
-          "num_context": PRED_CONTEXT, "num_preds": PARITY_PREDS, "text_keys": sorted(text),
-          **res})
+    finish = trainer_parity(f"{name} train parity", partial(make_predictor_trainer, exp.exp_path),
+                            partial(predictor_step, video, noise, text), exact_zero=key_biases,
+                            replayed=PREDICTOR_KINKS)
+    defer_parity("predictors_train_parity", finish, predictor=name, B=2,
+                 num_context=PRED_CONTEXT, num_preds=PARITY_PREDS, text_keys=sorted(text))
 
 
 def run_predictors(tmp: Path, parent: Path):
@@ -2542,7 +2700,7 @@ def phase_decomp_eval(exp_path, path: DecompPath, videos_in_split: int):
     counts = launches()  # and ends here
     batches = videos_in_split // path.batch
     check(rc == 0, f"{path.name}: evaluate_decomp returned {rc}")
-    check(counts == {k: n * batches for k, n in path.launches.items()},
+    check(counts == every_kernel({k: n * batches for k, n in path.launches.items()}),
           f"{path.name}: kernel launches on the main path {counts}, want "
           f"{path.launches} x {batches}")
     results = json.loads((exp_path / "results" / DECOMP_RESULTS / "results.json").read_text())
@@ -2665,6 +2823,20 @@ def kept_vit(tr):
     return {k: v.detach().cpu().clone() for k, v in tr.model.image_encoder.state_dict().items()}
 
 
+def vit_unchanged(tr) -> bool:
+    """The trainer's ViT equals, bit for bit, the state ``make_decomp_trainer`` kept."""
+    now = kept_vit(tr)
+    return all(torch.equal(now[k], v) for k, v in tr.vit0.items())
+
+
+def frozen_digest(tr) -> dict:
+    """A SHA-256 of each tensor of the trainer's frozen decomposition model."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for k, v in tr.decomp_model.state_dict().items()}
+
+
 def phase_clip_train_parity(tmp: Path):
     """DecompTrainer on ExtendedDINOSAUR on the card and on the CPU at full
     width, B=2, T=3, the same initial weights, video and slot noise, warmup
@@ -2673,31 +2845,21 @@ def phase_clip_train_parity(tmp: Path):
     the CNN head, and the loss's clips, replayed from the card); the
     BatchNorm statistics after the first step and the ViT bit for bit after
     two. Off the main path."""
-    from textocvp_tpu_torch.train.trainer import DecompTrainer
-
     exp = clip_experiment(tmp / "clip_train_parity", tmp / "none", batch_size=2,
                           accum_steps=1, lr_warmup=False)
     gen = torch.Generator().manual_seed(SEED + 21)
     video = torch.rand((2, 3, CLIP_RES, CLIP_RES, 3), generator=gen)
     noise = [torch.randn((2, CLIP_SLOTS, CLIP_SLOT_DIM), generator=gen) for _ in range(2)]
 
-    def make(dev):
-        tr = DecompTrainer(exp, device=dev)
-        tr.setup_model()
-        tr.vit0 = kept_vit(tr)
-        return tr
-
-    def finish(trainers):
-        for run, tr in trainers.items():
-            now = kept_vit(tr)
-            check(all(torch.equal(now[k], v) for k, v in tr.vit0.items()),
-                  f"clip train parity: the ViT moved on {run}")
+    def compare(probes):
+        check(all(probes.values()), f"clip train parity: the ViT moved: {probes}")
         return {"vit_unchanged": True}
 
-    res = trainer_parity("clip train parity", make, lambda tr, dev, i: float(
-        tr.train_step(video.to(dev), noise[i])["_total"]), tail_convs=0,
-        exact_zero=CLIP_EXACT_ZERO, finish=finish, replayed=ALL_KINKS)
-    emit({"phase": "clip_train_parity", "B": 2, "T": 3, **res})
+    finish = trainer_parity("clip train parity", partial(make_decomp_trainer, exp, keep_vit=True),
+                            partial(decomp_step, video, noise), tail_convs=0,
+                            exact_zero=CLIP_EXACT_ZERO, probe=vit_unchanged, compare=compare,
+                            replayed=ALL_KINKS)
+    defer_parity("clip_train_parity", finish, B=2, T=3)
 
 
 def phase_clip_train(exp_path):
@@ -2722,8 +2884,8 @@ def phase_clip_train(exp_path):
     # strip where tensorboard imports
     strips = trainer.image_strips
     calls = epochs * (steps * CLIP_ACCUM + valid) + strips
-    want = {"slot_attention": calls * CLIP_FRAMES, "vit_attention": calls * VIT_BLOCKS,
-            "conv5": 0}
+    want = every_kernel({"slot_attention": calls * CLIP_FRAMES,
+                         "vit_attention": calls * VIT_BLOCKS})
     check(counts == want and strips == epochs * int(trainer.writer is not None),
           f"clip_train: kernel launches on the main path {counts}, want {want}; "
           f"{strips} image strips")
@@ -2890,7 +3052,6 @@ def phase_clip_pred_train_parity(parent: Path):
     (``trainer_parity``: the predictor's MLPs and the frozen decoder's ReLUs
     replayed from the card). Off the main path."""
     from textocvp_tpu_torch.core.experiment import Experiment
-    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
 
     exp = pred_experiment(parent, "clip_pred_parity", PARITY_PREDS, batch_size=2,
                           accum_steps=1, lr=1e-5, lr_warmup=False)
@@ -2899,26 +3060,16 @@ def phase_clip_pred_train_parity(parent: Path):
     noise = [torch.randn((2, CLIP_SLOTS, CLIP_SLOT_DIM), generator=gen) for _ in range(2)]
     text = caption_batch(Experiment(exp).params, 2, PATHS[1])
 
-    def make(dev):
-        tr = PredictorTrainer(exp, "checkpoint_epoch_final", device=dev)
-        tr.setup_model()
-        random_predictor_(tr)
-        return tr
-
-    def step(tr, dev, i):
-        tx = {k: v.to(dev) for k, v in text.items()}
-        return float(tr.train_step(video.to(dev), noise[i], **tx)["_total"])
-
-    def finish(trainers):
-        card, cpu = (trainers[d].decomp_model.state_dict() for d in ("cuda", "cpu"))
-        check(all(torch.equal(v.cpu(), cpu[k]) for k, v in card.items()),
+    def compare(probes):
+        check(probes["cuda"] == probes["cpu"],
               "clip predictor parity: the frozen model differs between the devices")
         return {"frozen_model_unchanged": True}
 
-    res = trainer_parity("clip predictor train parity", make, step, tail_convs=0,
-                         finish=finish, replayed=ALL_KINKS)
-    emit({"phase": "clip_pred_train_parity", "B": 2, "num_context": PRED_CONTEXT,
-          "num_preds": PARITY_PREDS, **res})
+    finish = trainer_parity("clip predictor train parity", partial(make_predictor_trainer, exp),
+                            partial(predictor_step, video, noise, text), tail_convs=0,
+                            probe=frozen_digest, compare=compare, replayed=ALL_KINKS)
+    defer_parity("clip_pred_train_parity", finish, B=2, num_context=PRED_CONTEXT,
+                 num_preds=PARITY_PREDS)
 
 
 def phase_clip_pred_train(parent: Path):
@@ -2944,8 +3095,8 @@ def phase_clip_pred_train(parent: Path):
     # each (micro)batch and of the image strip where tensorboard imports
     strips = trainer.image_strips
     calls = steps * CLIP_ACCUM + valid + strips
-    want = {"slot_attention": calls * PRED_FRAMES, "vit_attention": calls * VIT_BLOCKS,
-            "conv5": 0}
+    want = every_kernel({"slot_attention": calls * PRED_FRAMES,
+                         "vit_attention": calls * VIT_BLOCKS})
     check(counts == want and strips == int(trainer.writer is not None),
           f"clip_pred_train: kernel launches on the main path {counts}, want {want}; "
           f"{strips} image strips")
@@ -3046,8 +3197,9 @@ def phase_clip_eval(parent: Path):
     counts = launches()  # and ends here
     batches = dict(CLIP_EPISODES)["test"] // CLIP_EVAL_BATCH
     check(rc == 0, f"evaluate_predictor returned {rc}")
-    check(counts == {"slot_attention": batches, "vit_attention": VIT_BLOCKS * batches,
-                     "conv5": 0}, f"clip_eval: kernel launches on the main path: {counts}")
+    check(counts == every_kernel({"slot_attention": batches,
+                                  "vit_attention": VIT_BLOCKS * batches}),
+          f"clip_eval: kernel launches on the main path: {counts}")
     results_dir = parent / "predictors" / CLIP_PRED_NAME / "results" / (
         f"eval_pred_checkpoint_epoch_final_NumSeed=1_NumPreds={CLIP_PREDS}")
     with open(results_dir / "results.json") as f:
@@ -3284,8 +3436,8 @@ def png_route_eval(tmp: Path, phase, path: ServedPath, png_root: Path, cache_arg
         with open(exps[route] / "predictors" / "textocvp_t5" / "results" / (
                 f"eval_pred_random_NumSeed=1_NumPreds={path.num_preds}") / "results.json") as f:
             results[route] = json.load(f)
-    check(counts == want_launches, f"{phase}: kernel launches on the main path {counts}, "
-                                   f"want {want_launches}")
+    check(counts == every_kernel(want_launches),
+          f"{phase}: kernel launches on the main path {counts}, want {want_launches}")
     for m in ("psnr", "ssim", "lpips"):
         check(len(results["png"][m]["framewise"]) == path.num_preds
               and bool(np.isfinite(results["png"][m]["framewise"]).all()),
@@ -3701,7 +3853,7 @@ def run_06(what, main, argv, want, sequences):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     counts = launches()  # and ends here
-    check(counts == {k: n * sequences for k, n in want.items()},
+    check(counts == every_kernel({k: n * sequences for k, n in want.items()}),
           f"{what}: kernel launches on the main path {counts}, want {want} x {sequences}")
     return gen, seconds, counts
 
@@ -3968,12 +4120,459 @@ def phase_serve_batching(exp_path: Path):
             for ms, depth in ((None, 2), (BATCHING_WINDOW_MS, 1), (BATCHING_WINDOW_MS, 2))]
     counts = launches()  # and ends here
     batches = sum(r["batches_dispatched"] for r in runs)
-    check(counts == {"slot_attention": batches, "vit_attention": 0, "conv5": 3 * batches},
+    check(counts == every_kernel({"slot_attention": batches, "conv5": 3 * batches}),
           f"serve_batching: kernel launches on the main path {counts}, {batches} batches")
     emit({"phase": "serve_batching", "path": path.name, "batch": BATCH,
           "coalesced_equals_direct": True, "runs": runs, "launches": counts})
     del service
     torch.cuda.empty_cache()
+    return counts
+
+
+# ------------------------------------------ int8 (tpu.decode_quant / encode_quant)
+
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
+CONV_INT8_KERNEL = "conv_int8_kernel"  # csrc/conv_int8.cu
+# the decode stage's frames in a CLIPort request (B=8) and a 05 batch (B=16)
+CLIP_DECODE_FRAMES = {BATCH: BATCH * CLIP_PREDS, CLIP_EVAL_BATCH: CLIP_EVAL_BATCH * CLIP_PREDS}
+
+
+def cnn_head_layers():
+    """(grid, Cin, Cout) of each ExtendedDINOSAUR CNN-head conv at full width
+    (``MLPPatchDecoder.cnn_plan`` of ``configs/models/ExtendedDINOSAUR.json``:
+    hidden 1024, a 24 x 24 patch grid, 336 px)."""
+    from textocvp_tpu_torch.core.config import build_exp_params
+    from textocvp_tpu_torch.nn.decoders import MLPPatchDecoder
+
+    mp = build_exp_params("ExtendedDINOSAUR", "CLIPort")["model"]["model_params"]
+    dp = {**mp["decoder"]["decoder_params"], "img_size": mp["img_size"]}
+    dec = MLPPatchDecoder(**{**dp, "reconstruct_images": False})
+    layers, grid, cin = [], dec.grid, dp["out_dim"] - 1
+    for cout, grow in dec.cnn_plan():
+        layers.append((grid, cin, cout))
+        grid, cin = grid * (2 if grow else 1), cout
+    return layers
+
+
+def conv_int8_bounds(n, h, w, k, cin, cout):
+    """int8 x read once, float32 out written once, int8 weights, scales and
+    bias read once; 2 operations a product at the int8 tensor-core rate."""
+    nbytes = n * h * w * cin + 4 * n * h * w * cout + k * k * cin * cout + 8 * cout + 4
+    return bound(nbytes, 2 * n * h * w * k * k * cin * cout, INT8_OPS_PER_S)
+
+
+def conv_int8_rows():
+    """The int8 conv against its plain version, exactly, over every frame
+    (the plain version in chunks of about 2 GB of float64), at SAVi's tail
+    (k=5, 64 -> 64 at 64 x 64; N=1216 a request, 9728 a 05 batch) and at each
+    CNN-head layer of a CLIPort request's and a 05 batch's decode (k=3).
+    Beside its time: the float path it replaces on the same shapes, conv5
+    (SAVi) and cuDNN's float32 conv + bias + ReLU (TF32 off), and the plain
+    version's time over all frames. No single PyTorch call computes an int8
+    convolution on CUDA: ``library_ms`` is None."""
+    import torch.nn.functional as F
+
+    from textocvp_tpu_torch.ops import conv5 as c5
+    from textocvp_tpu_torch.ops import conv_int8 as ci
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator("cuda").manual_seed(SEED + 30)
+    cases = [("savi_request", BATCH * EVAL_PREDS * 8, CONV5_RES, 5, CONV5_CH, CONV5_CH, 10),
+             ("savi_eval", EVAL_BATCH * EVAL_PREDS * 8, CONV5_RES, 5, CONV5_CH, CONV5_CH, 2)]
+    for b, frames in CLIP_DECODE_FRAMES.items():
+        cases += [(f"clipport_b{b}_cnn{i}", frames, grid, 3, cin, cout, 5)
+                  for i, (grid, cin, cout) in enumerate(cnn_head_layers())]
+    rows = []
+    for name, n, res, k, cin, cout, reps in cases:
+        x_q = torch.randint(-127, 128, (n, res, res, cin), dtype=torch.int8, device="cuda",
+                            generator=gen)
+        w_q = torch.randint(-127, 128, (k, k, cin, cout), dtype=torch.int8, device="cuda",
+                            generator=gen)
+        a_scale = torch.tensor(0.02, device="cuda")
+        w_scale = 1e-4 + 1e-3 * torch.rand(cout, device="cuda", generator=gen)
+        bias = torch.randn(cout, device="cuda", generator=gen)
+        args = (x_q, w_q, a_scale, w_scale, bias)
+        chunk = max(1, (2 << 30) // (8 * res * res * max(cin, cout)))
+
+        def plain():
+            return [ci.conv_int8_plain(x_q[i:i + chunk], *args[1:], relu=True)
+                    for i in range(0, n, chunk)]
+
+        launches = ci.conv_int8_cuda.launches
+        out = ci.conv_int8_cuda(*args, relu=True)
+        err = 0.0
+        for i in range(0, n, chunk):
+            ref = ci.conv_int8_plain(x_q[i:i + chunk], *args[1:], relu=True)
+            err = max(err, (out[i:i + chunk] - ref).abs().max().item())
+            del ref
+        finite = bool(torch.isfinite(out).all())
+        del out
+        torch.cuda.empty_cache()
+        check(finite and err == 0, f"conv_int8 vs plain at {name}: {err} != 0")
+        ms = cuda_ms(lambda: ci.conv_int8_cuda(*args, relu=True), reps=reps, warmup=1)
+        launches = ci.conv_int8_cuda.launches - launches
+        plain_ms = cuda_ms(plain, reps=1, warmup=0)
+        torch.cuda.empty_cache()
+        # the float path of the same shape: float activations, the conv + bias + ReLU
+        x = x_q.float().mul_(0.02)
+        del x_q
+        w = torch.randn((k, k, cin, cout), device="cuda", generator=gen) / (k * k * cin) ** 0.5
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        lib_cl = cuda_ms(
+            lambda: F.relu_(F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias, padding=k // 2)),
+            reps=reps, warmup=1)
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        lib_nchw = cuda_ms(lambda: F.relu_(F.conv2d(x_nchw, w_oihw, bias, padding=k // 2)),
+                           reps=reps, warmup=1)
+        del x_nchw
+        torch.cuda.empty_cache()
+        float_path = {"cudnn_fp32_ms": min(lib_cl, lib_nchw),
+                      "cudnn_fp32_layout": "nchw" if lib_nchw <= lib_cl else "channels_last"}
+        if k == 5:
+            float_path["conv5_ms"] = cuda_ms(lambda: c5.conv5_cuda(x, w, bias), reps=reps,
+                                             warmup=1)
+        del x, w, w_oihw
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = conv_int8_bounds(n, res, res, k, cin, cout)
+        rows.append({"case": name, "N": n, "H": res, "W": res, "k": k, "Cin": cin, "Cout": cout,
+                     "max_abs_err": err, "err_frames": "all", "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                     "float_path": float_path, "launches": launches, "reps": reps})
+    return rows
+
+
+def quant_experiment(exp_path: Path, pred_name: str, new_name: str, ckpt: str, **modes) -> str:
+    """A copy of the predictor experiment ``pred_name`` of ``exp_path`` named
+    ``new_name``, with ``tpu`` set to ``modes`` and its checkpoint ``ckpt``
+    linked in. Returns the name."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    src = Experiment(exp_path / "predictors" / pred_name)
+    params = src.params
+    params["tpu"] = {**(params.get("tpu") or {}), **modes}
+    dst = Experiment(exp_path / "predictors" / new_name)
+    dst.save_params(params)
+    dst.models_dir.mkdir(parents=True, exist_ok=True)
+    os.symlink(src.checkpoint_path(ckpt), dst.checkpoint_path(ckpt))
+    return new_name
+
+
+def decode_stage_ms(exp_path, pred_name, ckpts, batch, num_preds):
+    """The 05 decode stage of one batch on the host clock with synchronize
+    (a warm call first): ms, after calibration where the experiment is
+    quantized."""
+    from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
+
+    ev = PredictorEvaluator(exp_path, pred_name, *ckpts, num_seed=1, num_preds=num_preds,
+                            batch_size=batch)
+    ev.load_data()
+    ev.load_models()
+    videos, info = next(iter(ev.test_loader))
+    v, text = ev.to_device(videos, info)
+    slots = ev.predict_stage(v, text)
+    ev.decode_stage(slots)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ev.decode_stage(slots)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    del ev, v, slots
+    gc.collect()
+    torch.cuda.empty_cache()
+    return min(times)
+
+
+def phase_quant_eval(phase, exp_path, pred_name, float_results: dict, ckpts, batch, num_preds,
+                     batches, want_launches: dict, **modes):
+    """The 05 CLI on a copy of ``pred_name`` with ``tpu`` ``modes``: the main
+    path of the int8 eval (its launches, int8 included), ``results.json``'s
+    honesty flags, each metric's mean against ``float_results`` (the float
+    CLI's on the same weights, videos and generator seed), and the decode
+    stage's ms int8 against float32. Returns the launches."""
+    from textocvp_tpu_torch.cli import evaluate_predictor
+
+    name = quant_experiment(exp_path, pred_name, f"{pred_name}_int8", ckpts[1], **modes)
+    reset_launches()  # the main path starts here
+    t = time.perf_counter()
+    rc = evaluate_predictor.main(["-d", str(exp_path), "--name_pred_exp", name,
+                                  "--decomp_ckpt", ckpts[0], "--pred_ckpt", ckpts[1],
+                                  "--batch_size", str(batch), "--num_seed", "1",
+                                  "--num_preds", str(num_preds)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = launches()  # and ends here
+    check(rc == 0, f"{phase}: evaluate_predictor returned {rc}")
+    want = every_kernel(want_launches)
+    check(counts == want, f"{phase}: kernel launches on the main path {counts}, want {want}")
+    results_path = (exp_path / "predictors" / name / "results"
+                    / f"eval_pred_{ckpts[1]}_NumSeed=1_NumPreds={num_preds}" / "results.json")
+    with open(results_path) as f:
+        results = json.load(f)
+    flags = {k: results.get(k) for k in ("decode_quant", "encode_quant")}
+    check(flags == {k: modes.get(k) for k in flags}, f"{phase}: results.json flags {flags}")
+    delta = {}
+    for m in ("psnr", "ssim", "lpips"):
+        vals = results[m]["framewise"] + [results[m]["mean"]]
+        check(len(results[m]["framewise"]) == num_preds and bool(np.isfinite(vals).all()),
+              f"{phase} results.json: {m} {results[m]}")
+        delta[m] = results[m]["mean"] - float_results[m]["mean"]
+    decode_ms = {"int8": decode_stage_ms(exp_path, name, ckpts, batch, num_preds),
+                 "float32": decode_stage_ms(exp_path, pred_name, ckpts, batch, num_preds)}
+    emit({"phase": phase, "batch": batch, "batches": batches, "num_preds": num_preds,
+          "modes": modes, "results_flags": flags, "cli_seconds": seconds, "launches": counts,
+          "mean": {m: results[m]["mean"] for m in delta},
+          "mean_float32": {m: float_results[m]["mean"] for m in delta},
+          "mean_delta_int8_minus_float32": delta, "decode_stage_ms": decode_ms,
+          "decode_speedup": decode_ms["float32"] / decode_ms["int8"]})
+    return counts
+
+
+# --------------------------------------------------------------- serving artifacts
+
+# The export phases run beside the other phases, in two processes of their
+# own: EXPORTER builds each live service, exports it (``serve/export.py``;
+# tracing is host work, 27-57 s a service on the host of an NVIDIA H100
+# 80GB HBM3 at 700.00 W, PERF.md), records its generator state and starts
+# ARTIFACT_WORKER, a fresh ``python -c`` that imports
+# textocvp_tpu_torch.serve.export and what that pulls in, nothing else of
+# the repository, and loads every artifact (14-47 s each on that host).
+# Both then wait for a line on their standard input, so that their requests
+# run on an idle card at the end: the live services answer two requests
+# each from the recorded state and time steady requests, then the
+# artifacts answer the same requests from the same state, time theirs and,
+# under torch.profiler behind device spins (longer ones when the profiler
+# dropped the trace's first records), count one request's device kernels.
+# Each side counts the port's launches a request.
+KERNEL_COUNTING = r"""
+import json, sys, time
+import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from textocvp_tpu_torch.ops import conv5, conv_int8, slot_attention_kernel, vit_attention
+
+counters = {"slot_attention": slot_attention_kernel.slot_attention_cuda,
+            "vit_attention": vit_attention.vit_attention_cuda, "conv5": conv5.conv5_cuda,
+            "conv_int8": conv_int8.conv_int8_cuda}
+kernel_names = {"slot_attention": "slot_attention_cluster_kernel",
+                "vit_attention": "attention_kernel", "conv5": "conv5_kernel",
+                "conv_int8": "conv_int8_kernel"}
+
+
+def answer(svc, requests, replies_path, trace):
+    replies, launches = {}, []
+    for i, (frames, captions) in enumerate(requests):
+        before = {k: f.launches for k, f in counters.items()}
+        replies[f"reply_{i}"] = svc.predict(frames, captions)
+        launches.append({k: f.launches - before[k] for k, f in counters.items()})
+    np.savez(replies_path, **replies)
+    frames, captions = requests[0]
+    steady = []
+    for _ in range(5):
+        t = time.perf_counter()
+        svc.predict(frames, captions)
+        steady.append(1e3 * (time.perf_counter() - t))
+    out = {"launches": launches, "steady_ms": steady}
+    for spins in ((8, 64, 512) if trace else ()):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(spins):
+                torch.cuda._sleep(25_000_000)
+            torch.cuda.synchronize()
+            svc.predict(frames, captions)
+            torch.cuda._sleep(25_000_000)
+            torch.cuda.synchronize()
+        names = [n for _, n in sorted((e.start_ns(), e.name())
+                                      for e in prof.profiler.kineto_results.events()
+                                      if e.device_type() == DeviceType.CUDA)]
+        body = [i for i, n in enumerate(names) if "spin_kernel" not in n]
+        out["trace_whole"] = bool(body) and 0 < body[0] and body[-1] < len(names) - 1
+        out["trace_spins"] = spins
+        out["traced_kernels"] = {k: sum(name in n for n in names)
+                                 for k, name in kernel_names.items()}
+        if out["trace_whole"]:
+            break
+    return out
+"""
+ARTIFACT_WORKER = KERNEL_COUNTING + r"""
+from textocvp_tpu_torch.serve.export import ExportedPredictionService
+
+spec = json.load(open(sys.argv[1]))
+services, load_s = {}, {}
+for phase, a in spec.items():
+    t = time.perf_counter()
+    services[phase] = ExportedPredictionService(a["artifact"])
+    load_s[phase] = time.perf_counter() - t
+torch.cuda.empty_cache()
+print("loaded", json.dumps(load_s), flush=True)
+sys.stdin.readline()  # the card is free
+results = {}
+for phase, a in spec.items():
+    d = np.load(a["inputs"])
+    svc = services.pop(phase)
+    svc.generator.set_state(torch.from_numpy(d["state"]))
+    requests = [(d[f"frames_{i}"], list(d[f"captions_{i}"])) for i in range(int(d["requests"]))]
+    results[phase] = {"load_s": load_s[phase], **answer(svc, requests, a["replies"], True)}
+    del svc
+    torch.cuda.empty_cache()
+json.dump(results, open(sys.argv[2], "w"))
+"""
+EXPORTER = KERNEL_COUNTING + r"""
+import subprocess
+from pathlib import Path
+from textocvp_tpu_torch.serve import PredictionService, export_service
+
+spec = json.load(open(sys.argv[1]))
+services, lines = {}, {}
+for phase, a in spec.items():
+    svc = PredictionService(a["exp"], a["pred_name"], a["ckpt"], a["ckpt"],
+                            batch_size=a["batch"], max_tokens=a["max_tokens"])
+    d = dict(np.load(a["inputs"]))
+    frames, captions = d["frames_0"], list(d["captions_0"])
+    if a["calibrate"]:
+        svc.calibrate(frames, captions)
+    else:
+        svc.warmup()
+    t = time.perf_counter()
+    export_service(svc, a["artifact"])
+    lines[phase] = {"export_s": time.perf_counter() - t,
+                    "decode_quant": svc._quant_mode, "encode_quant": svc._encode_quant_mode,
+                    "artifact_bytes": {p.name: p.stat().st_size
+                                       for p in Path(a["artifact"]).iterdir()}}
+    svc.recorded = svc.generator.get_state()
+    np.savez(a["inputs"], **d, state=svc.recorded.numpy())
+    services[phase] = svc
+    torch.cuda.empty_cache()  # hold only the weights while the other phases use the card
+log = open(sys.argv[3], "w")
+worker = subprocess.Popen([sys.executable, "-c", sys.argv[4], sys.argv[1], sys.argv[5]],
+                          stdin=subprocess.PIPE, stdout=log, stderr=subprocess.STDOUT, text=True)
+print("exported", flush=True)
+sys.stdin.readline()  # the card is free
+for phase, a in spec.items():
+    d = np.load(a["inputs"])
+    svc = services.pop(phase)
+    svc.generator.set_state(svc.recorded)
+    requests = [(d[f"frames_{i}"], list(d[f"captions_{i}"])) for i in range(int(d["requests"]))]
+    lines[phase].update(answer(svc, requests, a["live_replies"], False))
+    del svc
+    torch.cuda.empty_cache()
+worker.stdin.write("go\n")
+worker.stdin.flush()
+lines["_worker_rc"] = worker.wait(timeout=900)
+json.dump(lines, open(sys.argv[2], "w"))
+"""
+EXPORTS = {}  # the export processes, until finish_exports
+
+
+def run_export(tmp: Path):
+    """Start the export phases beside the later ones (EXPORTER): both
+    serving paths' services at batch 8, over the experiments ``run_path``
+    wrote, and a CATER one with ``decode_quant: int8`` calibrated on a
+    request's frames. ``finish_exports`` lets them answer."""
+    cater = tmp / PATHS[0].name / "exp"
+    int8 = quant_experiment(cater, PRED_NAME, f"{PRED_NAME}_int8", "random", decode_quant="int8")
+    rng = np.random.default_rng(SEED + 31)
+    spec = {}
+    for phase, path, exp, pred in (
+            *((f"export_{p.name}", p, tmp / p.name / "exp", PRED_NAME) for p in PATHS),
+            ("quant_export_cater", PATHS[0], cater, int8)):
+        video = rng.uniform(0, 1, (BATCH, 1, path.res, path.res, 3)).astype(np.float32)
+        captions = np.array(path.captions[:BATCH])
+        inputs = tmp / f"{phase}_inputs.npz"
+        # an 8-row float32 request and a 3-row uint8 one
+        np.savez(inputs, requests=2, frames_0=video, captions_0=captions,
+                 frames_1=np.round(video[:3] * 255).astype(np.uint8), captions_1=captions[:3])
+        spec[phase] = {"exp": str(exp), "pred_name": pred, "ckpt": "random", "batch": BATCH,
+                       "max_tokens": MAX_TOKENS, "calibrate": phase.startswith("quant"),
+                       "path": path.name, "artifact": str(tmp / f"artifact_{phase}"),
+                       "inputs": str(inputs), "replies": str(tmp / f"{phase}_replies.npz"),
+                       "live_replies": str(tmp / f"{phase}_live.npz")}
+    (tmp / "exports.json").write_text(json.dumps(spec))
+    log = open(tmp / "exporter.log", "w")
+    EXPORTS.update(spec=spec, log=log, tmp=tmp, started=time.perf_counter(),
+                   proc=subprocess.Popen(
+                       [sys.executable, "-c", EXPORTER, str(tmp / "exports.json"),
+                        str(tmp / "exporter_out.json"), str(tmp / "artifacts.log"),
+                        ARTIFACT_WORKER, str(tmp / "artifacts_out.json")],
+                       stdin=subprocess.PIPE, stdout=log, stderr=subprocess.STDOUT, text=True,
+                       cwd=ROOT))
+
+
+def finish_exports():
+    """Let the export processes answer on the idle card and check each
+    artifact: its replies equal the live service's bit for bit, it launches
+    the port's kernels as the live one does, and under the profiler one
+    request holds one slot-attention device kernel (and 3 conv5, 3 int8-conv
+    or 12 ViT-attention kernels); its steady ms a request beside the live
+    one's. One line a phase. Returns each artifact's launches."""
+    proc, tmp = EXPORTS["proc"], EXPORTS["tmp"]
+    t = time.perf_counter()
+    proc.stdin.write("go\n")
+    proc.stdin.flush()
+    rc = proc.wait(timeout=900)
+    EXPORTS["log"].close()
+    logs = "".join((tmp / f).read_text()[-2000:] for f in ("exporter.log", "artifacts.log")
+                   if (tmp / f).is_file())
+    check(rc == 0, f"the exporter failed ({rc}):\n{logs}")
+    live = json.loads((tmp / "exporter_out.json").read_text())
+    check(live.pop("_worker_rc") == 0, f"the artifacts' process failed:\n{logs}")
+    out = json.loads((tmp / "artifacts_out.json").read_text())
+    counts = {}
+    for phase, a in EXPORTS["spec"].items():
+        got, mine = out[phase], live[phase]
+        with np.load(a["replies"]) as r, np.load(a["live_replies"]) as want:
+            equal = [bool(np.array_equal(r[k], want[k])) for k in sorted(want.files)]
+        check(len(equal) == 2 and all(equal),
+              f"{phase}: the artifact's replies differ from the live service's: {equal}")
+        check(got["launches"] == mine["launches"],
+              f"{phase}: launches a request, artifact {got['launches']} live {mine['launches']}")
+        kernels, want_k = got["traced_kernels"], mine["launches"][0]
+        check(got["trace_whole"] and kernels == want_k and want_k["slot_attention"] == 1,
+              f"{phase}: the artifact's traced device kernels of a request {kernels} "
+              f"(whole trace: {got['trace_whole']}), live launches {want_k}")
+        emit({"phase": phase, "path": a["path"], "batch": BATCH,
+              **{k: mine[k] for k in ("decode_quant", "encode_quant", "export_s",
+                                      "artifact_bytes")},
+              "artifact_load_s": got["load_s"],
+              "processes_s": time.perf_counter() - EXPORTS["started"],
+              "answer_wait_s": time.perf_counter() - t, "replies_equal_live": equal,
+              "launches_per_request": got["launches"], "traced_kernels_per_request": kernels,
+              "trace_fence_spins": got["trace_spins"],
+              "steady_8_row_ms": {"artifact": got["steady_ms"], "live": mine["steady_ms"]}})
+        counts[phase] = {k: sum(c[k] for c in got["launches"]) for k in got["launches"][0]}
+    return counts
+
+
+def run_quant(tmp: Path, eval_exp: Path, clip_exp: Path):
+    """int8 on the card: the CATER 05 CLI at B=64 with ``tpu.decode_quant``
+    over the eval path's experiment (random weights; against the float CLI's
+    ``results.json`` of the eval phase); CLIPort 05 at B=16 with both modes
+    over the CLIPort chain's predictor (02 and 04 trained for a few steps;
+    against the clip_eval phase's). (The quantized CATER service's artifact
+    is ``run_export``'s.) Returns each path's launches."""
+    counts = {}
+    with open(eval_results_path(eval_exp)) as f:
+        float_results = json.load(f)
+    batches = EVAL_VIDEOS // EVAL_BATCH
+    # the calibration's float decode of the first batch: 3 conv5 launches
+    counts["quant_eval"] = phase_quant_eval(
+        "quant_eval", eval_exp, PRED_NAME, float_results, ("random", "random"), EVAL_BATCH,
+        EVAL_PREDS, batches, {"slot_attention": batches, "conv5": 3, "conv_int8": 3 * batches},
+        decode_quant="int8")
+    clip_ckpts = ("checkpoint_epoch_final", "checkpoint_epoch_final")
+    with open(clip_exp / "predictors" / CLIP_PRED_NAME / "results" / (
+            f"eval_pred_checkpoint_epoch_final_NumSeed=1_NumPreds={CLIP_PREDS}")
+            / "results.json") as f:
+        float_results = json.load(f)
+    batches = dict(CLIP_EPISODES)["test"] // CLIP_EVAL_BATCH
+    # the calibration's float ViT pass over the first batch's seed frames:
+    # 12 more ViT-attention launches; 4 int8 CNN-head convs a batch
+    counts["clip_quant_eval"] = phase_quant_eval(
+        "clip_quant_eval", clip_exp, CLIP_PRED_NAME, float_results, clip_ckpts,
+        CLIP_EVAL_BATCH, CLIP_PREDS, batches,
+        {"slot_attention": batches, "vit_attention": VIT_BLOCKS * (batches + 1),
+         "conv_int8": len(cnn_head_layers()) * batches},
+        decode_quant="int8", encode_quant="int8")
     return counts
 
 
@@ -3989,9 +4588,9 @@ def run_path(path: ServedPath, tmp: Path):
     phase_http(path, service, video.astype(np.float32))
     counts = launches()  # and ends here
     requests = 1 + 3 + 5 + 1 + 1  # warmup, 8 requests, stage split, HTTP
-    check(counts == {"slot_attention": requests,
-                     "vit_attention": requests * path.vit_per_request,
-                     "conv5": requests * path.conv5_per_request},
+    check(counts == every_kernel({"slot_attention": requests,
+                                  "vit_attention": requests * path.vit_per_request,
+                                  "conv5": requests * path.conv5_per_request}),
           f"{path.name}: kernel launches on the main path: {counts}")
     phase_profile(path, service, video.astype(np.float32))
     del service
@@ -4012,6 +4611,7 @@ def main() -> int:
         phase_host_io(Path(tmp))
         made = phase_create(Path(tmp))
         counts = {path.name: run_path(path, Path(tmp)) for path in PATHS}
+        run_export(Path(tmp))  # the artifacts load in a process of their own meanwhile
         counts["serve_batching"] = phase_serve_batching(Path(tmp) / PATHS[0].name / "exp")
         counts["eval"] = run_eval(Path(tmp))
         counts["png_eval"] = run_png_eval(Path(tmp))
@@ -4027,9 +4627,12 @@ def main() -> int:
         other_counts, other_input_grad, other_weight_grad = run_predictors(Path(tmp), train_exp)
         counts.update(other_counts)
         counts.update(run_clip(Path(tmp), made["clipport"]))
+        counts.update(run_quant(Path(tmp), Path(tmp) / "eval" / "exp", Path(tmp) / "clip_train"))
         counts.update(run_clip_figs(Path(tmp) / "clip_train"))
         phase_clip_remat(Path(tmp) / "clip_train")
         counts["clip_png_eval"] = run_clip_png_eval(Path(tmp))
+        finish_parities()  # the trainer parities' CPU halves, checked; their lines
+        counts.update(finish_exports())  # the artifacts answer on the idle card
 
     sa = next(r for r in rows["slot_attention_cater"] if r["B"] == BATCH and r["iters"] == 3)
     sa64 = next(r for r in rows["slot_attention_cater"] if r["B"] == EVAL_BATCH
@@ -4045,6 +4648,8 @@ def main() -> int:
     sa_bwd = {r["iters"]: r for r in rows["slot_attention_backward"]}
     sa_bwd_clip = {r["iters"]: r for r in rows["slot_attention_backward_clipport"]}
     (conv_frozen,) = rows["conv5_frozen_backward"]
+    int8_rows = {r["case"]: r for r in rows["conv_int8"]}
+    int8_eval = int8_rows["savi_eval"]
     emit({"kernels": [{
         "name": "slot_attention",
         "route": "cuda",
@@ -4139,6 +4744,26 @@ def main() -> int:
                          "rel_err")} for n, r in conv_bwd.items()},
                      "ms": conv_train["backward_ms"], "bound_ms": conv_train["backward_bound_ms"],
                      "library_ms": conv_train["library_ms"]},
+    }, {
+        "name": "conv_int8",
+        "route": "cuda",
+        "source": "textocvp_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "none: the int8 decode's conv, which the JAX package leaves to XLA "
+                    "(textocvp_tpu/nn/decoders.py:220, ConvDecoder._quantize_conv)",
+        "launches": sum(c["conv_int8"] for c in counts.values()),
+        "launches_by_path": {p: c["conv_int8"] for p, c in counts.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in rows["conv_int8"]),
+        "ms": int8_eval["ms"],
+        "plain_ms": int8_eval["plain_ms"],
+        "bound_ms": int8_eval["bound_ms"],
+        "bound_by": int8_eval["bound_by"],
+        "library_ms": None,
+        "float_path": int8_eval["float_path"],
+        "shape": [int8_eval["N"], int8_eval["H"], int8_eval["W"], int8_eval["Cin"],
+                  int8_eval["Cout"], int8_eval["k"]],
+        **{case: {k: r[k] for k in ("N", "H", "W", "k", "Cin", "Cout", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "float_path", "max_abs_err")}
+           for case, r in int8_rows.items() if r is not int8_eval},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

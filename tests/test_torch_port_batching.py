@@ -11,6 +11,7 @@ are equal bit for bit (the same padded rows, the same noise, the same
 device).
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import io
 import json
 import threading

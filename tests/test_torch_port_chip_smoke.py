@@ -8,6 +8,7 @@ its last. Here a fake profiler drops a given number of the earliest records
 of each trace.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import sys
 from pathlib import Path
 from types import SimpleNamespace

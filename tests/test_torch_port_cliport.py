@@ -21,6 +21,7 @@ TextOCVP_T5 experiment against the JAX ``PredictorEvaluator``, through to
   float64 difference of two such numbers).
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import json
 import os
 import warnings

@@ -10,6 +10,7 @@ orders, outputs of order 1. The kernel itself runs only on the card
 offset or a grid limit there, which ``chip_smoke.py`` checks at N = 9728.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import sys
 from pathlib import Path
 

@@ -13,6 +13,7 @@ and LPIPS within 1e-4: float32 on both sides through the encoder, slot
 attention over every frame and the decode, sums in other orders.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import json
 import warnings
 

@@ -5,6 +5,7 @@ the JAX ``DecompEvaluator``'s, and a ragged batch's rows. As
 ``test_torch_port_decomp_eval.py``, with the CNN head's BatchNorm statistics
 moved off 0 and 1; three test episodes of 4 frames in batches of 2."""
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import pytest
 from test_torch_port_cliport import IMG, tiny_cliport_params, write_cliport
 from test_torch_port_decomp_eval import check_against_jax, check_ragged_rows, write_experiment

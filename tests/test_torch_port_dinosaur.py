@@ -13,6 +13,7 @@ the head grows 3 -> 6 -> 12 -> 24 -> 48 and the bilinear resize shrinks 48 ->
 42, as 384 -> 336 does at full width.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ mesh and slices, and the port runs as it is. Framewise PSNR agrees within
 a 3-step rollout and the decode, sums in other orders.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import json
 import os
 import warnings

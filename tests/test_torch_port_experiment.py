@@ -4,6 +4,7 @@ every predictor (the JAX package's ``tpu`` block apart, a set of knobs the
 port does not have), the directories, the refusals, ``--name``, and a user
 config under ``TEXTOCVP_CONFIGS``."""
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import json
 
 import pytest

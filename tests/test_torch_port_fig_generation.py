@@ -16,6 +16,7 @@ within their printed precision (0.01 dB, 0.001). The models use the
 ``Learned`` initializer.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import os
 import re
 import shutil

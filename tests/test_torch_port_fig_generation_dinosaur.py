@@ -5,6 +5,7 @@ CLIPort color cache, against the JAX package's, on the CPU: as
 ``process_objs_masks_dinosaur`` at 96 px), and a features-only decoder's
 figures without the reconstructions."""
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import json
 import os
 

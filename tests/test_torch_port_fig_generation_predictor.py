@@ -5,6 +5,7 @@ same writers' arrays, arguments and file tree as
 initial slots handed to the port, and ``prompt.txt`` the sequence's
 caption."""
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import os
 import shutil
 import warnings

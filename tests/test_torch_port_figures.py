@@ -12,6 +12,7 @@ matplotlib's. The port's figures import without matplotlib and imageio, and
 without PIL they raise naming it.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import ast
 import subprocess
 import sys

@@ -16,7 +16,12 @@ vocabulary before the lookup, the host image library's build on the card's
 machine, remat steps against plain ones (gradients within 1e-6 of the
 largest leaf), the PNG route into a 05 batch, the three kernels at the 06
 paths' batch-1 shapes, figures and GIFs of card tensors, and two requests
-coalesced by the dynamic batcher against a direct predict. Marked ``gpu``;
+coalesced by the dynamic batcher against a direct predict; the int8 conv
+kernel against its plain version (exact) at the int8 decode's shapes and
+across its tiles, its refusals, the int8 dense on the card against the CPU
+(exact), a full-width int8 SAVi decode on the card against the CPU (in
+quanta, as ``test_torch_port_quant.py``), and a quantized CATER service's
+artifact answering like the live service. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -560,7 +565,7 @@ def test_conv5_kernel_refuses_what_it_does_not_take(cuda, bad):
     assert c5.conv5_cuda.launches == before
 
 
-@pytest.mark.parametrize("stem", ["conv5", "vit_attention"])
+@pytest.mark.parametrize("stem", ["conv5", "vit_attention", "conv_int8"])
 def test_kernel_runs_on_the_tensor_cores(cuda, stem):
     from textocvp_tpu_torch.ops import build
 
@@ -906,3 +911,129 @@ def test_coalesced_requests_equal_a_direct_predict_on_the_card(cuda, tmp_path):
         np.testing.assert_array_equal(np.concatenate([out[0], out[1]]), ref)
     finally:
         batcher.close()
+
+
+def _int8_case(n, h, w, k, cin, cout, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x_q = torch.randint(-127, 128, (n, h, w, cin), generator=g, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (k, k, cin, cout), generator=g, dtype=torch.int8)
+    a_scale = torch.tensor(0.013)
+    w_scale = torch.rand(cout, generator=g) * 1e-3
+    bias = torch.randn(cout, generator=g)
+    return x_q, w_q, a_scale, w_scale, bias
+
+
+# SAVi's tail at a request's and a 05 batch's first maps, the CNN head's first
+# layer, and frames across the kernel's 128-pixel tile and the frame's border
+@pytest.mark.parametrize("n,h,w,k,cin,cout", [(3, 64, 64, 5, 64, 64), (2, 24, 24, 3, 768, 1024),
+                                              (1, 48, 48, 3, 1024, 512), (2, 17, 70, 5, 64, 64),
+                                              (1, 1, 1, 3, 64, 64), (5, 3, 130, 3, 128, 192)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv_int8_kernel_matches_plain_exactly(cuda, n, h, w, k, cin, cout, relu):
+    from textocvp_tpu_torch.ops import conv_int8 as ci
+
+    args = [t.to(cuda) for t in _int8_case(n, h, w, k, cin, cout)]
+    before = ci.conv_int8_cuda.launches
+    out = ci.conv_int8(*args, relu=relu)
+    torch.cuda.synchronize()
+    assert ci.conv_int8_cuda.launches == before + 1
+    ref = ci.conv_int8_plain(*args, relu=relu)
+    assert torch.equal(out, ref), (out - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("bad", ["channels_in", "channels_out", "kernel", "dtype", "device"])
+def test_conv_int8_kernel_refuses_what_it_does_not_take(cuda, bad):
+    from textocvp_tpu_torch.ops import conv_int8 as ci
+
+    x_q, w_q, a_scale, w_scale, bias = (t.to(cuda) for t in _int8_case(1, 8, 8, 3, 64, 64))
+    if bad == "channels_in":
+        x_q, w_q = x_q[..., :32].contiguous(), w_q[:, :, :32].contiguous()
+    elif bad == "channels_out":
+        w_q, w_scale, bias = w_q[..., :40].contiguous(), w_scale[:40], bias[:40]
+    elif bad == "kernel":
+        w_q = torch.zeros((7, 7, 64, 64), dtype=torch.int8, device=cuda)
+    elif bad == "dtype":
+        x_q = x_q.float()
+    else:
+        w_q = w_q.cpu()
+    before = ci.conv_int8_cuda.launches
+    with pytest.raises((ValueError, TypeError)):
+        ci.conv_int8_cuda(x_q, w_q, a_scale, w_scale, bias)
+    assert ci.conv_int8_cuda.launches == before
+
+
+@pytest.mark.parametrize("m,k,n", [(10, 128, 769), (1154, 768, 2304), (17, 3072, 768)])
+def test_dense_int8_on_the_card_is_the_cpu_product(cuda, m, k, n):
+    from textocvp_tpu_torch.ops.dense_int8 import dense_int8
+
+    g = torch.Generator().manual_seed(m)
+    x, weight, bias = torch.randn((m, k), generator=g), torch.randn((n, k), generator=g), \
+        torch.randn(n, generator=g)
+    a_scale = x.abs().max() / 127
+    ref = dense_int8(x, weight, bias, a_scale)
+    out = dense_int8(x.to(cuda), weight.to(cuda), bias.to(cuda), a_scale.to(cuda))
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_savi_int8_tail_on_the_card_matches_the_cpu(cuda):
+    """The full-width SAVi decoder's int8 tail, on the card and on the CPU,
+    from the same activations and scales: the three int8 convs exact (the
+    kernel against the plain version, the quantizers' IEEE divisions alike on
+    both), the final float32 conv within 1e-4 of the largest output. (Whole
+    decodes differ more: the float first conv rounds differently on the two
+    devices, and an activation within that of a .5 boundary is quantized a
+    quantum apart, a difference the tail then carries on; the quant phase of
+    ``chip_smoke.py`` measures its effect on the metrics.)"""
+    from textocvp_tpu_torch.core.config import build_exp_params
+    from textocvp_tpu_torch.models import setup_model
+    from textocvp_tpu_torch.models.quant import calibrate_decode_scales
+    from textocvp_tpu_torch.ops import conv_int8 as ci
+
+    model = random_init_(setup_model(build_exp_params("SAVi", "CATER_Easy")),
+                         torch.Generator().manual_seed(8)).eval()
+    slots = torch.randn((3, 8, 128), generator=torch.Generator().manual_seed(9))
+    x = torch.rand((6, 64, 64, 64), generator=torch.Generator().manual_seed(10))
+    with torch.no_grad():
+        scales = calibrate_decode_scales(model, slots)
+        ref = model.image_decoder._tail(x, scales)
+        before = ci.conv_int8_cuda.launches, c5.conv5_cuda.launches
+        out = model.cuda().image_decoder._tail(x.cuda(), scales.cuda()).cpu()
+    assert (ci.conv_int8_cuda.launches, c5.conv5_cuda.launches) == (before[0] + 3, before[1])
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_a_quantized_cater_artifact_on_the_card_answers_like_the_live_service(cuda, tmp_path):
+    from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.models import setup_model, setup_predictor
+    from textocvp_tpu_torch.ops import conv_int8 as ci
+    from textocvp_tpu_torch.serve import (
+        ExportedPredictionService,
+        PredictionService,
+        export_service,
+    )
+
+    params = build_exp_params("SAVi", "CATER_Easy")
+    params["tpu"] = {"decode_quant": "int8"}
+    pred_params = add_predictor_params(params, "TextOCVP_T5")
+    pred_params["prediction_params"]["num_preds"] = 3
+    gen = torch.Generator().manual_seed(6)
+    exp, pred = Experiment(tmp_path / "exp"), Experiment(tmp_path / "exp" / "predictors" / "p")
+    for e, p, module in ((exp, params, random_init_(setup_model(params), gen)),
+                         (pred, pred_params, random_init_(setup_predictor(pred_params), gen))):
+        e.save_params(p)
+        e.models_dir.mkdir(parents=True, exist_ok=True)
+        torch.save(module.state_dict(), e.checkpoint_path("m"))
+    service = PredictionService(exp.exp_path, "p", "m", "m", batch_size=2)
+    service.warmup()
+    artifact = ExportedPredictionService(export_service(service, tmp_path / "art"))
+    frames = np.random.default_rng(7).random((2, 1, 64, 64, 3), np.float32)
+    captions = ["the cone is rotating", "the snitch is sliding to (2, 2)"]
+    state = service.generator.get_state()
+    ref = service.predict(frames, captions)
+    artifact.generator.set_state(state)
+    before = sak.slot_attention_cuda.launches, ci.conv_int8_cuda.launches
+    out = artifact.predict(frames, captions)
+    assert (sak.slot_attention_cuda.launches, ci.conv_int8_cuda.launches) == (
+        before[0] + 1, before[1] + 3)
+    np.testing.assert_array_equal(out, ref)

@@ -12,6 +12,7 @@ through ``torch.autograd.Function``s, run here with their plain forwards.
 The CPU paths keep their autograd: they run the plain versions.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import pytest
 import torch
 

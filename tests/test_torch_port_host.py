@@ -2,6 +2,7 @@
 registry, experiment store, video wire formats and tokenizers. These must give
 the same dicts, the same floats bit for bit, and the same token ids."""
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import json
 
 import numpy as np

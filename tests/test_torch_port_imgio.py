@@ -7,6 +7,7 @@ rows cycle through the five filter types; and the files it refuses. Limits:
 none, every comparison is exact.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import io
 import shutil
 

@@ -7,6 +7,7 @@ place of ffmpeg); CLIPort over its PNG episodes; the port's
 every item, cache and batch is compared bit for bit.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import importlib.util
 import json
 from pathlib import Path

@@ -3,6 +3,7 @@ nothing in ``chip_smoke.py``, ``chip_slot_attention_probe.py``,
 ``chip_trace_probe.py`` or ``chip_remat_probe.py`` imports JAX, flax, optax
 or the JAX package."""
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import ast
 import subprocess
 import sys

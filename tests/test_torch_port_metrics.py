@@ -7,6 +7,7 @@ agree to 1e-5 absolute: float32 on both sides, sums and convolutions in
 other orders.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import warnings
 
 import jax.numpy as jnp

@@ -8,6 +8,7 @@ input, so float32 rounding differences compound over the steps and its
 tolerance is rtol 1e-3 / atol 1e-4.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,10 +10,13 @@ rollout feeds each prediction back as input, so float32 rounding differences
 compound over the steps and its tolerance is rtol 1e-3 / atol 1e-4. Also
 here: the factory, the ``Synthetic`` set, the checks that keep a CustomTF
 predictor's embedding lookups in range, and the service's text plumbing.
-The 04 step, 05 and the CLIs of these predictors are in
-``test_torch_port_train_predictors.py``.
+The predictors' single steps against JAX and the rollout against a dynamic
+window are in ``test_torch_port_predictors_step.py``, the rollouts against
+JAX in ``_predictors_rollout.py``; the 04 step, 05 and the CLIs in
+``test_torch_port_train_predictors.py`` and ``_train_predictors_eval.py``.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import os
 import warnings
 
@@ -247,98 +250,6 @@ def test_the_factory_has_the_jax_predictors_and_their_configs():
         setup_predictor(full)  # every published config builds
     for name in ("CATER_Hard", "Synthetic"):
         assert build_exp_params("SAVi", name) == no_tpu(jax_build_exp_params("SAVi", name))
-
-
-# -------------------------------------------------------------- predictors
-
-
-def _window(rng, num_context):
-    """A full buffer of L frames whose first L - num_context are padding."""
-    return rng.standard_normal((B, L, S, D)).astype(np.float32), L - num_context
-
-
-@pytest.mark.parametrize("num_context", [1, 2])
-@pytest.mark.parametrize("name", OTHERS)
-def test_one_step_matches_jax(name, num_context):
-    """One call of the predictor on a buffer with L - c padding frames, with
-    the mask and PE offset the rollout hands it."""
-    rng = np.random.default_rng(40 + num_context)
-    jw, params = jax_predictor(name, num_context, 1)
-    tw = port_predictor(name, num_context, params)
-    buf, pad = _window(rng, num_context)
-    valid = np.arange(L) >= pad
-    ids, lengths = captions()
-
-    def jax_step(mdl, buf):
-        p = mdl.predictor
-        if name == "TextOCVP_CustomTF":
-            kv = p.precompute_text_kv(p.encode_text(**jax_text(ids, lengths)))
-            return p(buf, text_kv=kv, self_mask=jnp.asarray(np.repeat(valid, S))[None, None])
-        if name == "VanillaTransformer":
-            return p(buf, self_mask=jnp.asarray(np.repeat(valid, S))[None, None], pe_offset=pad)
-        return p(buf, time_mask=jnp.asarray(valid)[None, None], pe_offset=pad)
-
-    ref = jw.apply({"params": params}, jnp.asarray(buf), method=jax_step)
-    p = tw.predictor
-    with torch.no_grad():
-        if name == "TextOCVP_CustomTF":
-            kv = p.precompute_text_kv(p.encode_text(**torch_text(ids, lengths)))
-            out = p(torch.from_numpy(buf), kv,
-                    self_mask=torch.from_numpy(np.repeat(valid, S))[None, None])
-        elif name == "VanillaTransformer":
-            out = p(torch.from_numpy(buf), torch.from_numpy(np.repeat(valid, S))[None, None],
-                    pe_offset=pad)
-        else:
-            out = p(torch.from_numpy(buf), torch.from_numpy(valid)[None, None], pe_offset=pad)
-    assert out.shape == (B, S, D)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
-
-
-@pytest.mark.parametrize("num_context", [1, 2])
-@pytest.mark.parametrize("name", OTHERS)
-def test_rollout_matches_jax(name, num_context):
-    """The whole rollout against the JAX ``PredictorWrapper``; every predictor
-    is handed the caption, which the unconditioned ones ignore."""
-    rng = np.random.default_rng(20 + num_context)
-    history = rng.standard_normal((B, num_context, S, D)).astype(np.float32)
-    ids, lengths = captions()
-    jw, params = jax_predictor(name, num_context, 2)
-    ref = jw.apply({"params": params}, jnp.asarray(history), **jax_text(ids, lengths))
-    tw = port_predictor(name, num_context, params)
-    with torch.no_grad():
-        out = tw(torch.from_numpy(history), **torch_text(ids, lengths))
-    assert out.shape == (B, NUM_PREDS, S, D)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-3, atol=1e-4)
-
-
-@pytest.mark.parametrize("num_context", [1, 2])
-@pytest.mark.parametrize("name", OTHERS)
-def test_static_rollout_matches_a_dynamic_window(name, num_context):
-    """The masked ring buffer against a sliding window of only the valid
-    frames (at most L), in the port: each step's window is as long as the
-    frames it has, with no mask and no PE offset."""
-    torch.manual_seed(num_context)
-    tw = setup_predictor(tiny_params(build_exp_params, add_predictor_params, name,
-                                     num_context)).eval()
-    for p in tw.parameters():  # away from the init, as a trained predictor is
-        p.data.add_(0.05 * torch.randn_like(p))
-    hist = torch.randn(B, num_context, S, D)
-    ids, lengths = captions()
-    text = torch_text(ids, lengths)
-    preds = 5
-    with torch.no_grad():
-        out = tw(hist, num_preds=preds, **text)
-        p = tw.predictor
-        kv = (p.precompute_text_kv(p.encode_text(**text))
-              if name == "TextOCVP_CustomTF" else None)
-        window, manual = list(hist.unbind(1)), []
-        for _ in range(preds):
-            x = torch.stack(window, dim=1)
-            cur = p(x, kv) if kv is not None else p(x)
-            manual.append(cur)
-            window = (window + [cur])[-L:]
-    assert out.shape == (B, preds, S, D)
-    torch.testing.assert_close(out, torch.stack(manual, dim=1), rtol=3e-5, atol=3e-5)
 
 
 @pytest.mark.parametrize("size", ["tiny", "full_width"])

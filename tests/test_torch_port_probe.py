@@ -7,6 +7,7 @@ an edit of the kernel that moves one of those places fails here, not on the
 card.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import sys
 from pathlib import Path
 

@@ -6,6 +6,7 @@ slots and the port is handed them. Tolerances rtol 1e-4 / atol 1e-5 unless a
 test says otherwise: float32 on both sides, sums in different orders.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

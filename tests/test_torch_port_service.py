@@ -10,6 +10,7 @@ initializer, so no random draw differs between the two. Both sides tokenize
 with the hash fallback.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import io
 import json
 import os

@@ -7,6 +7,7 @@ inputs. Tolerance rtol 1e-4 / atol 1e-5: float32 on both sides, sums taken in
 different orders.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

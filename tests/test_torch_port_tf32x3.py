@@ -27,6 +27,7 @@ further from the plain versions (within their limits; ``chip_smoke.py`` and
 ``tests/test_torch_port_gpu.py`` measure that).
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import math
 
 import numpy as np

@@ -34,6 +34,7 @@ running statistics, the 04 step through the frozen model against the JAX
   to that: |g| within 1e-5 of the largest |g| on both sides.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ emergency flush, and ``tpu.remat``.
   ``test_torch_port_train_savi.py`` holds the step without remat.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import json
 
 import jax

@@ -17,6 +17,7 @@ the JAX package.
   naive broadcast's, the Functions' bookkeeping.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import sys
 from pathlib import Path
 

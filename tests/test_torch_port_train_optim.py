@@ -8,6 +8,7 @@ the port in float64); the optimizer's parameters after five updates rtol
 values near 0); losses rtol 1e-6.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import jax.numpy as jnp
 import numpy as np
 import optax

@@ -23,6 +23,7 @@ and the service, and the 04 CLI end to end on a tiny experiment.
   3 predictions, one of 10 keeps masked padding.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import json
 
 import jax

@@ -1,5 +1,4 @@
-"""The 04 step, the 05 evaluator, the service and the 04 / 05 CLIs of the
-port's four other predictors (VanillaTransformer, OCVPSeq, OCVPPar,
+"""The 04 step of the port's four other predictors (VanillaTransformer, OCVPSeq, OCVPPar,
 TextOCVP_CustomTF) on the CPU, against the JAX package.
 
 * The 04 step: the tiny SAVi of ``test_torch_port_train_savi.py`` (16 px, 4
@@ -17,18 +16,14 @@ TextOCVP_CustomTF) on the CPU, against the JAX package.
   normalizes their noise into moves of up to lr a step either way (OCVPPar's
   object attention's came out more than 1e-7 apart), so they are held to
   2 lr a step.
-* 05 and the service: one tiny experiment with both packages' checkpoints of
-  the same weights, SAVi's ``Learned`` initializer (no random draw differs),
-  CustomTokenizer captions; ``results.json`` (five decimals on both sides)
-  within one unit of its fifth decimal, as ``test_torch_port_cliport.py``;
-  served frames within one uint8 level.
-* The 04 CLI, its 05 CLI on the checkpoint: OCVPSeq over the CATER fixture,
-  TextOCVP_CustomTF over the ``Synthetic`` set with its CustomTokenizer.
+
+(The 05 evaluator and the service of these predictors:
+``test_torch_port_train_predictors_eval.py``; the 04 / 05 CLIs:
+``_train_predictors_cli.py``.)
 """
 
-import json
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import os
-import warnings
 
 os.environ.setdefault("HF_HUB_OFFLINE", "1")
 os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
@@ -39,32 +34,19 @@ import numpy as np  # noqa: E402
 import optax  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
-from test_torch_port_cliport import TOL  # noqa: E402
-from test_torch_port_evaluator import write_cater_npy  # noqa: E402
 from test_torch_port_predictors import OTHERS, captions, tiny_params  # noqa: E402
-from test_torch_port_train_predictor import (  # noqa: E402
-    TRAINING,
-    _decomp_experiment,
-    _perturb,
-    jax_loss_fn,
-)
+from test_torch_port_train_predictor import TRAINING, _perturb, jax_loss_fn  # noqa: E402
 from test_torch_port_train_savi import _jax_noise, tiny_savi_params  # noqa: E402
 
 from textocvp_tpu.core.config import add_predictor_params as jax_add_predictor_params  # noqa: E402
 from textocvp_tpu.core.config import build_exp_params as jax_build_exp_params  # noqa: E402
 from textocvp_tpu.models import setup_model as jax_setup_model  # noqa: E402
 from textocvp_tpu.models import setup_predictor as jax_setup_predictor  # noqa: E402
-from textocvp_tpu.serve import PredictionService as JaxPredictionService  # noqa: E402
-from textocvp_tpu.train.checkpoints import save_checkpoint as jax_save_checkpoint  # noqa: E402
-from textocvp_tpu.train.evaluator import PredictorEvaluator as JaxPredictorEvaluator  # noqa: E402
 from textocvp_tpu.train.schedulers import build_optimizer as jax_build_optimizer  # noqa: E402
-from textocvp_tpu_torch.cli import evaluate_predictor, train_predictor  # noqa: E402
 from textocvp_tpu_torch.convert import from_jax_params  # noqa: E402
 from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params  # noqa: E402
 from textocvp_tpu_torch.core.experiment import Experiment  # noqa: E402
-from textocvp_tpu_torch.serve import PredictionService  # noqa: E402
 from textocvp_tpu_torch.train.checkpoints import save_checkpoint  # noqa: E402
-from textocvp_tpu_torch.train.evaluator import PredictorEvaluator  # noqa: E402
 from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer  # noqa: E402
 
 B, C, P, RES, S, D = 2, 1, 3, 16, 4, 32
@@ -201,126 +183,3 @@ def test_two_updates_match_optax(decomp_case, name, tmp_path):
     assert tr.optimizer.count == 2
     for pname, before in frozen.items():
         assert torch.equal(tr.decomp_model.state_dict()[pname], before), pname
-
-
-# ------------------------------------------------------- 05 and the service
-
-
-CUSTOM = ("OCVPSeq", "TextOCVP_CustomTF")
-
-
-@pytest.fixture(scope="module")
-def custom_exp(tmp_path_factory):
-    """One tiny SAVi experiment over a CATER .npy fixture whose dataset reads
-    the CustomTokenizer, with an OCVPSeq and a TextOCVP_CustomTF predictor
-    experiment: both packages' checkpoints of the same weights."""
-    from test_torch_port_evaluator import _tiny_params
-
-    root = tmp_path_factory.mktemp("custom_eval")
-    params, _ = _tiny_params(write_cater_npy(root / "CATER"))
-    params["dataset"]["tokenizer"] = "CustomTokenizer"
-    parent = Experiment(root / "exp")
-    parent.save_params(params)
-    rng = np.random.default_rng(33)
-    mvars = jax_setup_model(params).init({"params": jax.random.PRNGKey(0)},
-                                         jnp.zeros((1, 1, RES, RES, 3)), decode=True)
-    mparams = _perturb(jax.device_get(mvars["params"]), rng)
-    jax_save_checkpoint(parent.models_dir, "ckpt", {"params": mparams})
-    torch.save(from_jax_params("savi", mparams), parent.checkpoint_path("ckpt"))
-    tokens, lengths = captions()
-    for name in CUSTOM:
-        pp = tiny_params(build_exp_params, add_predictor_params, name, base=params)
-        pred = Experiment(parent.exp_path / "predictors" / name)
-        pred.save_params(pp)
-        pvars = jax_setup_predictor(pp).init(
-            {"params": jax.random.PRNGKey(1)}, jnp.zeros((1, 1, S, D)),
-            caption_tokens=jnp.asarray(tokens[:1]), caption_lengths=jnp.asarray(lengths[:1]))
-        pparams = _perturb(jax.device_get(pvars["params"]), rng)
-        jax_save_checkpoint(pred.models_dir, "ckpt", {"params": pparams})
-        torch.save(from_jax_params("predictor", pparams), pred.checkpoint_path("ckpt"))
-    return parent.exp_path
-
-
-@pytest.mark.parametrize("name", CUSTOM)
-def test_evaluator_matches_jax(custom_exp, name):
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        ref_ev = JaxPredictorEvaluator(custom_exp, name, "ckpt", "ckpt", num_seed=1,
-                                       num_preds=P, results_name="jax")
-        ref_ev.load_data()
-        videos, others = next(iter(ref_ev.test_loader))
-        ref_ev.load_models(videos, others)
-        ref = ref_ev.evaluate()
-        ev = PredictorEvaluator(custom_exp, name, "ckpt", "ckpt", num_seed=1, num_preds=P,
-                                results_name="torch", device="cpu")
-    ev.load_data()
-    _, info = next(iter(ev.test_loader))
-    assert info["attn_masks"] is None and info["caption_lengths"].shape == (B,)
-    ev.load_models()
-    out = ev.evaluate()
-    assert set(out) == set(ref) == {"psnr", "ssim", "lpips"}
-    for m in ("psnr", "ssim", "lpips"):
-        assert len(out[m]["framewise"]) == P
-        got = np.asarray(out[m]["framewise"] + [out[m]["mean"]])
-        want = np.asarray(ref[m]["framewise"] + [ref[m]["mean"]])
-        assert np.abs(got - want).max() <= TOL + 1e-12, (m, got, want)
-
-
-def test_custom_tf_service_matches_the_jax_chain(custom_exp):
-    name = "TextOCVP_CustomTF"
-    frames = np.random.default_rng(2).uniform(0, 1, (B, 1, RES, RES, 3)).astype(np.float32)
-    texts = ["the cone is sliding to (1, -2)", "the snitch is rotating"]
-    service = PredictionService(custom_exp, name, "ckpt", "ckpt", batch_size=B, max_tokens=16,
-                                device="cpu")
-    jax_service = JaxPredictionService(custom_exp, name, "ckpt", "ckpt", batch_size=B,
-                                       max_tokens=16)
-    ours, theirs = service._tokenize(texts), jax_service._tokenize(texts)
-    assert set(ours) == set(theirs) == {"caption_tokens", "caption_lengths"}
-    for key in ours:
-        np.testing.assert_array_equal(ours[key], theirs[key])
-    ref = jax_service.predict(frames, texts)
-    out = service.predict(frames, texts)
-    assert out.shape == ref.shape == (B, P, RES, RES, 3)
-    # uint8 outputs within one level on every pixel (rounding at a .5 boundary)
-    levels = np.abs(np.rint(out * 255).astype(int) - np.rint(ref * 255).astype(int))
-    assert levels.max() <= 1, levels.max()
-
-
-# ----------------------------------------------------- the CLIs end to end, CPU
-
-
-@pytest.fixture(scope="module")
-def decomp_exp(tmp_path_factory):
-    return _decomp_experiment(tmp_path_factory.mktemp("preds_cli"))
-
-
-@pytest.mark.parametrize("name", CUSTOM)
-def test_04_cli_trains_and_05_evaluates_its_checkpoint(decomp_exp, name, capsys):
-    """04 and 05 of OCVPSeq over the CATER fixture, of TextOCVP_CustomTF over
-    the Synthetic set with its CustomTokenizer, through the tiny SAVi."""
-    p = tiny_params(build_exp_params, add_predictor_params, name, base=decomp_exp.params)
-    if name == "TextOCVP_CustomTF":
-        p["dataset"] = {**build_exp_params("SAVi", "Synthetic")["dataset"], "img_size": [RES, RES],
-                        "num_train_seqs": 6, "num_eval_seqs": 3, "total_frames": 8}
-    p["training"].update({"num_epochs": 1, "batch_size": B, "save_frequency": 1,
-                          "log_frequency": 1, "lr": 1e-3, "warmup_steps": 2})
-    pred = Experiment(decomp_exp.exp_path / "predictors" / name)
-    pred.save_params(p)
-    trainer = train_predictor.main(["-d", str(decomp_exp.exp_path), "--name_pred_exp", name,
-                                    "--decomp_ckpt", "checkpoint_epoch_final", "--device", "cpu"])
-    out = capsys.readouterr().out
-    losses = [float(line.split("loss=")[1]) for line in out.splitlines() if "loss=" in line]
-    steps = 4 if name == "OCVPSeq" else 3  # 7 CATER videos or 6 Synthetic ones, batches of 2
-    assert len(losses) == steps and np.isfinite(losses).all()
-    assert trainer.optimizer.count == steps
-    assert {q.name for q in pred.models_dir.iterdir()} == {
-        "checkpoint_last_saved.pt", "checkpoint_epoch_1.pt", "checkpoint_epoch_final.pt"}
-    evaluate_predictor.main(["-d", str(decomp_exp.exp_path), "--name_pred_exp", name,
-                             "--decomp_ckpt", "checkpoint_epoch_final", "--pred_ckpt",
-                             "checkpoint_epoch_final", "--num_seed", "1", "--num_preds",
-                             str(P), "--batch_size", "2", "--device", "cpu"])
-    res = pred.exp_path / "results" / f"eval_pred_checkpoint_epoch_final_NumSeed=1_NumPreds={P}"
-    results = json.load(open(res / "results.json"))
-    for m in ("psnr", "ssim", "lpips"):
-        assert len(results[m]["framewise"]) == P
-        assert np.isfinite(results[m]["framewise"] + [results[m]["mean"]]).all(), m

@@ -19,6 +19,7 @@ experiment.
   total and in every top-level module.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import json
 
 import jax

@@ -9,6 +9,7 @@ tree conversion) on the same numpy frames; tolerance rtol 1e-4 / atol 1e-5,
 float32 on both sides with sums in other orders.
 """
 
+import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,7 +2,12 @@
 
     python -m textocvp_tpu_torch.cli.serve -d EXP --name_pred_exp P \\
         --decomp_ckpt C --pred_ckpt C [--dynamic_batch_ms 20 [--pipeline_depth 2]] \\
-        [--device cuda]
+        [--device cuda] [--export DIR]
+
+``--export DIR`` writes a serving artifact (``serve/export.py``) into DIR
+instead of serving; a quantized service (``tpu.decode_quant`` /
+``tpu.encode_quant``) is warmed up first, which calibrates it on noise
+frames (``PredictionService.calibrate`` takes real ones).
 
 Checkpoints are ``models/<ckpt>.pt`` (training checkpoints or bare state
 dicts) in the decomposition experiment (``-d``) and in its predictor
@@ -42,6 +47,10 @@ def serve_args(argv=None):
                              "packs batch N+1 while N runs on-device "
                              "(lower p95), 1 dispatches serially")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    parser.add_argument("--export", default=None, metavar="DIR",
+                        help="instead of serving, write the service's two stages "
+                             "(torch.export, weights inside) and a manifest to DIR: "
+                             "deployable without model code or checkpoints")
     args = parser.parse_args(argv)
     args.exp_directory = resolve_exp_dir(args.exp_directory)
     return args
@@ -58,6 +67,14 @@ def main(argv=None):
         num_seed=args.num_seed, num_preds=args.num_preds,
         batch_size=args.batch_size, max_tokens=args.max_tokens,
         wire_dtype=args.wire_dtype, device=args.device)
+    if args.export:
+        from textocvp_tpu_torch.serve.export import export_service
+
+        if service._quant_mode or service._encode_quant_mode:
+            service.warmup()  # the artifact keeps the scales: calibrate first
+        out = export_service(service, args.export)
+        print(f"exported serving artifact to {out}")
+        return 0
     httpd = serve(service, host=args.host, port=args.port,
                   dynamic_batch_ms=args.dynamic_batch_ms, pipeline_depth=args.pipeline_depth)
     try:

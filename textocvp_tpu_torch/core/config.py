@@ -76,6 +76,22 @@ DEFAULTS = {
     },
 }
 
+# The runtime knobs under "tpu" in an experiment_params.json that the port
+# reads (the JAX package's names; absent or null means off): "remat"
+# (train/trainer.py), "async_checkpoint" (train/checkpoints.py),
+# "decode_quant" and "encode_quant" ("int8", models/quant.py). The JAX
+# package's other knobs there (compute_dtype, use_pallas, mesh_axes, ...) are
+# XLA settings the port ignores.
+TPU_KEYS = ("remat", "async_checkpoint", "decode_quant", "encode_quant")
+
+
+def tpu_option(exp_params: dict, key: str):
+    """The value of ``tpu.<key>`` in ``exp_params``, None when absent."""
+    if key not in TPU_KEYS:
+        raise KeyError(f"unknown tpu option {key!r}; the port reads {sorted(TPU_KEYS)}")
+    return (exp_params.get("tpu") or {}).get(key)
+
+
 _KINDS = ("datasets", "models", "predictors")
 
 

@@ -58,31 +58,48 @@ class ExtendedDINOSAUR(nn.Module):
         self.patch_decoder = get_decoder(dec, slot_dim)
         self.slot_attention = SlotAttention(slot_dim, slot_dim, num_slots, mlp_hidden)
 
-    def decode(self, slots):
+    def decode(self, slots, quant_scales=None):
         """Slots (N, S, D) -> dict of recons_feats (N, P, F), masks
         (N, S, 1, gh, gw) and recons_imgs (N, H, W, 3), or None when the
-        decoder reconstructs features only."""
-        return self.patch_decoder(slots)
+        decoder reconstructs features only. ``quant_scales`` runs the patch
+        denses and the BatchNorm-folded CNN-head convs in int8
+        (``tpu.decode_quant``; :meth:`decode_calibrate`, ``models/quant.py``)."""
+        return self.patch_decoder(slots, quant_scales=quant_scales)
 
-    def frozen_features(self, x):
-        """The frozen ViT's features (B * T, P, F) of video (B, T, H, W, C),
-        under ``torch.no_grad()``: out of the autograd graph."""
+    def decode_calibrate(self, slots):
+        """The (L,) input amaxes of the decoder's denses, then of its CNN-head
+        convs, on slots (N, S, D) on the float path: divided by 127 they are
+        :meth:`decode`'s ``quant_scales``."""
+        return self.patch_decoder(slots, calibrate=True)
+
+    def encode_calibrate(self, x):
+        """The (depth, 4) input amaxes of every ViT block's qkv, proj, fc1 and
+        fc2 on video (B, T, H, W, C), on the float path: divided by 127 they
+        are :meth:`decompose`'s ``encode_quant_scales`` (``tpu.encode_quant``)."""
         with torch.no_grad():
-            return self.image_encoder(x.reshape(-1, *x.shape[2:]))
+            return self.image_encoder(x.reshape(-1, *x.shape[2:]), calibrate=True)[1]
+
+    def frozen_features(self, x, quant_scales=None):
+        """The frozen ViT's features (B * T, P, F) of video (B, T, H, W, C),
+        under ``torch.no_grad()``: out of the autograd graph. ``quant_scales``
+        (depth, 4) runs its denses in int8."""
+        with torch.no_grad():
+            return self.image_encoder(x.reshape(-1, *x.shape[2:]), quant_scales=quant_scales)
 
     def decompose(self, x, initial_slots=None, generator: Optional[torch.Generator] = None,
-                  img_feats=None):
+                  img_feats=None, encode_quant_scales=None):
         """Video (B, T, H, W, C) -> dict of slot_history (B, T, S, D),
         attn_masks (B, T, S, P) and encoded_img_feats (B, T, P, F) (the JAX
         ``decompose(..., decode=False)``).
 
         The initial slots are ``initial_slots`` when given, else drawn by the
         slot initializer with ``generator``. ``img_feats`` are the ViT's
-        features of ``x`` (:meth:`frozen_features`) when the caller has them.
+        features of ``x`` (:meth:`frozen_features`) when the caller has them;
+        else the ViT runs, its denses in int8 with ``encode_quant_scales``.
         """
         b, t = x.shape[:2]
         if img_feats is None:
-            img_feats = self.frozen_features(x)
+            img_feats = self.frozen_features(x, encode_quant_scales)
         k, v = self.slot_attention.project_inputs(self.feat_proj_mlp(self.feat_proj_ln(img_feats)))
         k = k.reshape(b, t, *k.shape[1:])
         v = v.reshape(b, t, *v.shape[1:])

@@ -62,19 +62,30 @@ class SAVi(nn.Module):
         n, h, w, f = x.shape
         return self.encoder_mlp(self.encoder_ln(x.reshape(n, h * w, f)))
 
-    def decode(self, slots, fast: bool = True):
+    def decode(self, slots, fast: bool = True, quant_scales=None):
         """Slots (N, S, D) -> dict of recons_imgs (N, H, W, C), recons
         (N, S, H, W, C) and masks (N, S, H, W, 1); the softmax over slots runs
         in float32. ``fast=False`` runs the naive broadcast, the reference the
-        tests hold the fast path against."""
+        tests hold the fast path against. ``quant_scales`` runs the decoder's
+        hidden tail convs in int8 (``tpu.decode_quant``; needs the fast path;
+        :meth:`decode_calibrate`, ``models/quant.py``)."""
         n, s, d = slots.shape
         y = self.image_decoder.decode_broadcast(
-            slots.reshape(n * s, d), self.decoder_pos_embedding.pos_map(), fast=fast)
+            slots.reshape(n * s, d), self.decoder_pos_embedding.pos_map(), fast=fast,
+            quant_scales=quant_scales)
         y = y.permute(0, 2, 3, 1)
         y = y.reshape(n, s, *y.shape[1:])
         recons, logits = y[..., : self.in_channels], y[..., self.in_channels:]
         masks = torch.softmax(logits.float(), dim=1).to(y.dtype)
         return {"recons_imgs": (recons * masks).sum(1), "recons": recons, "masks": masks}
+
+    def decode_calibrate(self, slots):
+        """The (L,) input amaxes of the decoder's hidden tail convs on slots
+        (N, S, D), on the float fast path: divided by 127 they are
+        :meth:`decode`'s ``quant_scales`` (``models/quant.py``)."""
+        n, s, d = slots.shape
+        return self.image_decoder.decode_broadcast(
+            slots.reshape(n * s, d), self.decoder_pos_embedding.pos_map(), calibrate=True)
 
     def decompose(self, x, initial_slots=None, generator: Optional[torch.Generator] = None):
         """Video (B, T, H, W, C) -> dict of slot_history (B, T, S, D) and

@@ -6,6 +6,15 @@ for the ``ConvDecoder`` tail, which runs NHWC.
 ``ConvDecoder``: ``blocks[j]`` is the j-th conv applied; the JAX package
 names it ``ConvBlock_j`` (``hidden_dims`` is walked from its end), so
 ``blocks[0]`` maps ``slot_dim`` to ``hidden_dims[-1]`` channels.
+
+The opt-in int8 decode (``tpu.decode_quant``, ``models/quant.py``): with
+``quant_scales`` (one calibrated activation scale a quantized layer) the
+ConvDecoder's tail convs before the final one, and the MLP patch decoder's
+denses and BatchNorm-folded CNN-head convs, run in int8
+(``ops/conv_int8.py``, ``ops/dense_int8.py``), weights quantized per output
+channel at each call from the float weights, as the JAX package does; the
+final conv stays float32. ``calibrate=True`` returns the (L,) input amaxes of
+those layers on the float path instead.
 """
 
 from __future__ import annotations
@@ -18,6 +27,16 @@ from torch import nn
 
 from textocvp_tpu_torch.nn.blocks import ConvBlock, upsample_bilinear, upsample_nearest
 from textocvp_tpu_torch.ops.conv5 import KERNEL_SIZE, conv5
+from textocvp_tpu_torch.ops.conv_int8 import quantized_conv
+from textocvp_tpu_torch.ops.dense_int8 import dense_int8
+
+
+def check_quant_scales(quant_scales, expected: int, needs: str):
+    """The JAX package's check of a calibrated scale vector's length:
+    ``needs`` says what this decoder has."""
+    if quant_scales.shape[0] != expected:
+        raise ValueError(f"quant_scales has {quant_scales.shape[0]} entries but this {needs} "
+                         "— recalibrate for this decoder config")
 
 
 class ConvDecoder(nn.Module):
@@ -47,6 +66,9 @@ class ConvDecoder(nn.Module):
         """(HWIO weight, bias) of each tail block, detached; converted again
         only when a parameter changed (load_state_dict) or moved (``to``)."""
         convs = [block.conv for block in self.blocks[1:]]
+        if torch.compiler.is_compiling():
+            # traced (torch.export): the conversion goes into the graph
+            return [(c.weight.permute(2, 3, 1, 0).contiguous(), c.bias) for c in convs]
         key = tuple((c.weight.data_ptr(), c.weight._version, c.bias.data_ptr(), c.bias._version)
                     for c in convs)
         if self._hwio[0] != key:
@@ -56,26 +78,40 @@ class ConvDecoder(nn.Module):
             self._hwio = (key, weights)
         return self._hwio[1]
 
-    def _tail(self, x):
+    def _tail(self, x, quant_scales=None):
         """NHWC activations after ``blocks[0]`` -> the tail blocks through
-        conv5 -> the final 3x3 conv; NCHW-shaped out (channels_last memory).
-        With grad enabled and a tail parameter that requires grad, the HWIO
-        weights are converted at this call with their autograd history, so
-        the tail's gradients reach its parameters."""
+        conv5 (through the int8 conv with ``quant_scales``) -> the final 3x3
+        conv; NCHW-shaped out (channels_last memory). With grad enabled and a
+        tail parameter that requires grad, the HWIO weights are converted at
+        this call with their autograd history, so the tail's gradients reach
+        its parameters."""
         convs = [block.conv for block in self.blocks[1:]]
         if torch.is_grad_enabled() and any(p.requires_grad for c in convs for p in c.parameters()):
             weights = [(c.weight.permute(2, 3, 1, 0).contiguous(), c.bias) for c in convs]
         else:
             weights = self._tail_weights()
-        for block, (w, b) in zip(self.blocks[1:], weights):
-            x = conv5(x, w, b, relu=block.activation)
+        for j, (block, (w, b)) in enumerate(zip(self.blocks[1:], weights)):
+            if quant_scales is None:
+                x = conv5(x, w, b, relu=block.activation)
+            else:
+                x = quantized_conv(x, w, b, quant_scales[j], relu=block.activation)
         return self.final_conv(x.permute(0, 3, 1, 2))
+
+    def _tail_amaxes(self, x):
+        """The (L,) input amaxes of the tail convs before the final one, on
+        the float path (the JAX ``_tail_amaxes``)."""
+        amaxes = []
+        for block, (w, b) in zip(self.blocks[1:], self._tail_weights()):
+            amaxes.append(x.abs().amax())
+            x = conv5(x, w, b, relu=block.activation)
+        return torch.stack(amaxes)
 
     def forward(self, x):
         y = self.blocks[0](x.contiguous(memory_format=torch.channels_last))
         return self._tail(y.permute(0, 2, 3, 1).contiguous())
 
-    def decode_broadcast(self, slots, pos_map, fast: bool = True):
+    def decode_broadcast(self, slots, pos_map, fast: bool = True, quant_scales=None,
+                         calibrate: bool = False):
         """``forward(tile(slots) + pos_map)``, NCHW-shaped out.
 
         slots (N, D); pos_map (H, W, D). By linearity of the first conv,
@@ -86,6 +122,10 @@ class ConvDecoder(nn.Module):
         everywhere inside. Exact up to float reassociation. The expanded map
         is written NHWC, the tail's layout, with no further copy. ``fast=False``
         (or a stride other than 1, or a map smaller than the tile) broadcasts.
+
+        ``quant_scales`` ((L,), L the tail convs before the final one) runs
+        those convs in int8; ``calibrate`` returns their input amaxes. Both
+        need the fast path, as in the JAX package.
         """
         h, w, d = pos_map.shape
         n = slots.shape[0]
@@ -93,6 +133,11 @@ class ConvDecoder(nn.Module):
         small = 4 * pad + 1
         pos = pos_map.permute(2, 0, 1)[None]  # (1, D, H, W)
         if not fast or self.stride != 1 or h < small or w < small:
+            if quant_scales is not None or calibrate:
+                raise ValueError(
+                    "int8 decode quantization requires the fast-broadcast decode structure "
+                    f"(stride 1, no batch norm, resolution >= {small}px); this decoder falls "
+                    "back to the generic path. Unset tpu.decode_quant for this experiment.")
             return self(slots[:, :, None, None] + pos)
 
         conv1 = self.blocks[0].conv
@@ -109,7 +154,12 @@ class ConvDecoder(nn.Module):
         x.add_(y_pos)
         if self.blocks[0].activation:
             x.relu_()
-        return self._tail(x)
+        if calibrate:
+            return self._tail_amaxes(x)
+        if quant_scales is not None:
+            check_quant_scales(quant_scales, len(self.blocks) - 1,
+                               f"ConvDecoder has {len(self.blocks) - 1} hidden tail convs")
+        return self._tail(x, quant_scales)
 
 
 class MLPPatchDecoder(nn.Module):
@@ -164,21 +214,51 @@ class MLPPatchDecoder(nn.Module):
                 current *= 2
         return plan
 
-    def forward(self, slots):
+    def num_quant_layers(self) -> int:
+        """The layers of the int8 decode: the denses, then the CNN-head blocks."""
+        return len(self.mlps) + (len(self.cnns) if self.cnns is not None else 0)
+
+    def forward(self, slots, quant_scales=None, calibrate: bool = False):
         """slots (B, S, in_dim) -> dict of recons_feats (B, P, out_dim - 1),
-        masks (B, S, 1, gh, gw) and recons_imgs (B, H, W, 3) or None."""
-        out = self.mix(slots)
+        masks (B, S, 1, gh, gw) and recons_imgs (B, H, W, 3) or None.
+
+        ``quant_scales`` ((L,), :meth:`num_quant_layers`) runs the denses and
+        the BatchNorm-folded CNN-head convs in int8 (running statistics); the
+        final RGB conv stays float32. ``calibrate`` returns the (L,) input
+        amaxes of those layers on the float path instead."""
+        n_mlp = len(self.mlps)
+        if quant_scales is not None:
+            cnn = self.num_quant_layers() - n_mlp
+            check_quant_scales(quant_scales, self.num_quant_layers(),
+                               f"MLPPatchDecoder needs {self.num_quant_layers()} "
+                               f"({n_mlp} MLP + {cnn} CNN)")
+        amaxes = [] if calibrate else None
+        out = self.mix(slots, None if quant_scales is None else quant_scales[:n_mlp], amaxes)
+        if quant_scales is not None:
+            return {"recons_imgs": self.render_int8(out["recons_feats"], quant_scales[n_mlp:]),
+                    **out}
+        if calibrate:
+            if self.cnns is not None:
+                self.render(out["recons_feats"], amaxes)
+            return torch.stack(amaxes)
         return {"recons_imgs": self.render(out["recons_feats"]), **out}
 
-    def mix(self, slots):
+    def mix(self, slots, quant_scales=None, amaxes=None):
         """The per-frame part: slots (B, S, in_dim) -> dict of recons_feats
-        (B, P, out_dim - 1) and masks (B, S, 1, gh, gw)."""
+        (B, P, out_dim - 1) and masks (B, S, 1, gh, gw). The denses in int8
+        with ``quant_scales``; each dense's input amax appended to ``amaxes``
+        when given."""
         b, s, _ = slots.shape
         x = slots[:, :, None, :] + self.pos_embed
         if self.initial_ln is not None:
             x = self.initial_ln(x)
         for i, dense in enumerate(self.mlps):
-            x = dense(x)
+            if amaxes is not None:
+                amaxes.append(x.abs().amax())
+            if quant_scales is None:
+                x = dense(x)
+            else:
+                x = dense_int8(x, dense.weight, dense.bias, quant_scales[i])
             if i < len(self.mlps) - 1:
                 x = F.relu(x)
         feats, alpha = x[..., :-1], x[..., -1:]
@@ -186,16 +266,39 @@ class MLPPatchDecoder(nn.Module):
         return {"recons_feats": (feats * alpha).sum(1),
                 "masks": alpha.reshape(b, s, 1, self.grid, self.grid)}
 
-    def render(self, recons_feats):
+    def render(self, recons_feats, amaxes=None):
         """The CNN head, whose BatchNorm normalizes over all B frames:
         recons_feats (B, P, out_dim - 1) -> recons_imgs (B, H, W, 3), or None
-        without ``reconstruct_images``."""
+        without ``reconstruct_images``. Each block's input amax appended to
+        ``amaxes`` when given."""
         if self.cnns is None:
             return None
         y = recons_feats
-        for stage in self.render_stages():
+        for i, stage in enumerate(self.render_stages()):
+            if amaxes is not None and i < len(self.cnns):
+                # block i's input: the grid, or the last block's upsampled output
+                # (the upsampling copies values, so the amax is before it)
+                amaxes.append(y.abs().amax())
             y = stage(y)
         return y
+
+    def render_int8(self, recons_feats, quant_scales):
+        """The CNN head of the int8 decode, NHWC: each block's conv with its
+        BatchNorm folded into the conv's affine (``fold_bn``) through the
+        int8 conv with its ReLU, the x2 upsamplings of :meth:`cnn_plan`, then
+        the float32 final conv and the resize -> recons_imgs (B, H, W, 3)."""
+        if self.cnns is None:
+            return None
+        x = recons_feats.reshape(recons_feats.shape[0], self.grid, self.grid, -1)
+        for block, (_, grow), a_scale in zip(self.cnns, self.cnn_plan(), quant_scales):
+            w, b = fold_bn(block)
+            x = quantized_conv(x, w, b, a_scale, relu=True)
+            if grow:
+                x = upsample_nearest(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+        y = self.cnn_final(x.permute(0, 3, 1, 2))
+        if y.shape[-1] != self.img_size:
+            y = upsample_bilinear(y, (self.img_size, self.img_size))
+        return y.permute(0, 2, 3, 1)
 
     def render_stages(self) -> list:
         """The CNN head as a chain of functions, cut after each block's ReLU
@@ -220,6 +323,17 @@ class MLPPatchDecoder(nn.Module):
             return run
 
         return [stage(i) for i in range(len(self.cnns) + 1)]
+
+
+def fold_bn(block: ConvBlock):
+    """A ConvBlock's conv and its BatchNorm's running statistics folded into
+    one affine, exact given the statistics (the JAX ``_fold_bn``): HWIO
+    kernel * s and (bias - mean) * s + beta, s = gamma / sqrt(var + eps)."""
+    bn = block.bn
+    s = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+    kernel = block.conv.weight.float().permute(2, 3, 1, 0) * s
+    bias = (block.conv.bias.float() - bn.running_mean.float()) * s + bn.bias.float()
+    return kernel, bias
 
 
 def get_decoder(decoder: dict, in_channels: int):

@@ -41,11 +41,15 @@ class TransformerTextEncoder(nn.Module):
     def check_ids(self, text):
         """Raise ``ValueError`` for a caption longer than ``context_length`` or
         an id outside ``[0, vocab_size)``: the ids of another tokenizer (T5's
-        reach 32,127) or a vocabulary larger than the table."""
+        reach 32,127) or a vocabulary larger than the table. Traced for a
+        serving artifact (``serve/export.py``) only the length is checked: the
+        ids are data there."""
         if text.shape[1] > self.context_length:
             raise ValueError(
                 f"caption of {text.shape[1]} tokens exceeds the text encoder's "
                 f"context_length={self.context_length}")
+        if torch.compiler.is_compiling():
+            return
         lo, hi = (int(v) for v in torch.aminmax(text))
         if lo < 0 or hi >= self.vocab_size:
             raise ValueError(

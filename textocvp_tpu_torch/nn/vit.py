@@ -15,8 +15,12 @@ As the JAX module, and the wrapper it follows:
 The attention core is :func:`textocvp_tpu_torch.ops.vit_attention.vit_attention`:
 the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor. The
 dense layers are plain GEMMs (``F.linear``), as the JAX package leaves them to
-XLA, and the patch embedding is ``F.conv2d``. The JAX package's int8 path is
-not ported.
+XLA, and the patch embedding is ``F.conv2d``. The opt-in int8 encode
+(``tpu.encode_quant``, ``models/quant.py``): with ``quant_scales`` (depth, 4)
+each block's four denses, in ``ViTBlock.DENSES`` order, run through
+``ops/dense_int8.py`` (the JAX ``_dense_int8``); the attention core stays the
+float kernel. ``calibrate=True`` returns the denses' input amaxes with the
+features.
 
 :func:`import_timm_state_dict` turns a timm ``VisionTransformer`` state dict
 into the JAX package's ViT params tree (numpy, resampling ``pos_embed`` to the
@@ -33,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from textocvp_tpu_torch.ops.dense_int8 import dense_int8
 from textocvp_tpu_torch.ops.vit_attention import vit_attention
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -52,6 +57,10 @@ VIT_CONFIGS = {
 
 
 class ViTBlock(nn.Module):
+    #: the dense layers in execution order: the order of a block's int8
+    #: scales and calibration amaxes
+    DENSES = ("qkv", "proj", "fc1", "fc2")
+
     def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  layerscale_init: Optional[float] = None):
         super().__init__()
@@ -69,15 +78,26 @@ class ViTBlock(nn.Module):
             self.ls1_gamma = nn.Parameter(torch.full((d,), float(layerscale_init)))
             self.ls2_gamma = nn.Parameter(torch.full((d,), float(layerscale_init)))
 
-    def forward(self, x):
+    def forward(self, x, quant_scales=None, amaxes=None):
+        """``quant_scales`` (4,) runs the denses in int8; each dense's input
+        amax is appended to ``amaxes`` when given."""
         b, n, d = x.shape
         h = self.num_heads
-        qkv = self.qkv(self.norm1(x)).reshape(b, n, 3, h, d // h).permute(2, 0, 3, 1, 4)
+
+        def dense(i, y):
+            layer = getattr(self, self.DENSES[i])
+            if amaxes is not None:
+                amaxes.append(y.abs().amax())
+            if quant_scales is None:
+                return layer(y)
+            return dense_int8(y, layer.weight, layer.bias, quant_scales[i])
+
+        qkv = dense(0, self.norm1(x)).reshape(b, n, 3, h, d // h).permute(2, 0, 3, 1, 4)
         q, k, v = (t.contiguous() for t in qkv)  # (b, h, n, dh) each
         y = vit_attention(q, k, v, (d // h) ** -0.5)
-        y = self.proj(y.transpose(1, 2).reshape(b, n, d))
+        y = dense(1, y.transpose(1, 2).reshape(b, n, d))
         x = x + (y if self.ls1_gamma is None else y * self.ls1_gamma)
-        y = self.fc2(F.gelu(self.fc1(self.norm2(x)), approximate="none"))
+        y = dense(3, F.gelu(dense(2, self.norm2(x)), approximate="none"))
         return x + (y if self.ls2_gamma is None else y * self.ls2_gamma)
 
 
@@ -94,14 +114,19 @@ class ViTEncoder(nn.Module):
             ViTBlock(embed_dim, num_heads, mlp_ratio, layerscale_init) for _ in range(depth))
         self.register_buffer("mean", torch.tensor(IMAGENET_MEAN), persistent=False)
 
-    def forward(self, x):
-        """Frames (N, H, W, 3) in [0, 1] -> patch features (N, P, embed_dim)."""
+    def forward(self, x, quant_scales=None, calibrate: bool = False):
+        """Frames (N, H, W, 3) in [0, 1] -> patch features (N, P, embed_dim).
+        ``quant_scales`` (depth, 4) runs every block's denses in int8;
+        ``calibrate`` returns (features, amaxes (depth, 4)) of the float path."""
         x = (x - self.mean) / self.mean  # std := mean, the wrapper's quirk
         x = self.patch_embed(x.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
         cls = self.cls_token.expand(x.shape[0], 1, self.embed_dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embed
-        for block in self.blocks:
-            x = block(x)
+        amaxes = [] if calibrate else None
+        for i, block in enumerate(self.blocks):
+            x = block(x, None if quant_scales is None else quant_scales[i], amaxes)
+        if calibrate:
+            return x[:, 1:], torch.stack(amaxes).reshape(len(self.blocks), 4)
         return x[:, 1:]
 
 

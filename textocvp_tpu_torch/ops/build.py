@@ -31,8 +31,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# SASS of the tensor cores: mma.sync (HMMA) and warpgroup wgmma (HGMMA)
-_TENSOR_CORE_SASS = re.compile(r"\b(HMMA|HGMMA)\b")
+# SASS of the tensor cores: mma.sync (HMMA; IMMA for int8) and warpgroup wgmma (HGMMA)
+_TENSOR_CORE_SASS = re.compile(r"\b(HMMA|HGMMA|IMMA)\b")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -140,7 +140,7 @@ def ptxas_report(stem: str) -> str:
 
 
 def tensor_core_instructions(stem: str) -> int:
-    """How many tensor-core instructions (``HMMA``, ``HGMMA``) ``cuobjdump -sass``
+    """How many tensor-core instructions (``HMMA``, ``HGMMA``, ``IMMA``) ``cuobjdump -sass``
     shows in the built library of ``csrc/<stem>.cu``."""
     sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(library_paths()[stem])],
                           capture_output=True, text=True, check=True, timeout=300).stdout

@@ -17,7 +17,10 @@ bounds the kernel on an H100 and how its design answers.
 * :func:`conv5` dispatches on the tensor's device: a CPU tensor runs
   :func:`conv5_plain` (plain autograd), a CUDA tensor goes through
   :class:`Conv5Function`, whose forward launches the kernel through
-  :func:`conv5_cuda` or raises. There is no fallback to cuDNN.
+  :func:`conv5_cuda` or raises. There is no fallback to cuDNN. Where no
+  gradient is recorded the call is the op ``torch.ops.textocvp_torch.conv5``
+  (``torch.library.custom_op``: :func:`conv5_plain` for a CPU tensor, the
+  kernel for a CUDA one), which ``torch.export`` records as one node.
 * The gradient (the JAX package's decoder trains through XLA convs; the
   Pallas probe has none). With ``g'`` the output gradient masked by the ReLU
   (``g * (y > 0)``, 0 at 0 as in JAX and torch):
@@ -41,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from textocvp_tpu_torch.ops import build
+from textocvp_tpu_torch.ops.grad_guard import needs_grad
 
 KERNEL_SIZE = 5
 CHANNELS = 64  # the kernel's input and output channels
@@ -201,9 +205,26 @@ class Conv5Function(torch.autograd.Function):
         return dx, dw, db, None, None, None
 
 
+@torch.library.custom_op("textocvp_torch::conv5", mutates_args=())
+def conv5_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
+    """The forward as one op: :func:`conv5_plain` for a CPU tensor, the
+    kernel (:func:`conv5_cuda`) for a CUDA tensor."""
+    if x.device.type == "cpu":
+        return conv5_plain(x, w, b, relu)
+    return conv5_cuda(x, w, b, relu)
+
+
+@conv5_op.register_fake
+def _(x, w, b, relu):
+    return x.new_empty((*x.shape[:-1], w.shape[-1]))
+
+
 def conv5(x, w, b, relu: bool = True):
     """The plain version for CPU tensors; for CUDA tensors the kernel, through
-    :class:`Conv5Function` so that autograd records its gradient."""
+    :class:`Conv5Function` so that autograd records its gradient. Where no
+    gradient is recorded, :func:`conv5_op`."""
+    if not needs_grad(x, w, b):
+        return conv5_op(x, w, b, relu)
     if x.device.type == "cpu":
         return conv5_plain(x, w, b, relu)
     return Conv5Function.apply(x, w, b, relu, conv5_cuda, conv5_input_grad_cuda)

@@ -10,7 +10,10 @@ upstream would silently get no gradient. Its CUDA wrapper calls
 require no grad (a frozen ViT's), it does nothing. The check looks only at
 the autograd state, so it runs on tensors of any device. (The slot-attention
 and conv5 kernels record their gradients through ``torch.autograd.Function``
-and need no guard.)
+and need no guard.) :func:`needs_grad` tells the wrappers when autograd
+would record: only then do they take their autograd path; otherwise they
+call their op of the ``textocvp_torch`` library (``torch.library``), which
+``torch.export`` records as one node.
 """
 
 from __future__ import annotations
@@ -18,10 +21,16 @@ from __future__ import annotations
 import torch
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True if autograd would record an op on ``tensors``: grad is enabled and
+    one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def refuse_grad(op: str, *tensors: torch.Tensor) -> None:
     """Raise if autograd would record through ``op``: grad is enabled and one
     of ``tensors`` requires grad."""
-    if not torch.is_grad_enabled():
+    if not needs_grad(*tensors):
         return
     for i, t in enumerate(tensors):
         if t.requires_grad:

@@ -16,7 +16,10 @@ meeting through distributed shared memory.
   goes through :class:`SlotAttentionFunction`, whose forward launches the
   kernel through :func:`slot_attention_cuda` or raises. There is no
   fallback: a failed build, a cluster the card cannot place, or a launch
-  error raises.
+  error raises. Where no gradient is recorded the call is the op
+  ``torch.ops.textocvp_torch.slot_attention`` (``torch.library.custom_op``:
+  the plain version for a CPU tensor, the kernel for a CUDA one), which
+  ``torch.export`` records as one node.
 * The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
   with a plain C interface (:mod:`textocvp_tpu_torch.ops.build`, at first use)
   and bound through ``ctypes``.
@@ -41,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from textocvp_tpu_torch.ops import build
+from textocvp_tpu_torch.ops.grad_guard import needs_grad
 
 LN_EPS = 1e-3
 
@@ -230,10 +234,33 @@ class SlotAttentionFunction(torch.autograd.Function):
         return (*grads[:3], None, None, None, None, *grads[3:])
 
 
+@torch.library.custom_op("textocvp_torch::slot_attention", mutates_args=())
+def slot_attention_op(k: torch.Tensor, v: torch.Tensor, slots: torch.Tensor,
+                      params: list[torch.Tensor], num_iters: int, scale: float,
+                      eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The refinement as one op, ``params`` in ``_PARAM_ORDER``: the plain
+    version for a CPU tensor, the kernel (:func:`slot_attention_cuda`) for a
+    CUDA tensor."""
+    p = dict(zip(_PARAM_ORDER, params))
+    if k.device.type == "cpu":
+        return slot_attention_plain(k, v, slots, p, num_iters, scale, eps)
+    return slot_attention_cuda(k, v, slots, p, num_iters, scale, eps)
+
+
+@slot_attention_op.register_fake
+def _(k, v, slots, params, num_iters, scale, eps):
+    return (torch.empty_like(slots),
+            slots.new_empty((slots.shape[0], slots.shape[1], k.shape[1])))
+
+
 def slot_attention_iterations(k, v, slots, params: dict, num_iters: int, scale: float,
                               eps: float = 1e-8):
     """The plain version for CPU tensors; for CUDA tensors the kernel, through
-    :class:`SlotAttentionFunction` so that autograd records its gradient."""
+    :class:`SlotAttentionFunction` so that autograd records its gradient.
+    Where no gradient is recorded, :func:`slot_attention_op`."""
+    tensors = [params[name] for name in _PARAM_ORDER]
+    if not needs_grad(k, v, slots, *tensors):
+        return slot_attention_op(k, v, slots, tensors, num_iters, scale, eps)
     if k.device.type == "cpu":
         return slot_attention_plain(k, v, slots, params, num_iters, scale, eps)
     return SlotAttentionFunction.apply(k, v, slots, num_iters, scale, eps, slot_attention_cuda,

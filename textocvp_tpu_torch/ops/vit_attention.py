@@ -12,7 +12,11 @@ H100 and how its design answers.
   ``_attention``; the kernel takes dh = 64 and any n.
 * :func:`vit_attention` dispatches on the tensor's device: a CPU tensor runs
   :func:`vit_attention_plain`, a CUDA tensor launches the kernel through
-  :func:`vit_attention_cuda` or raises. There is no fallback.
+  :func:`vit_attention_cuda` or raises. There is no fallback. Where no
+  gradient is recorded the call is the op
+  ``torch.ops.textocvp_torch.vit_attention`` (``torch.library.custom_op``:
+  the plain version for a CPU tensor, the kernel for a CUDA one), which
+  ``torch.export`` records as one node.
 * Forward only: the ViT is frozen, and nothing differentiates it. Under grad
   with an input that requires grad the CUDA wrapper raises
   (:func:`grad_guard.refuse_grad`) rather than return an output without
@@ -26,7 +30,7 @@ import ctypes
 import torch
 
 from textocvp_tpu_torch.ops import build
-from textocvp_tpu_torch.ops.grad_guard import refuse_grad
+from textocvp_tpu_torch.ops.grad_guard import needs_grad, refuse_grad
 
 
 def vit_attention_plain(q, k, v, scale: float):
@@ -95,8 +99,27 @@ def vit_attention_cuda(q, k, v, scale: float):
 vit_attention_cuda.launches = 0
 
 
+@torch.library.custom_op("textocvp_torch::vit_attention", mutates_args=())
+def vit_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """The attention as one op: the plain version for a CPU tensor, the kernel
+    (:func:`vit_attention_cuda`) for a CUDA tensor."""
+    if q.device.type == "cpu":
+        return vit_attention_plain(q, k, v, scale)
+    return vit_attention_cuda(q, k, v, scale)
+
+
+@vit_attention_op.register_fake
+def _(q, k, v, scale):
+    return torch.empty_like(q)
+
+
 def vit_attention(q, k, v, scale: float):
-    """The plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    """The plain version for CPU tensors, the CUDA kernel for CUDA tensors;
+    :func:`vit_attention_op` where no gradient is recorded (on the card, a
+    call under grad raises)."""
+    if not needs_grad(q, k, v):
+        return vit_attention_op(q, k, v, scale)
     if q.device.type == "cpu":
         return vit_attention_plain(q, k, v, scale)
     return vit_attention_cuda(q, k, v, scale)

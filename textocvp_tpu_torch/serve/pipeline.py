@@ -15,10 +15,19 @@ the reply:
    ExtendedDINOSAUR's MLP patch decoder and CNN head) on every predicted
    frame, clipped to [0, 1] and rounded to uint8 on the device.
 
+Each stage is a module of its own (:class:`PredictStage`, :class:`DecodeStage`)
+and a pure function of its tensors: the predict stage takes the videos, the
+initial slots' noise and the caption tensors; the host draws the noise from
+the service's ``generator``. ``serve/export.py`` exports the two modules as
+they are, so an artifact replays the live service bit for bit.
+
 Numerics: float32 throughout, as the JAX package serves by default. TF32 is
 off for matmuls and for cuDNN convolutions (``torch.backends.cuda.matmul.
 allow_tf32 = False``, ``torch.backends.cudnn.allow_tf32 = False``); bf16
-compute is later work.
+compute is later work. Opt-in int8 (``tpu.decode_quant``,
+``tpu.encode_quant``; ``models/quant.py``) calibrates its activation scales
+on the first request, or on :meth:`InferenceFrontend.calibrate`'s frames, and
+keeps them in the stages' ``quant_scales`` / ``encode_scales`` buffers.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from textocvp_tpu_torch.core.experiment import Experiment
 from textocvp_tpu_torch.core.logger import Logger
@@ -44,6 +54,12 @@ from textocvp_tpu_torch.models.factory import (
     check_image_reconstruction,
     setup_model,
     setup_predictor,
+)
+from textocvp_tpu_torch.models.quant import (
+    calibrate_decode_scales,
+    calibrate_encode_scales,
+    decode_quant_mode,
+    encode_quant_mode,
 )
 from textocvp_tpu_torch.train.checkpoints import load_params
 
@@ -63,11 +79,61 @@ def serving_tokenizer(exp_params: dict):
                          vocabulary=_VOCABS.get(ds.get("dataset_name")))
 
 
+class PredictStage(nn.Module):
+    """The predict stage as a pure function: videos (B, num_context, H, W, 3)
+    uint8 or float32, the initial slots' noise (B, S, D) and the caption
+    tensors -> predicted slots (B, num_preds, S, D). The decomposition
+    model's encode (its ViT's denses in int8 once ``encode_scales`` is set)
+    and slot attention, then the predictor's rollout."""
+
+    def __init__(self, model, predictor, num_preds: int):
+        super().__init__()
+        self.model = model
+        self.predictor = predictor
+        self.num_preds = num_preds
+        self.register_buffer("encode_scales", None)
+
+    def forward(self, videos, noise, text: dict):
+        videos = as_float_video(videos)
+        kw = {} if self.encode_scales is None else {"encode_quant_scales": self.encode_scales}
+        initial = self.model.slot_initializer(videos.shape[0], noise=noise)
+        slots = self.model.decompose(videos, initial_slots=initial, **kw)
+        return self.predictor(slots["slot_history"], num_preds=self.num_preds,
+                              teacher_force=False, **text)
+
+
+class DecodeStage(nn.Module):
+    """The decode stage: predicted slots (B, P, S, D) -> (B, P, H, W, 3)
+    uint8 frames, clipped to [0, 1] and rounded on the device (the reply is
+    8-bit by contract, and fetching uint8 moves a quarter of the bytes). The
+    decoder in int8 once ``quant_scales`` is set."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+        self.register_buffer("quant_scales", None)
+
+    def forward(self, pred_slots):
+        b, p, s, d = pred_slots.shape
+        kw = {} if self.quant_scales is None else {"quant_scales": self.quant_scales}
+        imgs = self.model.decode(pred_slots.reshape(b * p, s, d), **kw)["recons_imgs"]
+        imgs = torch.round(imgs.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        return imgs.reshape(b, p, *imgs.shape[1:])
+
+
 class InferenceFrontend:
     """Host-side request handling: validation, batch and caption padding,
-    tokenization. Subclasses provide ``_predict_stage`` and ``_decode_stage``
-    and the contract attributes (batch_size, num_context, num_preds,
-    resolution, max_tokens, tokenizer, wire_dtype)."""
+    tokenization, the slot noise. Subclasses provide the two stage modules
+    ``predict_module`` and ``decode_module`` and the contract attributes
+    (batch_size, num_context, num_preds, num_slots, slot_dim, resolution,
+    max_tokens, tokenizer, wire_dtype, device, generator)."""
+
+    _quant_mode = None
+    _encode_quant_mode = None
+
+    def _finalize_token(self, key: str, v: np.ndarray) -> np.ndarray:
+        """Hook: a token array in the dtype the stage takes."""
+        return v
 
     def _tokenize(self, captions: Sequence[str]) -> dict:
         """{key of TEXT_KEYS: array} of the captions, each (B, L) array padded
@@ -89,7 +155,7 @@ class InferenceFrontend:
                     raise ValueError(f"caption too long: {v.shape[1]} tokens exceed "
                                      f"max_tokens={self.max_tokens}")
                 v = np.pad(v, ((0, 0), (0, self.max_tokens - v.shape[1])))
-            out[key] = v
+            out[key] = self._finalize_token(key, v)
         return out
 
     def _warmup_caption(self) -> str:
@@ -103,10 +169,44 @@ class InferenceFrontend:
         return "warmup"
 
     def warmup(self):
-        """One dummy request: builds the kernel and warms the device up."""
+        """One dummy request: builds the kernels and warms the device up. A
+        quantized service calibrates on its first request, so its dummy is
+        uniform noise (seed 14), whose ranges are not degenerate as a black
+        video's are; :meth:`calibrate` with real frames gives tighter scales."""
         h, w = self.resolution
-        self.predict(np.zeros((1, self.num_context, h, w, 3), np.float32),
-                     [self._warmup_caption()])
+        shape = (1, self.num_context, h, w, 3)
+        if self._quant_mode or self._encode_quant_mode:
+            frames = np.random.default_rng(14).uniform(0, 1, shape).astype(np.float32)
+        else:
+            frames = np.zeros(shape, np.float32)
+        self.predict(frames, [self._warmup_caption()])
+
+    def calibrate(self, frames: np.ndarray, captions: Sequence[str]):
+        """Calibrate a quantized service on representative frames: one
+        request, whose activations set the int8 scales. Only the first
+        request calibrates; later calls answer as any request does."""
+        if not (self._quant_mode or self._encode_quant_mode):
+            raise ValueError("calibrate() only applies to services with "
+                             "tpu.decode_quant or tpu.encode_quant set")
+        self.predict(frames, captions)
+
+    @torch.inference_mode()
+    def _predict_stage(self, frames: np.ndarray, text: dict):
+        """The host part of the predict stage: the request on the device and
+        the initial slots' noise drawn from ``generator``; then
+        :meth:`_run_predict`."""
+        videos = torch.from_numpy(frames).to(self.device)
+        noise = torch.randn((frames.shape[0], self.num_slots, self.slot_dim),
+                            generator=self.generator, device=self.generator.device)
+        text = {k: torch.from_numpy(v).to(self.device) for k, v in text.items()}
+        return self._run_predict(videos, noise, text)
+
+    def _run_predict(self, videos, noise, text):
+        return self.predict_module(videos, noise, text)
+
+    @torch.inference_mode()
+    def _decode_stage(self, pred_slots):
+        return self.decode_module(pred_slots)
 
     def predict(self, frames: np.ndarray, captions: Sequence[str]) -> np.ndarray:
         """frames (B, num_context, H, W, 3) uint8 or float32 in [0, 1]; B captions.
@@ -213,10 +313,14 @@ class PredictionService(InferenceFrontend):
 
         check_image_reconstruction(self.exp_params, purpose="serve")
         self.tokenizer = serving_tokenizer(self.exp_params)
+        self._quant_mode = decode_quant_mode(self.exp_params)
+        self._encode_quant_mode = encode_quant_mode(self.exp_params)
         self.model = self._load(setup_model(self.exp_params),
                                 self.parent.checkpoint_path(decomp_ckpt))
         self.predictor = self._load(setup_predictor(self.exp_params),
                                     self.exp.checkpoint_path(pred_ckpt))
+        self.predict_module = PredictStage(self.model, self.predictor, self.num_preds)
+        self.decode_module = DecodeStage(self.model)
         self.generator = generator or torch.Generator(self.device).manual_seed(14)
         self._lock = threading.Lock()
 
@@ -224,19 +328,18 @@ class PredictionService(InferenceFrontend):
         module.load_state_dict(load_params(path))
         return module.to(self.device).eval().requires_grad_(False)
 
-    @torch.inference_mode()
-    def _predict_stage(self, frames: np.ndarray, text: dict):
-        videos = as_float_video(torch.from_numpy(frames).to(self.device))
-        slots = self.model.decompose(videos, generator=self.generator)
-        text = {k: torch.from_numpy(v).to(self.device) for k, v in text.items()}
-        return self.predictor(slots["slot_history"], num_preds=self.num_preds,
-                              teacher_force=False, **text)
+    def _run_predict(self, videos, noise, text):
+        # int8 ViT: calibrated on the first request's context frames (under
+        # the dispatch lock, so once), as the JAX service does
+        if self._encode_quant_mode and self.predict_module.encode_scales is None:
+            self.predict_module.encode_scales = calibrate_encode_scales(
+                self.model, as_float_video(videos))
+        return self.predict_module(videos, noise, text)
 
     @torch.inference_mode()
     def _decode_stage(self, pred_slots):
-        b, p, s, d = pred_slots.shape
-        imgs = self.model.decode(pred_slots.reshape(b * p, s, d))["recons_imgs"]
-        # uint8 on the device: the reply is 8-bit by contract, and fetching
-        # uint8 moves a quarter of the bytes
-        imgs = torch.round(imgs.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-        return imgs.reshape(b, p, *imgs.shape[1:])
+        # int8 decode: calibrated on the first request's predicted slots
+        if self._quant_mode and self.decode_module.quant_scales is None:
+            self.decode_module.quant_scales = calibrate_decode_scales(
+                self.model, pred_slots.reshape(-1, self.num_slots, self.slot_dim))
+        return self.decode_module(pred_slots)

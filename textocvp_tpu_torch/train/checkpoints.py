@@ -39,6 +39,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from textocvp_tpu_torch.core.config import tpu_option
+
 
 def _to_cpu(obj, copy: bool = False):
     """Tensors of ``obj`` (nested dicts, lists, tuples) on the CPU; with
@@ -131,7 +133,7 @@ def make_checkpoint_saver(exp_params: dict):
     ``flush()`` waits for every write and ends the writer, once, when
     training ends (the emergency path flushes, then writes with
     :func:`save_checkpoint`)."""
-    if (exp_params.get("tpu") or {}).get("async_checkpoint"):
+    if tpu_option(exp_params, "async_checkpoint"):
         writer = AsyncCheckpointWriter()
         return writer.save, writer.close
     return save_checkpoint, lambda: None

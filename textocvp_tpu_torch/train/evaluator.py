@@ -7,8 +7,8 @@
 ``num_frames`` frames is decomposed whole (every frame encoded, the slot
 recurrence over all of them) and all B * T frames decoded in one call;
 PSNR/SSIM/LPIPS of the reconstructions, clipped to [0, 1], against the
-frames, clipped too, for every frame. The JAX class's chunked, autotuned,
-int8 and multi-device branches change no output and are not ported.
+frames, clipped too, for every frame. The JAX class's chunked, autotuned and
+multi-device branches change no output and are not ported.
 
 05 (:class:`PredictorEvaluator`): per batch, on one device, the seed encode
 of the first ``num_seed`` frames (the decomposition model's encoder and slot
@@ -16,6 +16,14 @@ attention), the predictor's rollout of ``num_preds`` slot frames, the decode
 of all B * num_preds predicted frames, and PSNR/SSIM/LPIPS of the
 predictions, clipped to [0, 1], against the true frames, clipped too. Only
 the seed frames are encoded: the slot recurrence is causal.
+
+Opt-in int8 (``tpu.decode_quant`` / ``tpu.encode_quant``, ``models/quant.py``)
+as in the JAX evaluators: the scales are calibrated on the first batch (05:
+the ViT's on its seed frames, the decoder's on its predicted slots; 03: the
+ViT's on its frames, the decoder's on the slots of a float encode with the
+same initial slots), and that batch, like every other, then runs quantized;
+``results.json`` carries ``"decode_quant": "int8"`` / ``"encode_quant":
+"int8"``.
 
 Both write ``<metric>_framewise.png`` beside ``results.json`` for every metric
 with framewise values (``viz/figures.py::visualize_metric``, PIL), its x axis
@@ -49,6 +57,12 @@ from textocvp_tpu_torch.models.factory import (
     setup_model,
     setup_predictor,
 )
+from textocvp_tpu_torch.models.quant import (
+    calibrate_decode_scales,
+    calibrate_encode_scales,
+    decode_quant_mode,
+    encode_quant_mode,
+)
 from textocvp_tpu_torch.train.checkpoints import load_params
 from textocvp_tpu_torch.train.metrics import MetricTracker
 from textocvp_tpu_torch.viz.figures import visualize_metric
@@ -79,6 +93,41 @@ def _tokenizer_fallback_flags(dataset) -> dict:
     return {}
 
 
+class _Quant:
+    """The int8 modes of an experiment and their scales, None until the first
+    batch calibrates them."""
+
+    def __init__(self, exp_params: dict):
+        self._quant_mode = decode_quant_mode(exp_params)
+        self._encode_quant_mode = encode_quant_mode(exp_params)
+        self.decode_quant_scales = self.encode_quant_scales = None
+
+    def _encode_kwargs(self, model, videos) -> dict:
+        """decompose's int8 ViT argument, calibrated on ``videos`` the first time."""
+        if not self._encode_quant_mode:
+            return {}
+        if self.encode_quant_scales is None:
+            self.encode_quant_scales = calibrate_encode_scales(model, videos)
+        return {"encode_quant_scales": self.encode_quant_scales}
+
+    def _decode_kwargs(self, model, slots) -> dict:
+        """decode's int8 argument, calibrated on ``slots()`` (N, S, D) the first time."""
+        if not self._quant_mode:
+            return {}
+        if self.decode_quant_scales is None:
+            self.decode_quant_scales = calibrate_decode_scales(model, slots())
+        return {"quant_scales": self.decode_quant_scales}
+
+    def _quant_flags(self) -> dict:
+        """The honesty flags of results.json."""
+        flags = {}
+        if self._quant_mode:
+            flags["decode_quant"] = self._quant_mode
+        if self._encode_quant_mode:
+            flags["encode_quant"] = self._encode_quant_mode
+        return flags
+
+
 def _save_framewise_plots(exp, results_name: str, results: dict, start_x: int = 0):
     """Per-frame metric curves next to results.json (reference
     metrics.py:128-144, baseEvaluator.py:211-216)."""
@@ -89,7 +138,7 @@ def _save_framewise_plots(exp, results_name: str, results: dict, start_x: int = 
                              title=metric, start_x=start_x)
 
 
-class DecompEvaluator:
+class DecompEvaluator(_Quant):
     """Evaluate a decomposition checkpoint on whole-sequence reconstruction.
 
     ``checkpoint`` is ``models/<checkpoint>.pt`` of the experiment at
@@ -117,6 +166,7 @@ class DecompEvaluator:
             check_image_reconstruction(self.exp_params,
                                        purpose="compute reconstruction metrics for")
         self.device = _setup_device(device, "DecompEvaluator")
+        _Quant.__init__(self, self.exp_params)
         self.checkpoint = checkpoint
         self.batch_size = batch_size or self.exp_params["training"]["batch_size"]
         self.results_name = results_name or f"eval_decomp_{checkpoint}"
@@ -142,10 +192,20 @@ class DecompEvaluator:
         call -> reconstructions (B, T, H, W, 3) clipped to [0, 1]. The initial
         slots are ``initial_slots`` when given, else the initializer's."""
         b, t = videos.shape[:2]
-        slots = self.model.decompose(
-            videos, initial_slots=None if initial_slots is None else initial_slots.to(self.device),
-            generator=self.generator)["slot_history"]
-        imgs = self.model.decode(slots.reshape(b * t, *slots.shape[2:]))["recons_imgs"]
+        init = (self.model.slot_initializer(b, self.generator) if initial_slots is None
+                else initial_slots.to(self.device))
+        ekw = self._encode_kwargs(self.model, videos)
+        slots = self.model.decompose(videos, initial_slots=init, **ekw)["slot_history"]
+        flat = slots.reshape(b * t, *slots.shape[2:])
+
+        def float_slots():  # the JAX calibration decodes a float encode's slots
+            if not ekw:
+                return flat
+            return self.model.decompose(videos, initial_slots=init)["slot_history"].reshape(
+                flat.shape)
+
+        imgs = self.model.decode(flat, **self._decode_kwargs(self.model, float_slots))
+        imgs = imgs["recons_imgs"]
         return imgs.reshape(b, t, *imgs.shape[1:]).clamp(0.0, 1.0)
 
     @torch.inference_mode()
@@ -162,13 +222,14 @@ class DecompEvaluator:
         self.metric_tracker.aggregate()
         results = self.metric_tracker.to_json()
         results.update(_tokenizer_fallback_flags(self.test_set))
+        results.update(self._quant_flags())
         self.exp.save_results(self.results_name, results)
         _save_framewise_plots(self.exp, self.results_name, results, start_x=0)
         print_(f"Results: { {k: v['mean'] for k, v in results.items() if isinstance(v, dict)} }")
         return results
 
 
-class PredictorEvaluator:
+class PredictorEvaluator(_Quant):
     """Evaluate a predictor checkpoint on the video-prediction protocol.
 
     ``exp_path`` is the decomposition experiment; ``name_pred_exp`` names its
@@ -205,6 +266,7 @@ class PredictorEvaluator:
             f"eval_pred_{pred_ckpt}_NumSeed={self.num_context}_NumPreds={self.num_preds}")
 
         check_image_reconstruction(self.exp_params, purpose="evaluate predictions on")
+        _Quant.__init__(self, self.exp_params)
         self.model = setup_model(self.exp_params)
         self.predictor = setup_predictor(self.exp_params)
         self.metric_tracker = MetricTracker(metrics, device=self.device)
@@ -226,15 +288,16 @@ class PredictorEvaluator:
         seed = videos[:, :self.num_context]
         slots = self.model.decompose(
             seed, initial_slots=None if initial_slots is None else initial_slots.to(self.device),
-            generator=self.generator)["slot_history"]
+            generator=self.generator, **self._encode_kwargs(self.model, seed))["slot_history"]
         return self.predictor(slots, num_preds=self.num_preds, teacher_force=False, **text)
 
     @torch.inference_mode()
     def decode_stage(self, pred_slots):
         """All B * num_preds predicted frames -> (B, num_preds, H, W, 3), clipped to [0, 1]."""
         b, p, s, d = pred_slots.shape
-        imgs = self.model.decode(pred_slots.reshape(b * p, s, d))["recons_imgs"]
-        return imgs.reshape(b, p, *imgs.shape[1:]).clamp(0.0, 1.0)
+        flat = pred_slots.reshape(b * p, s, d)
+        imgs = self.model.decode(flat, **self._decode_kwargs(self.model, lambda: flat))
+        return imgs["recons_imgs"].reshape(b, p, *imgs["recons_imgs"].shape[1:]).clamp(0.0, 1.0)
 
     @torch.inference_mode()
     def metrics_stage(self, pred_imgs, videos) -> dict:
@@ -261,6 +324,7 @@ class PredictorEvaluator:
         self.metric_tracker.aggregate()
         results = self.metric_tracker.to_json()
         results.update(_tokenizer_fallback_flags(self.test_set))
+        results.update(self._quant_flags())
         self.exp.save_results(self.results_name, results)
         _save_framewise_plots(self.exp, self.results_name, results, start_x=self.num_context)
         print_(f"Results: { {k: v['mean'] for k, v in results.items() if isinstance(v, dict)} }")

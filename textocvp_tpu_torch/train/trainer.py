@@ -89,6 +89,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from textocvp_tpu_torch.core.config import tpu_option
 from textocvp_tpu_torch.core.experiment import Experiment
 from textocvp_tpu_torch.core.logger import Logger, log_exception, log_function, log_info, print_
 from textocvp_tpu_torch.data.loader import EpochLoader, load_data
@@ -203,7 +204,7 @@ class Trainer:
         self.checkpoint = checkpoint
         self.resume_training = resume_training
         self.accum = accum_steps_of(self.training_params)
-        self.remat = bool((self.exp_params.get("tpu") or {}).get("remat", False))
+        self.remat = bool(tpu_option(self.exp_params, "remat"))
         self.start_epoch = 0
         self.global_step = 0
         self.writer = None
