@@ -321,6 +321,28 @@ H4. clip_remat, clip_png_eval  (after phase 27) one CLIPort 02 microbatch of
             B=16, p=9 over 16 test episodes of 12 PNG frames at 640 x 480
             without a cache, against the cache route as H2.
 
+and the mesh (``parallel/``), in processes of their own (``start_mesh``,
+``wait_mesh``, ``run_mesh``; deterministic cuDNN and cuBLAS there): M2's
+two ranks run beside the CLIPort fixture and the card half of its 02 parity,
+which time nothing, and are waited for before the CLIPort 02 CLI; M1 runs
+alone on the card after phase E, then M2's line:
+M1. mesh_nccl  a process group of one rank over NCCL, started through the
+            ``TEXTOCVP_*`` environment, ``tpu.mesh_axes`` ``{"data": -1,
+            "model": 1}``: two CATER 02 steps and two 04 steps at B=64, the
+            CATER 05 batch (B=64, p=19) and an 8-row served request, first
+            without the group, then through the mesh: parameters,
+            ``results.json`` and the reply bit for bit, the steps' ms side
+            by side;
+M2. mesh_shared_card  two ranks on the one card over gloo: the CATER
+            service at batch 8 on ``data=1, model=2`` (float reply within
+            1e-4 of its largest value of one process's), ``data=2`` (1e-5)
+            and at batch 1 under sequence-parallel decode (1e-5); a CATER 04
+            step at B=8, p=3 on ``model=2`` against world size 1 (losses
+            1e-5, the global norm 1e-4, no parameter more than 0.5 lr apart
+            after the update, the replicated leaves bit-equal across the
+            ranks); slot attention and conv5 launched by the mesh itself
+            (the references not counted); each rank's peak memory.
+
 The trainers' CLI runs add one TensorBoard image strip an epoch where
 ``tensorboard`` imports (``Trainer.image_strips``), and their launch counts
 count it. The 03 and 05 CLI runs' phases check that each metric's
@@ -362,6 +384,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import partial
 from pathlib import Path
@@ -2078,6 +2101,8 @@ def run_train(tmp: Path):
     data_root = write_cater_fixture(tmp / "CATER_train", (("train", TRAIN_VIDEOS),
                                                           ("test", TRAIN_VALID_VIDEOS)))
     exp_path = train_experiment(tmp / "train", data_root)
+    gc.collect()
+    torch.cuda.empty_cache()  # the eval phases' cached blocks: the step reserves afresh
     counts, input_grad, trainer = phase_train(exp_path)
     videos, _ = next(iter(trainer.train_loader))
     phase_train_step(trainer, videos)
@@ -3215,16 +3240,21 @@ def phase_clip_eval(parent: Path):
     return counts
 
 
-def run_clip(tmp: Path, created: Path):
-    """The CLIPort chain: the fixture; the 02 path (parity, the CLI and its
-    resume, the steady step, the sign check); the 04 path over the 02
-    checkpoint (the same); the 05 path over the 04 checkpoint (parity, the
-    CLI, the stage split and profile); the 03 path over the 02 checkpoint,
-    dropped into ``created`` (the 01 CLI's experiment). Returns each path's
-    main-path launches."""
+def clip_fixture(tmp: Path):
+    """The CLIPort chain's start, which times nothing: the fixture, the 02
+    parity's card half and the 02 experiment -> (data root, experiment)."""
     data_root = write_cliport_fixture(tmp / "CLIPort")
     phase_clip_train_parity(tmp)
-    exp = clip_experiment(tmp / "clip_train", data_root)
+    return data_root, clip_experiment(tmp / "clip_train", data_root)
+
+
+def run_clip(tmp: Path, created: Path, data_root: Path, exp: Path):
+    """The CLIPort chain after :func:`clip_fixture`: the 02 path (the CLI and
+    its resume, the steady step, the sign check); the 04 path over the 02
+    checkpoint (parity, then the same); the 05 path over the 04 checkpoint
+    (parity, the CLI, the stage split and profile); the 03 path over the 02
+    checkpoint, dropped into ``created`` (the 01 CLI's experiment). Returns
+    each path's main-path launches."""
     counts = {}
     counts["clip_train"], trainer = phase_clip_train(exp)
     videos, _ = next(iter(trainer.train_loader))
@@ -4352,6 +4382,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from textocvp_tpu_torch.ops import conv5, conv_int8, slot_attention_kernel, vit_attention
 
+# the export processes run beside the main timeline's 02 / 04 phases (about
+# 50 GB): a quarter of the card bounds their transients (a cuDNN plan whose
+# workspace does not fit falls back to the next), so both fit
+torch.cuda.set_per_process_memory_fraction(0.25)
+
 counters = {"slot_attention": slot_attention_kernel.slot_attention_cuda,
             "vit_attention": vit_attention.vit_attention_cuda, "conv5": conv5.conv5_cuda,
             "conv_int8": conv_int8.conv_int8_cuda}
@@ -4576,6 +4611,470 @@ def run_quant(tmp: Path, eval_exp: Path, clip_exp: Path):
     return counts
 
 
+# ------------------------------------------------------------------ the mesh
+
+MESH_LAUNCH_ENV = ("TEXTOCVP_COORDINATOR", "TEXTOCVP_NUM_PROCESSES", "TEXTOCVP_PROCESS_ID")
+MESH_TP_BATCH, MESH_TP_PREDS = 8, 3  # the shared-card 04 step
+# After the update no parameter further than this many lr from world 1's. A
+# first Adam step moves each element by about lr (lr g / (|g| + eps)), so a
+# sharded leaf left unchanged is 1 lr off and one of flipped sign 2 lr; a
+# right step differs only where a gradient near 0 changes with the sums' order.
+MESH_TP_PARAM_LRS = 0.5
+MESH_WORKER_CMD = "import sys, chip_smoke; chip_smoke.mesh_worker(*sys.argv[1:])"
+
+
+class FirstItems:
+    """The first ``n`` items of a dataset, its tokenizer kept (one loader batch)."""
+
+    def __init__(self, dataset, n):
+        self.dataset, self.n = dataset, n
+        self.tokenizer = getattr(dataset, "tokenizer", None)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.dataset[i]
+
+
+@contextmanager
+def _timed(out: dict, key: str):
+    """Add the seconds of the block to ``out["seconds"][key]`` (where a mesh
+    process's time goes)."""
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        out.setdefault("seconds", {})[key] = time.perf_counter() - t
+
+
+def _synced_ms(fn):
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_02(spec, videos, steps=2):
+    """``steps`` 02 steps of the spec's SAVi experiment from the trainer's
+    seeded init and the stream's noise: (parameters, losses, step ms)."""
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    tr = DecompTrainer(spec["decomp_exp"], device=spec["device"])
+    tr.setup_model()
+    losses, ms = [], []
+    for _ in range(steps):
+        values, t = _synced_ms(lambda: tr.train_step(videos))
+        losses.append(float(values["_total"]))
+        ms.append(t)
+    return {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}, losses, ms
+
+
+def _mesh_04_trainer(exp, device):
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+
+    tr = PredictorTrainer(exp, "checkpoint_epoch_final", device=device)
+    tr.setup_model()
+    random_predictor_(tr)
+    return tr
+
+
+def _mesh_04(exp, videos, text, device, steps=2):
+    tr = _mesh_04_trainer(exp, device)
+    losses, ms = [], []
+    for _ in range(steps):
+        values, t = _synced_ms(lambda: tr.train_step(videos, **text))
+        losses.append(float(values["_total"]))
+        ms.append(t)
+    return [p.detach().cpu().clone() for p in tr.optimizer.params], losses, ms
+
+
+def _mesh_05(spec, name):
+    """The 05 evaluator over the first CATER test batch of the eval path's
+    experiment -> its results.json text."""
+    from textocvp_tpu_torch.data.loader import EpochLoader
+    from textocvp_tpu_torch.parallel.distributed import loader_process_kwargs
+    from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
+
+    ev = PredictorEvaluator(spec["eval_exp"], PRED_NAME, "random", "random", num_seed=1,
+                            num_preds=EVAL_PREDS, batch_size=EVAL_BATCH, results_name=name,
+                            device=spec["device"])
+    ev.load_data()
+    ev.test_loader = EpochLoader(FirstItems(ev.test_set, EVAL_BATCH), EVAL_BATCH,
+                                 **loader_process_kwargs(ev.mesh))
+    ev.load_models()
+    ev.evaluate()
+    return (ev.exp.results_dir(name) / "results.json").read_text()
+
+
+def _float_frames_(svc):
+    """Have ``svc``'s decode stage return its clipped float32 frames times
+    255, unrounded, in place of the uint8 reply, so that ``predict`` (which
+    divides by 255) hands back the frames before the reply's rounding: a
+    1e-7 difference at a rounding edge is a whole 1/255 of the uint8 reply.
+    Returns ``svc``."""
+    stage = svc.decode_module
+
+    def forward(pred_slots):
+        b, p, s, d = pred_slots.shape
+        imgs = stage.model.decode(pred_slots.reshape(b * p, s, d))["recons_imgs"]
+        return (imgs.clamp(0.0, 1.0) * 255.0).reshape(b, p, *imgs.shape[1:])
+
+    stage.forward = forward
+    return svc
+
+
+def _mesh_service(spec, batch, mesh_axes=None, float_reply=False):
+    from textocvp_tpu_torch.serve import PredictionService
+
+    svc = PredictionService(spec["serve_exp"], PRED_NAME, "random", "random", batch_size=batch,
+                            max_tokens=MAX_TOKENS, device=spec["device"], mesh_axes=mesh_axes)
+    return _float_frames_(svc) if float_reply else svc
+
+
+def _mesh_request(rows):
+    rng = np.random.default_rng(SEED + 41)
+    frames = rng.uniform(0, 1, (rows, 1, CONV5_RES, CONV5_RES, 3)).astype(np.float32)
+    return frames, list(PATHS[0].captions[:rows])
+
+
+def _mesh_inputs(spec, frames, batch, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.rand((batch, frames, CONV5_RES, CONV5_RES, 3), generator=gen).to(spec["device"])
+
+
+def _mesh_nccl_half(spec, out, tag):
+    """The 02 and 04 steps, the 05 batch and an 8-row request; with the
+    process group joined, the same through the mesh."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    with _timed(out, f"02_{tag}"):
+        videos02 = _mesh_inputs(spec, TRAIN_FRAMES, TRAIN_BATCH, SEED + 42)
+        out[f"params_02_{tag}"], out[f"losses_02_{tag}"], out[f"ms_02_{tag}"] = _mesh_02(
+            spec, videos02)
+        del videos02
+    with _timed(out, f"04_{tag}"):
+        videos04 = _mesh_inputs(spec, PRED_FRAMES, TRAIN_BATCH, SEED + 43)
+        text = {k: v.to(spec["device"]) for k, v in caption_batch(
+            Experiment(spec["pred_exp"]).params, TRAIN_BATCH).items()}
+        out[f"params_04_{tag}"], out[f"losses_04_{tag}"], out[f"ms_04_{tag}"] = _mesh_04(
+            spec["pred_exp"], videos04, text, spec["device"])
+        del videos04
+        gc.collect()
+        torch.cuda.empty_cache()
+    with _timed(out, f"05_{tag}"):
+        out[f"results_05_{tag}"] = _mesh_05(spec, f"mesh_nccl_{tag}")
+    with _timed(out, f"serve_{tag}"):
+        svc = _mesh_service(spec, BATCH, {"data": -1, "model": 1} if tag == "mesh" else None)
+        out[f"reply_{tag}"] = svc.predict(*_mesh_request(BATCH))
+        svc.close()
+
+
+def _mesh_shared_card(spec, rank, launch, out):
+    """The single-process references first, before the group: rank 0 the
+    float replies of an 8-row and a 1-row request, rank 1 the 04 step at
+    world size 1; then both ranks join the gloo group of two and run the
+    mesh services (rank 0 compares the replies) and the tensor-parallel 04
+    step (rank 1 compares it). ``out["launches"]`` counts the mesh's own
+    launches, from the join on."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.parallel import distributed as pdist
+    from textocvp_tpu_torch.parallel.partitioning import gather_state_dict
+
+    videos = _mesh_inputs(spec, PRED_CONTEXT + MESH_TP_PREDS, MESH_TP_BATCH, SEED + 44)
+    text = {k: v.to(spec["device"]) for k, v in caption_batch(
+        Experiment(spec["tp_exp"]).params, MESH_TP_BATCH).items()}
+
+    def step(exp):
+        tr = _mesh_04_trainer(exp, spec["device"])
+        values = tr.backward(videos, tr._noise(MESH_TP_BATCH), **text)
+        norm = float(tr.optimizer.step()["grad_norm"])
+        full = (gather_state_dict(tr.model, tr.mesh.model_group) if tr.mesh.tensor_parallel
+                else tr.model.state_dict())
+        trained = {n for n, p in tr.model.named_parameters() if p.requires_grad}
+        sharded = {n for n, p in tr.model.named_parameters() if getattr(p, "tp_shard", None)}
+        replicated = [p for n, p in tr.model.named_parameters() if n not in sharded]
+        return ({k: float(v) for k, v in values.items()}, norm,
+                {k: v.detach().cpu() for k, v in full.items() if k in trained},
+                _digest(replicated), sorted(sharded), tr.lr_schedule(0))
+
+    refs = {}
+    with _timed(out, "references"):
+        if rank == 0:
+            for b in (BATCH, 1):
+                svc = _mesh_service(spec, b, float_reply=True)
+                refs[b] = svc.predict(*_mesh_request(b))
+                del svc
+        else:
+            refs["step"] = step(spec["w1_exp"])
+        torch.cuda.empty_cache()
+    with _timed(out, "join"):
+        os.environ.update(launch)
+        check(pdist.maybe_initialize_distributed(), "no process group")
+    out["backend"] = pdist._STATE["backend"]
+    reset_launches()  # the mesh's launches from here on, the references' not
+    for name, axes, b in (("data1_model2", {"data": 1, "model": 2}, BATCH),
+                          ("data2", {"data": 2, "model": 1}, BATCH),
+                          ("seq_parallel_b1", {"data": 2, "model": 1}, 1)):
+        with _timed(out, name):
+            svc = _mesh_service(spec, b, axes, float_reply=True)
+            if rank == 0:
+                got = svc.predict(*_mesh_request(b))
+                svc.close()
+                out[name] = {"max_abs_err": float(np.abs(got - refs[b]).max()),
+                             "max_abs_ref": float(np.abs(refs[b]).max()),
+                             "seq_parallel": svc._seq_parallel, "shape": list(got.shape)}
+            else:
+                svc.follow()
+            del svc
+            torch.cuda.empty_cache()
+    with _timed(out, "tp_step"):
+        losses, norm, params, digest, sharded, lr = step(spec["tp_exp"])
+    out["launches"] = launches()
+    out["tp_step"] = {"replicated_digest": digest, "sharded": len(sharded)}
+    if rank == 1:
+        w_losses, w_norm, w_params, _, _, _ = refs["step"]
+        diff = max(float((params[k] - v).abs().max()) for k, v in w_params.items())
+        out["tp_step"].update(
+            losses=losses, world1_losses=w_losses, grad_norm=norm, world1_grad_norm=w_norm, lr=lr,
+            max_param_diff=diff, params_compared=len(w_params),
+            loss_rel_err=max(abs(losses[k] - w_losses[k]) / abs(w_losses[k]) for k in w_losses),
+            grad_norm_rel_err=abs(norm - w_norm) / w_norm)
+
+
+def mesh_worker(spec_path, out_path):
+    """The mesh phases' processes (``run_mesh``): ``mesh_nccl`` alone, or one
+    rank of ``mesh_shared_card``. The launch environment is set aside until
+    the plain half (or rank 0's references) is done. Deterministic cuDNN and
+    cuBLAS, so that a step can be held to another bit for bit."""
+    import warnings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    spec = json.loads(Path(spec_path).read_text())
+    if spec["phase"] == "mesh_shared_card":
+        torch.set_num_threads(2)  # beside the main timeline's phases
+    launch = {k: os.environ.pop(k) for k in MESH_LAUNCH_ENV if k in os.environ}
+    rank = int(launch.get("TEXTOCVP_PROCESS_ID", "0"))
+    out = {"rank": rank}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if spec["phase"] == "mesh_nccl":
+            from textocvp_tpu_torch.parallel import distributed as pdist
+
+            _mesh_nccl_half(spec, out, "plain")
+            with _timed(out, "join"):
+                os.environ.update(launch)
+                check(pdist.maybe_initialize_distributed(), "no process group")
+            out["backend"] = pdist._STATE["backend"]
+            reset_launches()
+            _mesh_nccl_half(spec, out, "mesh")
+            out["launches"] = launches()
+        else:
+            _mesh_shared_card(spec, rank, launch, out)
+    out["nondeterministic"] = sorted({str(w.message)[:160] for w in caught
+                                      if "does not have a deterministic" in str(w.message)})
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if torch.cuda.is_available() else 0
+    if spec["phase"] == "mesh_nccl":
+        for k in ("02", "04"):
+            a, b = out.pop(f"params_{k}_plain"), out.pop(f"params_{k}_mesh")
+            pairs = zip(a.values(), b.values()) if isinstance(a, dict) else zip(a, b)
+            out[f"params_equal_{k}"] = all(torch.equal(x, y) for x, y in pairs)
+        out["results_equal_05"] = out.pop("results_05_plain") == out.pop("results_05_mesh")
+        ra, rb = out.pop("reply_plain"), out.pop("reply_mesh")
+        out["reply_equal"] = bool(np.array_equal(ra, rb))
+        out["reply_shape"] = list(rb.shape)
+    from textocvp_tpu_torch.parallel import distributed as pdist
+
+    pdist.destroy()
+    Path(out_path).write_text(json.dumps(out))
+
+
+def _start_mesh(tmp: Path, phase: str, spec: dict, world: int):
+    """Start ``world`` processes of ``mesh_worker`` on the card, joined by the
+    ``TEXTOCVP_*`` environment (:func:`_finish_mesh` waits for them)."""
+    import socket
+
+    spec_path = tmp / f"{phase}.json"
+    spec_path.write_text(json.dumps({**spec, "phase": phase}))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "TEXTOCVP_COORDINATOR": f"127.0.0.1:{port}",
+           "TEXTOCVP_NUM_PROCESSES": str(world), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(open(tmp / f"{phase}_rank{r}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MESH_WORKER_CMD, str(spec_path),
+             str(tmp / f"{phase}_rank{r}.json")],
+            env={**env, "TEXTOCVP_PROCESS_ID": str(r)}, cwd=ROOT, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    return {"tmp": tmp, "phase": phase, "world": world, "procs": procs, "logs": logs,
+            "spec": spec, "started": time.perf_counter()}
+
+
+def _finish_mesh(run: dict, timeout: float):
+    """Wait for ``run``'s processes (killed past ``timeout``) and return each
+    rank's output."""
+    tmp, phase, world, procs, logs = (run[k] for k in ("tmp", "phase", "world", "procs",
+                                                        "logs"))
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    tails = "\n".join(f"--- rank {r}\n" + (tmp / f"{phase}_rank{r}.log").read_text()[-3000:]
+                      for r in range(world))
+    check(rcs == [0] * world, f"{phase}: the ranks exited with {rcs}:\n{tails}")
+    return [json.loads((tmp / f"{phase}_rank{r}.json").read_text()) for r in range(world)]
+
+
+def start_mesh(tmp: Path, train_exp: Path, device="cuda"):
+    """Write the mesh phases' experiments (over the SAVi of ``train_exp``, the
+    CATER serving path's and the eval path's) and start ``mesh_shared_card``'s
+    two ranks (about 50 s, mostly the host's: gloo's copies and the
+    rollout's dispatch). They run beside phases that time nothing, and
+    :func:`wait_mesh` waits for them before the next timed one. Returns the
+    running phase."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    spec = {"decomp_exp": str(train_experiment(tmp / "mesh_train", tmp / "CATER_train",
+                                               lr_warmup=False)),
+            "eval_exp": str(tmp / "eval" / "exp"), "serve_exp": str(tmp / PATHS[0].name / "exp"),
+            "pred_exp": str(pred_experiment(train_exp, "mesh_b64", lr_warmup=False)),
+            "device": device}
+    for exp in (spec["decomp_exp"], spec["pred_exp"]):  # the 02 / 04 CLIs' mesh, literally
+        params = Experiment(exp).params
+        params["tpu"] = {**(params.get("tpu") or {}), "mesh_axes": {"data": -1, "model": 1}}
+        Experiment(exp).save_params(params)
+    for name, axes in (("w1_exp", None), ("tp_exp", {"data": 1, "model": 2})):
+        exp = pred_experiment(train_exp, f"mesh_{name}", num_preds=MESH_TP_PREDS,
+                              batch_size=MESH_TP_BATCH, lr_warmup=False)
+        if axes:
+            params = Experiment(exp).params
+            params["tpu"] = {**(params.get("tpu") or {}), "mesh_axes": axes}
+            Experiment(exp).save_params(params)
+        spec[name] = str(exp)
+    return _start_mesh(tmp, "mesh_shared_card", spec, 2)
+
+
+def wait_mesh(shared: dict):
+    """Wait for ``mesh_shared_card``'s ranks (started by :func:`start_mesh`):
+    their outputs go into ``shared["ranks"]``, and the seconds the main
+    timeline waited for them into ``shared["wait_s"]``."""
+    t = time.perf_counter()
+    shared["ranks"] = _finish_mesh(shared, timeout=600)
+    shared["wait_s"] = time.perf_counter() - t
+    shared["processes_s"] = time.perf_counter() - shared["started"]
+
+
+def run_mesh(shared: dict, device="cuda"):
+    """The mesh (``parallel/``) on the card, in processes of its own.
+
+    ``mesh_nccl``, last, the card otherwise idle: one process, a process
+    group of one rank over NCCL (``TEXTOCVP_*`` environment,
+    ``tpu.mesh_axes`` ``{"data": -1, "model": 1}``): two CATER 02 steps and
+    two 04 steps at B=64, the CATER 05 batch and an 8-row served request,
+    first without the group, then through the mesh; parameters,
+    results.json and reply bit for bit equal, and the steps' ms side by side
+    (the collectives' cost at world size 1).
+
+    ``mesh_shared_card`` (run by :func:`start_mesh` and :func:`wait_mesh`,
+    checked here): two ranks on the
+    one H100 over gloo, the CATER service at batch 8 with ``data=1,
+    model=2`` (float reply within 1e-4 of its largest value of the
+    single-process one), ``data=2`` (1e-5) and at batch 1 under
+    sequence-parallel decode (1e-5); a CATER 04 step at B=8, p=3 on
+    ``model=2`` against world size 1 (losses 1e-5, the gradients' global
+    norm 1e-4, no parameter more than MESH_TP_PARAM_LRS lr from world 1's
+    after the update, the replicated leaves bit-equal across the ranks).
+    Returns each phase's launches."""
+    return _mesh_phases(shared, device)
+
+
+def _mesh_phases(shared, device):
+    counts = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    (one,) = _finish_mesh(_start_mesh(shared["tmp"], "mesh_nccl", shared["spec"], 1),
+                          timeout=600)
+    check(one["backend"] == ("nccl" if device == "cuda" else "gloo"),
+          f"mesh_nccl: backend {one['backend']}")
+    equal = {k: one[k] for k in ("params_equal_02", "params_equal_04", "results_equal_05",
+                                 "reply_equal")}
+    check(all(equal.values()), f"mesh_nccl: world size 1 through the mesh is not bit for bit "
+                               f"the plain run: {equal}; nondeterministic ops: "
+                               f"{one['nondeterministic']}")
+    for k in ("02", "04"):
+        check(one[f"losses_{k}_plain"] == one[f"losses_{k}_mesh"], f"mesh_nccl: {k} losses")
+    counts["mesh_nccl"] = every_kernel(one["launches"])
+    check(device != "cuda" or (counts["mesh_nccl"]["slot_attention"] > 0
+                               and counts["mesh_nccl"]["conv5"] > 0),
+          f"mesh_nccl: launches {counts['mesh_nccl']}")
+    emit({"phase": "mesh_nccl", "backend": one["backend"], "world": 1,
+          "mesh_axes": {"data": -1, "model": 1}, **equal,
+          "step_ms": {f"{k}_b{TRAIN_BATCH}": {"plain": one[f"ms_{k}_plain"],
+                                              "mesh": one[f"ms_{k}_mesh"]} for k in ("02", "04")},
+          "losses": {k: one[f"losses_{k}_mesh"] for k in ("02", "04")},
+          "reply_shape": one["reply_shape"], "eval_batch": EVAL_BATCH,
+          "launches": counts["mesh_nccl"], "peak_gb": one["peak_gb"],
+          "seconds": one["seconds"], "nondeterministic_ops": one["nondeterministic"]})
+    ranks = shared["ranks"]
+    zero = ranks[0]
+    for name, tol in (("data1_model2", 1e-4), ("data2", 1e-5), ("seq_parallel_b1", 1e-5)):
+        r = zero[name]
+        check(r["max_abs_err"] <= tol * r["max_abs_ref"],
+              f"mesh_shared_card {name}: reply error {r['max_abs_err']} > {tol} x "
+              f"{r['max_abs_ref']}")
+    check(zero["seq_parallel_b1"]["seq_parallel"] and not zero["data2"]["seq_parallel"],
+          "mesh_shared_card: sequence-parallel decode at batch 1 only")
+    tp = ranks[1]["tp_step"]
+    check(tp["loss_rel_err"] <= 1e-5, f"mesh_shared_card: TP 04 losses {tp}")
+    check(tp["grad_norm_rel_err"] <= 1e-4, f"mesh_shared_card: TP 04 grad norm {tp}")
+    check(tp["max_param_diff"] <= MESH_TP_PARAM_LRS * tp["lr"],
+          f"mesh_shared_card: TP 04 parameters {tp['max_param_diff']} from world 1's "
+          f"> {MESH_TP_PARAM_LRS} lr ({tp['lr']})")
+    check(ranks[0]["tp_step"]["replicated_digest"] == ranks[1]["tp_step"]["replicated_digest"],
+          "mesh_shared_card: replicated leaves differ across the ranks")
+    check(all(r["backend"] == "gloo" for r in ranks), "mesh_shared_card: backend")
+    counts["mesh_shared_card"] = every_kernel(
+        {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]})
+    check(device != "cuda" or (counts["mesh_shared_card"]["slot_attention"] > 0
+                               and counts["mesh_shared_card"]["conv5"] > 0),
+          f"mesh_shared_card: launches {counts['mesh_shared_card']}")
+    emit({"phase": "mesh_shared_card", "backend": "gloo", "world": 2, "card_shared": True,
+          **{k: zero[k] for k in ("data1_model2", "data2", "seq_parallel_b1")},
+          "reply_tolerance": {"data1_model2": 1e-4, "data2": 1e-5, "seq_parallel_b1": 1e-5},
+          "tp_step": {**tp, "replicated_bit_equal_across_ranks": True,
+                      "param_limit_lrs": MESH_TP_PARAM_LRS, "batch": MESH_TP_BATCH,
+                      "num_preds": MESH_TP_PREDS},
+          "launches": counts["mesh_shared_card"],
+          "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+          "processes_s": shared["processes_s"], "main_timeline_wait_s": shared["wait_s"],
+          "seconds_by_rank": [r["seconds"] for r in ranks],
+          "nondeterministic_ops": sorted({w for r in ranks for w in r["nondeterministic"]})})
+    return counts
+
+
 def run_path(path: ServedPath, tmp: Path):
     """Parity, then the main path (service + HTTP) between a reset and a read
     of the launch counters, then the profile. Returns the main path's launches."""
@@ -4626,13 +5125,20 @@ def main() -> int:
         counts.update(run_figs(train_exp))
         other_counts, other_input_grad, other_weight_grad = run_predictors(Path(tmp), train_exp)
         counts.update(other_counts)
-        counts.update(run_clip(Path(tmp), made["clipport"]))
+        # mesh_shared_card's two ranks beside the CLIPort fixture, which times nothing
+        mesh = start_mesh(Path(tmp), train_exp)
+        try:
+            clip_data, clip_exp = clip_fixture(Path(tmp))
+        finally:
+            wait_mesh(mesh)  # and done before the CLIPort chain's timed phases
+        counts.update(run_clip(Path(tmp), made["clipport"], clip_data, clip_exp))
         counts.update(run_quant(Path(tmp), Path(tmp) / "eval" / "exp", Path(tmp) / "clip_train"))
         counts.update(run_clip_figs(Path(tmp) / "clip_train"))
         phase_clip_remat(Path(tmp) / "clip_train")
         counts["clip_png_eval"] = run_clip_png_eval(Path(tmp))
         finish_parities()  # the trainer parities' CPU halves, checked; their lines
         counts.update(finish_exports())  # the artifacts answer on the idle card
+        counts.update(run_mesh(mesh))  # mesh_nccl alone on the card, then the shared card's
 
     sa = next(r for r in rows["slot_attention_cater"] if r["B"] == BATCH and r["iters"] == 3)
     sa64 = next(r for r in rows["slot_attention_cater"] if r["B"] == EVAL_BATCH

@@ -16,7 +16,9 @@ vocabulary before the lookup, the host image library's build on the card's
 machine, remat steps against plain ones (gradients within 1e-6 of the
 largest leaf), the PNG route into a 05 batch, the three kernels at the 06
 paths' batch-1 shapes, figures and GIFs of card tensors, and two requests
-coalesced by the dynamic batcher against a direct predict; the int8 conv
+coalesced by the dynamic batcher against a direct predict; the mesh's
+collectives on CUDA tensors in a group of one rank over NCCL and over gloo
+(host copies), and BatchNorm at world size 1 bit for bit; the int8 conv
 kernel against its plain version (exact) at the int8 decode's shapes and
 across its tiles, its refusals, the int8 dense on the card against the CPU
 (exact), a full-width int8 SAVi decode on the card against the CPU (in
@@ -1037,3 +1039,106 @@ def test_a_quantized_cater_artifact_on_the_card_answers_like_the_live_service(cu
     assert (sak.slot_attention_cuda.launches, ci.conv_int8_cuda.launches) == (
         before[0] + 1, before[1] + 3)
     np.testing.assert_array_equal(out, ref)
+
+
+# ------------------------------------------------------------------------- the mesh
+
+
+def _one_rank_group(monkeypatch, backend=None):
+    """A process group of one rank: through the ``TEXTOCVP_*`` environment
+    (``parallel/distributed.py``, which picks NCCL for one rank on one GPU),
+    or with ``backend`` made directly. The caller leaves it (``destroy``)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from textocvp_tpu_torch.parallel import distributed as pdist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if backend:
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                                rank=0)
+        return pdist
+    for k, v in {"TEXTOCVP_COORDINATOR": f"127.0.0.1:{port}", "TEXTOCVP_NUM_PROCESSES": "1",
+                 "TEXTOCVP_PROCESS_ID": "0"}.items():
+        monkeypatch.setenv(k, v)
+    assert pdist.maybe_initialize_distributed()
+    return pdist
+
+
+def _helpers_at_world1(pdist, device):
+    """The mesh of the group, and its collectives on CUDA tensors: each the
+    identity at world size 1, the result on the card."""
+    from textocvp_tpu_torch.parallel.mesh import (
+        AllReduceSum,
+        all_gather_rows,
+        all_reduce,
+        broadcast_object,
+    )
+
+    mesh = pdist.get_runtime_mesh({"mesh_axes": {"data": -1, "model": 1}}, "cuda")
+    assert (mesh.world, mesh.data, mesh.model) == (1, 1, 1) and mesh.device.type == "cuda"
+    x = torch.randn((5, 7), device=device)
+    want = x.clone()
+    assert all_reduce(x, mesh.data_group) is x
+    assert torch.equal(x, want)
+    g = all_gather_rows(x, mesh.data_group)
+    assert g.device.type == "cuda" and torch.equal(g, want)
+    assert broadcast_object({"a": 1}) == {"a": 1}
+    y = x.clone().requires_grad_()
+    out = AllReduceSum.apply(y, mesh.data_group)
+    (grad,) = torch.autograd.grad(out.sum(), y)
+    assert out.device.type == "cuda" and torch.equal(grad, torch.ones_like(y))
+    return mesh
+
+
+def test_nccl_group_of_one_rank_runs_the_helpers_on_the_card(cuda, monkeypatch):
+    pdist = _one_rank_group(monkeypatch)
+    try:
+        assert _helpers_at_world1(pdist, cuda).backend == "nccl"
+    finally:
+        pdist.destroy()
+
+
+def test_gloo_helpers_stage_cuda_tensors_through_the_host(cuda, monkeypatch):
+    """Under gloo the helpers pass CUDA tensors through host copies; BatchNorm's
+    global statistics over a group of one equal its own batch's."""
+    from textocvp_tpu_torch.nn.blocks import BatchNorm
+
+    pdist = _one_rank_group(monkeypatch, "gloo")
+    try:
+        mesh = _helpers_at_world1(pdist, cuda)
+        assert mesh.backend == "gloo"
+        bn = BatchNorm(8).cuda().train()
+        x = torch.randn((4, 8, 6, 6), device=cuda)
+        want = bn(x)
+        bn.data_group = mesh.data_group
+        torch.testing.assert_close(bn(x), want, rtol=1e-5, atol=1e-5)
+    finally:
+        pdist.destroy()
+
+
+def test_batchnorm_at_world_size_1_is_unchanged_on_the_card(cuda):
+    """Without a data group BatchNorm in ``train()`` is ``F.batch_norm`` and
+    flax's running-statistics update, bit for bit."""
+    import torch.nn.functional as F
+
+    from textocvp_tpu_torch.nn.blocks import BatchNorm, set_batchnorm_group
+
+    gen = torch.Generator().manual_seed(4)
+    bn = BatchNorm(16)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.uniform_(-0.5, 0.5, generator=gen)
+    bn = bn.cuda().train()
+    set_batchnorm_group(bn, None)
+    x = torch.randn((6, 16, 12, 12), generator=gen).cuda()
+    out = bn(x)
+    want = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+    mean = x.mean((0, 2, 3))
+    var = (x.square().mean((0, 2, 3)) - mean.square()).clamp_(min=0)
+    assert torch.equal(out, want)
+    assert torch.equal(bn.running_mean, 0.01 * mean)
+    assert torch.equal(bn.running_var, 0.99 * torch.ones_like(var) + 0.01 * var)

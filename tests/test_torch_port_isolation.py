@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of ``textocvp_tpu_torch`` and
 nothing in ``chip_smoke.py``, ``chip_slot_attention_probe.py``,
-``chip_trace_probe.py`` or ``chip_remat_probe.py`` imports JAX, flax, optax
-or the JAX package."""
+``chip_trace_probe.py``, ``chip_remat_probe.py`` or the multi-process tests'
+worker ``tests/torch_dist_worker.py`` imports JAX, flax, optax or the JAX
+package."""
 
 import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import ast
@@ -15,7 +16,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "textocvp_tpu")
 SOURCES = sorted((ROOT / "textocvp_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_slot_attention_probe.py", ROOT / "chip_trace_probe.py",
-    ROOT / "chip_remat_probe.py"]
+    ROOT / "chip_remat_probe.py", ROOT / "tests" / "torch_dist_worker.py"]
 
 
 def _imported_roots(path: Path):

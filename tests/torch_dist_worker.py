@@ -1,0 +1,238 @@
+"""One rank of the port's multi-process tests (``tests/test_torch_port_dist_*.py``).
+
+    TEXTOCVP_COORDINATOR=127.0.0.1:PORT TEXTOCVP_NUM_PROCESSES=N TEXTOCVP_PROCESS_ID=R \\
+        python tests/torch_dist_worker.py SPEC.json OUT_DIR
+
+``SPEC.json`` is ``{"jobs": [{"job": name, ...}, ...]}``: each job runs in
+turn on every rank in one gloo process group, and rank ``R`` writes
+``OUT_DIR/<i>_rank<R>.npz`` (the job's arrays) for the ``i``-th job. Imports
+torch and the port only, never JAX: the parent test computes the JAX side and
+hands inputs and weights over as ``.npz`` files. One torch thread a rank.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch import distributed as dist
+
+from textocvp_tpu_torch.parallel import distributed as pdist
+from textocvp_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    all_reduce,
+    barrier,
+    broadcast_object,
+    shard_batch,
+)
+from textocvp_tpu_torch.parallel.partitioning import (
+    gather_full,
+    gather_state_dict,
+    shard_predictor_,
+    sharded_names,
+)
+
+
+def _tensors(path) -> dict:
+    with np.load(path) as f:
+        return {k: torch.from_numpy(f[k]) for k in f.files}
+
+
+def _grads(model, group) -> dict:
+    """Every gradient by name, sharded ones gathered to their full shapes."""
+    out = {}
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        shard = getattr(p, "tp_shard", None)
+        g = gather_full(p.grad, shard, group) if shard else p.grad
+        out[f"grad/{name}"] = g.numpy()
+    return out
+
+
+def job_helpers(spec):
+    """The mesh's indices and groups, the collective helpers, and a
+    tensor-parallel MLP pair's gradients."""
+    from textocvp_tpu_torch.nn.blocks import MLP
+
+    mesh = Mesh(spec["data"], spec["model"])
+    rank = mesh.rank
+    out = {"indices": np.array([mesh.data_index, mesh.model_index]),
+           "data_ranks": np.array(dist.get_process_group_ranks(mesh.data_group)),
+           "model_ranks": np.array(dist.get_process_group_ranks(mesh.model_group)),
+           "data_sum": all_reduce(torch.tensor([float(rank)]), mesh.data_group).numpy(),
+           "model_sum": all_reduce(torch.tensor([float(rank)]), mesh.model_group).numpy(),
+           "gathered": all_gather_rows(torch.full((2, 3), float(rank)), mesh.data_group).numpy(),
+           "broadcast": np.array(broadcast_object({"rank": rank} if rank == 0 else None)["rank"]),
+           "shard": shard_batch(np.arange(8), mesh)}
+    host = torch.nn.Module()
+    host.mlp = MLP(4, [8, 4])
+    host.mlp.load_state_dict({k: v for k, v in _tensors(spec["weights"]).items()})
+    out["sharded"] = np.array(shard_predictor_(host, mesh))
+    x = _tensors(spec["inputs"])["x"].requires_grad_(True)
+    (host.mlp(x) * torch.arange(4.0)).sum().backward()
+    out["x_grad"] = x.grad.numpy()
+    out.update(_grads(host, mesh.model_group))
+    return out
+
+
+def _decomp_trainer(spec):
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    tr = DecompTrainer(spec["exp"], device="cpu")
+    tr.setup_model()
+    tr.model.load_state_dict(_tensors(spec["weights"]))
+    return tr
+
+
+def job_train02(spec):
+    """One 02 step on this rank's rows of the global batch, with the global
+    noise the parent drew."""
+    tr = _decomp_trainer(spec)
+    d = _tensors(spec["inputs"])
+    video, noise = shard_batch((d["video"], d["noise"]), tr.mesh)
+    values = tr.backward(video, noise)
+    out = {f"loss/{k}": v.numpy() for k, v in values.items()}
+    out.update(_grads(tr.model, tr.mesh.model_group))
+    tr.optimizer.step()
+    out.update({f"param/{k}": v.numpy() for k, v in tr.model.state_dict().items()})
+    return out
+
+
+def _pred_trainer(spec):
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+
+    tr = PredictorTrainer(spec["exp"], "decomp", checkpoint="init", device="cpu")
+    tr.setup_model()
+    return tr
+
+
+def job_train04(spec):
+    """One 04 step (this rank's rows, the parent's global noise): losses,
+    gradients and the clip's norm, the parameters after the update (full and
+    this rank's own), then a checkpoint written by rank 0 when asked."""
+    tr = _pred_trainer(spec)
+    d = _tensors(spec["inputs"])
+    text = {k: d[k] for k in ("caption_tokens", "attn_masks")}
+    video, noise, text = shard_batch((d["video"], d["noise"], text), tr.mesh)
+    values = tr.backward(video, noise, **text)
+    out = {f"loss/{k}": v.numpy() for k, v in values.items()}
+    out.update(_grads(tr.model, tr.mesh.model_group))
+    out["grad_norm"] = np.asarray(tr.optimizer.step()["grad_norm"])
+    group = tr.mesh.model_group if tr.mesh.tensor_parallel else None
+    full = gather_state_dict(tr.model, group) if group is not None else tr.model.state_dict()
+    out.update({f"param/{k}": v.numpy() for k, v in full.items()})
+    out.update({f"local/{k}": v.numpy() for k, v in tr.model.state_dict().items()})
+    out["sharded"] = np.array(sharded_names(tr.model), dtype=str)
+    if spec.get("checkpoint"):
+        from textocvp_tpu_torch.train.checkpoints import save_checkpoint
+
+        # a collective under tensor parallelism; rank 0 writes
+        save_checkpoint(tr.exp.checkpoint_path(spec["checkpoint"]), tr._state(1))
+        barrier()
+    return out
+
+
+def job_rollout(spec):
+    """A predictor's rollout on this data index's rows, sharded over the model
+    axis, gathered over the data group."""
+    from textocvp_tpu_torch.models import setup_predictor
+
+    mesh = Mesh(spec["data"], spec["model"])
+    wrapper = setup_predictor(json.loads(Path(spec["params"]).read_text()))
+    wrapper.load_state_dict(_tensors(spec["weights"]))
+    wrapper.eval()
+    names = shard_predictor_(wrapper, mesh)
+    d = _tensors(spec["inputs"])
+    hist = d.pop("hist")
+    hist, text = shard_batch((hist, d), mesh)
+    with torch.no_grad():
+        pred = wrapper(hist, num_preds=spec["num_preds"], **text)
+    return {"pred": all_gather_rows(pred, mesh.data_group).numpy(),
+            "sharded": np.array(names, dtype=str)}
+
+
+def job_eval(spec):
+    """03 or 05 over the experiment on the mesh; rank 0 writes results.json."""
+    from textocvp_tpu_torch.train.evaluator import DecompEvaluator, PredictorEvaluator
+
+    if spec["kind"] == "03":
+        ev = DecompEvaluator(spec["exp"], "ckpt", batch_size=spec["batch"],
+                             results_name=spec["results"], device="cpu")
+        ev.load_data()
+        ev.load_model()
+    else:
+        ev = PredictorEvaluator(spec["exp"], "tiny_t5", "ckpt", "ckpt", num_seed=1,
+                                num_preds=spec["num_preds"], batch_size=spec["batch"],
+                                results_name=spec["results"], device="cpu")
+        ev.load_data()
+        ev.load_models()
+    results = ev.evaluate()
+    return {"psnr": np.asarray(results["psnr"]["framewise"])}
+
+
+def float_frames_(svc):
+    """Have ``svc``'s decode stage return its clipped float32 frames times
+    255, unrounded, in place of the uint8 reply, so that ``predict`` (which
+    divides by 255) hands back the frames before the reply's rounding: a
+    1e-7 difference at a rounding edge is a whole 1/255 of the uint8 reply,
+    so the mesh's checks hold these to a tolerance instead. Returns ``svc``."""
+    stage = svc.decode_module
+
+    def forward(pred_slots):
+        b, p, s, d = pred_slots.shape
+        imgs = stage.model.decode(pred_slots.reshape(b * p, s, d))["recons_imgs"]
+        return (imgs.clamp(0.0, 1.0) * 255.0).reshape(b, p, *imgs.shape[1:])
+
+    stage.forward = forward
+    return svc
+
+
+def job_serve(spec):
+    """A mesh service: rank 0 answers the requests (after setting the
+    generator's state) and tries to export; the others follow."""
+    from textocvp_tpu_torch.serve import PredictionService
+    from textocvp_tpu_torch.serve.export import export_service
+
+    svc = PredictionService(spec["exp"], "tiny_t5", "ckpt", "ckpt", batch_size=spec["batch"],
+                            max_tokens=spec["max_tokens"], device="cpu",
+                            mesh_axes=spec["mesh_axes"])
+    if spec.get("float_reply", False):
+        float_frames_(svc)
+    out = {"seq_parallel": np.array(svc._seq_parallel)}
+    if svc.mesh.rank != 0:
+        svc.follow()
+        return out
+    d = np.load(spec["inputs"])
+    svc.generator.set_state(torch.from_numpy(d["state"]))
+    for i, rows in enumerate(spec["rows"]):
+        out[f"reply{i}"] = svc.predict(d["frames"][:rows], list(spec["captions"][:rows]))
+    try:
+        export_service(svc, Path(spec["exp"]) / "artifact")
+    except ValueError as e:
+        out["export_error"] = np.array(str(e))
+    svc.close()
+    return out
+
+
+JOBS = {name[4:]: fn for name, fn in globals().items() if name.startswith("job_")}
+
+
+def main():
+    torch.set_num_threads(1)
+    spec_path, out_dir = sys.argv[1:3]
+    spec = json.loads(Path(spec_path).read_text())
+    assert pdist.maybe_initialize_distributed(), "no process group in the environment"
+    rank = dist.get_rank()
+    for i, job in enumerate(spec["jobs"]):
+        out = JOBS[job["job"]](job)
+        np.savez(Path(out_dir) / f"{i}_rank{rank}.npz", **out)
+    pdist.destroy()
+
+
+if __name__ == "__main__":
+    main()

@@ -7,6 +7,9 @@ The checkpoint is ``EXP/models/<C>.pt`` (a training checkpoint, a bare state
 dict, or an imported one: ``cli/import_torch_checkpoint.py``). The metrics
 land in ``EXP/results/<NAME>/results.json``, by default ``NAME =
 eval_decomp_<C>``.
+
+Under ``torchrun --nproc_per_node N`` (or the ``TEXTOCVP_*`` environment)
+it runs on the mesh of ``tpu.mesh_axes`` (``parallel/``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ def evaluate_decomp_args(argv=None):
 
 def main(argv=None):
     args = evaluate_decomp_args(argv)
+    from textocvp_tpu_torch.parallel.distributed import maybe_initialize_distributed
+
+    maybe_initialize_distributed()  # under torchrun or the TEXTOCVP_* environment
     from textocvp_tpu_torch.train.evaluator import DecompEvaluator
 
     evaluator = DecompEvaluator(args.exp_directory, args.decomp_ckpt,

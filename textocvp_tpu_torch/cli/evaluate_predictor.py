@@ -9,6 +9,9 @@ dicts) in the decomposition experiment (``-d``) and in its predictor
 experiment (``predictors/<P>``).
 The metrics land in ``predictors/<P>/results/<NAME>/results.json``, by
 default ``NAME = eval_pred_<pred_ckpt>_NumSeed=<c>_NumPreds=<p>``.
+
+Under ``torchrun --nproc_per_node N`` (or the ``TEXTOCVP_*`` environment)
+it runs on the mesh of ``tpu.mesh_axes`` (``parallel/``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ def evaluate_predictor_args(argv=None):
 
 def main(argv=None):
     args = evaluate_predictor_args(argv)
+    from textocvp_tpu_torch.parallel.distributed import maybe_initialize_distributed
+
+    maybe_initialize_distributed()  # under torchrun or the TEXTOCVP_* environment
     from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
 
     evaluator = PredictorEvaluator(

@@ -12,6 +12,11 @@ frames (``PredictionService.calibrate`` takes real ones).
 Checkpoints are ``models/<ckpt>.pt`` (training checkpoints or bare state
 dicts) in the decomposition experiment (``-d``) and in its predictor
 experiment (``predictors/<P>``).
+
+Several GPUs: ``--mesh_data D [--mesh_model M]`` under ``torchrun
+--nproc_per_node D*M`` (or the ``TEXTOCVP_*`` environment,
+``parallel/distributed.py``). Rank 0 binds the HTTP port and runs the
+dynamic batcher; the other ranks follow its broadcasts until it closes.
 """
 
 from __future__ import annotations
@@ -33,6 +38,13 @@ def serve_args(argv=None):
     parser.add_argument("--batch_size", type=int, default=8,
                         help="service batch (requests are padded to it)")
     parser.add_argument("--max_tokens", type=int, default=24)
+    parser.add_argument("--mesh_data", type=int, default=0,
+                        help="multi-GPU serving: shard request batches over "
+                             "a data axis of this size (-1 = all remaining "
+                             "ranks; 0 = single-process serving)")
+    parser.add_argument("--mesh_model", type=int, default=1,
+                        help="multi-GPU serving: tensor-parallel axis for "
+                             "the predictor's matmuls (needs --mesh_data)")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--wire_dtype", default="float32", choices=["float32", "uint8"],
@@ -52,6 +64,11 @@ def serve_args(argv=None):
                              "(torch.export, weights inside) and a manifest to DIR: "
                              "deployable without model code or checkpoints")
     args = parser.parse_args(argv)
+    if args.mesh_model > 1 and not args.mesh_data:
+        parser.error("--mesh_model needs a mesh: pass --mesh_data "
+                     "(e.g. --mesh_data -1 to span the remaining ranks); "
+                     "with --mesh_data 0 the service is single-process and "
+                     "the tensor-parallel request would be silently ignored")
     args.exp_directory = resolve_exp_dir(args.exp_directory)
     return args
 
@@ -61,12 +78,17 @@ def main(argv=None):
     from textocvp_tpu_torch.serve import PredictionService, serve
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    mesh_axes = ({"data": args.mesh_data, "model": args.mesh_model}
+                 if args.mesh_data else None)
     service = PredictionService(
         args.exp_directory, args.name_pred_exp,
         decomp_ckpt=args.decomp_ckpt, pred_ckpt=args.pred_ckpt,
         num_seed=args.num_seed, num_preds=args.num_preds,
         batch_size=args.batch_size, max_tokens=args.max_tokens,
-        wire_dtype=args.wire_dtype, device=args.device)
+        wire_dtype=args.wire_dtype, device=args.device, mesh_axes=mesh_axes)
+    if service.mesh is not None and service.mesh.rank != 0:
+        service.follow()  # until rank 0 closes
+        return 0
     if args.export:
         from textocvp_tpu_torch.serve.export import export_service
 
@@ -85,6 +107,7 @@ def main(argv=None):
         httpd.server_close()
         if httpd.batcher is not None:
             httpd.batcher.close()
+        service.close()  # a mesh service's other ranks stop following
     return 0
 
 

@@ -7,6 +7,9 @@
 ``EXP/models/*.pt``. ``--checkpoint`` starts from ``models/<C>.pt``;
 with ``--resume_training`` its optimizer state, epoch and step too. The
 device is ``cuda`` unless ``--device cpu`` is given.
+
+Under ``torchrun --nproc_per_node N`` (or the ``TEXTOCVP_*`` environment)
+it runs on the mesh of ``tpu.mesh_axes`` (``parallel/``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ def train_decomp_args(argv=None):
 
 def main(argv=None):
     args = train_decomp_args(argv)
+    from textocvp_tpu_torch.parallel.distributed import maybe_initialize_distributed
+
+    maybe_initialize_distributed()  # under torchrun or the TEXTOCVP_* environment
     from textocvp_tpu_torch.train.trainer import DecompTrainer
 
     trainer = DecompTrainer(args.exp_directory, checkpoint=args.checkpoint,

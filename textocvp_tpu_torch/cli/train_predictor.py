@@ -11,6 +11,9 @@ holds the frozen decomposition model; the predictor experiment is ``EXP/predicto
 ``models/<C>.pt`` of the predictor experiment; with ``--resume_training`` its
 optimizer state, epoch and step too. The device is ``cuda`` unless
 ``--device cpu`` is given.
+
+Under ``torchrun --nproc_per_node N`` (or the ``TEXTOCVP_*`` environment)
+it runs on the mesh of ``tpu.mesh_axes`` (``parallel/``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ def train_predictor_args(argv=None):
 
 def main(argv=None):
     args = train_predictor_args(argv)
+    from textocvp_tpu_torch.parallel.distributed import maybe_initialize_distributed
+
+    maybe_initialize_distributed()  # under torchrun or the TEXTOCVP_* environment
     from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
 
     exp_path = os.path.join(args.exp_directory, "predictors", args.name_pred_exp)

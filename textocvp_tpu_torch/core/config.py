@@ -79,10 +79,11 @@ DEFAULTS = {
 # The runtime knobs under "tpu" in an experiment_params.json that the port
 # reads (the JAX package's names; absent or null means off): "remat"
 # (train/trainer.py), "async_checkpoint" (train/checkpoints.py),
-# "decode_quant" and "encode_quant" ("int8", models/quant.py). The JAX
-# package's other knobs there (compute_dtype, use_pallas, mesh_axes, ...) are
-# XLA settings the port ignores.
-TPU_KEYS = ("remat", "async_checkpoint", "decode_quant", "encode_quant")
+# "decode_quant" and "encode_quant" ("int8", models/quant.py), "mesh_axes"
+# ({"data": -1, "model": 1} when absent; parallel/distributed.py). The JAX
+# package's other knobs there (compute_dtype, use_pallas, ...) are XLA
+# settings the port ignores.
+TPU_KEYS = ("remat", "async_checkpoint", "decode_quant", "encode_quant", "mesh_axes")
 
 
 def tpu_option(exp_params: dict, key: str):

@@ -21,7 +21,13 @@ _LOGGER: "Logger | None" = None
 
 
 class Logger:
-    """Tee logger writing timestamped messages to ``<exp_path>/logs.txt``."""
+    """Tee logger writing timestamped messages to ``<exp_path>/logs.txt``.
+
+    ``file_writes_enabled`` False (ranks other than 0 of a process group,
+    ``parallel/distributed.py``) keeps ``logs.txt`` to one writer: the
+    messages still reach stdout."""
+
+    file_writes_enabled = True
 
     def __init__(self, exp_path: str | os.PathLike):
         self.exp_path = Path(exp_path)
@@ -31,6 +37,8 @@ class Logger:
         _LOGGER = self
 
     def log(self, message: str, typ: str = "info") -> None:
+        if not Logger.file_writes_enabled:
+            return
         ts = datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S")
         with open(self.file, "a") as f:
             f.write(f"{ts}    {typ.upper()}: {message}\n")

@@ -13,6 +13,15 @@ caption_lengths, attn_masks}`` from the dataset's tokenizer; and the JAX
 ``drop_last``, the epoch handed to the dataset (``set_epoch``) before any
 item is fetched.
 
+Several processes (the mesh's data axis, ``parallel/distributed.py::
+loader_process_kwargs``): with ``process_count > 1`` each process loads its
+contiguous rows of every global batch (``batch_size`` stays the global batch
+and must divide over the processes), in the one shuffle order every process
+draws; a ragged global batch is padded globally to ``pad_to_multiple`` by
+repeating its last row, so that every process gets as many equal batches,
+and ``info["num_valid"]`` says how many rows of the global batch are real.
+The JAX ``DataLoader``'s ``process_index`` / ``process_count`` semantics.
+
 Items are fetched on ``num_workers`` threads (the decode and resize run in
 C++ with the GIL released), and a producer thread keeps up to
 :data:`PREFETCH` batches ready. ``num_workers`` 0 fetches in the calling
@@ -69,7 +78,7 @@ class Collate:
     def __init__(self, tokenizer=None):
         self.tokenizer = tokenizer
 
-    def __call__(self, items):
+    def __call__(self, items, num_valid: Optional[int] = None):
         videos = np.stack([it[0] for it in items], axis=0)
         if videos.dtype != np.uint8:
             videos = videos.astype(np.float32)
@@ -77,6 +86,8 @@ class Collate:
         info = {"caption": captions}
         if self.tokenizer is not None:
             info.update(self.tokenizer(captions))
+        if num_valid is not None:
+            info["num_valid"] = num_valid
         return videos, info
 
 
@@ -88,10 +99,26 @@ class EpochLoader:
     shuffled by ``np.random.default_rng(seed + epoch)`` when ``shuffle``, in
     batches of ``batch_size`` (the last one ragged unless ``drop_last``).
     ``num_workers`` (default ``CONFIG["num_workers"]``) threads fetch the
-    items, :data:`PREFETCH` batches ahead."""
+    items, :data:`PREFETCH` batches ahead. ``process_index`` /
+    ``process_count`` / ``pad_to_multiple``: this process's rows of each
+    global batch, as the module docstring says."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 14, num_workers: Optional[int] = None):
+                 drop_last: bool = False, seed: int = 14, num_workers: Optional[int] = None,
+                 process_index: int = 0, process_count: int = 1,
+                 pad_to_multiple: Optional[int] = None):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} outside [0, {process_count})")
+        if process_count > 1 and batch_size % process_count:
+            raise ValueError(f"global batch_size {batch_size} must divide evenly over "
+                             f"{process_count} processes")
+        if process_count > 1 and pad_to_multiple is None:
+            pad_to_multiple = process_count
+        if pad_to_multiple is not None and pad_to_multiple % process_count:
+            raise ValueError(f"pad_to_multiple {pad_to_multiple} must be a multiple of "
+                             f"process_count {process_count}")
+        self.process_index, self.process_count = process_index, process_count
+        self.pad_to_multiple = pad_to_multiple
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -106,13 +133,28 @@ class EpochLoader:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def batch_indices(self, epoch: int) -> list:
+        """This process's item indices of each batch of ``epoch``."""
+        return [idxs for idxs, _ in self.batches(epoch)]
+
+    def batches(self, epoch: int) -> list:
+        """(this process's item indices, the global batch's real rows) of
+        each batch of ``epoch``."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
         batches = [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
-        return batches
+        out = []
+        for b in batches:
+            valid, m = len(b), self.pad_to_multiple
+            if m is not None and valid % m:
+                b = np.concatenate([b, np.full(-(-valid // m) * m - valid, b[-1])])
+            if self.process_count > 1:  # padding at the global tail: the last process's
+                per = len(b) // self.process_count
+                b = b[self.process_index * per:(self.process_index + 1) * per]
+            out.append((b, valid))
+        return out
 
     def __iter__(self):
         epoch = self.epoch
@@ -120,10 +162,11 @@ class EpochLoader:
         if set_epoch is not None:  # before any item is fetched, and before workers start
             set_epoch(epoch)
         self.epoch += 1
-        batches = self.batch_indices(epoch)
+        valid = self.pad_to_multiple is not None
+        batches = [(idxs, n if valid else None) for idxs, n in self.batches(epoch)]
         if self.num_workers <= 0:
-            for idxs in batches:
-                yield self.collate([self.dataset[int(i)] for i in idxs])
+            for idxs, n in batches:
+                yield self.collate([self.dataset[int(i)] for i in idxs], n)
             return
         yield from self._prefetched(batches)
 
@@ -146,11 +189,11 @@ class EpochLoader:
         def producer():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    for idxs in batches:
+                    for idxs, n in batches:
                         if stop.is_set():
                             return
                         items = list(pool.map(self.dataset.__getitem__, [int(i) for i in idxs]))
-                        if not put(self.collate(items)):
+                        if not put(self.collate(items, n)):
                             return
             except BaseException as e:  # raised again in the consumer
                 put(e)

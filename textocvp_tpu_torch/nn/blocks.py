@@ -74,7 +74,15 @@ class BatchNorm(nn.BatchNorm2d):
     it normalizes with the batch's mean and biased variance, then moves the
     running statistics as flax does: ``ra = 0.99 * ra + 0.01 * batch``, the
     batch variance the biased ``E[x^2] - E[x]^2`` (``torch.nn.BatchNorm2d``
-    moves them by 0.1 with the unbiased variance)."""
+    moves them by 0.1 with the unbiased variance).
+
+    With ``data_group`` set (``set_batchnorm_group``; data parallelism over
+    more than one rank), ``train()`` normalizes with the global batch's
+    mean and ``E[x^2] - E[x]^2``, summed over the group by a differentiable
+    all-reduce, and moves the running statistics by those, as flax under a
+    sharded ``jit`` does. Without it, ``F.batch_norm``."""
+
+    data_group = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.01)
@@ -82,6 +90,8 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.data_group is not None:
+            return self._global_forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         if getattr(_STATS, "frozen", False):
             return y
@@ -93,6 +103,35 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_forward(self, x):
+        from torch import distributed as dist
+
+        from textocvp_tpu_torch.parallel.mesh import AllReduceSum
+
+        c = x.shape[1]
+        count = x.numel() // c * dist.get_world_size(self.data_group)
+        sums = AllReduceSum.apply(torch.cat([x.sum((0, 2, 3)), x.square().sum((0, 2, 3))]),
+                                  self.data_group)
+        mean, mean2 = sums[:c] / count, sums[c:] / count
+        var = (mean2 - mean.square()).clamp(min=0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[None, :, None, None]) * scale[None, :, None, None] \
+            + self.bias[None, :, None, None]
+        if not getattr(_STATS, "frozen", False):
+            with torch.no_grad():
+                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean.detach())
+                self.running_var.mul_(1 - self.momentum).add_(self.momentum * var.detach())
+                self.num_batches_tracked.add_(1)
+        return y
+
+
+def set_batchnorm_group(module: nn.Module, group) -> None:
+    """Every :class:`BatchNorm` of ``module`` normalizes over ``group`` in
+    ``train()`` (None: over its own batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.data_group = group
 
 
 class ConvBlock(nn.Module):

@@ -76,10 +76,15 @@ def relative_position_bucket(relative_position: torch.Tensor, num_buckets: int =
 
 
 class T5SelfAttention(nn.Module):
+    """T5's unscaled self-attention over ``num_heads`` heads; layer 0 owns the
+    relative-position bias (its head columns, under tensor parallelism this
+    rank's) and hands it to the layers after it."""
+
     def __init__(self, cfg: T5Config, has_relative_bias: bool = False):
         super().__init__()
         inner = cfg.num_heads * cfg.d_kv
         self.cfg = cfg
+        self.num_heads = cfg.num_heads  # this rank's heads under tensor parallelism
         self.q = nn.Linear(cfg.d_model, inner, bias=False)
         self.k = nn.Linear(cfg.d_model, inner, bias=False)
         self.v = nn.Linear(cfg.d_model, inner, bias=False)
@@ -99,7 +104,7 @@ class T5SelfAttention(nn.Module):
     def forward(self, x, mask=None, position_bias=None):
         cfg = self.cfg
         b, length, _ = x.shape
-        heads = lambda t: t.reshape(b, length, cfg.num_heads, cfg.d_kv).transpose(1, 2)
+        heads = lambda t: t.reshape(b, length, self.num_heads, cfg.d_kv).transpose(1, 2)
         q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
         scores = torch.matmul(q, k.transpose(-1, -2))  # unscaled
         if self.relative_attention_bias is not None:

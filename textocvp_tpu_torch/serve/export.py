@@ -30,9 +30,11 @@ another raises and names both.
 
 Refused, as in the JAX package: a quantized service that has not been
 calibrated (:meth:`InferenceFrontend.warmup` or ``calibrate`` first), since
-the artifact keeps its scales for good. The JAX package's other refusals
-(the constant-bake limit, the mesh, ``decode_autotune``) guard XLA settings
-the port does not have.
+the artifact keeps its scales for good; and a mesh service
+(``PredictionService(mesh_axes=...)``): an artifact is single-process, its
+graphs hold no collective. The JAX package's other refusals (the
+constant-bake limit, ``decode_autotune``) guard XLA settings the port does
+not have.
 """
 
 from __future__ import annotations
@@ -58,6 +60,9 @@ def export_service(service, out_dir) -> Path:
     """Write ``service``'s stages and manifest into ``out_dir`` (created);
     returns its path. The stages are traced under ``torch.no_grad()`` with
     example inputs on the service's device, at its batch and caption length."""
+    if getattr(service, "mesh", None) is not None:
+        raise ValueError("a serving artifact is single-process by design (its graphs "
+                         "hold no collective); build the service without mesh_axes to export")
     if service._encode_quant_mode and service.predict_module.encode_scales is None:
         raise ValueError(
             "quantized service (tpu.encode_quant) has not been calibrated yet — call "

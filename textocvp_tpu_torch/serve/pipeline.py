@@ -28,6 +28,28 @@ compute is later work. Opt-in int8 (``tpu.decode_quant``,
 ``tpu.encode_quant``; ``models/quant.py``) calibrates its activation scales
 on the first request, or on :meth:`InferenceFrontend.calibrate`'s frames, and
 keeps them in the stages' ``quant_scales`` / ``encode_scales`` buffers.
+
+Several GPUs (``PredictionService(mesh_axes=...)``, ``cli/serve.py
+--mesh_data / --mesh_model``), one process each in a process group
+(``parallel/``): rank 0's frontend validates and pads a request, draws its
+slot noise, and broadcasts frames, caption tensors and noise to the other
+ranks, which run :meth:`PredictionService.follow` until rank 0's
+:meth:`PredictionService.close` broadcasts the stop message.
+
+* Data parallelism: each data index runs its rows of the batch, and the
+  frames are gathered in rank order. A batch that the data axis does not
+  divide runs at the next multiple (the padding cut off each reply).
+* Sequence-parallel decode, when the batch is smaller than the data axis:
+  every rank runs the whole encode and rollout and decodes its slice of the
+  ``B * num_preds`` frames, taken over all ranks (data x model, since the
+  decoder is replicated); the frames are zero-padded to the rank multiple,
+  gathered, and the padding cut before the uint8 fetch.
+* With ``model > 1`` the predictor is sharded (``parallel/partitioning.py``),
+  the decomposition model replicated.
+
+``tpu.mesh_axes`` is not consulted, as in the JAX package: a serving process
+does not change its batch split with the host's device count. int8 and the
+serving artifact (``serve/export.py``) are single-process.
 """
 
 from __future__ import annotations
@@ -41,7 +63,7 @@ import torch
 from torch import nn
 
 from textocvp_tpu_torch.core.experiment import Experiment
-from textocvp_tpu_torch.core.logger import Logger
+from textocvp_tpu_torch.core.logger import Logger, print_
 from textocvp_tpu_torch.data.tokenizers import TEXT_KEYS, get_tokenizer
 from textocvp_tpu_torch.data.vocabularies import (
     CATER_EASY_VOCAB,
@@ -61,6 +83,13 @@ from textocvp_tpu_torch.models.quant import (
     decode_quant_mode,
     encode_quant_mode,
 )
+from textocvp_tpu_torch.parallel.distributed import (
+    get_runtime_mesh,
+    is_process_zero,
+    maybe_initialize_distributed,
+)
+from textocvp_tpu_torch.parallel.mesh import all_gather_rows, broadcast_object, shard_batch
+from textocvp_tpu_torch.parallel.partitioning import shard_predictor_
 from textocvp_tpu_torch.train.checkpoints import load_params
 
 _VOCABS = {
@@ -130,6 +159,7 @@ class InferenceFrontend:
 
     _quant_mode = None
     _encode_quant_mode = None
+    _run_batch = None  # the batch a request is padded to, when not batch_size
 
     def _finalize_token(self, key: str, v: np.ndarray) -> np.ndarray:
         """Hook: a token array in the dtype the stage takes."""
@@ -190,16 +220,21 @@ class InferenceFrontend:
                              "tpu.decode_quant or tpu.encode_quant set")
         self.predict(frames, captions)
 
+    def _draw_noise(self, b: int):
+        """The initial slots' noise of a batch of ``b``, from ``generator``."""
+        return torch.randn((b, self.num_slots, self.slot_dim),
+                           generator=self.generator, device=self.generator.device)
+
     @torch.inference_mode()
-    def _predict_stage(self, frames: np.ndarray, text: dict):
+    def _predict_stage(self, frames: np.ndarray, text: dict, noise=None):
         """The host part of the predict stage: the request on the device and
-        the initial slots' noise drawn from ``generator``; then
+        the initial slots' noise (drawn from ``generator`` unless given); then
         :meth:`_run_predict`."""
         videos = torch.from_numpy(frames).to(self.device)
-        noise = torch.randn((frames.shape[0], self.num_slots, self.slot_dim),
-                            generator=self.generator, device=self.generator.device)
+        if noise is None:
+            noise = self._draw_noise(frames.shape[0])
         text = {k: torch.from_numpy(v).to(self.device) for k, v in text.items()}
-        return self._run_predict(videos, noise, text)
+        return self._run_predict(videos, noise.to(self.device), text)
 
     def _run_predict(self, videos, noise, text):
         return self.predict_module(videos, noise, text)
@@ -207,6 +242,10 @@ class InferenceFrontend:
     @torch.inference_mode()
     def _decode_stage(self, pred_slots):
         return self.decode_module(pred_slots)
+
+    def _dispatch(self, frames: np.ndarray, text: dict):
+        """Both stages of a padded request -> uint8 frames on the device."""
+        return self._decode_stage(self._predict_stage(frames, text))
 
     def predict(self, frames: np.ndarray, captions: Sequence[str]) -> np.ndarray:
         """frames (B, num_context, H, W, 3) uint8 or float32 in [0, 1]; B captions.
@@ -230,13 +269,13 @@ class InferenceFrontend:
         if frames.shape[1:] != (self.num_context, *self.resolution, 3):
             raise ValueError(f"expected frames (B, {self.num_context}, {self.resolution[0]}, "
                              f"{self.resolution[1]}, 3), got {frames.shape}")
-        pad = self.batch_size - b
+        pad = (self._run_batch or self.batch_size) - b
         if pad:
             frames = np.concatenate([frames, np.repeat(frames[-1:], pad, axis=0)], axis=0)
             captions = list(captions) + [captions[-1]] * pad
         text = self._tokenize(captions)
         with self._lock:
-            imgs, done = self._start_fetch(self._decode_stage(self._predict_stage(frames, text)))
+            imgs, done = self._start_fetch(self._dispatch(frames, text))
         # wait outside the lock, as the JAX service does: a second caller
         # (serve/batching.py's dispatchers) enqueues batch N+1 while batch N's
         # bytes come back
@@ -271,18 +310,31 @@ class PredictionService(InferenceFrontend):
     ``img_size``. ``generator``
     draws the slot noise of a ``LearnedRandom`` initializer; by default one
     on ``device`` seeded with 14.
+
+    ``mesh_axes`` (``{"data": d, "model": m}``, ``data`` -1 for the ranks
+    left) serves over the process group that the environment names, as the
+    module docstring says; every rank builds the service, rank 0 answers and
+    the others call :meth:`follow`.
     """
 
     def __init__(self, exp_path, name_pred_exp: str, decomp_ckpt: str, pred_ckpt: str,
                  num_seed: Optional[int] = None, num_preds: Optional[int] = None,
                  batch_size: int = 8, max_tokens: int = 24, wire_dtype: str = "float32",
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 mesh_axes: Optional[dict] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PredictionService: no CUDA device; pass device='cpu' to "
                                "run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        self.mesh = None
+        self._seq_parallel = False
+        self._closed = False
+        if mesh_axes:
+            maybe_initialize_distributed()
+            self.mesh = get_runtime_mesh({"mesh_axes": mesh_axes}, self.device)
+            self.device = self.mesh.device
 
         self.parent = Experiment(exp_path)
         pred_path = Path(name_pred_exp)
@@ -315,10 +367,28 @@ class PredictionService(InferenceFrontend):
         self.tokenizer = serving_tokenizer(self.exp_params)
         self._quant_mode = decode_quant_mode(self.exp_params)
         self._encode_quant_mode = encode_quant_mode(self.exp_params)
+        if self.mesh is not None:
+            if self._quant_mode or self._encode_quant_mode:
+                raise ValueError("int8 serving (tpu.decode_quant / tpu.encode_quant) is "
+                                 "single-process: build the service without mesh_axes")
+            d = self.mesh.data
+            self._seq_parallel = self.batch_size < d
+            if self._seq_parallel:
+                print_(f"serve: batch {self.batch_size} < data axis {d}: sequence-parallel "
+                       "decode (encode and rollout on every rank, the decode's frames "
+                       f"split over {self.mesh.world} ranks)")
+            elif self.batch_size % d:
+                self._run_batch = -(-self.batch_size // d) * d
+                print_(f"serve: batch {self.batch_size} not divisible by data axis {d}: "
+                       f"running at padded batch {self._run_batch}")
+            print_(f"serve: mesh data={d} model={self.mesh.model}, rank {self.mesh.rank}, "
+                   f"backend {self.mesh.backend}")
         self.model = self._load(setup_model(self.exp_params),
                                 self.parent.checkpoint_path(decomp_ckpt))
         self.predictor = self._load(setup_predictor(self.exp_params),
                                     self.exp.checkpoint_path(pred_ckpt))
+        if self.mesh is not None:
+            shard_predictor_(self.predictor, self.mesh)
         self.predict_module = PredictStage(self.model, self.predictor, self.num_preds)
         self.decode_module = DecodeStage(self.model)
         self.generator = generator or torch.Generator(self.device).manual_seed(14)
@@ -327,6 +397,51 @@ class PredictionService(InferenceFrontend):
     def _load(self, module, path):
         module.load_state_dict(load_params(path))
         return module.to(self.device).eval().requires_grad_(False)
+
+    # ----------------------------------------------------------------- mesh
+    def _dispatch(self, frames: np.ndarray, text: dict):
+        if self.mesh is None:
+            return super()._dispatch(frames, text)
+        noise = self._draw_noise(frames.shape[0]).cpu()
+        broadcast_object((frames, text, noise))
+        return self._mesh_run(frames, text, noise)
+
+    @torch.inference_mode()
+    def _mesh_run(self, frames: np.ndarray, text: dict, noise):
+        """One padded request on this rank's share of the mesh -> the whole
+        batch's uint8 frames (B, P, H, W, 3) on the device, on every rank."""
+        if not self._seq_parallel:
+            frames, text, noise = shard_batch((frames, text, noise), self.mesh)
+            imgs = self._decode_stage(self._predict_stage(frames, text, noise))
+            return all_gather_rows(imgs, self.mesh.data_group)
+        pred_slots = self._predict_stage(frames, text, noise)
+        b, p, s, d = pred_slots.shape
+        n = self.mesh.world
+        per = -(-(b * p) // n)
+        flat = pred_slots.reshape(b * p, s, d)
+        flat = torch.cat([flat, flat.new_zeros((per * n - b * p, s, d))])
+        mine = flat[self.mesh.rank * per:(self.mesh.rank + 1) * per]
+        imgs = self._decode_stage(mine[:, None])[:, 0]
+        imgs = all_gather_rows(imgs, self.mesh.world_group)[:b * p]
+        return imgs.reshape(b, p, *imgs.shape[1:])
+
+    def follow(self):
+        """The loop of a rank other than 0: run each request that rank 0
+        broadcasts, until it broadcasts the stop message (:meth:`close`)."""
+        if self.mesh is None or is_process_zero():
+            raise RuntimeError("follow() runs on the ranks other than 0 of a mesh service")
+        while True:
+            msg = broadcast_object(None)
+            if msg is None:
+                return
+            self._mesh_run(*msg)
+
+    def close(self):
+        """Rank 0 of a mesh service: send the other ranks the stop message
+        (once). Nothing on a single-process service."""
+        if self.mesh is not None and is_process_zero() and not self._closed:
+            self._closed = True
+            broadcast_object(None)
 
     def _run_predict(self, videos, noise, text):
         # int8 ViT: calibrated on the first request's context frames (under

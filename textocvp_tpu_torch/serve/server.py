@@ -153,7 +153,12 @@ def serve(service, host: str = "127.0.0.1", port: int = 8000, warmup: bool = Tru
     padded batch. ``pipeline_depth``: the batcher's dispatcher threads (2
     packs batch N+1 while N runs on the device; 1 dispatches serially). The
     server's ``batcher`` is the batcher, else None; ``close()`` it after
-    ``shutdown()``."""
+    ``shutdown()``. A mesh service is served by its rank 0 (the others run
+    ``service.follow()``); ``service.close()`` after the batcher's stops them."""
+    mesh = getattr(service, "mesh", None)
+    if mesh is not None and mesh.rank != 0:
+        raise RuntimeError(f"rank {mesh.rank} of a mesh service does not serve HTTP: "
+                           "call service.follow()")
     if warmup:
         log.info("serve: warmup request")
         service.warmup()

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from textocvp_tpu_torch.core.config import tpu_option
+from textocvp_tpu_torch.parallel.distributed import is_process_zero
 
 
 def _to_cpu(obj, copy: bool = False):
@@ -55,8 +56,12 @@ def _to_cpu(obj, copy: bool = False):
 
 
 def save_checkpoint(path, state: dict) -> Path:
-    """Write one checkpoint (tensors moved to the CPU) atomically; returns its path."""
+    """Write one checkpoint (tensors moved to the CPU) atomically; returns its
+    path. In a process group only rank 0 writes (the others return the path):
+    the experiment directory is shared."""
     path = Path(path)
+    if not is_process_zero():
+        return path
     path.parent.mkdir(parents=True, exist_ok=True)
     # a unique temporary name: two savers must not truncate each other's file
     tmp = path.with_name(f"{path.name}.tmp.{os.getpid()}")

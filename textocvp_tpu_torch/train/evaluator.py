@@ -37,6 +37,17 @@ off for matmuls and cuDNN. ``LearnedRandom`` slot noise comes from one
 ``torch.Generator`` on the device seeded 14 (it cannot match ``jax.random``).
 The decode is not chunked: at B = 64 on CATER one activation of the decoder
 tail is 9728 x 64 x 64 x 64 float32, 10.2 GB, and the tail holds two at once.
+
+On a mesh (``tpu.mesh_axes`` in a process group, ``parallel/``) each data
+index evaluates its contiguous rows of every batch, a ragged batch padded to
+the data multiple by repeating its last row (``EpochLoader``'s process
+split). Every rank draws the initial slots of the batch's real rows from its
+generator, as one process does, pads and takes its rows; the per-sample
+metric rows are gathered in rank order and cut to the real rows, so the
+aggregate is one process's. Under ``model > 1`` the predictor is sharded
+(``parallel/partitioning.py``) and the decomposition model replicated. Rank 0
+alone writes ``results.json`` and the plots. Int8 under a data axis larger
+than 1 is refused: its first-batch calibration would see one rank's rows.
 """
 
 from __future__ import annotations
@@ -63,6 +74,19 @@ from textocvp_tpu_torch.models.quant import (
     decode_quant_mode,
     encode_quant_mode,
 )
+from textocvp_tpu_torch.parallel.distributed import (
+    get_runtime_mesh,
+    is_process_zero,
+    loader_process_kwargs,
+    maybe_initialize_distributed,
+)
+from textocvp_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    global_tokens,
+    pad_batch,
+    shard_batch,
+)
+from textocvp_tpu_torch.parallel.partitioning import shard_predictor_
 from textocvp_tpu_torch.train.checkpoints import load_params
 from textocvp_tpu_torch.train.metrics import MetricTracker
 from textocvp_tpu_torch.viz.figures import visualize_metric
@@ -77,6 +101,47 @@ def _setup_device(device, who: str) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+class _MeshEval:
+    """The evaluators' data split: :meth:`mesh_step` runs ``step(videos, info,
+    initial_slots)`` on this rank's rows and returns the global batch's real
+    rows of its metrics. ``single_process`` (the 06 generators, as in the JAX
+    package): no process group, a mesh of one rank."""
+
+    single_process = False
+
+    def _setup_mesh(self, device):
+        """Join the process group that the environment names
+        (``parallel/distributed.py``) and make the mesh of ``tpu.mesh_axes``."""
+        if self.single_process:
+            self.mesh = get_runtime_mesh(None, device)
+            return self.mesh.device
+        maybe_initialize_distributed()
+        self.mesh = get_runtime_mesh(self.exp_params.get("tpu"), device)
+        if self.mesh.data > 1 and (decode_quant_mode(self.exp_params)
+                                   or encode_quant_mode(self.exp_params)):
+            raise ValueError("int8 (tpu.decode_quant / tpu.encode_quant) on a mesh whose data "
+                             "axis is larger than 1 is not supported: the first batch's "
+                             "calibration would see one rank's rows")
+        return self.mesh.device
+
+    def _loader(self, dataset):
+        return EpochLoader(dataset, self.batch_size, **loader_process_kwargs(self.mesh))
+
+    def mesh_step(self, model, step, videos, info) -> dict:
+        if self.mesh.data == 1:
+            return step(videos, info, None)
+        n = int(info["num_valid"])
+        initial = model.slot_initializer(n, self.generator)
+        initial = shard_batch(pad_batch(initial, self.mesh)[0], self.mesh)
+        vals = step(videos, info, initial)
+        return {k: all_gather_rows(v, self.mesh.data_group)[:n] for k, v in vals.items()}
+
+    def _write(self, results: dict, start_x: int):
+        if is_process_zero():  # one results.json and plot set an experiment
+            self.exp.save_results(self.results_name, results)
+            _save_framewise_plots(self.exp, self.results_name, results, start_x=start_x)
 
 
 def _load(module, path, device):
@@ -138,7 +203,7 @@ def _save_framewise_plots(exp, results_name: str, results: dict, start_x: int = 
                              title=metric, start_x=start_x)
 
 
-class DecompEvaluator(_Quant):
+class DecompEvaluator(_Quant, _MeshEval):
     """Evaluate a decomposition checkpoint on whole-sequence reconstruction.
 
     ``checkpoint`` is ``models/<checkpoint>.pt`` of the experiment at
@@ -165,7 +230,7 @@ class DecompEvaluator(_Quant):
         if self.requires_image_reconstruction:
             check_image_reconstruction(self.exp_params,
                                        purpose="compute reconstruction metrics for")
-        self.device = _setup_device(device, "DecompEvaluator")
+        self.device = self._setup_mesh(_setup_device(device, "DecompEvaluator"))
         _Quant.__init__(self, self.exp_params)
         self.checkpoint = checkpoint
         self.batch_size = batch_size or self.exp_params["training"]["batch_size"]
@@ -176,7 +241,7 @@ class DecompEvaluator(_Quant):
 
     def load_data(self):
         self.test_set = load_data(self.exp_params, split="test")
-        self.test_loader = EpochLoader(self.test_set, self.batch_size)
+        self.test_loader = self._loader(self.test_set)
 
     def load_model(self):
         self.model = _load(self.model, self.exp.checkpoint_path(self.checkpoint), self.device)
@@ -217,19 +282,20 @@ class DecompEvaluator(_Quant):
 
     def evaluate(self) -> dict:
         self.metric_tracker.reset()
-        for videos, _ in self.test_loader:
-            self.metric_tracker.accumulate(precomputed=self.eval_step(videos))
+        step = lambda videos, info, initial: self.eval_step(videos, initial)
+        for videos, info in self.test_loader:
+            self.metric_tracker.accumulate(
+                precomputed=self.mesh_step(self.model, step, videos, info))
         self.metric_tracker.aggregate()
         results = self.metric_tracker.to_json()
         results.update(_tokenizer_fallback_flags(self.test_set))
         results.update(self._quant_flags())
-        self.exp.save_results(self.results_name, results)
-        _save_framewise_plots(self.exp, self.results_name, results, start_x=0)
+        self._write(results, start_x=0)
         print_(f"Results: { {k: v['mean'] for k, v in results.items() if isinstance(v, dict)} }")
         return results
 
 
-class PredictorEvaluator(_Quant):
+class PredictorEvaluator(_Quant, _MeshEval):
     """Evaluate a predictor checkpoint on the video-prediction protocol.
 
     ``exp_path`` is the decomposition experiment; ``name_pred_exp`` names its
@@ -264,6 +330,7 @@ class PredictorEvaluator(_Quant):
         self.batch_size = batch_size or self.exp_params["training"]["batch_size"]
         self.results_name = results_name or (
             f"eval_pred_{pred_ckpt}_NumSeed={self.num_context}_NumPreds={self.num_preds}")
+        self.device = self._setup_mesh(self.device)
 
         check_image_reconstruction(self.exp_params, purpose="evaluate predictions on")
         _Quant.__init__(self, self.exp_params)
@@ -274,12 +341,13 @@ class PredictorEvaluator(_Quant):
 
     def load_data(self):
         self.test_set = load_data(self.exp_params, split="test")
-        self.test_loader = EpochLoader(self.test_set, self.batch_size)
+        self.test_loader = self._loader(self.test_set)
 
     def load_models(self):
         self.model = _load(self.model, self.parent.checkpoint_path(self.decomp_ckpt), self.device)
         self.predictor = _load(self.predictor, self.exp.checkpoint_path(self.pred_ckpt),
                                self.device)
+        shard_predictor_(self.predictor, self.mesh)
 
     @torch.inference_mode()
     def predict_stage(self, videos, text: dict, initial_slots=None):
@@ -309,6 +377,8 @@ class PredictorEvaluator(_Quant):
         """A loader batch -> float video and caption tensors on the device
         (``data/tokenizers.py::text_tensors``)."""
         videos = as_float_video(torch.as_tensor(np.asarray(videos)).to(self.device))
+        tokenizer = getattr(getattr(self, "test_set", None), "tokenizer", None)
+        info = global_tokens(info, tokenizer, self.mesh)
         return videos, text_tensors(info, self.device)
 
     def eval_step(self, videos, info: dict, initial_slots=None) -> dict:
@@ -320,12 +390,12 @@ class PredictorEvaluator(_Quant):
     def evaluate(self) -> dict:
         self.metric_tracker.reset()
         for videos, info in self.test_loader:
-            self.metric_tracker.accumulate(precomputed=self.eval_step(videos, info))
+            self.metric_tracker.accumulate(
+                precomputed=self.mesh_step(self.model, self.eval_step, videos, info))
         self.metric_tracker.aggregate()
         results = self.metric_tracker.to_json()
         results.update(_tokenizer_fallback_flags(self.test_set))
         results.update(self._quant_flags())
-        self.exp.save_results(self.results_name, results)
-        _save_framewise_plots(self.exp, self.results_name, results, start_x=self.num_context)
+        self._write(results, start_x=self.num_context)
         print_(f"Results: { {k: v['mean'] for k, v in results.items() if isinstance(v, dict)} }")
         return results

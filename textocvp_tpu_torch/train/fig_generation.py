@@ -52,6 +52,7 @@ class DecompFigGenerator(DecompEvaluator):
     # feature-only decoders (reconstruct_images=false) still produce
     # masks/objects figures; only the recons panels are skipped.
     requires_image_reconstruction = False
+    single_process = True
 
     def __init__(self, exp_path, checkpoint: str, num_seqs: int = 10, device="cuda"):
         super().__init__(exp_path, checkpoint, batch_size=1, metrics=("psnr",), device=device)
@@ -115,6 +116,8 @@ class PredictorFigGenerator(PredictorEvaluator):
     """Figure/GIF generation for predictors (batch_size=1 sequences).
     ``sequence_metrics`` holds each sequence's mean PSNR and LPIPS, the
     numbers in its directory's name."""
+
+    single_process = True
 
     def __init__(self, exp_path, name_pred_exp, decomp_ckpt, pred_ckpt,
                  num_seed: Optional[int] = None, num_preds: Optional[int] = None,

@@ -44,8 +44,13 @@ frozen decode of the predicted slots in the backward, the decode region by
 region (``trainer.py::remat_frames``), while the frozen encode's slots,
 computed outside the regions, are kept.
 
-Not ported (ROADMAP.md): ``train_decode_chunks`` / ``valid_decode_kwargs``
-and the mesh.
+On a mesh (``tpu.mesh_axes``; ``train/trainer.py`` says what the data axis
+does) the predictor is sharded over ``model`` after its weights are loaded
+(``parallel/partitioning.py::shard_predictor_``), the frozen SAVi or
+ExtendedDINOSAUR is replicated, and the checkpoints gather the predictor and
+its Adam moments back to their full shapes.
+
+Not ported (ROADMAP.md): ``train_decode_chunks`` / ``valid_decode_kwargs``.
 """
 
 from __future__ import annotations
@@ -57,6 +62,8 @@ import torch
 from textocvp_tpu_torch.core.logger import log_function
 from textocvp_tpu_torch.data.tokenizers import text_tensors
 from textocvp_tpu_torch.models.factory import random_init_, setup_model, setup_predictor
+from textocvp_tpu_torch.parallel.mesh import global_tokens
+from textocvp_tpu_torch.parallel.partitioning import shard_predictor_
 from textocvp_tpu_torch.train.checkpoints import load_params
 from textocvp_tpu_torch.train.losses import build_loss_fn
 from textocvp_tpu_torch.train.trainer import INIT_SEED, Trainer, remat, remat_frames
@@ -103,7 +110,12 @@ class PredictorTrainer(Trainer):
         self.model.to(self.device).train()
         self._setup_optimizer()
 
+    def shard_model(self):
+        """The predictor's large matmuls over the mesh's ``model`` axis."""
+        shard_predictor_(self.model, self.mesh)
+
     def batch_to_device(self, videos, info) -> tuple:
+        info = global_tokens(info, self.tokenizer, self.mesh)
         return self.to_device(videos), text_tensors(info, self.device)
 
     @torch.no_grad()

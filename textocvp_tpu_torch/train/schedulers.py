@@ -91,13 +91,22 @@ class Adam:
     parameter's ``.grad`` (a parameter without one counts as a zero
     gradient), updates the parameters in place and leaves the gradients as
     they were. ``state_dict`` / ``load_state_dict`` carry the count and the
-    two moments."""
+    two moments.
+
+    Under tensor parallelism (``model_group``, parameters marked ``tp_shard``
+    by ``parallel/partitioning.py``) the clip's global norm sums the squares
+    of the sharded leaves over the model group and counts the replicated
+    ones once; ``state_dict`` gathers the sharded leaves' moments to their
+    full shapes (a collective of the model group) and ``load_state_dict``
+    slices full ones, so that a checkpoint has one layout for any mesh."""
 
     def __init__(self, params, schedule: Callable[[int], float], clip: float | None = None,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, model_group=None):
         self.params = list(params)
         self.schedule = schedule
         self.clip = clip
+        self.model_group = model_group
+        self.shards = [getattr(p, "tp_shard", None) for p in self.params]
         self.b1, self.b2, self.eps = b1, b2, eps
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -111,7 +120,7 @@ class Adam:
     def step(self) -> dict:
         """One update; returns {"lr", "grad_norm", "clipped"}."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        norm = self.global_norm(grads)
         clipped = False
         if self.clip is not None:
             n = norm.item()
@@ -132,26 +141,50 @@ class Adam:
         self.count = count
         return {"lr": lr, "grad_norm": norm, "clipped": clipped}
 
+    def global_norm(self, grads) -> torch.Tensor:
+        """The gradients' global norm; under tensor parallelism the sharded
+        leaves' squares summed over the model group."""
+        if self.model_group is None or not any(self.shards):
+            return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        from textocvp_tpu_torch.parallel.mesh import all_reduce
+
+        sharded = sum(torch.sum(g * g) for g, s in zip(grads, self.shards) if s)
+        replicated = sum(torch.sum(g * g) for g, s in zip(grads, self.shards) if not s)
+        return torch.sqrt(replicated + all_reduce(sharded, self.model_group))
+
+    def _full(self, moments) -> list:
+        if self.model_group is None or not any(self.shards):
+            return [m.detach().cpu() for m in moments]
+        from textocvp_tpu_torch.parallel.partitioning import gather_full
+
+        return [(gather_full(m, s, self.model_group) if s else m).detach().cpu()
+                for m, s in zip(moments, self.shards)]
+
     def state_dict(self) -> dict:
-        return {"count": self.count, "mu": [m.detach().cpu() for m in self.mu],
-                "nu": [v.detach().cpu() for v in self.nu]}
+        return {"count": self.count, "mu": self._full(self.mu), "nu": self._full(self.nu)}
 
     def load_state_dict(self, state: dict):
         if len(state["mu"]) != len(self.params) or len(state["nu"]) != len(self.params):
             raise ValueError(f"optimizer state for {len(state['mu'])} parameters, "
                              f"the model has {len(self.params)}")
         self.count = int(state["count"])
-        for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+        from textocvp_tpu_torch.parallel.partitioning import slice_full
+
+        for dst, src, shard in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"]),
+                                   self.shards + self.shards):
+            if shard and dst.shape != src.shape:
+                src = slice_full(src, shard)
             if dst.shape != src.shape:
                 raise ValueError(f"optimizer state of shape {tuple(src.shape)}, "
                                  f"the parameter has {tuple(dst.shape)}")
             dst.copy_(src)
 
 
-def build_optimizer(training_params: dict, params) -> tuple[Adam, Callable[[int], float]]:
+def build_optimizer(training_params: dict, params, model_group=None
+                    ) -> tuple[Adam, Callable[[int], float]]:
     """Adam + the optional clip (``gradient_clipping``, ``clipping_max_value``)
-    + the schedule, over ``params``."""
+    + the schedule, over ``params``; ``model_group`` the tensor-parallel group."""
     schedule = build_lr_schedule(training_params)
     clip = (training_params["clipping_max_value"]
             if training_params.get("gradient_clipping", False) else None)
-    return Adam(params, schedule, clip=clip), schedule
+    return Adam(params, schedule, clip=clip, model_group=model_group), schedule

@@ -75,7 +75,37 @@ The JAX trainer's extras:
   more, equal bit for bit. BatchNorm moves its running statistics in the
   forward only, not in the recompute.
 
-Not ported (ROADMAP.md): ``tpu.train_decode_chunks`` and the mesh.
+The mesh (``tpu.mesh_axes``, ``parallel/``), in a process group that
+``torchrun`` or the ``TEXTOCVP_*`` environment starts, one process per GPU:
+
+* each data index loads its contiguous rows of every global batch
+  (``EpochLoader``'s process split; a ragged global batch padded by
+  repeating its last row, which then weighs twice in that step, as in the
+  JAX package's multi-process runs), and splits them into ``accum_steps``
+  microbatches of its own;
+* every rank draws the global batch's slot noise from ``noise_generator``
+  and takes its rows, so a step does not depend on the world size;
+* the gradients are averaged over the data group once a step, after the
+  microbatches and before the clip, by one all-reduce of all of them
+  flattened into one buffer (not DDP: the hand-written Adam reads
+  ``.grad``, DDP's buckets would reduce every microbatch unless held off
+  by ``no_sync``, and its wrapper renames the state dict); the loss values
+  too, so that every rank reports the global batch's;
+* BatchNorm (ExtendedDINOSAUR's CNN head) normalizes with the global
+  (micro)batch's statistics when the data axis is larger than 1;
+* the 04 trainer shards its predictor over ``model``
+  (``parallel/partitioning.py``); checkpoints gather it back;
+* rank 0 alone writes TensorBoard, ``logs.txt``, the architecture, the
+  checkpoints (the others wait for the last one) and the profile; the image
+  strips are skipped when the world is larger than 1, since the writer
+  exists on rank 0 only and a collective must not run on one rank alone.
+  Under tensor parallelism the emergency checkpoint is not written (its
+  gather is a collective that a failed rank may never join).
+
+Without a process group the mesh is of one rank and runs no collective: the
+step is the same as before.
+
+Not ported (ROADMAP.md): ``tpu.train_decode_chunks``.
 """
 
 from __future__ import annotations
@@ -95,7 +125,15 @@ from textocvp_tpu_torch.core.logger import Logger, log_exception, log_function, 
 from textocvp_tpu_torch.data.loader import EpochLoader, load_data
 from textocvp_tpu_torch.data.wire import as_float_video
 from textocvp_tpu_torch.models.factory import random_init_, setup_model
-from textocvp_tpu_torch.nn.blocks import running_stats_frozen
+from textocvp_tpu_torch.nn.blocks import running_stats_frozen, set_batchnorm_group
+from textocvp_tpu_torch.parallel.distributed import (
+    get_runtime_mesh,
+    is_process_zero,
+    loader_process_kwargs,
+    maybe_initialize_distributed,
+)
+from textocvp_tpu_torch.parallel.mesh import all_reduce, barrier
+from textocvp_tpu_torch.parallel.partitioning import gather_state_dict
 from textocvp_tpu_torch.train.checkpoints import (
     load_checkpoint,
     make_checkpoint_saver,
@@ -197,10 +235,17 @@ class Trainer:
                                "train on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        maybe_initialize_distributed()
         self.exp = Experiment(exp_path)
         Logger(self.exp.exp_path)
         self.exp_params = self.exp.params
         self.training_params = self.exp_params["training"]
+        self.mesh = get_runtime_mesh(self.exp_params.get("tpu"), self.device)
+        self.device = self.mesh.device
+        bs, d = self.training_params["batch_size"], self.mesh.data
+        if bs % d:
+            print_(f"batch_size {bs} is not divisible by the data axis ({d}); the batch "
+                   "cannot split over the processes", "warning")
         self.checkpoint = checkpoint
         self.resume_training = resume_training
         self.accum = accum_steps_of(self.training_params)
@@ -209,6 +254,7 @@ class Trainer:
         self.global_step = 0
         self.writer = None
         self.image_strips = 0  # strips written to TensorBoard
+        self.tokenizer = None  # the datasets' (load_data)
 
     # ------------------------------------------------------------------ data
     @log_function
@@ -217,8 +263,12 @@ class Trainer:
         ds = self.exp_params["dataset"]
         self.train_set = load_data(self.exp_params, split="train")
         self.valid_set = load_data(self.exp_params, split="valid")
-        self.train_loader = EpochLoader(self.train_set, bs, shuffle=ds.get("shuffle_train", True))
-        self.valid_loader = EpochLoader(self.valid_set, bs, shuffle=ds.get("shuffle_eval", False))
+        self.tokenizer = getattr(self.train_set, "tokenizer", None)
+        split = loader_process_kwargs(self.mesh)
+        self.train_loader = EpochLoader(self.train_set, bs, shuffle=ds.get("shuffle_train", True),
+                                        **split)
+        self.valid_loader = EpochLoader(self.valid_set, bs, shuffle=ds.get("shuffle_eval", False),
+                                        **split)
         print_(f"Loaded {len(self.train_set)} train / {len(self.valid_set)} valid sequences")
 
     def to_device(self, videos):
@@ -231,15 +281,24 @@ class Trainer:
         return self.to_device(videos), {}
 
     # ----------------------------------------------------------------- model
+    def shard_model(self):
+        """Hook between the weights' load and the optimizer's build: the mesh's
+        placement of ``model`` (the 04 trainer shards its predictor)."""
+
     def _setup_optimizer(self):
         """Adam over the parameters of ``model`` that require grad; with
-        ``checkpoint`` its weights from that checkpoint, and with
-        ``resume_training`` also the optimizer state, the epoch and the step."""
-        self.optimizer, self.lr_schedule = build_optimizer(
-            self.training_params, [p for p in self.model.parameters() if p.requires_grad])
+        ``checkpoint`` its weights from that checkpoint (loaded whole, before
+        :meth:`shard_model`), and with ``resume_training`` also the optimizer
+        state, the epoch and the step."""
+        state = None
         if self.checkpoint is not None:
             state = load_checkpoint(self.exp.checkpoint_path(self.checkpoint))
             self.model.load_state_dict(state["params"])
+        self.shard_model()
+        self.optimizer, self.lr_schedule = build_optimizer(
+            self.training_params, [p for p in self.model.parameters() if p.requires_grad],
+            model_group=self.mesh.model_group if self.mesh.tensor_parallel else None)
+        if state is not None:
             if self.resume_training:
                 self.optimizer.load_state_dict(state["opt_state"])
                 self.start_epoch = int(state["epoch"])
@@ -249,19 +308,52 @@ class Trainer:
     def _noise(self, batch_size: int, generator: Optional[torch.Generator] = None
                ) -> torch.Tensor:
         """The slot noise of the next batch, which advances ``global_step``;
-        with ``generator``, a draw from it, and the step stays."""
+        with ``generator``, a draw from it, and the step stays. On a mesh the
+        draw is the global batch's (``batch_size`` rows a data index), and
+        this data index takes its rows."""
         if generator is None:
             self.global_step += 1
             generator = noise_generator(self.global_step)
         mp = self.exp_params["model"]["model_params"]
-        shape = (batch_size, mp["num_slots"], mp["slot_dim"])
-        return torch.randn(shape, generator=generator)
+        d, i = self.mesh.data, self.mesh.data_index
+        noise = torch.randn((batch_size * d, mp["num_slots"], mp["slot_dim"]),
+                            generator=generator)
+        return noise if d == 1 else noise[i * batch_size:(i + 1) * batch_size]
+
+    def _data_mean(self, values: dict) -> dict:
+        """Loss values averaged over the data group (the global batch's); as
+        they are without a process group."""
+        group = self.mesh.data_group
+        if group is None:
+            return values
+        keys = sorted(values)
+        total = all_reduce(torch.stack([values[k].detach().float() for k in keys]), group)
+        return dict(zip(keys, total / self.mesh.data))
+
+    def average_gradients(self):
+        """Every ``.grad`` averaged over the data group: one all-reduce of all
+        of them flattened into one buffer. Nothing without a process group."""
+        group = self.mesh.data_group
+        if group is None:
+            return
+        params = self.optimizer.params
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = all_reduce(torch.cat([p.grad.reshape(-1) for p in params]), group)
+        flat /= self.mesh.data
+        offset = 0
+        for p in params:
+            n = p.grad.numel()
+            p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+            offset += n
 
     def backward(self, videos, noise, **text) -> dict:
         """Fresh gradients of the batch's loss in every parameter's ``.grad``,
-        averaged over its microbatches; returns the loss values."""
+        averaged over its microbatches and, on a mesh, over the data group;
+        returns the loss values."""
         b = videos.shape[0]
-        accum = ragged_accum(b, self.accum, self.training_params["batch_size"])
+        accum = ragged_accum(b, self.accum, self.training_params["batch_size"] // self.mesh.data)
         mb = b // accum
         self.optimizer.zero_grad()
         values = []
@@ -270,7 +362,9 @@ class Trainer:
             total, vals = self.forward_loss(videos[i:i + mb], noise[i:i + mb], **part)
             (total / accum).backward()
             values.append({k: x.detach() for k, x in vals.items()})
-        return {k: torch.stack([v[k] for v in values]).mean() for k in values[0]}
+        self.average_gradients()
+        return self._data_mean({k: torch.stack([v[k] for v in values]).mean()
+                                for k in values[0]})
 
     def train_step(self, videos, noise=None, **text) -> dict:
         """One update from a batch on the device; ``noise`` (B, S, D) in place
@@ -294,12 +388,17 @@ class Trainer:
     @torch.no_grad()
     def valid_step(self, videos, **text) -> dict:
         with self.evaluating():
-            return self.forward_loss(videos, self._noise(videos.shape[0]), **text)[1]
+            return self._data_mean(
+                self.forward_loss(videos, self._noise(videos.shape[0]), **text)[1])
 
     # ------------------------------------------------------------------ logs
     def _setup_writer(self):
         """TensorBoard's writer into ``tboard_logs/``, or None where
-        ``torch.utils.tensorboard`` does not import (no ``tensorboard``)."""
+        ``torch.utils.tensorboard`` does not import (no ``tensorboard``) and
+        on ranks other than 0."""
+        if not is_process_zero():
+            self.writer = None
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -371,7 +470,7 @@ class Trainer:
                     self.writer.add_scalar("train/lr", self.lr_schedule(self.optimizer.count),
                                            self.global_step)
                 print_(f"  epoch {epoch} iter {i}: loss={loss:.6f}")
-            if self.writer is not None and i % img_freq == 0:
+            if self.writer is not None and i % img_freq == 0 and self.mesh.world == 1:
                 self._log_images(videos, **text)
             losses.append(loss)
         return float(np.mean(losses)) if losses else float("nan")
@@ -387,10 +486,17 @@ class Trainer:
         return mean
 
     def _state(self, epoch: int) -> dict:
-        return {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
+        """The checkpoint's state, sharded leaves gathered to their full shapes
+        (a collective of the model group under tensor parallelism)."""
+        params = (gather_state_dict(self.model, self.mesh.model_group)
+                  if self.mesh.tensor_parallel else self.model.state_dict())
+        return {"params": params, "opt_state": self.optimizer.state_dict(),
                 "epoch": epoch, "step": self.global_step}
 
     def _save(self, name: str, epoch: int):
+        if self.mesh.tensor_parallel:
+            print_(f"{name} not written: its gather is a collective of the model group", "error")
+            return
         save_checkpoint(self.exp.checkpoint_path(name), self._state(epoch))
 
     @log_function
@@ -404,8 +510,10 @@ class Trainer:
         num_epochs = self.training_params["num_epochs"]
         save_freq = self.training_params.get("save_frequency", 25)
         epoch = self.start_epoch
-        profile_dir = os.environ.get("TEXTOCVP_PROFILE")
+        profile_dir = os.environ.get("TEXTOCVP_PROFILE") if is_process_zero() else None
         prof = self._start_profile() if profile_dir else None
+        # every rank gathers the state (a collective under tensor parallelism),
+        # rank 0 writes it (save_checkpoint)
         save_ckpt, flush_ckpts = make_checkpoint_saver(self.exp_params)
         try:
             for epoch in range(self.start_epoch, num_epochs):
@@ -428,6 +536,7 @@ class Trainer:
                     prof = None
             save_ckpt(self.exp.checkpoint_path("checkpoint_epoch_final"), self._state(num_epochs))
             flush_ckpts()
+            barrier()  # the other ranks may read what rank 0 wrote
         except (Exception, KeyboardInterrupt) as e:
             try:
                 flush_ckpts()  # the pending writes first
@@ -467,6 +576,11 @@ class DecompTrainer(Trainer):
         random_init_(self.model, torch.Generator().manual_seed(INIT_SEED))
         self.model.to(self.device).train()
         self._setup_optimizer()
+
+    def shard_model(self):
+        """BatchNorm over the global batch when the data axis is larger than 1."""
+        if self.mesh.data > 1:
+            set_batchnorm_group(self.model, self.mesh.data_group)
 
     def _loss_tensors(self, out: dict, videos) -> dict:
         tensors = {"pred_imgs": out["recons_imgs"].clamp(0, 1),
@@ -522,7 +636,9 @@ class DecompTrainer(Trainer):
     @log_function
     def log_architecture(self):
         """The module structure and the count of learnable parameters, to
-        ``model_architecture.txt``."""
+        ``model_architecture.txt`` (rank 0)."""
+        if not is_process_zero():
+            return
         n_params = sum(p.numel() for p in self.model.parameters() if p.requires_grad)
         with open(self.exp.exp_path / "model_architecture.txt", "w") as f:
             f.write(str(self.model) + "\n")
