@@ -4621,6 +4621,31 @@ MESH_TP_BATCH, MESH_TP_PREDS = 8, 3  # the shared-card 04 step
 # right step differs only where a gradient near 0 changes with the sums' order.
 MESH_TP_PARAM_LRS = 0.5
 MESH_WORKER_CMD = "import sys, chip_smoke; chip_smoke.mesh_worker(*sys.argv[1:])"
+CLIP_MESH_BATCH = 2  # the shared card's CLIPort requests
+CLIP_INT8_NAME = "textocvp_t5_int8"  # the CLIPort serving experiment with int8 on
+# The shared card's services: (name, experiment, predictor, mesh axes, batch),
+# each float reply held to this share of its largest value from one process's
+MESH_SERVES = (
+    ("data1_model2", "serve_exp", PRED_NAME, {"data": 1, "model": 2}, BATCH),
+    ("data2", "serve_exp", PRED_NAME, {"data": 2, "model": 1}, BATCH),
+    ("seq_parallel_b1", "serve_exp", PRED_NAME, {"data": 2, "model": 1}, 1),
+    ("clip_data1_model2", "clip_exp", PRED_NAME, {"data": 1, "model": 2}, CLIP_MESH_BATCH),
+    ("clip_seq_parallel_b1", "clip_exp", PRED_NAME, {"data": 2, "model": 1}, 1),
+    ("clip_int8_data2", "clip_exp", CLIP_INT8_NAME, {"data": 2, "model": 1}, CLIP_MESH_BATCH),
+)
+# model=2: sums in other orders (1e-4, as the predictors' parallelism is held);
+# data=2: a row's sums at another batch (1e-5 on CATER)
+MESH_REPLY_TOLERANCE = {"data1_model2": 1e-4, "data2": 1e-5, "seq_parallel_b1": 1e-5,
+                        "clip_data1_model2": 1e-4, "clip_seq_parallel_b1": 1e-4}
+# int8 at data=2: the encode's scales, calibrated on the frames, bit for bit.
+# The card sums a row's slot attention and rollout differently at 1 row a
+# rank than at 2 (slots 1.2e-6 apart on an H100: chip_int8_rows_probe.py), so the
+# decode's scales, calibrated on the predicted slots, are held to this
+# relative error, and the reply, whose int8 decode puts every activation
+# within that of a .5 boundary a quantum apart, to int8's own error: no
+# value further from one process's int8 reply than that reply is from the
+# float one.
+MESH_INT8_DECODE_SCALES_RTOL = 1e-5
 
 
 class FirstItems:
@@ -4723,30 +4748,40 @@ def _float_frames_(svc):
     255, unrounded, in place of the uint8 reply, so that ``predict`` (which
     divides by 255) hands back the frames before the reply's rounding: a
     1e-7 difference at a rounding edge is a whole 1/255 of the uint8 reply.
-    Returns ``svc``."""
+    An int8 stage decodes with its calibrated scales. Returns ``svc``."""
     stage = svc.decode_module
 
     def forward(pred_slots):
         b, p, s, d = pred_slots.shape
-        imgs = stage.model.decode(pred_slots.reshape(b * p, s, d))["recons_imgs"]
+        kw = {} if stage.quant_scales is None else {"quant_scales": stage.quant_scales}
+        imgs = stage.model.decode(pred_slots.reshape(b * p, s, d), **kw)["recons_imgs"]
         return (imgs.clamp(0.0, 1.0) * 255.0).reshape(b, p, *imgs.shape[1:])
 
     stage.forward = forward
     return svc
 
 
-def _mesh_service(spec, batch, mesh_axes=None, float_reply=False):
+def _mesh_service(spec, batch, mesh_axes=None, float_reply=False, exp="serve_exp",
+                  pred=PRED_NAME):
     from textocvp_tpu_torch.serve import PredictionService
 
-    svc = PredictionService(spec["serve_exp"], PRED_NAME, "random", "random", batch_size=batch,
+    svc = PredictionService(spec[exp], pred, "random", "random", batch_size=batch,
                             max_tokens=MAX_TOKENS, device=spec["device"], mesh_axes=mesh_axes)
     return _float_frames_(svc) if float_reply else svc
 
 
-def _mesh_request(rows):
+def _mesh_request(rows, exp="serve_exp"):
+    """A request of ``rows`` random frames to the CATER (``serve_exp``) or
+    the CLIPort (``clip_exp``) serving experiment."""
+    path = PATHS[0] if exp == "serve_exp" else PATHS[1]
     rng = np.random.default_rng(SEED + 41)
-    frames = rng.uniform(0, 1, (rows, 1, CONV5_RES, CONV5_RES, 3)).astype(np.float32)
-    return frames, list(PATHS[0].captions[:rows])
+    frames = rng.uniform(0, 1, (rows, 1, path.res, path.res, 3)).astype(np.float32)
+    return frames, list(path.captions[:rows])
+
+
+def _int8_scales(svc) -> dict:
+    return {"encode": svc.predict_module.encode_scales.cpu().numpy(),
+            "decode": svc.decode_module.quant_scales.cpu().numpy()}
 
 
 def _mesh_inputs(spec, frames, batch, seed):
@@ -4783,9 +4818,11 @@ def _mesh_nccl_half(spec, out, tag):
 
 def _mesh_shared_card(spec, rank, launch, out):
     """The single-process references first, before the group: rank 0 the
-    float replies of an 8-row and a 1-row request, rank 1 the 04 step at
-    world size 1; then both ranks join the gloo group of two and run the
-    mesh services (rank 0 compares the replies) and the tensor-parallel 04
+    float replies of the CATER 8-row and 1-row requests and of the CLIPort
+    2-row and 1-row ones, rank 1 the 04 step at world size 1 and the int8
+    CLIPort service's reply and scales (handed to rank 0 in a file); then
+    both ranks join the gloo group of two and run the mesh services of
+    ``MESH_SERVES`` (rank 0 compares the replies) and the tensor-parallel 04
     step (rank 1 compares it). ``out["launches"]`` counts the mesh's own
     launches, from the join on."""
     from textocvp_tpu_torch.core.experiment import Experiment
@@ -4809,32 +4846,53 @@ def _mesh_shared_card(spec, rank, launch, out):
                 {k: v.detach().cpu() for k, v in full.items() if k in trained},
                 _digest(replicated), sorted(sharded), tr.lr_schedule(0))
 
-    refs = {}
+    refs, int8_ref = {}, Path(spec["tmp"]) / "mesh_clip_int8_reference.npz"
     with _timed(out, "references"):
         if rank == 0:
-            for b in (BATCH, 1):
-                svc = _mesh_service(spec, b, float_reply=True)
-                refs[b] = svc.predict(*_mesh_request(b))
+            for exp, b in (("serve_exp", BATCH), ("serve_exp", 1), ("clip_exp", CLIP_MESH_BATCH),
+                           ("clip_exp", 1)):
+                svc = _mesh_service(spec, b, float_reply=True, exp=exp)
+                refs[exp, PRED_NAME, b] = svc.predict(*_mesh_request(b, exp))
                 del svc
         else:
             refs["step"] = step(spec["w1_exp"])
+            svc = _mesh_service(spec, CLIP_MESH_BATCH, float_reply=True, exp="clip_exp",
+                                pred=CLIP_INT8_NAME)
+            reply = svc.predict(*_mesh_request(CLIP_MESH_BATCH, "clip_exp"))
+            np.savez(int8_ref, reply=reply, **_int8_scales(svc))
+            del svc
         torch.cuda.empty_cache()
     with _timed(out, "join"):
         os.environ.update(launch)
         check(pdist.maybe_initialize_distributed(), "no process group")
     out["backend"] = pdist._STATE["backend"]
     reset_launches()  # the mesh's launches from here on, the references' not
-    for name, axes, b in (("data1_model2", {"data": 1, "model": 2}, BATCH),
-                          ("data2", {"data": 2, "model": 1}, BATCH),
-                          ("seq_parallel_b1", {"data": 2, "model": 1}, 1)):
+    if rank == 0:  # written by rank 1 before it joined
+        with np.load(int8_ref) as f:
+            refs["clip_exp", CLIP_INT8_NAME, CLIP_MESH_BATCH] = f["reply"]
+            int8_scales = {k: f[k] for k in ("encode", "decode")}
+    for name, exp, pred, axes, b in MESH_SERVES:
+        if torch.cuda.is_available():  # each service's own peak, and the process's
+            out["peak_gb"] = max(out.get("peak_gb", 0), torch.cuda.max_memory_allocated() / 1e9)
+            torch.cuda.reset_peak_memory_stats()
         with _timed(out, name):
-            svc = _mesh_service(spec, b, axes, float_reply=True)
+            svc = _mesh_service(spec, b, axes, float_reply=True, exp=exp, pred=pred)
             if rank == 0:
-                got = svc.predict(*_mesh_request(b))
+                got = svc.predict(*_mesh_request(b, exp))
                 svc.close()
-                out[name] = {"max_abs_err": float(np.abs(got - refs[b]).max()),
-                             "max_abs_ref": float(np.abs(refs[b]).max()),
-                             "seq_parallel": svc._seq_parallel, "shape": list(got.shape)}
+                ref = refs[exp, pred, b]
+                out[name] = {"max_abs_err": float(np.abs(got - ref).max()),
+                             "max_abs_ref": float(np.abs(ref).max()),
+                             "seq_parallel": svc._seq_parallel,
+                             "decomp_sharded": svc._decomp_sharded, "shape": list(got.shape),
+                             "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                         if torch.cuda.is_available() else 0)}
+                if pred == CLIP_INT8_NAME:
+                    out[name]["scales_rel_err"] = {
+                        k: float(np.abs(v - int8_scales[k]).max() / np.abs(int8_scales[k]).max())
+                        for k, v in _int8_scales(svc).items()}
+                    out[name]["int8_error_of_one_process"] = float(
+                        np.abs(ref - refs["clip_exp", PRED_NAME, b]).max())
             else:
                 svc.follow()
             del svc
@@ -4868,6 +4926,11 @@ def mesh_worker(spec_path, out_path):
     spec = json.loads(Path(spec_path).read_text())
     if spec["phase"] == "mesh_shared_card":
         torch.set_num_threads(2)  # beside the main timeline's phases
+        # and beside its memory: a quarter of the card each bounds the
+        # transients (a cuDNN plan whose workspace does not fit falls back to
+        # the next), as the export processes' do
+        if torch.cuda.is_available():
+            torch.cuda.set_per_process_memory_fraction(0.25)
     launch = {k: os.environ.pop(k) for k in MESH_LAUNCH_ENV if k in os.environ}
     rank = int(launch.get("TEXTOCVP_PROCESS_ID", "0"))
     out = {"rank": rank}
@@ -4888,7 +4951,8 @@ def mesh_worker(spec_path, out_path):
             _mesh_shared_card(spec, rank, launch, out)
     out["nondeterministic"] = sorted({str(w.message)[:160] for w in caught
                                       if "does not have a deterministic" in str(w.message)})
-    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if torch.cuda.is_available() else 0
+    out["peak_gb"] = max(out.get("peak_gb", 0), torch.cuda.max_memory_allocated() / 1e9
+                         if torch.cuda.is_available() else 0)
     if spec["phase"] == "mesh_nccl":
         for k in ("02", "04"):
             a, b = out.pop(f"params_{k}_plain"), out.pop(f"params_{k}_mesh")
@@ -4960,8 +5024,9 @@ def start_mesh(tmp: Path, train_exp: Path, device="cuda"):
     spec = {"decomp_exp": str(train_experiment(tmp / "mesh_train", tmp / "CATER_train",
                                                lr_warmup=False)),
             "eval_exp": str(tmp / "eval" / "exp"), "serve_exp": str(tmp / PATHS[0].name / "exp"),
+            "clip_exp": str(clip_int8_experiment(tmp / PATHS[1].name / "exp")),
             "pred_exp": str(pred_experiment(train_exp, "mesh_b64", lr_warmup=False)),
-            "device": device}
+            "device": device, "tmp": str(tmp)}
     for exp in (spec["decomp_exp"], spec["pred_exp"]):  # the 02 / 04 CLIs' mesh, literally
         params = Experiment(exp).params
         params["tpu"] = {**(params.get("tpu") or {}), "mesh_axes": {"data": -1, "model": 1}}
@@ -4975,6 +5040,22 @@ def start_mesh(tmp: Path, train_exp: Path, device="cuda"):
             Experiment(exp).save_params(params)
         spec[name] = str(exp)
     return _start_mesh(tmp, "mesh_shared_card", spec, 2)
+
+
+def clip_int8_experiment(parent: Path) -> Path:
+    """The CLIPort serving experiment's predictor again as ``CLIP_INT8_NAME``,
+    with ``tpu.decode_quant`` and ``tpu.encode_quant`` int8 (its checkpoint
+    hard-linked). Returns ``parent``."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    src = Experiment(parent / "predictors" / PRED_NAME)
+    dst = Experiment(parent / "predictors" / CLIP_INT8_NAME)
+    params = src.params
+    params["tpu"] = {**(params.get("tpu") or {}), "decode_quant": "int8", "encode_quant": "int8"}
+    dst.save_params(params)
+    dst.models_dir.mkdir(parents=True, exist_ok=True)
+    os.link(src.checkpoint_path("random"), dst.checkpoint_path("random"))
+    return parent
 
 
 def wait_mesh(shared: dict):
@@ -5003,11 +5084,17 @@ def run_mesh(shared: dict, device="cuda"):
     one H100 over gloo, the CATER service at batch 8 with ``data=1,
     model=2`` (float reply within 1e-4 of its largest value of the
     single-process one), ``data=2`` (1e-5) and at batch 1 under
-    sequence-parallel decode (1e-5); a CATER 04 step at B=8, p=3 on
-    ``model=2`` against world size 1 (losses 1e-5, the gradients' global
-    norm 1e-4, no parameter more than MESH_TP_PARAM_LRS lr from world 1's
-    after the update, the replicated leaves bit-equal across the ranks).
-    Returns each phase's launches."""
+    sequence-parallel decode (1e-5); the full-width CLIPort service
+    (ExtendedDINOSAUR sharded, ``shard_decomp_``) at batch 2 with ``data=1,
+    model=2`` (1e-4), at batch 1 under sequence-parallel decode (1e-4), and
+    with int8 (``decode_quant`` and ``encode_quant``) at ``data=2`` (the
+    encode's scales one process's bit for bit, the decode's within
+    MESH_INT8_DECODE_SCALES_RTOL, the reply within int8's own error); a CATER 04
+    step at B=8, p=3 on ``model=2`` against world size 1 (losses 1e-5, the
+    gradients' global norm 1e-4, no parameter more than MESH_TP_PARAM_LRS lr
+    from world 1's after the update, the replicated leaves bit-equal across
+    the ranks). The mesh's own launches include slot attention, conv5, the
+    ViT attention and the int8 conv. Returns each phase's launches."""
     return _mesh_phases(shared, device)
 
 
@@ -5038,15 +5125,32 @@ def _mesh_phases(shared, device):
           "reply_shape": one["reply_shape"], "eval_batch": EVAL_BATCH,
           "launches": counts["mesh_nccl"], "peak_gb": one["peak_gb"],
           "seconds": one["seconds"], "nondeterministic_ops": one["nondeterministic"]})
+    counts["mesh_shared_card"] = shared_card_phase(shared, device)
+    return counts
+
+
+def shared_card_phase(shared, device):
+    """``mesh_shared_card``'s checks and line, from its ranks' outputs
+    (:func:`wait_mesh`); returns the mesh's own launches."""
     ranks = shared["ranks"]
     zero = ranks[0]
-    for name, tol in (("data1_model2", 1e-4), ("data2", 1e-5), ("seq_parallel_b1", 1e-5)):
+    for name, tol in MESH_REPLY_TOLERANCE.items():
         r = zero[name]
         check(r["max_abs_err"] <= tol * r["max_abs_ref"],
               f"mesh_shared_card {name}: reply error {r['max_abs_err']} > {tol} x "
               f"{r['max_abs_ref']}")
-    check(zero["seq_parallel_b1"]["seq_parallel"] and not zero["data2"]["seq_parallel"],
-          "mesh_shared_card: sequence-parallel decode at batch 1 only")
+    for name, _, _, axes, b in MESH_SERVES:
+        check(zero[name]["seq_parallel"] == (b < axes["data"]),
+              f"mesh_shared_card {name}: sequence-parallel decode at batch 1 only")
+        check(zero[name]["decomp_sharded"] == (name == "clip_data1_model2"),
+              f"mesh_shared_card {name}: ExtendedDINOSAUR sharded under model=2 only")
+    q = zero["clip_int8_data2"]
+    check(q["scales_rel_err"]["encode"] == 0
+          and q["scales_rel_err"]["decode"] <= MESH_INT8_DECODE_SCALES_RTOL,
+          f"mesh_shared_card: int8 scales at data=2 are not one process's: {q}")
+    check(q["max_abs_err"] <= q["int8_error_of_one_process"],
+          f"mesh_shared_card: int8 reply at data=2 further from one process's than int8 "
+          f"from float: {q}")
     tp = ranks[1]["tp_step"]
     check(tp["loss_rel_err"] <= 1e-5, f"mesh_shared_card: TP 04 losses {tp}")
     check(tp["grad_norm_rel_err"] <= 1e-4, f"mesh_shared_card: TP 04 grad norm {tp}")
@@ -5056,18 +5160,18 @@ def _mesh_phases(shared, device):
     check(ranks[0]["tp_step"]["replicated_digest"] == ranks[1]["tp_step"]["replicated_digest"],
           "mesh_shared_card: replicated leaves differ across the ranks")
     check(all(r["backend"] == "gloo" for r in ranks), "mesh_shared_card: backend")
-    counts["mesh_shared_card"] = every_kernel(
-        {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]})
-    check(device != "cuda" or (counts["mesh_shared_card"]["slot_attention"] > 0
-                               and counts["mesh_shared_card"]["conv5"] > 0),
-          f"mesh_shared_card: launches {counts['mesh_shared_card']}")
+    counts = every_kernel({k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]})
+    check(device != "cuda" or all(counts[k] > 0 for k in (
+        "slot_attention", "conv5", "vit_attention", "conv_int8")),
+          f"mesh_shared_card: launches {counts}")
     emit({"phase": "mesh_shared_card", "backend": "gloo", "world": 2, "card_shared": True,
-          **{k: zero[k] for k in ("data1_model2", "data2", "seq_parallel_b1")},
-          "reply_tolerance": {"data1_model2": 1e-4, "data2": 1e-5, "seq_parallel_b1": 1e-5},
+          **{k: zero[k] for k in MESH_REPLY_TOLERANCE}, "clip_int8_data2": q,
+          "reply_tolerance": MESH_REPLY_TOLERANCE,
+          "int8_decode_scales_rtol": MESH_INT8_DECODE_SCALES_RTOL,
           "tp_step": {**tp, "replicated_bit_equal_across_ranks": True,
                       "param_limit_lrs": MESH_TP_PARAM_LRS, "batch": MESH_TP_BATCH,
                       "num_preds": MESH_TP_PREDS},
-          "launches": counts["mesh_shared_card"],
+          "launches": counts,
           "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
           "processes_s": shared["processes_s"], "main_timeline_wait_s": shared["wait_s"],
           "seconds_by_rank": [r["seconds"] for r in ranks],

@@ -23,7 +23,9 @@ kernel against its plain version (exact) at the int8 decode's shapes and
 across its tiles, its refusals, the int8 dense on the card against the CPU
 (exact), a full-width int8 SAVi decode on the card against the CPU (in
 quanta, as ``test_torch_port_quant.py``), and a quantized CATER service's
-artifact answering like the live service. Marked ``gpu``;
+artifact answering like the live service; the ViT attention at 6 heads a
+rank (ViT-B under ``model=2``), and a row shard's int8 dense taking the
+whole weight's scales. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -1142,3 +1144,56 @@ def test_batchnorm_at_world_size_1_is_unchanged_on_the_card(cuda):
     assert torch.equal(out, want)
     assert torch.equal(bn.running_mean, 0.01 * mean)
     assert torch.equal(bn.running_var, 0.99 * torch.ones_like(var) + 0.01 * var)
+
+
+# ------------------------------------------- ExtendedDINOSAUR under tensor parallelism
+
+
+@pytest.mark.parametrize("b", [8, 1])
+def test_vit_attention_at_6_heads_a_rank_matches_plain(cuda, b):
+    """ViT-B/14's attention at ``model=2``: 6 of its 12 heads a rank, 577
+    tokens; the kernel against its plain version, and its refusal of grad."""
+    q, k, v = _qkv(b, 6, 577, seed=b)
+    before = va.vit_attention_cuda.launches
+    out = va.vit_attention(q, k, v, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert va.vit_attention_cuda.launches == before + 1
+    torch.testing.assert_close(out, va.vit_attention_plain(q, k, v, 64 ** -0.5), rtol=2e-5,
+                               atol=2e-5)
+    with pytest.raises(RuntimeError, match="no backward"):
+        va.vit_attention(q.requires_grad_(), k, v, 64 ** -0.5)
+    assert va.vit_attention_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_row_shard_int8_takes_the_whole_weights_scales_on_the_card(cuda, monkeypatch, backend):
+    """A row shard's int8 dense (``dense_int8(..., row_group)``, the ViT's
+    proj / fc2 and the patch decoder's odd layers under ``model=2``): each
+    half of fc2's weight (768, 3072) quantized with the whole weight's row
+    maxima gives the whole weight's scales and its int8 columns, and the
+    halves' integer products summed and dequantized are the whole layer's
+    int8 output, bit for bit; through a group of one rank the collective
+    path is the whole layer's too."""
+    from textocvp_tpu_torch.ops.conv_int8 import dequantize, quantize_activation, quantize_weight
+    from textocvp_tpu_torch.ops.dense_int8 import dense_int8, int8_product
+
+    g = torch.Generator().manual_seed(16)
+    m, k, n = 577, 3072, 768
+    x, w, bias = (torch.randn(s, generator=g).to(cuda) for s in ((m, k), (n, k), (n,)))
+    a_scale = (x.abs().max() / 127).reshape(())
+    w_q, w_scale = quantize_weight(w, (1,))
+    amax = w.abs().amax(1, keepdim=True)  # the max-reduce over the model group
+    x_q = quantize_activation(x, a_scale)
+    acc = 0
+    for half in (slice(0, k // 2), slice(k // 2, k)):
+        q, s = quantize_weight(w[:, half], (1,), amax)
+        assert torch.equal(s, w_scale) and torch.equal(q, w_q[:, half])
+        acc = acc + int8_product(x_q[:, half].contiguous(), q)
+    whole = dense_int8(x, w, bias, a_scale)
+    assert torch.equal(dequantize(acc, a_scale, w_scale, bias), whole)
+    pdist = _one_rank_group(monkeypatch, backend)
+    try:
+        group = pdist.get_runtime_mesh(None, "cuda").model_group
+        assert torch.equal(dense_int8(x, w, bias, a_scale, group), whole)
+    finally:
+        pdist.destroy()

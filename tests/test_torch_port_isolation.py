@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``textocvp_tpu_torch`` and
 nothing in ``chip_smoke.py``, ``chip_slot_attention_probe.py``,
-``chip_trace_probe.py``, ``chip_remat_probe.py`` or the multi-process tests'
+``chip_trace_probe.py``, ``chip_remat_probe.py``, ``chip_int8_rows_probe.py``
+or the multi-process tests'
 worker ``tests/torch_dist_worker.py`` imports JAX, flax, optax or the JAX
 package."""
 
@@ -16,7 +17,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "textocvp_tpu")
 SOURCES = sorted((ROOT / "textocvp_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_slot_attention_probe.py", ROOT / "chip_trace_probe.py",
-    ROOT / "chip_remat_probe.py", ROOT / "tests" / "torch_dist_worker.py"]
+    ROOT / "chip_remat_probe.py", ROOT / "chip_int8_rows_probe.py",
+    ROOT / "tests" / "torch_dist_worker.py"]
 
 
 def _imported_roots(path: Path):

@@ -128,6 +128,7 @@ def job_train04(spec):
     out.update({f"param/{k}": v.numpy() for k, v in full.items()})
     out.update({f"local/{k}": v.numpy() for k, v in tr.model.state_dict().items()})
     out["sharded"] = np.array(sharded_names(tr.model), dtype=str)
+    out["decomp_sharded"] = np.array(sharded_names(tr.decomp_model), dtype=str)
     if spec.get("checkpoint"):
         from textocvp_tpu_torch.train.checkpoints import save_checkpoint
 
@@ -172,7 +173,64 @@ def job_eval(spec):
         ev.load_data()
         ev.load_models()
     results = ev.evaluate()
-    return {"psnr": np.asarray(results["psnr"]["framewise"])}
+    out = {"psnr": np.asarray(results["psnr"]["framewise"])}
+    if ev.decode_quant_scales is not None:
+        out["dec_scales"] = ev.decode_quant_scales.numpy()
+    return out
+
+
+def job_decomp_tp(spec):
+    """A tiny ExtendedDINOSAUR on the ``(data, model)`` mesh (sharded by
+    ``shard_decomp_`` under ``model`` > 1), on this data index's rows: its
+    sharded names and shards' layout, the float forward, the weights the
+    slot-attention kernel reads, the state gathered back, and the int8
+    encode and decode calibrated over the data group."""
+    from textocvp_tpu_torch.models import setup_model
+    from textocvp_tpu_torch.models.quant import calibrate_decode_scales, calibrate_encode_scales
+    from textocvp_tpu_torch.parallel.partitioning import shard_decomp_
+
+    mesh = Mesh(spec["data"], spec["model"])
+    model = setup_model(json.loads(Path(spec["params"]).read_text()))
+    model.load_state_dict(_tensors(spec["weights"]))
+    model.eval()
+    names = shard_decomp_(model, mesh)
+    d = _tensors(spec["inputs"])
+    video, noise, slots = shard_batch((d["video"], d["noise"], d["slots"]), mesh)
+    with torch.no_grad():
+        out = model(video, noise=noise, decode=True)
+        enc = calibrate_encode_scales(model, video, mesh.data_group)
+        dec = calibrate_decode_scales(model, slots, mesh.data_group)
+        feats8 = model.frozen_features(video, enc)
+        dec8 = model.decode(slots, quant_scales=dec)
+    block = model.image_encoder.blocks[0]
+    full = gather_state_dict(model, mesh.model_group)
+    return {"sharded": np.array(names, dtype=str), "heads": np.array(block.num_heads),
+            "qkv": block.qkv.weight.detach().numpy(),
+            **{f"out/{k}": out[k].numpy() for k in ("recons_imgs", "recons_feats")},
+            **{f"kernel/{k}": v.detach().numpy()
+               for k, v in model.slot_attention.iteration_params().items()},
+            **{f"full/{k}": v.numpy() for k, v in full.items()},
+            "enc_scales": enc.numpy(), "dec_scales": dec.numpy(),
+            "feats8": feats8.numpy(), "imgs8": dec8["recons_imgs"].numpy(),
+            "recons_feats8": dec8["recons_feats"].numpy()}
+
+
+def job_train02_accum(spec):
+    """One 02 step on this rank's share of each global microbatch
+    (``microbatch_rows``), with the global noise the parent drew."""
+    from textocvp_tpu_torch.data.loader import microbatch_rows
+
+    tr = _decomp_trainer(spec)
+    d = _tensors(spec["inputs"])
+    n = d["video"].shape[0]
+    rows = torch.from_numpy(microbatch_rows(n, tr.accum, tr.training_params["batch_size"],
+                                            tr.mesh.data, tr.mesh.data_index)[1])
+    values = tr.backward(d["video"][rows], d["noise"][rows])
+    out = {f"loss/{k}": v.numpy() for k, v in values.items()}
+    out.update(_grads(tr.model, tr.mesh.model_group))
+    tr.optimizer.step()
+    out.update({f"param/{k}": v.numpy() for k, v in tr.model.state_dict().items()})
+    return out
 
 
 def float_frames_(svc):
@@ -180,12 +238,14 @@ def float_frames_(svc):
     255, unrounded, in place of the uint8 reply, so that ``predict`` (which
     divides by 255) hands back the frames before the reply's rounding: a
     1e-7 difference at a rounding edge is a whole 1/255 of the uint8 reply,
-    so the mesh's checks hold these to a tolerance instead. Returns ``svc``."""
+    so the mesh's checks hold these to a tolerance instead. An int8 stage
+    decodes with its calibrated scales, as the stage does. Returns ``svc``."""
     stage = svc.decode_module
 
     def forward(pred_slots):
         b, p, s, d = pred_slots.shape
-        imgs = stage.model.decode(pred_slots.reshape(b * p, s, d))["recons_imgs"]
+        kw = {} if stage.quant_scales is None else {"quant_scales": stage.quant_scales}
+        imgs = stage.model.decode(pred_slots.reshape(b * p, s, d), **kw)["recons_imgs"]
         return (imgs.clamp(0.0, 1.0) * 255.0).reshape(b, p, *imgs.shape[1:])
 
     stage.forward = forward
@@ -203,7 +263,8 @@ def job_serve(spec):
                             mesh_axes=spec["mesh_axes"])
     if spec.get("float_reply", False):
         float_frames_(svc)
-    out = {"seq_parallel": np.array(svc._seq_parallel)}
+    out = {"seq_parallel": np.array(svc._seq_parallel),
+           "decomp_sharded": np.array(svc._decomp_sharded)}
     if svc.mesh.rank != 0:
         svc.follow()
         return out
@@ -211,6 +272,10 @@ def job_serve(spec):
     svc.generator.set_state(torch.from_numpy(d["state"]))
     for i, rows in enumerate(spec["rows"]):
         out[f"reply{i}"] = svc.predict(d["frames"][:rows], list(spec["captions"][:rows]))
+    for name in ("quant_scales", "encode_scales"):
+        module = svc.decode_module if name == "quant_scales" else svc.predict_module
+        if getattr(module, name) is not None:
+            out[name] = getattr(module, name).numpy()
     try:
         export_service(svc, Path(spec["exp"]) / "artifact")
     except ValueError as e:

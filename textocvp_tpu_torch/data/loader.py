@@ -21,6 +21,10 @@ draws; a ragged global batch is padded globally to ``pad_to_multiple`` by
 repeating its last row, so that every process gets as many equal batches,
 and ``info["num_valid"]`` says how many rows of the global batch are real.
 The JAX ``DataLoader``'s ``process_index`` / ``process_count`` semantics.
+With ``accum`` > 1 (a training loader under ``training.accum_steps``) a
+process's rows are its share of each of the global batch's microbatches
+instead (:func:`microbatch_rows`), in microbatch order, so that microbatch i
+of every process together is the JAX step's microbatch i.
 
 Items are fetched on ``num_workers`` threads (the decode and resize run in
 C++ with the GIL released), and a producer thread keeps up to
@@ -45,6 +49,35 @@ from textocvp_tpu_torch.data.tokenizers import get_tokenizer
 
 DATASETS = ["CATER_Easy", "CATER_Hard", "CLIPort", "Synthetic"]
 PREFETCH = 2  # batches a producer keeps ready, as the JAX DataLoader's default
+
+
+def ragged_accum(n: int, accum: int, batch_size: int) -> int:
+    """Microbatches for a batch of ``n`` sequences: ``accum`` when it divides
+    ``n``, else the fewest equal microbatches no larger than the configured
+    ``batch_size // accum``."""
+    if n % accum == 0:
+        return accum
+    mb = max(1, batch_size // accum)
+    return min(d for d in range(1, n + 1) if n % d == 0 and n // d <= mb)
+
+
+def microbatch_rows(n: int, accum: int, batch_size: int, data: int = 1,
+                    index: int = 0) -> tuple:
+    """``(a, rows)``: the microbatches of a (padded) global batch of ``n``
+    rows, ``a = ragged_accum(n, accum, batch_size)`` of ``n // a`` consecutive
+    rows each as the JAX step reshapes the batch to ``(a, n // a)``, and data
+    index ``index``'s rows of them: its ``1 / data`` of each microbatch, the
+    microbatches in order. A microbatch that the data axis does not divide (a
+    ragged batch's) is every data index's whole, the JAX step's replicated
+    microbatch: the data group's sums then see ``data`` equal copies of it,
+    which changes no mean. At ``accum`` 1 the rows are the contiguous
+    ``n // data`` of the process split."""
+    a = ragged_accum(n, accum, batch_size)
+    mb = n // a
+    if mb % data:
+        return a, np.arange(n)
+    share = mb // data
+    return a, (np.arange(a)[:, None] * mb + index * share + np.arange(share)).reshape(-1)
 
 
 def load_data(exp_params: dict, split: str = "train"):
@@ -100,13 +133,13 @@ class EpochLoader:
     batches of ``batch_size`` (the last one ragged unless ``drop_last``).
     ``num_workers`` (default ``CONFIG["num_workers"]``) threads fetch the
     items, :data:`PREFETCH` batches ahead. ``process_index`` /
-    ``process_count`` / ``pad_to_multiple``: this process's rows of each
-    global batch, as the module docstring says."""
+    ``process_count`` / ``pad_to_multiple`` / ``accum``: this process's rows
+    of each global batch, as the module docstring says."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 14, num_workers: Optional[int] = None,
                  process_index: int = 0, process_count: int = 1,
-                 pad_to_multiple: Optional[int] = None):
+                 pad_to_multiple: Optional[int] = None, accum: int = 1):
         if not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} outside [0, {process_count})")
         if process_count > 1 and batch_size % process_count:
@@ -119,6 +152,7 @@ class EpochLoader:
                              f"process_count {process_count}")
         self.process_index, self.process_count = process_index, process_count
         self.pad_to_multiple = pad_to_multiple
+        self.accum = accum
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -151,8 +185,8 @@ class EpochLoader:
             if m is not None and valid % m:
                 b = np.concatenate([b, np.full(-(-valid // m) * m - valid, b[-1])])
             if self.process_count > 1:  # padding at the global tail: the last process's
-                per = len(b) // self.process_count
-                b = b[self.process_index * per:(self.process_index + 1) * per]
+                b = b[microbatch_rows(len(b), self.accum, self.batch_size, self.process_count,
+                                      self.process_index)[1]]
             out.append((b, valid))
         return out
 

@@ -18,6 +18,11 @@ where its scales are still None, as the JAX ``lazy_quantized_stage`` and
 included, then runs quantized. This changes outputs, so it is opt-in per
 experiment, and every ``results.json`` made with it carries the flags
 ``"decode_quant": "int8"`` / ``"encode_quant": "int8"``.
+
+On a mesh each data index calibrates on its rows and the amaxes are
+max-reduced over the data group, so every rank holds the scales of the
+global first batch, as the JAX package's calibration on its mesh does; the
+row shards of tensor parallelism take the whole layer's (``ops/dense_int8.py``).
 """
 
 from __future__ import annotations
@@ -25,10 +30,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from textocvp_tpu_torch.core.config import tpu_option
 from textocvp_tpu_torch.core.logger import print_
 from textocvp_tpu_torch.ops.conv_int8 import divide
+from textocvp_tpu_torch.parallel.mesh import all_reduce
 
 VALID = (None, "int8")
 
@@ -73,14 +80,19 @@ def _scales(amaxes, what: str):
 
 
 @torch.no_grad()
-def calibrate_decode_scales(model, slots):
+def calibrate_decode_scales(model, slots, group=None):
     """Per-layer activation scales (L,) float32 of the int8 decode: one float
-    decode of ``slots`` (N, S, D), each quantized layer's input amax / 127."""
-    return _scales(model.decode_calibrate(slots), "decode")
+    decode of ``slots`` (N, S, D), each quantized layer's input amax / 127.
+    ``group`` (a mesh's data group): the amaxes max-reduced over it first,
+    so that every rank holds the scales of the global batch's rows."""
+    return _scales(all_reduce(model.decode_calibrate(slots), group, dist.ReduceOp.MAX),
+                   "decode")
 
 
 @torch.no_grad()
-def calibrate_encode_scales(model, videos):
+def calibrate_encode_scales(model, videos, group=None):
     """Per-block per-dense activation scales (depth, 4) float32 of the int8
-    ViT encode: one float ViT pass over ``videos`` (B, T, H, W, C)."""
-    return _scales(model.encode_calibrate(videos), "encode")
+    ViT encode: one float ViT pass over ``videos`` (B, T, H, W, C);
+    ``group`` as :func:`calibrate_decode_scales` takes it."""
+    return _scales(all_reduce(model.encode_calibrate(videos), group, dist.ReduceOp.MAX),
+                   "encode")

@@ -28,7 +28,7 @@ from torch import nn
 from textocvp_tpu_torch.nn.blocks import ConvBlock, upsample_bilinear, upsample_nearest
 from textocvp_tpu_torch.ops.conv5 import KERNEL_SIZE, conv5
 from textocvp_tpu_torch.ops.conv_int8 import quantized_conv
-from textocvp_tpu_torch.ops.dense_int8 import dense_int8
+from textocvp_tpu_torch.ops.dense_int8 import input_amax, linear_int8
 
 
 def check_quant_scales(quant_scales, expected: int, needs: str):
@@ -177,6 +177,11 @@ class MLPPatchDecoder(nn.Module):
     The plain order of operations. The JAX package's serving-time
     reformulations (``fused_slot_mix``, ``subpixel_upconv3x3``) are exact up
     to summation order and are not ported.
+
+    Under the mesh's ``model`` axis (``parallel/partitioning.py::
+    shard_decomp_``) the denses alternate column and row shards, the hidden
+    width split between each pair; the LayerNorm, the softmax mix and the
+    CNN head with its BatchNorm stay whole.
     """
 
     def __init__(self, num_patches: int, in_dim: int, hidden_dim: int, out_dim: int,
@@ -254,11 +259,11 @@ class MLPPatchDecoder(nn.Module):
             x = self.initial_ln(x)
         for i, dense in enumerate(self.mlps):
             if amaxes is not None:
-                amaxes.append(x.abs().amax())
+                amaxes.append(input_amax(dense, x))
             if quant_scales is None:
                 x = dense(x)
             else:
-                x = dense_int8(x, dense.weight, dense.bias, quant_scales[i])
+                x = linear_int8(dense, x, quant_scales[i])
             if i < len(self.mlps) - 1:
                 x = F.relu(x)
         feats, alpha = x[..., :-1], x[..., -1:]

@@ -22,6 +22,12 @@ each block's four denses, in ``ViTBlock.DENSES`` order, run through
 float kernel. ``calibrate=True`` returns the denses' input amaxes with the
 features.
 
+Under the mesh's ``model`` axis (``parallel/partitioning.py::shard_decomp_``)
+each block's ``qkv`` holds this rank's heads of q, k and v, ``proj`` and
+``fc2`` are row shards and ``fc1`` a column shard; the attention core runs at
+the local head count, and the int8 path and its calibration take the whole
+layer's scales (``ops/dense_int8.py``).
+
 :func:`import_timm_state_dict` turns a timm ``VisionTransformer`` state dict
 into the JAX package's ViT params tree (numpy, resampling ``pos_embed`` to the
 model's grid with :func:`interpolate_pos_embed`), which
@@ -37,7 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from textocvp_tpu_torch.ops.dense_int8 import dense_int8
+from textocvp_tpu_torch.ops.dense_int8 import input_amax, linear_int8
 from textocvp_tpu_torch.ops.vit_attention import vit_attention
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -65,7 +71,8 @@ class ViTBlock(nn.Module):
                  layerscale_init: Optional[float] = None):
         super().__init__()
         d = embed_dim
-        self.num_heads = num_heads
+        self.num_heads = num_heads  # this rank's heads once sharded (parallel/partitioning.py)
+        self.head_dim = d // num_heads
         self.norm1 = nn.LayerNorm(d, eps=1e-6)
         self.qkv = nn.Linear(d, 3 * d)
         self.proj = nn.Linear(d, d)
@@ -80,22 +87,24 @@ class ViTBlock(nn.Module):
 
     def forward(self, x, quant_scales=None, amaxes=None):
         """``quant_scales`` (4,) runs the denses in int8; each dense's input
-        amax is appended to ``amaxes`` when given."""
-        b, n, d = x.shape
-        h = self.num_heads
+        amax is appended to ``amaxes`` when given. Under tensor parallelism
+        the block holds ``num_heads`` of the heads and its shards of the
+        denses; the row layers' sums give every rank the whole output."""
+        b, n, _ = x.shape
+        h, dh = self.num_heads, self.head_dim
 
         def dense(i, y):
             layer = getattr(self, self.DENSES[i])
             if amaxes is not None:
-                amaxes.append(y.abs().amax())
+                amaxes.append(input_amax(layer, y))
             if quant_scales is None:
                 return layer(y)
-            return dense_int8(y, layer.weight, layer.bias, quant_scales[i])
+            return linear_int8(layer, y, quant_scales[i])
 
-        qkv = dense(0, self.norm1(x)).reshape(b, n, 3, h, d // h).permute(2, 0, 3, 1, 4)
+        qkv = dense(0, self.norm1(x)).reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
         q, k, v = (t.contiguous() for t in qkv)  # (b, h, n, dh) each
-        y = vit_attention(q, k, v, (d // h) ** -0.5)
-        y = dense(1, y.transpose(1, 2).reshape(b, n, d))
+        y = vit_attention(q, k, v, dh ** -0.5)
+        y = dense(1, y.transpose(1, 2).reshape(b, n, h * dh))
         x = x + (y if self.ls1_gamma is None else y * self.ls1_gamma)
         y = dense(3, F.gelu(dense(2, self.norm2(x)), approximate="none"))
         return x + (y if self.ls2_gamma is None else y * self.ls2_gamma)

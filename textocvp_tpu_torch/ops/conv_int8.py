@@ -60,13 +60,16 @@ def quantize_activation(x, a_scale):
     return torch.round(divide(x.float(), a_scale)).clamp_(-127, 127).to(torch.int8)
 
 
-def quantize_weight(w, dims):
+def quantize_weight(w, dims, amax=None):
     """Symmetric int8 weights with one scale a slice along the axes not in
     ``dims``: ``w_scale = max(max |w| over dims, 1e-30) / 127`` and ``w_q =
-    round(w / w_scale)``. Returns (w_q int8, w_scale float32) with
-    ``w_scale`` reduced over ``dims``."""
+    round(w / w_scale)``; ``amax`` (keepdim) in place of ``max |w|`` when
+    ``w`` is a shard of a larger weight. Returns (w_q int8, w_scale float32)
+    with ``w_scale`` reduced over ``dims``."""
     w = w.float()
-    w_scale = divide(torch.clamp(w.abs().amax(dim=dims, keepdim=True), min=1e-30), 127.0)
+    if amax is None:
+        amax = w.abs().amax(dim=dims, keepdim=True)
+    w_scale = divide(torch.clamp(amax, min=1e-30), 127.0)
     return torch.round(w / w_scale).to(torch.int8), w_scale.squeeze(dims)
 
 

@@ -5,8 +5,8 @@ per GPU, explicit collectives.
 
 * ``data``: the batch splits over it, each data index its contiguous rows;
   gradients are averaged over the data group once a step.
-* ``model``: the predictors' large matmuls shard over it, Megatron's pattern
-  (``parallel/partitioning.py``).
+* ``model``: the predictors' large matmuls, and ExtendedDINOSAUR's, shard
+  over it, Megatron's pattern (``parallel/partitioning.py``).
 
 Rank ``r`` sits at data index ``r // model`` and model index ``r % model``:
 the ranks of a model group are consecutive, so that tensor parallelism stays
@@ -90,17 +90,18 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place and return it; ``t`` itself without
-    a group (a single-process mesh)."""
+def all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place (or reduce it by ``op``,
+    ``dist.ReduceOp.MAX``) and return it; ``t`` itself without a group (a
+    single-process mesh)."""
     if group is None:
         return t
     if _staged(t, group):
         host = t.detach().cpu()
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=op, group=group)
         t.copy_(host)
         return t
-    dist.all_reduce(t, group=group)
+    dist.all_reduce(t, op=op, group=group)
     return t
 
 

@@ -1,7 +1,8 @@
 """
-Tensor parallelism of the predictors over the mesh's ``model`` axis
-(counterpart of the JAX package's ``textocvp_tpu/parallel/partitioning.py``,
-its predictor half), Megatron's pattern:
+Tensor parallelism over the mesh's ``model`` axis (counterpart of the JAX
+package's ``textocvp_tpu/parallel/partitioning.py``), Megatron's pattern.
+
+The predictors (:func:`shard_predictor_`):
 
 * attention ``q``/``k``/``v`` under ``attn``, ``cross_attn`` and
   ``self_attn``: the output (head) dim, this rank's group of heads
@@ -22,6 +23,29 @@ replicated, as ``shard_predictor_params`` keeps such leaves. Everything else
 keeps this rank's head columns: layer 0 computes the bias of the local heads
 and hands it down.
 
+The decomposition model (:func:`shard_decomp_`, the JAX
+``shard_decomp_variables``, gated by :func:`decomp_tp_enabled`: a ViT
+encoder, i.e. ExtendedDINOSAUR; SAVi stays replicated). Its modules are
+listed, not found by a walk of names:
+
+* every ViT block: ``qkv`` and ``fc1`` by columns, ``proj`` and ``fc2`` by
+  rows. ``qkv`` keeps timm's fused ``[q; k; v]`` output layout, so a rank
+  takes its head group of q, of k and of v: three row ranges of the
+  ``(3d, d)`` weight (``tp_shard``'s ``groups`` 3). The block's attention
+  then runs at ``num_heads / model`` heads a rank;
+* the patch decoder's ``mlps``: ``mlp_i`` by columns for even ``i`` and by
+  rows for odd ``i``, each pair of a ReLU apart; an even last layer stays
+  whole (its output would have to be gathered), which no config has;
+* the transition ``TransformerBlock``'s ``attn`` and ``mlp``, as a
+  predictor's.
+
+The one departure from the JAX set: ``slot_attention.mlp`` (the JAX
+``slot_attention/mlp/Dense_{0,1}``, which ``_spec_for_path`` shards) stays
+whole. The slot-attention kernel (``csrc/slot_attention.cu``) computes that
+MLP inside its one launch from the whole weights; where a weight lies
+changes no result. The LayerNorms, the patch embedding, the CNN head and its
+BatchNorm are replicated, as there.
+
 The JAX package lets XLA insert the collectives; here they are two
 ``torch.autograd.Function``s. :class:`ColumnEntry` is the identity forward and
 sums the input gradient over the model group backward (each rank holds the
@@ -29,15 +53,14 @@ part of it that its heads give). :class:`RowExit` sums the partial outputs
 forward and is the identity backward: every model rank already holds the same
 upstream gradient, and ``torch.distributed.nn.functional.all_reduce`` would
 sum it again, ``model`` times too large. With the entry's sum, replicated
-leaves get the same gradient on every model rank.
+leaves get the same gradient on every model rank. The opt-in int8 of a row
+layer (``ops/dense_int8.py``, its ``row_group``) takes the whole weight's
+per-row scales and sums the integer partial products.
 
 Checkpoints keep one layout for any mesh: :func:`gather_state_dict` gathers
 every sharded leaf back to its full shape, and a checkpoint is loaded into
-the whole module before :func:`shard_predictor_` slices it.
-
-The decomposition half (``decomp_tp_enabled``, ``shard_decomp_variables``:
-the ViT blocks and the patch decoder's MLP) is not ported: under ``model >
-1`` the decomposition model is replicated, which changes no result.
+the whole module before :func:`shard_predictor_` or :func:`shard_decomp_`
+slices it.
 """
 
 from __future__ import annotations
@@ -76,25 +99,29 @@ class RowExit(torch.autograd.Function):
         return grad, None
 
 
-def _shard_param(p: torch.Tensor, dim: int, index: int, size: int) -> nn.Parameter:
-    """This rank's contiguous slice of ``p`` along ``dim``, marked ``tp_shard
-    = (dim, index, size)``."""
-    per = p.shape[dim] // size
-    part = nn.Parameter(p.detach().narrow(dim, index * per, per).clone(),
+def _shard_param(p: torch.Tensor, dim: int, index: int, size: int,
+                 groups: int = 1) -> nn.Parameter:
+    """This rank's slice of ``p`` along ``dim``, marked ``tp_shard = (dim,
+    index, size, groups)``: the ``index``-th of ``size`` contiguous parts,
+    or with ``groups`` > 1 that part of each of ``dim``'s ``groups`` equal
+    blocks (a fused ``[q; k; v]``), the blocks' parts in order."""
+    part = nn.Parameter(slice_full(p.detach(), (dim, index, size, groups)).clone(),
                         requires_grad=p.requires_grad)
-    part.tp_shard = (dim, index, size)
+    part.tp_shard = (dim, index, size, groups)
     return part
 
 
 class ColumnParallelLinear(nn.Module):
-    """This rank's output rows of a ``nn.Linear`` (and of its bias), behind a
+    """This rank's output rows of a ``nn.Linear`` (and of its bias; with
+    ``groups``, of each of its ``groups`` blocks), behind a
     :class:`ColumnEntry`. Its state-dict keys are the Linear's."""
 
-    def __init__(self, linear: nn.Linear, index: int, size: int, group):
+    def __init__(self, linear: nn.Linear, index: int, size: int, group, groups: int = 1):
         super().__init__()
         self.group = group
-        self.weight = _shard_param(linear.weight, 0, index, size)
-        self.bias = None if linear.bias is None else _shard_param(linear.bias, 0, index, size)
+        self.weight = _shard_param(linear.weight, 0, index, size, groups)
+        self.bias = (None if linear.bias is None
+                     else _shard_param(linear.bias, 0, index, size, groups))
 
     def forward(self, x):
         return F.linear(ColumnEntry.apply(x, self.group), self.weight, self.bias)
@@ -102,11 +129,13 @@ class ColumnParallelLinear(nn.Module):
 
 class RowParallelLinear(nn.Module):
     """This rank's input columns of a ``nn.Linear``; the partial products summed
-    by :class:`RowExit`, then the (replicated) bias added once."""
+    by :class:`RowExit`, then the (replicated) bias added once. ``row_group``
+    tells the int8 path (``ops/dense_int8.py``) that its weight and input are
+    shards."""
 
     def __init__(self, linear: nn.Linear, index: int, size: int, group):
         super().__init__()
-        self.group = group
+        self.group = self.row_group = group
         self.weight = _shard_param(linear.weight, 1, index, size)
         self.bias = linear.bias
 
@@ -118,6 +147,23 @@ class RowParallelLinear(nn.Module):
 def _split_pair(owner: nn.Module, col: str, row: str, index: int, size: int, group):
     setattr(owner, col, ColumnParallelLinear(getattr(owner, col), index, size, group))
     setattr(owner, row, RowParallelLinear(getattr(owner, row), index, size, group))
+
+
+def _shard_attention(mod, out: str, m: int, r: int, g):
+    """``q``/``k``/``v`` by columns, ``out`` by rows, ``num_heads`` the local
+    count; nothing when ``m`` does not divide the heads."""
+    if mod.num_heads % m:
+        return
+    for col in ("q", "k", "v"):
+        setattr(mod, col, ColumnParallelLinear(getattr(mod, col), r, m, g))
+    setattr(mod, out, RowParallelLinear(getattr(mod, out), r, m, g))
+    mod.num_heads //= m
+
+
+def _shard_mlp(mlp, m: int, r: int, g):
+    """A two-layer ``MLP``'s pair, when ``m`` divides its hidden width."""
+    if mlp.layers[0].out_features % m == 0:
+        _split_pair(mlp.layers, "0", "1", r, m, g)
 
 
 def shard_predictor_(module: nn.Module, mesh) -> list:
@@ -139,18 +185,13 @@ def shard_predictor_(module: nn.Module, mesh) -> list:
         if isinstance(mod, (MultiHeadSelfAttention, MultiHeadCrossAttention, T5SelfAttention)):
             if attr not in ATTENTION_PARENTS or mod.num_heads % m:
                 continue
-            out = "o" if isinstance(mod, T5SelfAttention) else "out"
-            for col in ("q", "k", "v"):
-                setattr(mod, col, ColumnParallelLinear(getattr(mod, col), r, m, g))
-            setattr(mod, out, RowParallelLinear(getattr(mod, out), r, m, g))
-            mod.num_heads //= m
+            _shard_attention(mod, "o" if isinstance(mod, T5SelfAttention) else "out", m, r, g)
             bias = getattr(mod, "relative_attention_bias", None)
             if bias is not None:
                 bias.weight = _shard_param(bias.weight, 1, r, m)
                 bias.embedding_dim = bias.weight.shape[1]
         elif isinstance(mod, MLP) and attr == "mlp" and len(mod.layers) == 2:
-            if mod.layers[0].out_features % m == 0:
-                _split_pair(mod.layers, "0", "1", r, m, g)
+            _shard_mlp(mod, m, r, g)
         elif isinstance(mod, T5EncoderLayer):
             if mod.wi.out_features % m == 0:
                 _split_pair(mod, "wi", "wo", r, m, g)
@@ -161,6 +202,42 @@ def shard_predictor_(module: nn.Module, mesh) -> list:
     return sharded_names(module)
 
 
+def decomp_tp_enabled(exp_params: dict) -> bool:
+    """Whether the decomposition model shards under ``model > 1``: its
+    encoder's name holds "vit" (ExtendedDINOSAUR), the JAX package's rule.
+    SAVi's 128-wide layers would pay an all-reduce a recurrence step for
+    nothing, so it stays replicated."""
+    enc = (exp_params.get("model", {}).get("model_params", {}).get("encoder", {})) or {}
+    return "vit" in str(enc.get("encoder_name", "")).lower()
+
+
+def shard_decomp_(model: nn.Module, mesh) -> list:
+    """Shard a loaded ExtendedDINOSAUR in place over ``mesh``'s model axis
+    (the modules the module docstring lists; ``slot_attention`` whole) and
+    return the names of the sharded parameters; a mesh whose model axis is 1
+    changes nothing. Callers gate it with :func:`decomp_tp_enabled`."""
+    from textocvp_tpu_torch.nn.blocks import TransformerBlock
+
+    if not mesh.tensor_parallel:
+        return []
+    m, r, g = mesh.model, mesh.model_index, mesh.model_group
+    for block in model.image_encoder.blocks:
+        if block.num_heads % m == 0:
+            block.qkv = ColumnParallelLinear(block.qkv, r, m, g, groups=3)
+            block.proj = RowParallelLinear(block.proj, r, m, g)
+            block.num_heads //= m
+        if block.fc1.out_features % m == 0:
+            _split_pair(block, "fc1", "fc2", r, m, g)
+    mlps = model.patch_decoder.mlps
+    for i in range(0, len(mlps) - 1, 2):
+        if mlps[i].out_features % m == 0:
+            _split_pair(mlps, str(i), str(i + 1), r, m, g)
+    if isinstance(model.transition, TransformerBlock):
+        _shard_attention(model.transition.attn, "out", m, r, g)
+        _shard_mlp(model.transition.mlp, m, r, g)
+    return sharded_names(model)
+
+
 def sharded_names(module: nn.Module) -> list:
     """Names of the parameters that hold a shard (``tp_shard``)."""
     return [n for n, p in module.named_parameters() if getattr(p, "tp_shard", None)]
@@ -168,18 +245,21 @@ def sharded_names(module: nn.Module) -> list:
 
 def gather_full(t: torch.Tensor, shard, group) -> torch.Tensor:
     """A sharded leaf's full tensor from the model group's slices (``shard`` =
-    ``(dim, index, size)``), in model-rank order."""
-    dim = shard[0]
-    if dim == 0:
-        return all_gather_rows(t.detach(), group)
-    return all_gather_rows(t.detach().transpose(0, dim).contiguous(), group).transpose(0, dim)
+    ``(dim, index, size, groups)``), in model-rank order within each of the
+    ``groups`` blocks."""
+    dim, _, size, groups = shard
+    parts = all_gather_rows(t.detach().transpose(0, dim).contiguous(), group)
+    rest = parts.shape[1:]
+    parts = parts.reshape(size, groups, -1, *rest).transpose(0, 1).reshape(-1, *rest)
+    return parts.transpose(0, dim)
 
 
 def slice_full(t: torch.Tensor, shard) -> torch.Tensor:
     """This rank's slice of a full tensor, as :func:`_shard_param` takes it."""
-    dim, index, size = shard
-    per = t.shape[dim] // size
-    return t.narrow(dim, index * per, per)
+    dim, index, size, groups = shard
+    block = t.shape[dim] // groups
+    per = block // size
+    return torch.cat([t.narrow(dim, j * block + index * per, per) for j in range(groups)], dim)
 
 
 def gather_state_dict(module: nn.Module, group) -> dict:

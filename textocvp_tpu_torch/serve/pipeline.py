@@ -39,17 +39,25 @@ ranks, which run :meth:`PredictionService.follow` until rank 0's
 * Data parallelism: each data index runs its rows of the batch, and the
   frames are gathered in rank order. A batch that the data axis does not
   divide runs at the next multiple (the padding cut off each reply).
+* With ``model > 1`` the predictor is sharded (``parallel/partitioning.py::
+  shard_predictor_``), and so is ExtendedDINOSAUR (``shard_decomp_``: its
+  ViT blocks, patch-decoder MLP and transition block); SAVi stays
+  replicated.
 * Sequence-parallel decode, when the batch is smaller than the data axis:
   every rank runs the whole encode and rollout and decodes its slice of the
-  ``B * num_preds`` frames, taken over all ranks (data x model, since the
-  decoder is replicated); the frames are zero-padded to the rank multiple,
-  gathered, and the padding cut before the uint8 fetch.
-* With ``model > 1`` the predictor is sharded (``parallel/partitioning.py``),
-  the decomposition model replicated.
+  ``B * num_preds`` frames. The frames split over the data axis alone when
+  the decoder is sharded (each model group decodes the same frames with its
+  shards), over data x model when it is replicated, as the JAX service
+  takes its axes; they are zero-padded to the multiple, gathered, and the
+  padding cut before the uint8 fetch.
+* int8: the first request calibrates, each data index on its rows, the
+  amaxes max-reduced over the data group (``models/quant.py``); under
+  sequence-parallel decode every rank calibrates the decode on all the real
+  frames, before the split.
 
 ``tpu.mesh_axes`` is not consulted, as in the JAX package: a serving process
-does not change its batch split with the host's device count. int8 and the
-serving artifact (``serve/export.py``) are single-process.
+does not change its batch split with the host's device count. The serving
+artifact (``serve/export.py``) is single-process, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -89,7 +97,11 @@ from textocvp_tpu_torch.parallel.distributed import (
     maybe_initialize_distributed,
 )
 from textocvp_tpu_torch.parallel.mesh import all_gather_rows, broadcast_object, shard_batch
-from textocvp_tpu_torch.parallel.partitioning import shard_predictor_
+from textocvp_tpu_torch.parallel.partitioning import (
+    decomp_tp_enabled,
+    shard_decomp_,
+    shard_predictor_,
+)
 from textocvp_tpu_torch.train.checkpoints import load_params
 
 _VOCABS = {
@@ -367,16 +379,16 @@ class PredictionService(InferenceFrontend):
         self.tokenizer = serving_tokenizer(self.exp_params)
         self._quant_mode = decode_quant_mode(self.exp_params)
         self._encode_quant_mode = encode_quant_mode(self.exp_params)
+        self._decomp_sharded = False
         if self.mesh is not None:
-            if self._quant_mode or self._encode_quant_mode:
-                raise ValueError("int8 serving (tpu.decode_quant / tpu.encode_quant) is "
-                                 "single-process: build the service without mesh_axes")
             d = self.mesh.data
+            self._decomp_sharded = self.mesh.tensor_parallel and decomp_tp_enabled(
+                self.exp_params)
             self._seq_parallel = self.batch_size < d
             if self._seq_parallel:
                 print_(f"serve: batch {self.batch_size} < data axis {d}: sequence-parallel "
                        "decode (encode and rollout on every rank, the decode's frames "
-                       f"split over {self.mesh.world} ranks)")
+                       f"split over {d if self._decomp_sharded else self.mesh.world} ranks)")
             elif self.batch_size % d:
                 self._run_batch = -(-self.batch_size // d) * d
                 print_(f"serve: batch {self.batch_size} not divisible by data axis {d}: "
@@ -389,6 +401,8 @@ class PredictionService(InferenceFrontend):
                                     self.exp.checkpoint_path(pred_ckpt))
         if self.mesh is not None:
             shard_predictor_(self.predictor, self.mesh)
+            if self._decomp_sharded:
+                shard_decomp_(self.model, self.mesh)
         self.predict_module = PredictStage(self.model, self.predictor, self.num_preds)
         self.decode_module = DecodeStage(self.model)
         self.generator = generator or torch.Generator(self.device).manual_seed(14)
@@ -416,13 +430,16 @@ class PredictionService(InferenceFrontend):
             return all_gather_rows(imgs, self.mesh.data_group)
         pred_slots = self._predict_stage(frames, text, noise)
         b, p, s, d = pred_slots.shape
-        n = self.mesh.world
+        mesh = self.mesh
+        n, index, group = ((mesh.data, mesh.data_index, mesh.data_group) if self._decomp_sharded
+                           else (mesh.world, mesh.rank, mesh.world_group))
         per = -(-(b * p) // n)
         flat = pred_slots.reshape(b * p, s, d)
+        self._calibrate_decode(flat)  # on all the real frames, before the split
         flat = torch.cat([flat, flat.new_zeros((per * n - b * p, s, d))])
-        mine = flat[self.mesh.rank * per:(self.mesh.rank + 1) * per]
+        mine = flat[index * per:(index + 1) * per]
         imgs = self._decode_stage(mine[:, None])[:, 0]
-        imgs = all_gather_rows(imgs, self.mesh.world_group)[:b * p]
+        imgs = all_gather_rows(imgs, group)[:b * p]
         return imgs.reshape(b, p, *imgs.shape[1:])
 
     def follow(self):
@@ -443,18 +460,25 @@ class PredictionService(InferenceFrontend):
             self._closed = True
             broadcast_object(None)
 
+    def _data_group(self):
+        return None if self.mesh is None else self.mesh.data_group
+
     def _run_predict(self, videos, noise, text):
         # int8 ViT: calibrated on the first request's context frames (under
         # the dispatch lock, so once), as the JAX service does
         if self._encode_quant_mode and self.predict_module.encode_scales is None:
             self.predict_module.encode_scales = calibrate_encode_scales(
-                self.model, as_float_video(videos))
+                self.model, as_float_video(videos), self._data_group())
         return self.predict_module(videos, noise, text)
+
+    def _calibrate_decode(self, slots):
+        """int8 decode: the scales of the first request's predicted slots (N,
+        S, D), its rows over the data group."""
+        if self._quant_mode and self.decode_module.quant_scales is None:
+            self.decode_module.quant_scales = calibrate_decode_scales(
+                self.model, slots, self._data_group())
 
     @torch.inference_mode()
     def _decode_stage(self, pred_slots):
-        # int8 decode: calibrated on the first request's predicted slots
-        if self._quant_mode and self.decode_module.quant_scales is None:
-            self.decode_module.quant_scales = calibrate_decode_scales(
-                self.model, pred_slots.reshape(-1, self.num_slots, self.slot_dim))
+        self._calibrate_decode(pred_slots.reshape(-1, self.num_slots, self.slot_dim))
         return self.decode_module(pred_slots)

@@ -45,9 +45,12 @@ split). Every rank draws the initial slots of the batch's real rows from its
 generator, as one process does, pads and takes its rows; the per-sample
 metric rows are gathered in rank order and cut to the real rows, so the
 aggregate is one process's. Under ``model > 1`` the predictor is sharded
-(``parallel/partitioning.py``) and the decomposition model replicated. Rank 0
-alone writes ``results.json`` and the plots. Int8 under a data axis larger
-than 1 is refused: its first-batch calibration would see one rank's rows.
+(``parallel/partitioning.py::shard_predictor_``), and so is ExtendedDINOSAUR
+(``shard_decomp_``: its ViT blocks, patch-decoder MLP and transition block;
+SAVi stays replicated). Rank 0 alone writes ``results.json`` and the plots.
+int8 runs on any mesh: each rank calibrates on its rows of the first batch
+and the amaxes are max-reduced over the data group (``models/quant.py``), so
+that every rank holds the global first batch's scales.
 """
 
 from __future__ import annotations
@@ -86,7 +89,11 @@ from textocvp_tpu_torch.parallel.mesh import (
     pad_batch,
     shard_batch,
 )
-from textocvp_tpu_torch.parallel.partitioning import shard_predictor_
+from textocvp_tpu_torch.parallel.partitioning import (
+    decomp_tp_enabled,
+    shard_decomp_,
+    shard_predictor_,
+)
 from textocvp_tpu_torch.train.checkpoints import load_params
 from textocvp_tpu_torch.train.metrics import MetricTracker
 from textocvp_tpu_torch.viz.figures import visualize_metric
@@ -119,12 +126,14 @@ class _MeshEval:
             return self.mesh.device
         maybe_initialize_distributed()
         self.mesh = get_runtime_mesh(self.exp_params.get("tpu"), device)
-        if self.mesh.data > 1 and (decode_quant_mode(self.exp_params)
-                                   or encode_quant_mode(self.exp_params)):
-            raise ValueError("int8 (tpu.decode_quant / tpu.encode_quant) on a mesh whose data "
-                             "axis is larger than 1 is not supported: the first batch's "
-                             "calibration would see one rank's rows")
         return self.mesh.device
+
+    def _shard_decomp(self, model):
+        """ExtendedDINOSAUR over the model axis (``shard_decomp_``); SAVi and
+        a model axis of 1 leave ``model`` whole."""
+        if decomp_tp_enabled(self.exp_params):
+            shard_decomp_(model, self.mesh)
+        return model
 
     def _loader(self, dataset):
         return EpochLoader(dataset, self.batch_size, **loader_process_kwargs(self.mesh))
@@ -168,19 +177,23 @@ class _Quant:
         self.decode_quant_scales = self.encode_quant_scales = None
 
     def _encode_kwargs(self, model, videos) -> dict:
-        """decompose's int8 ViT argument, calibrated on ``videos`` the first time."""
+        """decompose's int8 ViT argument, calibrated on ``videos`` (over the
+        mesh's data group) the first time."""
         if not self._encode_quant_mode:
             return {}
         if self.encode_quant_scales is None:
-            self.encode_quant_scales = calibrate_encode_scales(model, videos)
+            self.encode_quant_scales = calibrate_encode_scales(model, videos,
+                                                               self.mesh.data_group)
         return {"encode_quant_scales": self.encode_quant_scales}
 
     def _decode_kwargs(self, model, slots) -> dict:
-        """decode's int8 argument, calibrated on ``slots()`` (N, S, D) the first time."""
+        """decode's int8 argument, calibrated on ``slots()`` (N, S, D) (over
+        the mesh's data group) the first time."""
         if not self._quant_mode:
             return {}
         if self.decode_quant_scales is None:
-            self.decode_quant_scales = calibrate_decode_scales(model, slots())
+            self.decode_quant_scales = calibrate_decode_scales(model, slots(),
+                                                               self.mesh.data_group)
         return {"quant_scales": self.decode_quant_scales}
 
     def _quant_flags(self) -> dict:
@@ -244,7 +257,8 @@ class DecompEvaluator(_Quant, _MeshEval):
         self.test_loader = self._loader(self.test_set)
 
     def load_model(self):
-        self.model = _load(self.model, self.exp.checkpoint_path(self.checkpoint), self.device)
+        self.model = self._shard_decomp(
+            _load(self.model, self.exp.checkpoint_path(self.checkpoint), self.device))
 
     def to_device(self, videos):
         """A loader batch's videos -> float (B, T, H, W, 3) on the device."""
@@ -344,7 +358,8 @@ class PredictorEvaluator(_Quant, _MeshEval):
         self.test_loader = self._loader(self.test_set)
 
     def load_models(self):
-        self.model = _load(self.model, self.parent.checkpoint_path(self.decomp_ckpt), self.device)
+        self.model = self._shard_decomp(
+            _load(self.model, self.parent.checkpoint_path(self.decomp_ckpt), self.device))
         self.predictor = _load(self.predictor, self.exp.checkpoint_path(self.pred_ckpt),
                                self.device)
         shard_predictor_(self.predictor, self.mesh)

@@ -46,9 +46,13 @@ computed outside the regions, are kept.
 
 On a mesh (``tpu.mesh_axes``; ``train/trainer.py`` says what the data axis
 does) the predictor is sharded over ``model`` after its weights are loaded
-(``parallel/partitioning.py::shard_predictor_``), the frozen SAVi or
-ExtendedDINOSAUR is replicated, and the checkpoints gather the predictor and
-its Adam moments back to their full shapes.
+(``parallel/partitioning.py::shard_predictor_``), and so is a frozen
+ExtendedDINOSAUR (``shard_decomp_``: its ViT blocks, patch-decoder MLP and
+transition block, as the JAX trainer's frozen model; the image loss's
+gradient reaches the predictor through the sharded decoder's collectives);
+a frozen SAVi stays replicated. The checkpoints gather the predictor and its
+Adam moments back to their full shapes; the frozen model is read from its
+own checkpoint and never written.
 
 Not ported (ROADMAP.md): ``train_decode_chunks`` / ``valid_decode_kwargs``.
 """
@@ -63,7 +67,11 @@ from textocvp_tpu_torch.core.logger import log_function
 from textocvp_tpu_torch.data.tokenizers import text_tensors
 from textocvp_tpu_torch.models.factory import random_init_, setup_model, setup_predictor
 from textocvp_tpu_torch.parallel.mesh import global_tokens
-from textocvp_tpu_torch.parallel.partitioning import shard_predictor_
+from textocvp_tpu_torch.parallel.partitioning import (
+    decomp_tp_enabled,
+    shard_decomp_,
+    shard_predictor_,
+)
 from textocvp_tpu_torch.train.checkpoints import load_params
 from textocvp_tpu_torch.train.losses import build_loss_fn
 from textocvp_tpu_torch.train.trainer import INIT_SEED, Trainer, remat, remat_frames
@@ -99,13 +107,15 @@ class PredictorTrainer(Trainer):
     @log_function
     def setup_model(self):
         """The frozen decomposition model from the parent's ``decomp_ckpt``, in
-        ``eval()``; the predictor from
-        ``random_init_`` with a generator seeded ``INIT_SEED``, or from
-        ``checkpoint``, with ``resume_training`` also the optimizer state, the
-        epoch and the step."""
+        ``eval()`` (an ExtendedDINOSAUR sharded over the mesh's model axis);
+        the predictor from ``random_init_`` with a generator seeded
+        ``INIT_SEED``, or from ``checkpoint``, with ``resume_training`` also
+        the optimizer state, the epoch and the step."""
         self.decomp_model.load_state_dict(
             load_params(self.parent.checkpoint_path(self.decomp_ckpt)))
         self.decomp_model.to(self.device).eval().requires_grad_(False)
+        if decomp_tp_enabled(self.exp_params):
+            shard_decomp_(self.decomp_model, self.mesh)
         random_init_(self.model, torch.Generator().manual_seed(INIT_SEED))
         self.model.to(self.device).train()
         self._setup_optimizer()

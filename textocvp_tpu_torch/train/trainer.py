@@ -78,13 +78,17 @@ The JAX trainer's extras:
 The mesh (``tpu.mesh_axes``, ``parallel/``), in a process group that
 ``torchrun`` or the ``TEXTOCVP_*`` environment starts, one process per GPU:
 
-* each data index loads its contiguous rows of every global batch
-  (``EpochLoader``'s process split; a ragged global batch padded by
-  repeating its last row, which then weighs twice in that step, as in the
-  JAX package's multi-process runs), and splits them into ``accum_steps``
-  microbatches of its own;
+* each data index loads its rows of every global batch (``EpochLoader``'s
+  process split; a ragged global batch padded by repeating its last row,
+  which then weighs twice in that step, as in the JAX package's
+  multi-process runs). Under ``accum_steps`` they are its share of each of
+  the global batch's microbatches, the JAX step's ``(accum, micro_b)``
+  reshape of the global batch (``data/loader.py::microbatch_rows``), so
+  that microbatch i of every rank together is the JAX microbatch i and
+  BatchNorm normalizes over it; a ragged batch's microbatch that the data
+  axis does not divide is computed whole on every rank;
 * every rank draws the global batch's slot noise from ``noise_generator``
-  and takes its rows, so a step does not depend on the world size;
+  and takes the rows it loaded, so a step does not depend on the world size;
 * the gradients are averaged over the data group once a step, after the
   microbatches and before the clip, by one all-reduce of all of them
   flattened into one buffer (not DDP: the hand-written Adam reads
@@ -122,7 +126,12 @@ import torch
 from textocvp_tpu_torch.core.config import tpu_option
 from textocvp_tpu_torch.core.experiment import Experiment
 from textocvp_tpu_torch.core.logger import Logger, log_exception, log_function, log_info, print_
-from textocvp_tpu_torch.data.loader import EpochLoader, load_data
+from textocvp_tpu_torch.data.loader import (  # noqa: F401  (ragged_accum: the trainers' name)
+    EpochLoader,
+    load_data,
+    microbatch_rows,
+    ragged_accum,
+)
 from textocvp_tpu_torch.data.wire import as_float_video
 from textocvp_tpu_torch.models.factory import random_init_, setup_model
 from textocvp_tpu_torch.nn.blocks import running_stats_frozen, set_batchnorm_group
@@ -132,7 +141,7 @@ from textocvp_tpu_torch.parallel.distributed import (
     loader_process_kwargs,
     maybe_initialize_distributed,
 )
-from textocvp_tpu_torch.parallel.mesh import all_reduce, barrier
+from textocvp_tpu_torch.parallel.mesh import all_reduce, barrier, pad_batch_to_multiple
 from textocvp_tpu_torch.parallel.partitioning import gather_state_dict
 from textocvp_tpu_torch.train.checkpoints import (
     load_checkpoint,
@@ -162,16 +171,6 @@ def accum_steps_of(training_params: dict) -> int:
             "so microbatches are equal-sized (equal sizes are what make the "
             "averaged gradient equal the full-batch gradient)")
     return accum
-
-
-def ragged_accum(n: int, accum: int, batch_size: int) -> int:
-    """Microbatches for a batch of ``n`` sequences: ``accum`` when it divides
-    ``n``, else the fewest equal microbatches no larger than the configured
-    ``batch_size // accum``."""
-    if n % accum == 0:
-        return accum
-    mb = max(1, batch_size // accum)
-    return min(d for d in range(1, n + 1) if n % d == 0 and n // d <= mb)
 
 
 def noise_generator(step: int, seed: int = NOISE_SEED) -> torch.Generator:
@@ -242,13 +241,16 @@ class Trainer:
         self.training_params = self.exp_params["training"]
         self.mesh = get_runtime_mesh(self.exp_params.get("tpu"), self.device)
         self.device = self.mesh.device
+        self.checkpoint = checkpoint
+        self.resume_training = resume_training
+        self.accum = accum_steps_of(self.training_params)
         bs, d = self.training_params["batch_size"], self.mesh.data
         if bs % d:
             print_(f"batch_size {bs} is not divisible by the data axis ({d}); the batch "
                    "cannot split over the processes", "warning")
-        self.checkpoint = checkpoint
-        self.resume_training = resume_training
-        self.accum = accum_steps_of(self.training_params)
+        elif (bs // self.accum) % d:
+            print_(f"the microbatch of {bs // self.accum} rows is not divisible by the data "
+                   f"axis ({d}); every rank computes each microbatch whole", "warning")
         self.remat = bool(tpu_option(self.exp_params, "remat"))
         self.start_epoch = 0
         self.global_step = 0
@@ -266,7 +268,7 @@ class Trainer:
         self.tokenizer = getattr(self.train_set, "tokenizer", None)
         split = loader_process_kwargs(self.mesh)
         self.train_loader = EpochLoader(self.train_set, bs, shuffle=ds.get("shuffle_train", True),
-                                        **split)
+                                        accum=self.accum, **split)
         self.valid_loader = EpochLoader(self.valid_set, bs, shuffle=ds.get("shuffle_eval", False),
                                         **split)
         print_(f"Loaded {len(self.train_set)} train / {len(self.valid_set)} valid sequences")
@@ -305,20 +307,37 @@ class Trainer:
                 self.global_step = int(state["step"])
                 print_(f"Resuming training from epoch {self.start_epoch}")
 
-    def _noise(self, batch_size: int, generator: Optional[torch.Generator] = None
-               ) -> torch.Tensor:
+    def _noise(self, batch_size: int, generator: Optional[torch.Generator] = None,
+               global_batch: Optional[int] = None, accum: int = 1) -> torch.Tensor:
         """The slot noise of the next batch, which advances ``global_step``;
         with ``generator``, a draw from it, and the step stays. On a mesh the
-        draw is the global batch's (``batch_size`` rows a data index), and
-        this data index takes its rows."""
+        draw is the global batch's (``global_batch`` rows, by default
+        ``batch_size`` a data index), and this data index takes the rows it
+        loaded: under ``accum`` its share of each microbatch
+        (:func:`microbatch_rows`), else its contiguous ``batch_size``."""
         if generator is None:
             self.global_step += 1
             generator = noise_generator(self.global_step)
         mp = self.exp_params["model"]["model_params"]
-        d, i = self.mesh.data, self.mesh.data_index
-        noise = torch.randn((batch_size * d, mp["num_slots"], mp["slot_dim"]),
-                            generator=generator)
-        return noise if d == 1 else noise[i * batch_size:(i + 1) * batch_size]
+        d = self.mesh.data
+        n = global_batch or batch_size * d
+        noise = torch.randn((n, mp["num_slots"], mp["slot_dim"]), generator=generator)
+        if d == 1:
+            return noise
+        rows = self._rows(n, accum)[1]
+        return noise[torch.from_numpy(rows)]
+
+    def _rows(self, n: int, accum: int) -> tuple:
+        """(microbatches, this data index's rows) of a global batch of ``n``."""
+        return microbatch_rows(n, accum, self.training_params["batch_size"], self.mesh.data,
+                               self.mesh.data_index)
+
+    def global_batch(self, info: dict) -> Optional[int]:
+        """The padded global batch of a loader batch on a mesh (``num_valid``
+        real rows), None on a data axis of 1."""
+        if self.mesh.data == 1 or "num_valid" not in info:
+            return None
+        return pad_batch_to_multiple(int(info["num_valid"]), self.mesh)
 
     def _data_mean(self, values: dict) -> dict:
         """Loss values averaged over the data group (the global batch's); as
@@ -348,12 +367,18 @@ class Trainer:
             p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
             offset += n
 
-    def backward(self, videos, noise, **text) -> dict:
+    def backward(self, videos, noise, global_batch: Optional[int] = None, **text) -> dict:
         """Fresh gradients of the batch's loss in every parameter's ``.grad``,
         averaged over its microbatches and, on a mesh, over the data group;
-        returns the loss values."""
+        returns the loss values. On a mesh the rows are this rank's of a
+        global batch of ``global_batch`` rows (by default the rows times the
+        data axis), as the loader split them (:func:`microbatch_rows`): its
+        share of each global microbatch, in order."""
         b = videos.shape[0]
-        accum = ragged_accum(b, self.accum, self.training_params["batch_size"] // self.mesh.data)
+        accum, rows = self._rows(global_batch or b * self.mesh.data, self.accum)
+        if len(rows) != b:
+            raise ValueError(f"{b} rows, but this rank's share of a global batch of "
+                             f"{global_batch} is {len(rows)}")
         mb = b // accum
         self.optimizer.zero_grad()
         values = []
@@ -366,12 +391,13 @@ class Trainer:
         return self._data_mean({k: torch.stack([v[k] for v in values]).mean()
                                 for k in values[0]})
 
-    def train_step(self, videos, noise=None, **text) -> dict:
+    def train_step(self, videos, noise=None, global_batch: Optional[int] = None, **text) -> dict:
         """One update from a batch on the device; ``noise`` (B, S, D) in place
-        of the stream's (which then does not advance)."""
+        of the stream's (which then does not advance); ``global_batch`` as
+        :meth:`backward` takes it."""
         if noise is None:
-            noise = self._noise(videos.shape[0])
-        values = self.backward(videos, noise, **text)
+            noise = self._noise(videos.shape[0], global_batch=global_batch, accum=self.accum)
+        values = self.backward(videos, noise, global_batch, **text)
         self.optimizer.step()
         return values
 
@@ -462,7 +488,8 @@ class Trainer:
         img_freq = self.training_params.get("image_log_frequency", 300)
         for i, (videos, info) in enumerate(self.train_loader):
             videos, text = self.batch_to_device(videos, info)
-            values = self.train_step(videos, **text)
+            n = self.global_batch(info)  # a mesh's padded global batch
+            values = self.train_step(videos, **text, **({} if n is None else {"global_batch": n}))
             loss = float(values["_total"])
             if i % log_freq == 0:
                 self._log_scalars(values, "train")
