@@ -52,8 +52,8 @@ Phases, one JSON line each:
             shape (N=4096, S=8, MLP 256, B in (1, 8, 64)) and the CLIPort shape
             (N=576, S=10, MLP 512, B in (1, 8, 16): a 06 sequence's frame, a
             request and the 02 and 04 microbatches, the valid batches and the
-            05 batch), 1 and 3
-            iterations, each call's
+            05 batch) and the ResNet SAVi's 8 x 8 grid (N=64, S=8, MLP 256, B
+            in (8, 64)), 1 and 3 iterations, each call's
             device kernels counted under ``torch.profiler`` (one cluster
             launch, ``slot_attention_cluster_kernel``) and timed with the card
             held busy while the host enqueues (the kernel's own time, not
@@ -89,7 +89,9 @@ Phases, one JSON line each:
             four CNN-head layers (k=3) for a CLIPort request's 72 frames and
             a 05 batch's 144: ms, the int8 bound, the plain version's ms, and
             the float path it replaces on the same shapes (conv5, cuDNN's
-            float32 conv);
+            float32 conv); conv5 without its ReLU at the BatchNorm upsampling
+            decoder's 16 and 32 px for 32 maps, against its plain version,
+            with ``F.conv2d`` timed beside;
 then
 C. create   the 01 CLIs: a SAVi / CATER_Easy and an ExtendedDINOSAUR /
             CLIPort experiment (``--name``), each ``experiment_params.json``
@@ -155,8 +157,8 @@ then the train path:
             the loss (1e-5 relative), every gradient leaf (1e-4 of the leaf's
             largest value) and the buffers after one step, the loss and the
             parameters after two;
-12. train   ``textocvp_tpu_torch.cli.train_decomp.main`` at B=64, T=8 over 320
-            training videos (5 steps after one B=64 valid batch): finite
+12. train   ``textocvp_tpu_torch.cli.train_decomp.main`` at B=64, T=8 over 192
+            training videos (3 steps after one B=64 valid batch): finite
             losses, ``checkpoint_last_saved.pt`` and
             ``checkpoint_epoch_final.pt``, 8 slot-attention calls and 3 conv5
             forward and 3 input-gradient launches a step; then
@@ -165,7 +167,7 @@ then the train path:
 13. train_step  the steady B=64 step on the host clock, split into forward,
             backward and optimizer, its peak memory and launches, and one
             step under ``torch.profiler``;
-14. train_sign  20 steps on one batch of 8 at lr 4e-4: the loss falls.
+14. train_sign  10 steps on one batch of 8 at lr 4e-4: the loss falls.
 
 then the 03 path on CATER, over phase C's SAVi experiment with phase 12's
 ``checkpoint_epoch_final.pt`` as ``models/SAVi_CATER.pt`` and the eval
@@ -181,6 +183,23 @@ D2. decomp_eval  ``textocvp_tpu_torch.cli.evaluate_decomp.main`` at B=64:
             host clock (reconstructed frames/s = 512 / step), split into its
             stages, its peak memory, and one step under ``torch.profiler``.
 
+then SAVi with the JAX package's other encoders and decoders, at the stock
+widths on 64 px CATER frames:
+R.  resnet_savi  the 01 CLI's SAVi experiment with the ``ResNet`` encoder
+            (ResNet-34, GroupNorm of 32 groups, an 8 x 8 grid of 512
+            features): the 02 CLI at B=64, T=8 for 2 steps after a B=64
+            valid batch over a set of 128 + 64 videos, the 03 CLI on its
+            checkpoint (one B=64 batch), and one 8-row request of a service
+            on it with the CATER path's random TextOCVP_T5, p=19: the phase's
+            main path (finite losses, the checkpoint, ``results.json``, the
+            reply; slot attention at N=64 and conv5 launched); then, off it,
+            the trained ResNet SAVi's ``decompose`` and decode of B=2, T=2 in
+            ``eval()`` and a random SAVi with a BatchNorm decoder that
+            upsamples 8 -> 64 px (conv5 at 16, 32 and 64 px without its
+            ReLU) in ``train()``, each on the card against the CPU, TF32 off:
+            slots, masks and frames within 1e-4 of their largest value; the
+            phase's launches, peak memory and seconds.
+
 then the predictor-train path, over the experiment that phase 12 trained:
 15. pred_train_parity  PredictorTrainer on the card and on the CPU at full
             width, B=2, c=1, p=2 (``PARITY_PREDS``), the same weights, video, captions and slot noise,
@@ -189,7 +208,7 @@ then the predictor-train path, over the experiment that phase 12 trained:
             trainable gradient leaf (1e-4 of its largest value) after one
             step, the loss and the parameters after two;
 16. pred_train  ``textocvp_tpu_torch.cli.train_predictor.main`` at B=64 over
-            the phase-12 set (5 steps after one valid batch), its frozen SAVi
+            the phase-12 set (3 steps after one valid batch), its frozen SAVi
             phase 12's ``checkpoint_epoch_final.pt``: finite losses, the
             checkpoints, 10 slot-attention calls, 3 conv5 forward and 3
             input-gradient launches and no conv5 weight gradient a step, no
@@ -200,7 +219,7 @@ then the predictor-train path, over the experiment that phase 12 trained:
             frozen encode, forward, backward and optimizer, its peak memory
             and launches, and one step under ``torch.profiler`` with one
             slot-attention device kernel a call;
-18. pred_train_sign  20 steps on one batch of 8 at lr 1e-4: the loss falls;
+18. pred_train_sign  10 steps on one batch of 8 at lr 1e-4: the loss falls;
 F1. figs_parity  06b's figures of one sequence at p=3 on the card and on the
             CPU with the same initial slots: every array a figure writer is
             handed within 1e-4 of the largest value it or the decoded
@@ -249,14 +268,15 @@ then the CLIPort chain, over the color-cache set:
             card's masks (every ReLU on the gradient's path, the slot-attention
             MLP's from the card's recompute, the loss's clips); the BatchNorm
             statistics after the first step (1e-5), the ViT bit for bit;
-20. clip_train  the 02 CLI at B=64, T=8, ``accum_steps`` 8: two epochs of
+20. clip_train  the 02 CLI at B=64, T=8, ``accum_steps`` 8: one epoch of
             one step after a B=16 valid batch, then ``--resume_training`` for a
-            third; 8 slot-attention calls and 12 ViT-attention launches a
-            (micro)batch, the checkpoints hold the ViT and the statistics;
+            second; 8 slot-attention calls and 12
+            ViT-attention launches a (micro)batch, the checkpoints hold the ViT
+            and the statistics;
 21. clip_train_step  the steady step on the host clock, split into forward,
             backward (each summed over the microbatches) and optimizer, its
             peak memory, launches, and one step under ``torch.profiler``;
-22. clip_train_sign  10 steps on one batch of 8 at lr 1e-6: the loss falls;
+22. clip_train_sign  5 steps on one batch of 8 at lr 1e-6: the loss falls;
 23. clip_pred_train_parity, clip_pred_train, clip_pred_train_step,
             clip_pred_train_sign  the same for the 04 step through the frozen
             ExtendedDINOSAUR of phase 20 (B=64, c=1, p=9, ``accum_steps`` 8;
@@ -340,8 +360,11 @@ M2. mesh_shared_card  two ranks on the one card over gloo: the CATER
             step at B=8, p=3 on ``model=2`` against world size 1 (losses
             1e-5, the global norm 1e-4, no parameter more than 0.5 lr apart
             after the update, the replicated leaves bit-equal across the
-            ranks); slot attention and conv5 launched by the mesh itself
-            (the references not counted); each rank's peak memory.
+            ranks), then both ranks raise on purpose in its trainer's loop and
+            each writes its own file of the emergency checkpoint with no
+            collective, rank 0's join of the two bit for bit the gathered
+            state; slot attention and conv5 launched by the mesh itself (the
+            references not counted); each rank's peak memory.
 
 The trainers' CLI runs add one TensorBoard image strip an epoch where
 ``tensorboard`` imports (``Trainer.image_strips``), and their launch counts
@@ -405,8 +428,13 @@ VIT_HEADS, VIT_TOKENS, VIT_DH = 12, 577, 64  # DINOv2 ViT-B/14 at 336 px
 CONV5_RES, CONV5_CH = 64, 64                 # SAVi decoder tail on CATER
 EVAL_BATCH, EVAL_PREDS, EVAL_VIDEOS = 64, 19, 128
 TRAIN_BATCH, TRAIN_FRAMES = 64, 8                  # bench_train.py's flagship step
-TRAIN_VIDEOS, TRAIN_VALID_VIDEOS = 5 * TRAIN_BATCH, TRAIN_BATCH  # 5 steps, 1 valid batch
+# 3 steps, 1 valid batch: the 02 and 04 CLIs' paths at the fewest steps that
+# still show the loop, so that the whole run keeps inside its time limit
+TRAIN_VIDEOS, TRAIN_VALID_VIDEOS = 3 * TRAIN_BATCH, TRAIN_BATCH
 GRAD_TOLERANCE = 1e-4  # gradients: max abs error over the reference's max |value|
+# steps of the sign checks on one batch: the CATER ones at lr 4e-4 / 1e-4 and
+# the CLIPort ones at 1e-6 / 1e-4 all fell by 45-85 % within these
+SIGN_STEPS, CLIP_SIGN_STEPS = 10, 5
 # remat's gradients against the plain step's, over the largest leaf, a
 # step: limits a little above the H100 readings in PERF.md (02: 4.4e-6 to
 # 5.0e-6, the decoder's final conv's weight gradient summed over 8 regions of
@@ -788,6 +816,44 @@ def conv5_rows():
     return rows
 
 
+def conv5_variant_rows():
+    """conv5 at the BatchNorm upsampling decoder's tail (``BN_UP_DECODER``):
+    16 and 32 px (64 px is ``conv5_rows``'), without the ReLU, which follows
+    the BatchNorm there, for the card-against-CPU decode's B x T x 8 maps;
+    against its plain version, every frame, with ``F.conv2d`` (cuDNN, TF32
+    off) timed as a yardstick on the channels-last view."""
+    import torch.nn.functional as F
+
+    from textocvp_tpu_torch.ops import conv5 as c5
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 5)
+    c = CONV5_CH
+    w = (torch.randn((5, 5, c, c), generator=gen) / (25 * c) ** 0.5).cuda()
+    b = (0.1 * torch.randn((c,), generator=gen)).cuda()
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    n = VARIANT_PARITY[0] * VARIANT_PARITY[1] * 8
+    rows = []
+    for res in (16, 32):
+        x = torch.randn((n, res, res, c), generator=gen).cuda()
+        launches = c5.conv5_cuda.launches
+        out = c5.conv5_cuda(x, w, b, relu=False)
+        err = (out - c5.conv5_plain(x, w, b, relu=False)).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and err <= 1e-4,
+              f"conv5 vs plain at N={n}, {res} px, no ReLU: {err} > 1e-4")
+        ms = cuda_ms(lambda: c5.conv5_cuda(x, w, b, relu=False), hold=True)
+        plain_ms = cuda_ms(lambda: c5.conv5_plain(x, w, b, relu=False))
+        library_ms = cuda_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, padding=2),
+                             hold=True)
+        bound_ms, bound_by, fp32_ms = conv5_bounds(n, res, res, c)
+        rows.append({"N": n, "H": res, "W": res, "C": c, "relu": False, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_layout": "channels_last", "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bound_ms_fp32_cores": fp32_ms,
+                     "launches": c5.conv5_cuda.launches - launches})
+    return rows
+
+
 def rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
@@ -1021,7 +1087,10 @@ def phase_kernels():
             "slot_attention_clipport": slot_attention_rows(
                 CLIP_PATCHES, CLIP_SLOTS, 512, (1, BATCH, CLIP_EVAL_BATCH)),
             "vit_attention": vit_attention_rows(),
+            # the ResNet SAVi's 8 x 8 grid: a request (B=8), the 02 and 03 batches
+            "slot_attention_resnet": slot_attention_rows(64, 8, 256, (BATCH, TRAIN_BATCH)),
             "conv5": conv5_rows(),
+            "conv5_upsample": conv5_variant_rows(),
             "conv_int8": conv_int8_rows(),
             "conv5_backward": conv5_backward_rows(),
             "conv5_frozen_backward": conv5_frozen_backward_rows(),
@@ -1917,7 +1986,7 @@ def loss_lines(out):
 
 
 def phase_train(exp_path):
-    """The 02 CLI at B=64, T=8 over TRAIN_VIDEOS training videos (5 steps
+    """The 02 CLI at B=64, T=8 over TRAIN_VIDEOS training videos (3 steps
     after one B=64 valid batch): the train path's main path. Then a second
     run resumes from ``checkpoint_last_saved`` for a second epoch. Returns
     the main path's launches."""
@@ -1977,7 +2046,7 @@ def phase_train(exp_path):
 
 
 def phase_train_sign(exp_path, videos):
-    """20 steps on one fixed batch of 8 at lr 4e-4, no warmup: the loss must
+    """SIGN_STEPS steps on one fixed batch of 8 at lr 4e-4, no warmup: the loss must
     fall. Off the main path."""
     from textocvp_tpu_torch.train.trainer import DecompTrainer
 
@@ -1985,10 +2054,11 @@ def phase_train_sign(exp_path, videos):
     tr.training_params.update(lr=4e-4, lr_warmup=False)
     tr.setup_model()
     batch = tr.to_device(videos[:8])
-    losses = [float(tr.train_step(batch)["_total"]) for _ in range(20)]
+    losses = [float(tr.train_step(batch)["_total"]) for _ in range(SIGN_STEPS)]
     check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
-          f"sign check: the loss did not fall over 20 steps: {losses}")
-    emit({"phase": "train_sign", "batch": 8, "frames": TRAIN_FRAMES, "lr": 4e-4, "steps": 20,
+          f"sign check: the loss did not fall over {SIGN_STEPS} steps: {losses}")
+    emit({"phase": "train_sign", "batch": 8, "frames": TRAIN_FRAMES, "lr": 4e-4,
+          "steps": SIGN_STEPS,
           "losses": losses})
 
 
@@ -2288,7 +2358,8 @@ def phase_pred_train_step(trainer, videos, info, phase="pred_train_step", **extr
     the launches of a step, and one step under torch.profiler. Off the main
     path. ``extra`` goes into the phase's line."""
     batch, text = trainer.batch_to_device(videos, info)
-    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch, **text), warm=False)
+    step_ms, peak_gb = steady_steps(lambda: trainer.train_step(batch, **text), reps=1,
+                                    warm=False)
     before = launch_counts()
     noise = trainer._noise(batch.shape[0])
     out = {}
@@ -2335,11 +2406,11 @@ def phase_pred_train_sign(parent: Path, videos, info):
     tr.setup_model()
     random_predictor_(tr)
     batch, text = tr.batch_to_device(videos[:8], rows(info, 8))
-    losses = [float(tr.train_step(batch, **text)["_total"]) for _ in range(20)]
+    losses = [float(tr.train_step(batch, **text)["_total"]) for _ in range(SIGN_STEPS)]
     check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
-          f"predictor sign check: the loss did not fall over 20 steps: {losses}")
+          f"predictor sign check: the loss did not fall over {SIGN_STEPS} steps: {losses}")
     emit({"phase": "pred_train_sign", "batch": 8, "num_preds": PRED_PREDS, "lr": 1e-4,
-          "steps": 20, "losses": losses})
+          "steps": SIGN_STEPS, "losses": losses})
 
 
 def run_pred_train(parent: Path):
@@ -2781,6 +2852,186 @@ def run_decomp_eval(key, exp_path, trained: Path, data_root: Path, videos_in_spl
 
 # ---------------------------------------------------------------- CLIPort chain
 
+# The decomposition models' other encoders and decoders at the stock widths:
+# SAVi with the ResNet-34 encoder (64 px frames to an 8 x 8 grid of 512
+# features), and SAVi with a BatchNorm decoder that upsamples 8 -> 64 px
+RESNET_ENCODER = {"encoder_name": "ResNet",
+                  "encoder_params": {"resolution": [8, 8], "num_groups": 32}}
+BN_UP_DECODER = {"batch_norm": True, "upsample": 2, "resolution": [8, 8]}
+RESNET_STEPS = 2                        # 02 steps of the ResNet SAVi's CLI run, at B=64
+RESNET_VIDEOS = RESNET_STEPS * TRAIN_BATCH
+VARIANT_PARITY = (2, 2)                 # (B, T) of the card-against-CPU decompose
+VARIANT_TOLERANCE = 1e-4                # of the largest |value|, slots, masks and frames
+RESNET_NAME = "resnet_savi"
+
+
+def variant_params(data_root=None, encoder=None, decoder=None):
+    """The stock SAVi on CATER_Easy (8 slots x 128, MLP 256, the transition
+    block, the 4 x 64 decoder to 64 x 64) with ``encoder`` in place of its
+    encoder and ``decoder`` over its decoder's params; the 02 batch of the
+    train path."""
+    from textocvp_tpu_torch.core.config import build_exp_params
+
+    params = build_exp_params("SAVi", "CATER_Easy")
+    mp = params["model"]["model_params"]
+    if encoder is not None:
+        mp["encoder"] = json.loads(json.dumps(encoder))
+    mp["decoder"]["decoder_params"].update(decoder or {})
+    if data_root is not None:
+        params["dataset"]["root"] = str(data_root)
+    params["training"].update({"batch_size": TRAIN_BATCH, "num_epochs": 1, "log_frequency": 1})
+    return params
+
+
+def variant_parity(what, model, train: bool):
+    """``model`` (on the CPU, random or trained weights) against a copy on the
+    card, TF32 off, on the same 64 px video of VARIANT_PARITY frames with the
+    same initial slots, in ``train()`` or ``eval()``: slots, masks and frames
+    within VARIANT_TOLERANCE of the largest |value|. Off the main path."""
+    import copy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, t = VARIANT_PARITY
+    gen = torch.Generator().manual_seed(SEED + 60)
+    video = torch.rand((b, t, CONV5_RES, CONV5_RES, 3), generator=gen)
+    init = model.slot_initializer(b, gen)
+    card = copy.deepcopy(model).cuda()
+    outs = {}
+    with torch.no_grad():
+        for dev, m in (("cpu", model), ("cuda", card)):
+            m.train(train)
+            out = m.decompose(video.to(dev), initial_slots=init.to(dev))
+            out.update(m.decoded(out["slot_history"]))
+            outs[dev] = {k: out[k].cpu() for k in ("slot_history", "masks", "recons_imgs")}
+    errs = {}
+    for k, ref in outs["cpu"].items():
+        got = outs["cuda"][k]
+        check(bool(torch.isfinite(got).all()) and got.shape == ref.shape,
+              f"{what}: {k} on the card not finite or misshapen")
+        errs[k] = ((got - ref).abs().max() / ref.abs().max()).item()
+        check(errs[k] <= VARIANT_TOLERANCE,
+              f"{what}: {k} card vs CPU {errs[k]} of its largest value > {VARIANT_TOLERANCE}")
+    del card
+    return {"B": b, "T": t, "train_mode": train, "rel_err": errs,
+            "max_abs_ref": {k: v.abs().max().item() for k, v in outs["cpu"].items()},
+            "shapes": {k: list(v.shape) for k, v in outs["cpu"].items()}}
+
+
+def phase_resnet_savi(tmp: Path, cater_served: Path):
+    """SAVi with the ResNet encoder through the CLIs at full width: the 01
+    CLI makes the experiment (its encoder then set to ``RESNET_ENCODER``),
+    the 02 CLI trains RESNET_STEPS steps at B=64, T=8 after a B=64 valid
+    batch, the 03 CLI evaluates one B=64 batch of its checkpoint, and a
+    service answers one 8-row request through it with the CATER serving
+    path's random TextOCVP_T5: the phase's main path, its launches counted
+    from before the 02 CLI to after the request. Then, off it, the trained
+    ResNet SAVi's ``decompose`` (``eval()``) and a random SAVi with the
+    BatchNorm upsampling decoder (``train()``) on the card against the CPU.
+    Returns the main path's launches."""
+    import shutil
+
+    from textocvp_tpu_torch.cli import create_experiment, evaluate_decomp, train_decomp
+    from textocvp_tpu_torch.core.config import add_predictor_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.models import setup_model
+    from textocvp_tpu_torch.models.factory import random_init_
+    from textocvp_tpu_torch.ops import conv5 as c5
+    from textocvp_tpu_torch.serve import PredictionService
+    from textocvp_tpu_torch.train.checkpoints import load_params
+
+    data_root = write_cater_fixture(tmp / "CATER_resnet", (("train", RESNET_VIDEOS),
+                                                           ("test", TRAIN_BATCH)))
+    exp = create_experiment.main(["-d", str(tmp / "experiments"), "--name", RESNET_NAME,
+                                  "--model_name", "SAVi", "--dataset_name", "CATER_Easy"])
+    params = variant_params(data_root, encoder=RESNET_ENCODER)
+    exp.save_params(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the main path starts here
+    c5.conv5_input_grad_cuda.launches = 0
+    t = time.perf_counter()
+    trainer, out = run_cli(train_decomp.main, ["-d", str(exp.exp_path)])
+    train_s = time.perf_counter() - t
+    train_counts, input_grad = launches(), c5.conv5_input_grad_cuda.launches
+    strips = trainer.image_strips
+    want = every_kernel({"slot_attention": TRAIN_FRAMES * (1 + RESNET_STEPS + strips),
+                         "conv5": 3 * (1 + strips) + 6 * RESNET_STEPS})
+    check(train_counts == want and input_grad == 3 * RESNET_STEPS,
+          f"{RESNET_NAME}: 02 launches {train_counts}, input-gradient {input_grad}; want {want}")
+    losses = loss_lines(out)
+    check(len(losses) == RESNET_STEPS and bool(np.isfinite(losses).all()),
+          f"{RESNET_NAME}: 02 losses {losses}")
+    ckpt = exp.checkpoint_path("checkpoint_epoch_final")
+    check(ckpt.is_file(), f"{RESNET_NAME}: the 02 checkpoint was not written")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    rc = evaluate_decomp.main(["-d", str(exp.exp_path), "--decomp_ckpt", "checkpoint_epoch_final",
+                               "--results_name", DECOMP_RESULTS, "--batch_size", str(TRAIN_BATCH)])
+    eval_s = time.perf_counter() - t
+    results = json.loads((exp.exp_path / "results" / DECOMP_RESULTS / "results.json").read_text())
+    check(rc == 0 and all(len(results[m]["framewise"]) == DECOMP_FRAMES and bool(np.isfinite(
+        results[m]["framewise"] + [results[m]["mean"]]).all()) for m in ("psnr", "ssim", "lpips")),
+          f"{RESNET_NAME}: 03 results {results}")
+    eval_counts = launches()
+
+    pred = Experiment(exp.exp_path / "predictors" / PRED_NAME)
+    pred_params = add_predictor_params(params, "TextOCVP_T5")
+    pred_params["prediction_params"]["num_preds"] = PATHS[0].num_preds
+    pred.save_params(pred_params)
+    pred.models_dir.mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(Experiment(cater_served / "predictors" / PRED_NAME).checkpoint_path("random"),
+                    pred.checkpoint_path("random"))
+    t = time.perf_counter()
+    service = PredictionService(exp.exp_path, PRED_NAME, "checkpoint_epoch_final", "random",
+                                batch_size=BATCH, max_tokens=MAX_TOKENS, device="cuda")
+    rng = np.random.default_rng(SEED + 61)
+    frames = rng.uniform(0, 1, (BATCH, 1, CONV5_RES, CONV5_RES, 3)).astype(np.float32)
+    before = launches()
+    reply = service.predict(frames, list(PATHS[0].captions[:BATCH]))
+    serve_s = time.perf_counter() - t
+    counts = launches()  # and ends here
+    request = {k: counts[k] - before[k] for k in counts}
+    check(request == every_kernel({"slot_attention": 1, "conv5": 3}),
+          f"{RESNET_NAME}: a request's launches {request}")
+    check(reply.shape == (BATCH, PATHS[0].num_preds, CONV5_RES, CONV5_RES, 3)
+          and bool(np.isfinite(reply).all()), f"{RESNET_NAME}: reply {reply.shape}")
+    check(counts["slot_attention"] > 0 and counts["conv5"] > 0,
+          f"{RESNET_NAME}: launches on the main path {counts}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del service
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = setup_model(params)
+    model.load_state_dict(load_params(ckpt))
+    resnet = variant_parity(f"{RESNET_NAME} decompose", model, train=False)
+    del model
+    model = random_init_(setup_model(variant_params(decoder=BN_UP_DECODER)),
+                         torch.Generator().manual_seed(SEED + 62))
+    bn_up = variant_parity(f"{RESNET_NAME} batch-norm upsampling decoder", model, train=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": RESNET_NAME, "encoder": RESNET_ENCODER, "batch": TRAIN_BATCH,
+          "frames": TRAIN_FRAMES, "train_videos": RESNET_VIDEOS, "steps": RESNET_STEPS,
+          "losses": losses, "image_strips": strips, "train_cli_s": train_s,
+          "eval_cli_s": eval_s, "serve_s": serve_s, "launches": counts,
+          "launches_02": train_counts, "conv5_input_grad_launches": input_grad,
+          "launches_03": {k: eval_counts[k] - train_counts[k] for k in counts},
+          "launches_request": request, "results_03": {m: results[m]["mean"] for m in
+                                                      ("psnr", "ssim", "lpips")},
+          "reply_shape": list(reply.shape), "peak_mem_gb": peak_gb,
+          "parity": {"resnet_eval": resnet, "bn_upsample_train": bn_up,
+                     "bn_upsample_decoder": BN_UP_DECODER, "tolerance_rel": VARIANT_TOLERANCE,
+                     "tf32": False}})
+    return counts
+
+
 CLIP_COLORS = {"train": ("red", "green", "blue", "yellow", "brown", "gray", "cyan"),
                "test": ("red", "green", "blue", "pink", "purple", "orange", "white")}
 
@@ -2889,14 +3140,14 @@ def phase_clip_train_parity(tmp: Path):
 
 def phase_clip_train(exp_path):
     """The 02 CLI on ExtendedDINOSAUR at B=64, T=8, ``accum_steps`` 8, over
-    the CLIPort set (two epochs of one step after one B=16 valid batch each):
-    the CLIPort train path's main path. Then a second run resumes from
-    ``checkpoint_last_saved`` for a third epoch. Returns the main path's
+    the CLIPort set (one epoch of one step after one B=16 valid batch): the
+    CLIPort train path's main path. Then a second run resumes from
+    ``checkpoint_last_saved`` for a second epoch. Returns the main path's
     launches and the resumed trainer."""
     from textocvp_tpu_torch.cli import train_decomp
     from textocvp_tpu_torch.core.experiment import Experiment
 
-    epochs = 2
+    epochs = 1
     steps, valid = 1, 1  # an epoch: 64 train episodes, 16 valid
     reset_launches()  # the main path starts here
     t = time.perf_counter()
@@ -2921,7 +3172,8 @@ def phase_clip_train(exp_path):
           and trainer.optimizer.count == epochs * steps,
           f"clip_train: step {trainer.global_step}, updates {trainer.optimizer.count}")
     models = Experiment(exp_path).models_dir
-    for name in ("checkpoint_last_saved.pt", "checkpoint_epoch_2.pt", "checkpoint_epoch_final.pt"):
+    for name in ("checkpoint_last_saved.pt", f"checkpoint_epoch_{epochs}.pt",
+                 "checkpoint_epoch_final.pt"):
         check((models / name).is_file(), f"clip_train: {name} not written")
     params = torch.load(models / "checkpoint_epoch_final.pt", weights_only=True)["params"]
     check(any(k.startswith("image_encoder.") for k in params)
@@ -3060,12 +3312,12 @@ def phase_clip_train_sign(data_root, tmp: Path, videos):
     tr.setup_model()
     batch = tr.to_device(videos[:8])
     noise = tr._noise(8)
-    values = [tr.train_step(batch, noise) for _ in range(10)]
+    values = [tr.train_step(batch, noise) for _ in range(CLIP_SIGN_STEPS)]
     losses = [float(v["_total"]) for v in values]
     check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
           f"clip sign check: the loss did not fall over 10 steps: {losses}")
     emit({"phase": "clip_train_sign", "batch": 8, "frames": CLIP_FRAMES, "lr": 1e-6,
-          "steps": 10, "losses": losses,
+          "steps": CLIP_SIGN_STEPS, "losses": losses,
           "parts": {k: [float(v[k]) for v in values] for k in values[0] if k != "_total"}})
 
 
@@ -3187,7 +3439,7 @@ def phase_clip_pred_train_step(trainer, videos, info):
 
 
 def phase_clip_pred_train_sign(parent: Path, videos, info):
-    """10 predictor steps on one fixed batch of 8 (no accumulation) at lr
+    """CLIP_SIGN_STEPS predictor steps on one fixed batch of 8 (no accumulation) at lr
     1e-4, no warmup, the output projection scaled (``random_predictor_``):
     the loss must fall. Off the main path."""
     from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
@@ -3198,11 +3450,11 @@ def phase_clip_pred_train_sign(parent: Path, videos, info):
     tr.setup_model()
     random_predictor_(tr)
     batch, text = tr.batch_to_device(videos[:8], rows(info, 8))
-    losses = [float(tr.train_step(batch, **text)["_total"]) for _ in range(10)]
+    losses = [float(tr.train_step(batch, **text)["_total"]) for _ in range(CLIP_SIGN_STEPS)]
     check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
           f"clip predictor sign check: the loss did not fall over 10 steps: {losses}")
     emit({"phase": "clip_pred_train_sign", "batch": 8, "num_preds": PRED_PREDS, "lr": 1e-4,
-          "steps": 10, "losses": losses})
+          "steps": CLIP_SIGN_STEPS, "losses": losses})
 
 
 def phase_clip_eval(parent: Path):
@@ -3245,7 +3497,7 @@ def clip_fixture(tmp: Path):
     parity's card half and the 02 experiment -> (data root, experiment)."""
     data_root = write_cliport_fixture(tmp / "CLIPort")
     phase_clip_train_parity(tmp)
-    return data_root, clip_experiment(tmp / "clip_train", data_root)
+    return data_root, clip_experiment(tmp / "clip_train", data_root, num_epochs=1)
 
 
 def run_clip(tmp: Path, created: Path, data_root: Path, exp: Path):
@@ -3622,7 +3874,7 @@ def remat_rows(make, batch, reps=1):
             tr.backward(videos, noise, **text)
             tr.optimizer.step()
 
-        step_ms, peak_gb = steady_steps(step, reps)
+        step_ms, peak_gb = steady_steps(step, reps, warm=False)  # the backward above warmed
         rows["remat" if knob else "plain"] = {"step_ms": step_ms, "peak_mem_gb": peak_gb}
         del tr, videos, noise, text
         gc.collect()
@@ -3747,9 +3999,10 @@ def phase_clip_remat(parent: Path):
     (:func:`clip_decomp_remat_rows`); then one CLIPort 04 microbatch with
     ``tpu.remat`` through the CLIPort 02 path's ExtendedDINOSAUR (c=1,
     p=9): of 8 episodes (``accum_steps`` 8 of B=64, the configured one;
-    48.07 GB without remat, PERF.md §5) and of CLIP_REMAT_MICROBATCH
-    (``accum_steps`` 4): its forward and backward on the host clock and its
-    peak GB, or the card's refusal of the memory. Off the main paths."""
+    48.07 GB without remat, PERF.md §5): its forward and backward on the
+    host clock and its peak GB; and of CLIP_REMAT_MICROBATCH (``accum_steps``
+    4): its peak GB from one cold call, or the card's refusal of the memory.
+    Off the main paths."""
     from textocvp_tpu_torch.core.experiment import Experiment
     from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
     from textocvp_tpu_torch.train.trainer import REMAT_REGIONS
@@ -3765,7 +4018,8 @@ def phase_clip_remat(parent: Path):
     tr.load_data()
     videos, info = next(iter(tr.train_loader))
     rows_out = []
-    for mb in (CLIP_TRAIN_BATCH // CLIP_ACCUM, CLIP_REMAT_MICROBATCH):
+    configured = CLIP_TRAIN_BATCH // CLIP_ACCUM
+    for mb in (configured, CLIP_REMAT_MICROBATCH):
         batch, text = tr.batch_to_device(videos[:mb], rows(info, mb))
         noise = tr._noise(mb)
 
@@ -3774,9 +4028,10 @@ def phase_clip_remat(parent: Path):
             tr.forward_loss(batch, noise, **text)[0].backward()
 
         row = {"microbatch": mb, "accum_steps": CLIP_TRAIN_BATCH // mb}
-        try:
-            step_ms, peak_gb = steady_steps(micro, reps=1)
-            row.update(fits=True, step_ms=step_ms, peak_mem_gb=peak_gb)
+        try:  # the second microbatch's peak is its point: one cold call, no time
+            step_ms, peak_gb = steady_steps(micro, reps=1, warm=mb == configured)
+            row.update(fits=True, peak_mem_gb=peak_gb,
+                       **({"step_ms": step_ms} if mb == configured else {}))
         except torch.cuda.OutOfMemoryError as e:
             row.update(fits=False, error=str(e).splitlines()[0])
         rows_out.append(row)
@@ -4823,7 +5078,8 @@ def _mesh_shared_card(spec, rank, launch, out):
     CLIPort service's reply and scales (handed to rank 0 in a file); then
     both ranks join the gloo group of two and run the mesh services of
     ``MESH_SERVES`` (rank 0 compares the replies) and the tensor-parallel 04
-    step (rank 1 compares it). ``out["launches"]`` counts the mesh's own
+    step (rank 1 compares it), then the emergency checkpoint of that step's
+    trainer (:func:`_tp_emergency`). ``out["launches"]`` counts the mesh's own
     launches, from the join on."""
     from textocvp_tpu_torch.core.experiment import Experiment
     from textocvp_tpu_torch.parallel import distributed as pdist
@@ -4844,7 +5100,7 @@ def _mesh_shared_card(spec, rank, launch, out):
         replicated = [p for n, p in tr.model.named_parameters() if n not in sharded]
         return ({k: float(v) for k, v in values.items()}, norm,
                 {k: v.detach().cpu() for k, v in full.items() if k in trained},
-                _digest(replicated), sorted(sharded), tr.lr_schedule(0))
+                _digest(replicated), sorted(sharded), tr.lr_schedule(0), tr)
 
     refs, int8_ref = {}, Path(spec["tmp"]) / "mesh_clip_int8_reference.npz"
     with _timed(out, "references"):
@@ -4898,17 +5154,72 @@ def _mesh_shared_card(spec, rank, launch, out):
             del svc
             torch.cuda.empty_cache()
     with _timed(out, "tp_step"):
-        losses, norm, params, digest, sharded, lr = step(spec["tp_exp"])
+        losses, norm, params, digest, sharded, lr, tr = step(spec["tp_exp"])
     out["launches"] = launches()
     out["tp_step"] = {"replicated_digest": digest, "sharded": len(sharded)}
+    with _timed(out, "tp_emergency"):
+        out["tp_emergency"] = _tp_emergency(tr, rank)
+    del tr
     if rank == 1:
-        w_losses, w_norm, w_params, _, _, _ = refs["step"]
+        w_losses, w_norm, w_params, _, _, _, _ = refs["step"]
         diff = max(float((params[k] - v).abs().max()) for k, v in w_params.items())
         out["tp_step"].update(
             losses=losses, world1_losses=w_losses, grad_norm=norm, world1_grad_norm=w_norm, lr=lr,
             max_param_diff=diff, params_compared=len(w_params),
             loss_rel_err=max(abs(losses[k] - w_losses[k]) / abs(w_losses[k]) for k in w_losses),
             grad_norm_rel_err=abs(norm - w_norm) / w_norm)
+
+
+def _tp_emergency(tr, rank) -> dict:
+    """After the tensor-parallel step, both ranks raise on purpose inside
+    ``tr``'s training loop, as its first epoch starts: each writes its own
+    file of the emergency checkpoint with no collective
+    (``train/checkpoints.py::save_shard``). Rank 0 then joins the set
+    (``load_checkpoint``) and holds it bit for bit to the state the
+    collective gather gave just before the fault."""
+    from textocvp_tpu_torch.parallel.mesh import barrier
+    from textocvp_tpu_torch.train.checkpoints import load_checkpoint, shard_files
+
+    from types import SimpleNamespace
+
+    gathered = tr._state(tr.start_epoch)  # the collective gather, before the fault
+
+    def fault(epoch):
+        raise RuntimeError("fault on purpose")
+
+    # the step's trainer loads no data: loaders that only take their epoch;
+    # and no TensorBoard (its import takes seconds of the shared card's ranks)
+    tr.train_loader, tr.valid_loader = SimpleNamespace(), SimpleNamespace()
+    tr._setup_writer = lambda: None
+    tr.valid_epoch = fault
+    try:
+        tr.training_loop()
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised == "fault on purpose", f"mesh_shared_card: the trainer's loop raised {raised}")
+    barrier()  # every rank's file is written
+    name = tr.exp.checkpoint_path(f"emergency_checkpoint_epoch_{tr.start_epoch}")
+    files = sorted(shard_files(name))
+    check(files == [0, 1] and not name.exists(),
+          f"mesh_shared_card: emergency files of ranks {files}, a gathered file "
+          f"{name.exists()}")
+    result = {"files": sorted(f.name for f in shard_files(name).values())}
+    if rank == 0:
+        joined = load_checkpoint(name)
+        cpu = {k: v.detach().cpu() for k, v in gathered["params"].items()}
+        same = (set(joined["params"]) == set(cpu)
+                and all(torch.equal(joined["params"][k], v) for k, v in cpu.items())
+                and joined["opt_state"]["count"] == gathered["opt_state"]["count"]
+                and all(torch.equal(a, b) for key in ("mu", "nu") for a, b in zip(
+                    joined["opt_state"][key], gathered["opt_state"][key], strict=True))
+                and (joined["epoch"], joined["step"]) == (gathered["epoch"], gathered["step"]))
+        check(same, "mesh_shared_card: the joined emergency files are not the gathered state")
+        result.update(joined_equals_gathered=same, params=len(cpu),
+                      sharded=sum(1 for p in tr.model.parameters()
+                                  if getattr(p, "tp_shard", None)),
+                      updates=joined["opt_state"]["count"])
+    return result
 
 
 def mesh_worker(spec_path, out_path):
@@ -5093,8 +5404,11 @@ def run_mesh(shared: dict, device="cuda"):
     step at B=8, p=3 on ``model=2`` against world size 1 (losses 1e-5, the
     gradients' global norm 1e-4, no parameter more than MESH_TP_PARAM_LRS lr
     from world 1's after the update, the replicated leaves bit-equal across
-    the ranks). The mesh's own launches include slot attention, conv5, the
-    ViT attention and the int8 conv. Returns each phase's launches."""
+    the ranks), then the emergency checkpoint under tensor parallelism (both
+    ranks raise; each writes its own file with no collective; their join is
+    the gathered state bit for bit: :func:`_tp_emergency`). The mesh's own
+    launches include slot attention, conv5, the ViT attention and the int8
+    conv. Returns each phase's launches."""
     return _mesh_phases(shared, device)
 
 
@@ -5159,6 +5473,10 @@ def shared_card_phase(shared, device):
           f"> {MESH_TP_PARAM_LRS} lr ({tp['lr']})")
     check(ranks[0]["tp_step"]["replicated_digest"] == ranks[1]["tp_step"]["replicated_digest"],
           "mesh_shared_card: replicated leaves differ across the ranks")
+    emergency = ranks[0]["tp_emergency"]
+    check(emergency.get("joined_equals_gathered") is True
+          and all(r["tp_emergency"]["files"] == emergency["files"] for r in ranks),
+          f"mesh_shared_card: the emergency files under TP {[r['tp_emergency'] for r in ranks]}")
     check(all(r["backend"] == "gloo" for r in ranks), "mesh_shared_card: backend")
     counts = every_kernel({k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]})
     check(device != "cuda" or all(counts[k] > 0 for k in (
@@ -5171,6 +5489,7 @@ def shared_card_phase(shared, device):
           "tp_step": {**tp, "replicated_bit_equal_across_ranks": True,
                       "param_limit_lrs": MESH_TP_PARAM_LRS, "batch": MESH_TP_BATCH,
                       "num_preds": MESH_TP_PREDS},
+          "tp_emergency": emergency,
           "launches": counts,
           "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
           "processes_s": shared["processes_s"], "main_timeline_wait_s": shared["wait_s"],
@@ -5223,6 +5542,7 @@ def main() -> int:
         counts["decomp_eval"] = run_decomp_eval(
             "cater", made["cater"], train_exp / "models" / "checkpoint_epoch_final.pt",
             Path(tmp) / "CATER", EVAL_VIDEOS)
+        counts[RESNET_NAME] = phase_resnet_savi(Path(tmp), Path(tmp) / PATHS[0].name / "exp")
         phase_train_extras(Path(tmp))
         phase_train_remat(train_exp, Path(tmp) / "CATER_train")
         counts["pred_train"], pred_input_grad, pred_weight_grad = run_pred_train(train_exp)
@@ -5268,7 +5588,8 @@ def main() -> int:
         "launches": sum(c["slot_attention"] for c in counts.values()),
         "launches_by_path": {p: c["slot_attention"] for p, c in counts.items()},
         "max_abs_err": max(max(r["max_abs_err_slots"], r["max_abs_err_attn"]) for r in
-                           rows["slot_attention_cater"] + rows["slot_attention_clipport"]),
+                           rows["slot_attention_cater"] + rows["slot_attention_clipport"]
+                           + rows["slot_attention_resnet"]),
         "ms": sa["ms"],
         "plain_ms": sa["plain_ms"],
         "bound_ms": sa["bound_ms"],
@@ -5276,11 +5597,16 @@ def main() -> int:
         "library_ms": None,
         "cluster_size": sa["cluster_size"],
         "active_clusters": sa["active_clusters"],
-        "device_launches_per_call": max(r["device_launches"] for r in
-                                        rows["slot_attention_cater"] + rows["slot_attention_clipport"]),
+        "device_launches_per_call": max(
+            r["device_launches"] for r in rows["slot_attention_cater"]
+            + rows["slot_attention_clipport"] + rows["slot_attention_resnet"]),
         **{name: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
            | {"max_abs_err": max(r["max_abs_err_slots"], r["max_abs_err_attn"])}
            for name, r in (("b64", sa64), ("b1", sa1))},
+        "resnet_grid": {f"b{r['B']}_{r['iters']}it": {k: r[k] for k in (
+            "N", "S", "mlp", "ms", "plain_ms", "bound_ms", "bound_by")}
+            | {"max_abs_err": max(r["max_abs_err_slots"], r["max_abs_err_attn"])}
+            for r in rows["slot_attention_resnet"]},
         **{"clipport_shape" if b == BATCH else f"clipport_b{b}":
            {k: r[k] for k in ("B", "N", "S", "mlp", "iters", "ms", "plain_ms", "bound_ms",
                               "bound_by")}
@@ -5322,7 +5648,7 @@ def main() -> int:
         "replaces": "bench_pallas_conv.py:85",
         "launches": sum(c["conv5"] for c in counts.values()),
         "launches_by_path": {p: c["conv5"] for p, c in counts.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in rows["conv5"]),
+        "max_abs_err": max(r["max_abs_err"] for r in rows["conv5"] + rows["conv5_upsample"]),
         "ms": conv_eval["ms"],
         "plain_ms": conv_eval["plain_ms"],
         "bound_ms": conv_eval["bound_ms"],
@@ -5335,6 +5661,9 @@ def main() -> int:
                                        "bound_ms_fp32_cores", "library_ms",
                                        "library_layout", "max_abs_err")}
            for n, r in conv_by_n.items() if r is not conv_eval},
+        "upsample_variant": {f"{r['H']}px": {k: r[k] for k in (
+            "N", "relu", "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_fp32_cores",
+            "library_ms", "max_abs_err")} for r in rows["conv5_upsample"]},
         "train_input_grad_launches": train_input_grad,
         "pred_train_input_grad_launches": pred_input_grad,
         "pred_train_weight_grad_calls": pred_weight_grad,

@@ -25,7 +25,9 @@ across its tiles, its refusals, the int8 dense on the card against the CPU
 quanta, as ``test_torch_port_quant.py``), and a quantized CATER service's
 artifact answering like the live service; the ViT attention at 6 heads a
 rank (ViT-B under ``model=2``), and a row shard's int8 dense taking the
-whole weight's scales. Marked ``gpu``;
+whole weight's scales; the ResNet SAVi and the BatchNorm upsampling decoder
+on the card against the CPU, GroupNorm on the card against the CPU, and a
+ResNet SAVi train step that reaches every parameter. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -1197,3 +1199,92 @@ def test_row_shard_int8_takes_the_whole_weights_scales_on_the_card(cuda, monkeyp
         assert torch.equal(dense_int8(x, w, bias, a_scale, group), whole)
     finally:
         pdist.destroy()
+
+
+def _variant_savi(encoder=None, decoder=None):
+    """The stock SAVi (8 slots x 128, 64 px) with another encoder or decoder
+    params, random weights."""
+    from textocvp_tpu_torch.core.config import build_exp_params
+    from textocvp_tpu_torch.models import setup_model
+
+    p = build_exp_params("SAVi", "CATER_Easy")
+    mp = p["model"]["model_params"]
+    if encoder is not None:
+        mp["encoder"] = encoder
+    mp["decoder"]["decoder_params"].update(decoder or {})
+    return random_init_(setup_model(p), torch.Generator().manual_seed(12))
+
+
+@pytest.mark.parametrize("variant, train", [("resnet", False), ("bn_up", True)])
+def test_savi_variants_on_the_card_match_the_cpu(cuda, variant, train):
+    """The ResNet SAVi (``eval()``) and the BatchNorm upsampling decoder's
+    (``train()``, 8 -> 64 px) ``decompose`` and decode of two frames on the
+    card against the CPU, the same initial slots: slots, masks and frames
+    within 1e-4 of their largest value; conv5 launched on the card."""
+    model = (_variant_savi(encoder={"encoder_name": "ResNet",
+                                    "encoder_params": {"resolution": [8, 8], "num_groups": 32}})
+             if variant == "resnet" else
+             _variant_savi(decoder={"batch_norm": True, "upsample": 2, "resolution": [8, 8]}))
+    gen = torch.Generator().manual_seed(13)
+    video = torch.rand((1, 2, 64, 64, 3), generator=gen)
+    init = model.slot_initializer(1, gen)
+    card = copy.deepcopy(model).cuda()
+    outs = {}
+    before = c5.conv5_cuda.launches
+    with torch.no_grad():
+        for dev, m in (("cpu", model), ("cuda", card)):
+            m.train(train)
+            out = m.decompose(video.to(dev), initial_slots=init.to(dev))
+            out.update(m.decoded(out["slot_history"]))
+            outs[dev] = {k: out[k].cpu() for k in ("slot_history", "masks", "recons_imgs")}
+    assert c5.conv5_cuda.launches == before + 3
+    for k, ref in outs["cpu"].items():
+        assert outs["cuda"][k].shape == ref.shape
+        assert _rel_err(outs["cuda"][k], ref) <= 1e-4, k
+
+
+def test_group_norm_on_the_card_matches_the_cpu(cuda):
+    """flax's GroupNorm (``nn/blocks.py::GroupNorm``) on a ResNet stage's
+    activations, behind a ReLU (means large against the spread): output and
+    input and weight gradients within 1e-5 of their largest value."""
+    from textocvp_tpu_torch.nn.blocks import GroupNorm
+
+    gen = torch.Generator().manual_seed(14)
+    norm = random_init_(GroupNorm(32, 128), gen)
+    x = torch.relu(torch.randn((4, 128, 16, 16), generator=gen) + 1).requires_grad_()
+    g = torch.randn((4, 128, 16, 16), generator=gen)
+    card = copy.deepcopy(norm).cuda()
+    xc = x.detach().cuda().requires_grad_()
+    out = card(xc)
+    gx, gw = torch.autograd.grad(out, (xc, card.weight), g.cuda())
+    ref = norm(x)
+    rx, rw = torch.autograd.grad(ref, (x, norm.weight), g)
+    for got, want in ((out, ref), (gx, rx), (gw, rw)):
+        assert _rel_err(got.detach().cpu(), want.detach()) <= 1e-5
+
+
+def test_a_resnet_savi_train_step_on_the_card_reaches_every_parameter(cuda, tmp_path):
+    """One 02 step of the ResNet SAVi with a BatchNorm upsampling decoder on
+    the card, B=2, T=2: every parameter gets a finite gradient, the decoder
+    tail's through conv5 (forward and input-gradient launches)."""
+    from textocvp_tpu_torch.core.config import build_exp_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    p = build_exp_params("SAVi", "CATER_Easy")
+    mp = p["model"]["model_params"]
+    mp["encoder"] = {"encoder_name": "ResNet", "encoder_params": {"resolution": [8, 8]}}
+    mp["decoder"]["decoder_params"].update(batch_norm=True, upsample=2, resolution=[8, 8])
+    p["training"].update(batch_size=2, lr_warmup=False)
+    exp = Experiment(tmp_path / "exp")
+    exp.save_params(p)
+    tr = DecompTrainer(exp.exp_path)
+    tr.setup_model()
+    gen = torch.Generator().manual_seed(15)
+    video = torch.rand((2, 2, 64, 64, 3), generator=gen).cuda()
+    before = c5.conv5_input_grad_cuda.launches
+    values = tr.train_step(video, noise=torch.randn((2, 8, 128), generator=gen))
+    assert c5.conv5_input_grad_cuda.launches == before + 3
+    assert bool(torch.isfinite(values["_total"]))
+    for name, param in tr.model.named_parameters():
+        assert param.grad is not None and bool(torch.isfinite(param.grad).all()), name

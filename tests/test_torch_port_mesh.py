@@ -54,12 +54,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(tmp: Path, jobs: list, world: int, timeout: float = 120) -> list:
+def run_ranks(tmp: Path, jobs: list, world: int, timeout: float = 120,
+              pg_timeout_s: float | None = None) -> list:
     """Run ``jobs`` on ``world`` gloo ranks of ``torch_dist_worker.py``;
-    returns, job by job, each rank's arrays."""
+    returns, job by job, each rank's arrays. ``pg_timeout_s`` sets the
+    process group's collective timeout."""
     tmp.mkdir(parents=True, exist_ok=True)
     spec = tmp / "spec.json"
-    spec.write_text(json.dumps({"jobs": jobs}))
+    extra = {} if pg_timeout_s is None else {"timeout_s": pg_timeout_s}
+    spec.write_text(json.dumps({"jobs": jobs, **extra}))
     out = tmp / "out"
     out.mkdir(exist_ok=True)
     port = _free_port()

@@ -146,7 +146,9 @@ def test_post_norm_transformer_block_matches(masked):
 
 
 def test_unported_encoder_raises():
+    """Every encoder of the JAX package's list is ported; a name outside it
+    raises as it does there."""
     p = tiny_savi_params(build_exp_params)
-    p["model"]["model_params"]["encoder"]["encoder_name"] = "ResNet"
-    with pytest.raises(ValueError, match="not ported"):
+    p["model"]["model_params"]["encoder"]["encoder_name"] = "ResNet50"
+    with pytest.raises(ValueError, match="Unknown encoder_name 'ResNet50'"):
         setup_model(p)

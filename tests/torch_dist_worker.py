@@ -3,9 +3,11 @@
     TEXTOCVP_COORDINATOR=127.0.0.1:PORT TEXTOCVP_NUM_PROCESSES=N TEXTOCVP_PROCESS_ID=R \\
         python tests/torch_dist_worker.py SPEC.json OUT_DIR
 
-``SPEC.json`` is ``{"jobs": [{"job": name, ...}, ...]}``: each job runs in
-turn on every rank in one gloo process group, and rank ``R`` writes
-``OUT_DIR/<i>_rank<R>.npz`` (the job's arrays) for the ``i``-th job. Imports
+``SPEC.json`` is ``{"jobs": [{"job": name, ...}, ...]}`` and, optionally,
+``"timeout_s"``, the process group's collective timeout (default
+``parallel/distributed.py::TIMEOUT_S``): each job runs in turn on every rank
+in one gloo process group, and rank ``R`` writes ``OUT_DIR/<i>_rank<R>.npz``
+(the job's arrays) for the ``i``-th job. Imports
 torch and the port only, never JAX: the parent test computes the JAX side and
 hands inputs and weights over as ``.npz`` files. One torch thread a rank.
 """
@@ -233,6 +235,89 @@ def job_train02_accum(spec):
     return out
 
 
+def job_emergency04(spec):
+    """The 04 trainer's emergency checkpoint under tensor parallelism.
+
+    ``case`` "both": an uninterrupted run of two epochs (``straight``); then
+    the same run (``failing``) in which every rank raises as epoch 1 starts,
+    after the collective gather of its state, which this job returns
+    (``gathered/...``); then ``failing`` resumed from its emergency
+    checkpoint, a set of per-rank files, to the end.
+
+    ``case`` "rank1": model rank 1 alone raises in its first training
+    step's forward, while model rank 0 waits in the step's collective. Rank 1 then reports
+    its own file and what loading the set says, before anything else; rank
+    0 writes its file once its collective fails."""
+    import time
+
+    from textocvp_tpu_torch.train.checkpoints import load_checkpoint, shard_files, shard_path
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+
+    def trainer(name, **kw):
+        tr = PredictorTrainer(spec[name], "decomp", device="cpu", **kw)
+        tr.load_data()
+        tr.setup_model()
+        return tr
+
+    out = {}
+    emergency = Path(spec["failing"]) / "models" / "emergency_checkpoint_epoch_1.pt"
+    if spec["case"] == "both":
+        trainer("straight").training_loop()
+        tr = trainer("failing")
+        valid = tr.valid_epoch
+
+        def failing(epoch):
+            if epoch == 1:
+                state = tr._state(epoch)  # the collective gather, as the checkpoints take it
+                out.update({f"gathered/param/{k}": v.numpy() for k, v in state["params"].items()})
+                for key in ("mu", "nu"):
+                    out.update({f"gathered/{key}/{i}": v.numpy()
+                                for i, v in enumerate(state["opt_state"][key])})
+                out["gathered/count"] = np.array(state["opt_state"]["count"])
+                out["gathered/epoch_step"] = np.array([state["epoch"], state["step"]])
+                raise RuntimeError("fault on every rank")
+            return valid(epoch)
+
+        tr.valid_epoch = failing
+        try:
+            tr.training_loop()
+        except RuntimeError as e:
+            out["error"] = np.array(str(e))
+        barrier()  # every rank's file is written
+        resumed = trainer("failing", checkpoint="emergency_checkpoint_epoch_1",
+                          resume_training=True)
+        out["resumed_at"] = np.array([resumed.start_epoch, resumed.global_step,
+                                      resumed.optimizer.count])
+        resumed.training_loop()
+        return out
+
+    tr = trainer("failing")
+    rank = tr.mesh.rank
+    forward_loss = tr.forward_loss
+
+    def failing_forward(*args, **kwargs):
+        if tr.mesh.model_index == 1 and torch.is_grad_enabled():  # a training step
+            raise RuntimeError("fault on model rank 1")
+        return forward_loss(*args, **kwargs)
+
+    tr.forward_loss = failing_forward
+    t = time.perf_counter()
+    try:
+        tr.training_loop()
+    except Exception as e:  # rank 0: its collective's timeout or its peer's exit
+        out["error"] = np.array(f"{type(e).__name__}: {e}")
+    out["seconds"] = np.array(time.perf_counter() - t)
+    emergency = tr.exp.checkpoint_path("emergency_checkpoint_epoch_0")
+    out["own_file"] = np.array(shard_path(emergency, rank).is_file())
+    out["files"] = np.array(sorted(shard_files(emergency)))
+    if rank == 1:  # model rank 0 is still in its collective
+        try:
+            load_checkpoint(emergency)
+        except ValueError as e:
+            out["incomplete"] = np.array(str(e))
+    return out
+
+
 def float_frames_(svc):
     """Have ``svc``'s decode stage return its clipped float32 frames times
     255, unrounded, in place of the uint8 reply, so that ``predict`` (which
@@ -291,6 +376,7 @@ def main():
     torch.set_num_threads(1)
     spec_path, out_dir = sys.argv[1:3]
     spec = json.loads(Path(spec_path).read_text())
+    pdist.TIMEOUT_S = spec.get("timeout_s", pdist.TIMEOUT_S)
     assert pdist.maybe_initialize_distributed(), "no process group in the environment"
     rank = dist.get_rank()
     for i, job in enumerate(spec["jobs"]):

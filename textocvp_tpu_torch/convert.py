@@ -12,9 +12,11 @@ the state dict of the port's module:
   ``bias_ih``, ``weight_hh`` = [hr; hz; hn]ᵀ, ``bias_hn``): the same leaves,
   so a tree of gradients converts as a tree of weights does;
 * flax's automatic names -> the port's attributes: ``Dense_i`` ->
-  ``layers.i`` (``projection`` in a SoftPositionEmbed), ``ConvBlock_i`` ->
-  ``blocks.i``, ``Conv_0`` -> ``conv`` (``final_conv`` of the decoder),
-  ``BatchNorm_0`` -> ``bn``, ``block_i`` -> ``blocks.i``, ``layer_i`` ->
+  ``layers.i`` (``projection`` in a SoftPositionEmbed), ``ConvBlock_i`` and
+  ``ResNetBasicBlock_i`` -> ``blocks.i``, ``Conv_0`` -> ``conv``
+  (``final_conv`` of the decoder), ``Conv_k`` -> ``conv<k>``,
+  ``GroupNorm_0`` -> ``norm``, ``GroupNorm_k`` -> ``norm<k>`` (the ResNet's
+  stem and blocks), ``BatchNorm_0`` -> ``bn``, ``block_i`` -> ``blocks.i``, ``layer_i`` ->
   ``layers.i``, ``mlp_i`` -> ``mlps.i``, ``cnn_i`` -> ``cnns.i``;
 * BatchNorm ``batch_stats`` (``mean``, ``var``) -> ``running_mean``,
   ``running_var``, with ``num_batches_tracked`` 0.
@@ -45,10 +47,12 @@ _GRU_GATES = ("ir", "iz", "in", "hr", "hz", "hn")
 def _module_name(name: str, parent: str) -> str:
     if m := re.fullmatch(r"Dense_(\d+)", name):
         return "projection" if parent.endswith("pos_embedding") else f"layers.{m[1]}"
-    if m := re.fullmatch(r"ConvBlock_(\d+)", name):
+    if m := re.fullmatch(r"(?:ConvBlock|ResNetBasicBlock)_(\d+)", name):
         return f"blocks.{m[1]}"
     if name == "Conv_0":
         return "final_conv" if parent == "image_decoder" else "conv"
+    if m := re.fullmatch(r"(Conv|GroupNorm)_(\d+)", name):
+        return ("conv" if m[1] == "Conv" else "norm") + (m[2] if m[2] != "0" else "")
     if name == "BatchNorm_0":
         return "bn"
     if m := re.fullmatch(r"(block|layer|mlp|cnn)_(\d+)", name):
@@ -113,8 +117,8 @@ def convert_batch_stats(batch_stats: Mapping) -> dict:
 def from_jax_params(kind: str, params: Mapping, batch_stats: Mapping | None = None) -> dict:
     """``kind`` is "savi" (a SAVi's params), "dinosaur" (an ExtendedDINOSAUR's)
     or "predictor" (a PredictorWrapper's). ``batch_stats`` is the model's flax
-    ``batch_stats`` collection, which an ExtendedDINOSAUR that reconstructs
-    images needs for its BatchNorm CNN head."""
+    ``batch_stats`` collection, which a model with BatchNorms needs: an
+    ExtendedDINOSAUR's CNN head, a SAVi's ``batch_norm`` encoder or decoder."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
     if KINDS[kind] not in params:

@@ -80,10 +80,25 @@ DEFAULTS = {
 # reads (the JAX package's names; absent or null means off): "remat"
 # (train/trainer.py), "async_checkpoint" (train/checkpoints.py),
 # "decode_quant" and "encode_quant" ("int8", models/quant.py), "mesh_axes"
-# ({"data": -1, "model": 1} when absent; parallel/distributed.py). The JAX
-# package's other knobs there (compute_dtype, use_pallas, ...) are XLA
-# settings the port ignores.
-TPU_KEYS = ("remat", "async_checkpoint", "decode_quant", "encode_quant", "mesh_axes")
+# ({"data": -1, "model": 1} when absent; parallel/distributed.py) and
+# "compute_dtype", which must be "float32" (check_compute_dtype). The JAX
+# package's other knobs there (use_pallas, donate_step_buffers, ...) are XLA
+# settings that change no output, and the port ignores them.
+TPU_KEYS = ("remat", "async_checkpoint", "decode_quant", "encode_quant", "mesh_axes",
+            "compute_dtype")
+
+
+def check_compute_dtype(exp_params: dict):
+    """Raise unless ``tpu.compute_dtype`` is absent, null or "float32": the
+    port computes float32 only, and the JAX package's "bfloat16" (matmuls and
+    convs in bfloat16 with float32 parameters) is a slice of its own
+    (ROADMAP.md §1, "tpu.compute_dtype: bfloat16")."""
+    dtype = tpu_option(exp_params, "compute_dtype")
+    if dtype not in (None, "float32"):
+        raise NotImplementedError(
+            f"tpu.compute_dtype {dtype!r}: the port computes float32 only; bfloat16 waits "
+            "for ROADMAP.md §1's 'tpu.compute_dtype: bfloat16' (bf16 conv5, ViT attention "
+            "and slot-attention kernels). Set it to \"float32\" or remove it")
 
 
 def tpu_option(exp_params: dict, key: str):

@@ -8,6 +8,7 @@ import math
 import torch
 from torch import nn
 
+from textocvp_tpu_torch.core.config import check_compute_dtype
 from textocvp_tpu_torch.models.extended_dinosaur import ExtendedDINOSAUR
 from textocvp_tpu_torch.models.predictors import (
     OCVPPar,
@@ -39,6 +40,7 @@ def check_image_reconstruction(exp_params: dict, purpose: str = "evaluate"):
 
 
 def setup_model(exp_params: dict) -> SAVi | ExtendedDINOSAUR:
+    check_compute_dtype(exp_params)
     model_name = exp_params["model"]["model_name"]
     if model_name not in MODELS:
         raise NameError(f"Model '{model_name}' is not ported; the port has {MODELS}")
@@ -66,6 +68,7 @@ def setup_predictor(exp_params: dict) -> PredictorWrapper:
     unconditioned one from ``predictor_params`` as they stand, a TextOCVP
     from its nested ``predictor_params``, ``fusion_params`` and
     ``text_encoder_params``, its text encoder named by the predictor."""
+    check_compute_dtype(exp_params)
     name = exp_params["predictor"]["predictor_name"]
     if name not in PREDICTORS:
         raise NameError(f"Predictor '{name}' is not ported; the port has {PREDICTORS}")

@@ -56,8 +56,17 @@ class SAVi(nn.Module):
         self.slot_attention = SlotAttention(mlp_encoder_dim, slot_dim, num_slots, mlp_hidden)
 
     def encode(self, x):
-        """Frames (N, H, W, C) -> features (N, H*W, mlp_encoder_dim)."""
+        """Frames (N, H, W, C) -> features (N, h*w, mlp_encoder_dim), (h, w)
+        the encoder's output grid, which must be ``encoder_params.resolution``
+        (the frames' own grid for a stride-1 ``ConvEncoder``, an eighth of it
+        for the ``ResNet``)."""
+        frames = tuple(x.shape[1:3])
         x = self.image_encoder(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        grid = tuple(self.encoder_pos_embedding.grid.shape[:2])
+        if tuple(x.shape[1:3]) != grid:
+            raise ValueError(
+                f"the encoder turns {frames} frames into a {tuple(x.shape[1:3])} grid, but "
+                f"encoder_params.resolution is {list(grid)}: set it to the encoder's output grid")
         x = self.encoder_pos_embedding(x)
         n, h, w, f = x.shape
         return self.encoder_mlp(self.encoder_ln(x.reshape(n, h * w, f)))

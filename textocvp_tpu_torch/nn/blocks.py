@@ -135,23 +135,39 @@ def set_batchnorm_group(module: nn.Module, group) -> None:
 
 
 class ConvBlock(nn.Module):
-    """k x k conv, symmetric padding k // 2, then (BatchNorm) and ReLU (NCHW).
-    The BatchNorm is :class:`BatchNorm`, flax's: running statistics in
-    ``eval()``, the batch's in ``train()``."""
+    """k x k conv with symmetric padding k // 2 and ``stride``, then
+    (BatchNorm), (max-pool) and (ReLU), NCHW, in the JAX ``ConvBlock``'s
+    order. The BatchNorm is :class:`BatchNorm`, flax's: running statistics in
+    ``eval()``, the batch's in ``train()``. The max-pool's window and stride
+    are both ``max_pool``, without padding: a trailing row or column that
+    does not fill a window is dropped, as flax's VALID pool does."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, activation: bool = True, batch_norm: bool = False):
+                 stride: int = 1, activation: bool = True, batch_norm: bool = False,
+                 max_pool: Optional[int] = None):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                               padding=kernel_size // 2)
         self.bn = BatchNorm(out_channels) if batch_norm else None
+        self.max_pool = max_pool or None
         self.activation = activation
 
     def forward(self, x):
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
+        if self.max_pool:
+            x = F.max_pool2d(x, self.max_pool, self.max_pool)
         return F.relu(x) if self.activation else x
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax's ``nn.GroupNorm`` over the channels of NCHW input through
+    ``F.group_norm``: epsilon 1e-6 (torch's default is 1e-5), a learned
+    scale (``weight``) and bias."""
+
+    def __init__(self, num_groups: int, num_channels: int):
+        super().__init__(num_groups, num_channels, eps=1e-6)
 
 
 def upsample_nearest(x, scale: int):
@@ -160,11 +176,54 @@ def upsample_nearest(x, scale: int):
     return x if scale == 1 else F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
+def upsample_nearest_nhwc(x, scale: int):
+    """:func:`upsample_nearest` of NHWC input, NHWC and contiguous out."""
+    if scale == 1:
+        return x
+    n, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(n, h, scale, w, scale, c).reshape(
+        n, h * scale, w * scale, c)
+
+
 def upsample_bilinear(x, out_hw: Sequence[int]):
     """Bilinear resize to ``out_hw`` (NCHW), half-pixel centres
     (``align_corners=False``) and no antialias filter, also when it shrinks."""
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False,
                          antialias=False)
+
+
+class ConvTransposeBlock(nn.Module):
+    """ConvTranspose (or Conv) -> (BatchNorm) -> (nearest upsample) -> (ReLU),
+    NCHW: the JAX ``ConvTransposeBlock``, which no model of either package
+    builds.
+
+    The transpose arm is ``nn.ConvTranspose2d(..., padding=k // 2)``, whose
+    output is ``(H - 1) * stride + k - 2 * (k // 2)`` wide, as flax's
+    ``ConvTranspose`` with explicit padding ``k - 1 - k // 2`` a side. flax
+    applies its kernel (k, k, in, out) to the stride-dilated input as a
+    plain correlation (``transpose_kernel=False``); torch's transposed conv
+    flips its weight in space, so ``conv.weight[i, o, a, b]`` is the flax
+    ``kernel[k - 1 - a, k - 1 - b, i, o]``. The conv arm
+    (``conv_transpose_2d=False``) is :class:`ConvBlock`'s conv."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, batch_norm: bool = False, upsample: Optional[int] = None,
+                 activation: bool = True, conv_transpose_2d: bool = True):
+        super().__init__()
+        conv = nn.ConvTranspose2d if conv_transpose_2d else nn.Conv2d
+        self.conv = conv(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=kernel_size // 2)
+        self.bn = BatchNorm(out_channels) if batch_norm else None
+        self.upsample = upsample or None
+        self.activation = activation
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        if self.upsample:
+            x = upsample_nearest(x, self.upsample)
+        return F.relu(x) if self.activation else x
 
 
 class SoftPositionEmbed(nn.Module):
@@ -399,3 +458,30 @@ class SlotPositionalEncoding(nn.Module):
     def forward(self, x, offset: int = 0):
         idx = (torch.arange(x.shape[1], device=x.device) - offset).clamp(min=0)
         return x + self.pe[idx][None, :, None, :]
+
+
+class LearnedPositionalEncoding1D(nn.Module):
+    """Learned 1D PE on (B, N, D): ``x + pe[offset:offset + N]``, the table
+    (max_len, token_dim) drawn from a normal truncated at 2 sigma, as flax's
+    ``truncated_normal(stddev=1.0)``. With ``deterministic=False`` and
+    ``dropout`` > 0 each element is zeroed with probability ``dropout`` (the
+    survivors scaled by 1 / (1 - dropout)), its mask drawn from ``generator``:
+    the JAX block's dropout, from another random stream."""
+
+    def __init__(self, max_len: int, token_dim: int, dropout: float = 0.1):
+        super().__init__()
+        self.dropout = dropout
+        self.pe = nn.Parameter(nn.init.trunc_normal_(torch.empty(max_len, token_dim),
+                                                     std=1.0, a=-2.0, b=2.0))
+
+    def forward(self, x, offset: int = 0, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        t = x.shape[1]
+        if offset < 0 or offset + t > self.pe.shape[0]:
+            raise ValueError(f"positions {offset}..{offset + t - 1} outside the table of "
+                             f"{self.pe.shape[0]}")
+        x = x + self.pe[offset:offset + t][None]
+        if self.dropout > 0 and not deterministic:
+            keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.dropout
+            x = torch.where(keep, x / (1 - self.dropout), torch.zeros_like(x))
+        return x

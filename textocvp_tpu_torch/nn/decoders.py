@@ -25,7 +25,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from textocvp_tpu_torch.nn.blocks import ConvBlock, upsample_bilinear, upsample_nearest
+from textocvp_tpu_torch.nn.blocks import (
+    ConvBlock,
+    upsample_bilinear,
+    upsample_nearest,
+    upsample_nearest_nhwc,
+)
 from textocvp_tpu_torch.ops.conv5 import KERNEL_SIZE, conv5
 from textocvp_tpu_torch.ops.conv_int8 import quantized_conv
 from textocvp_tpu_torch.ops.dense_int8 import input_amax, linear_int8
@@ -42,24 +47,35 @@ def check_quant_scales(quant_scales, expected: int, needs: str):
 class ConvDecoder(nn.Module):
     """Spatial-broadcast conv decoder. ``blocks[0]`` and ``final_conv`` run
     through ``F.conv2d`` (the JAX package computes both outside any Pallas
-    kernel); the tail blocks, 5x5 stride-1 convs with bias and ReLU, run
-    through :func:`ops.conv5.conv5` in NHWC memory: the CUDA kernel on the
-    card (its gradient through ``ops.conv5.Conv5Function``), its plain
-    version on the CPU. Their weights are held in HWIO, converted once per
-    weight version and device when nothing needs their gradient."""
+    kernel); the tail blocks, 5x5 stride-1 convs with bias, run through
+    :func:`ops.conv5.conv5` in NHWC memory: the CUDA kernel on the card (its
+    gradient through ``ops.conv5.Conv5Function``), its plain version on the
+    CPU. Their weights are held in HWIO, converted once per weight version
+    and device when nothing needs their gradient.
+
+    With ``batch_norm`` every block's conv is followed by a :class:`BatchNorm`
+    (a tail conv then runs without its ReLU, and the BatchNorm and the ReLU
+    follow it, as the JAX block orders them; no BatchNorm is folded into a
+    conv). With ``upsample`` >= 2 the map is upsampled (nearest) by that
+    factor after block j for every j < len(hidden_dims) - 1, so the output
+    grid is the positional map's times ``upsample ** (len - 1)``."""
 
     def __init__(self, in_channels: int, hidden_dims: Sequence[int], kernel_size: int = 5,
-                 stride: int = 1, out_channels: int = 4):
+                 stride: int = 1, out_channels: int = 4, batch_norm: bool = False,
+                 upsample: Optional[int] = None):
         super().__init__()
         if len(hidden_dims) > 1 and (kernel_size != KERNEL_SIZE or stride != 1):
             raise ValueError(f"the port's ConvDecoder runs its tail through the 5x5 stride-1 "
                              f"conv kernel; got kernel_size={kernel_size}, stride={stride}")
         chans = [in_channels, *reversed(hidden_dims)]
         self.blocks = nn.ModuleList(
-            ConvBlock(a, b, kernel_size, stride) for a, b in zip(chans[:-1], chans[1:]))
+            ConvBlock(a, b, kernel_size, stride, batch_norm=batch_norm)
+            for a, b in zip(chans[:-1], chans[1:]))
         self.final_conv = nn.Conv2d(chans[-1], out_channels, 3, padding=1)
         self.kernel_size = kernel_size
         self.stride = stride
+        self.batch_norm = bool(batch_norm)
+        self.upsample = upsample if upsample and upsample >= 2 else None
         self._hwio = (None, None)  # (key, [(w, b), ...]) of the tail blocks
 
     def _tail_weights(self):
@@ -78,32 +94,46 @@ class ConvDecoder(nn.Module):
             self._hwio = (key, weights)
         return self._hwio[1]
 
+    def _upsampled(self, x, j: int):
+        """NHWC ``x`` after block ``j``, upsampled when ``upsample`` says so."""
+        if self.upsample is not None and len(self.blocks) - 1 - j > 0:
+            return upsample_nearest_nhwc(x, self.upsample)
+        return x
+
     def _tail(self, x, quant_scales=None):
         """NHWC activations after ``blocks[0]`` -> the tail blocks through
-        conv5 (through the int8 conv with ``quant_scales``) -> the final 3x3
-        conv; NCHW-shaped out (channels_last memory). With grad enabled and a
-        tail parameter that requires grad, the HWIO weights are converted at
-        this call with their autograd history, so the tail's gradients reach
-        its parameters."""
+        conv5 (through the int8 conv with ``quant_scales``), each followed by
+        its BatchNorm and ReLU and the upsampling -> the final 3x3 conv;
+        NCHW-shaped out (channels_last memory). With grad enabled and a tail
+        parameter that requires grad, the HWIO weights are converted at this
+        call with their autograd history, so the tail's gradients reach its
+        parameters."""
         convs = [block.conv for block in self.blocks[1:]]
         if torch.is_grad_enabled() and any(p.requires_grad for c in convs for p in c.parameters()):
             weights = [(c.weight.permute(2, 3, 1, 0).contiguous(), c.bias) for c in convs]
         else:
             weights = self._tail_weights()
-        for j, (block, (w, b)) in enumerate(zip(self.blocks[1:], weights)):
+        x = self._upsampled(x, 0)
+        for j, (block, (w, b)) in enumerate(zip(self.blocks[1:], weights), start=1):
+            relu = block.activation and block.bn is None
             if quant_scales is None:
-                x = conv5(x, w, b, relu=block.activation)
+                x = conv5(x, w, b, relu=relu)
             else:
-                x = quantized_conv(x, w, b, quant_scales[j], relu=block.activation)
+                x = quantized_conv(x, w, b, quant_scales[j - 1], relu=relu)
+            if block.bn is not None:
+                x = block.bn(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+                x = (F.relu(x) if block.activation else x).contiguous()
+            x = self._upsampled(x, j)
         return self.final_conv(x.permute(0, 3, 1, 2))
 
     def _tail_amaxes(self, x):
         """The (L,) input amaxes of the tail convs before the final one, on
         the float path (the JAX ``_tail_amaxes``)."""
         amaxes = []
-        for block, (w, b) in zip(self.blocks[1:], self._tail_weights()):
+        x = self._upsampled(x, 0)
+        for j, (block, (w, b)) in enumerate(zip(self.blocks[1:], self._tail_weights()), start=1):
             amaxes.append(x.abs().amax())
-            x = conv5(x, w, b, relu=block.activation)
+            x = self._upsampled(conv5(x, w, b, relu=block.activation), j)
         return torch.stack(amaxes)
 
     def forward(self, x):
@@ -120,8 +150,10 @@ class ConvDecoder(nn.Module):
         tile whose border rows and columns carry every border pattern, and
         the full map takes the tile's border rows/columns and its centre value
         everywhere inside. Exact up to float reassociation. The expanded map
-        is written NHWC, the tail's layout, with no further copy. ``fast=False``
-        (or a stride other than 1, or a map smaller than the tile) broadcasts.
+        is written NHWC, the tail's layout, with no further copy. It
+        broadcasts instead where the JAX package does: with ``batch_norm``, a
+        stride other than 1 or a map smaller than the tile; and with
+        ``fast=False``.
 
         ``quant_scales`` ((L,), L the tail convs before the final one) runs
         those convs in int8; ``calibrate`` returns their input amaxes. Both
@@ -132,7 +164,7 @@ class ConvDecoder(nn.Module):
         pad = self.kernel_size // 2
         small = 4 * pad + 1
         pos = pos_map.permute(2, 0, 1)[None]  # (1, D, H, W)
-        if not fast or self.stride != 1 or h < small or w < small:
+        if not fast or self.stride != 1 or self.batch_norm or h < small or w < small:
             if quant_scales is not None or calibrate:
                 raise ValueError(
                     "int8 decode quantization requires the fast-broadcast decode structure "
@@ -360,11 +392,11 @@ def get_decoder(decoder: dict, in_channels: int):
     if name != "ConvDecoder":
         raise ValueError(f"decoder {name!r} is not ported; the port has 'ConvDecoder' "
                          "and 'MLPPatchDecoder'")
-    if params.get("batch_norm") or (params.get("upsample") or 1) > 1:
-        raise ValueError("the port's ConvDecoder has no batch norm and no upsampling")
     return ConvDecoder(
         in_channels=in_channels,
         hidden_dims=tuple(params["num_channels"]),
         kernel_size=params.get("kernel_size", 5),
         stride=params.get("stride", 1),
+        batch_norm=bool(params.get("batch_norm") or False),
+        upsample=params.get("upsample"),
     )

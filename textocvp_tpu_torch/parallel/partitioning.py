@@ -60,7 +60,10 @@ per-row scales and sums the integer partial products.
 Checkpoints keep one layout for any mesh: :func:`gather_state_dict` gathers
 every sharded leaf back to its full shape, and a checkpoint is loaded into
 the whole module before :func:`shard_predictor_` or :func:`shard_decomp_`
-slices it.
+slices it. The emergency checkpoint under tensor parallelism cannot gather
+(a failed rank may never join the collective): every rank writes its own
+slices and their ``tp_shard``, and :func:`join_slices` puts a leaf back
+together from a set of such files (``train/checkpoints.py``).
 """
 
 from __future__ import annotations
@@ -260,6 +263,18 @@ def slice_full(t: torch.Tensor, shard) -> torch.Tensor:
     block = t.shape[dim] // groups
     per = block // size
     return torch.cat([t.narrow(dim, j * block + index * per, per) for j in range(groups)], dim)
+
+
+def join_slices(parts, shard) -> torch.Tensor:
+    """The full tensor from every model rank's slice (``parts`` in model-rank
+    order), the inverse of :func:`slice_full` and what :func:`gather_full`
+    gathers, with no collective: within each of the ``groups`` blocks of
+    ``dim`` the ranks' parts in order."""
+    dim, _, size, groups = shard
+    if len(parts) != size:
+        raise ValueError(f"{len(parts)} slices of a leaf sharded {size} ways")
+    blocks = [t.chunk(groups, dim) for t in parts]
+    return torch.cat([blocks[j][g] for g in range(groups) for j in range(size)], dim)
 
 
 def gather_state_dict(module: nn.Module, group) -> dict:

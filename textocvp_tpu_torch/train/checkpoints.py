@@ -14,6 +14,21 @@ of ``.msgpack``:
 * ``checkpoint_epoch_final.pt``  at the end of training
 * ``emergency_checkpoint_epoch_<E>.pt`` on an exception or an interrupt
 
+Under tensor parallelism (``tpu.mesh_axes`` with ``model`` > 1) the
+emergency checkpoint is a set of files, one a rank,
+``emergency_checkpoint_epoch_<E>.rank<R>.pt`` (:func:`save_shard`): the
+gathered state needs a collective that a failed rank may never join, so each
+rank writes its own parameters and Adam moments, the sharded ones as its
+slices, with each sharded leaf's ``tp_shard`` ``(dim, index, size,
+groups)``, the mesh's shape and its indices in it, ``epoch`` and ``step``.
+:func:`load_checkpoint` (and so :func:`load_params`, ``--checkpoint`` and
+``--resume_training``) takes the set's name, ``.../emergency_checkpoint_
+epoch_<E>.pt``, or any one file of it, and joins the slices
+(:func:`join_shards`) into the ``{params, opt_state, epoch, step}`` a
+gathered checkpoint holds, bit for bit. One file of each model rank is
+enough (the data ranks hold the same state); a set without one raises,
+naming the model ranks it lacks.
+
 Under ``tpu.async_checkpoint`` the trainers save through an
 :class:`AsyncCheckpointWriter` (:func:`make_checkpoint_saver`): the loop
 copies the state to the host and a writer thread writes it.
@@ -33,6 +48,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import re
 import struct
 from pathlib import Path
 
@@ -144,16 +160,110 @@ def make_checkpoint_saver(exp_params: dict):
     return save_checkpoint, lambda: None
 
 
-def load_checkpoint(path) -> dict:
-    """Read a checkpoint onto the CPU; raises, naming the file, if it is
-    missing or torch cannot read it."""
-    path = Path(path)
-    if not path.is_file():
-        raise FileNotFoundError(f"Checkpoint {path} not found")
+def _torch_load(path: Path):
     try:
         return torch.load(path, map_location="cpu", weights_only=True)
     except (pickle.UnpicklingError, RuntimeError, EOFError) as e:
         raise ValueError(f"Checkpoint {path} is not a torch file of tensors: {e}") from e
+
+
+def shard_path(path, rank: int) -> Path:
+    """The file of process rank ``rank`` in the shard set named ``path``
+    (``X.pt`` -> ``X.rank<rank>.pt``)."""
+    path = Path(path)
+    return path.with_name(f"{path.stem}.rank{rank}{path.suffix}")
+
+
+def shard_files(path) -> dict:
+    """``{rank: file}`` of the shard set named ``path`` on disk."""
+    path = Path(path)
+    pattern = re.compile(re.escape(path.stem) + r"\.rank(\d+)" + re.escape(path.suffix))
+    if not path.parent.is_dir():
+        return {}
+    return {int(m[1]): f for f in path.parent.iterdir() if (m := pattern.fullmatch(f.name))}
+
+
+def save_shard(path, state: dict, rank: int) -> Path:
+    """Write this rank's file of the shard set named ``path`` atomically, on
+    every rank and with no collective; returns its path. ``state`` holds
+    ``params`` and ``opt_state`` (this rank's slices), ``epoch``, ``step``
+    and ``tp``: ``mesh`` ([data, model]), ``data_index``, ``model_index``,
+    ``params`` ({name: tp_shard} of the sharded parameters) and ``opt``
+    (each Adam leaf's tp_shard or None)."""
+    out = shard_path(path, rank)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
+    torch.save(_to_cpu(state), tmp)
+    os.replace(tmp, out)
+    return out
+
+
+def join_shards(path) -> dict:
+    """The ``{params, opt_state, epoch, step}`` of the shard set named
+    ``path``: for each model rank the file of the lowest data index, each
+    sharded leaf joined from their slices (``parallel/partitioning.py::
+    join_slices``), the replicated ones from model rank 0. Raises when a
+    model rank has no file, or when the files disagree on the mesh, the
+    epoch or the count of updates. ``step`` (the slot-noise stream's) is the
+    lowest of the files'."""
+    from textocvp_tpu_torch.parallel.partitioning import join_slices
+
+    path = Path(path)
+    files = shard_files(path)
+    if not files:
+        raise FileNotFoundError(f"Checkpoint {path} not found, nor its shards "
+                                f"{shard_path(path, 0).name}, ...")
+    states = [_torch_load(files[r]) for r in sorted(files)]
+    if any(not isinstance(st, dict) or not isinstance(st.get("tp"), dict) for st in states):
+        raise ValueError(f"{path}: {sorted(f.name for f in files.values())} are not all shards "
+                         "of an emergency checkpoint")
+    meshes = {tuple(st["tp"]["mesh"]) for st in states}
+    if len(meshes) != 1:
+        raise ValueError(f"{path}: shards of meshes {sorted(meshes)}")
+    (_, model), = meshes
+    by_model = {}
+    for st in sorted(states, key=lambda st: st["tp"]["data_index"]):
+        by_model.setdefault(int(st["tp"]["model_index"]), st)
+    missing = [j for j in range(model) if j not in by_model]
+    if missing:
+        raise ValueError(
+            f"{path}: the shard set is incomplete, it lacks model rank(s) {missing} of "
+            f"{model} (found {sorted(f.name for f in files.values())}): each model rank's "
+            "file is needed, from any data index")
+    chosen = [by_model[j] for j in range(model)]
+    updates = {(st["epoch"], st["opt_state"]["count"]) for st in chosen}
+    if len(updates) != 1:
+        raise ValueError(f"{path}: the model ranks' shards are of different updates "
+                         f"(epoch, updates): {sorted(updates)}")
+    first = chosen[0]
+    params = dict(first["params"])
+    for name, shard in first["tp"]["params"].items():
+        params[name] = join_slices([st["params"][name] for st in chosen], tuple(shard))
+    opt = first["opt_state"]
+    moments = {}
+    for key in ("mu", "nu"):
+        moments[key] = [t if shard is None else
+                        join_slices([st["opt_state"][key][i] for st in chosen], tuple(shard))
+                        for i, (t, shard) in enumerate(zip(opt[key], first["tp"]["opt"]))]
+    # a rank advances the noise stream's step before the step's first
+    # collective, so one that failed inside a step may stand one step ahead
+    return {"params": params, "opt_state": {"count": opt["count"], **moments},
+            "epoch": first["epoch"], "step": min(st["step"] for st in chosen)}
+
+
+def load_checkpoint(path) -> dict:
+    """Read a checkpoint onto the CPU; raises, naming the file, if it is
+    missing or torch cannot read it. A shard set (its name, or one of its
+    files) is joined (:func:`join_shards`)."""
+    path = Path(path)
+    if not path.is_file():
+        if shard_files(path):
+            return join_shards(path)
+        raise FileNotFoundError(f"Checkpoint {path} not found")
+    state = _torch_load(path)
+    if isinstance(state, dict) and isinstance(state.get("tp"), dict):
+        return join_shards(path.with_name(re.sub(r"\.rank\d+(?=\.[^.]*$|$)", "", path.name)))
+    return state
 
 
 def _is_state_dict(obj) -> bool:

@@ -163,6 +163,12 @@ class Adam:
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": self._full(self.mu), "nu": self._full(self.nu)}
 
+    def local_state_dict(self) -> dict:
+        """:meth:`state_dict` with no collective: the sharded leaves' moments
+        as this rank's slices (their ``tp_shard`` in ``shards``)."""
+        return {"count": self.count, "mu": [m.detach().cpu() for m in self.mu],
+                "nu": [v.detach().cpu() for v in self.nu]}
+
     def load_state_dict(self, state: dict):
         if len(state["mu"]) != len(self.params) or len(state["nu"]) != len(self.params):
             raise ValueError(f"optimizer state for {len(state['mu'])} parameters, "

@@ -162,15 +162,44 @@ def _initializer(sd, prefix):
     return p
 
 
-def convert_savi(sd: dict, model_params: dict) -> dict:
-    """Reference SAVi state dict -> our SAVi flax params."""
-    num_enc = len(model_params["encoder"]["encoder_params"]["num_channels"])
-    num_dec = len(model_params["decoder"]["decoder_params"]["num_channels"])
-    upsample = model_params["decoder"]["decoder_params"].get("upsample") or 1
+def _conv_block(sd, prefix, batch_norm: bool, stats: dict, name: str) -> dict:
+    """A reference ``ConvBlock`` (``block.0`` the conv, ``block.1`` its
+    BatchNorm) -> its params; the BatchNorm's running statistics go into
+    ``stats[name]``."""
+    p = {"Conv_0": _conv(sd, f"{prefix}.block.0")}
+    if batch_norm:
+        p["BatchNorm_0"], bn_stats = _bn(sd, f"{prefix}.block.1")
+        stats[name] = {"BatchNorm_0": bn_stats}
+    return p
 
-    # encoder: Sequential of ConvBlocks, each .block.0 is the conv
+
+def convert_savi(sd: dict, model_params: dict) -> dict:
+    """Reference SAVi state dict -> our SAVi flax params (and the
+    ``batch_stats`` of a ``batch_norm`` encoder or decoder, whose blocks
+    hold the BatchNorm at ``block.1``; the JAX importer reads the convs
+    only). The encoder must be the reference's ``ConvEncoder``, the one
+    layout the importers know: the reference wires no ``ResNet`` into its
+    SAVi, and an encoder without ``num_channels`` (``ResNet``,
+    ``ConvEncoder128``) raises here, naming it, where the JAX importer
+    fails on the missing key."""
+    enc = model_params["encoder"]
+    if enc["encoder_name"] != "ConvEncoder":
+        raise NotImplementedError(
+            f"a reference SAVi checkpoint with encoder {enc['encoder_name']!r}: the importer "
+            "reads the reference's ConvEncoder only (the JAX package's importer cannot read "
+            "this one either); train it with the port, or import a JAX .msgpack")
+    enc_params = enc["encoder_params"]
+    dec_params = model_params["decoder"]["decoder_params"]
+    num_enc = len(enc_params["num_channels"])
+    num_dec = len(dec_params["num_channels"])
+    upsample = dec_params.get("upsample") or 1
+    stats = {"image_encoder": {}, "image_decoder": {}}
+
+    # encoder: Sequential of ConvBlocks
     image_encoder = {
-        f"ConvBlock_{i}": {"Conv_0": _conv(sd, f"encoder.encoder.{i}.block.0")}
+        f"ConvBlock_{i}": _conv_block(sd, f"encoder.encoder.{i}",
+                                      bool(enc_params.get("batch_norm")),
+                                      stats["image_encoder"], f"ConvBlock_{i}")
         for i in range(num_enc)
     }
 
@@ -178,9 +207,10 @@ def convert_savi(sd: dict, model_params: dict) -> dict:
     image_decoder = {}
     seq_idx = 0
     for i in range(num_dec - 1, -1, -1):
-        image_decoder[f"ConvBlock_{num_dec - 1 - i}"] = {
-            "Conv_0": _conv(sd, f"decoder.decoder.{seq_idx}.block.0")
-        }
+        name = f"ConvBlock_{num_dec - 1 - i}"
+        image_decoder[name] = _conv_block(sd, f"decoder.decoder.{seq_idx}",
+                                          bool(dec_params.get("batch_norm")),
+                                          stats["image_decoder"], name)
         seq_idx += 1
         if upsample >= 2 and i > 0:
             seq_idx += 1  # Upsample module holds no params
@@ -204,7 +234,11 @@ def convert_savi(sd: dict, model_params: dict) -> dict:
         "image_decoder": image_decoder,
         "slot_attention": _slot_attention(sd, "slot_attention"),
     }
-    return {"params": params}
+    out = {"params": params}
+    batch_stats = {k: v for k, v in stats.items() if v}
+    if batch_stats:
+        out["batch_stats"] = batch_stats
+    return out
 
 
 def convert_patch_decoder(sd: dict, dp: dict, img_size: int,

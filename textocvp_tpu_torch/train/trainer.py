@@ -103,8 +103,10 @@ The mesh (``tpu.mesh_axes``, ``parallel/``), in a process group that
   checkpoints (the others wait for the last one) and the profile; the image
   strips are skipped when the world is larger than 1, since the writer
   exists on rank 0 only and a collective must not run on one rank alone.
-  Under tensor parallelism the emergency checkpoint is not written (its
-  gather is a collective that a failed rank may never join).
+  Under tensor parallelism every rank writes its own file of the emergency
+  checkpoint, its slices with their ``tp_shard``, with no collective (the
+  gather is one that a failed rank may never join;
+  ``train/checkpoints.py::save_shard``); the readers join the set.
 
 Without a process group the mesh is of one rank and runs no collective: the
 step is the same as before.
@@ -147,6 +149,7 @@ from textocvp_tpu_torch.train.checkpoints import (
     load_checkpoint,
     make_checkpoint_saver,
     save_checkpoint,
+    save_shard,
 )
 from textocvp_tpu_torch.train.losses import build_loss_fn
 from textocvp_tpu_torch.train.schedulers import build_optimizer
@@ -520,11 +523,28 @@ class Trainer:
         return {"params": params, "opt_state": self.optimizer.state_dict(),
                 "epoch": epoch, "step": self.global_step}
 
+    def _local_state(self, epoch: int) -> dict:
+        """This rank's file of a shard set (``train/checkpoints.py::
+        save_shard``): its own slices and their layout, with no collective."""
+        mesh = self.mesh
+        sharded = {n: list(p.tp_shard) for n, p in self.model.named_parameters()
+                   if getattr(p, "tp_shard", None)}
+        return {"params": self.model.state_dict(),
+                "opt_state": self.optimizer.local_state_dict(),
+                "epoch": epoch, "step": self.global_step,
+                "tp": {"mesh": [mesh.data, mesh.model], "data_index": mesh.data_index,
+                       "model_index": mesh.model_index, "params": sharded,
+                       "opt": [list(s) if s else None for s in self.optimizer.shards]}}
+
     def _save(self, name: str, epoch: int):
+        """The emergency checkpoint: the gathered state, written by rank 0;
+        under tensor parallelism each rank's own file, written with no
+        collective, since a failed rank may never join one."""
+        path = self.exp.checkpoint_path(name)
         if self.mesh.tensor_parallel:
-            print_(f"{name} not written: its gather is a collective of the model group", "error")
-            return
-        save_checkpoint(self.exp.checkpoint_path(name), self._state(epoch))
+            save_shard(path, self._local_state(epoch), self.mesh.rank)
+        else:
+            save_checkpoint(path, self._state(epoch))
 
     @log_function
     def training_loop(self):
@@ -636,11 +656,14 @@ class DecompTrainer(Trainer):
 
     def remat_decode(self, slots) -> dict:
         """The decode of (N, S, D) slots in remat regions of frames
-        (:func:`remat_frames`): SAVi's whole decoder, ExtendedDINOSAUR's
+        (:func:`remat_frames`): SAVi's whole decoder (one region when it has
+        BatchNorms, which normalize over all N frames), ExtendedDINOSAUR's
         per-frame ``mix``; its CNN head, whose BatchNorm normalizes over all
         N frames, a region a block (``render_stages``)."""
         dec = getattr(self.model, "patch_decoder", None)
         if dec is None:
+            if self.model.image_decoder.batch_norm:  # its statistics span all N frames
+                return remat(self.model.decode, slots)
             return remat_frames(self.model.decode, slots)
         out = remat_frames(dec.mix, slots)
         recons_imgs = None
