@@ -91,7 +91,14 @@ Phases, one JSON line each:
             the float path it replaces on the same shapes (conv5, cuDNN's
             float32 conv); conv5 without its ReLU at the BatchNorm upsampling
             decoder's 16 and 32 px for 32 maps, against its plain version,
-            with ``F.conv2d`` timed beside;
+            with ``F.conv2d`` timed beside; the bf16 variants
+            (``tpu.compute_dtype: "bfloat16"``): conv5's at N=1216 and 9728,
+            with the ReLU and without, and the ViT attention's at B=8 and 16,
+            each within one bf16 step (2**-8 of max |plain|) of its plain
+            version run in float32 on the same bf16 inputs, with ms, the bf16
+            plain version's ms, the bound at the dense bf16 rate (989 TFLOP/s)
+            or 3.35 TB/s, and ``F.conv2d`` / ``F.scaled_dot_product_attention``
+            in bf16 as the yardstick;
 then
 C. create   the 01 CLIs: a SAVi / CATER_Easy and an ExtendedDINOSAUR /
             CLIPort experiment (``--name``), each ``experiment_params.json``
@@ -114,6 +121,23 @@ then for each serving path:
             against wall time, the kernels that take the most time, and the
             port's kernels' own launches and time inside the request, with
             exactly one slot-attention device kernel;
+then for each serving path in bf16:
+B. bf16_cater, bf16_clipport  the path's served experiment with
+            ``tpu.compute_dtype: "bfloat16"`` (the same random weights): its
+            live service warmed up, then one 8-row request between a reset and
+            a read of the counters (1 slot-attention launch, and 3 bf16 conv5
+            or 12 bf16 ViT-attention launches), two more requests and a stage
+            split; then, untimed (``bf16_<path>_card``), the path's bf16
+            outputs on the card against its float32 ones on the same weights,
+            video, noise and captions: the seed's slots and frames within
+            ``BF16_SEED_RANGE`` of max |float32|, the predicted frames within
+            ``BF16_PRED_MAX`` and ``BF16_PRED_MEAN`` (PERF.md section 2); and
+            the first 2 rows against the port's CPU bf16 in the parity worker
+            (``bf16_<path>_parity``, printed by ``finish_parities``): within
+            2 e(card bf16, card float32) + 2**-8, the CPU tests' rule; after
+            the eval path, ``bf16_cater_eval_step``: one 05 step in bf16 at
+            B=64, p=19 (its launches, ms, predicted frames a second, peak
+            memory);
 then on the CATER path's experiment:
 S. serve_batching  a ``PredictionService`` at batch 8 behind
             ``serve/batching.py::DynamicBatcher``: two one-row requests
@@ -319,11 +343,12 @@ H1. host_io  what the machine offers the host input path (``native.host_io``:
             320 x 240 -> 64 x 64 and 640 x 480 -> 336 x 336 frames and PNGs
             of the stdlib writer (rows through filter types 0-4) decoded back,
             bit for bit; decode plus resize in frames/s on 1 thread and 8;
-H2. png_eval  (after phase 10) the CATER 05 CLI at B=64, p=19 over 64
+H2. png_eval  (after ``mesh_shared_card``'s ranks, beside which its PNG set
+            is written) the CATER 05 CLI at B=64, p=19 over 64
             frame-directory videos of 21 PNG frames at 320 x 240 (8 loader
-            threads), then over the ``.npy`` caches ``cli/make_npy_cache.py``
-            builds from them: the same items bit for bit and the same
-            ``results.json``; the loader's frames/s against the step's
+            threads); the ``.npy`` caches ``cli/make_npy_cache.py`` builds
+            from them hold the same items bit for bit, so the cache route's
+            05 gives the same ``results.json``; the loader's frames/s against the step's
             demand, and the device's idle share of a loader pass and its step;
 H3. train_extras, train_remat  (after phase D2) the 02 CLI on CATER (B=16,
             2 steps) with ``tpu.async_checkpoint`` and ``TEXTOCVP_PROFILE``:
@@ -423,6 +448,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
 TF32X3_PRODUCTS = 3        # TF32 products per float32-accurate product (csrc/tf32x3.cuh)
+BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 TENSOR_CORE_KERNELS = ("conv5", "vit_attention", "conv_int8")
 VIT_HEADS, VIT_TOKENS, VIT_DH = 12, 577, 64  # DINOv2 ViT-B/14 at 336 px
 CONV5_RES, CONV5_CH = 64, 64                 # SAVi decoder tail on CATER
@@ -858,6 +884,120 @@ def rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+# The bf16 variants (tpu.compute_dtype "bfloat16") round their float32 result
+# once to bf16. Each is held against its plain version run in float32 on the
+# same bf16 inputs, within one bf16 step at the largest value (BF16_STEP of
+# max |plain|): the one rounding moves a value by at most half a step of its
+# own binade. Against the bf16 plain version, which rounds its own float32
+# sum, a value whose two sums straddle a rounding edge differs by a whole
+# step of its binade (up to 2 BF16_STEP of the max); that distance is
+# reported as ``max_steps_vs_bf16_plain``.
+BF16_STEP = 2.0 ** -8
+
+
+def bf16_steps(out, ref):
+    """max |out - ref| in bf16 steps at the largest |ref| (BF16_STEP * max |ref|)."""
+    return ((out.float() - ref.float()).abs().max() / (BF16_STEP * ref.float().abs().max())).item()
+
+
+def conv5_bf16_bounds(n, h, w, c):
+    """bf16 x read once and bf16 out written once, bf16 weights and the
+    float32 bias read once; the products at the dense bf16 rate."""
+    nbytes = 2 * 2 * n * h * w * c + 2 * 25 * c * c + 4 * c
+    return bound(nbytes, 2 * 25 * c * c * n * h * w + 2 * n * h * w * c, BF16_FLOP_PER_S)
+
+
+def conv5_bf16_rows():
+    """conv5's bf16 variant at a CATER request's and an eval batch's map
+    counts, with the ReLU and without, against its plain version in float32
+    on the same bf16 inputs (the first 256 frames and the last), with the
+    bf16 plain version's time and ``F.conv2d`` in bf16, channels-last, with
+    the bias and the ReLU (cuDNN) as the yardstick."""
+    import torch.nn.functional as F
+
+    from textocvp_tpu_torch.ops import conv5 as c5
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    xgen = torch.Generator("cuda").manual_seed(SEED + 12)
+    c, res = CONV5_CH, CONV5_RES
+    w = (torch.randn((5, 5, c, c), generator=gen) / (25 * c) ** 0.5).cuda().to(torch.bfloat16)
+    b = (0.1 * torch.randn((c,), generator=gen)).cuda()
+    w_oihw, b16 = w.permute(3, 2, 0, 1).contiguous(), b.to(torch.bfloat16)
+    rows = []
+    for n, reps in ((BATCH * 19 * 8, 10), (EVAL_BATCH * EVAL_PREDS * 8, 2)):
+        x = torch.randn((n, res, res, c), device="cuda", generator=xgen).mul_(0.5)
+        x = x.to(torch.bfloat16)
+        idx = [*range(min(n, 256)), n - 1]
+        for relu in (True, False):
+            launches = c5.conv5_bf16_cuda.launches
+            out = c5.conv5_bf16_cuda(x, w, b, relu)[idx]
+            ref = c5.conv5_plain(x[idx].float(), w.float(), b, relu)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(out).all())
+            steps = bf16_steps(out, ref)
+            steps_bf16 = bf16_steps(out, ref.to(torch.bfloat16))
+            err = (out.float() - ref).abs().max().item()
+            del out, ref
+            check(finite and steps <= 1, f"conv5 bf16 vs plain at N={n}, relu={relu}: "
+                                         f"{steps} bf16 steps > 1")
+            ms = cuda_ms(lambda: c5.conv5_bf16_cuda(x, w, b, relu), reps=reps, warmup=1)
+            launches = c5.conv5_bf16_cuda.launches - launches
+            act = F.relu_ if relu else (lambda y: y)
+            library_ms = cuda_ms(lambda: act(F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b16,
+                                                      padding=2)), reps=reps, warmup=1)
+            torch.cuda.empty_cache()
+            plain_ms = cuda_ms(lambda: c5.conv5_plain(x, w, b, relu), reps=1, warmup=1)
+            torch.cuda.empty_cache()
+            bound_ms, bound_by = conv5_bf16_bounds(n, res, res, c)
+            rows.append({"N": n, "H": res, "W": res, "C": c, "relu": relu, "max_abs_err": err,
+                         "max_err_steps": steps, "max_steps_vs_bf16_plain": steps_bf16,
+                         "err_frames": f"first {min(n, 256)} and the last", "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "library_layout": "channels_last", "bound_ms": bound_ms,
+                         "bound_by": bound_by, "launches": launches, "reps": reps})
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def vit_attention_bf16_rows():
+    """The ViT attention's bf16 variant at a request's (B=8) and the 05
+    batch's (B=16) frames against its plain version in float32 on the same
+    bf16 inputs, with the bf16 plain version's time and
+    ``F.scaled_dot_product_attention`` in bf16 as the yardstick."""
+    import torch.nn.functional as F
+
+    from textocvp_tpu_torch.ops import vit_attention as va
+
+    scale = VIT_DH ** -0.5
+    gen = torch.Generator().manual_seed(SEED + 13)
+    rows = []
+    for b in (BATCH, CLIP_EVAL_BATCH):
+        q, k, v = (torch.randn((b, VIT_HEADS, VIT_TOKENS, VIT_DH), generator=gen).cuda()
+                   .to(torch.bfloat16) for _ in range(3))
+        launches = va.vit_attention_bf16_cuda.launches
+        out = va.vit_attention_bf16_cuda(q, k, v, scale)
+        ref = va.vit_attention_plain(q.float(), k.float(), v.float(), scale)
+        torch.cuda.synchronize()
+        steps = bf16_steps(out, ref)
+        check(bool(torch.isfinite(out).all()) and steps <= 1,
+              f"ViT attention bf16 vs plain at B={b}: {steps} bf16 steps > 1")
+        ms = cuda_ms(lambda: va.vit_attention_bf16_cuda(q, k, v, scale), hold=True)
+        plain_ms = cuda_ms(lambda: va.vit_attention_plain(q, k, v, scale))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                             hold=True)
+        bound_ms, bound_by = bound(2 * 4 * b * VIT_HEADS * VIT_TOKENS * VIT_DH,
+                                   4 * b * VIT_HEADS * VIT_TOKENS ** 2 * VIT_DH, BF16_FLOP_PER_S)
+        rows.append({"B": b, "h": VIT_HEADS, "n": VIT_TOKENS, "dh": VIT_DH,
+                     "max_abs_err": (out.float() - ref).abs().max().item(),
+                     "max_err_steps": steps,
+                     "max_steps_vs_bf16_plain": bf16_steps(out, ref.to(torch.bfloat16)),
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "launches": va.vit_attention_bf16_cuda.launches - launches})
+    return rows
+
+
 def grad_errs(got, want):
     """Each gradient's max abs error over its reference's max |value|, that
     scale floored at a thousandth of the largest reference's: a gradient that
@@ -1092,6 +1232,8 @@ def phase_kernels():
             "conv5": conv5_rows(),
             "conv5_upsample": conv5_variant_rows(),
             "conv_int8": conv_int8_rows(),
+            "conv5_bf16": conv5_bf16_rows(),
+            "vit_attention_bf16": vit_attention_bf16_rows(),
             "conv5_backward": conv5_backward_rows(),
             "conv5_frozen_backward": conv5_frozen_backward_rows(),
             "slot_attention_backward": slot_attention_backward_rows(
@@ -1101,6 +1243,8 @@ def phase_kernels():
                 CLIP_TRAIN_BATCH // CLIP_ACCUM, CLIP_PATCHES, 10, 512, SEED + 11)}
     emit({"phase": "kernels", "tolerance_abs": {"slot_attention": 1e-4, "vit_attention": 2e-5,
                                                 "conv5": 1e-4, "conv_int8": 0},
+          "tolerance_bf16_steps": {"conv5_bf16": 1, "vit_attention_bf16": 1,
+                                   "step": "2**-8 of max |plain|, plain in float32"},
           "tolerance_rel_backward": GRAD_TOLERANCE, **rows})
     gc.collect()
     torch.cuda.empty_cache()
@@ -1208,7 +1352,8 @@ def kernel_counters():
     from textocvp_tpu_torch.ops import vit_attention as va
 
     return {"slot_attention": sak.slot_attention_cuda, "vit_attention": va.vit_attention_cuda,
-            "conv5": c5.conv5_cuda, "conv_int8": ci.conv_int8_cuda}
+            "conv5": c5.conv5_cuda, "conv_int8": ci.conv_int8_cuda,
+            "vit_attention_bf16": va.vit_attention_bf16_cuda, "conv5_bf16": c5.conv5_bf16_cuda}
 
 
 def every_kernel(counts: dict) -> dict:
@@ -3682,13 +3827,14 @@ def write_cliport_png_fixture(root: Path) -> Path:
 def png_route_eval(tmp: Path, phase, path: ServedPath, png_root: Path, cache_args, batch,
                    want_launches):
     """The 05 CLI (B=``batch``, 1 seed frame, ``path.num_preds``) over the
-    PNG set ``png_root`` on the card, a PNG route's main path, then over the
-    ``.npy`` caches that ``cli/make_npy_cache.py`` builds from it (args
-    ``cache_args``): the same weights, the same frames bit for bit, so the
-    same ``results.json``. Then the loader's frames/s on the PNG set against
-    the eval step's demand, and the device's idle share of the loader's
-    batch and its step under ``torch.profiler``. Returns the main path's
-    launches."""
+    PNG set ``png_root`` on the card, a PNG route's main path; the ``.npy``
+    caches that ``cli/make_npy_cache.py`` builds from it (args
+    ``cache_args``) hold the same items bit for bit, so the cache route's
+    05 gives the same ``results.json`` (its CLI run, the same path as the
+    ``eval`` phase's, was cut to keep the run inside its time limit). Then
+    the loader's frames/s on the PNG set against the eval step's demand, and
+    the device's idle share of the loader's batch and its step under
+    ``torch.profiler``. Returns the main path's launches."""
     from textocvp_tpu_torch.cli import evaluate_predictor, make_npy_cache
     from textocvp_tpu_torch.data.loader import load_data
     from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
@@ -3699,21 +3845,19 @@ def png_route_eval(tmp: Path, phase, path: ServedPath, png_root: Path, cache_arg
     cache_s = time.perf_counter() - t
     params, pred_params = full_width_params(path)
     results, exps, cli_s = {}, {}, {}
-    for route, root in (("png", png_root), ("cache", cache_root)):
+    for route, root in (("png", png_root),):
         for p in (params, pred_params):
             p["dataset"]["root"] = str(root)
         exps[route] = write_experiment(tmp / f"{phase}_{route}", params, pred_params)
         argv = ["-d", str(exps[route]), "--name_pred_exp", "textocvp_t5", "--decomp_ckpt",
                 "random", "--pred_ckpt", "random", "--batch_size", str(batch), "--num_seed",
                 "1", "--num_preds", str(path.num_preds)]
-        if route == "png":
-            reset_launches()  # the main path starts here
+        reset_launches()  # the main path starts here
         t = time.perf_counter()
         rc = evaluate_predictor.main(argv)
         torch.cuda.synchronize()
         cli_s[route] = time.perf_counter() - t
-        if route == "png":
-            counts = launches()  # and ends here
+        counts = launches()  # and ends here
         check(rc == 0, f"{phase} {route}: evaluate_predictor returned {rc}")
         with open(exps[route] / "predictors" / "textocvp_t5" / "results" / (
                 f"eval_pred_random_NumSeed=1_NumPreds={path.num_preds}") / "results.json") as f:
@@ -3724,8 +3868,6 @@ def png_route_eval(tmp: Path, phase, path: ServedPath, png_root: Path, cache_arg
         check(len(results["png"][m]["framewise"]) == path.num_preds
               and bool(np.isfinite(results["png"][m]["framewise"]).all()),
               f"{phase}: {m} {results['png'][m]}")
-    check(results["png"] == results["cache"],
-          f"{phase}: results.json over the PNGs differs from the cache route's")
 
     ev = PredictorEvaluator(exps["png"], "textocvp_t5", "random", "random", num_seed=1,
                             num_preds=path.num_preds, batch_size=batch)
@@ -3749,7 +3891,7 @@ def png_route_eval(tmp: Path, phase, path: ServedPath, png_root: Path, cache_arg
           "items": len(cached), "src_hw": list(HOST_SHAPES[path.name][0]),
           "img_hw": [path.res, path.res], "loader_workers": ev.test_loader.num_workers,
           "cli_seconds": cli_s, "cache_seconds": cache_s, "launches": counts,
-          "results_equal_to_cache_route": True,
+          "items_equal_to_cache_route": True,
           "loader_frames_per_s": loader_fps, "eval_step_ms": step_ms,
           "eval_step_demand_frames_per_s": demand, "peak_mem_gb": peak_gb,
           "loader_and_step_wall_ms": prof["profiled_step_wall_ms"],
@@ -3762,9 +3904,9 @@ def png_route_eval(tmp: Path, phase, path: ServedPath, png_root: Path, cache_arg
     return counts
 
 
-def run_png_eval(tmp: Path):
-    """The CATER 05 over frame directories of PNGs (``png_eval``)."""
-    root = write_cater_png_fixture(tmp / "CATER_png")
+def run_png_eval(tmp: Path, root: Path):
+    """The CATER 05 over frame directories of PNGs (``png_eval``) in ``root``,
+    written by ``write_cater_png_fixture``."""
     return png_route_eval(tmp, "png_eval", PATHS[0], root,
                           ["--dataset", "cater", "--mode", "easy", "--split", "test",
                            "--img-size", f"{PATHS[0].res}x{PATHS[0].res}",
@@ -5498,6 +5640,261 @@ def shared_card_phase(shared, device):
     return counts
 
 
+# ------------------------------------------------------------------ bfloat16
+#
+# tpu.compute_dtype "bfloat16" on both served experiments: each path's
+# predictor experiment again as PRED_NAME_BF16, its params in bf16, the same
+# random weights. The timed phases (one 8-row request through the live
+# service a path; one 05 step on CATER) run on the idle card, each path's
+# untimed checks of the card's bf16 outputs against its float32 ones (same
+# weights, video, noise and captions) right after its service, and the
+# port's CPU bf16 at batch 2 in the parity worker (finish_parities); beside
+# mesh_shared_card's ranks they would slow the ranks' host work.
+
+PRED_NAME_BF16 = f"{PRED_NAME}_bf16"
+# card bf16 against card float32, of max |float32|: the seed's slots and
+# reconstructed frames must lie in (lo, hi]; the predicted frames' largest
+# and mean distances within PERF.md section 2's limits
+BF16_SEED_RANGE = (1e-4, 5e-2)
+BF16_PRED_MAX, BF16_PRED_MEAN = 0.5, 1e-2
+BF16_PARITY_BATCH = 2
+
+
+def bf16_experiment(exp_path: Path) -> str:
+    """``exp_path``'s PRED_NAME again as PRED_NAME_BF16, computing in bf16
+    (once); returns the name."""
+    if not (exp_path / "predictors" / PRED_NAME_BF16).exists():
+        quant_experiment(exp_path, PRED_NAME, PRED_NAME_BF16, "random", compute_dtype="bfloat16")
+    return PRED_NAME_BF16
+
+
+def bf16_kernel_entry(kernel, rows_, key, main_key, counts):
+    """A kernel's ``bf16`` object of the ``kernels`` line: the row of its bf16
+    variant where ``key`` is ``main_key`` (with the ReLU, where rows have
+    one) at the top, every row below, and the launches of ``kernel`` on each
+    path of ``counts``."""
+    main = next(r for r in rows_ if r[key] == main_key and r.get("relu", True))
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+              "max_err_steps", "max_steps_vs_bf16_plain")
+    return {**{k: main[k] for k in fields}, "shape": {key: main_key},
+            "max_err_steps_all": max(r["max_err_steps"] for r in rows_), "tolerance_steps": 1,
+            "launches": sum(c.get(kernel, 0) for c in counts.values()),
+            "launches_by_path": {p: c.get(kernel, 0) for p, c in counts.items()},
+            "rows": [{k: r[k] for k in (key, "relu", *fields) if k in r} for r in rows_]}
+
+
+def phase_bf16_serve(path: ServedPath, exp_path: Path) -> dict:
+    """The live service of ``path``'s served experiment in bf16: built and
+    warmed up, then its main path, one 8-row request between a reset and a
+    read of the counters (one slot-attention launch, and the bf16 conv5's
+    three or the bf16 ViT attention's twelve), then two more requests and a
+    stage split. Returns the main path's launches."""
+    from textocvp_tpu_torch.serve import PredictionService
+
+    name = bf16_experiment(exp_path)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    service = PredictionService(exp_path, name, "random", "random", batch_size=BATCH,
+                                max_tokens=MAX_TOKENS, device="cuda")
+    load_s = time.perf_counter() - t
+    check(service.compute_dtype == "bfloat16", f"bf16_{path.name}: {service.compute_dtype}")
+    service.warmup()
+    video = np.random.default_rng(SEED).uniform(0, 1, (BATCH, 1, path.res, path.res, 3))
+    video = video.astype(np.float32)
+    captions = list(path.captions[:BATCH])
+    reset_launches()  # the main path starts here
+    t = time.perf_counter()
+    out = service.predict(video, captions)
+    request_ms = 1e3 * (time.perf_counter() - t)
+    counts = launches()  # and ends here
+    want = every_kernel({"slot_attention": 1, "vit_attention_bf16": path.vit_per_request,
+                         "conv5_bf16": path.conv5_per_request})
+    check(counts == want, f"bf16_{path.name}: launches of a request {counts}, want {want}")
+    check(out.shape == (BATCH, path.num_preds, path.res, path.res, 3)
+          and bool(np.isfinite(out).all()) and out.min() >= 0 and out.max() <= 1,
+          f"bf16_{path.name}: reply {out.shape}, [{out.min()}, {out.max()}]")
+    inside = float(((out > 0) & (out < 1)).mean())
+    check(inside >= 0.05, f"bf16_{path.name}: share of values inside (0, 1): {inside}")
+    steady = []
+    for _ in range(2):
+        t = time.perf_counter()
+        service.predict(video, captions)
+        steady.append(1e3 * (time.perf_counter() - t))
+    text = service._tokenize(captions)
+    torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+    pred_slots = service._predict_stage(video, text)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    service._decode_stage(pred_slots)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    check(pred_slots.dtype == torch.bfloat16, f"bf16_{path.name}: slots {pred_slots.dtype}")
+    emit({"phase": f"bf16_{path.name}", "path": path.name, "compute_dtype": "bfloat16",
+          "batch": BATCH, "num_preds": path.num_preds, "load_s": load_s,
+          "request_ms": request_ms, "steady_8_row_ms": steady,
+          "stage_ms": {"predict": 1e3 * (marks[1] - marks[0]),
+                       "decode": 1e3 * (marks[2] - marks[1])},
+          "unsaturated_share": inside, "launches": counts,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    del service, pred_slots
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_bf16_eval_step(exp_path: Path) -> dict:
+    """One 05 step in bf16 at B=64, p=19 on the eval path's experiment (a
+    warm step first), its launches between a reset and a read (one
+    slot-attention launch, three bf16 conv5), its ms, predicted frames a
+    second and peak memory. Returns the launches."""
+    from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
+
+    ev = PredictorEvaluator(exp_path, bf16_experiment(exp_path), "random", "random",
+                            num_seed=1, num_preds=EVAL_PREDS, batch_size=EVAL_BATCH)
+    ev.load_data()
+    ev.load_models()
+    videos, info = next(iter(ev.test_loader))
+    ev.eval_step(videos, info)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the main path starts here
+    t = time.perf_counter()
+    vals = ev.eval_step(videos, info)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t)
+    counts = launches()  # and ends here
+    want = every_kernel({"slot_attention": 1, "conv5_bf16": 3})
+    check(counts == want, f"bf16_cater_eval_step: launches {counts}, want {want}")
+    check(all(bool(torch.isfinite(x).all()) for x in vals.values()), "bf16 05 metrics finite")
+    emit({"phase": "bf16_cater_eval_step", "compute_dtype": "bfloat16", "batch": EVAL_BATCH,
+          "num_preds": EVAL_PREDS, "step_ms": step_ms,
+          "pred_frames_per_s": 1e3 * EVAL_BATCH * EVAL_PREDS / step_ms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "metrics_mean": {k: float(v.float().mean()) for k, v in vals.items()},
+          "launches": counts})
+    del ev, vals
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def served_models(exp_path: Path, pred_name: str, device):
+    """The decomposition model and predictor of ``exp_path``'s predictor
+    experiment ``pred_name`` (its compute dtype), their ``random`` weights,
+    in ``eval()`` on ``device``."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.models import setup_model, setup_predictor
+    from textocvp_tpu_torch.train.checkpoints import load_params
+
+    params = Experiment(exp_path / "predictors" / pred_name).params
+    model = setup_model(params)
+    model.load_state_dict(load_params(exp_path / "models" / "random.pt"))
+    predictor = setup_predictor(params)
+    predictor.load_state_dict(load_params(exp_path / "predictors" / pred_name / "models"
+                                          / "random.pt"))
+    return (model.to(device).eval().requires_grad_(False),
+            predictor.to(device).eval().requires_grad_(False))
+
+
+def bf16_outputs(model, predictor, video, noise, text, num_preds) -> dict:
+    """The seed's slots and reconstructed frames and the predicted frames of
+    ``video`` (B, 1, H, W, 3) from the initial slots' ``noise``, float32 on
+    the CPU."""
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        init = model.slot_initializer(video.shape[0], noise=noise.to(dev))
+        seed = model.decompose(video.to(dev), initial_slots=init)["slot_history"]
+        frames = model.decoded(seed)["recons_imgs"]
+        preds = predictor(seed, num_preds=num_preds,
+                          **{k: v.to(dev) for k, v in text.items()})
+        pred_frames = model.decode(preds.reshape(-1, *preds.shape[2:]))["recons_imgs"]
+    return {k: v.float().cpu() for k, v in (("seed_slots", seed), ("seed_frames", frames),
+                                             ("pred_frames", pred_frames.clamp(0.0, 1.0)))}
+
+
+def bf16_cpu_half(spec_path, out_path):
+    """The port's CPU bf16 outputs of a bf16 check's first BF16_PARITY_BATCH
+    rows, in the parity worker."""
+    spec = torch.load(spec_path, weights_only=False)
+    model, predictor = served_models(Path(spec["exp"]), PRED_NAME_BF16, "cpu")
+    torch.save(bf16_outputs(model, predictor, spec["video"], spec["noise"], spec["text"],
+                            spec["num_preds"]), out_path)
+
+
+def e_max(a, b, ref):
+    """max |a - b| over max |ref|."""
+    return ((a - b).abs().max() / ref.abs().max()).item()
+
+
+def phase_bf16_card(path: ServedPath, tmp: Path):
+    """``path``'s bf16 outputs on the card against the card's float32 ones on
+    the same weights, video, noise and captions (BATCH rows): the seed's
+    slots and reconstructed frames within BF16_SEED_RANGE, the predicted
+    frames within BF16_PRED_MAX and BF16_PRED_MEAN of max |float32|. Untimed.
+    The first BF16_PARITY_BATCH rows go to the parity worker
+    (``bf16_cpu_half``), and ``finish_parities`` holds the card's bf16 to
+    the port's CPU bf16 there: each output within 2 e(bf16, float32) + 2**-8,
+    the rule of the CPU tests (tests/torch_bf16.py), e(bf16, float32) the
+    card's own distance on those rows."""
+    exp_path = tmp / path.name / "exp"
+    gen = torch.Generator().manual_seed(SEED + 9)
+    video = torch.rand((BATCH, 1, path.res, path.res, 3), generator=gen)
+    _, pred_params = full_width_params(path)
+    mp = pred_params["model"]["model_params"]
+    noise = torch.randn((BATCH, mp["num_slots"], mp["slot_dim"]), generator=gen)
+    text = caption_batch(pred_params, BATCH, path)
+    card = {}
+    for dt, name in (("float32", PRED_NAME), ("bfloat16", bf16_experiment(exp_path))):
+        model, predictor = served_models(exp_path, name, "cuda")
+        card[dt] = bf16_outputs(model, predictor, video, noise, text, path.num_preds)
+        del model, predictor
+        torch.cuda.empty_cache()
+    line = {}
+    for k in ("seed_slots", "seed_frames"):
+        d = e_max(card["bfloat16"][k], card["float32"][k], card["float32"][k])
+        check(BF16_SEED_RANGE[0] < d <= BF16_SEED_RANGE[1],
+              f"bf16_{path.name}: {k} card bf16 vs float32 {d} outside {BF16_SEED_RANGE}")
+        line[k] = d
+    pb, pf = card["bfloat16"]["pred_frames"], card["float32"]["pred_frames"]
+    d_max, d_mean = e_max(pb, pf, pf), ((pb - pf).abs().mean() / pf.abs().max()).item()
+    check(BF16_SEED_RANGE[0] < d_max <= BF16_PRED_MAX and d_mean <= BF16_PRED_MEAN,
+          f"bf16_{path.name}: predicted frames card bf16 vs float32 max {d_max} "
+          f"(limit {BF16_PRED_MAX}), mean {d_mean} (limit {BF16_PRED_MEAN})")
+    line.update(pred_frames_max=d_max, pred_frames_mean=d_mean)
+
+    spec_path, out_path = tmp / f"bf16_{path.name}_spec.pt", tmp / f"bf16_{path.name}_cpu.pt"
+    rows_ = slice(0, BF16_PARITY_BATCH)
+    torch.save({"exp": str(exp_path), "video": video[rows_], "noise": noise[rows_],
+                "text": {k: v[rows_] for k, v in text.items()}, "num_preds": path.num_preds},
+               spec_path)
+    t = time.perf_counter()
+    job = parity_pool().apply_async(bf16_cpu_half, (str(spec_path), str(out_path)))
+    mine = {dt: {k: v[:BF16_PARITY_BATCH * (path.num_preds if k == "pred_frames" else 1)]
+                 for k, v in out.items()} for dt, out in card.items()}
+
+    def finish():
+        job.get(timeout=1800)
+        waited = time.perf_counter() - t
+        cpu = torch.load(out_path)
+        out = {}
+        for k, got in mine["bfloat16"].items():
+            ref = mine["float32"][k]
+            base = e_max(got, ref, ref)
+            d = e_max(got, cpu[k], ref)
+            limit = 2 * base + BF16_STEP
+            check(d <= limit, f"bf16_{path.name}: {k} card bf16 vs CPU bf16 {d} > {limit}")
+            out[k] = {"card_vs_cpu_bf16": d, "card_bf16_vs_float32": base, "limit": limit}
+        return {"outputs": out, "cpu_half": {"waited_s_after_submit": waited}}
+
+    defer_parity(f"bf16_{path.name}_parity", finish, path=path.name, batch=BF16_PARITY_BATCH,
+                 rule="card bf16 within 2 e(card bf16, card float32) + 2**-8 of the CPU bf16, "
+                      "of max |card float32|")
+    emit({"phase": f"bf16_{path.name}_card", "path": path.name, "batch": BATCH,
+          "of_max_float32": line, "seed_range": BF16_SEED_RANGE,
+          "pred_frames_max_limit": BF16_PRED_MAX, "pred_frames_mean_limit": BF16_PRED_MEAN})
+
+
 def run_path(path: ServedPath, tmp: Path):
     """Parity, then the main path (service + HTTP) between a reset and a read
     of the launch counters, then the profile. Returns the main path's launches."""
@@ -5533,10 +5930,13 @@ def main() -> int:
         phase_host_io(Path(tmp))
         made = phase_create(Path(tmp))
         counts = {path.name: run_path(path, Path(tmp)) for path in PATHS}
+        for path in PATHS:
+            counts[f"bf16_{path.name}"] = phase_bf16_serve(path, Path(tmp) / path.name / "exp")
+            phase_bf16_card(path, Path(tmp))  # untimed: the card's bf16 against its float32
         run_export(Path(tmp))  # the artifacts load in a process of their own meanwhile
         counts["serve_batching"] = phase_serve_batching(Path(tmp) / PATHS[0].name / "exp")
         counts["eval"] = run_eval(Path(tmp))
-        counts["png_eval"] = run_png_eval(Path(tmp))
+        counts["bf16_cater_eval_step"] = phase_bf16_eval_step(Path(tmp) / "eval" / "exp")
         counts["train"], train_input_grad, train_exp = run_train(Path(tmp))
         # 03 on the SAVi that 02 wrote, over the eval path's 128 test videos
         counts["decomp_eval"] = run_decomp_eval(
@@ -5549,12 +5949,15 @@ def main() -> int:
         counts.update(run_figs(train_exp))
         other_counts, other_input_grad, other_weight_grad = run_predictors(Path(tmp), train_exp)
         counts.update(other_counts)
-        # mesh_shared_card's two ranks beside the CLIPort fixture, which times nothing
+        # mesh_shared_card's two ranks beside the CLIPort fixture and the CATER
+        # PNG set (host work on one core), which time nothing
         mesh = start_mesh(Path(tmp), train_exp)
         try:
             clip_data, clip_exp = clip_fixture(Path(tmp))
+            png_root = write_cater_png_fixture(Path(tmp) / "CATER_png")
         finally:
-            wait_mesh(mesh)  # and done before the CLIPort chain's timed phases
+            wait_mesh(mesh)  # and done before the timed phases after it
+        counts["png_eval"] = run_png_eval(Path(tmp), png_root)
         counts.update(run_clip(Path(tmp), made["clipport"], clip_data, clip_exp))
         counts.update(run_quant(Path(tmp), Path(tmp) / "eval" / "exp", Path(tmp) / "clip_train"))
         counts.update(run_clip_figs(Path(tmp) / "clip_train"))
@@ -5578,6 +5981,8 @@ def main() -> int:
     sa_bwd = {r["iters"]: r for r in rows["slot_attention_backward"]}
     sa_bwd_clip = {r["iters"]: r for r in rows["slot_attention_backward_clipport"]}
     (conv_frozen,) = rows["conv5_frozen_backward"]
+    bf16_entry = partial(bf16_kernel_entry, counts=counts)
+
     int8_rows = {r["case"]: r for r in rows["conv_int8"]}
     int8_eval = int8_rows["savi_eval"]
     emit({"kernels": [{
@@ -5641,6 +6046,7 @@ def main() -> int:
         **{f"b{b}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_ms_fp32_cores",
                                        "library_ms", "max_abs_err")}
            for b, r in vit.items() if b != BATCH},
+        "bf16": bf16_entry("vit_attention_bf16", rows["vit_attention_bf16"], "B", BATCH),
     }, {
         "name": "conv5",
         "route": "cuda",
@@ -5683,6 +6089,7 @@ def main() -> int:
                          "rel_err")} for n, r in conv_bwd.items()},
                      "ms": conv_train["backward_ms"], "bound_ms": conv_train["backward_bound_ms"],
                      "library_ms": conv_train["library_ms"]},
+        "bf16": bf16_entry("conv5_bf16", rows["conv5_bf16"], "N", EVAL_BATCH * EVAL_PREDS * 8),
     }, {
         "name": "conv_int8",
         "route": "cuda",

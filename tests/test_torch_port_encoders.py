@@ -11,8 +11,9 @@ reaches, against the JAX package's on the CPU, at small sizes.
 * ``ConvTransposeBlock`` (both arms, BatchNorm and x2 upsampling) and
   ``LearnedPositionalEncoding1D`` (an offset, deterministic): the same
   limits.
-* ``tpu.compute_dtype`` other than float32 raises instead of computing
-  float32.
+* ``tpu.compute_dtype``: "bfloat16" builds both models (parameters
+  float32, compute bf16) and the trainers refuse it; any other name but
+  "float32" raises instead of computing float32.
 """
 
 import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
@@ -225,13 +226,29 @@ def test_group_norm_is_flax_with_its_epsilon():
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
-def test_compute_dtype_other_than_float32_raises(dtype):
+def test_compute_dtype_other_than_float32_raises(dtype, tmp_path):
+    """float16 raises where the models are built. bfloat16 builds them, and
+    what raises is the trainers, whose bf16 backward waits for ROADMAP.md §1."""
     from textocvp_tpu_torch.core.config import add_predictor_params
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
 
     params = build_exp_params("SAVi", "CATER_Easy")
     params["tpu"] = {"compute_dtype": "float32"}
     setup_model(params)  # float32 stays allowed
     params["tpu"]["compute_dtype"] = dtype
+    if dtype == "bfloat16":
+        model = setup_model(params)
+        predictor = setup_predictor(add_predictor_params(params, "OCVPSeq"))
+        for mod in (model, predictor):
+            assert mod.compute_dtype == torch.bfloat16
+            assert {p.dtype for p in mod.parameters()} == {torch.float32}
+        exp = Experiment(tmp_path / "exp")
+        exp.save_params(params)
+        with pytest.raises(NotImplementedError,
+                           match=r"DecompTrainer .*'bfloat16'.*ROADMAP\.md §1"):
+            DecompTrainer(exp.exp_path, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1.*bfloat16"):
         setup_model(params)
     with pytest.raises(NotImplementedError, match=f"compute_dtype '{dtype}'"):

@@ -27,7 +27,11 @@ artifact answering like the live service; the ViT attention at 6 heads a
 rank (ViT-B under ``model=2``), and a row shard's int8 dense taking the
 whole weight's scales; the ResNet SAVi and the BatchNorm upsampling decoder
 on the card against the CPU, GroupNorm on the card against the CPU, and a
-ResNet SAVi train step that reaches every parameter. Marked ``gpu``;
+ResNet SAVi train step that reaches every parameter; the bf16 variants of
+conv5 and the ViT attention against their plain versions run in float32 on
+the same bf16 inputs (within 2**-8 of the largest value) across their
+tiles, their refusals of grad and CPU tensors, and float32 calls still
+launching the float32 variants. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -1288,3 +1292,84 @@ def test_a_resnet_savi_train_step_on_the_card_reaches_every_parameter(cuda, tmp_
     assert bool(torch.isfinite(values["_total"]))
     for name, param in tr.model.named_parameters():
         assert param.grad is not None and bool(torch.isfinite(param.grad).all()), name
+
+
+# ------------------------------------------------------------------ bfloat16
+#
+# The bf16 variants round their float32 result once to bf16; each is held
+# against its plain version run in float32 on the same bf16 inputs (the
+# float32 weights rounded to bf16 as the kernel rounds them), within one bf16
+# step at the largest value, 2**-8 of max |plain|: the rounding moves a value
+# by half a bf16 step of its own binade at most, and the float32 sums in
+# other orders by far less. (Against the bf16 plain version, which rounds its
+# own float32 sum, a value where the two sums straddle a rounding edge
+# differs by a whole bf16 step of its binade, up to 2 x 2**-8 of the max.)
+
+BF16_STEP = 2.0 ** -8
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 64, 64), (3, 17, 70), (1, 1, 1), (4, 5, 130), (2, 15, 63),
+                                   (1, 33, 129), (70, 16, 16)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv5_bf16_kernel_matches_plain(cuda, n, h, w, relu):
+    x, wt, b = _conv5_case(n, h, w)
+    x, wb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
+    before = (c5.conv5_cuda.launches, c5.conv5_bf16_cuda.launches)
+    out = c5.conv5_cuda(x, wt, b, relu)  # float32 weights, rounded to bf16 in the wrapper
+    torch.cuda.synchronize()
+    assert (c5.conv5_cuda.launches, c5.conv5_bf16_cuda.launches) == (before[0], before[1] + 1)
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    ref = c5.conv5_plain(x.float(), wb.float(), b, relu)
+    err = (out.float() - ref).abs().max().item()
+    assert err <= BF16_STEP * ref.abs().max().item(), err
+    # the plain version of the contract: the float32 sum rounded once
+    torch.testing.assert_close(c5.conv5_plain(x, wt, b, relu), ref.to(torch.bfloat16),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,h,n", [(8, 12, 577), (2, 4, 150), (1, 1, 1), (3, 2, 64), (2, 3, 63),
+                                   (2, 3, 65), (1, 2, 129)])
+def test_vit_attention_bf16_kernel_matches_plain(cuda, b, h, n):
+    q, k, v = (t.to(torch.bfloat16) for t in _qkv(b, h, n))
+    before = (va.vit_attention_cuda.launches, va.vit_attention_bf16_cuda.launches)
+    out = va.vit_attention_cuda(q, k, v, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert (va.vit_attention_cuda.launches, va.vit_attention_bf16_cuda.launches) == (
+        before[0], before[1] + 1)
+    assert out.dtype == torch.bfloat16
+    ref = va.vit_attention_plain(q.float(), k.float(), v.float(), 64 ** -0.5)
+    err = (out.float() - ref).abs().max().item()
+    assert err <= BF16_STEP * ref.abs().max().item(), err
+
+
+def test_bf16_wrappers_refuse_grad_and_cpu_tensors(cuda):
+    x, wt, b = _conv5_case(2, 8, 8)
+    x = x.to(torch.bfloat16)
+    q, k, v = (t.to(torch.bfloat16) for t in _qkv(1, 2, 10))
+    before = (c5.conv5_bf16_cuda.launches, va.vit_attention_bf16_cuda.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        c5.conv5(x, wt.requires_grad_(), b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        c5.conv5_bf16_cuda(x.requires_grad_(), wt.detach(), b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        va.vit_attention_cuda(q.requires_grad_(), k, v, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        c5.conv5_bf16_cuda(x.detach().cpu(), wt.detach().cpu(), b.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        va.vit_attention_bf16_cuda(q.detach().cpu(), k.cpu(), v.cpu(), 0.125)
+    with pytest.raises(TypeError, match="float32"):
+        c5.conv5_bf16_cuda(x.detach(), wt.detach(), b.to(torch.bfloat16))  # the bias is float32
+    assert (c5.conv5_bf16_cuda.launches, va.vit_attention_bf16_cuda.launches) == before
+
+
+def test_float32_calls_still_launch_the_float32_variants(cuda):
+    x, wt, b = _conv5_case(2, 8, 8)
+    q, k, v = _qkv(1, 2, 10)
+    before = {f: f.launches for f in (c5.conv5_cuda, c5.conv5_bf16_cuda, va.vit_attention_cuda,
+                                      va.vit_attention_bf16_cuda)}
+    with torch.no_grad():
+        assert c5.conv5(x, wt, b).dtype == va.vit_attention(q, k, v, 0.125).dtype == torch.float32
+    torch.cuda.synchronize()
+    assert {f: f.launches - n for f, n in before.items()} == {
+        c5.conv5_cuda: 1, c5.conv5_bf16_cuda: 0, va.vit_attention_cuda: 1,
+        va.vit_attention_bf16_cuda: 0}

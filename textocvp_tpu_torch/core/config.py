@@ -81,24 +81,49 @@ DEFAULTS = {
 # (train/trainer.py), "async_checkpoint" (train/checkpoints.py),
 # "decode_quant" and "encode_quant" ("int8", models/quant.py), "mesh_axes"
 # ({"data": -1, "model": 1} when absent; parallel/distributed.py) and
-# "compute_dtype", which must be "float32" (check_compute_dtype). The JAX
+# "compute_dtype", "float32" or "bfloat16" (check_compute_dtype). The JAX
 # package's other knobs there (use_pallas, donate_step_buffers, ...) are XLA
-# settings that change no output, and the port ignores them.
+# settings, and the port ignores them. One of them does change an output in
+# bfloat16: use_pallas picks the JAX slot attention's Pallas arm, which casts
+# k, v and the slots to float32 around the refinement, where its XLA arm
+# refines in bf16; the two differ by about as much as bf16 differs from
+# float32. The port always follows the Pallas arm, since its slot-attention
+# kernel is that kernel's port (ops/slot_attention.py).
 TPU_KEYS = ("remat", "async_checkpoint", "decode_quant", "encode_quant", "mesh_axes",
             "compute_dtype")
 
 
-def check_compute_dtype(exp_params: dict):
-    """Raise unless ``tpu.compute_dtype`` is absent, null or "float32": the
-    port computes float32 only, and the JAX package's "bfloat16" (matmuls and
-    convs in bfloat16 with float32 parameters) is a slice of its own
-    (ROADMAP.md §1, "tpu.compute_dtype: bfloat16")."""
+def check_compute_dtype(exp_params: dict) -> str:
+    """``tpu.compute_dtype`` of ``exp_params``: "float32" (also when absent or
+    null) or "bfloat16" (matmuls and convs in bfloat16, parameters float32,
+    as the JAX package computes). Raises for any other name, where the JAX
+    package silently computes float32, and for bfloat16 beside int8
+    (``tpu.decode_quant`` / ``tpu.encode_quant``), which waits for
+    ROADMAP.md §1."""
     dtype = tpu_option(exp_params, "compute_dtype")
-    if dtype not in (None, "float32"):
+    if dtype in (None, "float32"):
+        return "float32"
+    if dtype != "bfloat16":
         raise NotImplementedError(
-            f"tpu.compute_dtype {dtype!r}: the port computes float32 only; bfloat16 waits "
-            "for ROADMAP.md §1's 'tpu.compute_dtype: bfloat16' (bf16 conv5, ViT attention "
-            "and slot-attention kernels). Set it to \"float32\" or remove it")
+            f"tpu.compute_dtype {dtype!r}: the port computes \"float32\" and \"bfloat16\" "
+            "only (ROADMAP.md §1 lists what waits for bfloat16); set one of them or remove it")
+    for key in ("decode_quant", "encode_quant"):
+        if tpu_option(exp_params, key):
+            raise NotImplementedError(
+                f"tpu.compute_dtype 'bfloat16' with tpu.{key}: bf16 beside int8 waits for "
+                "ROADMAP.md §1; unset one of them")
+    return dtype
+
+
+def refuse_bfloat16(exp_params: dict, what: str):
+    """Raise for ``what``, a path that computes float32 only, when
+    ``tpu.compute_dtype`` is "bfloat16": the 02 and 04 trainers (bf16
+    backward kernels), a mesh of more than one rank, the serving export and
+    the 06 figure CLIs wait for ROADMAP.md §1."""
+    if check_compute_dtype(exp_params) == "bfloat16":
+        raise NotImplementedError(
+            f"{what} in tpu.compute_dtype 'bfloat16' waits for ROADMAP.md §1; set "
+            "tpu.compute_dtype to \"float32\" for it")
 
 
 def tpu_option(exp_params: dict, key: str):

@@ -41,6 +41,8 @@
 // into the activations are 64-bit: at the eval shape one activation holds
 // 2.55e9 floats, past int32. The grid is the SM count on x, whatever N is.
 
+#include <cuda_bf16.h>
+
 #include "tf32x3.cuh"
 
 namespace {
@@ -269,6 +271,210 @@ conv5_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The bfloat16 variant (tpu.compute_dtype "bfloat16"): x and w bf16, the bias
+// float32, out bf16. The contract of the TPU kernel in bf16
+// (bench_pallas_conv.py:81-84, its weights packed bf16 at :32): bf16 operands,
+// float32 accumulation, the float32 bias, the ReLU, one rounding to bf16.
+//
+// What bounds it: operations. 8.16 TFLOP at N = 9728 is 8.25 ms at the bf16
+// dense rate of 989 TFLOP/s; its 10.2 GB of input and output take 3.04 ms.
+// Each product is one mma.sync.m16n8k16.bf16 (no split, unlike 3xTF32).
+//
+// Design: the float32 kernel's implicit GEMM and its walk (a block per SM,
+// even blocks owning output channels 0..31 and odd ones 32..63, tiles of 16
+// rows by 64 columns, warp w owning tile rows 2w and 2w + 1: 8 m tiles of 16
+// pixels times 4 n tiles of 8 channels, 128 float32 accumulators a lane), at
+// bf16: a k16 step is one tap times 16 input channels, 25 x 4 of them a
+// tile. The half's weights (100 KB bf16) stay in shared memory in fragment
+// order, a lane's B fragments of two n tiles one 16-byte load. The input
+// halo of 16 channels (20 x 68 pixels, 32 bytes a pixel) is staged with
+// 16-byte cp.async copies (zero-filled outside the frame) into one of two
+// buffers while the other is read, so a chunk loads while the one before it
+// computes; the A fragments are ldmatrix.x4 loads. The two 16-byte halves of
+// a pixel swap places when bit 2 of its halo index is set, which puts the 8
+// rows of each ldmatrix phase in 8 distinct bank groups. 189 KB of dynamic
+// shared memory.
+
+namespace {
+
+constexpr int BF_PIX = 16;                           // bf16 channels of a pixel in a halo buffer
+constexpr int BF_HALO = HR * HC * BF_PIX;            // bf16 elements of a halo buffer
+constexpr int BF_CHUNKS = C / BF_PIX;                // 4 chunks of 16 input channels
+constexpr int BF_W_STEP = 2 * 32 * 8;                // bf16 a k16 step: 2 n-tile pairs x 32 lanes x 8
+constexpr int BF_W = BF_CHUNKS * TAPS * BF_W_STEP;   // 51200 bf16 of a half
+constexpr int BF_SMEM_BYTES = (BF_W + 2 * BF_HALO) * 2;  // 189440
+constexpr int BF_COPIES = HR * HC * 2;               // 16-byte copies a chunk
+
+static_assert(BF_SMEM_BYTES <= 232448, "fits an SM's shared memory");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bf_cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// The element offset of 16-byte half `half` of halo pixel `p` in a buffer.
+__device__ __forceinline__ int bf_slot(int p, int half) {
+  return p * BF_PIX + 8 * (half ^ ((p >> 2) & 1));
+}
+
+// Weights in fragment order: for chunk c, tap q, n-tile pair jp and lane
+// 4g + t, 8 bf16 (b0, b1 of n tile 2jp, then of 2jp + 1), with b0 = input
+// channels 16c + 2t, 2t + 1 and b1 = 16c + 2t + 8, 2t + 9, output channel
+// 8j + g of the block's half.
+__device__ __forceinline__ void bf_load_weights(const __nv_bfloat16* __restrict__ w, int half,
+                                                __nv_bfloat16* ws) {
+  for (int i = threadIdx.x; i < BF_W; i += THREADS) {
+    const int e = i & 7, lane = (i >> 3) & 31, jp = (i >> 8) & 1, step = i >> 9;
+    const int c = step / TAPS, q = step - c * TAPS;
+    const int j = 2 * jp + (e >> 2), r = e & 3;
+    const int t = lane & 3, g = lane >> 2;
+    const int cin = BF_PIX * c + 2 * t + (r & 1) + 8 * (r >> 1);
+    const int cout = half * HALF + 8 * j + g;
+    ws[i] = w[(q * C + cin) * C + cout];
+  }
+}
+
+// cp.async the 16 channels of chunk c of a tile's halo into a buffer.
+__device__ __forceinline__ void bf_stage(const __nv_bfloat16* __restrict__ x, const Tile& tl,
+                                         long long frame_elems, int c, int h, int wd,
+                                         __nv_bfloat16* buf) {
+  const __nv_bfloat16* xf = x + tl.frame * frame_elems;
+  for (int i = threadIdx.x; i < BF_COPIES; i += THREADS) {
+    const int p = i >> 1, hf = i & 1;
+    const int r = p / HC, col = p - r * HC;
+    const int iy = tl.ty0 - PAD + r, ix = tl.tx0 - PAD + col;
+    const bool in = iy >= 0 && iy < h && ix >= 0 && ix < wd;
+    const __nv_bfloat16* src =
+        in ? xf + ((long long)iy * wd + ix) * C + BF_PIX * c + 8 * hf : x;
+    bf_cp_async16(smem_addr(buf + bf_slot(p, hf)), src, in ? 16 : 0);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+conv5_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                  const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                  long long n, int h, int wd, int relu) {
+  extern __shared__ uint4 bf_smem[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(bf_smem);
+  __nv_bfloat16* halo = ws + BF_W;  // two buffers of BF_HALO
+
+  const int half = blockIdx.x & 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  const int tiles_x = (wd + TW - 1) / TW;
+  const long long tiles_per_frame = (long long)((h + TH - 1) / TH) * tiles_x;
+  const long long ntiles = n * tiles_per_frame;
+  const long long frame_elems = (long long)h * wd * C;
+  const long long stride = gridDim.x >> 1;
+  long long tile = blockIdx.x >> 1;
+  if (tile >= ntiles) return;
+
+  // the first chunk's copy runs while the weights are loaded
+  Tile tl = tile_at(nullptr, tile, tiles_per_frame, tiles_x, 0);  // its frame, rows, columns
+  bf_stage(x, tl, frame_elems, 0, h, wd, halo);
+  bf_load_weights(w, half, ws);
+
+  float bv[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias + half * HALF + 8 * j + 2 * t));
+    bv[j][0] = b2.x;
+    bv[j][1] = b2.y;
+  }
+  // this lane's ldmatrix row: pixel (lane & 15) of an m tile, 16-byte half (lane >> 4)
+  const int lrow = lane & 15, lhalf = lane >> 4;
+  const uint4* wv = reinterpret_cast<const uint4*>(ws);
+
+  int step = 0;  // (tile, chunk) steps so far: the buffer of a step is step & 1
+  for (; tile < ntiles; tile += stride) {
+    const Tile cur = tl;
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+#pragma unroll 1
+    for (int c = 0; c < BF_CHUNKS; ++c, ++step) {
+      __nv_bfloat16* nxt = halo + ((step + 1) & 1) * BF_HALO;
+      if (c + 1 < BF_CHUNKS) {
+        bf_stage(x, cur, frame_elems, c + 1, h, wd, nxt);
+      } else if (tile + stride < ntiles) {
+        tl = tile_at(nullptr, tile + stride, tiles_per_frame, tiles_x, 0);
+        bf_stage(x, tl, frame_elems, 0, h, wd, nxt);
+      } else {
+        asm volatile("cp.async.commit_group;" ::: "memory");  // keeps the wait below uniform
+      }
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+      __syncthreads();  // this step's halo (and, at the first, the weights) are in
+
+      const __nv_bfloat16* buf = halo + (step & 1) * BF_HALO;
+#pragma unroll 1
+      for (int q = 0; q < TAPS; ++q) {
+        const int dy = q / KS, dx = q - dy * KS;
+        const uint4 bw0 = wv[((c * TAPS + q) * 2 + 0) * 32 + lane];
+        const uint4 bw1 = wv[((c * TAPS + q) * 2 + 1) * 32 + lane];
+        const uint32_t bfr[NT][2] = {{bw0.x, bw0.y}, {bw0.z, bw0.w}, {bw1.x, bw1.y},
+                                     {bw1.z, bw1.w}};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int p = (2 * warp + mt / 4 + dy) * HC + 16 * (mt % 4) + lrow + dx;
+          uint32_t a[4];
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                       : "r"(smem_addr(buf + bf_slot(p, lhalf))));
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_bf16(acc[mt][j], a, bfr[j][0], bfr[j][1]);
+        }
+      }
+      __syncthreads();  // this buffer is refilled by the step after next's copy
+    }
+
+    // epilogue: rows g and g + 8 of an m tile are columns 16 * (mt % 4) + g (+ 8)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int oy = cur.ty0 + 2 * warp + mt / 4;
+      if (oy >= h) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ox = cur.tx0 + 16 * (mt % 4) + g + 8 * e;
+        if (ox >= wd) continue;
+        __nv_bfloat16* op = out + cur.frame * frame_elems + ((long long)oy * wd + ox) * C +
+                            half * HALF + 2 * t;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          float v0 = acc[mt][j][2 * e] + bv[j][0], v1 = acc[mt][j][2 * e + 1] + bv[j][1];
+          if (relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
 extern "C" {
 
 // x: (n, h, w, 64), out: the same shape, weight: (5, 5, 64, 64) HWIO, bias:
@@ -292,6 +498,30 @@ int conv5_forward(const float* x, const float* weight, const float* bias, float*
   const dim3 grid((unsigned)(2 * walkers));
   conv5_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       x, weight, bias, out, n, h, w, relu);
+  return cudaGetLastError();
+}
+
+// The bf16 variant: x, out (n, h, w, 64) bf16, weight (5, 5, 64, 64) HWIO
+// bf16, bias (64,) float32; contiguous, 16-byte aligned. Launches on `stream`
+// without synchronising; returns a cudaError_t, 0 on success.
+int conv5_bf16_forward(const void* x, const void* weight, const float* bias, void* out,
+                       long long n, int h, int w, int relu, void* stream) {
+  if (n < 1 || h < 1 || w < 1) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(conv5_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BF_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const long long ntiles =
+      n * (long long)((h + TH - 1) / TH) * (long long)((w + TW - 1) / TW);
+  const long long walkers = ntiles < sms / 2 ? ntiles : (sms / 2 > 0 ? sms / 2 : 1);
+  const dim3 grid((unsigned)(2 * walkers));
+  conv5_bf16_kernel<<<grid, THREADS, BF_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(weight), bias,
+      static_cast<__nv_bfloat16*>(out), n, h, w, relu);
   return cudaGetLastError();
 }
 

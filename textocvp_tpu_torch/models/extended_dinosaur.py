@@ -26,6 +26,7 @@ from textocvp_tpu_torch.nn.blocks import MLP
 from textocvp_tpu_torch.nn.decoders import get_decoder
 from textocvp_tpu_torch.nn.encoders import get_encoder
 from textocvp_tpu_torch.nn.initializers import get_initializer
+from textocvp_tpu_torch.nn.precision import LayerNorm
 from textocvp_tpu_torch.ops.slot_attention import SlotAttention
 
 
@@ -51,7 +52,7 @@ class ExtendedDINOSAUR(nn.Module):
                                              "img_size": img_size}}
         self.image_encoder, feats = get_encoder(enc)
         self.image_encoder.requires_grad_(False)
-        self.feat_proj_ln = nn.LayerNorm(feats, eps=1e-6)
+        self.feat_proj_ln = LayerNorm(feats, eps=1e-6)
         self.feat_proj_mlp = MLP(feats, [mlp_encoder_dim, slot_dim])
         dec = {**decoder, "decoder_params": {**decoder.get("decoder_params", {}),
                                              "img_size": img_size}}

@@ -18,6 +18,7 @@ from textocvp_tpu_torch.models.predictors import (
     VanillaTransformerPredictor,
 )
 from textocvp_tpu_torch.models.savi import SAVi
+from textocvp_tpu_torch.nn.precision import COMPUTE_DTYPES, set_compute_dtype
 
 MODELS = ["SAVi", "ExtendedDINOSAUR"]
 PREDICTORS = ["VanillaTransformer", "OCVPSeq", "OCVPPar", "TextOCVP_CustomTF", "TextOCVP_T5"]
@@ -39,8 +40,16 @@ def check_image_reconstruction(exp_params: dict, purpose: str = "evaluate"):
             "or use a SAVi-decoder experiment")
 
 
+def _dtype_of(exp_params: dict) -> torch.dtype:
+    """The torch dtype of ``tpu.compute_dtype`` (the JAX factory's ``_dtype_of``,
+    which maps any other name to float32 where :func:`check_compute_dtype`
+    raises)."""
+    return COMPUTE_DTYPES[check_compute_dtype(exp_params)]
+
+
 def setup_model(exp_params: dict) -> SAVi | ExtendedDINOSAUR:
-    check_compute_dtype(exp_params)
+    """The decomposition model of ``exp_params``, in its compute dtype."""
+    dtype = _dtype_of(exp_params)
     model_name = exp_params["model"]["model_name"]
     if model_name not in MODELS:
         raise NameError(f"Model '{model_name}' is not ported; the port has {MODELS}")
@@ -57,18 +66,21 @@ def setup_model(exp_params: dict) -> SAVi | ExtendedDINOSAUR:
         transition_module=mp.get("transition_module"),
     )
     if model_name == "ExtendedDINOSAUR":
-        return ExtendedDINOSAUR(img_size=mp["img_size"],
-                                mlp_encoder_dim=mp.get("mlp_encoder_dim", 768), **common)
-    return SAVi(in_channels=mp.get("in_channels", 3),
-                mlp_encoder_dim=mp.get("mlp_encoder_dim", 128), **common)
+        model = ExtendedDINOSAUR(img_size=mp["img_size"],
+                                 mlp_encoder_dim=mp.get("mlp_encoder_dim", 768), **common)
+    else:
+        model = SAVi(in_channels=mp.get("in_channels", 3),
+                     mlp_encoder_dim=mp.get("mlp_encoder_dim", 128), **common)
+    return set_compute_dtype(model, dtype)
 
 
 def setup_predictor(exp_params: dict) -> PredictorWrapper:
     """The predictor of ``exp_params`` in its rollout wrapper: an
     unconditioned one from ``predictor_params`` as they stand, a TextOCVP
     from its nested ``predictor_params``, ``fusion_params`` and
-    ``text_encoder_params``, its text encoder named by the predictor."""
-    check_compute_dtype(exp_params)
+    ``text_encoder_params``, its text encoder named by the predictor; in its
+    compute dtype."""
+    dtype = _dtype_of(exp_params)
     name = exp_params["predictor"]["predictor_name"]
     if name not in PREDICTORS:
         raise NameError(f"Predictor '{name}' is not ported; the port has {PREDICTORS}")
@@ -97,10 +109,11 @@ def setup_predictor(exp_params: dict) -> PredictorWrapper:
             text_encoder_type="t5" if name == "TextOCVP_T5" else "custom_tf",
             text_encoder_params=params.get("text_encoder_params"),
         )
-    return PredictorWrapper(predictor, num_context=prediction["num_context"],
-                            num_preds=prediction["num_preds"],
-                            input_buffer_size=prediction.get("input_buffer_size"),
-                            teacher_force=prediction.get("teacher_force", False))
+    wrapper = PredictorWrapper(predictor, num_context=prediction["num_context"],
+                               num_preds=prediction["num_preds"],
+                               input_buffer_size=prediction.get("input_buffer_size"),
+                               teacher_force=prediction.get("teacher_force", False))
+    return set_compute_dtype(wrapper, dtype)
 
 
 @torch.no_grad()

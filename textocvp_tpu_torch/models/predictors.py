@@ -32,6 +32,7 @@ from textocvp_tpu_torch.nn.blocks import (
     TemporalPositionalEncoding,
     TorchStyleEncoderLayer,
 )
+from textocvp_tpu_torch.nn.precision import LayerNorm, Linear
 from textocvp_tpu_torch.nn.t5 import T5EncoderStack, t5_config
 from textocvp_tpu_torch.nn.text_encoders import TransformerTextEncoder
 
@@ -47,10 +48,10 @@ class _SlotPredictor(nn.Module):
                  input_buffer_size: int, layers):
         super().__init__()
         self.residual = residual
-        self.mlp_in = nn.Linear(slot_dim, token_dim)
+        self.mlp_in = Linear(slot_dim, token_dim)
         self.pe = SlotPositionalEncoding(token_dim, max_len=input_buffer_size)
         self.layers = nn.ModuleList(layers)
-        self.mlp_out = nn.Linear(token_dim, slot_dim)
+        self.mlp_out = Linear(token_dim, slot_dim)
 
     def run_layers(self, x, mask):
         for layer in self.layers:
@@ -107,12 +108,12 @@ class OCVPParLayer(nn.Module):
 
     def __init__(self, token_dim: int, hidden_dim: int, n_heads: int):
         super().__init__()
-        self.norm1 = nn.LayerNorm(token_dim, eps=1e-5)
-        self.norm2 = nn.LayerNorm(token_dim, eps=1e-5)
+        self.norm1 = LayerNorm(token_dim, eps=1e-5)
+        self.norm2 = LayerNorm(token_dim, eps=1e-5)
         self.self_attn_obj = MultiHeadSelfAttention(token_dim, n_heads, use_bias=True)
         self.self_attn_time = MultiHeadSelfAttention(token_dim, n_heads, use_bias=True)
-        self.linear1 = nn.Linear(token_dim, hidden_dim)
-        self.linear2 = nn.Linear(hidden_dim, token_dim)
+        self.linear1 = Linear(token_dim, hidden_dim)
+        self.linear2 = Linear(hidden_dim, token_dim)
 
     def feed_forward(self, x):
         return self.linear2(F.relu(self.linear1(x)))
@@ -162,8 +163,8 @@ class TextOCVP(nn.Module):
         super().__init__()
         self.token_dim = token_dim
         self.residual = residual
-        self.mlp_in = nn.Linear(slot_dim, token_dim)
-        self.mlp_out = nn.Linear(token_dim, slot_dim)
+        self.mlp_in = Linear(slot_dim, token_dim)
+        self.mlp_out = Linear(token_dim, slot_dim)
         self.blocks = nn.ModuleList(
             AdaptedEncoderBlock(token_dim, n_heads, hidden_dim, fusion_num_heads,
                                 fusion_head_dim, fusion_mlp_size)

@@ -18,6 +18,7 @@ from textocvp_tpu_torch.nn.blocks import MLP, SoftPositionEmbed, TransformerBloc
 from textocvp_tpu_torch.nn.decoders import get_decoder
 from textocvp_tpu_torch.nn.encoders import get_encoder
 from textocvp_tpu_torch.nn.initializers import get_initializer
+from textocvp_tpu_torch.nn.precision import LayerNorm
 from textocvp_tpu_torch.ops.slot_attention import SlotAttention
 
 
@@ -48,7 +49,7 @@ class SAVi(nn.Module):
         self.image_encoder, feats = get_encoder(encoder, in_channels)
         self.encoder_pos_embedding = SoftPositionEmbed(
             feats, tuple(encoder["encoder_params"]["resolution"]))
-        self.encoder_ln = nn.LayerNorm(feats, eps=1e-6)  # flax's default epsilon
+        self.encoder_ln = LayerNorm(feats, eps=1e-6)  # flax's default epsilon
         self.encoder_mlp = MLP(feats, [mlp_encoder_dim, mlp_encoder_dim])
         self.decoder_pos_embedding = SoftPositionEmbed(
             slot_dim, tuple(decoder["decoder_params"]["resolution"]))

@@ -9,6 +9,11 @@ Conventions:
   NHWC layout.
 * Every LayerNorm states its epsilon: torch's default (1e-5) is used by none
   of them.
+* The compute dtype (``nn/precision.py``, ``tpu.compute_dtype``): the
+  denses, convs and LayerNorms are ``nn/precision.py``'s; the BatchNorm and
+  GroupNorm normalize in float32 and return the compute dtype; the softmaxes
+  run in float32 and cast back; the PE tables are cast to the compute dtype,
+  as the JAX blocks do.
 """
 
 from __future__ import annotations
@@ -22,6 +27,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from textocvp_tpu_torch.nn.precision import (
+    Conv2d,
+    ConvTranspose2d,
+    LayerNorm,
+    Linear,
+    compute_dtype,
+)
 
 
 def build_grid(resolution: Sequence[int], vmin: float = -1.0, vmax: float = 1.0) -> np.ndarray:
@@ -39,7 +52,7 @@ class MLP(nn.Module):
     def __init__(self, in_features: int, features: Sequence[int]):
         super().__init__()
         dims = [in_features, *features]
-        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.layers = nn.ModuleList(Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x):
         for i, layer in enumerate(self.layers):
@@ -80,7 +93,8 @@ class BatchNorm(nn.BatchNorm2d):
     more than one rank), ``train()`` normalizes with the global batch's
     mean and ``E[x^2] - E[x]^2``, summed over the group by a differentiable
     all-reduce, and moves the running statistics by those, as flax under a
-    sharded ``jit`` does. Without it, ``F.batch_norm``."""
+    sharded ``jit`` does. Without it, ``F.batch_norm``. It normalizes in
+    float32 and returns the compute dtype, as flax's ``BatchNorm(dtype=...)``."""
 
     data_group = None
 
@@ -88,6 +102,9 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(num_features, eps=1e-5, momentum=0.01)
 
     def forward(self, x):
+        return self._normalize(x.float()).to(compute_dtype(self))
+
+    def _normalize(self, x):
         if not self.training:
             return super().forward(x)
         if self.data_group is not None:
@@ -146,8 +163,8 @@ class ConvBlock(nn.Module):
                  stride: int = 1, activation: bool = True, batch_norm: bool = False,
                  max_pool: Optional[int] = None):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
-                              padding=kernel_size // 2)
+        self.conv = Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                           padding=kernel_size // 2)
         self.bn = BatchNorm(out_channels) if batch_norm else None
         self.max_pool = max_pool or None
         self.activation = activation
@@ -164,10 +181,13 @@ class ConvBlock(nn.Module):
 class GroupNorm(nn.GroupNorm):
     """flax's ``nn.GroupNorm`` over the channels of NCHW input through
     ``F.group_norm``: epsilon 1e-6 (torch's default is 1e-5), a learned
-    scale (``weight``) and bias."""
+    scale (``weight``) and bias; in float32, the output in the compute dtype."""
 
     def __init__(self, num_groups: int, num_channels: int):
         super().__init__(num_groups, num_channels, eps=1e-6)
+
+    def forward(self, x):
+        return super().forward(x.float()).to(compute_dtype(self))
 
 
 def upsample_nearest(x, scale: int):
@@ -210,7 +230,7 @@ class ConvTransposeBlock(nn.Module):
                  stride: int = 1, batch_norm: bool = False, upsample: Optional[int] = None,
                  activation: bool = True, conv_transpose_2d: bool = True):
         super().__init__()
-        conv = nn.ConvTranspose2d if conv_transpose_2d else nn.Conv2d
+        conv = ConvTranspose2d if conv_transpose_2d else Conv2d
         self.conv = conv(in_channels, out_channels, kernel_size, stride=stride,
                          padding=kernel_size // 2)
         self.bn = BatchNorm(out_channels) if batch_norm else None
@@ -231,7 +251,7 @@ class SoftPositionEmbed(nn.Module):
 
     def __init__(self, hidden_size: int, resolution: Sequence[int]):
         super().__init__()
-        self.projection = nn.Linear(4, hidden_size)
+        self.projection = Linear(4, hidden_size)
         self.register_buffer("grid", torch.from_numpy(build_grid(resolution)),
                              persistent=False)
 
@@ -280,10 +300,10 @@ class MultiHeadSelfAttention(nn.Module):
             raise ValueError(f"emb_dim {emb_dim} not divisible by {num_heads} heads")
         self.num_heads = num_heads
         self.dim_head = emb_dim // num_heads
-        self.q = nn.Linear(emb_dim, emb_dim, bias=use_bias)
-        self.k = nn.Linear(emb_dim, emb_dim, bias=use_bias)
-        self.v = nn.Linear(emb_dim, emb_dim, bias=use_bias)
-        self.out = nn.Linear(emb_dim, emb_dim, bias=use_bias)
+        self.q = Linear(emb_dim, emb_dim, bias=use_bias)
+        self.k = Linear(emb_dim, emb_dim, bias=use_bias)
+        self.v = Linear(emb_dim, emb_dim, bias=use_bias)
+        self.out = Linear(emb_dim, emb_dim, bias=use_bias)
 
     def forward(self, x, mask=None):
         q = split_heads(self.q(x), self.num_heads)
@@ -307,10 +327,10 @@ class MultiHeadCrossAttention(nn.Module):
         kv_dim = emb_dim if kv_dim is None else kv_dim
         self.num_heads = num_heads
         self.dim_head = dim_head
-        self.q = nn.Linear(emb_dim, inner, bias=False)
-        self.k = nn.Linear(kv_dim, inner, bias=False)
-        self.v = nn.Linear(kv_dim, inner, bias=False)
-        self.out = nn.Linear(inner, emb_dim)
+        self.q = Linear(emb_dim, inner, bias=False)
+        self.k = Linear(kv_dim, inner, bias=False)
+        self.v = Linear(kv_dim, inner, bias=False)
+        self.out = Linear(inner, emb_dim)
 
     def attend(self, q, k, v):
         """Attention + output projection of already-projected q/k/v (B, N, H*Dh)."""
@@ -331,8 +351,8 @@ class TransformerBlock(nn.Module):
         super().__init__()
         self.attn = MultiHeadSelfAttention(embed_dim, num_heads)
         self.mlp = MLP(embed_dim, [mlp_size, embed_dim])
-        self.ln_query = nn.LayerNorm(embed_dim, eps=1e-6)
-        self.ln_mlp = nn.LayerNorm(embed_dim, eps=1e-6)
+        self.ln_query = LayerNorm(embed_dim, eps=1e-6)
+        self.ln_mlp = LayerNorm(embed_dim, eps=1e-6)
 
     def forward(self, x, mask=None):
         y = self.ln_query(self.attn(x, mask) + x)
@@ -346,9 +366,9 @@ class TransformerDecoderBlock(nn.Module):
     def __init__(self, embed_dim: int, head_dim: int, kv_dim: int, num_heads: int,
                  mlp_size: int):
         super().__init__()
-        self.ln_q = nn.LayerNorm(embed_dim, eps=1e-6)
-        self.ln_kv = nn.LayerNorm(kv_dim, eps=1e-6)
-        self.ln_mlp = nn.LayerNorm(embed_dim, eps=1e-6)
+        self.ln_q = LayerNorm(embed_dim, eps=1e-6)
+        self.ln_kv = LayerNorm(kv_dim, eps=1e-6)
+        self.ln_mlp = LayerNorm(embed_dim, eps=1e-6)
         self.cross_attn = MultiHeadCrossAttention(embed_dim, head_dim, num_heads, kv_dim)
         self.mlp = MLP(embed_dim, [mlp_size, embed_dim])
 
@@ -370,8 +390,8 @@ class AdaptedEncoderBlock(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, mlp_size: int,
                  fusion_num_heads: int, fusion_head_dim: int, fusion_mlp_size: int):
         super().__init__()
-        self.ln_query = nn.LayerNorm(embed_dim, eps=1e-6)
-        self.ln_mlp = nn.LayerNorm(embed_dim, eps=1e-6)
+        self.ln_query = LayerNorm(embed_dim, eps=1e-6)
+        self.ln_mlp = LayerNorm(embed_dim, eps=1e-6)
         self.attn = MultiHeadSelfAttention(embed_dim, num_heads)
         self.mlp = MLP(embed_dim, [mlp_size, embed_dim])
         self.cross_attention = TransformerDecoderBlock(
@@ -395,7 +415,7 @@ class TemporalPositionalEncoding(nn.Module):
 
     def forward(self, x):
         t = x.shape[1]
-        return x + self.pe[:t].flip(0)[None, :, None, :]
+        return x + self.pe[:t].flip(0).to(compute_dtype(self))[None, :, None, :]
 
 
 class TorchStyleEncoderLayer(nn.Module):
@@ -413,10 +433,10 @@ class TorchStyleEncoderLayer(nn.Module):
         self.activation = activation
         self.norm_first = norm_first
         self.self_attn = MultiHeadSelfAttention(d_model, nhead, use_bias=True)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
 
     def feed_forward(self, x):
         h = self.linear1(x)
@@ -457,7 +477,7 @@ class SlotPositionalEncoding(nn.Module):
 
     def forward(self, x, offset: int = 0):
         idx = (torch.arange(x.shape[1], device=x.device) - offset).clamp(min=0)
-        return x + self.pe[idx][None, :, None, :]
+        return x + self.pe[idx].to(compute_dtype(self))[None, :, None, :]
 
 
 class LearnedPositionalEncoding1D(nn.Module):
@@ -480,7 +500,7 @@ class LearnedPositionalEncoding1D(nn.Module):
         if offset < 0 or offset + t > self.pe.shape[0]:
             raise ValueError(f"positions {offset}..{offset + t - 1} outside the table of "
                              f"{self.pe.shape[0]}")
-        x = x + self.pe[offset:offset + t][None]
+        x = x + self.pe[offset:offset + t].to(compute_dtype(self))[None]
         if self.dropout > 0 and not deterministic:
             keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.dropout
             x = torch.where(keep, x / (1 - self.dropout), torch.zeros_like(x))

@@ -15,6 +15,11 @@ denses and BatchNorm-folded CNN-head convs, run in int8
 channel at each call from the float weights, as the JAX package does; the
 final conv stays float32. ``calibrate=True`` returns the (L,) input amaxes of
 those layers on the float path instead.
+
+In bfloat16 (``tpu.compute_dtype``) every conv and dense runs in bf16 (the
+ConvDecoder's tail through conv5's bf16 variant: bf16 operands, float32
+accumulation, the float32 bias, one rounding), the BatchNorms and the
+softmaxes over slots in float32, cast back.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from textocvp_tpu_torch.nn.blocks import (
     upsample_nearest,
     upsample_nearest_nhwc,
 )
+from textocvp_tpu_torch.nn.precision import Conv2d, LayerNorm, Linear, compute_dtype
 from textocvp_tpu_torch.ops.conv5 import KERNEL_SIZE, conv5
 from textocvp_tpu_torch.ops.conv_int8 import quantized_conv
 from textocvp_tpu_torch.ops.dense_int8 import input_amax, linear_int8
@@ -71,7 +77,7 @@ class ConvDecoder(nn.Module):
         self.blocks = nn.ModuleList(
             ConvBlock(a, b, kernel_size, stride, batch_norm=batch_norm)
             for a, b in zip(chans[:-1], chans[1:]))
-        self.final_conv = nn.Conv2d(chans[-1], out_channels, 3, padding=1)
+        self.final_conv = Conv2d(chans[-1], out_channels, 3, padding=1)
         self.kernel_size = kernel_size
         self.stride = stride
         self.batch_norm = bool(batch_norm)
@@ -175,7 +181,8 @@ class ConvDecoder(nn.Module):
         conv1 = self.blocks[0].conv
         tile = slots[:, :, None, None].expand(n, d, small, small)
         y_small = conv1(tile).permute(0, 2, 3, 1).contiguous()  # (N, small, small, C), bias in
-        y_pos = (conv1(pos) - conv1.bias[None, :, None, None]).permute(0, 2, 3, 1)
+        y_pos = conv1(pos)
+        y_pos = (y_pos - conv1.bias.to(y_pos.dtype)[None, :, None, None]).permute(0, 2, 3, 1)
 
         def idx(full):
             ar = torch.arange(full, device=slots.device)
@@ -227,15 +234,15 @@ class MLPPatchDecoder(nn.Module):
         self.num_layers_cnn = num_layers_cnn
         self.grid = int(num_patches ** 0.5)
         self.pos_embed = nn.Parameter(torch.randn(1, 1, num_patches, in_dim) / in_dim ** 0.5)
-        self.initial_ln = nn.LayerNorm(in_dim, eps=1e-6) if initial_layer_norm else None
+        self.initial_ln = LayerNorm(in_dim, eps=1e-6) if initial_layer_norm else None
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
-        self.mlps = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.mlps = nn.ModuleList(Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
         self.cnns = self.cnn_final = None
         if reconstruct_images:
             chans = [out_dim - 1] + [c for c, _ in self.cnn_plan()]
             self.cnns = nn.ModuleList(ConvBlock(a, b, 3, batch_norm=True)
                                       for a, b in zip(chans[:-1], chans[1:]))
-            self.cnn_final = nn.Conv2d(chans[-1], 3, 3, padding=1)
+            self.cnn_final = Conv2d(chans[-1], 3, 3, padding=1)
 
     def cnn_plan(self):
         """(out_channels, upsample after) of each CNN-head block: x2 while the
@@ -286,7 +293,7 @@ class MLPPatchDecoder(nn.Module):
         with ``quant_scales``; each dense's input amax appended to ``amaxes``
         when given."""
         b, s, _ = slots.shape
-        x = slots[:, :, None, :] + self.pos_embed
+        x = slots[:, :, None, :] + self.pos_embed.to(compute_dtype(self))
         if self.initial_ln is not None:
             x = self.initial_ln(x)
         for i, dense in enumerate(self.mlps):

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from textocvp_tpu_torch.nn.blocks import ConvBlock, GroupNorm
+from textocvp_tpu_torch.nn.precision import Conv2d
 from textocvp_tpu_torch.nn.vit import VIT_CONFIGS, ViTEncoder
 
 ENCODERS = [
@@ -84,13 +85,13 @@ class ResNetBasicBlock(nn.Module):
     def __init__(self, in_channels: int, channels: int, stride: int = 1,
                  num_groups: int = 32):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, channels, 3, stride=stride, padding=1, bias=False)
+        self.conv = Conv2d(in_channels, channels, 3, stride=stride, padding=1, bias=False)
         self.norm = GroupNorm(num_groups, channels)
-        self.conv1 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
+        self.conv1 = Conv2d(channels, channels, 3, padding=1, bias=False)
         self.norm1 = GroupNorm(num_groups, channels)
         self.conv2 = self.norm2 = None
         if stride != 1 or in_channels != channels:
-            self.conv2 = nn.Conv2d(in_channels, channels, 1, stride=stride, bias=False)
+            self.conv2 = Conv2d(in_channels, channels, 1, stride=stride, bias=False)
             self.norm2 = GroupNorm(num_groups, channels)
 
     def forward(self, x):
@@ -118,7 +119,7 @@ class ResNet34SAVi(nn.Module):
 
     def __init__(self, in_channels: int = 3, num_groups: int = 32):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, 64, 7, padding=3, bias=False)
+        self.conv = Conv2d(in_channels, 64, 7, padding=3, bias=False)
         self.norm = GroupNorm(num_groups, 64)
         blocks, width = [], 64
         for channels, count, first_stride in self.STAGES:

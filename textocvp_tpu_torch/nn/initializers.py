@@ -4,7 +4,8 @@ call, evaluation included, from an explicit ``torch.Generator``: a seeded
 generator makes a run reproducible. (It cannot reproduce the JAX package's
 ``jax.random`` stream: tests and the trainer may hand it the noise itself,
 ``noise=``, so that gradients reach ``slots_mu`` and ``slots_sigma`` as in
-the JAX package.)
+the JAX package.) The slots come out in the compute dtype (``nn/precision.py``),
+as the JAX initializers cast them.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from textocvp_tpu_torch.nn.precision import compute_dtype
 
 
 def _uniform_limit(slot_dim: int) -> float:
@@ -31,7 +34,8 @@ class LearnedInit(nn.Module):
     def forward(self, batch_size: int, generator: Optional[torch.Generator] = None,
                 noise=None):
         """``noise`` is taken for the signature's sake and unused."""
-        return self.slots[None].expand(batch_size, *self.slots.shape)
+        slots = self.slots.to(compute_dtype(self))
+        return slots[None].expand(batch_size, *slots.shape)
 
 
 class LearnedRandomInit(nn.Module):
@@ -57,7 +61,8 @@ class LearnedRandomInit(nn.Module):
                                 dtype=mu.dtype)
         elif tuple(noise.shape) != shape:
             raise ValueError(f"noise of shape {tuple(noise.shape)}, want {shape}")
-        return mu + self.slots_sigma * noise.to(mu.device, mu.dtype)
+        dt = compute_dtype(self)
+        return mu.to(dt) + self.slots_sigma.to(dt) * noise.to(mu.device, dt)
 
 
 def get_initializer(mode: str, slot_dim: int, num_slots: int) -> nn.Module:

@@ -2,7 +2,9 @@
 T5 encoder stack (the frozen "t5-small" text encoder of TextOCVP_T5):
 RMSNorm pre-norm without bias, bias-free projections, UNscaled attention with
 one relative-position bias owned by layer 0 and reused by every layer, ReLU
-feed-forward, final RMSNorm.
+feed-forward, final RMSNorm. In bfloat16 (``tpu.compute_dtype``) the
+embedding, the relative bias and the denses are bf16, the RMSNorms take
+their statistics in float32, and the softmax runs in float32.
 
 :func:`import_hf_t5_encoder` turns a HuggingFace ``T5EncoderModel`` state dict
 into the JAX package's T5 params tree, which ``convert.from_jax_params``
@@ -18,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from textocvp_tpu_torch.nn.precision import Linear, compute_dtype
 
 
 @dataclass(frozen=True)
@@ -51,8 +55,9 @@ class RMSNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x):
+        """Statistics in float32, the output in the compute dtype (JAX ``RMSNorm``)."""
         var = x.float().pow(2).mean(-1, keepdim=True)
-        return (x * torch.rsqrt(var + self.eps) * self.weight).to(x.dtype)
+        return (x * torch.rsqrt(var + self.eps) * self.weight).to(compute_dtype(self))
 
 
 def relative_position_bucket(relative_position: torch.Tensor, num_buckets: int = 32,
@@ -85,10 +90,10 @@ class T5SelfAttention(nn.Module):
         inner = cfg.num_heads * cfg.d_kv
         self.cfg = cfg
         self.num_heads = cfg.num_heads  # this rank's heads under tensor parallelism
-        self.q = nn.Linear(cfg.d_model, inner, bias=False)
-        self.k = nn.Linear(cfg.d_model, inner, bias=False)
-        self.v = nn.Linear(cfg.d_model, inner, bias=False)
-        self.o = nn.Linear(inner, cfg.d_model, bias=False)
+        self.q = Linear(cfg.d_model, inner, bias=False)
+        self.k = Linear(cfg.d_model, inner, bias=False)
+        self.v = Linear(cfg.d_model, inner, bias=False)
+        self.o = Linear(inner, cfg.d_model, bias=False)
         self.relative_attention_bias = (
             nn.Embedding(cfg.relative_attention_num_buckets, cfg.num_heads)
             if has_relative_bias else None)
@@ -99,7 +104,8 @@ class T5SelfAttention(nn.Module):
         buckets = relative_position_bucket(
             rel, self.cfg.relative_attention_num_buckets,
             self.cfg.relative_attention_max_distance)
-        return self.relative_attention_bias(buckets.long()).permute(2, 0, 1)[None]  # (1, H, Q, K)
+        bias = self.relative_attention_bias(buckets.long()).to(compute_dtype(self))
+        return bias.permute(2, 0, 1)[None]  # (1, H, Q, K)
 
     def forward(self, x, mask=None, position_bias=None):
         cfg = self.cfg
@@ -125,8 +131,8 @@ class T5EncoderLayer(nn.Module):
         self.ln_attn = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon)
         self.attn = T5SelfAttention(cfg, has_relative_bias)
         self.ln_ff = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon)
-        self.wi = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
-        self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
+        self.wi = Linear(cfg.d_model, cfg.d_ff, bias=False)
+        self.wo = Linear(cfg.d_ff, cfg.d_model, bias=False)
 
     def forward(self, x, mask=None, position_bias=None):
         y, position_bias = self.attn(self.ln_attn(x), mask, position_bias)
@@ -146,7 +152,7 @@ class T5EncoderStack(nn.Module):
         self.final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon)
 
     def forward(self, input_ids, attention_mask=None):
-        x = self.shared(input_ids.long())
+        x = self.shared(input_ids.long()).to(compute_dtype(self))
         position_bias = None
         for layer in self.layers:
             x, position_bias = layer(x, attention_mask, position_bias)

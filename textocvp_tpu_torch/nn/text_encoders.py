@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from textocvp_tpu_torch.nn.blocks import TorchStyleEncoderLayer
+from textocvp_tpu_torch.nn.precision import LayerNorm, Linear, compute_dtype
 
 
 class TransformerTextEncoder(nn.Module):
@@ -30,13 +31,13 @@ class TransformerTextEncoder(nn.Module):
         self.padding_idx = padding_idx
         self.token_embedding = nn.Embedding(vocab_size, input_dim)
         self.position_embedding = nn.Embedding(context_length, input_dim)
-        self.ln_in = nn.LayerNorm(input_dim, eps=1e-8)
+        self.ln_in = LayerNorm(input_dim, eps=1e-8)
         self.layers = nn.ModuleList(
             TorchStyleEncoderLayer(input_dim, num_heads, input_dim * 4, activation="gelu",
                                    norm_first=False)
             for _ in range(num_layers))
-        self.ln_out = nn.LayerNorm(input_dim, eps=1e-6)
-        self.out_projection = nn.Linear(input_dim, output_dim)
+        self.ln_out = LayerNorm(input_dim, eps=1e-6)
+        self.out_projection = Linear(input_dim, output_dim)
 
     def check_ids(self, text):
         """Raise ``ValueError`` for a caption longer than ``context_length`` or
@@ -62,7 +63,9 @@ class TransformerTextEncoder(nn.Module):
         self.check_ids(text)
         b, l = text.shape
         positions = torch.arange(l, device=text.device)
-        x = self.ln_in(self.token_embedding(text) + self.position_embedding(positions)[None])
+        dt = compute_dtype(self)  # flax's Embed(dtype=...) casts its table
+        x = self.ln_in(self.token_embedding(text).to(dt)
+                       + self.position_embedding(positions).to(dt)[None])
         x = x * (text != self.padding_idx)[..., None].to(x.dtype)
         keep = (positions[None, :] + 1) <= text_length.to(text.device)[:, None]  # (B, K)
         mask = keep[:, None, :]  # (B, Q=1, K), broadcast over the queries

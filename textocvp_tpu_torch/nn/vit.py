@@ -12,6 +12,11 @@ As the JAX module, and the wrapper it follows:
 * blocks are truncated to ``depth``; no final norm; the class token is
   stripped from the output.
 
+In bfloat16 (``tpu.compute_dtype``) the patch embedding, the denses and the
+attention run in bf16, the LayerNorms' statistics in float32, and the mean,
+the class token, ``pos_embed`` and the LayerScale gammas are cast to bf16 at
+the call, as the JAX module casts them.
+
 The attention core is :func:`textocvp_tpu_torch.ops.vit_attention.vit_attention`:
 the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor. The
 dense layers are plain GEMMs (``F.linear``), as the JAX package leaves them to
@@ -43,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from textocvp_tpu_torch.nn.precision import Conv2d, LayerNorm, Linear, compute_dtype
 from textocvp_tpu_torch.ops.dense_int8 import input_amax, linear_int8
 from textocvp_tpu_torch.ops.vit_attention import vit_attention
 
@@ -73,12 +79,12 @@ class ViTBlock(nn.Module):
         d = embed_dim
         self.num_heads = num_heads  # this rank's heads once sharded (parallel/partitioning.py)
         self.head_dim = d // num_heads
-        self.norm1 = nn.LayerNorm(d, eps=1e-6)
-        self.qkv = nn.Linear(d, 3 * d)
-        self.proj = nn.Linear(d, d)
-        self.norm2 = nn.LayerNorm(d, eps=1e-6)
-        self.fc1 = nn.Linear(d, int(d * mlp_ratio))
-        self.fc2 = nn.Linear(int(d * mlp_ratio), d)
+        self.norm1 = LayerNorm(d, eps=1e-6)
+        self.qkv = Linear(d, 3 * d)
+        self.proj = Linear(d, d)
+        self.norm2 = LayerNorm(d, eps=1e-6)
+        self.fc1 = Linear(d, int(d * mlp_ratio))
+        self.fc2 = Linear(int(d * mlp_ratio), d)
         if layerscale_init is None:
             self.ls1_gamma = self.ls2_gamma = None
         else:
@@ -101,13 +107,14 @@ class ViTBlock(nn.Module):
                 return layer(y)
             return linear_int8(layer, y, quant_scales[i])
 
+        dt = compute_dtype(self)
         qkv = dense(0, self.norm1(x)).reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
         q, k, v = (t.contiguous() for t in qkv)  # (b, h, n, dh) each
         y = vit_attention(q, k, v, dh ** -0.5)
         y = dense(1, y.transpose(1, 2).reshape(b, n, h * dh))
-        x = x + (y if self.ls1_gamma is None else y * self.ls1_gamma)
+        x = x + (y if self.ls1_gamma is None else y * self.ls1_gamma.to(dt))
         y = dense(3, F.gelu(dense(2, self.norm2(x)), approximate="none"))
-        return x + (y if self.ls2_gamma is None else y * self.ls2_gamma)
+        return x + (y if self.ls2_gamma is None else y * self.ls2_gamma.to(dt))
 
 
 class ViTEncoder(nn.Module):
@@ -116,7 +123,7 @@ class ViTEncoder(nn.Module):
         super().__init__()
         self.embed_dim = embed_dim
         num_patches = (img_size // patch_size) ** 2
-        self.patch_embed = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+        self.patch_embed = Conv2d(3, embed_dim, patch_size, stride=patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.randn(1, num_patches + 1, embed_dim) * 0.02)
         self.blocks = nn.ModuleList(
@@ -127,10 +134,12 @@ class ViTEncoder(nn.Module):
         """Frames (N, H, W, 3) in [0, 1] -> patch features (N, P, embed_dim).
         ``quant_scales`` (depth, 4) runs every block's denses in int8;
         ``calibrate`` returns (features, amaxes (depth, 4)) of the float path."""
-        x = (x - self.mean) / self.mean  # std := mean, the wrapper's quirk
+        dt = compute_dtype(self)
+        mean = self.mean.to(dt)  # the JAX ViT's constants in the compute dtype
+        x = (x - mean) / mean  # std := mean, the wrapper's quirk
         x = self.patch_embed(x.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
-        cls = self.cls_token.expand(x.shape[0], 1, self.embed_dim)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed
+        cls = self.cls_token.expand(x.shape[0], 1, self.embed_dim).to(x.dtype)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         amaxes = [] if calibrate else None
         for i, block in enumerate(self.blocks):
             x = block(x, None if quant_scales is None else quant_scales[i], amaxes)

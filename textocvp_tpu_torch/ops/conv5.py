@@ -12,6 +12,13 @@ bounds the kernel on an H100 and how its design answers.
 * Layout of the JAX package: ``x`` is NHWC (N, H, W, Cin) float32, ``w`` is
   HWIO (5, 5, Cin, Cout), ``b`` is (Cout,); the result is NHWC (N, H, W,
   Cout) with zero "same" padding of 2, the bias, then a ReLU if ``relu``.
+* bfloat16 (``tpu.compute_dtype`` "bfloat16"): ``x`` bf16, ``w`` bf16 (or
+  float32, rounded to bf16 as flax's ``promote_dtype`` does), ``b`` float32;
+  the result is bf16. The contract of the Pallas kernel in bf16
+  (``bench_pallas_conv.py:81-84``): bf16 operands, products and sums in
+  float32, the float32 bias, the ReLU, one rounding to bf16. A CUDA tensor
+  launches the kernel's bf16 variant (:func:`conv5_bf16_cuda`, counted in its
+  own ``launches``). It has no backward yet: under grad it raises.
 * The kernel takes Cin = Cout = 64 at any N, H, W >= 1; the plain version
   any channel counts.
 * :func:`conv5` dispatches on the tensor's device: a CPU tensor runs
@@ -44,14 +51,21 @@ import torch
 import torch.nn.functional as F
 
 from textocvp_tpu_torch.ops import build
-from textocvp_tpu_torch.ops.grad_guard import needs_grad
+from textocvp_tpu_torch.ops.grad_guard import needs_grad, refuse_grad
 
 KERNEL_SIZE = 5
 CHANNELS = 64  # the kernel's input and output channels
 
 
 def conv5_plain(x, w, b, relu: bool = True):
-    """Sum over the 25 taps of ``pad(x)[shifted] @ w[dy, dx]``, + b, [ReLU]."""
+    """Sum over the 25 taps of ``pad(x)[shifted] @ w[dy, dx]``, + b, [ReLU].
+    A bf16 ``x`` follows the bf16 kernel's contract: ``w`` rounded to bf16,
+    the products (exact in float32) and the sums in float32, the float32
+    bias, the ReLU, then one rounding to bf16; not torch's bf16 matmuls,
+    which round after every tap."""
+    if x.dtype == torch.bfloat16:
+        return conv5_plain(x.float(), w.to(torch.bfloat16).float(), b.float(),
+                           relu).to(torch.bfloat16)
     n, h, wd, _ = x.shape
     pad = KERNEL_SIZE // 2
     xp = F.pad(x, (0, 0, pad, pad, pad, pad))  # C untouched, then W, then H
@@ -75,18 +89,22 @@ def load_library():
         lib.conv5_forward.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.conv5_forward.restype = ctypes.c_int
+        lib.conv5_bf16_forward.argtypes = lib.conv5_forward.argtypes
+        lib.conv5_bf16_forward.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(x, w, b):
+def _check(x, w, b, dtype=torch.float32):
+    """Raise on what the kernel of ``dtype`` does not take: x and w of
+    ``dtype``, b float32."""
     if not x.is_cuda:
         raise ValueError(f"x must lie on a CUDA device, got {x.device}")
-    for name, t in (("x", x), ("w", w), ("b", b)):
+    for name, t, want in (("x", x, dtype), ("w", w, dtype), ("b", b, torch.float32)):
         if t.device != x.device:
             raise ValueError(f"{name} must lie on {x.device} with x, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {str(want)[6:]}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous ({name} of x: NHWC memory)")
         if t.data_ptr() % 16:
@@ -106,7 +124,9 @@ def _check(x, w, b):
 def conv5_cuda(x, w, b, relu: bool = True):
     """Launch the CUDA kernel on the current stream; raises on what it does not
     take. No autograd: :func:`conv5` records the gradient through
-    :class:`Conv5Function`."""
+    :class:`Conv5Function`. A bf16 ``x`` goes to :func:`conv5_bf16_cuda`."""
+    if x.dtype == torch.bfloat16:
+        return conv5_bf16_cuda(x, w, b, relu)
     _check(x, w, b)
     lib = load_library()
     n, h, wd, _ = x.shape
@@ -122,6 +142,30 @@ def conv5_cuda(x, w, b, relu: bool = True):
 
 
 conv5_cuda.launches = 0
+
+
+def conv5_bf16_cuda(x, w, b, relu: bool = True):
+    """Launch the kernel's bf16 variant on the current stream: ``x`` bf16,
+    ``w`` bf16 (float32 is rounded to bf16 here), ``b`` float32 -> bf16.
+    Raises on what it does not take and under grad: the bf16 backward is
+    ROADMAP.md §1's."""
+    refuse_grad("conv5 (bf16)", x, w, b)
+    w = w.to(torch.bfloat16)
+    _check(x, w, b, torch.bfloat16)
+    lib = load_library()
+    n, h, wd, _ = x.shape
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.conv5_bf16_forward(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                     n, h, wd, int(bool(relu)), stream)
+    if err != 0:
+        raise RuntimeError(f"conv5 bf16 kernel launch failed: cudaError {err}")
+    conv5_bf16_cuda.launches += 1
+    return out
+
+
+conv5_bf16_cuda.launches = 0
 
 
 def conv5_input_grad_cuda(g, w_rot, b_zero, relu: bool = False):
@@ -227,4 +271,6 @@ def conv5(x, w, b, relu: bool = True):
         return conv5_op(x, w, b, relu)
     if x.device.type == "cpu":
         return conv5_plain(x, w, b, relu)
+    if x.dtype == torch.bfloat16:
+        return conv5_bf16_cuda(x, w, b, relu)  # raises: no bf16 backward yet
     return Conv5Function.apply(x, w, b, relu, conv5_cuda, conv5_input_grad_cuda)

@@ -14,6 +14,15 @@ The inputs are layer-normed and projected to K/V once per frame
 refinement through :func:`slot_attention_kernel.slot_attention_iterations`,
 which launches the CUDA kernel for a CUDA tensor and runs the plain PyTorch
 version for a CPU tensor. There is no switch between the two.
+
+In bfloat16 (``tpu.compute_dtype``) the LayerNorm and the K/V projection run
+in bf16, and the refinement follows the JAX package's Pallas arm
+(``textocvp_tpu/ops/pallas/slot_attention_kernel.py:148-154, 230-232``),
+whose port the kernel is: k, v and the slots cast to float32, the float32
+refinement with the float32 parameters, then the slots and the attention
+cast back to the slots' dtype. The JAX package's XLA arm, which runs the
+refinement itself in bf16, differs from it by about as much as bf16 differs
+from float32.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch
 from torch import nn
 
 from textocvp_tpu_torch.nn.blocks import MLP
+from textocvp_tpu_torch.nn.precision import LayerNorm, Linear
 from textocvp_tpu_torch.ops.slot_attention_kernel import slot_attention_iterations
 
 
@@ -56,12 +66,12 @@ class SlotAttention(nn.Module):
         self.dim_feats = dim_feats
         self.num_slots = num_slots
         self.epsilon = epsilon
-        self.norm_input = nn.LayerNorm(dim_feats, eps=1e-3)
-        self.norm_slot = nn.LayerNorm(dim_slots, eps=1e-3)
-        self.norm_mlp = nn.LayerNorm(dim_slots, eps=1e-3)
-        self.to_q = nn.Linear(dim_slots, dim_slots)
-        self.to_k = nn.Linear(dim_feats, dim_slots)
-        self.to_v = nn.Linear(dim_feats, dim_slots)
+        self.norm_input = LayerNorm(dim_feats, eps=1e-3)
+        self.norm_slot = LayerNorm(dim_slots, eps=1e-3)
+        self.norm_mlp = LayerNorm(dim_slots, eps=1e-3)
+        self.to_q = Linear(dim_slots, dim_slots)
+        self.to_k = Linear(dim_feats, dim_slots)
+        self.to_v = Linear(dim_feats, dim_slots)
         self.gru = GRUCell(dim_slots, dim_slots)
         self.mlp = MLP(dim_slots, [mlp_hidden, dim_slots])
 
@@ -85,8 +95,11 @@ class SlotAttention(nn.Module):
     def iterate(self, k, v, slots, num_iters: int):
         """``num_iters`` refinements of slots (B, S, D) against k, v (B, N, D).
         Returns (slots, attn): attn is the last iteration's (B, S, N) attention
-        after +eps and before the renorm over locations (the object masks)."""
-        return slot_attention_iterations(
-            k.contiguous(), v.contiguous(), slots.contiguous(), self.iteration_params(),
-            num_iters,
+        after +eps and before the renorm over locations (the object masks).
+        Float32 inside whatever the inputs' dtype; both outputs in the slots'."""
+        dtype = slots.dtype
+        slots, attn = slot_attention_iterations(
+            k.float().contiguous(), v.float().contiguous(), slots.float().contiguous(),
+            self.iteration_params(), num_iters,
             scale=self.dim_feats ** -0.5, eps=self.epsilon)
+        return slots.to(dtype), attn.to(dtype)

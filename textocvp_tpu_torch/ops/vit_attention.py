@@ -17,6 +17,11 @@ H100 and how its design answers.
   ``torch.ops.textocvp_torch.vit_attention`` (``torch.library.custom_op``:
   the plain version for a CPU tensor, the kernel for a CUDA one), which
   ``torch.export`` records as one node.
+* bfloat16 (``tpu.compute_dtype`` "bfloat16"): q, k, v and the result bf16.
+  A CUDA tensor launches the kernel's bf16 variant
+  (:func:`vit_attention_bf16_cuda`, counted in its own ``launches``): both
+  products bf16 with float32 accumulation, the softmax in float32, the
+  probabilities rounded to bf16 before P V, as the XLA arm computes in bf16.
 * Forward only: the ViT is frozen, and nothing differentiates it. Under grad
   with an input that requires grad the CUDA wrapper raises
   (:func:`grad_guard.refuse_grad`) rather than return an output without
@@ -51,20 +56,22 @@ def load_library():
         lib.va_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
             ctypes.c_float, ctypes.c_void_p]
         lib.va_forward.restype = ctypes.c_int
+        lib.va_bf16_forward.argtypes = lib.va_forward.argtypes
+        lib.va_bf16_forward.restype = ctypes.c_int
         lib.va_head_dim.argtypes = []
         lib.va_head_dim.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(q, k, v, head_dim: int):
+def _check(q, k, v, head_dim: int, dtype=torch.float32):
     if not q.is_cuda:
         raise ValueError(f"q must lie on a CUDA device, got {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} must lie on {q.device} with q, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {str(dtype)[6:]}, got {t.dtype}")
         if t.dim() != 4 or t.shape != q.shape:
             raise ValueError(f"want q, k, v of one shape (B, h, n, dh); got "
                              f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -80,7 +87,9 @@ def _check(q, k, v, head_dim: int):
 
 def vit_attention_cuda(q, k, v, scale: float):
     """Launch the CUDA kernel on the current stream; raises on what it does not
-    take and under grad."""
+    take and under grad. A bf16 ``q`` goes to :func:`vit_attention_bf16_cuda`."""
+    if q.dtype == torch.bfloat16:
+        return vit_attention_bf16_cuda(q, k, v, scale)
     lib = load_library()
     _check(q, k, v, lib.va_head_dim())
     refuse_grad("ViT attention", q, k, v)
@@ -97,6 +106,27 @@ def vit_attention_cuda(q, k, v, scale: float):
 
 
 vit_attention_cuda.launches = 0
+
+
+def vit_attention_bf16_cuda(q, k, v, scale: float):
+    """Launch the kernel's bf16 variant on the current stream (q, k, v bf16
+    -> bf16); raises on what it does not take and under grad."""
+    lib = load_library()
+    _check(q, k, v, lib.va_head_dim(), torch.bfloat16)
+    refuse_grad("ViT attention (bf16)", q, k, v)
+    b, h, n, _ = q.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.va_bf16_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                  b * h, n, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"ViT attention bf16 kernel launch failed: cudaError {err}")
+    vit_attention_bf16_cuda.launches += 1
+    return out
+
+
+vit_attention_bf16_cuda.launches = 0
 
 
 @torch.library.custom_op("textocvp_torch::vit_attention", mutates_args=())

@@ -47,6 +47,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from textocvp_tpu_torch.core.config import refuse_bfloat16
+
 # the ops the exported graphs call: importing the modules registers them
 from textocvp_tpu_torch.ops import conv5, conv_int8, slot_attention_kernel, vit_attention  # noqa: F401
 from textocvp_tpu_torch.serve.pipeline import InferenceFrontend, serving_tokenizer
@@ -60,6 +62,7 @@ def export_service(service, out_dir) -> Path:
     """Write ``service``'s stages and manifest into ``out_dir`` (created);
     returns its path. The stages are traced under ``torch.no_grad()`` with
     example inputs on the service's device, at its batch and caption length."""
+    refuse_bfloat16(service.exp_params, "07 --export")
     if getattr(service, "mesh", None) is not None:
         raise ValueError("a serving artifact is single-process by design (its graphs "
                          "hold no collective); build the service without mesh_axes to export")

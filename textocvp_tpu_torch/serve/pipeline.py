@@ -21,10 +21,13 @@ initial slots' noise and the caption tensors; the host draws the noise from
 the service's ``generator``. ``serve/export.py`` exports the two modules as
 they are, so an artifact replays the live service bit for bit.
 
-Numerics: float32 throughout, as the JAX package serves by default. TF32 is
-off for matmuls and for cuDNN convolutions (``torch.backends.cuda.matmul.
-allow_tf32 = False``, ``torch.backends.cudnn.allow_tf32 = False``); bf16
-compute is later work. Opt-in int8 (``tpu.decode_quant``,
+Numerics: float32 by default, as the JAX package serves. TF32 is off for
+matmuls and for cuDNN convolutions (``torch.backends.cuda.matmul.
+allow_tf32 = False``, ``torch.backends.cudnn.allow_tf32 = False``). With
+``tpu.compute_dtype: "bfloat16"`` both stages compute in bf16
+(``nn/precision.py``) and the reply is ``round(clamp(x, 0, 1) * 255)`` of the
+bf16 frames, computed in bf16 as the JAX service computes it (above 128 the
+bf16 grid is 1.0 apart); on one process only, and not exported. Opt-in int8 (``tpu.decode_quant``,
 ``tpu.encode_quant``; ``models/quant.py``) calibrates its activation scales
 on the first request, or on :meth:`InferenceFrontend.calibrate`'s frames, and
 keeps them in the stages' ``quant_scales`` / ``encode_scales`` buffers.
@@ -70,6 +73,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from textocvp_tpu_torch.core.config import check_compute_dtype, refuse_bfloat16
 from textocvp_tpu_torch.core.experiment import Experiment
 from textocvp_tpu_torch.core.logger import Logger, print_
 from textocvp_tpu_torch.data.tokenizers import TEXT_KEYS, get_tokenizer
@@ -354,6 +358,9 @@ class PredictionService(InferenceFrontend):
                               else self.parent.exp_path / "predictors" / name_pred_exp)
         Logger(self.exp.exp_path)
         self.exp_params = self.exp.params
+        self.compute_dtype = check_compute_dtype(self.exp_params)
+        if self.mesh is not None and self.mesh.world > 1:
+            refuse_bfloat16(self.exp_params, "serving on a mesh of more than one rank")
         pp = self.exp_params["prediction_params"]
         if num_seed is not None:
             pp["num_context"] = num_seed

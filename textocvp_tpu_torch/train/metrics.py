@@ -221,7 +221,7 @@ class MetricTracker:
         vals = precomputed if precomputed is not None else self.compute(preds, targets)
         for m in self.metrics:
             v = vals[m]
-            self.values[m].append(v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            self.values[m].append(v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor)
                                   else np.asarray(v))
 
     def aggregate(self) -> dict:

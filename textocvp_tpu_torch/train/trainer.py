@@ -125,7 +125,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from textocvp_tpu_torch.core.config import tpu_option
+from textocvp_tpu_torch.core.config import refuse_bfloat16, tpu_option
 from textocvp_tpu_torch.core.experiment import Experiment
 from textocvp_tpu_torch.core.logger import Logger, log_exception, log_function, log_info, print_
 from textocvp_tpu_torch.data.loader import (  # noqa: F401  (ragged_accum: the trainers' name)
@@ -241,6 +241,7 @@ class Trainer:
         self.exp = Experiment(exp_path)
         Logger(self.exp.exp_path)
         self.exp_params = self.exp.params
+        refuse_bfloat16(self.exp_params, f"{type(self).__name__} (02 / 04 training)")
         self.training_params = self.exp_params["training"]
         self.mesh = get_runtime_mesh(self.exp_params.get("tpu"), self.device)
         self.device = self.mesh.device
