@@ -344,7 +344,7 @@ H1. host_io  what the machine offers the host input path (``native.host_io``:
             of the stdlib writer (rows through filter types 0-4) decoded back,
             bit for bit; decode plus resize in frames/s on 1 thread and 8;
 H2. png_eval  (after ``mesh_shared_card``'s ranks, beside which its PNG set
-            is written) the CATER 05 CLI at B=64, p=19 over 64
+            and H4's are written) the CATER 05 CLI at B=64, p=19 over 64
             frame-directory videos of 21 PNG frames at 320 x 240 (8 loader
             threads); the ``.npy`` caches ``cli/make_npy_cache.py`` builds
             from them hold the same items bit for bit, so the cache route's
@@ -645,23 +645,45 @@ def phase_device():
     return name
 
 
+# the kernels on warpgroup MMA: (library, kernel function, its SASS instruction)
+GMMA_KERNELS = (("vit_attention", "attention_bf16_kernel", "HGMMA"),
+                ("conv_int8", "conv_int8_kernel", "IGMMA"))
+
+
 def phase_build():
+    """Builds every source; prints each library's ``ptxas -v`` lines and the
+    tensor-core instructions of each kernel function in its SASS. Returns
+    {kernel function: count} of the GMMA_KERNELS' instruction."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from textocvp_tpu_torch.ops import build
 
     t = time.perf_counter()
     built = build.build_all()
     seconds = time.perf_counter() - t
     libs = {}
+    with ThreadPoolExecutor(len(build.sources())) as pool:  # one cuobjdump a library at once
+        sass = dict(zip(build.sources(), pool.map(
+            lambda src: build.tensor_core_by_function(src.stem), build.sources())))
     for src in build.sources():
         report = build.ptxas_report(src.stem)
-        tensor_core = build.tensor_core_instructions(src.stem)
+        by_function = sass[src]
+        tensor_core = sum(sum(ops.values()) for ops in by_function.values())
         print(f"{src.stem}: {tensor_core} tensor-core SASS instructions\n{report}", flush=True)
-        libs[src.stem] = {"tensor_core_sass": tensor_core, "ptxas": report.splitlines()}
+        libs[src.stem] = {"tensor_core_sass": tensor_core, "ptxas": report.splitlines(),
+                          "by_function": {f: {op: c for op, c in ops.items() if c}
+                                          for f, ops in by_function.items()}}
+    gmma = {kernel: sum(ops.get(op, 0) for f, ops in libs[stem]["by_function"].items()
+                        if kernel in f) for stem, kernel, op in GMMA_KERNELS}
     emit({"phase": "build", "seconds": seconds, "built": built,
           "sources": [str(p.relative_to(ROOT)) for p in build.sources()],
-          "headers": [str(p.relative_to(ROOT)) for p in build.headers()], "libraries": libs})
+          "headers": [str(p.relative_to(ROOT)) for p in build.headers()], "libraries": libs,
+          "gmma": {f"{kernel} {op}": gmma[kernel] for _, kernel, op in GMMA_KERNELS}})
     for stem in TENSOR_CORE_KERNELS:
         check(libs[stem]["tensor_core_sass"] > 0, f"{stem}: no tensor-core instruction in its SASS")
+    for stem, kernel, op in GMMA_KERNELS:
+        check(gmma[kernel] > 0, f"{stem}: no {op} in {kernel}'s SASS")
+    return gmma
 
 
 def slot_attention_bound_ms(b, n, d, s, h, iters):
@@ -3914,9 +3936,9 @@ def run_png_eval(tmp: Path, root: Path):
                           EVAL_BATCH, {"slot_attention": 1, "vit_attention": 0, "conv5": 3})
 
 
-def run_clip_png_eval(tmp: Path):
-    """The CLIPort 05 over PNG episodes without a cache (``clip_png_eval``)."""
-    root = write_cliport_png_fixture(tmp / "CLIPort_png")
+def run_clip_png_eval(tmp: Path, root: Path):
+    """The CLIPort 05 over PNG episodes without a cache (``clip_png_eval``) in
+    ``root``, written by ``write_cliport_png_fixture``."""
     return png_route_eval(tmp, "clip_png_eval", PATHS[1], root,
                           ["--dataset", "cliport", "--split", "test",
                            "--img-size", f"{PATHS[1].res}x{PATHS[1].res}"],
@@ -4594,8 +4616,9 @@ def conv_int8_rows():
     (k=5, 64 -> 64 at 64 x 64; N=1216 a request, 9728 a 05 batch) and at each
     CNN-head layer of a CLIPort request's and a 05 batch's decode (k=3).
     Beside its time: the float path it replaces on the same shapes, conv5
-    (SAVi) and cuDNN's float32 conv + bias + ReLU (TF32 off), and the plain
-    version's time over all frames. No single PyTorch call computes an int8
+    (SAVi; and conv5's bf16 kernel, the opt-in bf16 decode's conv) and
+    cuDNN's float32 conv + bias + ReLU (TF32 off), and the plain version's
+    time over all frames. No single PyTorch call computes an int8
     convolution on CUDA: ``library_ms`` is None."""
     import torch.nn.functional as F
 
@@ -4658,6 +4681,11 @@ def conv_int8_rows():
         if k == 5:
             float_path["conv5_ms"] = cuda_ms(lambda: c5.conv5_cuda(x, w, bias), reps=reps,
                                              warmup=1)
+            # the opt-in bf16 decode's conv on the same shape
+            xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+            float_path["conv5_bf16_ms"] = cuda_ms(lambda: c5.conv5_bf16_cuda(xb, wb, bias, True),
+                                                  reps=reps, warmup=1)
+            del xb, wb
         del x, w, w_oihw
         torch.cuda.empty_cache()
         bound_ms, bound_by = conv_int8_bounds(n, res, res, k, cin, cout)
@@ -5924,7 +5952,7 @@ def main() -> int:
         return 2
 
     name = phase_device()
-    phase_build()
+    gmma = phase_build()
     rows = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         phase_host_io(Path(tmp))
@@ -5955,6 +5983,7 @@ def main() -> int:
         try:
             clip_data, clip_exp = clip_fixture(Path(tmp))
             png_root = write_cater_png_fixture(Path(tmp) / "CATER_png")
+            clip_png_root = write_cliport_png_fixture(Path(tmp) / "CLIPort_png")
         finally:
             wait_mesh(mesh)  # and done before the timed phases after it
         counts["png_eval"] = run_png_eval(Path(tmp), png_root)
@@ -5962,7 +5991,7 @@ def main() -> int:
         counts.update(run_quant(Path(tmp), Path(tmp) / "eval" / "exp", Path(tmp) / "clip_train"))
         counts.update(run_clip_figs(Path(tmp) / "clip_train"))
         phase_clip_remat(Path(tmp) / "clip_train")
-        counts["clip_png_eval"] = run_clip_png_eval(Path(tmp))
+        counts["clip_png_eval"] = run_clip_png_eval(Path(tmp), clip_png_root)
         finish_parities()  # the trainer parities' CPU halves, checked; their lines
         counts.update(finish_exports())  # the artifacts answer on the idle card
         counts.update(run_mesh(mesh))  # mesh_nccl alone on the card, then the shared card's
@@ -6046,7 +6075,9 @@ def main() -> int:
         **{f"b{b}": {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_ms_fp32_cores",
                                        "library_ms", "max_abs_err")}
            for b, r in vit.items() if b != BATCH},
-        "bf16": bf16_entry("vit_attention_bf16", rows["vit_attention_bf16"], "B", BATCH),
+        "bf16": {**bf16_entry("vit_attention_bf16", rows["vit_attention_bf16"], "B", BATCH),
+                 "design": "wgmma m64n64k16 + TMA ring on mbarriers",
+                 "sass_hgmma": gmma["attention_bf16_kernel"]},
     }, {
         "name": "conv5",
         "route": "cuda",
@@ -6104,6 +6135,8 @@ def main() -> int:
         "bound_ms": int8_eval["bound_ms"],
         "bound_by": int8_eval["bound_by"],
         "library_ms": None,
+        "design": "wgmma m64nNk32 .s8 + TMA halo ring, persistent, warp-specialised",
+        "sass_igmma": gmma["conv_int8_kernel"],
         "float_path": int8_eval["float_path"],
         "shape": [int8_eval["N"], int8_eval["H"], int8_eval["W"], int8_eval["Cin"],
                   int8_eval["Cout"], int8_eval["k"]],

@@ -31,7 +31,11 @@ ResNet SAVi train step that reaches every parameter; the bf16 variants of
 conv5 and the ViT attention against their plain versions run in float32 on
 the same bf16 inputs (within 2**-8 of the largest value) across their
 tiles, their refusals of grad and CPU tensors, and float32 calls still
-launching the float32 variants. Marked ``gpu``;
+launching the float32 variants; the wgmma designs of the bf16 ViT attention
+(n = 1 to 577 across its 64-key tiles and 128-query CTAs) and of the int8
+conv (exact across its channel tiles, Cin 64 / 128 / 768 by Cout 64 / 128 /
+1024, k 3 and 5, ReLU on and off, frames smaller than a halo and wider than
+a TMA box), as more inputs of the kernels' tests. Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -934,10 +938,20 @@ def _int8_case(n, h, w, k, cin, cout, seed=0):
 
 
 # SAVi's tail at a request's and a 05 batch's first maps, the CNN head's first
-# layer, and frames across the kernel's 128-pixel tile and the frame's border
-@pytest.mark.parametrize("n,h,w,k,cin,cout", [(3, 64, 64, 5, 64, 64), (2, 24, 24, 3, 768, 1024),
-                                              (1, 48, 48, 3, 1024, 512), (2, 17, 70, 5, 64, 64),
-                                              (1, 1, 1, 3, 64, 64), (5, 3, 130, 3, 128, 192)])
+# layer, and frames across the kernel's tiles and the frame's border; then the
+# wgmma design's edges: 3 frames of 11 x 13 (11 x (13 + k - 1) padded
+# positions, off the 256-position tile) at every Cin / Cout pairing of the
+# paths' widths (64-channel output tiles for Cout 64, 128 for 128 and 1024;
+# the weights resident at 64 -> 64 and 128 -> 64, streamed otherwise), frames
+# smaller than a tile's halo, a frame one pixel wide, and frames wider than a
+# TMA box (strips of 257 - k columns, their halos read from the neighbour strip)
+@pytest.mark.parametrize("n,h,w,k,cin,cout", [
+    (3, 64, 64, 5, 64, 64), (2, 24, 24, 3, 768, 1024), (1, 48, 48, 3, 1024, 512),
+    (2, 17, 70, 5, 64, 64), (1, 1, 1, 3, 64, 64), (5, 3, 130, 3, 128, 192)]
+    + [(3, 11, 13, k, cin, cout) for cin in (64, 128, 768) for cout in (64, 128, 1024)
+       for k in (3, 5)]
+    + [(2, 1, 3, 5, 64, 64), (3, 2, 2, 3, 128, 128), (4, 4, 5, 5, 64, 1024), (2, 9, 1, 3, 768, 64),
+       (1, 3, 300, 3, 64, 128), (2, 2, 520, 5, 64, 64)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_conv_int8_kernel_matches_plain_exactly(cuda, n, h, w, k, cin, cout, relu):
     from textocvp_tpu_torch.ops import conv_int8 as ci
@@ -1327,8 +1341,12 @@ def test_conv5_bf16_kernel_matches_plain(cuda, n, h, w, relu):
                                rtol=0, atol=0)
 
 
+# and the wgmma design's edges: key tiles of 64, CTAs of 128 queries (two
+# warpgroups of 64 rows), the last key tile masked, rows past n never stored,
+# over 15 frame-heads, each a grid row of its own
 @pytest.mark.parametrize("b,h,n", [(8, 12, 577), (2, 4, 150), (1, 1, 1), (3, 2, 64), (2, 3, 63),
-                                   (2, 3, 65), (1, 2, 129)])
+                                   (2, 3, 65), (1, 2, 129)]
+                         + [(3, 5, n) for n in (1, 63, 64, 65, 127, 128, 129, 577)])
 def test_vit_attention_bf16_kernel_matches_plain(cuda, b, h, n):
     q, k, v = (t.to(torch.bfloat16) for t in _qkv(b, h, n))
     before = (va.vit_attention_cuda.launches, va.vit_attention_bf16_cuda.launches)
@@ -1336,7 +1354,8 @@ def test_vit_attention_bf16_kernel_matches_plain(cuda, b, h, n):
     torch.cuda.synchronize()
     assert (va.vit_attention_cuda.launches, va.vit_attention_bf16_cuda.launches) == (
         before[0], before[1] + 1)
-    assert out.dtype == torch.bfloat16
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
     ref = va.vit_attention_plain(q.float(), k.float(), v.float(), 64 ** -0.5)
     err = (out.float() - ref).abs().max().item()
     assert err <= BF16_STEP * ref.abs().max().item(), err

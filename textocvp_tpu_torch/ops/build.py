@@ -10,9 +10,9 @@ once, at the first load of any of them. The libraries land in
 every header and the compiler flags, so an edit to any of them rebuilds them
 all and a stale library is never loaded. Beside each library ``nvcc`` leaves
 its ``-Xptxas -v`` report (registers, shared memory, spills of each kernel),
-read by :func:`ptxas_report`; :func:`tensor_core_instructions` counts the
-tensor-core instructions in a built library's machine code. Importing this
-module builds nothing.
+read by :func:`ptxas_report`; :func:`tensor_core_by_function` counts the
+tensor-core instructions of each kernel function in a built library's
+machine code. Importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -31,8 +31,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# SASS of the tensor cores: mma.sync (HMMA; IMMA for int8) and warpgroup wgmma (HGMMA)
-_TENSOR_CORE_SASS = re.compile(r"\b(HMMA|HGMMA|IMMA)\b")
+# SASS of the tensor cores: mma.sync (HMMA; IMMA for int8) and warpgroup wgmma
+# (HGMMA; IGMMA for int8)
+TENSOR_CORE_OPS = ("HMMA", "HGMMA", "IMMA", "IGMMA")
+_TENSOR_CORE_SASS = re.compile(r"\b(HMMA|HGMMA|IMMA|IGMMA)\b")
+_SASS_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -139,9 +142,35 @@ def ptxas_report(stem: str) -> str:
                      if "ptxas" in line or "stack frame" in line)
 
 
-def tensor_core_instructions(stem: str) -> int:
-    """How many tensor-core instructions (``HMMA``, ``HGMMA``, ``IMMA``) ``cuobjdump -sass``
-    shows in the built library of ``csrc/<stem>.cu``."""
-    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(library_paths()[stem])],
+def tensor_core_counts(sass: str) -> dict[str, dict[str, int]]:
+    """{kernel function: {instruction: count}} of the tensor-core instructions
+    (:data:`TENSOR_CORE_OPS`) in ``cuobjdump -sass`` text, by the ``Function :``
+    headers (mangled names) that the text holds."""
+    counts: dict[str, dict[str, int]] = {}
+    function = None
+    for line in sass.splitlines():
+        head = _SASS_FUNCTION.match(line)
+        if head:
+            function = head.group(1)
+            counts.setdefault(function, dict.fromkeys(TENSOR_CORE_OPS, 0))
+        elif function is not None:
+            for op in _TENSOR_CORE_SASS.findall(line):
+                counts[function][op] += 1
+    return counts
+
+
+def sass(stem: str) -> str:
+    """``cuobjdump -sass`` of the built library of ``csrc/<stem>.cu``."""
+    return subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(library_paths()[stem])],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    return len(_TENSOR_CORE_SASS.findall(sass))
+
+
+def tensor_core_by_function(stem: str) -> dict[str, dict[str, int]]:
+    """:func:`tensor_core_counts` of the built library of ``csrc/<stem>.cu``."""
+    return tensor_core_counts(sass(stem))
+
+
+def tensor_core_instructions(stem: str) -> int:
+    """How many tensor-core instructions (:data:`TENSOR_CORE_OPS`) ``cuobjdump -sass``
+    shows in the built library of ``csrc/<stem>.cu``."""
+    return sum(sum(ops.values()) for ops in tensor_core_by_function(stem).values())

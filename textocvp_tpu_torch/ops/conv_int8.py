@@ -16,7 +16,8 @@ file says what bounds it on an H100 and how its design answers.
   product formed first), plus ``bias``, then a ReLU if ``relu``.
 * The kernel takes k in {3, 5}, Cin a multiple of 64 and Cout a multiple of
   64 (SAVi's 5x5 64 -> 64 tail; the 3x3 convs of ExtendedDINOSAUR's CNN
-  head, 768 -> 1024 -> 512 -> 256 -> 128); the plain version any sizes.
+  head, 768 -> 1024 -> 512 -> 256 -> 128); the plain version any sizes. The
+  wrapper hands it the weights tiled for its plan (:func:`weight_tiles`).
 * The plain version sums the 9 or 25 shifted products in float64. Every
   partial sum is an integer below 2^53, so the float64 sums are the exact
   int32 sums, on the CPU and on the card alike; the float32 epilogue is then
@@ -105,6 +106,9 @@ def load_library():
         lib.conv_int8_forward.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.conv_int8_forward.restype = ctypes.c_int
+        lib.conv_int8_plan.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.conv_int8_plan.restype = ctypes.c_int
         for fn in (lib.conv_int8_ci_tile, lib.conv_int8_co_tile):
             fn.argtypes = []
             fn.restype = ctypes.c_int
@@ -145,18 +149,30 @@ def _check(x_q, w_q, a_scale, w_scale, bias, lib):
         raise ValueError(f"a frame of {tuple(x_q.shape[1:])} is too large for the kernel")
 
 
+def weight_tiles(w_q, ck: int, bn: int):
+    """HWIO ``w_q`` as the kernel reads it: [Cout / bn][Cin / ck][k * k]
+    [ck / 16][bn][16], each (output tile, input chunk) block contiguous."""
+    k, _, cin, cout = w_q.shape
+    w = w_q.reshape(k * k, cin // ck, ck // 16, 16, cout // bn, bn)
+    return w.permute(4, 1, 0, 2, 5, 3).contiguous()
+
+
 def conv_int8_cuda(x_q, w_q, a_scale, w_scale, bias, relu: bool = False):
     """Launch the CUDA kernel on the current stream; raises on what it does
-    not take. ``w_q`` is HWIO; the kernel reads it as (k * k, Cout, Cin)."""
+    not take. ``w_q`` is HWIO; the kernel reads it tiled (:func:`weight_tiles`)."""
     lib = load_library()
     _check(x_q, w_q, a_scale, w_scale, bias, lib)
     n, h, wd, cin = x_q.shape
     k, cout = w_q.shape[0], w_q.shape[3]
-    w_k = w_q.permute(0, 1, 3, 2).contiguous()
+    bn, ck = ctypes.c_int(), ctypes.c_int()
+    if lib.conv_int8_plan(n, h, wd, cin, cout, k, ctypes.byref(bn), ctypes.byref(ck)) != 0:
+        raise ValueError(f"the kernel cannot tile x_q of {tuple(x_q.shape)} with k = {k} and "
+                         f"Cout = {cout}")
+    w_t = weight_tiles(w_q, ck.value, bn.value)
     out = torch.empty((n, h, wd, cout), dtype=torch.float32, device=x_q.device)
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
     with torch.cuda.device(x_q.device):
-        err = lib.conv_int8_forward(x_q.data_ptr(), w_k.data_ptr(), a_scale.data_ptr(),
+        err = lib.conv_int8_forward(x_q.data_ptr(), w_t.data_ptr(), a_scale.data_ptr(),
                                     w_scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
                                     n, h, wd, cin, cout, k, int(bool(relu)), stream)
     if err != 0:
