@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""The bf16 ViT attention and the int8 conv, redesigned on wgmma and TMA,
-against the designs they replace and their yardsticks, on one NVIDIA GPU.
+"""The bf16 ViT attention, the int8 conv and conv5's bf16 variant, redesigned
+on wgmma and TMA, against the designs they replace and their yardsticks, on
+one NVIDIA GPU.
 
     mkdir -p scratch_chip/parent
     git archive PARENT textocvp_tpu_torch/csrc | tar -x -C scratch_chip/parent
-    python3 chip_redesign_probe.py [--parent scratch_chip/parent] [--part attention|conv]
+    python3 chip_redesign_probe.py [--parent scratch_chip/parent] \
+        [--part attention|conv|conv5_bf16]
 
 Builds this tree's kernels (``ops/build.py``) and prints their ``ptxas -v``
 lines and the tensor-core instructions of each kernel function in their
 SASS. With ``--parent`` (a tree holding the earlier
-``textocvp_tpu_torch/csrc/vit_attention.cu`` and ``conv_int8.cu``) it also
-builds those two sources with the port's flags (``build.build_copy``).
+``textocvp_tpu_torch/csrc/vit_attention.cu``, ``conv_int8.cu`` and
+``conv5.cu``) it also builds the parts' earlier sources with the port's
+flags (``build.build_copy``).
 
 Checks, one JSON line each:
 
@@ -19,16 +22,25 @@ Checks, one JSON line each:
   inputs, within one bf16 step (2**-8) of the largest value;
 - the int8 conv against ``conv_int8_plain``, bit for bit, at SAVi's tail,
   the CNN head's first layers, frames smaller than the halo, pixel counts
-  off the tile and Cin / Cout of 64 to 1024, with and without the ReLU.
+  off the tile and Cin / Cout of 64 to 1024, with and without the ReLU;
+- conv5's bf16 variant against ``conv5_plain`` in float32 on the same bf16
+  inputs, within one bf16 step (2**-8) of the largest value, at SAVi's 64 x
+  64, frames smaller than the halo, padded rows ending inside a tile, tile
+  counts the persistent grid does not divide and frames wider than the
+  halo's room (strips), with and without the ReLU (and the parent's kernel
+  on the same inputs).
 
 Times (CUDA events), at the main paths' shapes, in turns: parent, this
 tree, this tree, parent. The attention at B = 8 and 16 (12 heads, 577
 tokens, dh 64) beside ``F.scaled_dot_product_attention`` in bf16; the int8
 conv at SAVi's tail (N = 1216 and 9728 maps of 64 x 64, 64 -> 64, k = 5)
 beside conv5's bf16 kernel on the same shape, and at the CNN head's four
-layers for 72 and 144 frames. Each row carries its bound (``chip_smoke``'s
-formulas). Prints the card's name and power limit first, then one JSON line
-a check or a time; exits 1 if a check failed.
+layers for 72 and 144 frames; conv5's bf16 variant at N = 1216 and 9728,
+with and without the ReLU, beside cuDNN in bf16 (channels-last
+``F.conv2d`` with the bias and the ReLU) and the int8 conv on the same
+shape. Each row carries its bound (``chip_smoke``'s formulas). Prints the
+card's name and power limit first, then one JSON line a check or a time;
+exits 1 if a check failed.
 """
 
 import argparse
@@ -57,19 +69,28 @@ def check(ok, row):
     emit(row)
 
 
-def parent_libs(parent: Path):
+def parent_lib(parent: Path, part: str):
+    """The parent's library of ``part`` (attention, conv or conv5_bf16), built and bound."""
     from textocvp_tpu_torch.ops import build
 
     csrc = parent / "textocvp_tpu_torch" / "csrc"
-    va = build.build_copy("parent_vit_attention", (csrc / "vit_attention.cu").read_text())
-    va.va_bf16_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_void_p]
-    va.va_bf16_forward.restype = ctypes.c_int
-    ci = build.build_copy("parent_conv_int8", (csrc / "conv_int8.cu").read_text())
-    ci.conv_int8_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
-    ci.conv_int8_forward.restype = ctypes.c_int
-    return va, ci
+    if part == "attention":
+        va = build.build_copy("parent_vit_attention", (csrc / "vit_attention.cu").read_text())
+        va.va_bf16_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+            ctypes.c_float, ctypes.c_void_p]
+        va.va_bf16_forward.restype = ctypes.c_int
+        return va
+    if part == "conv":
+        ci = build.build_copy("parent_conv_int8", (csrc / "conv_int8.cu").read_text())
+        ci.conv_int8_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ci.conv_int8_forward.restype = ctypes.c_int
+        return ci
+    c5 = build.build_copy("parent_conv5", (csrc / "conv5.cu").read_text())
+    c5.conv5_bf16_forward.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    c5.conv5_bf16_forward.restype = ctypes.c_int
+    return c5
 
 
 def parent_attention(lib, q, k, v, scale):
@@ -97,7 +118,7 @@ def phase_build():
     from textocvp_tpu_torch.ops import build
 
     build.build_all()
-    for stem in ("vit_attention", "conv_int8"):
+    for stem in ("vit_attention", "conv_int8", "conv5"):
         sass = build.sass(stem)
         # the warpgroup fences and waits ptxas placed around the wgmma, a kernel
         per_function, function = {}, None
@@ -151,6 +172,92 @@ def conv_edges():
             check(torch.equal(out, ref), {"check": "conv_int8", "shape": [n, h, w, k, cin, cout],
                                           "relu": relu,
                                           "max_abs_err": (out - ref).abs().max().item()})
+
+
+def parent_conv5_bf16(lib, x, w, b, relu):
+    """The parent's conv5 bf16 kernel (HWIO bf16 weights, as its entry point took them)."""
+    out = torch.empty_like(x)
+    n, h, wd, _ = x.shape
+    err = lib.conv5_bf16_forward(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, h,
+                                 wd, int(relu), torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return out
+
+
+# (N, H, W): the gpu test's shapes, then the wgmma design's edges: a tile
+# count the persistent grid does not divide (133 x 9 tiles), padded rows
+# ending inside a warpgroup's half, frames wider than the halo's room
+# (strips of 75 and 40 columns), the widest single strip (79)
+CONV5_BF16_EDGES = [(2, 64, 64), (3, 17, 70), (1, 1, 1), (4, 5, 130), (2, 15, 63), (1, 33, 129),
+                    (70, 16, 16), (133, 64, 64), (2, 20, 30), (1, 9, 300), (1, 2, 520),
+                    (3, 7, 79), (2, 6, 80), (1, 64, 64)]
+
+
+def conv5_bf16_edges(parent):
+    from textocvp_tpu_torch.ops import conv5 as c5
+
+    gen = torch.Generator().manual_seed(cs.SEED + 42)
+    for n, h, w in CONV5_BF16_EDGES:
+        x = torch.randn((n, h, w, 64), generator=gen).cuda().to(torch.bfloat16)
+        wt = (torch.randn((5, 5, 64, 64), generator=gen) / 40).cuda().to(torch.bfloat16)
+        b = (0.1 * torch.randn((64,), generator=gen)).cuda()
+        for relu in (True, False):
+            out = c5.conv5_bf16_cuda(x, wt, b, relu)
+            ref = c5.conv5_plain(x.float(), wt.float(), b, relu)
+            torch.cuda.synchronize()
+            row = {"check": "conv5_bf16", "shape": [n, h, w], "relu": relu,
+                   "plan": c5.bf16_plan(h, w), "bf16_steps": cs.bf16_steps(out, ref),
+                   "finite": bool(torch.isfinite(out).all())}
+            if parent:
+                row["parent_bf16_steps"] = cs.bf16_steps(parent_conv5_bf16(parent, x, wt, b, relu),
+                                                         ref)
+            check(row["finite"] and row["bf16_steps"] <= 1, row)
+
+
+def conv5_bf16_times(parent):
+    import torch.nn.functional as F
+
+    from textocvp_tpu_torch.ops import conv5 as c5
+    from textocvp_tpu_torch.ops import conv_int8 as ci
+
+    gen = torch.Generator().manual_seed(cs.SEED + 12)
+    xgen = torch.Generator("cuda").manual_seed(cs.SEED + 12)
+    c, res = cs.CONV5_CH, cs.CONV5_RES
+    w = (torch.randn((5, 5, c, c), generator=gen) / (25 * c) ** 0.5).cuda().to(torch.bfloat16)
+    b = (0.1 * torch.randn((c,), generator=gen)).cuda()
+    w_oihw, b16 = w.permute(3, 2, 0, 1).contiguous(), b.to(torch.bfloat16)
+    for n, reps in ((cs.BATCH * 19 * 8, 10), (cs.EVAL_BATCH * cs.EVAL_PREDS * 8, 3)):
+        x = torch.randn((n, res, res, c), device="cuda", generator=xgen).mul_(0.5)
+        x = x.to(torch.bfloat16)
+        idx = [*range(min(n, 256)), n - 1]
+        for relu in (True, False):
+            ref = c5.conv5_plain(x[idx].float(), w.float(), b, relu)
+            row = {"time": "conv5_bf16", "N": n, "relu": relu,
+                   "bf16_steps": cs.bf16_steps(c5.conv5_bf16_cuda(x, w, b, relu)[idx], ref)}
+            if parent:
+                row["parent_bf16_steps"] = cs.bf16_steps(
+                    parent_conv5_bf16(parent, x, w, b, relu)[idx], ref)
+            del ref
+            torch.cuda.empty_cache()
+            row.update(in_turns(parent and (lambda: parent_conv5_bf16(parent, x, w, b, relu)),
+                                lambda: c5.conv5_bf16_cuda(x, w, b, relu), reps=reps, warmup=1))
+            act = F.relu_ if relu else (lambda y: y)
+            row["library_ms"] = cs.cuda_ms(lambda: act(F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b16,
+                                                                padding=2)), reps=reps, warmup=1)
+            torch.cuda.empty_cache()
+            if relu:  # the int8 conv on the same shape (quantized here, outside the timing)
+                x_q = ci.quantize_activation(x, torch.tensor(0.02, device="cuda")).contiguous()
+                w_q, w_scale = ci.quantize_weight(w, (0, 1, 2))
+                args = (x_q, w_q.contiguous(), torch.tensor(0.02, device="cuda"),
+                        w_scale.contiguous(), b)
+                row["conv_int8_ms"] = cs.cuda_ms(lambda: ci.conv_int8_cuda(*args, relu=True),
+                                                 reps=reps, warmup=1)
+                del x_q, w_q, args
+                torch.cuda.empty_cache()
+            row["bound_ms"], row["bound_by"] = cs.conv5_bf16_bounds(n, res, res, c)
+            check(row["bf16_steps"] <= 1, row)
+        del x
+        torch.cuda.empty_cache()
 
 
 def in_turns(parent_fn, fn, **kw):
@@ -237,8 +344,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="a tree with the earlier textocvp_tpu_torch/csrc sources")
-    ap.add_argument("--part", choices=("attention", "conv", "all"), default="all",
-                    help="one kernel's checks and times (a fault of one then spares the other)")
+    ap.add_argument("--part", choices=("attention", "conv", "conv5_bf16", "all"), default="all",
+                    help="one kernel's checks and times (a fault of one then spares the others)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_redesign_probe: needs a CUDA device", file=sys.stderr)
@@ -249,13 +356,17 @@ def main() -> int:
         "torch": torch.__version__, "cuda": torch.version.cuda})
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
-    parent = parent_libs(args.parent) if args.parent else (None, None)
-    if args.part in ("attention", "all"):
+    parts = ("attention", "conv", "conv5_bf16") if args.part == "all" else (args.part,)
+    parent = {part: parent_lib(args.parent, part) if args.parent else None for part in parts}
+    if "attention" in parts:
         attention_edges()
-        attention_times(parent[0])
-    if args.part in ("conv", "all"):
+        attention_times(parent["attention"])
+    if "conv" in parts:
         conv_edges()
-        conv_times(parent[1])
+        conv_times(parent["conv"])
+    if "conv5_bf16" in parts:
+        conv5_bf16_edges(parent["conv5_bf16"])
+        conv5_bf16_times(parent["conv5_bf16"])
     emit({"failed": len(FAILED)})
     return 1 if FAILED else 0
 

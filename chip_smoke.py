@@ -47,7 +47,11 @@ Phases, one JSON line each:
 2. build    compile the four CUDA kernels from ``csrc/``, one ``nvcc`` each, at
             once; print each library's ``ptxas -v`` report and its count of
             tensor-core instructions (``cuobjdump -sass``), which must not be
-            0 for conv5, the ViT attention and the int8 conv;
+            0 for conv5, the ViT attention and the int8 conv; the warpgroup
+            kernels (the bf16 ViT attention, the int8 conv, conv5's bf16
+            variant) must hold HGMMA / IGMMA, conv5's bf16 variant no HMMA,
+            and each its ``ptxas -v`` lines (printed) no spill and no note
+            that ptxas serialised its wgmma;
 3. kernels  slot attention against its plain PyTorch version at the CATER
             shape (N=4096, S=8, MLP 256, B in (1, 8, 64)) and the CLIPort shape
             (N=576, S=10, MLP 512, B in (1, 8, 16): a 06 sequence's frame, a
@@ -366,11 +370,12 @@ H4. clip_remat, clip_png_eval  (after phase 27) one CLIPort 02 microbatch of
             B=16, p=9 over 16 test episodes of 12 PNG frames at 640 x 480
             without a cache, against the cache route as H2.
 
-and the mesh (``parallel/``), in processes of their own (``start_mesh``,
-``wait_mesh``, ``run_mesh``; deterministic cuDNN and cuBLAS there): M2's
-two ranks run beside the CLIPort fixture and the card half of its 02 parity,
-which time nothing, and are waited for before the CLIPort 02 CLI; M1 runs
-alone on the card after phase E, then M2's line:
+and the mesh (``parallel/``), in processes of their own (``spawn_mesh``,
+``start_mesh``, ``wait_mesh``, ``run_mesh``; deterministic cuDNN and cuBLAS
+there), started before the four other predictors' phases, where they
+import and wait: M2's two ranks go beside the CLIPort fixture and the card
+half of its 02 parity, which time nothing, and are waited for before the
+CLIPort 02 CLI; M1 goes alone on the card after phase E, then M2's line:
 M1. mesh_nccl  a process group of one rank over NCCL, started through the
             ``TEXTOCVP_*`` environment, ``tpu.mesh_axes`` ``{"data": -1,
             "model": 1}``: two CATER 02 steps and two 04 steps at B=64, the
@@ -425,6 +430,7 @@ import gc
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -566,8 +572,29 @@ def cuda_ms(fn, reps=20, warmup=3, hold=False):
     return start.elapsed_time(stop) / reps
 
 
+def timed_once(fn):
+    """``fn()`` once between CUDA events: (its result, its ms). For a plain
+    version whose one pass is both the check's reference and its time."""
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def max_abs_diff(a, b, chunk=1024):
+    """max |a - b| in float32 over the first axis in chunks (no full-size temporary)."""
+    return max((a[i:i + chunk].float() - b[i:i + chunk].float()).abs().max().item()
+               for i in range(0, a.shape[0], chunk))
+
+
 FENCE_KERNEL = "spin_kernel"  # torch.cuda._sleep's
 FENCE_SPINS = (8, 64, 512)    # spins of about 12 ms before a traced call, by attempt
+# where in FENCE_SPINS a trace starts: the fence the process's last whole
+# trace needed (the stretch the profiler drops grows with the process's age)
+FENCE_FIRST = [0]
 
 
 def fence(spins=1):
@@ -591,12 +618,17 @@ def traced(fn, cpu=True):
     the first fence comes before ``fn``'s first device record and a spin of
     the last after its last one, so that no record of ``fn`` can be
     missing; else ``fn`` runs again behind the next fence of FENCE_SPINS,
-    and after the last the check fails."""
+    and after the last the check fails. A trace starts behind the fence that
+    the process's last whole trace needed (``FENCE_FIRST``), so that a
+    process pays for a failed first attempt once, not at every trace: on an
+    H100 most traces after a run's first minutes needed 64 spins, and each
+    failed first attempt cost a whole call and the reading of its trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] if cpu else []
-    for spins in FENCE_SPINS:
+    for attempt in range(FENCE_FIRST[0], len(FENCE_SPINS)):
+        spins = FENCE_SPINS[attempt]
         with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
             fence(spins)
             t = time.perf_counter()
@@ -609,17 +641,47 @@ def traced(fn, cpu=True):
             if e.device_type() == DeviceType.CUDA)]
         body = [i for i, name in enumerate(names) if FENCE_KERNEL not in name]
         if body and 0 < body[0] and body[-1] < len(names) - 1:
+            FENCE_FIRST[0] = attempt
             return prof, wall_ms, spins
     check(False, f"no whole trace behind {FENCE_SPINS[-1]} fence spins: the last one held "
                  f"{len(names)} device records, {len(body)} of the call, first {names[:3]}")
 
 
+@dataclass
+class DeviceRecord:
+    """A trace's device events of one name, as ``prof.key_averages()``
+    groups them: the name, the count and their device microseconds."""
+    key: str
+    count: int
+    self_device_time_total: float
+
+
 def device_records(prof):
-    """The device entries of ``prof.key_averages()``, the fences left out."""
+    """The device entries of a trace by name (``DeviceRecord``; the entries
+    of ``prof.key_averages()`` on the device), the fences left out. Read from
+    the trace's kineto events once: ``key_averages`` first builds a Python
+    object for every event, host and device, many times slower on a trace
+    of a CLIPort predictor step's 101,500 kernels
+    (``tests/test_torch_port_chip_smoke.py`` holds the two to each other and
+    times them)."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and FENCE_KERNEL not in e.key]
+    records, names = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_hidden_event():
+            continue
+        raw = e.name()
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = torch._C._demangle(raw)  # key_averages' name
+        if FENCE_KERNEL in name:
+            continue
+        r = records.get(name)
+        if r is None:
+            r = records[name] = DeviceRecord(name, 0, 0.0)
+        r.count += 1
+        r.self_device_time_total += e.duration_ns() / 1e3
+    return list(records.values())
 
 
 def bound(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -647,7 +709,27 @@ def phase_device():
 
 # the kernels on warpgroup MMA: (library, kernel function, its SASS instruction)
 GMMA_KERNELS = (("vit_attention", "attention_bf16_kernel", "HGMMA"),
-                ("conv_int8", "conv_int8_kernel", "IGMMA"))
+                ("conv_int8", "conv_int8_kernel", "IGMMA"),
+                ("conv5", "conv5_bf16_kernel", "HGMMA"))
+# how ptxas's notes that it serialised a kernel's wgmma begin (C7512: too few
+# registers; C7518: a wgmma on a divergent path; C7519: warpgroup.arrive
+# injected, as a runtime loop over the taps gave)
+WGMMA_SERIALISED = "Potential Performance Loss"
+
+
+def kernel_ptxas(report: str, kernel: str) -> list:
+    """``ptxas -v``'s lines about one kernel function of a library's report:
+    from its "Compiling entry function" line to its register count, and any
+    line elsewhere that names it (ptxas's performance notes)."""
+    lines, inside = [], False
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        if inside or (kernel in line and "Compiling entry function" not in line):
+            lines.append(line.strip())
+        if inside and "Used" in line and "registers" in line:
+            inside = False
+    return lines
 
 
 def phase_build():
@@ -683,6 +765,15 @@ def phase_build():
         check(libs[stem]["tensor_core_sass"] > 0, f"{stem}: no tensor-core instruction in its SASS")
     for stem, kernel, op in GMMA_KERNELS:
         check(gmma[kernel] > 0, f"{stem}: no {op} in {kernel}'s SASS")
+        lines = kernel_ptxas("\n".join(libs[stem]["ptxas"]), kernel)
+        print(f"{kernel}: " + " | ".join(lines), flush=True)
+        spills = [int(n) for line in lines for n in re.findall(r"(\d+) bytes spill", line)]
+        check(not any(spills), f"{kernel} spills: {lines}")
+        check(not any(WGMMA_SERIALISED in line for line in lines),
+              f"ptxas serialised {kernel}'s wgmma: {lines}")
+    bf16_conv = [o for f, o in libs["conv5"]["by_function"].items() if "conv5_bf16_kernel" in f]
+    check(bf16_conv and all(o.get("HMMA", 0) == 0 for o in bf16_conv),
+          f"conv5_bf16_kernel runs warp-level HMMA: {bf16_conv}")
     return gmma
 
 
@@ -807,9 +898,10 @@ def conv5_bounds(n, h, w, c):
 
 def conv5_rows():
     """conv5 against its plain version at the 06 paths' map counts, a CATER
-    request's and an eval batch's. The error is taken over the first 256 frames and
-    the last one (the plain version of all 9728 needs 50 GB); times cover
-    all frames, fewer repetitions at N=9728. The yardstick is ``F.conv2d``
+    request's and an eval batch's. The plain version runs once over all
+    frames (about 50 GB at N=9728): that pass is both the reference of the
+    error, over every frame, and ``plain_ms``. The kernel's times cover all
+    frames, fewer repetitions at N=9728. The yardstick is ``F.conv2d``
     (cuDNN, TF32 off) with the bias, then an in-place ReLU, timed on the
     NCHW-contiguous input and on the channels-last view of the NHWC input;
     ``library_ms`` is the faster."""
@@ -832,12 +924,11 @@ def conv5_rows():
         x = torch.randn((n, res, res, c), device="cuda", generator=xgen).mul_(0.5)
         launches = c5.conv5_cuda.launches
         out = c5.conv5_cuda(x, w, b)
-        check_idx = [*range(min(n, 256)), n - 1]
-        ref = torch.cat([c5.conv5_plain(x[:min(n, 256)], w, b), c5.conv5_plain(x[n - 1:], w, b)])
-        torch.cuda.synchronize()
-        err = (out[check_idx] - ref).abs().max().item()
+        ref, plain_ms = timed_once(lambda: c5.conv5_plain(x, w, b))
+        err = max_abs_diff(out, ref)
         finite = bool(torch.isfinite(out).all())
         del out, ref
+        torch.cuda.empty_cache()
         # float32 on both sides, 1600-term sums in other orders, outputs of order 1
         check(finite and err <= 1e-4, f"conv5 vs plain at N={n}: {err} > 1e-4")
         ms = cuda_ms(lambda: c5.conv5_cuda(x, w, b), reps=reps, warmup=1)
@@ -847,15 +938,12 @@ def conv5_rows():
         x_nchw = x.permute(0, 3, 1, 2).contiguous()
         lib_nchw = cuda_ms(lambda: F.relu_(F.conv2d(x_nchw, w_oihw, b, padding=2)),
                            reps=reps, warmup=1)
-        del x_nchw
-        torch.cuda.empty_cache()
-        plain_ms = cuda_ms(lambda: c5.conv5_plain(x, w, b), reps=max(1, reps // 2), warmup=1)
-        del x
+        del x_nchw, x
         torch.cuda.empty_cache()
         bound_ms, bound_by, fp32_ms = conv5_bounds(n, res, res, c)
         layout = "nchw" if lib_nchw <= lib_cl else "channels_last"
         rows.append({"N": n, "H": res, "W": res, "C": c, "max_abs_err": err,
-                     "err_frames": f"first {min(n, 256)} and the last", "ms": ms,
+                     "err_frames": "all", "ms": ms,
                      "plain_ms": plain_ms, "library_ms": min(lib_nchw, lib_cl),
                      "library_layout": layout,
                      "library_ms_by_layout": {"nchw": lib_nchw, "channels_last": lib_cl},
@@ -886,11 +974,11 @@ def conv5_variant_rows():
         x = torch.randn((n, res, res, c), generator=gen).cuda()
         launches = c5.conv5_cuda.launches
         out = c5.conv5_cuda(x, w, b, relu=False)
-        err = (out - c5.conv5_plain(x, w, b, relu=False)).abs().max().item()
+        ref, plain_ms = timed_once(lambda: c5.conv5_plain(x, w, b, relu=False))
+        err = (out - ref).abs().max().item()
         check(bool(torch.isfinite(out).all()) and err <= 1e-4,
               f"conv5 vs plain at N={n}, {res} px, no ReLU: {err} > 1e-4")
         ms = cuda_ms(lambda: c5.conv5_cuda(x, w, b, relu=False), hold=True)
-        plain_ms = cuda_ms(lambda: c5.conv5_plain(x, w, b, relu=False))
         library_ms = cuda_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, padding=2),
                              hold=True)
         bound_ms, bound_by, fp32_ms = conv5_bounds(n, res, res, c)
@@ -932,9 +1020,11 @@ def conv5_bf16_bounds(n, h, w, c):
 def conv5_bf16_rows():
     """conv5's bf16 variant at a CATER request's and an eval batch's map
     counts, with the ReLU and without, against its plain version in float32
-    on the same bf16 inputs (the first 256 frames and the last), with the
-    bf16 plain version's time and ``F.conv2d`` in bf16, channels-last, with
-    the bias and the ReLU (cuDNN) as the yardstick."""
+    on the same bf16 inputs, every frame: one pass of the bf16 plain
+    version's arithmetic (the float32 sums and the bias, ReLU, then the one
+    rounding to bf16, as ``conv5_plain`` of a bf16 ``x``), timed, is the
+    reference of both distances and ``plain_ms``; with ``F.conv2d`` in bf16,
+    channels-last, with the bias and the ReLU (cuDNN) as the yardstick."""
     import torch.nn.functional as F
 
     from textocvp_tpu_torch.ops import conv5 as c5
@@ -949,17 +1039,22 @@ def conv5_bf16_rows():
     for n, reps in ((BATCH * 19 * 8, 10), (EVAL_BATCH * EVAL_PREDS * 8, 2)):
         x = torch.randn((n, res, res, c), device="cuda", generator=xgen).mul_(0.5)
         x = x.to(torch.bfloat16)
-        idx = [*range(min(n, 256)), n - 1]
+
+        def plain(relu):  # conv5_plain's bf16 contract, its float32 sum kept
+            ref = c5.conv5_plain(x.float(), w.float(), b, relu)
+            return ref, ref.to(torch.bfloat16)
+
         for relu in (True, False):
             launches = c5.conv5_bf16_cuda.launches
-            out = c5.conv5_bf16_cuda(x, w, b, relu)[idx]
-            ref = c5.conv5_plain(x[idx].float(), w.float(), b, relu)
-            torch.cuda.synchronize()
+            out = c5.conv5_bf16_cuda(x, w, b, relu)
+            (ref, ref16), plain_ms = timed_once(lambda: plain(relu))
             finite = bool(torch.isfinite(out).all())
-            steps = bf16_steps(out, ref)
-            steps_bf16 = bf16_steps(out, ref.to(torch.bfloat16))
-            err = (out.float() - ref).abs().max().item()
-            del out, ref
+            err = max_abs_diff(out, ref)
+            top = ref.abs().max().item()
+            steps = err / (BF16_STEP * top)
+            steps_bf16 = max_abs_diff(out, ref16) / (BF16_STEP * ref16.float().abs().max().item())
+            del out, ref, ref16
+            torch.cuda.empty_cache()
             check(finite and steps <= 1, f"conv5 bf16 vs plain at N={n}, relu={relu}: "
                                          f"{steps} bf16 steps > 1")
             ms = cuda_ms(lambda: c5.conv5_bf16_cuda(x, w, b, relu), reps=reps, warmup=1)
@@ -968,12 +1063,10 @@ def conv5_bf16_rows():
             library_ms = cuda_ms(lambda: act(F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b16,
                                                       padding=2)), reps=reps, warmup=1)
             torch.cuda.empty_cache()
-            plain_ms = cuda_ms(lambda: c5.conv5_plain(x, w, b, relu), reps=1, warmup=1)
-            torch.cuda.empty_cache()
             bound_ms, bound_by = conv5_bf16_bounds(n, res, res, c)
             rows.append({"N": n, "H": res, "W": res, "C": c, "relu": relu, "max_abs_err": err,
                          "max_err_steps": steps, "max_steps_vs_bf16_plain": steps_bf16,
-                         "err_frames": f"first {min(n, 256)} and the last", "ms": ms,
+                         "err_frames": "all", "ms": ms,
                          "plain_ms": plain_ms, "library_ms": library_ms,
                          "library_layout": "channels_last", "bound_ms": bound_ms,
                          "bound_by": bound_by, "launches": launches, "reps": reps})
@@ -1174,7 +1267,7 @@ def conv5_frozen_backward_rows():
         fwd_ms = cuda_ms(lambda: c5.conv5_cuda(xd, w, b), reps=3, warmup=1)
         dx_ms = cuda_ms(lambda: c5.conv5_input_grad_cuda(gm, w_rot, zeros), reps=3, warmup=1)
         plain_ms = cuda_ms(lambda: c5.conv5_plain(gm, w_rot, zeros, relu=False), reps=1,
-                           warmup=1)
+                           warmup=0)
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         lib_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
             gm.permute(0, 3, 1, 2), xd.permute(0, 3, 1, 2), w_oihw, [c], [1, 1], [2, 2],
@@ -3853,10 +3946,13 @@ def png_route_eval(tmp: Path, phase, path: ServedPath, png_root: Path, cache_arg
     caches that ``cli/make_npy_cache.py`` builds from it (args
     ``cache_args``) hold the same items bit for bit, so the cache route's
     05 gives the same ``results.json`` (its CLI run, the same path as the
-    ``eval`` phase's, was cut to keep the run inside its time limit). Then
-    the loader's frames/s on the PNG set against the eval step's demand, and
-    the device's idle share of the loader's batch and its step under
-    ``torch.profiler``. Returns the main path's launches."""
+    ``eval`` phase's, was cut to keep the run inside its time limit). Then,
+    on the CLI's own evaluator (kept, not built again), the loader's
+    frames/s on the PNG set against the eval step's demand, and the device's
+    idle share of the loader's batch and its step under ``torch.profiler``.
+    Returns the main path's launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from textocvp_tpu_torch.cli import evaluate_predictor, make_npy_cache
     from textocvp_tpu_torch.data.loader import load_data
     from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
@@ -3874,12 +3970,23 @@ def png_route_eval(tmp: Path, phase, path: ServedPath, png_root: Path, cache_arg
         argv = ["-d", str(exps[route]), "--name_pred_exp", "textocvp_t5", "--decomp_ckpt",
                 "random", "--pred_ckpt", "random", "--batch_size", str(batch), "--num_seed",
                 "1", "--num_preds", str(path.num_preds)]
-        reset_launches()  # the main path starts here
-        t = time.perf_counter()
-        rc = evaluate_predictor.main(argv)
-        torch.cuda.synchronize()
-        cli_s[route] = time.perf_counter() - t
-        counts = launches()  # and ends here
+        evaluators = []
+        evaluate = PredictorEvaluator.evaluate
+
+        def keep(self, *a, **kw):  # the CLI's evaluator, kept for the measurements below
+            evaluators.append(self)
+            return evaluate(self, *a, **kw)
+
+        PredictorEvaluator.evaluate = keep
+        try:
+            reset_launches()  # the main path starts here
+            t = time.perf_counter()
+            rc = evaluate_predictor.main(argv)
+            torch.cuda.synchronize()
+            cli_s[route] = time.perf_counter() - t
+            counts = launches()  # and ends here
+        finally:
+            PredictorEvaluator.evaluate = evaluate
         check(rc == 0, f"{phase} {route}: evaluate_predictor returned {rc}")
         with open(exps[route] / "predictors" / "textocvp_t5" / "results" / (
                 f"eval_pred_random_NumSeed=1_NumPreds={path.num_preds}") / "results.json") as f:
@@ -3891,17 +3998,16 @@ def png_route_eval(tmp: Path, phase, path: ServedPath, png_root: Path, cache_arg
               and bool(np.isfinite(results["png"][m]["framewise"]).all()),
               f"{phase}: {m} {results['png'][m]}")
 
-    ev = PredictorEvaluator(exps["png"], "textocvp_t5", "random", "random", num_seed=1,
-                            num_preds=path.num_preds, batch_size=batch)
-    ev.load_data()
-    ev.load_models()
-    # the items themselves, bit for bit
+    (ev,) = evaluators
+    # the items themselves, bit for bit (each item's PNGs decoded on a thread of its own)
     cached = load_data({**ev.exp_params, "dataset": {**ev.exp_params["dataset"],
                                                      "root": str(cache_root)}}, "test")
     check(len(cached) == len(ev.test_set), f"{phase}: {len(cached)} cached items")
-    for i in range(len(cached)):
-        check(np.array_equal(ev.test_set[i][0], cached[i][0]),
-              f"{phase}: item {i} of the PNG route differs from the cache's")
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        same = list(pool.map(lambda i: np.array_equal(ev.test_set[i][0], cached[i][0]),
+                             range(len(cached))))
+    for i, equal in enumerate(same):
+        check(equal, f"{phase}: item {i} of the PNG route differs from the cache's")
     t = time.perf_counter()
     frames = sum(v.shape[0] * v.shape[1] for v, _ in ev.test_loader)
     loader_fps = frames / (time.perf_counter() - t)
@@ -4643,16 +4749,14 @@ def conv_int8_rows():
         bias = torch.randn(cout, device="cuda", generator=gen)
         args = (x_q, w_q, a_scale, w_scale, bias)
         chunk = max(1, (2 << 30) // (8 * res * res * max(cin, cout)))
-
-        def plain():
-            return [ci.conv_int8_plain(x_q[i:i + chunk], *args[1:], relu=True)
-                    for i in range(0, n, chunk)]
-
         launches = ci.conv_int8_cuda.launches
         out = ci.conv_int8_cuda(*args, relu=True)
-        err = 0.0
+        # the check's pass over every frame is the plain version's time too
+        err, plain_ms = 0.0, 0.0
         for i in range(0, n, chunk):
-            ref = ci.conv_int8_plain(x_q[i:i + chunk], *args[1:], relu=True)
+            ref, chunk_ms = timed_once(
+                lambda: ci.conv_int8_plain(x_q[i:i + chunk], *args[1:], relu=True))
+            plain_ms += chunk_ms
             err = max(err, (out[i:i + chunk] - ref).abs().max().item())
             del ref
         finite = bool(torch.isfinite(out).all())
@@ -4661,8 +4765,6 @@ def conv_int8_rows():
         check(finite and err == 0, f"conv_int8 vs plain at {name}: {err} != 0")
         ms = cuda_ms(lambda: ci.conv_int8_cuda(*args, relu=True), reps=reps, warmup=1)
         launches = ci.conv_int8_cuda.launches - launches
-        plain_ms = cuda_ms(plain, reps=1, warmup=0)
-        torch.cuda.empty_cache()
         # the float path of the same shape: float activations, the conv + bias + ReLU
         x = x_q.float().mul_(0.02)
         del x_q
@@ -5392,11 +5494,32 @@ def _tp_emergency(tr, rank) -> dict:
     return result
 
 
-def mesh_worker(spec_path, out_path):
+MESH_GO_LIMIT_S = 3000  # the longest a started mesh process waits for its go
+
+
+def wait_for_go(go: Path):
+    """Import what the mesh phases use, then wait until ``go`` exists; exit
+    if the process that started this one has gone or after MESH_GO_LIMIT_S."""
+    import textocvp_tpu_torch.parallel.distributed  # noqa: F401
+    import textocvp_tpu_torch.serve  # noqa: F401
+    import textocvp_tpu_torch.train.evaluator  # noqa: F401
+    import textocvp_tpu_torch.train.predictor_trainer  # noqa: F401
+    import textocvp_tpu_torch.train.trainer  # noqa: F401
+
+    parent, t = os.getppid(), time.perf_counter()
+    while not go.exists():
+        if os.getppid() != parent or time.perf_counter() - t > MESH_GO_LIMIT_S:
+            sys.exit(3)
+        time.sleep(0.05)
+
+
+def mesh_worker(spec_path, out_path, go):
     """The mesh phases' processes (``run_mesh``): ``mesh_nccl`` alone, or one
-    rank of ``mesh_shared_card``. The launch environment is set aside until
-    the plain half (or rank 0's references) is done. Deterministic cuDNN and
-    cuBLAS, so that a step can be held to another bit for bit."""
+    rank of ``mesh_shared_card``. Each is started early (:func:`spawn_mesh`),
+    imports, and waits for its ``go`` file (:func:`wait_for_go`) before it
+    reads its spec. The launch environment is set aside until the plain half
+    (or rank 0's references) is done. Deterministic cuDNN and cuBLAS, so
+    that a step can be held to another bit for bit."""
     import warnings
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5404,6 +5527,7 @@ def mesh_worker(spec_path, out_path):
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     torch.use_deterministic_algorithms(True, warn_only=True)
+    wait_for_go(Path(go))
     spec = json.loads(Path(spec_path).read_text())
     if spec["phase"] == "mesh_shared_card":
         torch.set_num_threads(2)  # beside the main timeline's phases
@@ -5449,28 +5573,36 @@ def mesh_worker(spec_path, out_path):
     Path(out_path).write_text(json.dumps(out))
 
 
-def _start_mesh(tmp: Path, phase: str, spec: dict, world: int):
-    """Start ``world`` processes of ``mesh_worker`` on the card, joined by the
-    ``TEXTOCVP_*`` environment (:func:`_finish_mesh` waits for them)."""
+def _spawn_mesh(tmp: Path, phase: str, world: int):
+    """Start ``world`` processes of ``mesh_worker`` for ``phase``, joined by the
+    ``TEXTOCVP_*`` environment; each waits for the go of :func:`_go_mesh`
+    (:func:`_finish_mesh` waits for them)."""
     import socket
 
-    spec_path = tmp / f"{phase}.json"
-    spec_path.write_text(json.dumps({**spec, "phase": phase}))
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = {**os.environ, "TEXTOCVP_COORDINATOR": f"127.0.0.1:{port}",
            "TEXTOCVP_NUM_PROCESSES": str(world), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    spec_path, go = tmp / f"{phase}.json", tmp / f"{phase}.go"
     procs, logs = [], []
     for r in range(world):
         logs.append(open(tmp / f"{phase}_rank{r}.log", "w"))
         procs.append(subprocess.Popen(
             [sys.executable, "-c", MESH_WORKER_CMD, str(spec_path),
-             str(tmp / f"{phase}_rank{r}.json")],
+             str(tmp / f"{phase}_rank{r}.json"), str(go)],
             env={**env, "TEXTOCVP_PROCESS_ID": str(r)}, cwd=ROOT, stdout=logs[-1],
             stderr=subprocess.STDOUT))
     return {"tmp": tmp, "phase": phase, "world": world, "procs": procs, "logs": logs,
-            "spec": spec, "started": time.perf_counter()}
+            "spec_path": spec_path, "go": go, "started": time.perf_counter()}
+
+
+def _go_mesh(run: dict, spec: dict):
+    """Write ``run``'s spec and let its processes go."""
+    run["spec_path"].write_text(json.dumps({**spec, "phase": run["phase"]}))
+    run["spec"] = spec
+    run["go"].touch()
+    run["started"] = time.perf_counter()
 
 
 def _finish_mesh(run: dict, timeout: float):
@@ -5493,13 +5625,23 @@ def _finish_mesh(run: dict, timeout: float):
     return [json.loads((tmp / f"{phase}_rank{r}.json").read_text()) for r in range(world)]
 
 
-def start_mesh(tmp: Path, train_exp: Path, device="cuda"):
+def spawn_mesh(tmp: Path):
+    """Start the mesh phases' processes, ``mesh_shared_card``'s two ranks and
+    ``mesh_nccl``'s one, which import (host work on a core each, beside the
+    phases before :func:`start_mesh`) and wait for their go. Returns them."""
+    return {"shared": _spawn_mesh(tmp, "mesh_shared_card", 2),
+            "nccl": _spawn_mesh(tmp, "mesh_nccl", 1)}
+
+
+def start_mesh(mesh: dict, tmp: Path, train_exp: Path, device="cuda"):
     """Write the mesh phases' experiments (over the SAVi of ``train_exp``, the
-    CATER serving path's and the eval path's) and start ``mesh_shared_card``'s
-    two ranks (about 50 s, mostly the host's: gloo's copies and the
-    rollout's dispatch). They run beside phases that time nothing, and
-    :func:`wait_mesh` waits for them before the next timed one. Returns the
-    running phase."""
+    CATER serving path's and the eval path's) and let ``mesh_shared_card``'s
+    two ranks of ``mesh`` (:func:`spawn_mesh`) go (about 60 s, mostly the
+    host's: gloo's copies and the rollout's dispatch). They run beside
+    phases that time nothing, and :func:`wait_mesh` waits for them before
+    the next timed one; ``mesh_nccl``'s process waits for :func:`run_mesh`'s
+    go. Returns the running phase, ``mesh_nccl``'s process under
+    ``"nccl"``."""
     from textocvp_tpu_torch.core.experiment import Experiment
 
     spec = {"decomp_exp": str(train_experiment(tmp / "mesh_train", tmp / "CATER_train",
@@ -5520,7 +5662,10 @@ def start_mesh(tmp: Path, train_exp: Path, device="cuda"):
             params["tpu"] = {**(params.get("tpu") or {}), "mesh_axes": axes}
             Experiment(exp).save_params(params)
         spec[name] = str(exp)
-    return _start_mesh(tmp, "mesh_shared_card", spec, 2)
+    shared = mesh["shared"]
+    _go_mesh(shared, spec)
+    shared["nccl"] = mesh["nccl"]
+    return shared
 
 
 def clip_int8_experiment(parent: Path) -> Path:
@@ -5540,7 +5685,7 @@ def clip_int8_experiment(parent: Path) -> Path:
 
 
 def wait_mesh(shared: dict):
-    """Wait for ``mesh_shared_card``'s ranks (started by :func:`start_mesh`):
+    """Wait for ``mesh_shared_card``'s ranks (let go by :func:`start_mesh`):
     their outputs go into ``shared["ranks"]``, and the seconds the main
     timeline waited for them into ``shared["wait_s"]``."""
     t = time.perf_counter()
@@ -5586,8 +5731,8 @@ def _mesh_phases(shared, device):
     counts = {}
     gc.collect()
     torch.cuda.empty_cache()
-    (one,) = _finish_mesh(_start_mesh(shared["tmp"], "mesh_nccl", shared["spec"], 1),
-                          timeout=600)
+    _go_mesh(shared["nccl"], shared["spec"])  # its process was started by spawn_mesh
+    (one,) = _finish_mesh(shared["nccl"], timeout=600)
     check(one["backend"] == ("nccl" if device == "cuda" else "gloo"),
           f"mesh_nccl: backend {one['backend']}")
     equal = {k: one[k] for k in ("params_equal_02", "params_equal_04", "results_equal_05",
@@ -5975,11 +6120,13 @@ def main() -> int:
         phase_train_remat(train_exp, Path(tmp) / "CATER_train")
         counts["pred_train"], pred_input_grad, pred_weight_grad = run_pred_train(train_exp)
         counts.update(run_figs(train_exp))
+        # the mesh phases' processes import beside the phases before start_mesh
+        mesh = spawn_mesh(Path(tmp))
         other_counts, other_input_grad, other_weight_grad = run_predictors(Path(tmp), train_exp)
         counts.update(other_counts)
         # mesh_shared_card's two ranks beside the CLIPort fixture and the CATER
         # PNG set (host work on one core), which time nothing
-        mesh = start_mesh(Path(tmp), train_exp)
+        mesh = start_mesh(mesh, Path(tmp), train_exp)
         try:
             clip_data, clip_exp = clip_fixture(Path(tmp))
             png_root = write_cater_png_fixture(Path(tmp) / "CATER_png")
@@ -6120,7 +6267,10 @@ def main() -> int:
                          "rel_err")} for n, r in conv_bwd.items()},
                      "ms": conv_train["backward_ms"], "bound_ms": conv_train["backward_bound_ms"],
                      "library_ms": conv_train["library_ms"]},
-        "bf16": bf16_entry("conv5_bf16", rows["conv5_bf16"], "N", EVAL_BATCH * EVAL_PREDS * 8),
+        "bf16": {**bf16_entry("conv5_bf16", rows["conv5_bf16"], "N", EVAL_BATCH * EVAL_PREDS * 8),
+                 "design": "wgmma m64n256k16 (weights A, halo B) + TMA halo and weight rings, "
+                           "persistent, warp-specialised",
+                 "sass_hgmma": gmma["conv5_bf16_kernel"]},
     }, {
         "name": "conv_int8",
         "route": "cuda",

@@ -4,14 +4,20 @@ On the card the profiler drops the earliest device records of a trace in a
 process that has run for minutes (``chip_trace_probe.py``). ``traced``
 fences the call with device spins and takes the trace again behind a longer
 fence until a spin precedes the call's first record and another follows
-its last. Here a fake profiler drops a given number of the earliest records
-of each trace.
+its last, and starts each later trace behind the fence the last whole one
+needed. Here a fake profiler drops a given number of the earliest records
+of each trace. ``chip_smoke.device_records`` reads a trace's device events
+by name as ``prof.key_averages()`` groups them, straight from the kineto
+events: held to ``key_averages`` on a real CPU trace, its host events
+standing in for the device's, and timed against it.
 """
 
 import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import sys
 from pathlib import Path
 from types import SimpleNamespace
+
+import time
 
 import pytest
 import torch
@@ -46,6 +52,7 @@ def fake_profiler(monkeypatch):
             return False
 
     monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(chip_smoke, "FENCE_FIRST", [0])  # a young process
     monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: timeline.append(
         "at::cuda::(anonymous namespace)::spin_kernel(long)"))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
@@ -98,3 +105,38 @@ def test_a_trace_that_lost_its_last_fence_is_taken_again(fake_profiler, monkeypa
     monkeypatch.setattr(chip_smoke, "fence", fence)
     _, _, spins = chip_smoke.traced(fn)
     assert spins == chip_smoke.FENCE_SPINS[1] and len(calls) == 2
+
+
+def test_a_later_trace_starts_behind_the_fence_the_last_whole_one_needed(fake_profiler):
+    fn, calls, drops = fake_profiler
+    first = chip_smoke.FENCE_SPINS[0]
+    drops.extend([first + 2, 0])  # the first trace needs the second fence
+    assert chip_smoke.traced(fn)[2] == chip_smoke.FENCE_SPINS[1] and len(calls) == 2
+    drops.extend([0])  # the next one starts there: one call, no failed attempt
+    assert chip_smoke.traced(fn)[2] == chip_smoke.FENCE_SPINS[1] and len(calls) == 3
+    # and still goes on to a longer fence where that one is not enough
+    drops.extend([chip_smoke.FENCE_SPINS[1] + 2, 0])
+    assert chip_smoke.traced(fn)[2] == chip_smoke.FENCE_SPINS[2] and len(calls) == 5
+
+
+def test_device_records_group_a_trace_as_key_averages_does(monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(4)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3000):
+            x.add_(1)
+            x.mul_(1)
+    # the trace's host events stand in for a device's
+    monkeypatch.setattr(torch.autograd, "DeviceType", SimpleNamespace(CUDA=DeviceType.CPU))
+    t = time.perf_counter()
+    got = {r.key: (r.count, r.self_device_time_total) for r in chip_smoke.device_records(prof)}
+    read_s = time.perf_counter() - t
+    monkeypatch.undo()
+    t = time.perf_counter()
+    want = {e.key: (e.count, e.cpu_time_total) for e in prof.key_averages()}
+    averages_s = time.perf_counter() - t
+    assert got.keys() == want.keys() and {"aten::add_", "aten::mul_"} <= set(got)
+    for key, (count, us) in want.items():
+        assert got[key][0] == count and got[key][1] == pytest.approx(us, rel=1e-6, abs=1e-3)
+    assert read_s < averages_s

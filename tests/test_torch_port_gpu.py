@@ -35,7 +35,10 @@ launching the float32 variants; the wgmma designs of the bf16 ViT attention
 (n = 1 to 577 across its 64-key tiles and 128-query CTAs) and of the int8
 conv (exact across its channel tiles, Cin 64 / 128 / 768 by Cout 64 / 128 /
 1024, k 3 and 5, ReLU on and off, frames smaller than a halo and wider than
-a TMA box), as more inputs of the kernels' tests. Marked ``gpu``;
+a TMA box), as more inputs of the kernels' tests; the wgmma design of the
+bf16 conv5 (frames wider than its halo's room, tile counts off the grid,
+rows ending inside a tile; HGMMA and no HMMA in its SASS; its plan the one
+the CPU tiling test walks). Marked ``gpu``;
 without a CUDA device each one skips (decided in the ``cuda`` fixture, so
 every worker collects the same tests).
 
@@ -1322,8 +1325,13 @@ def test_a_resnet_savi_train_step_on_the_card_reaches_every_parameter(cuda, tmp_
 BF16_STEP = 2.0 ** -8
 
 
+# and the wgmma design's edges: frames wider than the halo's room (strips of
+# 75 and 40 columns), a tile count the persistent grid does not divide (133
+# frames of 9 tiles), padded rows that end inside a warpgroup's half, the
+# widest single strip
 @pytest.mark.parametrize("n,h,w", [(2, 64, 64), (3, 17, 70), (1, 1, 1), (4, 5, 130), (2, 15, 63),
-                                   (1, 33, 129), (70, 16, 16)])
+                                   (1, 33, 129), (70, 16, 16), (1, 9, 300), (133, 64, 64),
+                                   (2, 20, 30), (1, 2, 520), (3, 7, 79), (2, 6, 80)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_conv5_bf16_kernel_matches_plain(cuda, n, h, w, relu):
     x, wt, b = _conv5_case(n, h, w)
@@ -1339,6 +1347,29 @@ def test_conv5_bf16_kernel_matches_plain(cuda, n, h, w, relu):
     # the plain version of the contract: the float32 sum rounded once
     torch.testing.assert_close(c5.conv5_plain(x, wt, b, relu), ref.to(torch.bfloat16),
                                rtol=0, atol=0)
+
+
+def test_conv5_bf16_kernel_runs_on_hgmma_alone(cuda):
+    """The bf16 conv5 kernel's products are warpgroup MMAs: HGMMA in its SASS
+    and no warp-level HMMA."""
+    from textocvp_tpu_torch.ops import build
+
+    build.load_library("conv5")
+    ops = [o for f, o in build.tensor_core_by_function("conv5").items()
+           if "conv5_bf16_kernel" in f]
+    assert len(ops) == 1, build.ptxas_report("conv5")
+    assert ops[0]["HGMMA"] > 0 and ops[0]["HMMA"] == 0, ops[0]
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (1, 1), (9, 300), (16, 16), (5, 79), (5, 80), (2, 520)])
+def test_conv5_bf16_plan_is_the_one_the_cpu_tiling_test_emulates(cuda, h, w):
+    """``csrc/conv5.cu::make_bf16_plan`` against the geometry that
+    ``test_torch_port_conv5_bf16_tiling.py`` walks on the CPU."""
+    threads = torch.get_num_threads()
+    from test_torch_port_conv5_bf16_tiling import plan  # sets two CPU threads
+
+    torch.set_num_threads(threads)
+    assert c5.bf16_plan(h, w) == plan(h, w)
 
 
 # and the wgmma design's edges: key tiles of 64, CTAs of 128 queries (two

@@ -91,6 +91,8 @@ def load_library():
         lib.conv5_forward.restype = ctypes.c_int
         lib.conv5_bf16_forward.argtypes = lib.conv5_forward.argtypes
         lib.conv5_bf16_forward.restype = ctypes.c_int
+        lib.conv5_bf16_plan.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 6
+        lib.conv5_bf16_plan.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -144,20 +146,46 @@ def conv5_cuda(x, w, b, relu: bool = True):
 conv5_cuda.launches = 0
 
 
+BF16_CHUNK = 16  # input channels a chunk of the bf16 kernel (wgmma's K)
+
+
+def bf16_weight_tiles(w):
+    """HWIO (5, 5, 64, 64) weights as the bf16 kernel reads them: [chunk of
+    16 input channels][tap][8-channel block][64 output channels][8 input
+    channels], each chunk's 25 taps contiguous (one bulk copy), each tap's
+    (64, 16) slice wgmma's K-major A operand."""
+    k, _, cin, cout = w.shape
+    t = w.reshape(k * k, cin // BF16_CHUNK, BF16_CHUNK // 8, 8, cout)
+    return t.permute(1, 0, 2, 4, 3).contiguous()
+
+
+def bf16_plan(h: int, wd: int) -> dict:
+    """The bf16 kernel's halo geometry for an (h, wd) frame (``conv5_bf16_plan``
+    in ``csrc/conv5.cu``): strip width, strips, padded row, box rows, plane
+    bytes, dynamic shared memory. Needs the built library."""
+    vals = [ctypes.c_int() for _ in range(6)]
+    err = load_library().conv5_bf16_plan(h, wd, *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise ValueError(f"the bf16 kernel takes no frame of {h} x {wd}")
+    return dict(zip(("ws", "strips", "wp", "rows", "plane", "smem"), (v.value for v in vals)))
+
+
 def conv5_bf16_cuda(x, w, b, relu: bool = True):
     """Launch the kernel's bf16 variant on the current stream: ``x`` bf16,
-    ``w`` bf16 (float32 is rounded to bf16 here), ``b`` float32 -> bf16.
-    Raises on what it does not take and under grad: the bf16 backward is
-    ROADMAP.md §1's."""
+    ``w`` bf16 (float32 is rounded to bf16 here), ``b`` float32 -> bf16. The
+    kernel reads the weights tiled (:func:`bf16_weight_tiles`). Raises on
+    what it does not take and under grad: the bf16 backward is ROADMAP.md
+    §1's."""
     refuse_grad("conv5 (bf16)", x, w, b)
     w = w.to(torch.bfloat16)
     _check(x, w, b, torch.bfloat16)
     lib = load_library()
     n, h, wd, _ = x.shape
+    w_t = bf16_weight_tiles(w)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.conv5_bf16_forward(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        err = lib.conv5_bf16_forward(x.data_ptr(), w_t.data_ptr(), b.data_ptr(), out.data_ptr(),
                                      n, h, wd, int(bool(relu)), stream)
     if err != 0:
         raise RuntimeError(f"conv5 bf16 kernel launch failed: cudaError {err}")
