@@ -102,7 +102,14 @@ Phases, one JSON line each:
             version run in float32 on the same bf16 inputs, with ms, the bf16
             plain version's ms, the bound at the dense bf16 rate (989 TFLOP/s)
             or 3.35 TB/s, and ``F.conv2d`` / ``F.scaled_dot_product_attention``
-            in bf16 as the yardstick;
+            in bf16 as the yardstick; conv5's bf16 Function (the bf16
+            backward) at the 02 step's N=4096 and behind the 04 step's
+            frozen decoder at N=4608: 2 bf16 launches (forward, input
+            gradient) and 1 / 0 weight-gradient calls; the input gradient
+            within one bf16 step of its plain version in float32 on the same
+            bf16 operands and mask, the weight gradient within
+            BF16_WEIGHT_GRAD_STEPS, the bias gradient 1e-4; each part's ms,
+            bound and cuDNN's bf16 ``convolution_backward`` of that part;
 then
 C. create   the 01 CLIs: a SAVi / CATER_Easy and an ExtendedDINOSAUR /
             CLIPort experiment (``--name``), each ``experiment_params.json``
@@ -164,7 +171,8 @@ E. export_cater, export_clipport, quant_export_cater  each serving path's
             service, the same launches a request, one slot-attention device
             kernel (and 3 conv5, 3 int8-conv or 12 ViT-attention kernels) a
             request under ``torch.profiler``; the artifact's steady ms a
-            request beside the live one's. Their lines come last.
+            request beside the live one's (STEADY_REQUESTS each). Their lines
+            come last.
 
 then the eval path:
 8. eval_parity  the eval step at B=2 on the card and on the CPU, the same
@@ -195,7 +203,16 @@ then the train path:
 13. train_step  the steady B=64 step on the host clock, split into forward,
             backward and optimizer, its peak memory and launches, and one
             step under ``torch.profiler``;
-14. train_sign  10 steps on one batch of 8 at lr 4e-4: the loss falls.
+14. train_sign  10 steps on one batch of 8 at lr 4e-4: the loss falls
+            (beside M2's ranks, after phase P5);
+T1. bf16_train_step  the 02 step in ``tpu.compute_dtype: "bfloat16"`` at
+            B=64, T=8 on phase 12's batch, lr 4e-4 without warmup, 10 updates
+            on that batch and one noise draw, the phase's main path: the
+            first timed cold, its launches (8 slot-attention calls, 3 bf16
+            conv5 forward and 3 bf16 input-gradient launches, 3
+            weight-gradient calls, no float32 conv5), the second the steady
+            step (ms, training frames a second, peak GB), the third split into
+            forward, backward and optimizer; finite losses that fall.
 
 then the 03 path on CATER, over phase C's SAVi experiment with phase 12's
 ``checkpoint_epoch_final.pt`` as ``models/SAVi_CATER.pt`` and the eval
@@ -247,7 +264,13 @@ then the predictor-train path, over the experiment that phase 12 trained:
             frozen encode, forward, backward and optimizer, its peak memory
             and launches, and one step under ``torch.profiler`` with one
             slot-attention device kernel a call;
-18. pred_train_sign  10 steps on one batch of 8 at lr 1e-4: the loss falls;
+18. pred_train_sign  10 steps on one batch of 8 at lr 1e-4: the loss falls
+            (beside M2's ranks);
+T2. bf16_pred_train_step  phase T1 for the 04 step at B=64, c=1, p=9
+            through phase 12's SAVi in bf16, lr 1e-4, 5 updates: 10
+            slot-attention calls, 3 bf16 conv5 forward and 3 input-gradient
+            launches a step, no weight gradient; the split adds the frozen
+            encode;
 F1. figs_parity  06b's figures of one sequence at p=3 on the card and on the
             CPU with the same initial slots: every array a figure writer is
             handed within 1e-4 of the largest value it or the decoded
@@ -309,7 +332,12 @@ then the CLIPort chain, over the color-cache set:
             clip_pred_train_sign  the same for the 04 step through the frozen
             ExtendedDINOSAUR of phase 20 (B=64, c=1, p=9, ``accum_steps`` 8;
             one epoch, then a resume; 10 slot-attention calls and 12
-            ViT-attention launches a microbatch; the parity at p=2);
+            ViT-attention launches a microbatch; the parity at p=2, through
+            a random ExtendedDINOSAUR, beside M2's ranks);
+T3. bf16_clip_train_step, bf16_clip_pred_train_step  (after phases 22 and
+            23) phase T1 for the CLIPort 02 step (lr 1e-6) and 04 step (lr
+            1e-4) at B=64, ``accum_steps`` 8, 3 updates each: a step's 12 bf16
+            ViT-attention launches a microbatch and no float32 ViT launch;
 24. clip_eval_parity  the eval step at B=2 on the card and on the CPU, on
             phase 23's checkpoint, as phase 8;
 25. clip_eval  the 05 CLI at B=16, 1 seed frame, 9 predictions over the 32
@@ -347,8 +375,7 @@ H1. host_io  what the machine offers the host input path (``native.host_io``:
             320 x 240 -> 64 x 64 and 640 x 480 -> 336 x 336 frames and PNGs
             of the stdlib writer (rows through filter types 0-4) decoded back,
             bit for bit; decode plus resize in frames/s on 1 thread and 8;
-H2. png_eval  (after ``mesh_shared_card``'s ranks, beside which its PNG set
-            and H4's are written) the CATER 05 CLI at B=64, p=19 over 64
+H2. png_eval  (after ``mesh_shared_card``'s ranks) the CATER 05 CLI at B=64, p=19 over 64
             frame-directory videos of 21 PNG frames at 320 x 240 (8 loader
             threads); the ``.npy`` caches ``cli/make_npy_cache.py`` builds
             from them hold the same items bit for bit, so the cache route's
@@ -365,17 +392,21 @@ H3. train_extras, train_remat  (after phase D2) the 02 CLI on CATER (B=16,
             REMAT_TOLERANCE);
 H4. clip_remat, clip_png_eval  (after phase 27) one CLIPort 02 microbatch of
             8 without and with remat (ms, peak GB, gradient difference);
-            one CLIPort 04 microbatch of 16 (``accum_steps`` 4) with remat,
-            its peak; the CLIPort 05 CLI at
+            one CLIPort 04 microbatch of 8 with remat timed cold, and one of
+            16 (``accum_steps`` 4), its peak; the CLIPort 05 CLI at
             B=16, p=9 over 16 test episodes of 12 PNG frames at 640 x 480
             without a cache, against the cache route as H2.
 
 and the mesh (``parallel/``), in processes of their own (``spawn_mesh``,
 ``start_mesh``, ``wait_mesh``, ``run_mesh``; deterministic cuDNN and cuBLAS
 there), started before the four other predictors' phases, where they
-import and wait: M2's two ranks go beside the CLIPort fixture and the card
-half of its 02 parity, which time nothing, and are waited for before the
-CLIPort 02 CLI; M1 goes alone on the card after phase E, then M2's line:
+import and wait: M2's two ranks go beside phases that time nothing (the
+card halves of the trainer parities 11, 15, P4, 19 and 23, of the bf16
+trainer parities and of the bf16 services' checks, and the CATER sign
+checks 14 and 18), and are waited for before H2; M1 goes alone on the card after phase E, then M2's
+line. The CLIPort color-cache set and the PNG sets of H2 and H4 are
+written by two processes of their own (``start_fixtures``) beside phases 2
+and 3, waited for before H1:
 M1. mesh_nccl  a process group of one rank over NCCL, started through the
             ``TEXTOCVP_*`` environment, ``tpu.mesh_axes`` ``{"data": -1,
             "model": 1}``: two CATER 02 steps and two 04 steps at B=64, the
@@ -406,11 +437,20 @@ phase 12's first run the train path's, the 03 CLI runs of D2 and 27 the
 03 paths', S's HTTP runs the batching path's, the 06 CLI runs of F2 and 28
 the 06 paths', phase 16's first run the
 predictor-train path's, P2's and P5's CLI runs and P3 the other predictors'
-paths, and the first runs of the CLIs of phases 20, 23 and 25 the CLIPort
-chain's three: every kernel's launch counter (and conv5's input-gradient
+paths, the first runs of the CLIs of phases 20, 23 and 25 the CLIPort
+chain's three, and the updates of T1, T2 and T3 the bf16 training paths':
+every kernel's launch counter (and conv5's input-gradient
 launches and weight-gradient calls) is set to 0 before it and read after.
-The trainer parities (11, 15, P4, 19, 23) run their card half in
-place and hand their CPU half to one spawned worker process
+The bf16 trainer parities (``bf16_train_parity``, ``bf16_pred_train_parity``,
+``bf16_clip_train_parity``, ``bf16_clip_pred_train_parity``): one step
+at B=2 (CATER 02 T=3, 04 p=2 through phase 12's SAVi; CLIPort 02 T=2, 04
+p=1 through a random ExtendedDINOSAUR) in float32 and in bf16 on the card
+from the same weights, video and noise, and in bf16 on the CPU with every
+kink of the card's bf16 run replayed: the loss, every gradient leaf and
+the BatchNorm statistics' moves within 2 e(card bf16, card float32) +
+2**-8, e over max |card float32|; their card halves run beside M2's ranks.
+The trainer parities (11, 15, P4, 19, 23 and the bf16 ones) run their card
+half in place and hand their CPU half to one spawned worker process
 (``parity_pool``, 4 torch threads), which works through them while the later
 phases use the card; their lines, checked as before, come after phase H4
 (``finish_parities``), each with ``cpu_half.waited_s_after_submit``.
@@ -503,6 +543,9 @@ VIT_BLOCKS = 12
 # mean takes away any shift common to a channel, so their gradient is 0 in
 # exact arithmetic
 CLIP_EXACT_ZERO = tuple(f"patch_decoder.cnns.{i}.conv.bias" for i in range(4))
+# the slot-attention query bias and slot LayerNorm bias: the softmax over
+# slots does not see a shift common to every slot
+SLOT_EXACT_ZERO = ("slot_attention.to_q.bias", "slot_attention.norm_slot.bias")
 
 
 @dataclass(frozen=True)
@@ -1283,6 +1326,121 @@ def conv5_frozen_backward_rows():
              "bound_ms": bound_ms, "bound_by": bound_by, "bound_ms_fp32_cores": fp32_ms}]
 
 
+# conv5's bf16 weight gradient against its plain version in float32 on the
+# same bf16 operands, in bf16 steps at the largest value: one for the result's
+# rounding, one for float32 sums of 19M products each taken in another order
+BF16_WEIGHT_GRAD_STEPS = 2
+
+
+def conv5_bf16_weight_grad_bounds(n, h, w, c):
+    """bf16 x and g' read once, the bf16 dW written once; 25 products over
+    every pixel at the dense bf16 rate."""
+    return bound(2 * (2 * n * h * w * c + 25 * c * c), 2 * 25 * c * c * n * h * w,
+                 BF16_FLOP_PER_S)
+
+
+def conv5_bf16_backward_rows():
+    """conv5's bf16 Function on the card at the 02 step's N=4096 (both
+    gradients) and behind the 04 step's frozen decoder at N=4608 (the input
+    gradient only), the output gradient strided as autograd hands it back:
+    its launches, then each part against its plain version in float32 on
+    the same bf16 operands and the same mask (the kernel's bf16 output's):
+    the input gradient (the bf16 kernel's launch on the masked gradient with
+    the rotated weights) within one bf16 step, the weight gradient (25
+    bf16 GEMMs with float32 sums) within BF16_WEIGHT_GRAD_STEPS, the bias
+    gradient (a float32 sum) within GRAD_TOLERANCE. Each part timed against
+    its bound and cuDNN's bf16 ``convolution_backward`` of the same masked
+    gradient (channels-last), that part alone."""
+    from textocvp_tpu_torch.ops import conv5 as c5
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    cgen = torch.Generator("cuda").manual_seed(SEED + 14)
+    c, res = CONV5_CH, CONV5_RES
+    bf16 = torch.bfloat16
+    rows = []
+    for n, train_w in ((TRAIN_BATCH * TRAIN_FRAMES * 8, True), (PRED_TAIL_N, False)):
+        w = (torch.randn((5, 5, c, c), generator=gen) / (25 * c) ** 0.5).cuda()
+        b = (0.1 * torch.randn((c,), generator=gen)).cuda()
+        w.requires_grad_(train_w)
+        b.requires_grad_(train_w)
+        x = torch.randn((n, res, res, c), device="cuda", generator=cgen).mul_(0.5).to(bf16)
+        x.requires_grad_()
+        g = torch.randn((n, c, res, res), device="cuda", generator=cgen).to(bf16)
+        g = g.permute(0, 2, 3, 1)
+        leaves = (x, w, b) if train_w else (x,)
+        before = launches(), c5.conv5_weight_grad.calls
+        y = c5.conv5(x, w, b)
+        got = torch.autograd.grad(y, leaves, g)
+        torch.cuda.synchronize()
+        counts = {k: v - before[0][k] for k, v in launches().items()}
+        calls = c5.conv5_weight_grad.calls - before[1]
+        check(counts == every_kernel({"conv5_bf16": 2, "conv5_bf16_input_grad": 1})
+              and calls == int(train_w),
+              f"conv5 bf16 Function at N={n}: launches {counts}, weight-gradient calls {calls}")
+        with torch.no_grad():
+            xd, wd, bd = x.detach(), w.detach(), b.detach()
+            gm = torch.where(y > 0, g, 0).contiguous()  # the mask of the kernel's output
+            del y, g
+            w_rot = wd.to(bf16).flip(0, 1).transpose(2, 3).contiguous()
+            zeros = torch.zeros_like(bd)
+            dx_ref, plain_ms = timed_once(
+                lambda: c5.conv5_plain(gm.float(), w_rot.float(), zeros, relu=False))
+            errs = {"x": bf16_steps(got[0], dx_ref)}
+            abs_err = {"x": max_abs_diff(got[0], dx_ref)}
+            del dx_ref
+            torch.cuda.empty_cache()
+            if train_w:
+                dw_ref, plain_w_ms = timed_once(lambda: c5.conv5_weight_grad(xd.float(),
+                                                                             gm.float()))
+                errs["w"] = bf16_steps(got[1], dw_ref)
+                abs_err["w"] = (got[1] - dw_ref).abs().max().item()
+                errs["b_rel"] = rel_err(got[2], gm.float().sum((0, 1, 2)))
+                del dw_ref
+            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            del got
+            torch.cuda.empty_cache()
+            check(finite and errs["x"] <= 1 and errs.get("w", 0) <= BF16_WEIGHT_GRAD_STEPS
+                  and errs.get("b_rel", 0) <= GRAD_TOLERANCE,
+                  f"conv5 bf16 backward vs plain at N={n}: {errs} (bf16 steps; limits 1, "
+                  f"{BF16_WEIGHT_GRAD_STEPS}, b {GRAD_TOLERANCE} relative)")
+            before = c5.conv5_bf16_input_grad_cuda.launches
+            dx_ms = cuda_ms(lambda: c5.conv5_bf16_input_grad_cuda(gm, w_rot, zeros), reps=3,
+                            warmup=1)
+            kernel_launches = c5.conv5_bf16_input_grad_cuda.launches - before
+            w_oihw = wd.to(bf16).permute(3, 2, 0, 1).contiguous()
+            gl = gm.permute(0, 3, 1, 2)  # NCHW shape, channels-last memory
+            xl = xd.permute(0, 3, 1, 2)
+
+            def library(mask):
+                return cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                    gl, xl, w_oihw, [c], [1, 1], [2, 2], [1, 1], False, [0, 0], 1, mask),
+                    reps=3, warmup=1)
+
+            dx_bound, dx_by = conv5_bf16_bounds(n, res, res, c)
+            row = {"N": n, "H": res, "W": res, "C": c, "weights_train": train_w,
+                   "launches": counts, "weight_grad_calls": calls, "err_steps": errs,
+                   "input_grad": {"ms": dx_ms, "plain_ms": plain_ms,
+                                  "library_ms": library([True, False, False]),
+                                  "bound_ms": dx_bound, "bound_by": dx_by,
+                                  "max_err_steps": errs["x"], "max_abs_err": abs_err["x"],
+                                  "launches": kernel_launches}}
+            if train_w:
+                dw_bound, dw_by = conv5_bf16_weight_grad_bounds(n, res, res, c)
+                row["weight_grad"] = {
+                    "ms": cuda_ms(lambda: c5.conv5_weight_grad_bf16(xd, gm), reps=3, warmup=1),
+                    "plain_ms": plain_w_ms, "library_ms": library([False, True, False]),
+                    "bound_ms": dw_bound, "bound_by": dw_by, "max_err_steps": errs["w"],
+                    "max_abs_err": abs_err["w"],
+                    "route": "torch.matmul: 25 bf16 GEMMs over every pixel of every frame, "
+                             "float32 accumulation and split-K reductions"}
+                row["bias_grad_ms"] = cuda_ms(lambda: gm.float().sum((0, 1, 2)), reps=3,
+                                              warmup=1)
+        rows.append(row)
+        del x, xd, gm, w_rot, gl, xl
+        torch.cuda.empty_cache()
+    return rows
+
+
 def slot_attention_backward_bound_ms(b, n, d, s, h, iters):
     """The gradient's least time: k, v, slots, the two cotangents and the
     weights read once, the gradients of k, v, slots and the weights written
@@ -1351,6 +1509,7 @@ def phase_kernels():
             "vit_attention_bf16": vit_attention_bf16_rows(),
             "conv5_backward": conv5_backward_rows(),
             "conv5_frozen_backward": conv5_frozen_backward_rows(),
+            "conv5_bf16_backward": conv5_bf16_backward_rows(),
             "slot_attention_backward": slot_attention_backward_rows(
                 TRAIN_BATCH, CONV5_RES * CONV5_RES, 8, 256, SEED + 7),
             # the CLIPort 02 microbatch: B=8 videos a frame, N=576, S=10, MLP 512
@@ -1359,6 +1518,8 @@ def phase_kernels():
     emit({"phase": "kernels", "tolerance_abs": {"slot_attention": 1e-4, "vit_attention": 2e-5,
                                                 "conv5": 1e-4, "conv_int8": 0},
           "tolerance_bf16_steps": {"conv5_bf16": 1, "vit_attention_bf16": 1,
+                                   "conv5_bf16_input_grad": 1,
+                                   "conv5_bf16_weight_grad": BF16_WEIGHT_GRAD_STEPS,
                                    "step": "2**-8 of max |plain|, plain in float32"},
           "tolerance_rel_backward": GRAD_TOLERANCE, **rows})
     gc.collect()
@@ -1468,7 +1629,8 @@ def kernel_counters():
 
     return {"slot_attention": sak.slot_attention_cuda, "vit_attention": va.vit_attention_cuda,
             "conv5": c5.conv5_cuda, "conv_int8": ci.conv_int8_cuda,
-            "vit_attention_bf16": va.vit_attention_bf16_cuda, "conv5_bf16": c5.conv5_bf16_cuda}
+            "vit_attention_bf16": va.vit_attention_bf16_cuda, "conv5_bf16": c5.conv5_bf16_cuda,
+            "conv5_bf16_input_grad": c5.conv5_bf16_input_grad_cuda}
 
 
 def every_kernel(counts: dict) -> dict:
@@ -1886,6 +2048,13 @@ def defer_parity(phase, finish, **line):
     PENDING_PARITIES.append(lambda: emit({"phase": phase, **line, **finish()}))
 
 
+def clip_codes(x):
+    """The loss's [0, 1] clip (``train/losses.py::clip01``, ``jnp.clip``) at
+    each value of ``x`` as twice its gradient's weight: 2 inside, 1 at a
+    bound (the tie's half), 0 outside."""
+    return (2 * ((x > 0) & (x < 1)) + ((x == 0) | (x == 1))).to(torch.uint8)
+
+
 def _kink_functions(what, replayed, rec_or_rep, replay: bool):
     """The functions ``trainer_parity`` patches in for one run: with
     ``replay`` False they record each kink's mask into ``rec_or_rep`` ("main"
@@ -1941,8 +2110,7 @@ def _kink_functions(what, replayed, rec_or_rep, replay: bool):
             tensors = loss_tensors(self, out, videos)
             for key, src in CLIPPED:
                 if key in tensors:
-                    x = out[src].detach()
-                    state["main"].append(("clip", ((x > 0) & (x < 1)).cpu()))
+                    state["main"].append(("clip", clip_codes(out[src].detach()).cpu()))
             return tensors
         return relu_fn, sa_fn, conv_fn, loss_fn
 
@@ -1981,15 +2149,16 @@ def _kink_functions(what, replayed, rec_or_rep, replay: bool):
         for key, src in CLIPPED:
             if key in tensors:
                 x = out[src]
-                mask = take(state["main"], "clip", x.shape)
+                codes = take(state["main"], "clip", x.shape)
                 if "clip" in replayed:
-                    tensors[key] = torch.where(mask, x, x.detach().clamp(0, 1))
+                    w = codes.to(x.device, x.dtype) / 2
+                    tensors[key] = w * x + (1 - w) * x.detach().clamp(0, 1)
         return tensors
     return relu_fn, sa_fn, conv_fn, loss_fn
 
 
-def _parity_run(what, make, step, dev, replayed, state, replay, probe=None):
-    """Two training steps of ``make(dev)`` with the kink functions patched in
+def _parity_run(what, make, step, dev, replayed, state, replay, probe=None, steps=2):
+    """``steps`` training steps of ``make(dev)`` with the kink functions patched in
     (``_kink_functions``): (the trainer, its losses, the gradient leaves and
     the buffers after the first step, ``probe(trainer)`` after the second);
     without ``replay`` ``state`` records the masks, and ``state["marks"]``
@@ -2022,8 +2191,9 @@ def _parity_run(what, make, step, dev, replayed, state, replay, probe=None):
         cls.feed_forward = flagged("in_ff", fn)
     try:
         tr = make(dev)
+        state["buffers0"] = {n: b.detach().cpu().clone() for n, b in tr.model.named_buffers()}
         losses = []
-        for i in range(2):
+        for i in range(steps):
             if not replay:
                 state["marks"].append(len(state["sa"]))
             losses.append(step(tr, dev, i))
@@ -2046,25 +2216,33 @@ def _new_state():
 
 def parity_cpu_half(spec_path, out_path):
     """The CPU's two runs of a trainer parity, in the parity worker: its own
-    masks, then the card's masks replayed (the card's slot-attention calls of
-    each step ran in reverse). Writes what ``trainer_parity`` checks."""
+    masks (unless the spec's ``own`` is False), then the card's masks
+    replayed (the card's slot-attention calls of each step ran in reverse),
+    each of the spec's ``steps``. Writes what ``trainer_parity`` checks and
+    the seconds the half took."""
+    t = time.perf_counter()
     spec = torch.load(spec_path, weights_only=False)
     what, make, step, replayed, probe = (spec[k] for k in ("what", "make", "step", "replayed",
                                                            "probe"))
+    steps = spec.get("steps", 2)
     own = _new_state()
-    _, own_losses, own_grads, _, _ = _parity_run(what, make, step, "cpu", replayed, own, False)
+    own_losses = own_grads = None
+    if spec.get("own", True):
+        _, own_losses, own_grads, _, _ = _parity_run(what, make, step, "cpu", replayed, own,
+                                                     False, steps=steps)
     card = spec["card"]
     bounds = card["marks"] + [len(card["sa"])]
     rep = {"in_sa": False, "in_mlp": False, "in_ff": False, "main": iter(card["main"]),
            "sa": iter([call for a, b in zip(bounds[:-1], bounds[1:])
                        for call in reversed(card["sa"][a:b])])}
     tr, losses, grads, buffers, probed = _parity_run(what, make, step, "cpu", replayed, rep, True,
-                                                     probe)
+                                                     probe, steps=steps)
     torch.save({"losses": losses, "grads": grads, "buffers": buffers, "probe": probed,
                 "own": {"main": own["main"], "sa": own["sa"], "losses": own_losses,
                         "grads": own_grads},
                 "params": [p.detach() for p in tr.optimizer.params],
-                "lr": tr.lr_schedule(0), "threads": torch.get_num_threads()}, out_path)
+                "lr": tr.lr_schedule(0), "threads": torch.get_num_threads(),
+                "seconds": time.perf_counter() - t}, out_path)
 
 
 def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), probe=None, compare=None,
@@ -2093,7 +2271,8 @@ def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), probe=None, co
     (``torch.nn.functional.relu``) whose input requires grad; "sa_relu" each
     ReLU of the slot-attention MLP, which the card computes in the
     backward's recompute, frames in reverse, and the CPU in the forward;
-    "clip" the [0, 1] clip of each reconstruction in the 02 loss. A value
+    "clip" the [0, 1] clip of each reconstruction in the 02 loss (its
+    gradient's weight, ``clip_codes``). A value
     within the card's rounding of a kink (conv5's 3xTF32, cuBLAS, cuDNN) may
     fall on either side of it on the two devices, and the gradient of what
     comes before it then differs by a whole term (``relu_mask_flips`` counts
@@ -2179,9 +2358,352 @@ def trainer_parity(what, make, step, tail_convs=6, exact_zero=(), probe=None, co
                 "replayed": list(replayed), "relu_mask_outputs": outputs,
                 "grad_tolerance": GRAD_TOLERANCE, "params_max_abs_diff": diffs.max().item(),
                 "params_share_apart_over_lr_100": moved_apart, "lr": lr, "tf32": False,
-                "cpu_half": {"worker_threads": cpu["threads"],
+                "cpu_half": {"worker_threads": cpu["threads"], "seconds": cpu["seconds"],
                              "waited_s_after_submit": waited}, **extra}
     return finish
+
+
+# ---------------------------------------------------------- bf16 training
+
+BF16_PARITY_FRAMES = {"cater": 3, "clipport": 2}  # T of the 02 parities; 04: c=1, p=2 / 1
+
+
+def with_compute_dtype(exp_path: Path, dtype: str, name: str) -> Path:
+    """``exp_path``'s params again beside it as ``name``, computing in
+    ``dtype`` (``tpu.compute_dtype``)."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    params = Experiment(exp_path).params
+    params["tpu"] = {**(params.get("tpu") or {}), "compute_dtype": dtype}
+    exp = Experiment(exp_path.parent / name)
+    exp.save_params(params)
+    return exp.exp_path
+
+
+def bf16_trainer_parity(what, exp, make, step, tail_convs=0, exact_zero=(),
+                        replayed=ALL_KINKS):
+    """One training step of ``make(exp', dev)`` in float32 and in bf16 on the
+    card (``exp'`` the twins of ``exp``, ``with_compute_dtype``), from the
+    same weights, video and noise, and the bf16 one again on the CPU in the
+    parity worker with every kink of ``replayed`` taken from the card's bf16
+    run (``trainer_parity``'s masks, ``parity_cpu_half`` without its own-mask
+    run). Returns a function that waits for the CPU half and holds the card's
+    bf16 to it, the rule of the CPU tests (tests/torch_bf16.py) with
+    e(a, b) = max |a - b| / max |card float32|: the loss, every trainable
+    gradient leaf (a leaf of ``exact_zero``, 0 in exact arithmetic, with the
+    largest leaf's max) and the moves of the floating buffers (BatchNorm's
+    running statistics) within 2 e(card bf16, card float32) + 2**-8."""
+    card, runs = {}, {}
+    for dt in ("float32", "bfloat16"):
+        runs[dt] = with_compute_dtype(exp, dt, f"{exp.name}_{dt}")
+        state = card[dt] = _new_state()
+        tr, losses, grads, buffers, _ = _parity_run(what, partial(make, runs[dt]), step, "cuda",
+                                                     replayed, state, False, steps=1)
+        state.update(losses=losses, grads=grads, buffers=buffers)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    c16, c32 = card["bfloat16"], card["float32"]
+    spec_path = Path(tempfile.mkstemp(prefix="parity_spec_", suffix=".pt")[1])
+    out_path = spec_path.with_name(spec_path.name.replace("spec", "cpu"))
+    torch.save({"what": what, "make": partial(make, runs["bfloat16"]), "step": step,
+                "replayed": replayed, "probe": None, "own": False, "steps": 1,
+                "card": {k: c16[k] for k in ("main", "sa", "marks")}}, spec_path)
+    job = parity_pool().apply_async(parity_cpu_half, (str(spec_path), str(out_path)))
+    submitted = time.perf_counter()
+
+    def held(got, want, ref, scale=None):
+        scale = scale or ref.abs().max().item()
+        base = (want - ref).abs().max().item() / scale
+        d = (got - want).abs().max().item() / scale
+        return {"cpu_vs_card_bf16": d, "card_bf16_vs_float32": base,
+                "limit": 2 * base + BF16_STEP}
+
+    def finish():
+        job.get()
+        waited = time.perf_counter() - submitted
+        cpu = torch.load(out_path, weights_only=False)
+        for path in (spec_path, out_path):
+            path.unlink()
+        kinds = [k for k, _ in c16["main"]]
+        check(kinds.count("conv5") == tail_convs,
+              f"{what}: {kinds.count('conv5')} tail-conv masks, want {tail_convs}")
+        names = list(c32["grads"])
+        top = max(c32["grads"][n].abs().max().item() for n in names)
+        leaves = {n: held(cpu["grads"][n], c16["grads"][n], c32["grads"][n],
+                          top if n in exact_zero else None) for n in names}
+        loss = held(torch.tensor(cpu["losses"][:1]), torch.tensor(c16["losses"][:1]),
+                    torch.tensor(c32["losses"][:1]))
+        b0 = c16["buffers0"]
+        moves = {n: held(cpu["buffers"][n] - b0[n], c16["buffers"][n] - b0[n],
+                         c32["buffers"][n] - b0[n])
+                 for n, b in c32["buffers"].items() if b.is_floating_point()
+                 and (b - b0[n]).abs().max() > 0}
+        over = {n: r for n, r in (*leaves.items(), ("loss", loss), *moves.items())
+                if not r["cpu_vs_card_bf16"] <= r["limit"]}
+        worst = sorted(leaves.items(), key=lambda kv: -kv[1]["cpu_vs_card_bf16"])[:6]
+        check(not over, f"{what}: card bf16 vs CPU bf16 over the bf16 rule: "
+                        f"{dict(list(over.items())[:6])}")
+        same = [k for k, _ in c32["main"]] == kinds
+        flips = {kind: sum(int((a != b).sum()) for (k, a), (_, b) in
+                           zip(c16["main"], c32["main"]) if k == kind) for kind in ALL_KINKS
+                 } if same else None
+        return {"loss": loss, "worst_leaves": dict(worst), "trainable_leaves": len(names),
+                "buffer_moves": moves, "exact_zero": list(exact_zero),
+                "replayed": list(replayed), "masks_card_bf16_vs_float32_flips": flips,
+                "losses": {"card_bf16": c16["losses"], "card_float32": c32["losses"],
+                           "cpu_bf16": cpu["losses"]},
+                "rule": "2 e(card bf16, card float32) + 2**-8, e over max |card float32|",
+                "cpu_half": {"worker_threads": cpu["threads"], "seconds": cpu["seconds"],
+                             "waited_s_after_submit": waited}}
+    return finish
+
+
+def clip_random_parent(tmp: Path) -> Path:
+    """A CLIPort experiment whose ``checkpoint_epoch_final`` is a random
+    ExtendedDINOSAUR at full width (``random_init_``, seed SEED): the frozen
+    model of the bf16 04 parity."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+    from textocvp_tpu_torch.models import setup_model
+    from textocvp_tpu_torch.models.factory import random_init_
+
+    exp = Experiment(clip_experiment(tmp / "clip_random", tmp / "none"))
+    model = random_init_(setup_model(exp.params), torch.Generator().manual_seed(SEED))
+    exp.models_dir.mkdir(parents=True, exist_ok=True)
+    torch.save(model.state_dict(), exp.checkpoint_path("checkpoint_epoch_final"))
+    return exp.exp_path
+
+
+def phase_bf16_parities(tmp: Path, train_exp: Path, clip_parent: Path):
+    """The four bf16 trainer parities (``bf16_trainer_parity``) at full width,
+    B=2: CATER 02 (T=3) and 04 (c=1, p=2, through the 02 path's SAVi),
+    CLIPort 02 (T=2) and 04 (c=1, p=1, through the random ExtendedDINOSAUR
+    of ``clip_parent``, ``clip_random_parent``),
+    warmup off. Untimed: beside the shared card's ranks."""
+    gen = torch.Generator().manual_seed(SEED + 40)
+    cater_t, clip_t = BF16_PARITY_FRAMES["cater"], BF16_PARITY_FRAMES["clipport"]
+    video = torch.rand((2, cater_t, CONV5_RES, CONV5_RES, 3), generator=gen)
+    noise = [torch.randn((2, 8, 128), generator=gen)]
+    exp = train_experiment(tmp / "bf16_train_parity", tmp / "none", batch_size=2,
+                           lr_warmup=False)
+    defer_parity("bf16_train_parity", bf16_trainer_parity(
+        "bf16 train parity", exp, make_decomp_trainer, partial(decomp_step, video, noise),
+        tail_convs=3, exact_zero=SLOT_EXACT_ZERO), B=2, T=cater_t)
+
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    exp = pred_experiment(train_exp, "bf16_pred_parity", PARITY_PREDS, batch_size=2, lr=1e-5,
+                          lr_warmup=False)
+    video = torch.rand((2, PRED_CONTEXT + PARITY_PREDS, CONV5_RES, CONV5_RES, 3), generator=gen)
+    text = caption_batch(Experiment(exp).params, 2)
+    defer_parity("bf16_pred_train_parity", bf16_trainer_parity(
+        "bf16 predictor train parity", exp, make_predictor_trainer,
+        partial(predictor_step, video, noise, text), tail_convs=3),
+        B=2, num_context=PRED_CONTEXT, num_preds=PARITY_PREDS)
+
+    video = torch.rand((2, clip_t, CLIP_RES, CLIP_RES, 3), generator=gen)
+    clip_noise = [torch.randn((2, CLIP_SLOTS, CLIP_SLOT_DIM), generator=gen)]
+    exp = clip_experiment(tmp / "bf16_clip_train_parity", tmp / "none", batch_size=2,
+                          accum_steps=1, lr_warmup=False)
+    defer_parity("bf16_clip_train_parity", bf16_trainer_parity(
+        "bf16 clip train parity", exp, make_decomp_trainer,
+        partial(decomp_step, video, clip_noise), exact_zero=CLIP_EXACT_ZERO + SLOT_EXACT_ZERO),
+        B=2, T=clip_t)
+
+    exp = pred_experiment(clip_parent, "bf16_clip_pred_parity", 1, batch_size=2,
+                          accum_steps=1, lr=1e-5, lr_warmup=False)
+    video = torch.rand((2, PRED_CONTEXT + 1, CLIP_RES, CLIP_RES, 3), generator=gen)
+    text = caption_batch(Experiment(exp).params, 2, PATHS[1])
+    defer_parity("bf16_clip_pred_train_parity", bf16_trainer_parity(
+        "bf16 clip predictor train parity", exp, make_predictor_trainer,
+        partial(predictor_step, video, clip_noise, text)),
+        B=2, num_context=PRED_CONTEXT, num_preds=1)
+
+
+# the bf16 step phases: (lr, updates on one batch and one noise draw), warmup
+# off: the float32 sign checks' rates, the CLIPort ones over fewer steps of
+# B=64 (the CLIPort losses fell at every step of the float32 checks)
+BF16_STEPS = {"bf16_train_step": (4e-4, SIGN_STEPS), "bf16_pred_train_step": (1e-4, 5),
+              "bf16_clip_train_step": (1e-6, 3), "bf16_clip_pred_train_step": (1e-4, 3)}
+
+
+def bf16_experiment_of(exp_path: Path, phase: str) -> Path:
+    """``exp_path`` again beside it as ``phase``, in bf16, at the phase's lr,
+    warmup off."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    path = with_compute_dtype(exp_path, "bfloat16", phase)
+    exp = Experiment(path)
+    params = exp.params
+    params["training"].update(lr=BF16_STEPS[phase][0], lr_warmup=False)
+    exp.save_params(params)
+    return path
+
+
+def phase_bf16_step(phase, tr, batch, text, want, frames_per_step, split, weight_grads=0,
+                    **extra):
+    """A bf16 training phase at full width: BF16_STEPS updates of ``tr`` on
+    one batch (``batch``, ``text``) and one noise draw, the phase's main path
+    between a reset and a read of the launch counters. The first update is
+    timed cold; its launches must be ``want`` (every other counter 0: no
+    float32 conv5 or ViT attention) and ``weight_grads`` calls of conv5's
+    weight gradient; the second is the steady step (ms and peak GB); the
+    third runs split by ``split(noise)`` (stage ms and its loss). The losses
+    must be finite and fall. Returns the phase's launches, with its calls of
+    conv5's weight gradient as ``conv5_bf16_weight_grad_calls``."""
+    from textocvp_tpu_torch.ops import conv5 as c5
+
+    steps = BF16_STEPS[phase][1]
+    noise = tr._noise(batch.shape[0])
+
+    def step():
+        return float(tr.train_step(batch, noise, **text)["_total"])
+
+    reset_launches()  # the main path starts here
+    calls0 = calls = c5.conv5_weight_grad.calls
+    first = timed_once(step)
+    per_step = launches()
+    calls = c5.conv5_weight_grad.calls - calls
+    check(per_step == every_kernel(want) and calls == weight_grads,
+          f"{phase}: launches of a step {per_step}, weight-gradient calls {calls}; want "
+          f"{every_kernel(want)}, {weight_grads}")
+    torch.cuda.reset_peak_memory_stats()
+    steady = timed_once(step)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    split_ms, split_loss = split(noise)
+    losses = [first[0], steady[0], split_loss] + [step() for _ in range(steps - 3)]
+    counts = launches()  # and ends here
+    counts["conv5_bf16_weight_grad_calls"] = c5.conv5_weight_grad.calls - calls0
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"{phase}: the loss did not fall over {steps} steps on one batch: {losses}")
+    emit({"phase": phase, "batch": batch.shape[0], "accum_steps": tr.accum, **extra,
+          "dtype": "bfloat16", "first_step_ms": first[1], "step_ms": steady[1],
+          "frames_per_s": 1e3 * frames_per_step / steady[1], "split_ms": split_ms,
+          "peak_mem_gb": peak_gb, "launches_per_step": per_step,
+          "weight_grad_calls_per_step": calls, "launches": counts, "lr": BF16_STEPS[phase][0],
+          "steps": steps, "losses": losses})
+    return counts
+
+
+def decomp_split(tr, batch):
+    """A 02 update split into forward, backward and optimizer (summed over
+    the microbatches): (ms by stage, the loss)."""
+    def split(noise):
+        losses = []
+
+        def forward_loss(sl, out):
+            total = tr.forward_loss(batch[sl], noise[sl])[0]
+            losses.append(float(total.detach()))
+            return total
+
+        stages = accumulated_split(tr, batch.shape[0], forward_loss)
+        return stages, float(np.mean(losses))
+    return split
+
+
+def predictor_split(tr, batch, text):
+    """A 04 update split into frozen encode, forward, backward and optimizer
+    (summed over the microbatches): (ms by stage, the loss)."""
+    def split(noise):
+        losses = []
+
+        def forward_loss(sl, out):
+            total = tr.predict_loss(batch[sl], out.pop("slots"),
+                                    **{k: t[sl] for k, t in text.items()})[0]
+            losses.append(float(total.detach()))
+            return total
+
+        stages = accumulated_split(
+            tr, batch.shape[0], forward_loss,
+            encode=lambda sl, out: out.update(slots=tr.encode(batch[sl], noise[sl])))
+        return stages, float(np.mean(losses))
+    return split
+
+
+def phase_bf16_train_step(train_exp: Path, videos):
+    """The CATER 02 step in bf16 at B=64, T=8 (``phase_bf16_step``): per
+    step 8 slot-attention calls, 3 bf16 conv5 launches forward and 3 for
+    their input gradients, 3 weight-gradient calls."""
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    tr = DecompTrainer(bf16_experiment_of(train_exp, "bf16_train_step"))
+    tr.setup_model()
+    batch = tr.to_device(videos)
+    counts = phase_bf16_step("bf16_train_step", tr, batch, {},
+                             {"slot_attention": TRAIN_FRAMES, "conv5_bf16": 6,
+                              "conv5_bf16_input_grad": 3}, TRAIN_BATCH * TRAIN_FRAMES,
+                             decomp_split(tr, batch), weight_grads=3, frames=TRAIN_FRAMES)
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_bf16_pred_train_step(parent: Path, videos, info):
+    """The CATER 04 step in bf16 at B=64, c=1, p=9 through the 02 path's
+    SAVi (``phase_bf16_step``): per step 10 slot-attention calls of the
+    frozen encode, 3 bf16 conv5 launches forward and 3 for their input
+    gradients, no weight gradient."""
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+
+    exp = bf16_experiment_of(pred_experiment(parent, "bf16_pred_base"), "bf16_pred_train_step")
+    tr = PredictorTrainer(exp, "checkpoint_epoch_final")
+    tr.setup_model()
+    random_predictor_(tr)
+    batch, text = tr.batch_to_device(videos, info)
+    counts = phase_bf16_step("bf16_pred_train_step", tr, batch, text,
+                             {"slot_attention": PRED_FRAMES, "conv5_bf16": 6,
+                              "conv5_bf16_input_grad": 3}, TRAIN_BATCH * PRED_PREDS,
+                             predictor_split(tr, batch, text), num_context=PRED_CONTEXT,
+                             num_preds=PRED_PREDS)
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_bf16_clip_train_step(clip_exp: Path, videos):
+    """The CLIPort 02 step in bf16 at B=64, T=8, ``accum_steps`` 8
+    (``phase_bf16_step``): per step one slot-attention call a frame of each
+    microbatch and 12 bf16 ViT-attention launches a microbatch."""
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    tr = DecompTrainer(bf16_experiment_of(clip_exp, "bf16_clip_train_step"))
+    tr.setup_model()
+    batch = tr.to_device(videos)
+    counts = phase_bf16_step("bf16_clip_train_step", tr, batch, {},
+                             {"slot_attention": CLIP_ACCUM * CLIP_FRAMES,
+                              "vit_attention_bf16": CLIP_ACCUM * VIT_BLOCKS},
+                             CLIP_TRAIN_BATCH * CLIP_FRAMES, decomp_split(tr, batch),
+                             frames=CLIP_FRAMES)
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_bf16_clip_pred_train_step(parent: Path, videos, info):
+    """The CLIPort 04 step in bf16 at B=64, c=1, p=9, ``accum_steps`` 8,
+    through the CLIPort 02 path's ExtendedDINOSAUR (``phase_bf16_step``):
+    per step 10 slot-attention calls and 12 bf16 ViT-attention launches a
+    microbatch."""
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+
+    exp = bf16_experiment_of(pred_experiment(parent, "bf16_clip_pred_base"),
+                             "bf16_clip_pred_train_step")
+    tr = PredictorTrainer(exp, "checkpoint_epoch_final")
+    tr.setup_model()
+    random_predictor_(tr)
+    batch, text = tr.batch_to_device(videos, info)
+    counts = phase_bf16_step("bf16_clip_pred_train_step", tr, batch, text,
+                             {"slot_attention": CLIP_ACCUM * PRED_FRAMES,
+                              "vit_attention_bf16": CLIP_ACCUM * VIT_BLOCKS},
+                             CLIP_TRAIN_BATCH * PRED_PREDS, predictor_split(tr, batch, text),
+                             num_context=PRED_CONTEXT, num_preds=PRED_PREDS)
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def make_decomp_trainer(exp, dev, keep_vit=False):
@@ -2422,12 +2944,12 @@ def phase_train_step(trainer, videos):
 
 
 def run_train(tmp: Path):
-    """The train path: card-against-CPU parity, the fixture, the main path
-    (the 02 CLI and its resume), the sign check, the steady step. Returns
-    the main path's launches, its conv5 input-gradient launches and the
-    trained experiment (its ``checkpoint_epoch_final.pt`` is the predictor
-    path's frozen SAVi)."""
-    phase_train_parity(tmp)
+    """The train path: the fixture, the main path (the 02 CLI and its
+    resume), the steady step, the bf16 step. Returns the main path's
+    launches, its conv5 input-gradient launches, the trained experiment (its
+    ``checkpoint_epoch_final.pt`` is the predictor path's frozen SAVi), the
+    bf16 phase's launches, and the card-against-CPU parity and the sign
+    check, which ``main`` runs beside the shared card's ranks."""
     data_root = write_cater_fixture(tmp / "CATER_train", (("train", TRAIN_VIDEOS),
                                                           ("test", TRAIN_VALID_VIDEOS)))
     exp_path = train_experiment(tmp / "train", data_root)
@@ -2439,8 +2961,10 @@ def run_train(tmp: Path):
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train_sign(train_experiment(tmp / "train_sign", data_root), videos)
-    return counts, input_grad, exp_path
+    bf16 = phase_bf16_train_step(exp_path, videos)
+    untimed = [partial(phase_train_parity, tmp),
+               partial(phase_train_sign, train_experiment(tmp / "train_sign", data_root), videos)]
+    return counts, input_grad, exp_path, bf16, untimed
 
 
 def pred_experiment(parent: Path, name: str, num_preds=PRED_PREDS, **training) -> Path:
@@ -2675,11 +3199,11 @@ def phase_pred_train_sign(parent: Path, videos, info):
 
 def run_pred_train(parent: Path):
     """The predictor-train path over the 02 phase's experiment ``parent``:
-    card-against-CPU parity, the main path (the 04 CLI, its resume and the
-    05 CLI on its checkpoint), the steady step, the sign check. Returns the
-    main path's launches, conv5 input-gradient launches and weight-gradient
-    calls."""
-    phase_pred_train_parity(parent)
+    the main path (the 04 CLI, its resume and the 05 CLI on its
+    checkpoint), the steady step, the bf16 step. Returns the main path's
+    launches, conv5 input-gradient launches and weight-gradient calls, the
+    bf16 phase's launches, and the card-against-CPU parity and the sign
+    check, which ``main`` runs beside the shared card's ranks."""
     counts, input_grad, weight_grad, trainer = phase_pred_train(
         parent, pred_experiment(parent, PRED_NAME), TRAIN_VIDEOS // TRAIN_BATCH)
     videos, info = next(iter(trainer.train_loader))
@@ -2687,8 +3211,10 @@ def run_pred_train(parent: Path):
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    phase_pred_train_sign(parent, videos, info)
-    return counts, input_grad, weight_grad
+    bf16 = phase_bf16_pred_train_step(parent, videos, info)
+    return counts, input_grad, weight_grad, bf16, [
+        partial(phase_pred_train_parity, parent),
+        partial(phase_pred_train_sign, parent, videos, info)]
 
 
 # ------------------------------------------------------------ the other predictors
@@ -2885,14 +3411,15 @@ def run_predictors(tmp: Path, parent: Path):
     """The four other predictors through the frozen SAVi of the 02 phase's
     experiment ``parent``: for each, the rollout parity, the 05 path (the
     CLI, then a step split and profiled) over the eval phase's set, the
-    service (OCVPSeq and TextOCVP_CustomTF), the 04 parity, and the 04 path
-    (the CLI for OTHER_TRAIN_STEPS steps, its resume and the 05 CLI on its
-    checkpoint, then the steady step) over a set of its own. Returns each
-    main path's launches and, by predictor, the 04 paths' conv5
-    input-gradient launches and weight-gradient calls."""
+    service (OCVPSeq and TextOCVP_CustomTF), and the 04 path (the CLI for
+    OTHER_TRAIN_STEPS steps, its resume and the 05 CLI on its checkpoint,
+    then the steady step) over a set of its own. Returns each main path's
+    launches, by predictor the 04 paths' conv5 input-gradient launches and
+    weight-gradient calls, and the 04 parities, which ``main`` runs beside
+    the shared card's ranks."""
     data_root = write_cater_fixture(tmp / "CATER_predictors", (
         ("train", OTHER_TRAIN_STEPS * TRAIN_BATCH), ("test", TRAIN_VALID_VIDEOS)))
-    counts, input_grads, weight_grads = {}, {}, {}
+    counts, input_grads, weight_grads, untimed = {}, {}, {}, []
     for name in OTHER_PREDICTORS:
         exp = other_experiment(parent, name, tmp / "CATER", "eval")
         torch.save(random_predictor(exp.params, torch.Generator().manual_seed(SEED + 4))
@@ -2901,7 +3428,7 @@ def run_predictors(tmp: Path, parent: Path):
         counts[f"predictors_eval:{name}"] = phase_predictors_eval(parent, name, exp)
         if name in SERVED_OTHERS:
             counts[f"predictors_service:{name}"] = phase_predictors_service(parent, name, exp)
-        phase_predictors_train_parity(parent, name)
+        untimed.append(partial(phase_predictors_train_parity, parent, name))
         exp = other_experiment(parent, name, data_root, "train")
         key = f"predictors_train:{name}"
         counts[key], input_grads[name], weight_grads[name], trainer = phase_pred_train(
@@ -2912,7 +3439,7 @@ def run_predictors(tmp: Path, parent: Path):
         del trainer, videos, info
         gc.collect()
         torch.cuda.empty_cache()
-    return counts, input_grads, weight_grads
+    return counts, input_grads, weight_grads, untimed
 
 
 # ------------------------------------------------------------ 01 and 03: a user's first day
@@ -3584,7 +4111,9 @@ def phase_clip_train_sign(data_root, tmp: Path, videos):
 def phase_clip_pred_train_parity(parent: Path):
     """PredictorTrainer on the card and on the CPU at full width, B=2, c=1,
     p=PARITY_PREDS, through the frozen ExtendedDINOSAUR of ``parent``'s
-    ``checkpoint_epoch_final`` (its BatchNorm in ``eval()``), the same
+    ``checkpoint_epoch_final`` (its BatchNorm in ``eval()``; ``main`` hands
+    it ``clip_random_parent``'s, which it has before the CLIPort 02 CLI has
+    trained one), the same
     predictor weights, video, captions and slot noise, warmup off, lr 1e-5
     (``trainer_parity``: the predictor's MLPs and the frozen decoder's ReLUs
     replayed from the card). Off the main path."""
@@ -3753,17 +4282,71 @@ def phase_clip_eval(parent: Path):
 
 
 def clip_fixture(tmp: Path):
-    """The CLIPort chain's start, which times nothing: the fixture, the 02
-    parity's card half and the 02 experiment -> (data root, experiment)."""
-    data_root = write_cliport_fixture(tmp / "CLIPort")
+    """The CLIPort chain's start, which times nothing: the 02 parity's card
+    half and the 02 experiment over the fixture that ``write_fixtures``
+    wrote -> (data root, experiment)."""
+    data_root = tmp / "CLIPort"
     phase_clip_train_parity(tmp)
     return data_root, clip_experiment(tmp / "clip_train", data_root, num_epochs=1)
 
 
+FIXTURES_CMD = "import sys, chip_smoke; chip_smoke.write_fixtures(*sys.argv[1:])"
+
+
+def write_fixtures(tmp, which):
+    """Under ``tmp``: the CLIPort color-cache set (``which`` "cliport") or
+    the two PNG sets ("png"), which the CLIPort chain and the PNG routes
+    read (host work only)."""
+    tmp = Path(tmp)
+    if which == "cliport":
+        write_cliport_fixture(tmp / "CLIPort")
+    else:
+        write_cater_png_fixture(tmp / "CATER_png")
+        write_cliport_png_fixture(tmp / "CLIPort_png")
+
+
+def start_fixtures(tmp: Path) -> dict:
+    """``write_fixtures`` in two processes of their own, started before the
+    build and the kernel rows (timed on the card's clock), long before the
+    phases that read them."""
+    procs = {}
+    for which in ("cliport", "png"):
+        log = open(tmp / f"fixtures_{which}.log", "w")
+        procs[which] = (subprocess.Popen([sys.executable, "-c", FIXTURES_CMD, str(tmp), which],
+                                         cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log)
+    return {"procs": procs, "started": time.perf_counter(), "tmp": tmp}
+
+
+def finish_fixtures(fixtures: dict) -> dict:
+    """Wait for the fixture processes (before ``host_io``, whose host rates
+    they would share the cores with): their seconds and the main
+    timeline's wait."""
+    t = time.perf_counter()
+    seconds = {}
+    for which, (proc, log) in fixtures["procs"].items():
+        rc = proc.wait(timeout=900)
+        log.close()
+        seconds[which] = time.perf_counter() - fixtures["started"]
+        check(rc == 0, f"the {which} fixture process failed:\n"
+              + (fixtures["tmp"] / f"fixtures_{which}.log").read_text()[-3000:])
+    return {"fixtures_s": seconds, "main_timeline_wait_s": time.perf_counter() - t}
+
+
+def stop_fixtures(fixtures: dict):
+    """Kill the fixture processes still running (a failed phase before
+    ``finish_fixtures``), so that none writes on after the run."""
+    for proc, log in fixtures["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
 def run_clip(tmp: Path, created: Path, data_root: Path, exp: Path):
     """The CLIPort chain after :func:`clip_fixture`: the 02 path (the CLI and
-    its resume, the steady step, the sign check); the 04 path over the 02
-    checkpoint (parity, then the same); the 05 path over the 04 checkpoint
+    its resume, the steady step, the sign check, the bf16 step); the 04 path
+    over the 02 checkpoint (the same; its parity runs beside the shared
+    card's ranks, through a random ExtendedDINOSAUR); the 05 path over the 04 checkpoint
     (parity, the CLI, the stage split and profile); the 03 path over the 02
     checkpoint, dropped into ``created`` (the 01 CLI's experiment). Returns
     each path's main-path launches."""
@@ -3775,8 +4358,8 @@ def run_clip(tmp: Path, created: Path, data_root: Path, exp: Path):
     gc.collect()
     torch.cuda.empty_cache()
     phase_clip_train_sign(data_root, tmp, videos)
+    counts["bf16_clip_train_step"] = phase_bf16_clip_train_step(exp, videos)
     del videos
-    phase_clip_pred_train_parity(exp)
     counts["clip_pred_train"], trainer = phase_clip_pred_train(exp)
     videos, info = next(iter(trainer.train_loader))
     phase_clip_pred_train_step(trainer, videos, info)
@@ -3784,6 +4367,7 @@ def run_clip(tmp: Path, created: Path, data_root: Path, exp: Path):
     gc.collect()
     torch.cuda.empty_cache()
     phase_clip_pred_train_sign(exp, videos, info)
+    counts["bf16_clip_pred_train_step"] = phase_bf16_clip_pred_train_step(exp, videos, info)
     del videos, info
     ckpts = ("checkpoint_epoch_final", "checkpoint_epoch_final")
     phase_eval_parity(exp, CLIP_PRED_NAME, ckpts, CLIP_PREDS, phase="clip_eval_parity")
@@ -3846,7 +4430,7 @@ def write_pngs(jobs):
         list(pool.map(write, jobs))
 
 
-def phase_host_io(tmp: Path):
+def phase_host_io(tmp: Path, fixtures=None):
     """What the machine offers the host input path (the compiler, the imgio
     build against zlib, PIL, imageio and ffmpeg, tensorboard), the
     imgio build and its seconds; the C++ resize against
@@ -3898,7 +4482,7 @@ def phase_host_io(tmp: Path):
     emit({"phase": "host_io", "host_io": info, "imgio_library": lib.name,
           "imgio_build_s": build_s, "bit_exact": ["resize vs resize_bilinear_plain",
                                                   "stdlib PNG writer -> decode"],
-          "host_cpus": os.cpu_count(), "decode_resize": rates})
+          "host_cpus": os.cpu_count(), "decode_resize": rates, "fixture_process": fixtures})
 
 
 def write_cater_png_fixture(root: Path) -> Path:
@@ -4252,7 +4836,7 @@ def clip_decomp_remat_rows(parent: Path):
         kept_gb = (torch.cuda.memory_allocated() - before) / 2**30
         loss.backward()
         del loss
-        step_ms, peak_gb = steady_steps(micro, reps=1)
+        step_ms, peak_gb = steady_steps(micro, reps=1, warm=False)  # warmed by the passes above
         rows["remat" if knob else "plain"] = {"step_ms": step_ms, "peak_mem_gb": peak_gb,
                                               "kept_after_forward_gb": kept_gb}
         del tr, batch, noise
@@ -4269,9 +4853,10 @@ def phase_clip_remat(parent: Path):
     (:func:`clip_decomp_remat_rows`); then one CLIPort 04 microbatch with
     ``tpu.remat`` through the CLIPort 02 path's ExtendedDINOSAUR (c=1,
     p=9): of 8 episodes (``accum_steps`` 8 of B=64, the configured one;
-    48.07 GB without remat, PERF.md §5): its forward and backward on the
-    host clock and its peak GB; and of CLIP_REMAT_MICROBATCH (``accum_steps``
-    4): its peak GB from one cold call, or the card's refusal of the memory.
+    48.07 GB without remat, PERF.md §5): its first (cold) forward and
+    backward on the host clock and its peak GB; and of CLIP_REMAT_MICROBATCH
+    (``accum_steps`` 4): its peak GB from one cold call, or the card's
+    refusal of the memory.
     Off the main paths."""
     from textocvp_tpu_torch.core.experiment import Experiment
     from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
@@ -4298,10 +4883,10 @@ def phase_clip_remat(parent: Path):
             tr.forward_loss(batch, noise, **text)[0].backward()
 
         row = {"microbatch": mb, "accum_steps": CLIP_TRAIN_BATCH // mb}
-        try:  # the second microbatch's peak is its point: one cold call, no time
-            step_ms, peak_gb = steady_steps(micro, reps=1, warm=mb == configured)
+        try:  # one cold call each: the configured one timed, the second's peak its point
+            step_ms, peak_gb = steady_steps(micro, reps=1, warm=False)
             row.update(fits=True, peak_mem_gb=peak_gb,
-                       **({"step_ms": step_ms} if mb == configured else {}))
+                       **({"cold_step_ms": step_ms} if mb == configured else {}))
         except torch.cuda.OutOfMemoryError as e:
             row.update(fits=False, error=str(e).splitlines()[0])
         rows_out.append(row)
@@ -4904,6 +5489,7 @@ def phase_quant_eval(phase, exp_path, pred_name, float_results: dict, ckpts, bat
 # Each side counts the port's launches a request.
 KERNEL_COUNTING = r"""
 import json, sys, time
+STEADY_REQUESTS = 2  # an artifact's and its live service's steady 8-row requests
 import numpy as np, torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -4931,7 +5517,7 @@ def answer(svc, requests, replies_path, trace):
     np.savez(replies_path, **replies)
     frames, captions = requests[0]
     steady = []
-    for _ in range(5):
+    for _ in range(STEADY_REQUESTS):
         t = time.perf_counter()
         svc.predict(frames, captions)
         steady.append(1e3 * (time.perf_counter() - t))
@@ -6006,10 +6592,11 @@ def phase_bf16_card(path: ServedPath, tmp: Path):
     slots and reconstructed frames within BF16_SEED_RANGE, the predicted
     frames within BF16_PRED_MAX and BF16_PRED_MEAN of max |float32|. Untimed.
     The first BF16_PARITY_BATCH rows go to the parity worker
-    (``bf16_cpu_half``), and ``finish_parities`` holds the card's bf16 to
+    (``bf16_cpu_half``) here, and ``finish_parities`` holds the card's bf16 to
     the port's CPU bf16 there: each output within 2 e(bf16, float32) + 2**-8,
     the rule of the CPU tests (tests/torch_bf16.py), e(bf16, float32) the
-    card's own distance on those rows."""
+    card's own distance on those rows. Returns the card's half, which
+    ``main`` runs later, beside the shared card's ranks."""
     exp_path = tmp / path.name / "exp"
     gen = torch.Generator().manual_seed(SEED + 9)
     video = torch.rand((BATCH, 1, path.res, path.res, 3), generator=gen)
@@ -6017,6 +6604,20 @@ def phase_bf16_card(path: ServedPath, tmp: Path):
     mp = pred_params["model"]["model_params"]
     noise = torch.randn((BATCH, mp["num_slots"], mp["slot_dim"]), generator=gen)
     text = caption_batch(pred_params, BATCH, path)
+    bf16_experiment(exp_path)
+    spec_path, out_path = tmp / f"bf16_{path.name}_spec.pt", tmp / f"bf16_{path.name}_cpu.pt"
+    rows_ = slice(0, BF16_PARITY_BATCH)
+    torch.save({"exp": str(exp_path), "video": video[rows_], "noise": noise[rows_],
+                "text": {k: v[rows_] for k, v in text.items()}, "num_preds": path.num_preds},
+               spec_path)
+    t = time.perf_counter()
+    job = parity_pool().apply_async(bf16_cpu_half, (str(spec_path), str(out_path)))
+    return partial(_bf16_card_half, path, exp_path, video, noise, text, job, out_path, t)
+
+
+def _bf16_card_half(path: ServedPath, exp_path, video, noise, text, job, out_path, t):
+    """The card's half of ``phase_bf16_card``: its checks, its line, and the
+    comparison with the CPU half deferred."""
     card = {}
     for dt, name in (("float32", PRED_NAME), ("bfloat16", bf16_experiment(exp_path))):
         model, predictor = served_models(exp_path, name, "cuda")
@@ -6035,14 +6636,6 @@ def phase_bf16_card(path: ServedPath, tmp: Path):
           f"bf16_{path.name}: predicted frames card bf16 vs float32 max {d_max} "
           f"(limit {BF16_PRED_MAX}), mean {d_mean} (limit {BF16_PRED_MEAN})")
     line.update(pred_frames_max=d_max, pred_frames_mean=d_mean)
-
-    spec_path, out_path = tmp / f"bf16_{path.name}_spec.pt", tmp / f"bf16_{path.name}_cpu.pt"
-    rows_ = slice(0, BF16_PARITY_BATCH)
-    torch.save({"exp": str(exp_path), "video": video[rows_], "noise": noise[rows_],
-                "text": {k: v[rows_] for k, v in text.items()}, "num_preds": path.num_preds},
-               spec_path)
-    t = time.perf_counter()
-    job = parity_pool().apply_async(bf16_cpu_half, (str(spec_path), str(out_path)))
     mine = {dt: {k: v[:BF16_PARITY_BATCH * (path.num_preds if k == "pred_frames" else 1)]
                  for k, v in out.items()} for dt, out in card.items()}
 
@@ -6090,6 +6683,40 @@ def run_path(path: ServedPath, tmp: Path):
     return counts
 
 
+def conv5_bf16_backward_entry(rows_, counts) -> dict:
+    """The bf16 conv5 backward in the ``kernels`` line: the input gradient
+    (a launch of the bf16 kernel) at the 02 step's N and the 04 step's, and
+    the weight gradient (``torch.matmul``) at the 02 step's, each with every
+    key of a kernel's entry."""
+    by_n = {r["N"]: r for r in rows_}
+    train, frozen = by_n[TRAIN_BATCH * TRAIN_FRAMES * 8], by_n[PRED_TAIL_N]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+            "max_err_steps")
+    return {
+        "input_grad": {
+            "name": "conv5_bf16_input_grad", "route": "cuda",
+            "source": "textocvp_tpu_torch/csrc/conv5.cu",
+            "replaces": "bench_pallas_conv.py:85 in bf16 (:32, :81-84): its input gradient",
+            "launches": sum(c.get("conv5_bf16_input_grad", 0) for c in counts.values()),
+            "launches_by_path": {p: c.get("conv5_bf16_input_grad", 0)
+                                 for p, c in counts.items()},
+            **{k: train["input_grad"][k] for k in keys}, "shape": {"N": train["N"]},
+            f"n{frozen['N']}": {k: frozen["input_grad"][k] for k in keys},
+            "tolerance_steps": 1,
+            "library": "aten.convolution_backward bf16, input only (cuDNN, channels-last)"},
+        "weight_grad": {
+            "name": "conv5_bf16_weight_grad", "route": "torch.matmul",
+            "source": "textocvp_tpu_torch/ops/conv5.py::conv5_weight_grad_bf16",
+            "replaces": "none: the JAX package leaves this product to XLA",
+            "launches": sum(c.get("conv5_bf16_weight_grad_calls", 0) for c in counts.values()),
+            "launches_by_path": {p: c["conv5_bf16_weight_grad_calls"] for p, c in counts.items()
+                                 if "conv5_bf16_weight_grad_calls" in c},
+            **{k: train["weight_grad"][k] for k in keys}, "shape": {"N": train["N"]},
+            "tolerance_steps": BF16_WEIGHT_GRAD_STEPS,
+            "library": "aten.convolution_backward bf16, weight only (cuDNN, channels-last)"},
+        "bias_grad_ms": train["bias_grad_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA device",
@@ -6097,20 +6724,27 @@ def main() -> int:
         return 2
 
     name = phase_device()
-    gmma = phase_build()
-    rows = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        phase_host_io(Path(tmp))
+        fixtures = start_fixtures(Path(tmp))  # the CLIPort and PNG sets, host work only
+        try:
+            gmma = phase_build()
+            rows = phase_kernels()
+        except BaseException:
+            stop_fixtures(fixtures)
+            raise
+        phase_host_io(Path(tmp), finish_fixtures(fixtures))
         made = phase_create(Path(tmp))
         counts = {path.name: run_path(path, Path(tmp)) for path in PATHS}
+        bf16_card = []  # the CPU halves go to the parity worker now, the card's later
         for path in PATHS:
             counts[f"bf16_{path.name}"] = phase_bf16_serve(path, Path(tmp) / path.name / "exp")
-            phase_bf16_card(path, Path(tmp))  # untimed: the card's bf16 against its float32
+            bf16_card.append(phase_bf16_card(path, Path(tmp)))
         run_export(Path(tmp))  # the artifacts load in a process of their own meanwhile
         counts["serve_batching"] = phase_serve_batching(Path(tmp) / PATHS[0].name / "exp")
         counts["eval"] = run_eval(Path(tmp))
         counts["bf16_cater_eval_step"] = phase_bf16_eval_step(Path(tmp) / "eval" / "exp")
-        counts["train"], train_input_grad, train_exp = run_train(Path(tmp))
+        (counts["train"], train_input_grad, train_exp, counts["bf16_train_step"],
+         untimed) = run_train(Path(tmp))
         # 03 on the SAVi that 02 wrote, over the eval path's 128 test videos
         counts["decomp_eval"] = run_decomp_eval(
             "cater", made["cater"], train_exp / "models" / "checkpoint_epoch_final.pt",
@@ -6118,21 +6752,30 @@ def main() -> int:
         counts[RESNET_NAME] = phase_resnet_savi(Path(tmp), Path(tmp) / PATHS[0].name / "exp")
         phase_train_extras(Path(tmp))
         phase_train_remat(train_exp, Path(tmp) / "CATER_train")
-        counts["pred_train"], pred_input_grad, pred_weight_grad = run_pred_train(train_exp)
+        (counts["pred_train"], pred_input_grad, pred_weight_grad,
+         counts["bf16_pred_train_step"], pred_untimed) = run_pred_train(train_exp)
+        untimed += pred_untimed
         counts.update(run_figs(train_exp))
         # the mesh phases' processes import beside the phases before start_mesh
         mesh = spawn_mesh(Path(tmp))
-        other_counts, other_input_grad, other_weight_grad = run_predictors(Path(tmp), train_exp)
+        other_counts, other_input_grad, other_weight_grad, other_parities = run_predictors(
+            Path(tmp), train_exp)
         counts.update(other_counts)
-        # mesh_shared_card's two ranks beside the CLIPort fixture and the CATER
-        # PNG set (host work on one core), which time nothing
+        untimed += other_parities
+        # mesh_shared_card's two ranks beside phases that time nothing: the
+        # trainer parities' card halves (float32 and bf16), the bf16 services
+        # against their float32 ones, the CATER sign checks
         mesh = start_mesh(mesh, Path(tmp), train_exp)
         try:
             clip_data, clip_exp = clip_fixture(Path(tmp))
-            png_root = write_cater_png_fixture(Path(tmp) / "CATER_png")
-            clip_png_root = write_cliport_png_fixture(Path(tmp) / "CLIPort_png")
+            for phase in bf16_card + untimed:
+                phase()
+            clip_parent = clip_random_parent(Path(tmp))
+            phase_clip_pred_train_parity(clip_parent)
+            phase_bf16_parities(Path(tmp), train_exp, clip_parent)
         finally:
             wait_mesh(mesh)  # and done before the timed phases after it
+        png_root, clip_png_root = Path(tmp) / "CATER_png", Path(tmp) / "CLIPort_png"
         counts["png_eval"] = run_png_eval(Path(tmp), png_root)
         counts.update(run_clip(Path(tmp), made["clipport"], clip_data, clip_exp))
         counts.update(run_quant(Path(tmp), Path(tmp) / "eval" / "exp", Path(tmp) / "clip_train"))
@@ -6270,7 +6913,8 @@ def main() -> int:
         "bf16": {**bf16_entry("conv5_bf16", rows["conv5_bf16"], "N", EVAL_BATCH * EVAL_PREDS * 8),
                  "design": "wgmma m64n256k16 (weights A, halo B) + TMA halo and weight rings, "
                            "persistent, warp-specialised",
-                 "sass_hgmma": gmma["conv5_bf16_kernel"]},
+                 "sass_hgmma": gmma["conv5_bf16_kernel"],
+                 "backward": conv5_bf16_backward_entry(rows["conv5_bf16_backward"], counts)},
     }, {
         "name": "conv_int8",
         "route": "cuda",

@@ -53,6 +53,7 @@ from textocvp_tpu_torch.serve import pipeline  # noqa: E402
 from textocvp_tpu_torch.serve.export import export_service  # noqa: E402
 from textocvp_tpu_torch.serve.pipeline import PredictionService  # noqa: E402
 from textocvp_tpu_torch.train import evaluator  # noqa: E402
+from textocvp_tpu_torch.train import trainer as trainer_mod  # noqa: E402
 from textocvp_tpu_torch.train.evaluator import PredictorEvaluator  # noqa: E402
 from textocvp_tpu_torch.train.fig_generation import (  # noqa: E402
     DecompFigGenerator,
@@ -196,11 +197,20 @@ def _bf16_experiment(exp_dir, tmp_path, **tpu):
     return parent, pred
 
 
-def test_the_trainers_refuse_bf16(exp_dir, tmp_path):
+def test_the_trainers_refuse_bf16(exp_dir, tmp_path, monkeypatch):
+    """On one process the trainers take bf16 (``test_torch_port_bf16_train*.py``
+    hold their steps); on a mesh of more than one rank they refuse it."""
     parent, pred = _bf16_experiment(exp_dir, tmp_path)
-    with pytest.raises(NotImplementedError, match=f"DecompTrainer .*bfloat16.*{ROADMAP}"):
+    DecompTrainer(parent.exp_path, device="cpu")
+    PredictorTrainer(pred.exp_path, "ckpt", device="cpu")
+    mesh = SimpleNamespace(world=2, device=torch.device("cpu"))
+    monkeypatch.setattr(trainer_mod, "get_runtime_mesh", lambda *a, **k: mesh)
+    monkeypatch.setattr(trainer_mod, "maybe_initialize_distributed", lambda: None)
+    with pytest.raises(NotImplementedError,
+                       match=f"DecompTrainer .*mesh of more than one rank.*bfloat16.*{ROADMAP}"):
         DecompTrainer(parent.exp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"PredictorTrainer .*bfloat16.*{ROADMAP}"):
+    with pytest.raises(NotImplementedError,
+                       match=f"PredictorTrainer .*mesh of more than one rank.*bfloat16.*{ROADMAP}"):
         PredictorTrainer(pred.exp_path, "ckpt", device="cpu")
 
 

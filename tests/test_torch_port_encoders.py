@@ -12,7 +12,7 @@ reaches, against the JAX package's on the CPU, at small sizes.
   ``LearnedPositionalEncoding1D`` (an offset, deterministic): the same
   limits.
 * ``tpu.compute_dtype``: "bfloat16" builds both models (parameters
-  float32, compute bf16) and the trainers refuse it; any other name but
+  float32, compute bf16) and the 02 trainer; any other name but
   "float32" raises instead of computing float32.
 """
 
@@ -228,7 +228,8 @@ def test_group_norm_is_flax_with_its_epsilon():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_compute_dtype_other_than_float32_raises(dtype, tmp_path):
     """float16 raises where the models are built. bfloat16 builds them, and
-    what raises is the trainers, whose bf16 backward waits for ROADMAP.md §1."""
+    the 02 trainer takes it (``test_torch_port_bf16_train*.py`` hold its
+    steps)."""
     from textocvp_tpu_torch.core.config import add_predictor_params
     from textocvp_tpu_torch.core.experiment import Experiment
     from textocvp_tpu_torch.train.trainer import DecompTrainer
@@ -245,9 +246,9 @@ def test_compute_dtype_other_than_float32_raises(dtype, tmp_path):
             assert {p.dtype for p in mod.parameters()} == {torch.float32}
         exp = Experiment(tmp_path / "exp")
         exp.save_params(params)
-        with pytest.raises(NotImplementedError,
-                           match=r"DecompTrainer .*'bfloat16'.*ROADMAP\.md §1"):
-            DecompTrainer(exp.exp_path, device="cpu")
+        trainer = DecompTrainer(exp.exp_path, device="cpu")
+        trainer.setup_model()
+        assert trainer.model.compute_dtype == torch.bfloat16
         return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1.*bfloat16"):
         setup_model(params)

@@ -1397,8 +1397,9 @@ def test_bf16_wrappers_refuse_grad_and_cpu_tensors(cuda):
     x = x.to(torch.bfloat16)
     q, k, v = (t.to(torch.bfloat16) for t in _qkv(1, 2, 10))
     before = (c5.conv5_bf16_cuda.launches, va.vit_attention_bf16_cuda.launches)
+    # the launcher alone, outside conv5()'s Function
     with pytest.raises(RuntimeError, match="no backward"):
-        c5.conv5(x, wt.requires_grad_(), b)
+        c5.conv5_bf16_cuda(x, wt.requires_grad_(), b)
     with pytest.raises(RuntimeError, match="no backward"):
         c5.conv5_bf16_cuda(x.requires_grad_(), wt.detach(), b)
     with pytest.raises(RuntimeError, match="no backward"):
@@ -1410,6 +1411,42 @@ def test_bf16_wrappers_refuse_grad_and_cpu_tensors(cuda):
     with pytest.raises(TypeError, match="float32"):
         c5.conv5_bf16_cuda(x.detach(), wt.detach(), b.to(torch.bfloat16))  # the bias is float32
     assert (c5.conv5_bf16_cuda.launches, va.vit_attention_bf16_cuda.launches) == before
+
+
+@pytest.mark.parametrize("n,h,w,train_w", [(2, 64, 64, True), (3, 17, 70, True),
+                                           (4, 16, 16, False)])
+def test_conv5_bf16_backward_matches_its_plain_version(cuda, n, h, w, train_w):
+    """conv5() on bf16 with grad: the Function's forward and input gradient
+    launch the bf16 kernel (the latter counted apart too), the weight
+    gradient is 25 bf16 GEMMs; each within its bf16 steps of the plain
+    version in float32 on the same bf16 operands and mask (input 1, weight
+    2), the bias gradient a float32 sum. (The CPU's Function, the plain
+    version of this backward, is held in ``test_torch_port_bf16_train_ops.py``;
+    against the card its ReLU mask differs where an output lies within
+    rounding of 0.)"""
+    x, wt, b = _conv5_case(n, h, w, seed=5)
+    x = x.to(torch.bfloat16).requires_grad_()
+    wt.requires_grad_(train_w)
+    b.requires_grad_(train_w)
+    g = torch.randn((n, 64, h, w), device="cuda").to(torch.bfloat16).permute(0, 2, 3, 1)
+    leaves = (x, wt, b) if train_w else (x,)
+    before = (c5.conv5_bf16_cuda.launches, c5.conv5_bf16_input_grad_cuda.launches,
+              c5.conv5_weight_grad.calls)
+    y = c5.conv5(x, wt, b)
+    got = torch.autograd.grad(y, leaves, g)
+    after = (c5.conv5_bf16_cuda.launches, c5.conv5_bf16_input_grad_cuda.launches,
+             c5.conv5_weight_grad.calls)
+    assert tuple(a - z for a, z in zip(after, before)) == (2, 1, int(train_w))
+    assert got[0].dtype == torch.bfloat16
+    gm = torch.where(y > 0, g, 0).float()
+    w16 = wt.detach().to(torch.bfloat16).float()
+    dx = c5.conv5_plain(gm, w16.flip(0, 1).transpose(2, 3), torch.zeros_like(b), relu=False)
+    assert (got[0].float() - dx).abs().max() <= BF16_STEP * dx.abs().max()
+    if train_w:
+        dw = c5.conv5_weight_grad(x.detach().float(), gm)
+        assert got[1].dtype == torch.float32
+        assert (got[1] - dw).abs().max() <= 2 * BF16_STEP * dw.abs().max()
+        torch.testing.assert_close(got[2], gm.sum((0, 1, 2)), rtol=1e-5, atol=1e-5)
 
 
 def test_float32_calls_still_launch_the_float32_variants(cuda):

@@ -11,6 +11,10 @@ value. Each output is held to that measured distance. With
 * it lies more than 1e-4 (of the largest value) from the port's own float32
   output, so the bf16 path was really taken.
 
+A gradient adds its measured spread to both bounds (``check_bf16``'s
+``spread``): the port's own bf16 gradient's move under an input change below
+one bf16 step.
+
 2**-8 is one bf16 step at the largest value.
 """
 
@@ -34,20 +38,33 @@ def e(a, b, ref) -> float:
 
 
 def check_bf16(port_bf16, port_f32, jax_bf16, jax_f32, what: str = "",
-               dtype_checked: bool = True) -> dict:
+               dtype_checked: bool = True, scale=None, spread: float = 0.0) -> dict:
     """Assert the rule above for one output; returns its distances. Outputs
     that are not the port's bf16 tensors by contract (metrics, the service's
-    uint8 reply) pass ``dtype_checked=False``."""
+    uint8 reply, the float32 gradients Adam reads) pass
+    ``dtype_checked=False``. ``scale`` replaces max|JAX float32| as the
+    yardstick for an output that is 0 in exact arithmetic (a gradient leaf
+    of rounding noise on every side, held against the largest leaf's
+    scale); such an output need not lie apart from the port's float32.
+    ``spread`` (a gradient's) is how far the port's own bf16 output moves
+    when its input moves by less than one bf16 step (e over the same
+    yardstick): a step's gradient passes kinks (ReLU, the loss's clip) where
+    such a move flips a mask and a whole term with it, and two bf16
+    computations that round in other orders differ by that much; it is added
+    to both bounds."""
     if dtype_checked:
         assert isinstance(port_bf16, torch.Tensor) and port_bf16.dtype == torch.bfloat16, (
             what, getattr(port_bf16, "dtype", type(port_bf16)))
     pb = as_f32(port_bf16)
     assert pb.shape == as_f32(jax_f32).shape, (what, pb.shape, as_f32(jax_f32).shape)
     assert np.isfinite(pb).all(), what
-    base = e(jax_bf16, jax_f32, jax_f32)
-    d = {"jax_bf16_vs_f32": base, "port_vs_jax_bf16": e(pb, jax_bf16, jax_f32),
-         "port_vs_jax_f32": e(pb, jax_f32, jax_f32), "port_vs_port_f32": e(pb, port_f32, pb)}
-    assert d["port_vs_jax_bf16"] <= 2 * base + STEP, (what, d)
-    assert d["port_vs_jax_f32"] <= 1.5 * base + STEP, (what, d)
-    assert d["port_vs_port_f32"] > 1e-4, (what, d)
+    ref = jax_f32 if scale is None else np.full((1,), scale, np.float32)
+    base = e(jax_bf16, jax_f32, ref)
+    d = {"jax_bf16_vs_f32": base, "port_vs_jax_bf16": e(pb, jax_bf16, ref),
+         "port_vs_jax_f32": e(pb, jax_f32, ref), "port_vs_port_f32": e(pb, port_f32, pb)}
+    d["spread"] = spread
+    assert d["port_vs_jax_bf16"] <= 2 * base + spread + STEP, (what, d)
+    assert d["port_vs_jax_f32"] <= 1.5 * base + spread + STEP, (what, d)
+    if scale is None:
+        assert d["port_vs_port_f32"] > 1e-4, (what, d)
     return d

@@ -369,6 +369,23 @@ def job_serve(spec):
     return out
 
 
+def job_refuse_bf16(spec):
+    """The 02 and 04 trainers of bf16 experiments on this mesh: each must
+    raise. Their messages."""
+    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
+    from textocvp_tpu_torch.train.trainer import DecompTrainer
+
+    out = {}
+    for name, make in (("02", lambda: DecompTrainer(spec["exp"], device="cpu")),
+                       ("04", lambda: PredictorTrainer(spec["pred_exp"], "ckpt", device="cpu"))):
+        try:
+            make()
+            out[name] = np.array("trained")
+        except NotImplementedError as e:
+            out[name] = np.array(str(e))
+    return out
+
+
 JOBS = {name[4:]: fn for name, fn in globals().items() if name.startswith("job_")}
 
 

@@ -117,9 +117,9 @@ def check_compute_dtype(exp_params: dict) -> str:
 
 def refuse_bfloat16(exp_params: dict, what: str):
     """Raise for ``what``, a path that computes float32 only, when
-    ``tpu.compute_dtype`` is "bfloat16": the 02 and 04 trainers (bf16
-    backward kernels), a mesh of more than one rank, the serving export and
-    the 06 figure CLIs wait for ROADMAP.md §1."""
+    ``tpu.compute_dtype`` is "bfloat16": a mesh of more than one rank (the
+    trainers, the evaluators and the service), the serving export and the 06
+    figure CLIs wait for ROADMAP.md §1."""
     if check_compute_dtype(exp_params) == "bfloat16":
         raise NotImplementedError(
             f"{what} in tpu.compute_dtype 'bfloat16' waits for ROADMAP.md §1; set "

@@ -189,7 +189,13 @@ class ConvDecoder(nn.Module):
             return torch.where(ar < pad, ar,
                                torch.where(ar >= full - pad, ar - full + small, 2 * pad))
 
-        x = y_small[:, idx(h)[:, None], idx(w)[None, :]]  # (N, H, W, C)
+        if y_small.dtype != torch.float32 and y_small.requires_grad and torch.is_grad_enabled():
+            # the gather's backward sums every interior pixel's gradient into
+            # the tile's centre: in float32, rounded once at the cast, as the
+            # JAX expand's broadcast reduces it, not in bf16 adds
+            x = y_small.float()[:, idx(h)[:, None], idx(w)[None, :]].to(y_small.dtype)
+        else:
+            x = y_small[:, idx(h)[:, None], idx(w)[None, :]]  # (N, H, W, C)
         x.add_(y_pos)
         if self.blocks[0].activation:
             x.relu_()

@@ -18,7 +18,7 @@ bounds the kernel on an H100 and how its design answers.
   (``bench_pallas_conv.py:81-84``): bf16 operands, products and sums in
   float32, the float32 bias, the ReLU, one rounding to bf16. A CUDA tensor
   launches the kernel's bf16 variant (:func:`conv5_bf16_cuda`, counted in its
-  own ``launches``). It has no backward yet: under grad it raises.
+  own ``launches``); its gradient is below.
 * The kernel takes Cin = Cout = 64 at any N, H, W >= 1; the plain version
   any channel counts.
 * :func:`conv5` dispatches on the tensor's device: a CPU tensor runs
@@ -41,11 +41,23 @@ bounds the kernel on an H100 and how its design answers.
     ``torch.matmul`` on strided views: the JAX package leaves this product
     to XLA);
   - the bias gradient is ``g'`` summed over N, H and W.
+
+  In bf16 :func:`conv5` casts the weights to bf16 before the Function
+  (flax's ``promote_dtype``), so that autograd's cast carries the bf16
+  weight gradient back to the float32 parameter, as the JAX package's bf16
+  step does. Each part keeps the forward's contract, float32 sums of exact
+  products and one rounding to bf16: the input gradient is a launch of the
+  bf16 kernel (:func:`conv5_bf16_input_grad_cuda`, counted apart and in
+  ``conv5_bf16_cuda.launches``), the weight gradient
+  :func:`conv5_weight_grad_bf16`, the bias gradient the float32 sum of
+  ``g'``. A bf16 CPU tensor takes the same Function with :func:`conv5_plain`
+  for both convs: the plain version of the bf16 backward.
 """
 
 from __future__ import annotations
 
 import ctypes
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -173,9 +185,9 @@ def bf16_plan(h: int, wd: int) -> dict:
 def conv5_bf16_cuda(x, w, b, relu: bool = True):
     """Launch the kernel's bf16 variant on the current stream: ``x`` bf16,
     ``w`` bf16 (float32 is rounded to bf16 here), ``b`` float32 -> bf16. The
-    kernel reads the weights tiled (:func:`bf16_weight_tiles`). Raises on
-    what it does not take and under grad: the bf16 backward is ROADMAP.md
-    §1's."""
+    kernel reads the weights tiled (:func:`bf16_weight_tiles`). No autograd:
+    :func:`conv5` records the gradient through :class:`Conv5Function`, and a
+    direct call under grad raises."""
     refuse_grad("conv5 (bf16)", x, w, b)
     w = w.to(torch.bfloat16)
     _check(x, w, b, torch.bfloat16)
@@ -208,6 +220,38 @@ def conv5_input_grad_cuda(g, w_rot, b_zero, relu: bool = False):
 conv5_input_grad_cuda.launches = 0
 
 
+def conv5_bf16_input_grad_cuda(g, w_rot, b_zero, relu: bool = False):
+    """The bf16 input gradient's launch of the bf16 kernel:
+    :func:`conv5_bf16_cuda` of the masked bf16 output gradient with the
+    rotated bf16 weights and a float32 zero bias; counted in its own
+    ``launches`` as well as in ``conv5_bf16_cuda.launches``."""
+    out = conv5_bf16_cuda(g, w_rot, b_zero, relu)
+    conv5_bf16_input_grad_cuda.launches += 1
+    return out
+
+
+conv5_bf16_input_grad_cuda.launches = 0
+
+
+def _padded_grid(x, g):
+    """x (N, H, W, Cin) with its zero border and g (N, H, W, Cout) in the
+    top-left H x W corner with zeros around it, both on the padded grid of
+    (H + 4) x (W + 4) pixels a frame and flattened to rows of channels; x
+    with zero rows after it for the largest shift. Returns (x rows, g rows,
+    the 25 taps' shifts in rows)."""
+    n, h, wd, cin = x.shape
+    pad = KERNEL_SIZE // 2
+    hp, wp = h + 2 * pad, wd + 2 * pad
+    frame = hp * wp
+    tail = (KERNEL_SIZE - 1) * (wp + 1)  # the largest shift
+    xflat = x.new_zeros((n * frame + tail, cin))
+    xflat[:n * frame].view(n, hp, wp, cin)[:, pad:pad + h, pad:pad + wd] = x
+    gext = g.new_zeros((n, hp, wp, g.shape[-1]))
+    gext[:, :h, :wd] = g
+    shifts = [dy * wp + dx for dy in range(KERNEL_SIZE) for dx in range(KERNEL_SIZE)]
+    return xflat, gext.view(n * frame, -1), shifts
+
+
 def conv5_weight_grad(x, g):
     """dW (5, 5, Cin, Cout) of the 5x5 pad-2 conv of x (N, H, W, Cin) with
     output gradient g (N, H, W, Cout): ``dW[dy, dx] = sum over pixels of
@@ -220,28 +264,59 @@ def conv5_weight_grad(x, g):
     of the flattened padded x: one batched product a tap (a batch entry a
     frame, summed), with no copy of the shifted views. The padded grid costs
     (H + 4)(W + 4) / HW more products (13 % at 64 x 64). Each call adds one
-    to ``conv5_weight_grad.calls`` (behind a frozen decoder there is none)."""
+    to ``conv5_weight_grad.calls`` (behind a frozen decoder there is none).
+    bf16 operands go to :func:`conv5_weight_grad_bf16`."""
     conv5_weight_grad.calls += 1
-    n, h, wd, cin = x.shape
-    pad = KERNEL_SIZE // 2
-    hp, wp = h + 2 * pad, wd + 2 * pad
-    frame = hp * wp
-    tail = (KERNEL_SIZE - 1) * (wp + 1)  # the largest shift
-    xflat = x.new_zeros((n * frame + tail, cin))
-    xflat[:n * frame].view(n, hp, wp, cin)[:, pad:pad + h, pad:pad + wd] = x
-    gext = g.new_zeros((n, hp, wp, g.shape[-1]))
-    gext[:, :h, :wd] = g
+    if x.dtype == torch.bfloat16:
+        return conv5_weight_grad_bf16(x, g)
+    n, cin = x.shape[0], x.shape[-1]
+    xflat, gext, shifts = _padded_grid(x, g)
+    frame = gext.shape[0] // n
     gext = gext.view(n, frame, -1)
     taps = []
-    for dy in range(KERNEL_SIZE):
-        for dx in range(KERNEL_SIZE):
-            shift = dy * wp + dx
-            xs = xflat[shift:shift + n * frame].view(n, frame, cin)
-            taps.append(torch.matmul(xs.transpose(1, 2), gext).sum(0))
+    for shift in shifts:
+        xs = xflat[shift:shift + n * frame].view(n, frame, cin)
+        taps.append(torch.matmul(xs.transpose(1, 2), gext).sum(0))
     return torch.stack(taps).view(KERNEL_SIZE, KERNEL_SIZE, cin, -1)
 
 
 conv5_weight_grad.calls = 0
+
+
+@contextmanager
+def float32_reductions():
+    """cuBLAS's bf16 GEMMs with every partial sum in float32 inside: PyTorch
+    lets them reduce split-K partials in bf16 unless
+    ``allow_bf16_reduced_precision_reduction`` is off."""
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+
+
+def conv5_weight_grad_bf16(x, g):
+    """dW (5, 5, Cin, Cout) in bf16 of bf16 x and g, to the forward's
+    contract: float32 sums of exact products over every pixel of every
+    frame, then one rounding to bf16 (the weight gradient of the JAX
+    package's bf16 conv before its cast to the float32 parameter).
+
+    On the padded grid (:func:`conv5_weight_grad`) a tap's operand is one
+    contiguous slice across all frames, so each tap is one GEMM whose K runs
+    over every pixel of every frame: the frame sum sits inside the GEMM's
+    float32 accumulation, not in a bf16 sum of per-frame products. On the
+    card the GEMM is cuBLAS's bf16 one, accumulating in float32 and, under
+    :func:`float32_reductions`, reducing its split-K partials in float32,
+    its result rounded once to bf16; on the CPU the same products on the
+    operands cast to float32, then rounded once."""
+    xflat, gext, shifts = _padded_grid(x, g)
+    rows = gext.shape[0]
+    if x.device.type == "cpu":
+        xflat, gext = xflat.float(), gext.float()
+    with float32_reductions():
+        taps = [torch.matmul(xflat[s:s + rows].t(), gext).to(torch.bfloat16) for s in shifts]
+    return torch.stack(taps).view(KERNEL_SIZE, KERNEL_SIZE, x.shape[-1], -1)
 
 
 class Conv5Function(torch.autograd.Function):
@@ -249,7 +324,8 @@ class Conv5Function(torch.autograd.Function):
     ``conv(x, w, b, relu)`` computes the forward without autograd (the kernel's
     :func:`conv5_cuda` on the card; the tests pass :func:`conv5_plain`), and
     ``input_grad_conv(g', w_rot, zeros, False)`` the input gradient
-    (:func:`conv5_input_grad_cuda` on the card)."""
+    (:func:`conv5_input_grad_cuda` on the card). In bf16 x and w are bf16
+    and b float32 (:func:`conv5`); so are their gradients."""
 
     @staticmethod
     def forward(ctx, x, w, b, relu, conv, input_grad_conv):
@@ -269,11 +345,12 @@ class Conv5Function(torch.autograd.Function):
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             w_rot = w.flip(0, 1).transpose(2, 3).contiguous()
-            dx = ctx.input_grad_conv(g, w_rot, w.new_zeros(w.shape[2]), False)
+            zeros = torch.zeros(w.shape[2], dtype=torch.float32, device=w.device)
+            dx = ctx.input_grad_conv(g, w_rot, zeros, False)
         if ctx.needs_input_grad[1]:
             dw = conv5_weight_grad(x, g)
         if ctx.needs_input_grad[2]:
-            db = g.sum((0, 1, 2))
+            db = g.sum((0, 1, 2), dtype=torch.float32)
         return dx, dw, db, None, None, None
 
 
@@ -293,12 +370,17 @@ def _(x, w, b, relu):
 
 def conv5(x, w, b, relu: bool = True):
     """The plain version for CPU tensors; for CUDA tensors the kernel, through
-    :class:`Conv5Function` so that autograd records its gradient. Where no
-    gradient is recorded, :func:`conv5_op`."""
+    :class:`Conv5Function` so that autograd records its gradient. In bf16 the
+    weights are cast to bf16 first, and a CPU tensor takes the Function too,
+    with :func:`conv5_plain` for both convs. Where no gradient is recorded,
+    :func:`conv5_op`."""
     if not needs_grad(x, w, b):
         return conv5_op(x, w, b, relu)
+    if x.dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16)  # promote_dtype: autograd's cast takes dW to float32
+        if x.device.type == "cpu":
+            return Conv5Function.apply(x, w, b, relu, conv5_plain, conv5_plain)
+        return Conv5Function.apply(x, w, b, relu, conv5_bf16_cuda, conv5_bf16_input_grad_cuda)
     if x.device.type == "cpu":
         return conv5_plain(x, w, b, relu)
-    if x.dtype == torch.bfloat16:
-        return conv5_bf16_cuda(x, w, b, relu)  # raises: no bf16 backward yet
     return Conv5Function.apply(x, w, b, relu, conv5_cuda, conv5_input_grad_cuda)

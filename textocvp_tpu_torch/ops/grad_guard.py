@@ -9,9 +9,9 @@ upstream would silently get no gradient. Its CUDA wrapper calls
 ``torch.no_grad()`` or ``torch.inference_mode()``, or with inputs that
 require no grad (a frozen ViT's), it does nothing. The check looks only at
 the autograd state, so it runs on tensors of any device. (The slot-attention
-and float32 conv5 kernels record their gradients through
-``torch.autograd.Function`` and need no guard; conv5's bf16 variant has no
-backward yet and calls :func:`refuse_grad` too.) :func:`needs_grad` tells the wrappers when autograd
+and conv5 kernels record their gradients through ``torch.autograd.Function``;
+conv5's bf16 launcher calls :func:`refuse_grad` too, for a direct call
+outside that Function.) :func:`needs_grad` tells the wrappers when autograd
 would record: only then do they take their autograd path; otherwise they
 call their op of the ``textocvp_torch`` library (``torch.library``), which
 ``torch.export`` records as one node.

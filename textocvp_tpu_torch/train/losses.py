@@ -4,7 +4,9 @@ JAX package's ``textocvp_tpu/train/losses.py``).
 
 Each loss spec is ``{"type": name, "weight": w}``; the combined loss is the
 weighted sum. Every loss is an MSE routed by keyword: ``mse`` (image
-reconstruction), ``pred_img_mse``, ``pred_slot_mse``, ``pred_feature_mse``.
+reconstruction), ``pred_img_mse``, ``pred_slot_mse``, ``pred_feature_mse``;
+each computes in float32 whatever its inputs' dtype, as the JAX package's.
+:func:`clip01` is the JAX trainers' ``jnp.clip`` of the 02 loss's inputs.
 """
 
 from __future__ import annotations
@@ -12,6 +14,15 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+
+def clip01(x):
+    """``x`` clipped to [0, 1] as ``jnp.clip`` clips it, a maximum then a
+    minimum: a value exactly at a bound passes half its gradient (the two
+    sides of a tie share it), where ``Tensor.clamp`` passes all of it. In
+    bfloat16 a reconstruction rounds to exactly 1.0 often enough for the
+    difference to show in the step's gradients."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
 
 
 def _mse(a, b):

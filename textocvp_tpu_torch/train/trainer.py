@@ -44,6 +44,17 @@ off for matmuls and cuDNN. The weights start from ``random_init_`` with a
 seeded generator (the JAX package's flax initializers draw from
 ``jax.random``, which torch cannot reproduce) or from a checkpoint.
 
+``tpu.compute_dtype: "bfloat16"`` trains as the JAX trainers do: the models
+compute in bf16 (``nn/precision.py``; the softmaxes, the normalisations'
+statistics, BatchNorm's running statistics and the slot-attention kernel in
+float32), the losses in float32 (``train/losses.py``), and the parameters,
+their gradients as Adam reads them, Adam's state and the checkpoints stay
+float32: each cast records its backward, so a bf16 gradient reaches its
+float32 parameter through it. On the card the decoder tail's convs and their
+input gradients launch conv5's bf16 kernel (``ops/conv5.py``), the ViT its
+bf16 attention. On a mesh of more than one rank a bf16 trainer raises
+(ROADMAP.md §1).
+
 The JAX trainer's extras:
 
 * ``logs.txt`` (``core/logger.py``): the log lines, the calls of the
@@ -151,7 +162,7 @@ from textocvp_tpu_torch.train.checkpoints import (
     save_checkpoint,
     save_shard,
 )
-from textocvp_tpu_torch.train.losses import build_loss_fn
+from textocvp_tpu_torch.train.losses import build_loss_fn, clip01
 from textocvp_tpu_torch.train.schedulers import build_optimizer
 
 NOISE_SEED = 14
@@ -241,9 +252,11 @@ class Trainer:
         self.exp = Experiment(exp_path)
         Logger(self.exp.exp_path)
         self.exp_params = self.exp.params
-        refuse_bfloat16(self.exp_params, f"{type(self).__name__} (02 / 04 training)")
         self.training_params = self.exp_params["training"]
         self.mesh = get_runtime_mesh(self.exp_params.get("tpu"), self.device)
+        if self.mesh.world > 1:
+            refuse_bfloat16(self.exp_params, f"{type(self).__name__} (02 / 04 training) on a "
+                                             "mesh of more than one rank")
         self.device = self.mesh.device
         self.checkpoint = checkpoint
         self.resume_training = resume_training
@@ -631,11 +644,10 @@ class DecompTrainer(Trainer):
             set_batchnorm_group(self.model, self.mesh.data_group)
 
     def _loss_tensors(self, out: dict, videos) -> dict:
-        tensors = {"pred_imgs": out["recons_imgs"].clamp(0, 1),
-                   "target_imgs": videos.clamp(0, 1)}
+        tensors = {"pred_imgs": clip01(out["recons_imgs"]), "target_imgs": clip01(videos)}
         if self.model_name == "ExtendedDINOSAUR":
-            tensors["preds_feats"] = out["recons_feats"].clamp(0, 1)
-            tensors["targets_feats"] = out["encoded_img_feats"].clamp(0, 1)
+            tensors["preds_feats"] = clip01(out["recons_feats"])
+            tensors["targets_feats"] = clip01(out["encoded_img_feats"])
         return tensors
 
     def forward(self, videos, noise) -> dict:
