@@ -158,18 +158,21 @@ S. serve_batching  a ``PredictionService`` at batch 8 behind
             window with one dispatcher and with two: requests/s, the clients'
             p50 and p95 ms, the device batches and their mean fill, every
             reply's shape;
-E. export_cater, export_clipport, quant_export_cater  each serving path's
-            service at batch 8, and a CATER one with ``decode_quant: int8``
-            calibrated on a request's frames, exported (``serve/export.py``:
+E. export_cater, export_clipport, quant_export_cater, bf16_export_cater,
+   bf16_quant_export_cater  each serving path's
+            service at batch 8, a CATER one with ``decode_quant: int8``
+            calibrated on a request's frames, and the CATER one in
+            ``tpu.compute_dtype: "bfloat16"`` without and with int8, exported (``serve/export.py``:
             ``predict.pt2``, ``decode.pt2``, ``manifest.json``) with the live
             service's replies to two requests (8 rows float32, 3 rows uint8)
             from a recorded generator state; a fresh process that imports
             ``textocvp_tpu_torch.serve.export`` and what it pulls in
-            (``ARTIFACT_WORKER``) loads the three artifacts while the later
+            (``ARTIFACT_WORKER``) loads the five artifacts while the later
             phases run, and at the end (after the parities' lines) answers
             the same requests from the same state: bit for bit as the live
             service, the same launches a request, one slot-attention device
-            kernel (and 3 conv5, 3 int8-conv or 12 ViT-attention kernels) a
+            kernel (and 3 conv5, 3 bf16 conv5, 3 int8-conv or 12
+            ViT-attention kernels) a
             request under ``torch.profiler``; the artifact's steady ms a
             request beside the live one's (STEADY_REQUESTS each). Their lines
             come last.
@@ -278,9 +281,18 @@ F1. figs_parity  06b's figures of one sequence at p=3 on the card and on the
             argmax-coloured GIFs' frames on all but 1e-3 of their pixels;
             each rollout step's slots and the decode of the same slots on
             both devices reported beside;
+R2. conv_decoder_tails  SAVi's decoder with tails that conv5 does not take
+            (3 x 3; 5 x 5 at 32 and 128 channels; stride 2), random weights
+            at CATER's width, decoding one frame's 8 slots on the card and on
+            the CPU, in float32 (1e-4 of the largest value) and bf16 (2 e(card
+            bf16, card float32) + 2**-8 of the CPU's bf16), the 3 x 3 one
+            under int8 too (within int8's own error of the CPU's; 3 int8-conv
+            launches); no conv5 launch;
 F2. figs    the 06 CLIs (``cli/generate_figs_decomp.py`` on phase 12's
             SAVi, ``cli/generate_figs_predictor.py`` on phase 16's
-            TextOCVP_T5 at c=1, p=19), two sequences each: every figure and
+            TextOCVP_T5 at c=1, p=19), one sequence each, then again on a
+            bf16 copy of the two experiments
+            (``bf16_figs``: the bf16 conv5's launches): every figure and
             GIF of each sequence decoded at its size and frame count, the 06b
             directories' PSNR and LPIPS the generator's, the seconds a
             sequence and each kernel's launches.
@@ -308,7 +320,7 @@ P4. predictors_train_parity  PredictorTrainer at B=2, p=2 on the card and on
             feed-forward ReLUs; the attention key biases are exact-zero
             leaves;
 P5. predictors_train, predictors_train_step  the 04 CLI at B=64, c=1, p=9,
-            2 steps after one valid batch over a set of 128 + 64 videos: the
+            1 step after one valid batch over a set of 64 + 64 videos: the
             launches of phase 16, the checkpoints, a resumed epoch, the 05
             CLI on its checkpoint; then the steady step split and profiled
             as phase 17.
@@ -366,6 +378,13 @@ Q2. clip_quant_eval  the same for CLIPort at B=16, p=9 with both modes, on
             phase 23's predictor (02 and 04 trained a few steps), against
             phase 25: 4 int8-conv launches a batch, 12 ViT-attention
             launches a batch and 12 more for the first batch's calibration.
+Q3. bf16_quant_eval, bf16_clip_quant_eval  Q1 and Q2 in
+            ``tpu.compute_dtype: "bfloat16"``: the calibration through conv5's
+            bf16 kernel (3 launches) or the bf16 ViT attention (12), no
+            float32 conv5 or ViT-attention launch, and the framewise PSNR
+            against the bf16 05 evaluator's without int8 on the same batches
+            within BF16_INT8_PSNR_LOSSES times Q1's / Q2's largest framewise
+            int8 loss plus BF16_INT8_PSNR_DB.
 
 and the host input and the trainers' extras:
 H1. host_io  what the machine offers the host input path (``native.host_io``:
@@ -414,14 +433,24 @@ M1. mesh_nccl  a process group of one rank over NCCL, started through the
             without the group, then through the mesh: parameters,
             ``results.json`` and the reply bit for bit, the steps' ms side
             by side;
-M2. mesh_shared_card  two ranks on the one card over gloo: the CATER
-            service at batch 8 on ``data=1, model=2`` (float reply within
-            1e-4 of its largest value of one process's), ``data=2`` (1e-5)
-            and at batch 1 under sequence-parallel decode (1e-5); a CATER 04
-            step at B=8, p=3 on ``model=2`` against world size 1 (losses
-            1e-5, the global norm 1e-4, no parameter more than 0.5 lr apart
-            after the update, the replicated leaves bit-equal across the
-            ranks), then both ranks raise on purpose in its trainer's loop and
+M2. mesh_shared_card  two ranks on the one card over gloo, every service
+            at a smaller depth (``MESH_PREDS``: 5 CATER, 3 CLIPort predicted
+            frames): the CATER service at batch 8 on ``data=1, model=2``
+            (float reply within 1e-4 of its largest value of one process's),
+            ``data=2`` (1e-5) and at batch 1 under sequence-parallel decode
+            (1e-5); the CLIPort one at batch 2 on ``data=1, model=2`` (1e-4),
+            at batch 1 under sequence-parallel decode (1e-4) and with int8 at
+            ``data=2``; in bf16 the CATER service at ``data=2`` (1e-5 too)
+            and ``data=1, model=2`` and the CLIPort one at ``data=1,
+            model=2``, each within 2 e(one process bf16, one process float32)
+            + 2**-8 of one process's bf16 reply, each request timed; a CATER 04 step at B=8, p=3
+            on ``model=2`` against world size 1 (losses 1e-5, the global
+            norm 1e-4, no parameter more than 0.5 lr apart after the update),
+            and in bf16 against world size 1's bf16 step by the bf16 rule
+            (losses, norm; leaf by leaf the elements more than 0.5 lr apart,
+            a check shown to reject a planted unchanged or flipped leaf), the
+            replicated leaves bit-equal across the ranks; then both ranks
+            raise on purpose in the float32 step's trainer's loop and
             each writes its own file of the emergency checkpoint with no
             collective, rank 0's join of the two bit for bit the gathered
             state; slot attention and conv5 launched by the mesh itself (the
@@ -469,6 +498,7 @@ from __future__ import annotations
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -634,7 +664,7 @@ def max_abs_diff(a, b, chunk=1024):
 
 
 FENCE_KERNEL = "spin_kernel"  # torch.cuda._sleep's
-FENCE_SPINS = (8, 64, 512)    # spins of about 12 ms before a traced call, by attempt
+FENCE_SPINS = (8, 64, 192, 512)  # spins of about 12 ms before a traced call, by attempt
 # where in FENCE_SPINS a trace starts: the fence the process's last whole
 # trace needed (the stretch the profiler drops grows with the process's age)
 FENCE_FIRST = [0]
@@ -657,21 +687,28 @@ def traced(fn, cpu=True):
     The profiler drops the earliest device records of a trace: none in a
     young process, then a stretch that grows with the process's age (up to
     the first 175 ms of a trace after 8 minutes, ``chip_trace_probe.py``)
-    and now and then falls back to none. A trace counts only if a spin of
-    the first fence comes before ``fn``'s first device record and a spin of
-    the last after its last one, so that no record of ``fn`` can be
-    missing; else ``fn`` runs again behind the next fence of FENCE_SPINS,
-    and after the last the check fails. A trace starts behind the fence that
-    the process's last whole trace needed (``FENCE_FIRST``), so that a
-    process pays for a failed first attempt once, not at every trace: on an
-    H100 most traces after a run's first minutes needed 64 spins, and each
-    failed first attempt cost a whole call and the reading of its trace."""
+    and now and then falls back to none; now and then it drops a trace's
+    last records too. A trace counts only if a spin of the first fence comes
+    before ``fn``'s first device record and a spin of the last after its
+    last one, so that no record of ``fn`` can be missing. Where the first
+    fence's spins are gone, ``fn`` runs again behind the next fence of
+    FENCE_SPINS; where only the last fence's are, behind the same one (a
+    longer first fence does not bring back a trace's end); after
+    len(FENCE_SPINS) attempts, or where the longest fence was not enough,
+    the check fails. A trace starts behind the fence that the process's last
+    whole trace needed (``FENCE_FIRST``), so that a process pays for a
+    failed first attempt once, not at every trace: on an H100 most traces
+    after a run's first minutes needed 64 spins, and each failed first
+    attempt cost a whole call and the reading of its trace. (A lost end that
+    lengthened the first fence made every later trace of a run wait 6 s
+    behind 512 spins: 70 s more in one run, PERF.md section 6.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] if cpu else []
-    for attempt in range(FENCE_FIRST[0], len(FENCE_SPINS)):
-        spins = FENCE_SPINS[attempt]
+    index = FENCE_FIRST[0]
+    for _ in FENCE_SPINS:
+        spins = FENCE_SPINS[index]
         with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
             fence(spins)
             t = time.perf_counter()
@@ -683,11 +720,17 @@ def traced(fn, cpu=True):
             (e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA)]
         body = [i for i, name in enumerate(names) if FENCE_KERNEL not in name]
-        if body and 0 < body[0] and body[-1] < len(names) - 1:
-            FENCE_FIRST[0] = attempt
+        head = bool(body) and 0 < body[0]
+        if head and body[-1] < len(names) - 1:
+            FENCE_FIRST[0] = index
             return prof, wall_ms, spins
-    check(False, f"no whole trace behind {FENCE_SPINS[-1]} fence spins: the last one held "
-                 f"{len(names)} device records, {len(body)} of the call, first {names[:3]}")
+        if not head:
+            if index == len(FENCE_SPINS) - 1:
+                break
+            index += 1
+    check(False, f"no whole trace behind {spins} fence spins: the last one held "
+                 f"{len(names)} device records, {len(body)} of the call, first {names[:3]}, "
+                 f"last {names[-2:]}")
 
 
 @dataclass
@@ -3221,7 +3264,7 @@ def run_pred_train(parent: Path):
 
 OTHER_PREDICTORS = ("VanillaTransformer", "OCVPSeq", "OCVPPar", "TextOCVP_CustomTF")
 SERVED_OTHERS = ("OCVPSeq", "TextOCVP_CustomTF")
-OTHER_TRAIN_STEPS = 2  # steps of the 04 CLI's first run, after one valid batch
+OTHER_TRAIN_STEPS = 1  # steps of the 04 CLI's first run, after one valid batch
 
 
 def other_experiment(parent: Path, name: str, data_root, tag: str, num_preds=PRED_PREDS,
@@ -3819,6 +3862,93 @@ def phase_resnet_savi(tmp: Path, cater_served: Path):
     return counts
 
 
+# SAVi's ConvDecoder with tails off conv5's shape, at CATER's width (slots of
+# 128, 64 x 64 maps, 4 layers): decoder_params over the stock ones
+TAIL_DECODERS = {"k3": {"kernel_size": 3}, "k5_w32": {"num_channels": [32] * 4},
+                 "k5_w128": {"num_channels": [128] * 4}, "stride2": {"stride": 2}}
+TAIL_MAPS = 8  # slot maps decoded on each side: one CATER frame's slots
+
+
+def phase_conv_decoder_tails() -> dict:
+    """The ``ConvDecoder`` tails that conv5 does not take (a 3 x 3 tail, 5 x 5
+    tails 32 and 128 wide, a stride-2 decoder) through SAVi's ``decode`` at
+    CATER's width, random weights, the card against the CPU: float32 within
+    VARIANT_TOLERANCE of the CPU's largest value; bf16 within 2 e(card bf16,
+    card float32) + 2**-8 of the CPU's bf16 (PERF.md section 2's card rule);
+    the 3 x 3 tail under int8 (``decode_quant``), each side calibrated on the
+    same slots, the card's reply no farther from the CPU's than the CPU's
+    int8 is from its float32. The launches of each card decode: no conv5 of
+    either dtype (the tails run through ``Conv2d``), the int8 conv once a
+    tail conv under int8. Returns the launches of the card's decodes."""
+    import copy
+
+    from textocvp_tpu_torch.models import setup_model
+    from textocvp_tpu_torch.models.factory import random_init_
+    from textocvp_tpu_torch.models.quant import calibrate_decode_scales
+
+    params, _ = full_width_params(PATHS[0])
+    slots = torch.randn((1, TAIL_MAPS, params["model"]["model_params"]["slot_dim"]),
+                        generator=torch.Generator().manual_seed(SEED + 61))
+    total, rows = every_kernel({}), {}
+
+    def decode(model, x, **kw):
+        reset_launches()  # each card decode's launches
+        with torch.no_grad():
+            out = model.decode(x, **kw)["recons_imgs"].float().cpu()
+        torch.cuda.synchronize()
+        counts = launches()
+        for k, n in counts.items():
+            total[k] += n
+        return out, counts
+
+    for case, kw in TAIL_DECODERS.items():
+        t = time.perf_counter()
+        out, row = {}, {"decoder_params": kw}
+        for dt in ("float32", "bfloat16"):
+            p = copy.deepcopy(params)
+            p["model"]["model_params"]["decoder"]["decoder_params"].update(kw)
+            p["tpu"] = {"compute_dtype": dt}
+            cpu = random_init_(setup_model(p), torch.Generator().manual_seed(SEED + 62)).eval()
+            card = copy.deepcopy(cpu).cuda()
+            check(not any(card.image_decoder.on_conv5), f"conv_decoder_tails {case}: on conv5")
+            with torch.no_grad():
+                ref = cpu.decode(slots)["recons_imgs"].float()
+            got, counts = decode(card, slots.cuda())
+            check(counts == every_kernel({}), f"conv_decoder_tails {case} {dt}: launches {counts}")
+            out[dt] = (got, ref)
+            if case == "k3" and dt == "float32":
+                with torch.no_grad():
+                    q_ref = cpu.decode(slots, quant_scales=calibrate_decode_scales(cpu, slots))
+                q_got, counts = decode(card, slots.cuda(),
+                                       quant_scales=calibrate_decode_scales(card, slots.cuda()))
+                tail = len(card.image_decoder.blocks) - 1
+                check(counts == every_kernel({"conv_int8": tail}),
+                      f"conv_decoder_tails k3 int8: launches {counts}")
+                q_ref = q_ref["recons_imgs"]
+                row["int8"] = {"max_abs_err": max_abs_diff(q_got, q_ref),
+                               "int8_error_of_cpu": max_abs_diff(q_ref, ref)}
+                check(row["int8"]["max_abs_err"] <= row["int8"]["int8_error_of_cpu"],
+                      f"conv_decoder_tails k3 int8: {row['int8']}")
+            del cpu, card
+        (g32, r32), (g16, r16) = out["float32"], out["bfloat16"]
+        row["float32_rel_err"] = max_abs_diff(g32, r32) / float(r32.abs().max())
+        check(row["float32_rel_err"] <= VARIANT_TOLERANCE,
+              f"conv_decoder_tails {case}: float32 card against CPU {row}")
+        row["bf16"] = {"card_vs_cpu": e_max(g16, r16, r32),
+                       "card_bf16_vs_f32": e_max(g16, g32, g32)}
+        check(row["bf16"]["card_vs_cpu"] <= 2 * row["bf16"]["card_bf16_vs_f32"] + BF16_STEP,
+              f"conv_decoder_tails {case}: bf16 card against CPU {row['bf16']}")
+        row["shape"], row["seconds"] = list(g32.shape), time.perf_counter() - t
+        rows[case] = row
+    emit({"phase": "conv_decoder_tails", "maps": TAIL_MAPS, "res": CONV5_RES,
+          "tolerance_float32": VARIANT_TOLERANCE,
+          "tolerance_bf16": "2 e(card bf16, card float32) + 2**-8", "cases": rows,
+          "launches": total})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 CLIP_COLORS = {"train": ("red", "green", "blue", "yellow", "brown", "gray", "cyan"),
                "test": ("red", "green", "blue", "pink", "purple", "orange", "white")}
 
@@ -4142,8 +4272,9 @@ def phase_clip_pred_train(parent: Path):
     """The 04 CLI at B=64, c=1, p=9, ``accum_steps`` 8, through the frozen
     ExtendedDINOSAUR that ``phase_clip_train`` wrote (one step after one
     B=16 valid batch): the CLIPort predictor path's main path. Then a second
-    run resumes from ``checkpoint_last_saved`` for a second epoch. Returns
-    the main path's launches and the resumed trainer."""
+    run resumes from ``checkpoint_last_saved`` for a second epoch: the one
+    resume under ``accum_steps`` 8 (its global step and optimizer count).
+    Returns the main path's launches and the resumed trainer."""
     from textocvp_tpu_torch.cli import train_predictor
     from textocvp_tpu_torch.core.experiment import Experiment
 
@@ -4710,29 +4841,35 @@ def phase_train_extras(tmp: Path):
 
 
 def remat_rows(make, batch, reps=1):
-    """``make(remat)``'s trainer without and with ``tpu.remat`` on one batch
-    (``batch(trainer)`` -> (videos, noise, text)): the gradients of a first
-    backward, then ``reps`` steady steps (backward and Adam) on the host
-    clock, their peak GB. Returns the rows and the largest gradient
-    difference over the largest leaf (checked by the caller, after it has
-    printed it)."""
+    """``make()``'s trainer without and with ``tpu.remat`` (its ``remat``,
+    which the trainer reads at each forward) on one batch (``batch(trainer)``
+    -> (videos, noise, text)): the gradients of a first backward of each, at
+    the same parameters, then ``reps`` steady steps (backward and Adam) of
+    each on the host clock, their peak GB. Returns the rows and the largest
+    gradient difference over the largest leaf (checked by the caller, after
+    it has printed it)."""
     rows, grads = {}, {}
+    tr = make()
+    videos, noise, text = batch(tr)
     for knob in (False, True):
-        tr = make(knob)
-        videos, noise, text = batch(tr)
+        tr.remat = knob
         tr.backward(videos, noise, **text)
         grads[knob] = {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()
                        if p.grad is not None}
 
-        def step():
-            tr.backward(videos, noise, **text)
-            tr.optimizer.step()
+    def step():
+        tr.backward(videos, noise, **text)
+        tr.optimizer.step()
 
-        step_ms, peak_gb = steady_steps(step, reps, warm=False)  # the backward above warmed
-        rows["remat" if knob else "plain"] = {"step_ms": step_ms, "peak_mem_gb": peak_gb}
-        del tr, videos, noise, text
+    for knob in (False, True):
+        tr.remat = knob
         gc.collect()
         torch.cuda.empty_cache()
+        step_ms, peak_gb = steady_steps(step, reps, warm=False)  # the backwards above warmed
+        rows["remat" if knob else "plain"] = {"step_ms": step_ms, "peak_mem_gb": peak_gb}
+    del tr, videos, noise, text
+    gc.collect()
+    torch.cuda.empty_cache()
     check(grads[True].keys() == grads[False].keys(), "remat: other leaves take gradients")
     top = max(g.abs().max().item() for g in grads[False].values())
     diff = max((grads[True][n] - g).abs().max().item() for n, g in grads[False].items())
@@ -4744,24 +4881,16 @@ def phase_train_remat(train_exp: Path, data_root: Path):
     through the 02 path's SAVi), each without and with ``tpu.remat``, on
     one batch and one noise draw: the step's ms and peak GB, and the largest
     gradient difference over the largest leaf. Off the main paths."""
-    from textocvp_tpu_torch.core.experiment import Experiment
     from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
     from textocvp_tpu_torch.train.trainer import REMAT_REGIONS, DecompTrainer
 
-    def with_remat(path, knob):
-        exp = Experiment(path)
-        params = exp.params
-        params["tpu"] = {"remat": knob}
-        exp.save_params(params)
-        return path
-
     decomp = train_experiment(train_exp.parent / "remat_02", data_root)
 
-    def noise(tr, b):  # one draw for both trainers
+    def noise(tr, b):  # one draw for both knobs
         return tr._noise(b, torch.Generator().manual_seed(SEED + 6))
 
-    def make02(knob):
-        tr = DecompTrainer(with_remat(decomp, knob))
+    def make02():
+        tr = DecompTrainer(decomp)
         tr.setup_model()
         return tr
 
@@ -4772,9 +4901,8 @@ def phase_train_remat(train_exp: Path, data_root: Path):
 
     rows02, rel02 = remat_rows(make02, batch02)
 
-    def make04(knob):
-        tr = PredictorTrainer(with_remat(pred_experiment(train_exp, f"remat_04_{knob}"), knob),
-                              "checkpoint_epoch_final")
+    def make04():
+        tr = PredictorTrainer(pred_experiment(train_exp, "remat_04"), "checkpoint_epoch_final")
         tr.setup_model()
         return tr
 
@@ -4810,25 +4938,24 @@ def clip_decomp_remat_rows(parent: Path):
     data_root = Experiment(parent).params["dataset"]["root"]
     mb = CLIP_TRAIN_BATCH // CLIP_ACCUM
     rows, grads = {}, {}
-    for knob in (False, True):
-        exp = Experiment(clip_experiment(parent.parent / f"clip_remat_02_{knob}", data_root))
-        params = exp.params
-        params["tpu"] = {"remat": knob}
-        exp.save_params(params)
-        tr = DecompTrainer(exp.exp_path)
-        tr.setup_model()
-        tr.load_data()
-        batch = tr.to_device(next(iter(tr.train_loader))[0][:mb])
-        noise = tr._noise(mb, torch.Generator().manual_seed(SEED + 6))
+    tr = DecompTrainer(clip_experiment(parent.parent / "clip_remat_02", data_root))
+    tr.setup_model()
+    tr.load_data()
+    batch = tr.to_device(next(iter(tr.train_loader))[0][:mb])
+    noise = tr._noise(mb, torch.Generator().manual_seed(SEED + 6))
 
-        def micro():
-            tr.optimizer.zero_grad()
-            tr.forward_loss(batch, noise)[0].backward()
+    def micro():
+        tr.optimizer.zero_grad()
+        tr.forward_loss(batch, noise)[0].backward()
 
+    for knob in (False, True):  # ``remat``, which the trainer reads at each forward
+        tr.remat = knob
         micro()
         grads[knob] = {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()
                        if p.grad is not None}
         tr.optimizer.zero_grad()
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         loss = tr.forward_loss(batch, noise)[0]
@@ -4839,9 +4966,9 @@ def clip_decomp_remat_rows(parent: Path):
         step_ms, peak_gb = steady_steps(micro, reps=1, warm=False)  # warmed by the passes above
         rows["remat" if knob else "plain"] = {"step_ms": step_ms, "peak_mem_gb": peak_gb,
                                               "kept_after_forward_gb": kept_gb}
-        del tr, batch, noise
-        gc.collect()
-        torch.cuda.empty_cache()
+    del tr, batch, noise
+    gc.collect()
+    torch.cuda.empty_cache()
     check(grads[True].keys() == grads[False].keys(), "clip_remat: other leaves take gradients")
     top = max(g.abs().max().item() for g in grads[False].values())
     diff = max((grads[True][n] - g).abs().max().item() for n, g in grads[False].items())
@@ -4908,7 +5035,7 @@ def phase_clip_remat(parent: Path):
 
 # -------------------------------------- 06 figures and dynamic request batching
 
-FIG_SEQS = 2           # 06 sequences on CATER (the CLIs' --num_seqs)
+FIG_SEQS = 1           # 06 sequences on CATER (the CLIs' --num_seqs)
 FIG_PARITY_PREDS = 3   # predictions of the card-against-CPU 06b sequence
 DINOSAUR_OBJ_RES = 96  # ExtendedDINOSAUR's objects and masks (process_objs_masks_dinosaur)
 FIG_WRITERS = ("visualize_recons", "visualize_decomp", "visualize_sequence",
@@ -5126,16 +5253,38 @@ def phase_figs_parity(exp_path: Path):
           "tolerance": {"rel": 1e-4, "argmax_mismatch": 1e-3, "psnr": 1e-3, "lpips": 1e-4}})
 
 
-def run_figs(train_exp: Path):
+def bf16_figs_experiment(train_exp: Path, root: Path) -> Path:
+    """The 02 phase's SAVi experiment and its PRED_NAME predictor again under
+    ``root``, computing in bf16, their checkpoints linked."""
+    from textocvp_tpu_torch.core.experiment import Experiment
+
+    ckpt = "checkpoint_epoch_final"
+    for src, dst in ((train_exp, root),
+                     (train_exp / "predictors" / PRED_NAME, root / "predictors" / PRED_NAME)):
+        params = Experiment(src).params
+        params["tpu"] = {**(params.get("tpu") or {}), "compute_dtype": "bfloat16"}
+        Experiment(dst).save_params(params)
+        Experiment(dst).models_dir.mkdir(parents=True, exist_ok=True)
+        os.symlink(Experiment(src).checkpoint_path(ckpt), Experiment(dst).checkpoint_path(ckpt))
+    return root
+
+
+def run_figs(train_exp: Path, tmp: Path):
     """The 06 paths on CATER over the 02 phase's SAVi and the 04 phase's
-    TextOCVP_T5: the card-against-CPU sequence, then the two CLIs. Returns
-    their main paths' launches."""
+    TextOCVP_T5: the card-against-CPU sequence, then the two CLIs, in float32
+    and (one sequence each) in bf16, whose launches are the bf16 conv5's.
+    Returns their main paths' launches."""
     phase_figs_parity(train_exp)
     gc.collect()
-    return phase_figs_06("figs", train_exp, PRED_NAME, EVAL_PREDS, FIG_SEQS, 8, CONV5_RES,
-                         CONV5_RES, {"slot_attention": DECOMP_FRAMES, "vit_attention": 0,
-                                     "conv5": 3},
-                         {"slot_attention": 1, "vit_attention": 0, "conv5": 6})
+    counts = phase_figs_06("figs", train_exp, PRED_NAME, EVAL_PREDS, FIG_SEQS, 8, CONV5_RES,
+                           CONV5_RES, {"slot_attention": DECOMP_FRAMES, "vit_attention": 0,
+                                       "conv5": 3},
+                           {"slot_attention": 1, "vit_attention": 0, "conv5": 6})
+    counts.update(phase_figs_06("bf16_figs", bf16_figs_experiment(train_exp, tmp / "figs_bf16"),
+                                PRED_NAME, EVAL_PREDS, 1, 8, CONV5_RES, CONV5_RES,
+                                {"slot_attention": DECOMP_FRAMES, "conv5_bf16": 3},
+                                {"slot_attention": 1, "conv5_bf16": 6}))
+    return counts
 
 
 def run_clip_figs(clip_exp: Path):
@@ -5399,10 +5548,11 @@ def quant_experiment(exp_path: Path, pred_name: str, new_name: str, ckpt: str, *
     return new_name
 
 
-def decode_stage_ms(exp_path, pred_name, ckpts, batch, num_preds):
-    """The 05 decode stage of one batch on the host clock with synchronize
-    (a warm call first): ms, after calibration where the experiment is
-    quantized."""
+def decode_stage_ms(exp_path, pred_name, ckpts, batch, num_preds) -> dict:
+    """The 05 decode stage of one batch of the int8 experiment ``pred_name``
+    on the host clock with synchronize (a warm call first), int8 after its
+    calibration and then float with the same evaluator's int8 decode off,
+    on the same predicted slots: {"int8": ms, "float32": ms}."""
     from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
 
     ev = PredictorEvaluator(exp_path, pred_name, *ckpts, num_seed=1, num_preds=num_preds,
@@ -5412,18 +5562,23 @@ def decode_stage_ms(exp_path, pred_name, ckpts, batch, num_preds):
     videos, info = next(iter(ev.test_loader))
     v, text = ev.to_device(videos, info)
     slots = ev.predict_stage(v, text)
-    ev.decode_stage(slots)
-    times = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
+    out = {}
+    for key in ("int8", "float32"):
+        if key == "float32":
+            ev._quant_mode = None  # the float decode of the same slots
         ev.decode_stage(slots)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t))
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ev.decode_stage(slots)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        out[key] = min(times)
     del ev, v, slots
     gc.collect()
     torch.cuda.empty_cache()
-    return min(times)
+    return out
 
 
 def phase_quant_eval(phase, exp_path, pred_name, float_results: dict, ckpts, batch, num_preds,
@@ -5460,14 +5615,81 @@ def phase_quant_eval(phase, exp_path, pred_name, float_results: dict, ckpts, bat
         check(len(results[m]["framewise"]) == num_preds and bool(np.isfinite(vals).all()),
               f"{phase} results.json: {m} {results[m]}")
         delta[m] = results[m]["mean"] - float_results[m]["mean"]
-    decode_ms = {"int8": decode_stage_ms(exp_path, name, ckpts, batch, num_preds),
-                 "float32": decode_stage_ms(exp_path, pred_name, ckpts, batch, num_preds)}
+    decode_ms = decode_stage_ms(exp_path, name, ckpts, batch, num_preds)
+    psnr_loss = float(np.abs(np.subtract(results["psnr"]["framewise"],
+                                         float_results["psnr"]["framewise"])).max())
     emit({"phase": phase, "batch": batch, "batches": batches, "num_preds": num_preds,
           "modes": modes, "results_flags": flags, "cli_seconds": seconds, "launches": counts,
           "mean": {m: results[m]["mean"] for m in delta},
           "mean_float32": {m: float_results[m]["mean"] for m in delta},
-          "mean_delta_int8_minus_float32": delta, "decode_stage_ms": decode_ms,
+          "mean_delta_int8_minus_float32": delta, "framewise_psnr_int8_loss_db": psnr_loss,
+          "decode_stage_ms": decode_ms,
           "decode_speedup": decode_ms["float32"] / decode_ms["int8"]})
+    return counts, psnr_loss
+
+
+# the bf16 int8 path's framewise PSNR may differ from the bf16 path's by at
+# most this many times the float32 int8 path's largest framewise loss, plus
+# BF16_INT8_PSNR_DB (a bf16 rounding of a frame moves its PSNR by about that)
+BF16_INT8_PSNR_LOSSES, BF16_INT8_PSNR_DB = 2, 0.05
+
+
+def phase_bf16_quant_eval(phase, exp_path, pred_name, ckpts, batch, num_preds, batches,
+                          want_launches: dict, f32_loss: float, **modes):
+    """The 05 CLI in bf16 (``compute_dtype``) beside int8 ``modes`` on copies
+    of ``pred_name``: the main path (its launches: the calibration's bf16
+    kernels and the int8 conv, no float32 conv5 or ViT attention),
+    ``results.json``'s flags, and its framewise PSNR against the bf16 05
+    evaluator's without int8 on the same batches, weights and generator
+    seed: within BF16_INT8_PSNR_LOSSES times the float32 int8 path's largest
+    framewise loss ``f32_loss`` plus BF16_INT8_PSNR_DB. Returns the launches."""
+    from textocvp_tpu_torch.cli import evaluate_predictor
+    from textocvp_tpu_torch.train.evaluator import PredictorEvaluator
+
+    bf16 = f"{pred_name}_bf16"  # the eval path's is PRED_NAME_BF16, bf16_cater_eval_step's
+    if not (exp_path / "predictors" / bf16).exists():
+        quant_experiment(exp_path, pred_name, bf16, ckpts[1], compute_dtype="bfloat16")
+    name = quant_experiment(exp_path, pred_name, f"{pred_name}_bf16_int8", ckpts[1],
+                            compute_dtype="bfloat16", **modes)
+    reset_launches()  # the main path starts here
+    t = time.perf_counter()
+    rc = evaluate_predictor.main(["-d", str(exp_path), "--name_pred_exp", name,
+                                  "--decomp_ckpt", ckpts[0], "--pred_ckpt", ckpts[1],
+                                  "--batch_size", str(batch), "--num_seed", "1",
+                                  "--num_preds", str(num_preds)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = launches()  # and ends here
+    check(rc == 0, f"{phase}: evaluate_predictor returned {rc}")
+    want = every_kernel(want_launches)
+    check(counts == want, f"{phase}: kernel launches on the main path {counts}, want {want}")
+    with open(exp_path / "predictors" / name / "results"
+              / f"eval_pred_{ckpts[1]}_NumSeed=1_NumPreds={num_preds}" / "results.json") as f:
+        results = json.load(f)
+    flags = {k: results.get(k) for k in ("decode_quant", "encode_quant")}
+    check(flags == {k: modes.get(k) for k in flags}, f"{phase}: results.json flags {flags}")
+    t = time.perf_counter()
+    ev = PredictorEvaluator(exp_path, bf16, *ckpts, num_seed=1, num_preds=num_preds,
+                            batch_size=batch, results_name="bf16_reference")
+    ev.load_data()
+    ev.load_models()
+    ref = ev.evaluate()
+    ref_seconds = time.perf_counter() - t
+    del ev
+    loss = float(np.abs(np.subtract(results["psnr"]["framewise"],
+                                    ref["psnr"]["framewise"])).max())
+    limit = BF16_INT8_PSNR_LOSSES * f32_loss + BF16_INT8_PSNR_DB
+    check(bool(np.isfinite(results["psnr"]["framewise"]).all()) and loss <= limit,
+          f"{phase}: framewise PSNR {loss} dB from the bf16 path's, limit {limit}")
+    emit({"phase": phase, "compute_dtype": "bfloat16", "batch": batch, "batches": batches,
+          "num_preds": num_preds, "modes": modes, "results_flags": flags,
+          "cli_seconds": seconds, "bf16_reference_seconds": ref_seconds, "launches": counts,
+          "mean": {m: results[m]["mean"] for m in ("psnr", "ssim", "lpips")},
+          "mean_bf16": {m: ref[m]["mean"] for m in ("psnr", "ssim", "lpips")},
+          "framewise_psnr_int8_loss_db": loss, "float32_int8_loss_db": f32_loss,
+          "limit_db": limit})
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -5502,10 +5724,13 @@ torch.cuda.set_per_process_memory_fraction(0.25)
 
 counters = {"slot_attention": slot_attention_kernel.slot_attention_cuda,
             "vit_attention": vit_attention.vit_attention_cuda, "conv5": conv5.conv5_cuda,
-            "conv_int8": conv_int8.conv_int8_cuda}
+            "conv_int8": conv_int8.conv_int8_cuda,
+            "conv5_bf16": conv5.conv5_bf16_cuda,
+            "vit_attention_bf16": vit_attention.vit_attention_bf16_cuda}
 kernel_names = {"slot_attention": "slot_attention_cluster_kernel",
                 "vit_attention": "attention_kernel", "conv5": "conv5_kernel",
-                "conv_int8": "conv_int8_kernel"}
+                "conv_int8": "conv_int8_kernel", "conv5_bf16": "conv5_bf16_kernel",
+                "vit_attention_bf16": "attention_bf16_kernel"}
 
 
 def answer(svc, requests, replies_path, trace):
@@ -5615,15 +5840,20 @@ EXPORTS = {}  # the export processes, until finish_exports
 def run_export(tmp: Path):
     """Start the export phases beside the later ones (EXPORTER): both
     serving paths' services at batch 8, over the experiments ``run_path``
-    wrote, and a CATER one with ``decode_quant: int8`` calibrated on a
-    request's frames. ``finish_exports`` lets them answer."""
+    wrote, a CATER one with ``decode_quant: int8`` calibrated on a
+    request's frames, and the CATER one in bf16 without and with int8.
+    ``finish_exports`` lets them answer."""
     cater = tmp / PATHS[0].name / "exp"
     int8 = quant_experiment(cater, PRED_NAME, f"{PRED_NAME}_int8", "random", decode_quant="int8")
+    bf16 = bf16_experiment(cater)
+    bf16_int8 = quant_experiment(cater, bf16, f"{bf16}_int8", "random", decode_quant="int8")
     rng = np.random.default_rng(SEED + 31)
     spec = {}
     for phase, path, exp, pred in (
             *((f"export_{p.name}", p, tmp / p.name / "exp", PRED_NAME) for p in PATHS),
-            ("quant_export_cater", PATHS[0], cater, int8)):
+            ("quant_export_cater", PATHS[0], cater, int8),
+            ("bf16_export_cater", PATHS[0], cater, bf16),
+            ("bf16_quant_export_cater", PATHS[0], cater, bf16_int8)):
         video = rng.uniform(0, 1, (BATCH, 1, path.res, path.res, 3)).astype(np.float32)
         captions = np.array(path.captions[:BATCH])
         inputs = tmp / f"{phase}_inputs.npz"
@@ -5631,7 +5861,7 @@ def run_export(tmp: Path):
         np.savez(inputs, requests=2, frames_0=video, captions_0=captions,
                  frames_1=np.round(video[:3] * 255).astype(np.uint8), captions_1=captions[:3])
         spec[phase] = {"exp": str(exp), "pred_name": pred, "ckpt": "random", "batch": BATCH,
-                       "max_tokens": MAX_TOKENS, "calibrate": phase.startswith("quant"),
+                       "max_tokens": MAX_TOKENS, "calibrate": "quant" in phase,
                        "path": path.name, "artifact": str(tmp / f"artifact_{phase}"),
                        "inputs": str(inputs), "replies": str(tmp / f"{phase}_replies.npz"),
                        "live_replies": str(tmp / f"{phase}_live.npz")}
@@ -5703,9 +5933,14 @@ def run_quant(tmp: Path, eval_exp: Path, clip_exp: Path):
         float_results = json.load(f)
     batches = EVAL_VIDEOS // EVAL_BATCH
     # the calibration's float decode of the first batch: 3 conv5 launches
-    counts["quant_eval"] = phase_quant_eval(
+    counts["quant_eval"], loss = phase_quant_eval(
         "quant_eval", eval_exp, PRED_NAME, float_results, ("random", "random"), EVAL_BATCH,
         EVAL_PREDS, batches, {"slot_attention": batches, "conv5": 3, "conv_int8": 3 * batches},
+        decode_quant="int8")
+    # in bf16: the calibration's decode through conv5's bf16 kernel
+    counts["bf16_quant_eval"] = phase_bf16_quant_eval(
+        "bf16_quant_eval", eval_exp, PRED_NAME, ("random", "random"), EVAL_BATCH, EVAL_PREDS,
+        batches, {"slot_attention": batches, "conv5_bf16": 3, "conv_int8": 3 * batches}, loss,
         decode_quant="int8")
     clip_ckpts = ("checkpoint_epoch_final", "checkpoint_epoch_final")
     with open(clip_exp / "predictors" / CLIP_PRED_NAME / "results" / (
@@ -5715,11 +5950,17 @@ def run_quant(tmp: Path, eval_exp: Path, clip_exp: Path):
     batches = dict(CLIP_EPISODES)["test"] // CLIP_EVAL_BATCH
     # the calibration's float ViT pass over the first batch's seed frames:
     # 12 more ViT-attention launches; 4 int8 CNN-head convs a batch
-    counts["clip_quant_eval"] = phase_quant_eval(
+    counts["clip_quant_eval"], loss = phase_quant_eval(
         "clip_quant_eval", clip_exp, CLIP_PRED_NAME, float_results, clip_ckpts,
         CLIP_EVAL_BATCH, CLIP_PREDS, batches,
         {"slot_attention": batches, "vit_attention": VIT_BLOCKS * (batches + 1),
          "conv_int8": len(cnn_head_layers()) * batches},
+        decode_quant="int8", encode_quant="int8")
+    counts["bf16_clip_quant_eval"] = phase_bf16_quant_eval(
+        "bf16_clip_quant_eval", clip_exp, CLIP_PRED_NAME, clip_ckpts, CLIP_EVAL_BATCH,
+        CLIP_PREDS, batches,
+        {"slot_attention": batches, "vit_attention_bf16": VIT_BLOCKS * (batches + 1),
+         "conv_int8": len(cnn_head_layers()) * batches}, loss,
         decode_quant="int8", encode_quant="int8")
     return counts
 
@@ -5727,17 +5968,22 @@ def run_quant(tmp: Path, eval_exp: Path, clip_exp: Path):
 # ------------------------------------------------------------------ the mesh
 
 MESH_LAUNCH_ENV = ("TEXTOCVP_COORDINATOR", "TEXTOCVP_NUM_PROCESSES", "TEXTOCVP_PROCESS_ID")
-MESH_TP_BATCH, MESH_TP_PREDS = 8, 3  # the shared-card 04 step
-# After the update no parameter further than this many lr from world 1's. A
-# first Adam step moves each element by about lr (lr g / (|g| + eps)), so a
-# sharded leaf left unchanged is 1 lr off and one of flipped sign 2 lr; a
-# right step differs only where a gradient near 0 changes with the sums' order.
+MESH_TP_BATCH, MESH_TP_PREDS = 8, 3  # the shared-card 04 steps
+# the float32 TP step's parameters against world 1's, in lr: Adam's first
+# update moves an element by about lr, so a sharded leaf left unchanged
+# reads 1 lr and one with its update's sign flipped 2 lr
 MESH_TP_PARAM_LRS = 0.5
 MESH_WORKER_CMD = "import sys, chip_smoke; chip_smoke.mesh_worker(*sys.argv[1:])"
 CLIP_MESH_BATCH = 2  # the shared card's CLIPort requests
 CLIP_INT8_NAME = "textocvp_t5_int8"  # the CLIPort serving experiment with int8 on
+PRED_NAME_BF16 = f"{PRED_NAME}_bf16"  # a served experiment's predictor in bf16
 # The shared card's services: (name, experiment, predictor, mesh axes, batch),
-# each float reply held to this share of its largest value from one process's
+# each float reply held to this share of its largest value from one
+# process's. Every one (and its reference) predicts MESH_PREDS frames of its
+# experiment, fewer than a request's 19 / 9, so that the shared card's ranks
+# keep within the phases beside them: a rollout's first frames do not depend
+# on its length, and every path of the mesh still runs.
+MESH_PREDS = {"serve_exp": 5, "clip_exp": 3}
 MESH_SERVES = (
     ("data1_model2", "serve_exp", PRED_NAME, {"data": 1, "model": 2}, BATCH),
     ("data2", "serve_exp", PRED_NAME, {"data": 2, "model": 1}, BATCH),
@@ -5745,11 +5991,21 @@ MESH_SERVES = (
     ("clip_data1_model2", "clip_exp", PRED_NAME, {"data": 1, "model": 2}, CLIP_MESH_BATCH),
     ("clip_seq_parallel_b1", "clip_exp", PRED_NAME, {"data": 2, "model": 1}, 1),
     ("clip_int8_data2", "clip_exp", CLIP_INT8_NAME, {"data": 2, "model": 1}, CLIP_MESH_BATCH),
+    ("bf16_data2", "serve_exp", PRED_NAME_BF16, {"data": 2, "model": 1}, BATCH),
+    ("bf16_data1_model2", "serve_exp", PRED_NAME_BF16, {"data": 1, "model": 2}, BATCH),
+    ("bf16_clip_data1_model2", "clip_exp", PRED_NAME_BF16, {"data": 1, "model": 2},
+     CLIP_MESH_BATCH),
 )
 # model=2: sums in other orders (1e-4, as the predictors' parallelism is held);
-# data=2: a row's sums at another batch (1e-5 on CATER)
+# data=2: a row's sums at another batch (1e-5 on CATER, in bf16 too: ROADMAP.md
+# section 3's row limit)
 MESH_REPLY_TOLERANCE = {"data1_model2": 1e-4, "data2": 1e-5, "seq_parallel_b1": 1e-5,
-                        "clip_data1_model2": 1e-4, "clip_seq_parallel_b1": 1e-4}
+                        "clip_data1_model2": 1e-4, "clip_seq_parallel_b1": 1e-4,
+                        "bf16_data2": 1e-5}
+# the bf16 services, each held to the one-process bf16 reply by
+# tests/torch_bf16.py's rule, the one-process float32 reply its float32 reference
+MESH_BF16_SERVES = ("bf16_data2", "bf16_data1_model2", "bf16_clip_data1_model2")
+MESH_DECOMP_SHARDED = ("clip_data1_model2", "bf16_clip_data1_model2")
 # int8 at data=2: the encode's scales, calibrated on the frames, bit for bit.
 # The card sums a row's slot attention and rollout differently at 1 row a
 # rank than at 2 (slots 1.2e-6 apart on an H100: chip_int8_rows_probe.py), so the
@@ -5857,29 +6113,31 @@ def _mesh_05(spec, name):
 
 
 def _float_frames_(svc):
-    """Have ``svc``'s decode stage return its clipped float32 frames times
-    255, unrounded, in place of the uint8 reply, so that ``predict`` (which
-    divides by 255) hands back the frames before the reply's rounding: a
-    1e-7 difference at a rounding edge is a whole 1/255 of the uint8 reply.
-    An int8 stage decodes with its calibrated scales. Returns ``svc``."""
+    """Have ``svc``'s decode stage return its clipped frames (a bf16 stage's
+    cast to float32) times 255, unrounded, in place of the uint8 reply, so
+    that ``predict`` (which divides by 255) hands back the frames before the
+    reply's rounding: a 1e-7 difference at a rounding edge is a whole 1/255
+    of the uint8 reply. An int8 stage decodes with its calibrated scales.
+    Returns ``svc``."""
     stage = svc.decode_module
 
     def forward(pred_slots):
         b, p, s, d = pred_slots.shape
         kw = {} if stage.quant_scales is None else {"quant_scales": stage.quant_scales}
         imgs = stage.model.decode(pred_slots.reshape(b * p, s, d), **kw)["recons_imgs"]
-        return (imgs.clamp(0.0, 1.0) * 255.0).reshape(b, p, *imgs.shape[1:])
+        return (imgs.float().clamp(0.0, 1.0) * 255.0).reshape(b, p, *imgs.shape[1:])
 
     stage.forward = forward
     return svc
 
 
 def _mesh_service(spec, batch, mesh_axes=None, float_reply=False, exp="serve_exp",
-                  pred=PRED_NAME):
+                  pred=PRED_NAME, num_preds=None):
     from textocvp_tpu_torch.serve import PredictionService
 
     svc = PredictionService(spec[exp], pred, "random", "random", batch_size=batch,
-                            max_tokens=MAX_TOKENS, device=spec["device"], mesh_axes=mesh_axes)
+                            max_tokens=MAX_TOKENS, device=spec["device"], mesh_axes=mesh_axes,
+                            num_preds=num_preds)
     return _float_frames_(svc) if float_reply else svc
 
 
@@ -5932,46 +6190,61 @@ def _mesh_nccl_half(spec, out, tag):
 def _mesh_shared_card(spec, rank, launch, out):
     """The single-process references first, before the group: rank 0 the
     float replies of the CATER 8-row and 1-row requests and of the CLIPort
-    2-row and 1-row ones, rank 1 the 04 step at world size 1 and the int8
-    CLIPort service's reply and scales (handed to rank 0 in a file); then
-    both ranks join the gloo group of two and run the mesh services of
+    2-row and 1-row ones, and the CATER 8-row and CLIPort 2-row ones in
+    bf16, rank 1 the 04 step at world size 1 in float32 and in bf16 and the
+    int8 CLIPort service's reply and scales (handed to rank 0 in a file);
+    then both ranks join the gloo group of two and run the mesh services of
     ``MESH_SERVES`` (rank 0 compares the replies) and the tensor-parallel 04
-    step (rank 1 compares it), then the emergency checkpoint of that step's
-    trainer (:func:`_tp_emergency`). ``out["launches"]`` counts the mesh's own
-    launches, from the join on."""
+    step in float32 and in bf16 (rank 1 compares them), then the emergency
+    checkpoint of the float32 step's trainer (:func:`_tp_emergency`).
+    ``out["launches"]`` counts the mesh's own launches, from the join on."""
     from textocvp_tpu_torch.core.experiment import Experiment
     from textocvp_tpu_torch.parallel import distributed as pdist
     from textocvp_tpu_torch.parallel.partitioning import gather_state_dict
 
-    videos = _mesh_inputs(spec, PRED_CONTEXT + MESH_TP_PREDS, MESH_TP_BATCH, SEED + 44)
-    text = {k: v.to(spec["device"]) for k, v in caption_batch(
-        Experiment(spec["tp_exp"]).params, MESH_TP_BATCH).items()}
+    with _timed(out, "inputs"):
+        videos = _mesh_inputs(spec, PRED_CONTEXT + MESH_TP_PREDS, MESH_TP_BATCH, SEED + 44)
+        text = {k: v.to(spec["device"]) for k, v in caption_batch(
+            Experiment(spec["tp_exp"]).params, MESH_TP_BATCH).items()}
 
-    def step(exp):
+    def step(exp, initial=False):
+        """One 04 step of ``exp``'s trainer: (losses, the gradients' global
+        norm, the updated trained leaves gathered, the replicated leaves'
+        digest, the sharded names, lr, the step's ms (backward and update,
+        its first), the trained leaves before the step with ``initial``
+        (world size 1 only), the trainer)."""
         tr = _mesh_04_trainer(exp, spec["device"])
-        values = tr.backward(videos, tr._noise(MESH_TP_BATCH), **text)
-        norm = float(tr.optimizer.step()["grad_norm"])
+        trained = {n for n, p in tr.model.named_parameters() if p.requires_grad}
+        before = ({k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()
+                   if k in trained} if initial else None)
+        values, ms = _synced_ms(lambda: tr.backward(videos, tr._noise(MESH_TP_BATCH), **text))
+        stats, opt_ms = _synced_ms(tr.optimizer.step)
+        norm = float(stats["grad_norm"])
         full = (gather_state_dict(tr.model, tr.mesh.model_group) if tr.mesh.tensor_parallel
                 else tr.model.state_dict())
-        trained = {n for n, p in tr.model.named_parameters() if p.requires_grad}
         sharded = {n for n, p in tr.model.named_parameters() if getattr(p, "tp_shard", None)}
         replicated = [p for n, p in tr.model.named_parameters() if n not in sharded]
         return ({k: float(v) for k, v in values.items()}, norm,
-                {k: v.detach().cpu() for k, v in full.items() if k in trained},
-                _digest(replicated), sorted(sharded), tr.lr_schedule(0), tr)
+                {k: v.detach().cpu().clone() for k, v in full.items() if k in trained},
+                _digest(replicated), sorted(sharded), tr.lr_schedule(0), ms + opt_ms, before, tr)
 
     refs, int8_ref = {}, Path(spec["tmp"]) / "mesh_clip_int8_reference.npz"
     with _timed(out, "references"):
         if rank == 0:
-            for exp, b in (("serve_exp", BATCH), ("serve_exp", 1), ("clip_exp", CLIP_MESH_BATCH),
-                           ("clip_exp", 1)):
-                svc = _mesh_service(spec, b, float_reply=True, exp=exp)
-                refs[exp, PRED_NAME, b] = svc.predict(*_mesh_request(b, exp))
+            for exp, pred, b in (("serve_exp", PRED_NAME, BATCH), ("serve_exp", PRED_NAME, 1),
+                                 ("serve_exp", PRED_NAME_BF16, BATCH),
+                                 ("clip_exp", PRED_NAME, CLIP_MESH_BATCH),
+                                 ("clip_exp", PRED_NAME, 1),
+                                 ("clip_exp", PRED_NAME_BF16, CLIP_MESH_BATCH)):
+                svc = _mesh_service(spec, b, float_reply=True, exp=exp, pred=pred,
+                                    num_preds=MESH_PREDS[exp])
+                refs[exp, pred, b] = svc.predict(*_mesh_request(b, exp))
                 del svc
         else:
-            refs["step"] = step(spec["w1_exp"])
+            refs["step"] = step(spec["w1_exp"])[:-1]  # not its trainer
+            refs["step_bf16"] = step(spec["w1_bf16_exp"], initial=True)[:-1]
             svc = _mesh_service(spec, CLIP_MESH_BATCH, float_reply=True, exp="clip_exp",
-                                pred=CLIP_INT8_NAME)
+                                pred=CLIP_INT8_NAME, num_preds=MESH_PREDS["clip_exp"])
             reply = svc.predict(*_mesh_request(CLIP_MESH_BATCH, "clip_exp"))
             np.savez(int8_ref, reply=reply, **_int8_scales(svc))
             del svc
@@ -5990,9 +6263,10 @@ def _mesh_shared_card(spec, rank, launch, out):
             out["peak_gb"] = max(out.get("peak_gb", 0), torch.cuda.max_memory_allocated() / 1e9)
             torch.cuda.reset_peak_memory_stats()
         with _timed(out, name):
-            svc = _mesh_service(spec, b, axes, float_reply=True, exp=exp, pred=pred)
+            svc = _mesh_service(spec, b, axes, float_reply=True, exp=exp, pred=pred,
+                                num_preds=MESH_PREDS[exp])
             if rank == 0:
-                got = svc.predict(*_mesh_request(b, exp))
+                got, ms = _synced_ms(lambda: svc.predict(*_mesh_request(b, exp)))
                 svc.close()
                 ref = refs[exp, pred, b]
                 out[name] = {"max_abs_err": float(np.abs(got - ref).max()),
@@ -6000,7 +6274,14 @@ def _mesh_shared_card(spec, rank, launch, out):
                              "seq_parallel": svc._seq_parallel,
                              "decomp_sharded": svc._decomp_sharded, "shape": list(got.shape),
                              "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
-                                         if torch.cuda.is_available() else 0)}
+                                         if torch.cuda.is_available() else 0),
+                             "request_ms": ms}
+                if name in MESH_BF16_SERVES:
+                    f32 = refs[exp, PRED_NAME, b]
+                    out[name]["bf16"] = {
+                        "vs_one_process_bf16": e_max(got, ref, f32),
+                        "vs_one_process_f32": e_max(got, f32, f32),
+                        "one_process_bf16_vs_f32": e_max(ref, f32, f32)}
                 if pred == CLIP_INT8_NAME:
                     out[name]["scales_rel_err"] = {
                         k: float(np.abs(v - int8_scales[k]).max() / np.abs(int8_scales[k]).max())
@@ -6011,21 +6292,97 @@ def _mesh_shared_card(spec, rank, launch, out):
                 svc.follow()
             del svc
             torch.cuda.empty_cache()
+    with _timed(out, "tp_step_bf16"):
+        tp_bf16 = step(spec["tp_bf16_exp"])[:-2]  # not its trainer
     with _timed(out, "tp_step"):
-        losses, norm, params, digest, sharded, lr, tr = step(spec["tp_exp"])
+        *tp, _, tr = step(spec["tp_exp"])
     out["launches"] = launches()
-    out["tp_step"] = {"replicated_digest": digest, "sharded": len(sharded)}
+    out["tp_step"] = {"replicated_digest": tp[3], "sharded": len(tp[4])}
+    out["tp_step_bf16"] = {"replicated_digest": tp_bf16[3], "sharded": len(tp_bf16[4])}
     with _timed(out, "tp_emergency"):
         out["tp_emergency"] = _tp_emergency(tr, rank)
     del tr
     if rank == 1:
-        w_losses, w_norm, w_params, _, _, _, _ = refs["step"]
-        diff = max(float((params[k] - v).abs().max()) for k, v in w_params.items())
-        out["tp_step"].update(
-            losses=losses, world1_losses=w_losses, grad_norm=norm, world1_grad_norm=w_norm, lr=lr,
-            max_param_diff=diff, params_compared=len(w_params),
-            loss_rel_err=max(abs(losses[k] - w_losses[k]) / abs(w_losses[k]) for k in w_losses),
-            grad_norm_rel_err=abs(norm - w_norm) / w_norm)
+        with _timed(out, "compare"):
+            (losses, norm, params, *_, lr, ms), w1 = tp, refs["step"]
+            (w_losses, w_norm, w_params, *_), w_ms = w1, w1[6]
+            out["tp_step"].update(
+                losses=losses, world1_losses=w_losses, grad_norm=norm,
+                world1_grad_norm=w_norm, lr=lr,
+                max_param_diff=max(float((params[k] - v).abs().max())
+                                   for k, v in w_params.items()),
+                params_compared=len(w_params),
+                loss_rel_err=max(abs(losses[k] - w_losses[k]) / abs(w_losses[k])
+                                 for k in w_losses),
+                grad_norm_rel_err=abs(norm - w_norm) / w_norm, step_ms=ms, world1_step_ms=w_ms)
+            out["tp_step_bf16"].update(
+                bf16_step_errors(tp_bf16, refs["step_bf16"], refs["step"]),
+                step_ms=tp_bf16[6], world1_step_ms=refs["step_bf16"][6])
+
+
+# The bf16 TP step's parameters against world 1's bf16 step, leaf by leaf:
+# Adam's first update moves an element by about lr in its gradient's sign, so
+# two steps differ by about 2 lr where their gradients' signs differ, which
+# bf16 roundings do where a gradient is near 0. An element is "off" when it
+# is more than BF16_TP_OFF_LRS lr from the other step's. A leaf's count off
+# from world 1's bf16 step may be at most BF16_TP_OFF_TIMES its count of
+# world 1's bf16 step off from float32's, plus a 2**-8 share of the leaf
+# (BF16_TP_OFF_FLOOR elements at least). A sharded leaf left unchanged or
+# with its sign flipped is off everywhere: the check plants both in the
+# largest sharded leaf and must reject them.
+BF16_TP_OFF_LRS, BF16_TP_OFF_TIMES, BF16_TP_OFF_FLOOR = 0.5, 2, 4
+
+
+def _off_counts(a: dict, b: dict, lr: float) -> dict:
+    return {k: int(((a[k] - v).abs() > BF16_TP_OFF_LRS * lr).sum()) for k, v in b.items()}
+
+
+def _worst_off(off: dict, ref_off: dict, sizes: dict) -> dict:
+    """The leaf whose count ``off`` most exceeds its limit, with its reading."""
+    def excess(k):
+        return off[k] - (BF16_TP_OFF_TIMES * ref_off[k]
+                         + max(BF16_TP_OFF_FLOOR, math.ceil(sizes[k] / 256)))
+
+    k = max(off, key=excess)
+    return {"leaf": k, "off": off[k], "world1_bf16_vs_f32_off": ref_off[k], "numel": sizes[k],
+            "excess": excess(k)}
+
+
+def bf16_step_errors(tp, w1, w1_f32) -> dict:
+    """The bf16 tensor-parallel 04 step ``tp`` against world 1's bf16 step
+    ``w1`` (with its leaves before the update) and its float32 one
+    ``w1_f32`` (each ``step()``'s losses, the gradients' global norm and the
+    updated leaves), for tests/torch_bf16.py's rule: each distance of ``tp``
+    from ``w1`` against ``w1``'s from ``w1_f32``, the losses and the norm over
+    the float32 ones; the leaves by their counts off (``_worst_off``), and
+    the same reading with the largest sharded leaf of ``tp`` planted unchanged
+    and flipped."""
+    (losses, norm, params, _, sharded, lr, *_), (w_losses, w_norm, w_params, *_) = tp, w1
+    f_losses, f_norm, f_params = w1_f32[:3]
+    before = w1[7]
+
+    def rel(a, b, f):
+        return abs(a - b) / abs(f)
+
+    sizes = {k: v.numel() for k, v in w_params.items()}
+    ref_off = _off_counts(w_params, f_params, lr)
+    largest = max((k for k in sharded if k in w_params), key=lambda k: sizes[k])
+    planted = {"unchanged": {**params, largest: before[largest]},
+               "flipped": {**params, largest: 2 * before[largest] - params[largest]}}
+    return {"loss": max(rel(losses[k], w_losses[k], f_losses[k]) for k in f_losses),
+            "loss_bf16_vs_f32": max(rel(w_losses[k], f_losses[k], f_losses[k])
+                                    for k in f_losses),
+            "grad_norm": rel(norm, w_norm, f_norm), "grad_norm_bf16_vs_f32": rel(w_norm, f_norm,
+                                                                                 f_norm),
+            "params_lr": max(float((params[k] - v).abs().max()) for k, v in w_params.items()) / lr,
+            "params_lr_bf16_vs_f32": max(float((w_params[k] - v).abs().max())
+                                         for k, v in f_params.items()) / lr,
+            "leaves": _worst_off(_off_counts(params, w_params, lr), ref_off, sizes),
+            "planted": {name: _worst_off(_off_counts(p, w_params, lr), ref_off, sizes)
+                        for name, p in planted.items()},
+            "off_total": sum(_off_counts(params, w_params, lr).values()),
+            "world1_bf16_vs_f32_off_total": sum(ref_off.values()),
+            "losses": losses, "world1_losses": w_losses, "grad_norm_value": norm}
 
 
 def _tp_emergency(tr, rank) -> dict:
@@ -6240,13 +6597,16 @@ def start_mesh(mesh: dict, tmp: Path, train_exp: Path, device="cuda"):
         params = Experiment(exp).params
         params["tpu"] = {**(params.get("tpu") or {}), "mesh_axes": {"data": -1, "model": 1}}
         Experiment(exp).save_params(params)
-    for name, axes in (("w1_exp", None), ("tp_exp", {"data": 1, "model": 2})):
+    # the tensor-parallel 04 steps and world size 1's, in float32 and in bf16
+    for name, axes, dtype in (("w1_exp", None, "float32"), ("w1_bf16_exp", None, "bfloat16"),
+                              ("tp_exp", {"data": 1, "model": 2}, "float32"),
+                              ("tp_bf16_exp", {"data": 1, "model": 2}, "bfloat16")):
         exp = pred_experiment(train_exp, f"mesh_{name}", num_preds=MESH_TP_PREDS,
                               batch_size=MESH_TP_BATCH, lr_warmup=False)
-        if axes:
-            params = Experiment(exp).params
-            params["tpu"] = {**(params.get("tpu") or {}), "mesh_axes": axes}
-            Experiment(exp).save_params(params)
+        params = Experiment(exp).params
+        params["tpu"] = {**(params.get("tpu") or {}), "compute_dtype": dtype,
+                         **({"mesh_axes": axes} if axes else {})}
+        Experiment(exp).save_params(params)
         spec[name] = str(exp)
     shared = mesh["shared"]
     _go_mesh(shared, spec)
@@ -6292,23 +6652,31 @@ def run_mesh(shared: dict, device="cuda"):
     (the collectives' cost at world size 1).
 
     ``mesh_shared_card`` (run by :func:`start_mesh` and :func:`wait_mesh`,
-    checked here): two ranks on the
-    one H100 over gloo, the CATER service at batch 8 with ``data=1,
-    model=2`` (float reply within 1e-4 of its largest value of the
+    checked here): two ranks on the one H100 over gloo, each service at
+    ``MESH_PREDS`` predicted frames: the CATER service at batch 8 with
+    ``data=1, model=2`` (float reply within 1e-4 of its largest value of the
     single-process one), ``data=2`` (1e-5) and at batch 1 under
     sequence-parallel decode (1e-5); the full-width CLIPort service
     (ExtendedDINOSAUR sharded, ``shard_decomp_``) at batch 2 with ``data=1,
     model=2`` (1e-4), at batch 1 under sequence-parallel decode (1e-4), and
     with int8 (``decode_quant`` and ``encode_quant``) at ``data=2`` (the
     encode's scales one process's bit for bit, the decode's within
-    MESH_INT8_DECODE_SCALES_RTOL, the reply within int8's own error); a CATER 04
-    step at B=8, p=3 on ``model=2`` against world size 1 (losses 1e-5, the
-    gradients' global norm 1e-4, no parameter more than MESH_TP_PARAM_LRS lr
-    from world 1's after the update, the replicated leaves bit-equal across
-    the ranks), then the emergency checkpoint under tensor parallelism (both
-    ranks raise; each writes its own file with no collective; their join is
-    the gathered state bit for bit: :func:`_tp_emergency`). The mesh's own
-    launches include slot attention, conv5, the ViT attention and the int8
+    MESH_INT8_DECODE_SCALES_RTOL, the reply within int8's own error); in
+    bf16 (``MESH_BF16_SERVES``) the CATER service at ``data=2`` and
+    ``data=1, model=2`` and the CLIPort one at ``data=1, model=2``, each
+    within 2 e(one process bf16, one process float32) + 2**-8 of one
+    process's bf16 reply (``data=2`` also within 1e-5), each request timed;
+    a CATER 04 step at B=8,
+    p=3 on ``model=2`` against world size 1 (losses 1e-5, the gradients'
+    global norm 1e-4, no parameter more than MESH_TP_PARAM_LRS lr from world
+    1's after the update) and in bf16 against world size 1's bf16 and
+    float32 steps (:func:`bf16_step_errors`), the replicated leaves
+    bit-equal across the ranks, then the emergency checkpoint under tensor
+    parallelism (both ranks raise; each writes its own file with no
+    collective; their join is the gathered state bit for bit:
+    :func:`_tp_emergency`). The mesh's own launches include slot attention,
+    conv5 in float32 and bf16, the ViT attention in float32 and bf16 and the
+    int8
     conv. Returns each phase's launches."""
     return _mesh_phases(shared, device)
 
@@ -6357,8 +6725,27 @@ def shared_card_phase(shared, device):
     for name, _, _, axes, b in MESH_SERVES:
         check(zero[name]["seq_parallel"] == (b < axes["data"]),
               f"mesh_shared_card {name}: sequence-parallel decode at batch 1 only")
-        check(zero[name]["decomp_sharded"] == (name == "clip_data1_model2"),
+        check(zero[name]["decomp_sharded"] == (name in MESH_DECOMP_SHARDED),
               f"mesh_shared_card {name}: ExtendedDINOSAUR sharded under model=2 only")
+    for name in MESH_BF16_SERVES:  # tests/torch_bf16.py's rule
+        e = zero[name]["bf16"]
+        check(e["vs_one_process_bf16"] <= 2 * e["one_process_bf16_vs_f32"] + BF16_STEP
+              and e["vs_one_process_f32"] <= 1.5 * e["one_process_bf16_vs_f32"] + BF16_STEP,
+              f"mesh_shared_card {name}: bf16 reply against one process's: {e}")
+    tp = ranks[1]["tp_step"]
+    check(tp["loss_rel_err"] <= 1e-5, f"mesh_shared_card: TP 04 losses {tp}")
+    check(tp["grad_norm_rel_err"] <= 1e-4, f"mesh_shared_card: TP 04 grad norm {tp}")
+    check(tp["max_param_diff"] <= MESH_TP_PARAM_LRS * tp["lr"],
+          f"mesh_shared_card: TP 04 parameters {tp['max_param_diff']} from world 1's "
+          f"> {MESH_TP_PARAM_LRS} lr ({tp['lr']})")
+    tp16 = ranks[1]["tp_step_bf16"]
+    for k in ("loss", "grad_norm"):
+        check(tp16[k] <= 2 * tp16[f"{k}_bf16_vs_f32"] + BF16_STEP,
+              f"mesh_shared_card: bf16 TP 04 step's {k} against world 1's bf16: {tp16}")
+    check(tp16["leaves"]["excess"] <= 0,
+          f"mesh_shared_card: bf16 TP 04 step's leaves against world 1's bf16: {tp16}")
+    check(all(r["excess"] > 0 for r in tp16["planted"].values()),
+          f"mesh_shared_card: the bf16 TP leaf check passes a planted fault: {tp16}")
     q = zero["clip_int8_data2"]
     check(q["scales_rel_err"]["encode"] == 0
           and q["scales_rel_err"]["decode"] <= MESH_INT8_DECODE_SCALES_RTOL,
@@ -6366,14 +6753,9 @@ def shared_card_phase(shared, device):
     check(q["max_abs_err"] <= q["int8_error_of_one_process"],
           f"mesh_shared_card: int8 reply at data=2 further from one process's than int8 "
           f"from float: {q}")
-    tp = ranks[1]["tp_step"]
-    check(tp["loss_rel_err"] <= 1e-5, f"mesh_shared_card: TP 04 losses {tp}")
-    check(tp["grad_norm_rel_err"] <= 1e-4, f"mesh_shared_card: TP 04 grad norm {tp}")
-    check(tp["max_param_diff"] <= MESH_TP_PARAM_LRS * tp["lr"],
-          f"mesh_shared_card: TP 04 parameters {tp['max_param_diff']} from world 1's "
-          f"> {MESH_TP_PARAM_LRS} lr ({tp['lr']})")
-    check(ranks[0]["tp_step"]["replicated_digest"] == ranks[1]["tp_step"]["replicated_digest"],
-          "mesh_shared_card: replicated leaves differ across the ranks")
+    for key in ("tp_step", "tp_step_bf16"):
+        check(ranks[0][key]["replicated_digest"] == ranks[1][key]["replicated_digest"],
+              f"mesh_shared_card: {key}'s replicated leaves differ across the ranks")
     emergency = ranks[0]["tp_emergency"]
     check(emergency.get("joined_equals_gathered") is True
           and all(r["tp_emergency"]["files"] == emergency["files"] for r in ranks),
@@ -6381,8 +6763,8 @@ def shared_card_phase(shared, device):
     check(all(r["backend"] == "gloo" for r in ranks), "mesh_shared_card: backend")
     counts = every_kernel({k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]})
     check(device != "cuda" or all(counts[k] > 0 for k in (
-        "slot_attention", "conv5", "vit_attention", "conv_int8")),
-          f"mesh_shared_card: launches {counts}")
+        "slot_attention", "conv5", "vit_attention", "conv_int8", "conv5_bf16",
+        "vit_attention_bf16")), f"mesh_shared_card: launches {counts}")
     emit({"phase": "mesh_shared_card", "backend": "gloo", "world": 2, "card_shared": True,
           **{k: zero[k] for k in MESH_REPLY_TOLERANCE}, "clip_int8_data2": q,
           "reply_tolerance": MESH_REPLY_TOLERANCE,
@@ -6390,7 +6772,12 @@ def shared_card_phase(shared, device):
           "tp_step": {**tp, "replicated_bit_equal_across_ranks": True,
                       "param_limit_lrs": MESH_TP_PARAM_LRS, "batch": MESH_TP_BATCH,
                       "num_preds": MESH_TP_PREDS},
-          "tp_emergency": emergency,
+          "tp_step_bf16": {**tp16, "replicated_bit_equal_across_ranks": True,
+                           "off_lrs": BF16_TP_OFF_LRS, "off_times": BF16_TP_OFF_TIMES,
+                           "off_floor": BF16_TP_OFF_FLOOR},
+          "mesh_preds": MESH_PREDS,
+          "tp_emergency": emergency, "bf16": {n: zero[n] for n in MESH_BF16_SERVES},
+          "bf16_rule": "2 e(one process bf16, float32) + 2**-8",
           "launches": counts,
           "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
           "processes_s": shared["processes_s"], "main_timeline_wait_s": shared["wait_s"],
@@ -6410,7 +6797,6 @@ def shared_card_phase(shared, device):
 # port's CPU bf16 at batch 2 in the parity worker (finish_parities); beside
 # mesh_shared_card's ranks they would slow the ranks' host work.
 
-PRED_NAME_BF16 = f"{PRED_NAME}_bf16"
 # card bf16 against card float32, of max |float32|: the seed's slots and
 # reconstructed frames must lie in (lo, hi]; the predicted frames' largest
 # and mean distances within PERF.md section 2's limits
@@ -6581,9 +6967,9 @@ def bf16_cpu_half(spec_path, out_path):
                             spec["num_preds"]), out_path)
 
 
-def e_max(a, b, ref):
-    """max |a - b| over max |ref|."""
-    return ((a - b).abs().max() / ref.abs().max()).item()
+def e_max(a, b, ref) -> float:
+    """max |a - b| over max |ref|, of tensors or numpy arrays."""
+    return float(abs(a - b).max() / abs(ref).max())
 
 
 def phase_bf16_card(path: ServedPath, tmp: Path):
@@ -6750,12 +7136,13 @@ def main() -> int:
             "cater", made["cater"], train_exp / "models" / "checkpoint_epoch_final.pt",
             Path(tmp) / "CATER", EVAL_VIDEOS)
         counts[RESNET_NAME] = phase_resnet_savi(Path(tmp), Path(tmp) / PATHS[0].name / "exp")
+        counts["conv_decoder_tails"] = phase_conv_decoder_tails()
         phase_train_extras(Path(tmp))
         phase_train_remat(train_exp, Path(tmp) / "CATER_train")
         (counts["pred_train"], pred_input_grad, pred_weight_grad,
          counts["bf16_pred_train_step"], pred_untimed) = run_pred_train(train_exp)
         untimed += pred_untimed
-        counts.update(run_figs(train_exp))
+        counts.update(run_figs(train_exp, Path(tmp)))
         # the mesh phases' processes import beside the phases before start_mesh
         mesh = spawn_mesh(Path(tmp))
         other_counts, other_input_grad, other_weight_grad, other_parities = run_predictors(

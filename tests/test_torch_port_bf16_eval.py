@@ -1,7 +1,9 @@
 """``tpu.compute_dtype: "bfloat16"`` end to end on the CPU: the port's 05
 evaluator and its live service on one tiny CATER experiment (SAVi with
 ``Learned`` slots + TextOCVP_T5), each against the JAX package's bf16 and
-float32 runs of the same checkpoint, and the paths that still refuse bf16.
+float32 runs of the same checkpoint (the evaluator also on two gloo ranks at
+``data=2``), and its evaluator, service and trainers built in bf16 on a
+(stubbed) mesh of two ranks.
 
 The experiment's predictor params carry ``"tpu": {"compute_dtype": ...,
 "use_pallas": true}`` (the port ignores ``use_pallas``: it always follows the
@@ -17,6 +19,7 @@ package's own bf16 and float32 replies differ there by up to 50 levels of
 
 import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import copy
+import json
 import os
 import warnings
 from types import SimpleNamespace
@@ -31,6 +34,7 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 from test_torch_port_evaluator import (  # noqa: E402
+    BATCH,
     CAPTIONS,
     NUM_PREDS,
     RES,
@@ -38,6 +42,7 @@ from test_torch_port_evaluator import (  # noqa: E402
     _tiny_params,
     write_cater_npy,
 )
+from test_torch_port_mesh import run_ranks  # noqa: E402
 from torch_bf16 import check_bf16  # noqa: E402
 
 from textocvp_tpu.models import factory as jax_factory  # noqa: E402
@@ -46,24 +51,16 @@ from textocvp_tpu.models import setup_predictor as jax_setup_predictor  # noqa: 
 from textocvp_tpu.train.checkpoints import save_checkpoint  # noqa: E402
 from textocvp_tpu.train.evaluator import PredictorEvaluator as JaxPredictorEvaluator  # noqa: E402
 from textocvp_tpu_torch.convert import from_jax_params  # noqa: E402
-from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params  # noqa: E402
 from textocvp_tpu_torch.core.experiment import Experiment  # noqa: E402
-from textocvp_tpu_torch.models import setup_model, setup_predictor  # noqa: E402
 from textocvp_tpu_torch.serve import pipeline  # noqa: E402
-from textocvp_tpu_torch.serve.export import export_service  # noqa: E402
 from textocvp_tpu_torch.serve.pipeline import PredictionService  # noqa: E402
 from textocvp_tpu_torch.train import evaluator  # noqa: E402
 from textocvp_tpu_torch.train import trainer as trainer_mod  # noqa: E402
 from textocvp_tpu_torch.train.evaluator import PredictorEvaluator  # noqa: E402
-from textocvp_tpu_torch.train.fig_generation import (  # noqa: E402
-    DecompFigGenerator,
-    PredictorFigGenerator,
-)
 from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer  # noqa: E402
 from textocvp_tpu_torch.train.trainer import DecompTrainer  # noqa: E402
 
 DTYPES = ("bfloat16", "float32")
-ROADMAP = r"ROADMAP\.md §1"
 REPLY_PREDS = 1  # the predicted frames of the service's reply (module docstring)
 
 
@@ -98,15 +95,17 @@ def exp_dir(tmp_path_factory):
     return root / "exp"
 
 
-def test_evaluator_bf16_matches_jax(exp_dir, monkeypatch):
-    """The JAX evaluator shards its steps over the host's devices, and an
-    interpret-mode Pallas call cannot be partitioned: it runs its XLA slot
+@pytest.fixture(scope="module")
+def eval_runs(exp_dir):
+    """The JAX evaluators' results in both dtypes and the port's at world
+    size 1. The JAX evaluator shards its steps over the host's devices, and
+    an interpret-mode Pallas call cannot be partitioned: it runs its XLA slot
     attention here (``use_pallas`` off), which refines in bf16 where the
     port casts to float32, so this holds the port to the JAX arm it does not
     follow, under the same rule."""
-    monkeypatch.setattr(jax_factory, "_use_pallas", lambda exp_params: False)
     refs, outs = {}, {}
-    with warnings.catch_warnings():
+    with pytest.MonkeyPatch.context() as mp, warnings.catch_warnings():
+        mp.setattr(jax_factory, "_use_pallas", lambda exp_params: False)
         warnings.simplefilter("ignore")
         for dt in DTYPES:
             ref_ev = JaxPredictorEvaluator(exp_dir, _pred_name(dt), "ckpt", "ckpt", num_seed=1,
@@ -125,11 +124,34 @@ def test_evaluator_bf16_matches_jax(exp_dir, monkeypatch):
                 frames = ev.decode_stage(ev.predict_stage(*ev.to_device(videos, info)))
                 assert frames.dtype == torch.bfloat16
             outs[dt] = ev.evaluate()
+    return {"jax": refs, "port": outs}
+
+
+def check_metrics(port16: dict, port32: dict, runs: dict):
+    """``tests/torch_bf16.py``'s rule on each metric's framewise values."""
     for m in ("psnr", "ssim", "lpips"):
-        check_bf16(np.array(outs["bfloat16"][m]["framewise"]),
-                   np.array(outs["float32"][m]["framewise"]),
-                   np.array(refs["bfloat16"][m]["framewise"]),
-                   np.array(refs["float32"][m]["framewise"]), m, dtype_checked=False)
+        check_bf16(np.array(port16[m]["framewise"]), np.array(port32[m]["framewise"]),
+                   np.array(runs["jax"]["bfloat16"][m]["framewise"]),
+                   np.array(runs["jax"]["float32"][m]["framewise"]), m, dtype_checked=False)
+
+
+def test_evaluator_bf16_matches_jax(eval_runs):
+    check_metrics(eval_runs["port"]["bfloat16"], eval_runs["port"]["float32"], eval_runs)
+
+
+def test_evaluator_bf16_at_data2_matches_jax(exp_dir, eval_runs, tmp_path):
+    """The bf16 05 evaluator on a gloo mesh of two ranks at ``data=2``
+    (``tests/torch_dist_worker.py``; each rank a row of every batch of
+    ``BATCH``, the last batch ragged) against the JAX evaluators by the same
+    rule, the port's float32 evaluator at world size 1 its float32."""
+    job = {"job": "eval", "kind": "05", "exp": str(exp_dir), "pred": _pred_name("bfloat16"),
+           "batch": BATCH, "num_preds": NUM_PREDS, "results": "data2"}
+    (ranks,) = run_ranks(tmp_path / "w2", [job], 2)
+    pred = Experiment(exp_dir / "predictors" / _pred_name("bfloat16"))
+    got = json.loads((pred.results_dir("data2") / "results.json").read_text())
+    check_metrics(got, eval_runs["port"]["float32"], eval_runs)
+    for out in ranks:
+        np.testing.assert_allclose(out["psnr"], got["psnr"]["framewise"], rtol=1e-6)
 
 
 def _jax_frames(exp_dir, dt, frames, text):
@@ -179,7 +201,7 @@ def test_service_reply_bf16_matches_jax(exp_dir):
                "reply", dtype_checked=False)
 
 
-# ------------------------------------------------------------------ what still refuses
+# ------------------------------------------------------------------ bf16 on a mesh
 
 
 def _bf16_experiment(exp_dir, tmp_path, **tpu):
@@ -197,56 +219,28 @@ def _bf16_experiment(exp_dir, tmp_path, **tpu):
     return parent, pred
 
 
-def test_the_trainers_refuse_bf16(exp_dir, tmp_path, monkeypatch):
-    """On one process the trainers take bf16 (``test_torch_port_bf16_train*.py``
-    hold their steps); on a mesh of more than one rank they refuse it."""
+def test_the_trainers_take_bf16_on_a_mesh(exp_dir, tmp_path, monkeypatch):
+    """On a (stubbed) mesh of two ranks the 02 and 04 trainers build in bf16
+    (``test_torch_port_bf16_mesh.py`` holds a bf16 step on gloo ranks)."""
     parent, pred = _bf16_experiment(exp_dir, tmp_path)
-    DecompTrainer(parent.exp_path, device="cpu")
-    PredictorTrainer(pred.exp_path, "ckpt", device="cpu")
-    mesh = SimpleNamespace(world=2, device=torch.device("cpu"))
+    mesh = SimpleNamespace(world=2, data=2, model=1, device=torch.device("cpu"))
     monkeypatch.setattr(trainer_mod, "get_runtime_mesh", lambda *a, **k: mesh)
     monkeypatch.setattr(trainer_mod, "maybe_initialize_distributed", lambda: None)
-    with pytest.raises(NotImplementedError,
-                       match=f"DecompTrainer .*mesh of more than one rank.*bfloat16.*{ROADMAP}"):
-        DecompTrainer(parent.exp_path, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=f"PredictorTrainer .*mesh of more than one rank.*bfloat16.*{ROADMAP}"):
-        PredictorTrainer(pred.exp_path, "ckpt", device="cpu")
+    for tr in (DecompTrainer(parent.exp_path, device="cpu"),
+               PredictorTrainer(pred.exp_path, "ckpt", device="cpu")):
+        assert tr.mesh is mesh
 
 
-@pytest.mark.parametrize("key", ["decode_quant", "encode_quant"])
-def test_bf16_with_int8_refuses(key):
-    params = add_predictor_params(build_exp_params("SAVi", "CATER_Easy"), "OCVPSeq")
-    params["tpu"] = {"compute_dtype": "bfloat16", key: "int8"}
-    with pytest.raises(NotImplementedError, match=f"bfloat16.*{key}.*{ROADMAP}"):
-        setup_model(params)
-    with pytest.raises(NotImplementedError, match=f"bfloat16.*{key}.*{ROADMAP}"):
-        setup_predictor(params)
-
-
-def test_bf16_on_a_mesh_of_more_than_one_rank_refuses(exp_dir, monkeypatch):
-    mesh = SimpleNamespace(world=2, device=torch.device("cpu"))
+def test_bf16_on_a_mesh_of_more_than_one_rank_builds(exp_dir, monkeypatch):
+    """The 05 evaluator and the service build in bf16 on a (stubbed) mesh of
+    two ranks (``test_torch_port_bf16_mesh.py`` runs them on gloo ranks)."""
+    mesh = SimpleNamespace(world=2, data=2, model=1, rank=0, backend="gloo",
+                           tensor_parallel=False, device=torch.device("cpu"))
     monkeypatch.setattr(evaluator, "get_runtime_mesh", lambda *a, **k: mesh)
     monkeypatch.setattr(pipeline, "get_runtime_mesh", lambda *a, **k: mesh)
     monkeypatch.setattr(pipeline, "maybe_initialize_distributed", lambda: None)
-    with pytest.raises(NotImplementedError, match=f"mesh of more than one rank.*{ROADMAP}"):
-        PredictorEvaluator(exp_dir, _pred_name("bfloat16"), "ckpt", "ckpt", device="cpu")
-    with pytest.raises(NotImplementedError, match=f"mesh of more than one rank.*{ROADMAP}"):
-        PredictionService(exp_dir, _pred_name("bfloat16"), "ckpt", "ckpt", device="cpu",
-                          mesh_axes={"data": 2})
-    # float32 on the same (stubbed) mesh passes the check
-    ev = PredictorEvaluator(exp_dir, _pred_name("float32"), "ckpt", "ckpt", device="cpu")
+    ev = PredictorEvaluator(exp_dir, _pred_name("bfloat16"), "ckpt", "ckpt", device="cpu")
     assert ev.mesh is mesh
-
-
-def test_export_and_the_figure_generators_refuse_bf16(exp_dir, tmp_path):
-    service = PredictionService(exp_dir, _pred_name("bfloat16"), "ckpt", "ckpt", batch_size=1,
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match=f"07 --export.*{ROADMAP}"):
-        export_service(service, tmp_path / "artifact")
-    assert not (tmp_path / "artifact").exists()
-    parent, pred = _bf16_experiment(exp_dir, tmp_path)
-    with pytest.raises(NotImplementedError, match=f"06 figure generators.*{ROADMAP}"):
-        DecompFigGenerator(parent.exp_path, "ckpt", num_seqs=1, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"06 figure generators.*{ROADMAP}"):
-        PredictorFigGenerator(exp_dir, pred.exp_path, "ckpt", "ckpt", num_seqs=1, device="cpu")
+    svc = PredictionService(exp_dir, _pred_name("bfloat16"), "ckpt", "ckpt", device="cpu",
+                            mesh_axes={"data": 2})
+    assert svc.mesh is mesh and svc.compute_dtype == "bfloat16"

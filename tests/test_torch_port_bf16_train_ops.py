@@ -1,8 +1,7 @@
 """bf16 training on the CPU, module by module: conv5's bf16 backward (the
 plain version of the card's, through ``Conv5Function`` with ``conv5_plain``)
 against ``jax.vjp`` of the JAX ``ConvDecoder``'s tail block in bf16 and in
-float32, the slot-attention wrapper's casts carrying gradients, and the paths
-that still refuse bf16.
+float32, and the slot-attention wrapper's casts carrying gradients.
 
 * conv5: the JAX reference is ``textocvp_tpu.nn.blocks.ConvBlock`` (5 x 5,
   "same", bias, ReLU) with ``dtype`` bf16 and float32 on the same weights,
@@ -14,34 +13,28 @@ that still refuse bf16.
   slots are cast in and the outputs out, and autograd carries the
   gradients through the casts: bf16 gradients equal to the float32
   gradients of the same (rounded) values, rounded once.
-* Refusals that remain: bf16 with int8, the 02 and 04 trainers on a
-  two-rank gloo mesh. (07 ``--export`` and 06:
-  ``tests/test_torch_port_bf16_eval.py``.)
+* bf16 beside int8 builds the trainer in bf16 (the trainers on a mesh in
+  bf16: ``tests/test_torch_port_bf16_mesh.py``).
 """
 
 import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
-import copy
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_port_mesh import run_ranks
 from test_torch_port_train_savi import tiny_savi_params
 from torch_bf16 import check_bf16
 
 from textocvp_tpu.nn.blocks import ConvBlock as JaxConvBlock
-from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params
+from textocvp_tpu_torch.core.config import build_exp_params
 from textocvp_tpu_torch.core.experiment import Experiment
-from textocvp_tpu_torch.models import setup_model
 from textocvp_tpu_torch.nn.precision import set_compute_dtype
 from textocvp_tpu_torch.ops import conv5 as c5
 from textocvp_tpu_torch.ops.slot_attention import SlotAttention
-from textocvp_tpu_torch.train.checkpoints import save_checkpoint
 
 BF16 = torch.bfloat16
-ROADMAP = r"ROADMAP\.md §1"
 
 
 def _jax_conv_grads(x, w, b, g, dtype):
@@ -135,30 +128,15 @@ def test_slot_attention_casts_carry_bf16_gradients():
 
 
 @pytest.mark.parametrize("key", ["decode_quant", "encode_quant"])
-def test_bf16_training_with_int8_refuses(key, tmp_path):
+def test_bf16_training_with_int8_builds(key, tmp_path):
+    """A bf16 experiment with an int8 option trains in bf16, as the JAX
+    trainers do: int8 applies where the experiment is evaluated or served."""
     from textocvp_tpu_torch.train.trainer import DecompTrainer
 
     params = tiny_savi_params(build_exp_params)
     params["tpu"] = {"compute_dtype": "bfloat16", key: "int8"}
     Experiment(tmp_path).save_params(params)
-    with pytest.raises(NotImplementedError, match=f"bfloat16.*{key}.*{ROADMAP}"):
-        DecompTrainer(tmp_path, device="cpu").setup_model()
-
-
-def test_bf16_trainers_on_a_two_rank_gloo_mesh_refuse(tmp_path):
-    params = tiny_savi_params(build_exp_params)
-    params["tpu"] = {"compute_dtype": "bfloat16"}
-    parent = Experiment(tmp_path / "exp")
-    parent.save_params(params)
-    parent.models_dir.mkdir(parents=True)
-    save_checkpoint(parent.checkpoint_path("ckpt"), {"params": setup_model(params).state_dict()})
-    pred_params = add_predictor_params(copy.deepcopy(params), "OCVPSeq")
-    pred = Experiment(tmp_path / "exp" / "predictors" / "p")
-    pred.save_params(pred_params)
-    (out,) = run_ranks(tmp_path / "ranks", [{"job": "refuse_bf16", "exp": str(parent.exp_path),
-                                             "pred_exp": str(pred.exp_path)}], 2)
-    for rank in out:
-        for name, cls in (("02", "DecompTrainer"), ("04", "PredictorTrainer")):
-            msg = str(rank[name])
-            assert cls in msg and "mesh of more than one rank" in msg and "bfloat16" in msg
-            assert "ROADMAP.md §1" in msg
+    tr = DecompTrainer(tmp_path, device="cpu")
+    tr.setup_model()
+    assert tr.model.compute_dtype == BF16
+    assert {p.dtype for p in tr.model.parameters()} == {torch.float32}

@@ -18,10 +18,13 @@ steps, and the frozen weights left as they were.
   04 loss has no clip. An attention's key bias has a gradient of 0 in exact
   arithmetic and is held with the largest leaf's scale. The frozen SAVi and
   T5 get no gradient and are bit for bit after an update.
+* The same bf16 step on two gloo ranks at ``model=2``, against the JAX bf16
+  step with the predictor sharded on the ``(4, 2)`` mesh.
 """
 
 import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
 import os
+from pathlib import Path
 
 os.environ.setdefault("HF_HUB_OFFLINE", "1")
 os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
@@ -42,12 +45,15 @@ from test_torch_port_train_predictor import (  # noqa: E402
     tiny_pred_params,
 )
 from test_torch_port_train_savi import _jax_noise, tiny_savi_params  # noqa: E402
+from test_torch_port_mesh import run_ranks  # noqa: E402
 from torch_bf16 import check_bf16  # noqa: E402
 
 from textocvp_tpu.core.config import add_predictor_params as jax_add_predictor_params  # noqa: E402
 from textocvp_tpu.core.config import build_exp_params as jax_build_exp_params  # noqa: E402
 from textocvp_tpu.models import setup_model as jax_setup_model  # noqa: E402
 from textocvp_tpu.models import setup_predictor as jax_setup_predictor  # noqa: E402
+from textocvp_tpu.parallel.mesh import get_mesh, replicated_sharding  # noqa: E402
+from textocvp_tpu.parallel.partitioning import shard_predictor_params  # noqa: E402
 from textocvp_tpu_torch.convert import from_jax_params  # noqa: E402
 from textocvp_tpu_torch.core.config import add_predictor_params, build_exp_params  # noqa: E402
 from textocvp_tpu_torch.core.experiment import Experiment  # noqa: E402
@@ -110,9 +116,13 @@ def build_case(name: str) -> dict:
     return {**case, **out}
 
 
-def port_trainer(root, case, dtype):
+def write_experiment(root, case, dtype, **tpu) -> Path:
+    """The tiny parent and predictor experiments of ``case`` in ``dtype``
+    (``tpu`` added to the predictor's ``tpu`` params), the JAX weights as
+    their checkpoints. Returns the predictor experiment's path."""
     params = with_dtype(predictor_params(build_exp_params, add_predictor_params, case["name"]),
                         dtype, False)
+    params["tpu"].update(tpu)
     params["training"].update({**TRAINING, "batch_size": B})
     parent = Experiment(root / "exp")
     parent.save_params(tiny_savi_params(build_exp_params))
@@ -122,7 +132,12 @@ def port_trainer(root, case, dtype):
     torch.save(from_jax_params("savi", case["mparams"]), parent.checkpoint_path("decomp"))
     save_checkpoint(pred.checkpoint_path("init"),
                     {"params": from_jax_params("predictor", case["pparams"])})
-    tr = PredictorTrainer(pred.exp_path, "decomp", checkpoint="init", device="cpu")
+    return pred.exp_path
+
+
+def port_trainer(root, case, dtype):
+    tr = PredictorTrainer(write_experiment(root, case, dtype), "decomp", checkpoint="init",
+                          device="cpu")
     tr.setup_model()
     return tr
 
@@ -169,3 +184,64 @@ def check_step(jax_case, tmp_path):
                      if n in grads["bfloat16"]} for dt in DTYPES)
     zero = [n for n in jax32 if n.endswith(KEY_BIAS)]
     check_leaves(grads["bfloat16"], grads["float32"], jax16, jax32, grads["nudged"], zero)
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_step(jax_case):
+    """The JAX bf16 step with the predictor sharded on the JAX package's
+    ``(4, 2)`` mesh (``shard_predictor_params``; the batch and the frozen
+    SAVi replicated): its loss values and gradients. An interpret-mode
+    Pallas call cannot be partitioned, so the frozen SAVi runs its XLA slot
+    attention and conv here (``use_pallas`` off), as the JAX evaluators do
+    in ``test_torch_port_bf16_eval.py``."""
+    jp = with_dtype(predictor_params(jax_build_exp_params, jax_add_predictor_params,
+                                     jax_case["name"]), "bfloat16", False)
+    jdecomp, jpred = jax_setup_model(jp), jax_setup_predictor(jp)
+    mesh = get_mesh(data=4, model=2)
+    params = shard_predictor_params(
+        jax.device_put(jax_case["pparams"], replicated_sharding(mesh)), mesh)
+    assert any(not x.sharding.is_fully_replicated for x in jax.tree_util.tree_leaves(params))
+    fn = jax.jit(jax.value_and_grad(
+        jax_loss_fn({**jax_case, "jdecomp": jdecomp, "jpred": jpred, "jp": jp}, False),
+        has_aux=True))
+    with mesh:
+        (_, values), grads = fn(params, jax_case["keys"][0])
+    return jax.device_get({"values": values, "grads": grads})
+
+
+def test_the_04_step_at_model2_matches_jax_bf16(jax_case, jax_mesh_step, tmp_path):
+    """The bf16 step on a gloo mesh of two ranks at ``model=2``
+    (``tests/torch_dist_worker.py``: the predictor's attention and MLPs
+    sharded, a row layer's bf16 partials summed in float32 and rounded
+    once), its loss and every trainable leaf gathered, against the JAX bf16
+    step on the ``(4, 2)`` mesh and the JAX float32 step by the same rule:
+    the port's float32 step at world size 1 its float32, its bf16 step at
+    world size 1 on the nudged video each leaf's spread."""
+    text = {"caption_tokens": torch.from_numpy(jax_case["tokens"]),
+            "attn_masks": torch.from_numpy(jax_case["masks"])}
+    noise = torch.from_numpy(np.asarray(jax_case["noise"][0]))
+    values, grads = {}, {}
+    for run, dtype, nudge in (("float32", "float32", 1), ("nudged", "bfloat16", NUDGE)):
+        tr = port_trainer(tmp_path / run, jax_case, dtype)
+        total, values[run] = tr.forward_loss(torch.from_numpy(jax_case["video"]) * nudge, noise,
+                                             **text)
+        total.backward()
+        grads[run] = {n: p.grad for n, p in tr.model.named_parameters() if p.requires_grad}
+    exp = write_experiment(tmp_path / "tp", jax_case, "bfloat16",
+                           mesh_axes={"data": 1, "model": 2})
+    np.savez(tmp_path / "inputs.npz", video=jax_case["video"], noise=noise.numpy(),
+             **{k: v.numpy() for k, v in text.items()})
+    job = {"job": "train04", "exp": str(exp), "inputs": str(tmp_path / "inputs.npz")}
+    (ranks,) = run_ranks(tmp_path / "w2", [job], 2)
+    assert any(".attn." in n for n in ranks[0]["sharded"])
+    jax16, jax32 = ({n: g for n, g in from_jax_params("predictor", step["grads"]).items()
+                     if n in grads["float32"]} for step in (jax_mesh_step, jax_case["float32"]))
+    zero = [n for n in jax32 if n.endswith(KEY_BIAS)]
+    for out in ranks:
+        for name in ("pred_img_mse", "pred_slot_mse", "_total"):
+            check_bf16(out[f"loss/{name}"], values["float32"][name],
+                       np.float32(jax_mesh_step["values"][name]),
+                       np.float32(jax_case["float32"]["values"][name]), name,
+                       dtype_checked=False)
+        tp = {n: torch.from_numpy(out[f"grad/{n}"]) for n in grads["float32"]}
+        check_leaves(tp, grads["float32"], jax16, jax32, grads["nudged"], zero)

@@ -42,7 +42,7 @@ import optax
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
-from test_torch_port_train_savi import LOSS, _jax_noise, tiny_savi_params
+from test_torch_port_train_savi import LOSS, STEP_TAIL, _jax_noise, tiny_savi_params
 from torch_bf16 import STEP, check_bf16, e
 
 from textocvp_tpu.core.config import build_exp_params as jax_build_exp_params
@@ -104,7 +104,7 @@ def clip_codes(x) -> np.ndarray:
 
 
 def port_model(case, dtype):
-    model = setup_model(with_dtype(tiny_savi_params(build_exp_params), dtype, False))
+    model = setup_model(with_dtype(tiny_savi_params(build_exp_params, STEP_TAIL), dtype, False))
     model.load_state_dict(from_jax_params("savi", case["params"]))
     return model
 
@@ -132,7 +132,7 @@ def jax_case():
     keys = [jax.random.PRNGKey(7), jax.random.PRNGKey(8)]
     out, case = {}, None
     for dt in DTYPES:
-        jmodel = jax_setup_model(with_dtype(tiny_savi_params(jax_build_exp_params), dt, True))
+        jmodel = jax_setup_model(with_dtype(tiny_savi_params(jax_build_exp_params, STEP_TAIL), dt, True))
         with pltpu.force_tpu_interpret_mode():
             if case is None:
                 init = jax.jit(lambda x: jmodel.init({"params": jax.random.PRNGKey(0),
@@ -204,7 +204,7 @@ def test_two_bf16_updates_stay_within_2_lr_of_jax_and_the_loss_falls(jax_case, t
         assert p.dtype == torch.float32
         assert (p.detach() - want[name]).abs().max() <= 2 * TRAINING["lr"], name
     # the trainer, on one batch and one noise draw
-    params = with_dtype(tiny_savi_params(build_exp_params), "bfloat16", False)
+    params = with_dtype(tiny_savi_params(build_exp_params, STEP_TAIL), "bfloat16", False)
     params["training"].update(TRAINING, batch_size=B, lr=SIGN_LR)
     Experiment(tmp_path).save_params(params)
     tr = DecompTrainer(tmp_path, device="cpu")
@@ -216,7 +216,7 @@ def test_two_bf16_updates_stay_within_2_lr_of_jax_and_the_loss_falls(jax_case, t
 
 
 def _trainer_grads(root, dtype, **options):
-    params = with_dtype(tiny_savi_params(build_exp_params), dtype, False)
+    params = with_dtype(tiny_savi_params(build_exp_params, STEP_TAIL), dtype, False)
     params["training"].update(TRAINING, batch_size=B, accum_steps=options.pop("accum", 1))
     params["tpu"].update(options)
     Experiment(root).save_params(params)

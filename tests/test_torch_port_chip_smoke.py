@@ -2,10 +2,11 @@
 
 On the card the profiler drops the earliest device records of a trace in a
 process that has run for minutes (``chip_trace_probe.py``). ``traced``
-fences the call with device spins and takes the trace again behind a longer
-fence until a spin precedes the call's first record and another follows
-its last, and starts each later trace behind the fence the last whole one
-needed. Here a fake profiler drops a given number of the earliest records
+fences the call with device spins and takes the trace again, behind a longer
+fence where the first fence's records are gone and behind the same one where
+only the last fence's are, until a spin precedes the call's first record and
+another follows its last, and starts each later trace behind the fence the
+last whole one needed. Here a fake profiler drops a given number of the earliest records
 of each trace. ``chip_smoke.device_records`` reads a trace's device events
 by name as ``prof.key_averages()`` groups them, straight from the kineto
 events: held to ``key_averages`` on a real CPU trace, its host events
@@ -104,7 +105,21 @@ def test_a_trace_that_lost_its_last_fence_is_taken_again(fake_profiler, monkeypa
             real_fence(spins)
     monkeypatch.setattr(chip_smoke, "fence", fence)
     _, _, spins = chip_smoke.traced(fn)
-    assert spins == chip_smoke.FENCE_SPINS[1] and len(calls) == 2
+    # behind the same fence: a longer first one does not bring back an end
+    assert spins == chip_smoke.FENCE_SPINS[0] and len(calls) == 2
+    assert chip_smoke.FENCE_FIRST == [0]  # and later traces start there
+
+
+def test_a_trace_that_keeps_losing_its_end_fails_after_as_many_attempts(fake_profiler,
+                                                                      monkeypatch):
+    fn, calls, drops = fake_profiler
+    drops.extend([0] * len(chip_smoke.FENCE_SPINS))
+    real_fence = chip_smoke.fence
+    # every closing fence (one spin) leaves no record
+    monkeypatch.setattr(chip_smoke, "fence", lambda spins=1: spins > 1 and real_fence(spins))
+    with pytest.raises(AssertionError, match="no whole trace"):
+        chip_smoke.traced(fn)
+    assert len(calls) == len(chip_smoke.FENCE_SPINS)
 
 
 def test_a_later_trace_starts_behind_the_fence_the_last_whole_one_needed(fake_profiler):

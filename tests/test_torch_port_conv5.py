@@ -152,6 +152,12 @@ def test_tail_weights_follow_a_reload():
     torch.testing.assert_close(again[2][1], dec.blocks[3].conv.bias)
 
 
-def test_decoder_refuses_a_tail_the_kernel_does_not_take():
-    with pytest.raises(ValueError, match="5x5 stride-1"):
-        decoders.ConvDecoder(32, [64, 64], kernel_size=3)
+def test_decoder_runs_a_tail_the_kernel_does_not_take_through_conv2d(monkeypatch):
+    """A 3 x 3 tail of the kernel's width builds and never reaches conv5 (its
+    parity with the JAX decoder: ``test_torch_port_conv_decoder_tails.py``)."""
+    dec = decoders.ConvDecoder(32, [64, 64], kernel_size=3).eval()
+    assert dec.on_conv5 == [False]
+    monkeypatch.setattr(decoders, "conv5", lambda *a, **k: pytest.fail("conv5 called"))
+    with torch.no_grad():
+        out = dec.decode_broadcast(torch.randn(2, 32), torch.randn(8, 8, 32))
+    assert out.shape == (2, 4, 8, 8)

@@ -14,6 +14,9 @@ layers of 8 channels, maps of 8 and 10 pixels).
   that falls back) the port raises the same message; the upsampling decoder
   takes int8 in both: its calibrated amaxes within rtol 1e-5, its int8
   decode held to JAX's in quanta (``test_torch_port_quant.py``).
+* A 3 x 3 upsampling decoder (a tail that conv5 does not take) builds and
+  decodes as JAX's, with the same limits (the other tails:
+  ``test_torch_port_conv_decoder_tails.py``).
 """
 
 import torch_cpu_threads  # noqa: F401  (two torch threads a worker)
@@ -153,6 +156,25 @@ def test_upsampling_decoder_takes_int8_as_jax_does():
                       "int8 upsampling decode")
 
 
-def test_tail_of_other_kernel_sizes_still_raises():
-    with pytest.raises(ValueError, match="5x5 stride-1 conv kernel"):
-        ConvDecoder(D, HIDDEN, kernel_size=3, upsample=2)
+@pytest.mark.parametrize("res", [10, 4], ids=["fast", "generic"])
+def test_tail_of_other_kernel_sizes_matches_jax(res):
+    """A 3 x 3 upsampling decoder builds and decodes as the JAX one, on the
+    fast path (a map of at least 5 pixels) and on the generic one; its tail
+    runs through ``Conv2d``, not conv5 (``test_torch_port_conv_decoder_tails.py``
+    holds the other shapes, their gradients, bf16 and int8)."""
+    rng = np.random.default_rng(6)
+    jdec = JaxConvDecoder(hidden_dims=HIDDEN, kernel_size=3, upsample=2)
+    variables = jax.jit(jdec.init)(jax.random.PRNGKey(0), jnp.zeros((1, res, res, D)))
+    variables = {"params": _perturb(jax.device_get(variables["params"]), rng)}
+    tdec = ConvDecoder(D, HIDDEN, kernel_size=3, upsample=2).eval()
+    tdec.load_state_dict(convert_tree(variables["params"], parent="image_decoder"))
+    assert tdec.on_conv5 == [False, False]
+    slots = rng.standard_normal((N, D)).astype(np.float32)
+    pos = rng.standard_normal((res, res, D)).astype(np.float32)
+    ref = _apply(jdec, variables, False, method="decode_broadcast", resolution=(res, res))(
+        variables, jnp.asarray(slots), jnp.asarray(pos))[0]
+    with torch.no_grad():
+        out = tdec.decode_broadcast(torch.from_numpy(slots), torch.from_numpy(pos))
+    assert out.shape == (N, 4, 4 * res, 4 * res)
+    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)

@@ -250,7 +250,7 @@ def test_compute_dtype_other_than_float32_raises(dtype, tmp_path):
         trainer.setup_model()
         assert trainer.model.compute_dtype == torch.bfloat16
         return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1.*bfloat16"):
+    with pytest.raises(NotImplementedError, match=f"compute_dtype '{dtype}'.*bfloat16"):
         setup_model(params)
     with pytest.raises(NotImplementedError, match=f"compute_dtype '{dtype}'"):
         setup_predictor(add_predictor_params(params, "OCVPSeq"))

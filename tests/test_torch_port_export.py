@@ -50,6 +50,8 @@ def _experiment(root, kind):
                                        else "SAVi")
     for p in (params, pred_params):
         p["model"]["model_params"]["initializer"] = "LearnedRandom"
+        if kind != "ExtendedDINOSAUR":  # the stock tail's shape, which runs through conv5
+            p["model"]["model_params"]["decoder"]["decoder_params"]["num_channels"] = [64, 64]
         if kind == "SAVi_int8":
             p["tpu"] = {"decode_quant": "int8"}
     gen = torch.Generator().manual_seed(5)

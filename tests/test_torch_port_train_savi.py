@@ -56,14 +56,17 @@ LOSS = [{"type": "mse", "weight": 1}]
 TRAINING = {"lr": 1e-3, "scheduler": "cosine_annealing", "scheduler_steps": 100,
             "lr_warmup": False, "warmup_steps": 0, "gradient_clipping": True,
             "clipping_max_value": 0.05}
+STEP_TAIL = 64  # the step parity's decoder width: its tail runs through conv5
 
 
-def tiny_savi_params(build):
+def tiny_savi_params(build, tail=8):
+    """A tiny SAVi; ``tail`` the decoder's width (``STEP_TAIL``: its tail
+    conv the stock 5x5 64 -> 64 shape that runs through conv5)."""
     p = build("SAVi", "CATER_Easy")
     mp = p["model"]["model_params"]
     mp.update(num_slots=4, slot_dim=32, mlp_hidden=64, mlp_encoder_dim=32)
     mp["encoder"]["encoder_params"].update(num_channels=[8, 8], resolution=[RES, RES])
-    mp["decoder"]["decoder_params"].update(num_channels=[8, 8], resolution=[RES, RES])
+    mp["decoder"]["decoder_params"].update(num_channels=[tail, tail], resolution=[RES, RES])
     mp["transition_module"] = {"model_name": "TransformerBlock", "num_heads": 2, "mlp_size": 64}
     p["dataset"]["img_size"] = [RES, RES]
     return p
@@ -91,11 +94,21 @@ def _jax_noise(jmodel, variables, batch, key):
 
 @pytest.fixture(scope="module")
 def step_case():
-    """One JAX training step: loss and gradients, then the loss after the
-    optimizer's update, each with its own slot noise."""
+    return _jax_step(8)
+
+
+@pytest.fixture(scope="module")
+def tail_case():
+    return _jax_step(STEP_TAIL)
+
+
+def _jax_step(tail):
+    """One JAX training step of the tiny SAVi whose decoder is ``tail`` wide:
+    loss and gradients, then the loss after the optimizer's update, each with
+    its own slot noise."""
     rng = np.random.default_rng(5)
     video = rng.uniform(0, 1, (B, T, RES, RES, 3)).astype(np.float32)
-    jmodel = jax_setup_model(tiny_savi_params(jax_build_exp_params))
+    jmodel = jax_setup_model(tiny_savi_params(jax_build_exp_params, tail))
     init = jax.jit(lambda x: jmodel.init({"params": jax.random.PRNGKey(0),
                                           "slots": jax.random.PRNGKey(1)}, x, decode=True))(
         jnp.asarray(video))
@@ -145,6 +158,38 @@ def test_loss_and_every_gradient_match_jax_then_the_loss_after_an_update(step_ca
         loss2 = _port_loss(model, step_case["video"], step_case["noise"][1])
     np.testing.assert_allclose(float(loss2), step_case["loss2"], rtol=1e-5)
     assert abs(step_case["loss2"] - step_case["loss1"]) > 1e-5  # the update moved it
+
+
+def test_a_conv5_tail_step_matches_jax_in_the_decoder(tail_case):
+    """The step with the decoder ``STEP_TAIL`` wide: its tail conv is the
+    stock 5x5 64 -> 64 shape, so the step runs ``Conv5Function`` with
+    ``conv5_plain`` both ways and the tail's HWIO weights with their autograd
+    history. The loss (rtol 1e-5) and every decoder leaf (the first conv's
+    gradient reaches it through conv5's input gradient) within 1e-4 of the
+    leaf's largest value, the limits above. The encoder's leaves, whose
+    gradients come through the whole wide decoder, differ from JAX's by up
+    to 1.03e-4 of their largest value here, and by as much (1.06e-4) with
+    the tail through torch's own conv (``Conv2d``): float32 sums in other
+    orders; the 8-wide step above holds them. Then the loss after an
+    update, rtol 1e-5."""
+    model = setup_model(tiny_savi_params(build_exp_params, STEP_TAIL))
+    assert model.image_decoder.on_conv5 == [True]
+    model.load_state_dict(from_jax_params("savi", tail_case["params"]))
+    loss = _port_loss(model, tail_case["video"], tail_case["noise"][0])
+    np.testing.assert_allclose(float(loss), tail_case["loss1"], rtol=1e-5)
+    loss.backward()
+    want = from_jax_params("savi", tail_case["grads"])
+    named = dict(model.named_parameters())
+    decoder = [n for n in want if n.startswith("image_decoder.")]
+    assert "image_decoder.blocks.1.conv.weight" in decoder
+    for name in decoder:
+        err = (named[name].grad - want[name]).abs().max().item()
+        assert err <= 1e-4 * want[name].abs().max().item(), (name, err)
+    opt, _ = build_optimizer(TRAINING, model.parameters())
+    opt.step()
+    with torch.no_grad():
+        loss2 = _port_loss(model, tail_case["video"], tail_case["noise"][1])
+    np.testing.assert_allclose(float(loss2), tail_case["loss2"], rtol=1e-5)
 
 
 def test_forward_returns_the_jax_decompose_dict(step_case):

@@ -155,7 +155,7 @@ def job_rollout(spec):
     hist, text = shard_batch((hist, d), mesh)
     with torch.no_grad():
         pred = wrapper(hist, num_preds=spec["num_preds"], **text)
-    return {"pred": all_gather_rows(pred, mesh.data_group).numpy(),
+    return {"pred": all_gather_rows(pred, mesh.data_group).float().numpy(),
             "sharded": np.array(names, dtype=str)}
 
 
@@ -169,7 +169,8 @@ def job_eval(spec):
         ev.load_data()
         ev.load_model()
     else:
-        ev = PredictorEvaluator(spec["exp"], "tiny_t5", "ckpt", "ckpt", num_seed=1,
+        ev = PredictorEvaluator(spec["exp"], spec.get("pred", "tiny_t5"), "ckpt", "ckpt",
+                                num_seed=1,
                                 num_preds=spec["num_preds"], batch_size=spec["batch"],
                                 results_name=spec["results"], device="cpu")
         ev.load_data()
@@ -369,21 +370,24 @@ def job_serve(spec):
     return out
 
 
-def job_refuse_bf16(spec):
-    """The 02 and 04 trainers of bf16 experiments on this mesh: each must
-    raise. Their messages."""
-    from textocvp_tpu_torch.train.predictor_trainer import PredictorTrainer
-    from textocvp_tpu_torch.train.trainer import DecompTrainer
+def job_row_bf16(spec):
+    """A bias-free bf16 row-parallel dense (``RowParallelLinear``) on this
+    model index's columns of ``x`` (M, K) and of the (N, K) weight: its
+    output as float32, and its dtype."""
+    from textocvp_tpu_torch.nn.precision import Linear, set_compute_dtype
+    from textocvp_tpu_torch.parallel.partitioning import RowParallelLinear, slice_full
 
-    out = {}
-    for name, make in (("02", lambda: DecompTrainer(spec["exp"], device="cpu")),
-                       ("04", lambda: PredictorTrainer(spec["pred_exp"], "ckpt", device="cpu"))):
-        try:
-            make()
-            out[name] = np.array("trained")
-        except NotImplementedError as e:
-            out[name] = np.array(str(e))
-    return out
+    mesh = Mesh(spec["data"], spec["model"])
+    d = _tensors(spec["inputs"])
+    dense = set_compute_dtype(Linear(d["w"].shape[1], d["w"].shape[0], bias=False),
+                              torch.bfloat16)
+    with torch.no_grad():
+        dense.weight.copy_(d["w"])
+    row = RowParallelLinear(dense, mesh.model_index, mesh.model, mesh.model_group)
+    x = slice_full(d["x"], (1, mesh.model_index, mesh.model, 1)).to(torch.bfloat16)
+    with torch.no_grad():
+        y = row(x)
+    return {"y": y.float().numpy(), "dtype": np.array(str(y.dtype))}
 
 
 JOBS = {name[4:]: fn for name, fn in globals().items() if name.startswith("job_")}

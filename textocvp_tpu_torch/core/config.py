@@ -96,34 +96,16 @@ TPU_KEYS = ("remat", "async_checkpoint", "decode_quant", "encode_quant", "mesh_a
 def check_compute_dtype(exp_params: dict) -> str:
     """``tpu.compute_dtype`` of ``exp_params``: "float32" (also when absent or
     null) or "bfloat16" (matmuls and convs in bfloat16, parameters float32,
-    as the JAX package computes). Raises for any other name, where the JAX
-    package silently computes float32, and for bfloat16 beside int8
-    (``tpu.decode_quant`` / ``tpu.encode_quant``), which waits for
-    ROADMAP.md §1."""
+    as the JAX package computes, beside every other option). Raises for any
+    other name, where the JAX package silently computes float32."""
     dtype = tpu_option(exp_params, "compute_dtype")
     if dtype in (None, "float32"):
         return "float32"
     if dtype != "bfloat16":
         raise NotImplementedError(
             f"tpu.compute_dtype {dtype!r}: the port computes \"float32\" and \"bfloat16\" "
-            "only (ROADMAP.md §1 lists what waits for bfloat16); set one of them or remove it")
-    for key in ("decode_quant", "encode_quant"):
-        if tpu_option(exp_params, key):
-            raise NotImplementedError(
-                f"tpu.compute_dtype 'bfloat16' with tpu.{key}: bf16 beside int8 waits for "
-                "ROADMAP.md §1; unset one of them")
+            "only; set one of them or remove it")
     return dtype
-
-
-def refuse_bfloat16(exp_params: dict, what: str):
-    """Raise for ``what``, a path that computes float32 only, when
-    ``tpu.compute_dtype`` is "bfloat16": a mesh of more than one rank (the
-    trainers, the evaluators and the service), the serving export and the 06
-    figure CLIs wait for ROADMAP.md §1."""
-    if check_compute_dtype(exp_params) == "bfloat16":
-        raise NotImplementedError(
-            f"{what} in tpu.compute_dtype 'bfloat16' waits for ROADMAP.md §1; set "
-            "tpu.compute_dtype to \"float32\" for it")
 
 
 def tpu_option(exp_params: dict, key: str):

@@ -12,12 +12,15 @@ The opt-in int8 decode (``tpu.decode_quant``, ``models/quant.py``): with
 ConvDecoder's tail convs before the final one, and the MLP patch decoder's
 denses and BatchNorm-folded CNN-head convs, run in int8
 (``ops/conv_int8.py``, ``ops/dense_int8.py``), weights quantized per output
-channel at each call from the float weights, as the JAX package does; the
-final conv stays float32. ``calibrate=True`` returns the (L,) input amaxes of
-those layers on the float path instead.
+channel at each call from the float weights, as the JAX package does. Those
+layers return float32 in either compute dtype, as the JAX ``_quantize_conv``
+and ``_quantize_dense`` do; the patch decoder casts its last dense's output
+to the compute dtype, and the final conv runs in it. ``calibrate=True``
+returns the (L,) input amaxes of those layers on the compute dtype's path
+instead (in bf16 through conv5's bf16 variant).
 
 In bfloat16 (``tpu.compute_dtype``) every conv and dense runs in bf16 (the
-ConvDecoder's tail through conv5's bf16 variant: bf16 operands, float32
+ConvDecoder's stock tail through conv5's bf16 variant: bf16 operands, float32
 accumulation, the float32 bias, one rounding), the BatchNorms and the
 softmaxes over slots in float32, cast back.
 """
@@ -37,7 +40,7 @@ from textocvp_tpu_torch.nn.blocks import (
     upsample_nearest_nhwc,
 )
 from textocvp_tpu_torch.nn.precision import Conv2d, LayerNorm, Linear, compute_dtype
-from textocvp_tpu_torch.ops.conv5 import KERNEL_SIZE, conv5
+from textocvp_tpu_torch.ops.conv5 import CHANNELS, KERNEL_SIZE, conv5
 from textocvp_tpu_torch.ops.conv_int8 import quantized_conv
 from textocvp_tpu_torch.ops.dense_int8 import input_amax, linear_int8
 
@@ -53,11 +56,16 @@ def check_quant_scales(quant_scales, expected: int, needs: str):
 class ConvDecoder(nn.Module):
     """Spatial-broadcast conv decoder. ``blocks[0]`` and ``final_conv`` run
     through ``F.conv2d`` (the JAX package computes both outside any Pallas
-    kernel); the tail blocks, 5x5 stride-1 convs with bias, run through
-    :func:`ops.conv5.conv5` in NHWC memory: the CUDA kernel on the card (its
-    gradient through ``ops.conv5.Conv5Function``), its plain version on the
-    CPU. Their weights are held in HWIO, converted once per weight version
-    and device when nothing needs their gradient.
+    kernel). A tail block of the stock shape, a 5x5 stride-1 64 -> 64 conv
+    with bias (the Pallas kernel's contract, ``bench_pallas_conv.py``), runs
+    through :func:`ops.conv5.conv5` in NHWC memory: the CUDA kernel on the
+    card (its gradient through ``ops.conv5.Conv5Function``), its plain
+    version on the CPU. Its weights are held in HWIO, converted once per
+    weight version and device when nothing needs their gradient. Any other
+    tail block (another kernel size, stride or width, which the JAX package
+    computes in XLA) runs as ``blocks[0]`` does, through
+    ``nn/precision.py::Conv2d``, its gradient autograd's; each block is
+    routed by its own shape, the same on every device.
 
     With ``batch_norm`` every block's conv is followed by a :class:`BatchNorm`
     (a tail conv then runs without its ReLU, and the BatchNorm and the ReLU
@@ -70,9 +78,6 @@ class ConvDecoder(nn.Module):
                  stride: int = 1, out_channels: int = 4, batch_norm: bool = False,
                  upsample: Optional[int] = None):
         super().__init__()
-        if len(hidden_dims) > 1 and (kernel_size != KERNEL_SIZE or stride != 1):
-            raise ValueError(f"the port's ConvDecoder runs its tail through the 5x5 stride-1 "
-                             f"conv kernel; got kernel_size={kernel_size}, stride={stride}")
         chans = [in_channels, *reversed(hidden_dims)]
         self.blocks = nn.ModuleList(
             ConvBlock(a, b, kernel_size, stride, batch_norm=batch_norm)
@@ -82,6 +87,9 @@ class ConvDecoder(nn.Module):
         self.stride = stride
         self.batch_norm = bool(batch_norm)
         self.upsample = upsample if upsample and upsample >= 2 else None
+        # which tail blocks run through conv5: the kernel's shape only
+        self.on_conv5 = [kernel_size == KERNEL_SIZE and stride == 1 and a == b == CHANNELS
+                         for a, b in zip(chans[1:-1], chans[2:])]
         self._hwio = (None, None)  # (key, [(w, b), ...]) of the tail blocks
 
     def _tail_weights(self):
@@ -106,24 +114,33 @@ class ConvDecoder(nn.Module):
             return upsample_nearest_nhwc(x, self.upsample)
         return x
 
+    def _conv(self, j: int, x, w, b, relu: bool):
+        """Tail block ``j``'s conv (+ ReLU) on NHWC ``x``: through conv5 for
+        the stock shape, else through the block's ``Conv2d``; NHWC out."""
+        if self.on_conv5[j - 1]:
+            return conv5(x.contiguous(), w, b, relu=relu)
+        y = self.blocks[j].conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return F.relu(y) if relu else y
+
     def _tail(self, x, quant_scales=None):
-        """NHWC activations after ``blocks[0]`` -> the tail blocks through
-        conv5 (through the int8 conv with ``quant_scales``), each followed by
-        its BatchNorm and ReLU and the upsampling -> the final 3x3 conv;
-        NCHW-shaped out (channels_last memory). With grad enabled and a tail
-        parameter that requires grad, the HWIO weights are converted at this
+        """NHWC activations after ``blocks[0]`` -> the tail blocks (through
+        the int8 conv with ``quant_scales``), each followed by its BatchNorm
+        and ReLU and the upsampling -> the final 3x3 conv; NCHW-shaped out
+        (channels_last memory). With grad enabled and a tail parameter that
+        requires grad, the conv5 blocks' HWIO weights are converted at this
         call with their autograd history, so the tail's gradients reach its
         parameters."""
         convs = [block.conv for block in self.blocks[1:]]
         if torch.is_grad_enabled() and any(p.requires_grad for c in convs for p in c.parameters()):
-            weights = [(c.weight.permute(2, 3, 1, 0).contiguous(), c.bias) for c in convs]
+            weights = [(c.weight.permute(2, 3, 1, 0).contiguous(), c.bias) if stock
+                       else (None, None) for c, stock in zip(convs, self.on_conv5)]
         else:
             weights = self._tail_weights()
         x = self._upsampled(x, 0)
         for j, (block, (w, b)) in enumerate(zip(self.blocks[1:], weights), start=1):
             relu = block.activation and block.bn is None
             if quant_scales is None:
-                x = conv5(x, w, b, relu=relu)
+                x = self._conv(j, x, w, b, relu)
             else:
                 x = quantized_conv(x, w, b, quant_scales[j - 1], relu=relu)
             if block.bn is not None:
@@ -134,12 +151,12 @@ class ConvDecoder(nn.Module):
 
     def _tail_amaxes(self, x):
         """The (L,) input amaxes of the tail convs before the final one, on
-        the float path (the JAX ``_tail_amaxes``)."""
+        the compute dtype's path (the JAX ``_tail_amaxes``)."""
         amaxes = []
         x = self._upsampled(x, 0)
         for j, (block, (w, b)) in enumerate(zip(self.blocks[1:], self._tail_weights()), start=1):
-            amaxes.append(x.abs().amax())
-            x = self._upsampled(conv5(x, w, b, relu=block.activation), j)
+            amaxes.append(x.abs().amax().float())
+            x = self._upsampled(self._conv(j, x, w, b, block.activation), j)
         return torch.stack(amaxes)
 
     def forward(self, x):
@@ -311,6 +328,7 @@ class MLPPatchDecoder(nn.Module):
                 x = linear_int8(dense, x, quant_scales[i])
             if i < len(self.mlps) - 1:
                 x = F.relu(x)
+        x = x.to(compute_dtype(self))  # an int8 dense's float32, as the JAX decoder casts it
         feats, alpha = x[..., :-1], x[..., -1:]
         alpha = torch.softmax(alpha.float(), dim=1).to(x.dtype)
         return {"recons_feats": (feats * alpha).sum(1),
@@ -328,7 +346,7 @@ class MLPPatchDecoder(nn.Module):
             if amaxes is not None and i < len(self.cnns):
                 # block i's input: the grid, or the last block's upsampled output
                 # (the upsampling copies values, so the amax is before it)
-                amaxes.append(y.abs().amax())
+                amaxes.append(y.abs().amax().float())
             y = stage(y)
         return y
 

@@ -23,8 +23,9 @@ dense layers are plain GEMMs (``F.linear``), as the JAX package leaves them to
 XLA, and the patch embedding is ``F.conv2d``. The opt-in int8 encode
 (``tpu.encode_quant``, ``models/quant.py``): with ``quant_scales`` (depth, 4)
 each block's four denses, in ``ViTBlock.DENSES`` order, run through
-``ops/dense_int8.py`` (the JAX ``_dense_int8``); the attention core stays the
-float kernel. ``calibrate=True`` returns the denses' input amaxes with the
+``ops/dense_int8.py`` (the JAX ``_dense_int8``, its result cast to the
+compute dtype); the attention core stays the float kernel, in bf16 the bf16
+one. ``calibrate=True`` returns the denses' input amaxes with the
 features.
 
 Under the mesh's ``model`` axis (``parallel/partitioning.py::shard_decomp_``)
@@ -98,6 +99,7 @@ class ViTBlock(nn.Module):
         denses; the row layers' sums give every rank the whole output."""
         b, n, _ = x.shape
         h, dh = self.num_heads, self.head_dim
+        dt = compute_dtype(self)
 
         def dense(i, y):
             layer = getattr(self, self.DENSES[i])
@@ -105,9 +107,9 @@ class ViTBlock(nn.Module):
                 amaxes.append(input_amax(layer, y))
             if quant_scales is None:
                 return layer(y)
-            return linear_int8(layer, y, quant_scales[i])
+            # float32 out of the int8 dense, cast as the JAX _dense_int8's out_dtype
+            return linear_int8(layer, y, quant_scales[i]).to(dt)
 
-        dt = compute_dtype(self)
         qkv = dense(0, self.norm1(x)).reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
         q, k, v = (t.contiguous() for t in qkv)  # (b, h, n, dh) each
         y = vit_attention(q, k, v, dh ** -0.5)

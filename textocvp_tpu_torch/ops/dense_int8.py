@@ -80,8 +80,8 @@ def linear_int8(layer, x, a_scale):
 
 
 def input_amax(layer, x):
-    """``max |x|`` of ``layer``'s input: over the whole input when ``x`` is
-    this rank's columns of a row shard's input (its ``row_group``)."""
-    amax = x.abs().amax()
+    """``max |x|`` of ``layer``'s input, float32: over the whole input when
+    ``x`` is this rank's columns of a row shard's input (its ``row_group``)."""
+    amax = x.abs().amax().float()
     group = getattr(layer, "row_group", None)
-    return amax if group is None else all_reduce(amax.float().clone(), group, dist.ReduceOp.MAX)
+    return amax if group is None else all_reduce(amax.clone(), group, dist.ReduceOp.MAX)

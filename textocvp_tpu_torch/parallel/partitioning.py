@@ -52,7 +52,17 @@ sums the input gradient over the model group backward (each rank holds the
 part of it that its heads give). :class:`RowExit` sums the partial outputs
 forward and is the identity backward: every model rank already holds the same
 upstream gradient, and ``torch.distributed.nn.functional.all_reduce`` would
-sum it again, ``model`` times too large. With the entry's sum, replicated
+sum it again, ``model`` times too large.
+
+Both layers compute in the compute dtype of the layer they replace
+(``nn/precision.py``, flax's ``promote_dtype``). In bfloat16 a row layer's
+partial products are float32 sums of the bf16 operands' exact products
+(:class:`RowPartial`: on the card one bf16 tensor-core GEMM that writes
+float32), all-reduced in float32 and rounded to bf16 once, then the bias
+added in bf16: the order in which XLA computes a bf16 dot whose contraction
+the JAX mesh shards (a float32 all-reduce of the partial dots, then the
+convert). Summing bf16 partials would round twice. The input gradient's sum
+runs in float32 too, rounded once to the gradient's dtype. With the entry's sum, replicated
 leaves get the same gradient on every model rank. The opt-in int8 of a row
 layer (``ops/dense_int8.py``, its ``row_group``) takes the whole weight's
 per-row scales and sums the integer partial products.
@@ -72,6 +82,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from textocvp_tpu_torch.nn.precision import compute_dtype
 from textocvp_tpu_torch.parallel.mesh import all_gather_rows, all_reduce
 
 ATTENTION_PARENTS = ("attn", "cross_attn", "self_attn")
@@ -87,7 +98,7 @@ class ColumnEntry(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce(grad.clone(), ctx.group), None
+        return all_reduce(grad.to(torch.float32, copy=True), ctx.group).to(grad.dtype), None
 
 
 class RowExit(torch.autograd.Function):
@@ -100,6 +111,35 @@ class RowExit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+def _dot32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 values, their exact products summed in float32 and
+    not rounded: on the card a bf16 GEMM that writes float32 (cuBLAS on the
+    tensor cores), elsewhere a float32 GEMM of the same values."""
+    if a.is_cuda:
+        return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16), out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class RowPartial(torch.autograd.Function):
+    """A bf16 row layer's partial product: bf16 ``x`` (..., K) times the bf16
+    weight ``w`` (N, K) transposed, as float32 (:func:`_dot32`). Backward
+    the same for each operand's gradient, rounded once to bf16: the gradient
+    arrives through the bf16 rounding of the summed output, so its float32
+    values are bf16 ones."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _dot32(x.reshape(-1, x.shape[-1]), w.t()).reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1])
+        return (_dot32(g, w).reshape(x.shape).to(x.dtype),
+                _dot32(g.t(), x.reshape(-1, x.shape[-1])).to(w.dtype))
 
 
 def _shard_param(p: torch.Tensor, dim: int, index: int, size: int,
@@ -122,12 +162,15 @@ class ColumnParallelLinear(nn.Module):
     def __init__(self, linear: nn.Linear, index: int, size: int, group, groups: int = 1):
         super().__init__()
         self.group = group
+        self.compute_dtype = compute_dtype(linear)
         self.weight = _shard_param(linear.weight, 0, index, size, groups)
         self.bias = (None if linear.bias is None
                      else _shard_param(linear.bias, 0, index, size, groups))
 
     def forward(self, x):
-        return F.linear(ColumnEntry.apply(x, self.group), self.weight, self.bias)
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(ColumnEntry.apply(x, self.group).to(dt), self.weight.to(dt), bias)
 
 
 class RowParallelLinear(nn.Module):
@@ -139,12 +182,18 @@ class RowParallelLinear(nn.Module):
     def __init__(self, linear: nn.Linear, index: int, size: int, group):
         super().__init__()
         self.group = self.row_group = group
+        self.compute_dtype = compute_dtype(linear)
         self.weight = _shard_param(linear.weight, 1, index, size)
         self.bias = linear.bias
 
     def forward(self, x):
-        y = RowExit.apply(F.linear(x, self.weight), self.group)
-        return y if self.bias is None else y + self.bias
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            partial = F.linear(x.float(), self.weight)
+        else:  # float32 partials of the bf16 operands, rounded once after the sum
+            partial = RowPartial.apply(x.to(dt), self.weight.to(dt))
+        y = RowExit.apply(partial, self.group).to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 def _split_pair(owner: nn.Module, col: str, row: str, index: int, size: int, group):

@@ -47,8 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from textocvp_tpu_torch.core.config import refuse_bfloat16
-
+from textocvp_tpu_torch.nn.precision import COMPUTE_DTYPES
 # the ops the exported graphs call: importing the modules registers them
 from textocvp_tpu_torch.ops import conv5, conv_int8, slot_attention_kernel, vit_attention  # noqa: F401
 from textocvp_tpu_torch.serve.pipeline import InferenceFrontend, serving_tokenizer
@@ -62,7 +61,6 @@ def export_service(service, out_dir) -> Path:
     """Write ``service``'s stages and manifest into ``out_dir`` (created);
     returns its path. The stages are traced under ``torch.no_grad()`` with
     example inputs on the service's device, at its batch and caption length."""
-    refuse_bfloat16(service.exp_params, "07 --export")
     if getattr(service, "mesh", None) is not None:
         raise ValueError("a serving artifact is single-process by design (its graphs "
                          "hold no collective); build the service without mesh_axes to export")
@@ -84,7 +82,9 @@ def export_service(service, out_dir) -> Path:
     text = service._tokenize([service._warmup_caption()] * b)
     videos = torch.zeros((b, service.num_context, h, w, 3), dtype=wire, device=dev)
     noise = torch.zeros((b, service.num_slots, service.slot_dim), device=dev)
-    slots = torch.zeros((b, service.num_preds, service.num_slots, service.slot_dim), device=dev)
+    # the predict stage's slots, in the compute dtype, are the decode stage's input
+    slots = torch.zeros((b, service.num_preds, service.num_slots, service.slot_dim),
+                        dtype=COMPUTE_DTYPES[service.compute_dtype], device=dev)
     with torch.no_grad():
         predict = torch.export.export(
             service.predict_module,

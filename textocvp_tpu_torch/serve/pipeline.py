@@ -27,8 +27,9 @@ allow_tf32 = False``, ``torch.backends.cudnn.allow_tf32 = False``). With
 ``tpu.compute_dtype: "bfloat16"`` both stages compute in bf16
 (``nn/precision.py``) and the reply is ``round(clamp(x, 0, 1) * 255)`` of the
 bf16 frames, computed in bf16 as the JAX service computes it (above 128 the
-bf16 grid is 1.0 apart); on one process only, and not exported. Opt-in int8 (``tpu.decode_quant``,
-``tpu.encode_quant``; ``models/quant.py``) calibrates its activation scales
+bf16 grid is 1.0 apart), on a mesh and in an artifact as on one process.
+Opt-in int8 (``tpu.decode_quant``, ``tpu.encode_quant``; ``models/quant.py``;
+in bf16 too) calibrates its activation scales
 on the first request, or on :meth:`InferenceFrontend.calibrate`'s frames, and
 keeps them in the stages' ``quant_scales`` / ``encode_scales`` buffers.
 
@@ -73,7 +74,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from textocvp_tpu_torch.core.config import check_compute_dtype, refuse_bfloat16
+from textocvp_tpu_torch.core.config import check_compute_dtype
 from textocvp_tpu_torch.core.experiment import Experiment
 from textocvp_tpu_torch.core.logger import Logger, print_
 from textocvp_tpu_torch.data.tokenizers import TEXT_KEYS, get_tokenizer
@@ -359,8 +360,6 @@ class PredictionService(InferenceFrontend):
         Logger(self.exp.exp_path)
         self.exp_params = self.exp.params
         self.compute_dtype = check_compute_dtype(self.exp_params)
-        if self.mesh is not None and self.mesh.world > 1:
-            refuse_bfloat16(self.exp_params, "serving on a mesh of more than one rank")
         pp = self.exp_params["prediction_params"]
         if num_seed is not None:
             pp["num_context"] = num_seed

@@ -61,7 +61,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from textocvp_tpu_torch.core.config import refuse_bfloat16
 from textocvp_tpu_torch.core.experiment import Experiment
 from textocvp_tpu_torch.core.logger import Logger, print_
 from textocvp_tpu_torch.data.loader import EpochLoader, load_data
@@ -123,13 +122,10 @@ class _MeshEval:
         """Join the process group that the environment names
         (``parallel/distributed.py``) and make the mesh of ``tpu.mesh_axes``."""
         if self.single_process:
-            refuse_bfloat16(self.exp_params, "the 06 figure generators")
             self.mesh = get_runtime_mesh(None, device)
             return self.mesh.device
         maybe_initialize_distributed()
         self.mesh = get_runtime_mesh(self.exp_params.get("tpu"), device)
-        if self.mesh.world > 1:
-            refuse_bfloat16(self.exp_params, "evaluation on a mesh of more than one rank")
         return self.mesh.device
 
     def _shard_decomp(self, model):

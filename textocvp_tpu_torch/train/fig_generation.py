@@ -176,7 +176,7 @@ class PredictorFigGenerator(PredictorEvaluator):
         seq_dir.mkdir(parents=True, exist_ok=True)
 
         gt = np.clip(as_float_video(np.asarray(videos)[0]), 0, 1)
-        preds = np.clip(pred_imgs[0].cpu().numpy(), 0, 1)
+        preds = np.clip(pred_imgs[0].float().cpu().numpy(), 0, 1)
         seed_dec = _host(seed_dec, ("recons_objs", "masks"), first=True)
         pred_dec = _host(pred_dec, ("recons", "masks"), first=False)
 

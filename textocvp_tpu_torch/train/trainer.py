@@ -52,8 +52,9 @@ their gradients as Adam reads them, Adam's state and the checkpoints stay
 float32: each cast records its backward, so a bf16 gradient reaches its
 float32 parameter through it. On the card the decoder tail's convs and their
 input gradients launch conv5's bf16 kernel (``ops/conv5.py``), the ViT its
-bf16 attention. On a mesh of more than one rank a bf16 trainer raises
-(ROADMAP.md §1).
+bf16 attention. On a mesh the row-parallel layers sum float32 partials and
+round once (``parallel/partitioning.py``); the data axis's gradients are the
+float32 ones Adam reads.
 
 The JAX trainer's extras:
 
@@ -136,7 +137,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from textocvp_tpu_torch.core.config import refuse_bfloat16, tpu_option
+from textocvp_tpu_torch.core.config import tpu_option
 from textocvp_tpu_torch.core.experiment import Experiment
 from textocvp_tpu_torch.core.logger import Logger, log_exception, log_function, log_info, print_
 from textocvp_tpu_torch.data.loader import (  # noqa: F401  (ragged_accum: the trainers' name)
@@ -254,9 +255,6 @@ class Trainer:
         self.exp_params = self.exp.params
         self.training_params = self.exp_params["training"]
         self.mesh = get_runtime_mesh(self.exp_params.get("tpu"), self.device)
-        if self.mesh.world > 1:
-            refuse_bfloat16(self.exp_params, f"{type(self).__name__} (02 / 04 training) on a "
-                                             "mesh of more than one rank")
         self.device = self.mesh.device
         self.checkpoint = checkpoint
         self.resume_training = resume_training
